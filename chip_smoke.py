@@ -3,20 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `digat_tpu_torch/csrc` (one nvcc call),
-holds each kernel against its plain PyTorch version on the card at the
-serving path's shapes, then serves the production MSA-DIGAT model (full
-width: 300-d words, L 32, 16 x 25 heads, depth 3, Gn 26, Gu 68; random
-weights from a seed) through the two-stage cached scorer on a seeded
-20,000-news corpus, checks that stage 1 ran kernel A and stage 2 kernel B,
-and compares a smaller corpus scored on the card with the same model's
-plain path on the CPU.
+Builds the port's CUDA kernels from `digat_tpu_torch/csrc` (one nvcc call)
+and drives the production MSA-DIGAT model (full width: 300-d words, L 32,
+16 x 25 heads, depth 3, Gn 26, Gu 68; random weights from a seed) on a
+seeded 20,000-news corpus along both of the port's paths:
+
+  serving  - kernels A and B against their plain versions at the serving
+             shapes, the two-stage cached scorer with the launch counters
+             reset (stage 1 must run A, stage 2 B), and a smaller corpus
+             scored on the card against the plain path on the CPU;
+  training - kernels A'' (dropout mask), A with dropout, A' (encoder
+             backward), C (Eq. 8 scores forward and backward) and D
+             (embedding gradient) against their plain versions at the
+             training shapes; one epoch of `Trainer` (>= 20 steps at B 64,
+             unique-title dedup, dropout 0.2) with the launch counters
+             reset, whose launches per step are checked; and three steps at
+             B 8 on the card against the same steps on the CPU.
 
 Prints progress lines, the card's name and power limit, a `kernels` JSON
 line, and as its last line `{"ok": true, "device": {...}}`. Exits nonzero,
 without that line, if CUDA is missing, the package is missing, any phase
 fails, or the run passes the watchdog. Imports nothing of JAX or of the
-JAX package; writes nothing but the kernel build directory.
+JAX package; writes nothing but the kernel build directory and a
+temporary directory it removes.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ import sys
 import tempfile
 import time
 import traceback
+from collections import Counter
+from dataclasses import replace
 
 import numpy as np
 
@@ -43,6 +54,14 @@ SEED = 0
 # rank order must agree except between scores closer than that bound.
 KERNEL_RTOL = 1e-4
 SLICE_RTOL = 1e-4
+# Training, card vs CPU, from the same weights, batches and dropout seeds
+# (the masks are the same bits on both): three steps compound fp32
+# summation-order differences through depth 3 and Adam, so each step's loss
+# must satisfy |card - cpu| <= 1e-3 * max(1, |cpu|), and every parameter's
+# step-1 gradient max |card - cpu| <= 1e-3 * max |cpu| of that tensor, a
+# limit that a zeroed or lost gradient (which reads 1) cannot pass.
+TRAIN_RTOL = 1e-3
+TRAIN_STEPS = 20  # full-width training steps at B 64
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): fp32 on the CUDA
 # cores and HBM3 bandwidth. A card below 700 W runs slower under load.
@@ -80,6 +99,54 @@ def gat_work(B, G, D):
              + 2 * B * G * G * D)  # alpha h
     nbytes = 4 * B * G * D + B * G * G + 4 * B * D + 4 * (4 * D * D + 3 * D) + 4 * B * G * D
     return flops, nbytes
+
+
+def msa_bwd_work(N, L, Din, D, A):
+    """Kernel A': the forward recomputed, then dx and dW of the projections,
+    dh and dW1 of the pool, and the attention backward (dP, dq, dk, dv)."""
+    flops = (msa_work(N, L, Din, D, A)[0] + 2 * (2 * N * L * Din * 3 * D)
+             + 2 * (2 * N * L * D * A) + 8 * N * L * L * D)
+    weights = Din * 3 * D + 3 * D + D * A + 2 * A
+    nbytes = 8 * N * L * Din + N * L + 4 * N * D + 8 * weights
+    return flops, nbytes
+
+
+def scores_work(B, G, D, backward: bool):
+    """Kernel C: per (b, i, j, d) an add, a relu and a multiply-add forward;
+    backward also the mask select and three accumulations."""
+    flops = (6 if backward else 4) * B * G * G * D + B * G * D
+    nbytes = 4 * (2 * B * G * D + B * D + D + B * G * G)
+    if backward:
+        nbytes += 4 * (2 * B * G * D + B * D + D)
+    return flops, nbytes
+
+
+def emb_work(ntok, V, D):
+    """Kernel D: one add per gradient element; g and tok read, dW written."""
+    return ntok * D, 4 * ntok * D + 8 * ntok + 4 * V * D
+
+
+def mask_work(rows, cols):
+    """Kernel A'': one Philox4x32-10 block (about 104 integer operations)
+    per four mask bytes, counted at the fp32 CUDA-core rate."""
+    return 26 * rows * cols, rows * cols
+
+
+def mask_sites(cfg):
+    """The graph encoder's dropout sites of one training step as kernel A''
+    sees them: (what, rows, cols, rate, launches per step). B graphs of Gn
+    and Gu nodes D wide, their alpha Gn and Gu wide, C topic nodes and
+    C + 1 topics per graph."""
+    B = cfg.batch_size * (1 + cfg.negative_sample_num)
+    D, C, depth, p = cfg.news_embedding_dim, cfg.category_num, cfg.graph_depth, cfg.dropout_rate
+    Gn, Gu = cfg.news_graph_size, cfg.user_graph_size
+    return [("topic nodes", B * C, D, p / 2, 1),
+            ("gate logits", B, D, p / 2, 1 + depth),
+            ("topics", B * (C + 1), D, p, 1 + depth),
+            ("GAT x news", B * Gn, D, p / 2, depth),
+            ("GAT alpha news", B * Gn, Gn, p, depth),
+            ("GAT x user", B * Gu, D, p / 2, depth),
+            ("GAT alpha user", B * Gu, Gu, p, depth)]
 
 
 def time_ms(torch, fn, warmup: int = 3, iters: int = 10) -> float:
@@ -141,24 +208,301 @@ def make_impressions(cfg, news_num: int, n_imp: int, per_imp: int, seed: int):
     return hist, cat, imp_index, cand, labels
 
 
-def check_kernel(torch, name, kernel, plain, args, flops, nbytes):
+def make_train_corpus(cfg, tables, samples: int, rows: int, dev_imps: int, seed: int):
+    """A seeded training corpus over `tables`, with the fields the port's
+    `Trainer` reads: `rows` behaviours, `samples` clicks with 1..20 ragged
+    non-clicks each, and a dev split of `dev_imps` impressions of 8."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    news_num = tables.news_title_text.shape[0]
+    hist, cat, _, _, _ = make_impressions(cfg, news_num, rows, 1, seed)
+    dev = make_impressions(cfg, news_num, dev_imps, 8, seed + 1)
+    neg_len = rng.integers(1, 21, samples)
+    return SimpleNamespace(
+        tables=lambda: tables,
+        news_node_id=tables.news_node_id.cpu().numpy(),
+        splits={"train": SimpleNamespace(history_idx=hist, cat_idx=cat),
+                "dev": SimpleNamespace(history_idx=dev[0], cat_idx=dev[1])},
+        train_behavior_row=rng.integers(0, rows, samples),
+        train_pos=rng.integers(1, news_num, samples).astype(np.int32),
+        train_neg_flat=rng.integers(1, news_num, int(neg_len.sum())).astype(np.int32),
+        train_neg_offsets=np.concatenate([[0], np.cumsum(neg_len)]),
+        dev_imp_index=dev[2], dev_cand=dev[3], dev_labels=dev[4],
+    )
+
+
+def check_kernel(torch, name, kernel, plain, args, flops, nbytes, exact=False, library=None):
     """Kernel vs plain on the same inputs, timed; returns the kernels-line
-    entry without launches (filled from the main-path run)."""
+    entry without launches (filled from the main-path run). A kernel with
+    several outputs is held to the limit output by output; `exact` asks
+    for the same bits; `library` is one PyTorch call computing the same
+    function, timed as a yardstick."""
     out = kernel(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
     torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    scale = max(1.0, float(ref.abs().max()))
-    finite = bool(torch.isfinite(out).all())
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    err, ok = 0.0, True
+    for o, r in zip(outs, refs):
+        e = float((o.double() - r.double()).abs().max()) if o.numel() else 0.0
+        limit = 0.0 if exact else KERNEL_RTOL * max(1.0, float(r.double().abs().max()))
+        ok = ok and bool(torch.isfinite(o.double()).all()) and e <= limit
+        err = max(err, e)
     ms = time_ms(torch, lambda: kernel(*args))
     plain_ms = time_ms(torch, lambda: plain(*args))
+    library_ms = time_ms(torch, lambda: library(*args)) if library is not None else None
     bound_ms, bound_by = bound(flops, nbytes)
-    ok = finite and err <= KERNEL_RTOL * scale
-    say(f"  {name}: max_abs_err {err:.3e} (limit {KERNEL_RTOL * scale:.3e}) ms {ms:.4f} "
-        f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) ok {ok}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, ok=ok)
+    say(f"  {name}: max_abs_err {err:.3e} ({'exact' if exact else 'limit per output'}) "
+        f"ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        + (f"library_ms {library_ms:.4f} " if library is not None else "")
+        + f"bound_ms {bound_ms:.4f} ({bound_by}) ok {ok}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+
+
+def training_kernels(torch, cfg, model, tables, cap: int, dev):
+    """Phase 7: A'', A with dropout, A', C and D against their plain versions
+    at the training shapes: `cap` unique titles (the dedup capacity), 320
+    graphs of 26 and of 68 nodes."""
+    from digat_tpu_torch.ops import dropout as DR
+    from digat_tpu_torch.ops import emb_grad as EG
+    from digat_tpu_torch.ops import gat_scores as GS
+    from digat_tpu_torch.ops import msa_encoder as ME
+
+    L, Din, D, A = cfg.max_title_length, cfg.word_embedding_dim, cfg.news_embedding_dim, \
+        cfg.attention_dim
+    p, heads, V = cfg.dropout_rate, cfg.MSA_head_num, cfg.vocabulary_size
+    entries = {}
+
+    def guarded(name, fn):
+        try:
+            entries[name] = fn()
+        except Exception:
+            traceback.print_exc()
+            entries[name] = dict(ok=False)
+
+    # A'': bit for bit at every graph dropout site's shape, as the main path
+    # launches it; the keep fraction within 0.002 of 1 - p over the
+    # word-dropout shape's >= 1e7 draws (A and A' draw those inline)
+    def mask_check():
+        by_shape, total, work = {}, dict(ms=0.0, plain_ms=0.0), np.zeros(2)
+        for k, (what, rows, cols, rate, per_step) in enumerate(mask_sites(cfg)):
+            e = check_kernel(torch, f"keep_mask {what} [{rows},{cols}] rate {rate:g}",
+                             lambda: DR.keep_mask(rows, cols, rate, 4321, k, device=dev),
+                             lambda: DR.keep_mask_plain(rows, cols, rate, 4321, k, device=dev),
+                             (), *mask_work(rows, cols), exact=True)
+            by_shape[what] = dict(e, launches_per_step=per_step)
+            for key in total:
+                total[key] += per_step * e[key]
+            work += per_step * np.array(mask_work(rows, cols), dtype=float)
+        total["bound_ms"], total["bound_by"] = bound(*work)
+        rows = max(cap, 1100)
+        word = check_kernel(torch, f"keep_mask word dropout [{rows},{L * Din}] rate {p:g}",
+                            lambda: DR.keep_mask(rows, L * Din, p, 4321, 99, device=dev),
+                            lambda: DR.keep_mask_plain(rows, L * Din, p, 4321, 99, device=dev),
+                            (), *mask_work(rows, L * Din), exact=True)
+        frac = float((~DR.keep_mask(rows, L * Din, p, 4321, 99, device=dev)).float().mean())
+        say(f"    dropped fraction {frac:.5f} over {rows * L * Din} draws (rate {p})")
+        word["ok"] = word["ok"] and abs(frac - p) < 0.002
+        by_shape["word dropout (drawn inline on the main path)"] = word
+        say(f"    one step's {sum(s[4] for s in mask_sites(cfg))} site masks: ms {total['ms']:.4f} "
+            f"plain_ms {total['plain_ms']:.4f} bound_ms {total['bound_ms']:.4f}")
+        return dict(total, ok=all(v["ok"] for v in by_shape.values()),
+                    max_abs_err=max(v["max_abs_err"] for v in by_shape.values()),
+                    library_ms=None, by_shape=by_shape)
+
+    guarded("keep_mask", mask_check)
+
+    ne = model.news_encoder
+    mha, pool = ne.multiheadSelfattention, ne.attention
+    text, tmask = tables.news_title_text[:cap], tables.news_title_mask[:cap].contiguous()
+    with torch.no_grad():
+        x = ne.word_embedding.weight[text].contiguous()
+    w = [t.detach() for t in (mha.W_Q.weight.t(), mha.W_Q.bias, mha.W_K.weight.t(),
+                              mha.W_V.weight.t(), mha.W_V.bias, pool.affine1.weight.t(),
+                              pool.affine1.bias, pool.affine2.weight[0])]
+
+    def encoder_dropout_check():
+        seed = 987
+        e = check_kernel(
+            torch, f"msa_encoder_pooled [{cap},{L},{Din}] dropout {p}",
+            lambda: ME.msa_encoder_pooled(x, tmask, *w, heads, p, seed, 0),
+            lambda: ME.msa_encoder_pooled_plain(ME.drop_titles_plain(x, p, seed, 0), tmask,
+                                                *w, heads),
+            (), *msa_work(cap, L, Din, D, A))
+        again = torch.equal(ME.msa_encoder_pooled(x, tmask, *w, heads, p, seed, 0),
+                            ME.msa_encoder_pooled(x, tmask, *w, heads, p, seed, 0))
+        say(f"    same bits twice for one seed: {again}")
+        e["ok"] = e["ok"] and again
+        return e
+
+    guarded("msa_encoder_pooled", encoder_dropout_check)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dp = torch.randn((cap, D), generator=g, device=dev)
+    guarded("msa_encoder_bwd", lambda: check_kernel(
+        torch, f"msa_encoder_bwd [{cap},{L},{Din}] dropout {p} (dx + 8 weight grads)",
+        ME.msa_encoder_bwd, ME.msa_encoder_bwd_plain,
+        (x, tmask, *w, dp, heads, p, 987, 0), *msa_bwd_work(cap, L, Din, D, A)))
+
+    by_shape = {}
+    B = cfg.batch_size * (1 + cfg.negative_sample_num)
+    for G in (cfg.news_graph_size, cfg.user_graph_size):
+        def scores_check(G=G):
+            r = lambda *s: torch.randn(s, generator=g, device=dev) * 0.5
+            y = r(B, G, 3 * D)  # k1, k2 as column blocks of the fused projection
+            args = (y[..., D:2 * D], y[..., 2 * D:], r(B, D), r(D))
+            fwd = check_kernel(torch, f"gat_scores_fwd B={B} G={G} D={D}", GS.gat_scores_fwd,
+                               GS.interactive_gat_scores_plain, args,
+                               *scores_work(B, G, D, False))
+            bwd = check_kernel(torch, f"gat_scores_bwd B={B} G={G} D={D}", GS.gat_scores_bwd,
+                               GS.interactive_gat_scores_bwd_plain, (*args, r(B, G, G)),
+                               *scores_work(B, G, D, True))
+            return dict(fwd=fwd, bwd=bwd, ok=fwd["ok"] and bwd["ok"])
+
+        try:
+            by_shape[f"G{G}"] = scores_check()
+        except Exception:
+            traceback.print_exc()
+            by_shape[f"G{G}"] = dict(ok=False)
+    big = by_shape.get(f"G{cfg.user_graph_size}", {})
+    sum_of = lambda key: (big["fwd"][key] + big["bwd"][key]) if big.get("ok") else None
+    entries["interactive_gat_scores"] = dict(
+        ok=all(v.get("ok") for v in by_shape.values()),
+        max_abs_err=max((max(v["fwd"]["max_abs_err"], v["bwd"]["max_abs_err"])
+                         for v in by_shape.values() if v.get("ok")), default=math.inf),
+        ms=sum_of("ms"), plain_ms=sum_of("plain_ms"), bound_ms=sum_of("bound_ms"),
+        bound_by="operations", library_ms=None, by_shape=by_shape)
+
+    tok = text.reshape(-1)
+    gr = torch.randn((tok.numel(), Din), generator=g, device=dev)
+    guarded("embedding_grad", lambda: check_kernel(
+        torch, f"embedding_grad ntok={tok.numel()} V={V} D={Din}", EG.embedding_grad,
+        EG.embedding_grad_plain, (tok, gr, V), *emb_work(tok.numel(), V, Din),
+        library=lambda t, gg, v: torch.ops.aten.embedding_dense_backward(gg, t, v, -1, False)))
+    return entries
+
+
+def counters():
+    """The launch counter of every kernel wrapper, by kernels-line name."""
+    from digat_tpu_torch.ops import dropout, emb_grad, gat_layer, gat_scores, msa_encoder
+
+    return {"msa_encoder_pooled": msa_encoder.msa_encoder_pooled,
+            "msa_encoder_bwd": msa_encoder.msa_encoder_bwd,
+            "keep_mask": dropout.keep_mask,
+            "interactive_gat_layer_fused": gat_layer.interactive_gat_layer_fused,
+            "gat_scores_fwd": gat_scores.gat_scores_fwd,
+            "gat_scores_bwd": gat_scores.gat_scores_bwd,
+            "embedding_grad": emb_grad.embedding_grad}
+
+
+def training_slice(torch, cfg, model, corpus, run_dir, failures):
+    """Phase 8: one epoch of the port's Trainer at B 64 with the launch
+    counters reset; returns (epoch record, launches of that run)."""
+    from digat_tpu_torch import layers
+    from digat_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(model, cfg, corpus, run_dir, verbose=False)
+    wrappers = counters()
+    # the shapes at which the dropout sites call kernel A'', to hold them
+    # against those phase 7 checked
+    drawn, keep_mask = Counter(), layers.keep_mask
+
+    def recording(rows, cols, rate, seed, site, row_offset=0, device="cpu"):
+        drawn[(rows, cols, rate)] += 1
+        return keep_mask(rows, cols, rate, seed, site, row_offset, device)
+
+    layers.keep_mask = recording
+    for fn in wrappers.values():
+        fn.launches = 0
+    try:
+        (rec,) = trainer.train()
+    finally:
+        layers.keep_mask = keep_mask
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    steps, over = len(rec["step_losses"]), rec["overflow_batches"]
+    bs = cfg.effective_eval_batch_size()
+    dev_chunks = -(-corpus.tables().news_title_text.shape[0] // bs)
+    dev_batches = -(-len(corpus.dev_cand) // bs)
+    depth = cfg.graph_depth
+    sites = sum(site[4] for site in mask_sites(cfg))
+    checked = Counter()
+    for _, rows, cols, rate, per_step in mask_sites(cfg):
+        checked[(rows, cols, rate)] += per_step * steps
+    want = {"msa_encoder_pooled": steps + over + dev_chunks, "msa_encoder_bwd": steps + over,
+            "embedding_grad": steps + over, "gat_scores_fwd": 2 * depth * steps,
+            "gat_scores_bwd": 2 * depth * steps, "keep_mask": sites * steps,
+            "interactive_gat_layer_fused": 2 * depth * dev_batches}
+    step_ms = rec["step_ms"]
+    warm = float(np.median(step_ms[2:]))
+    say(f"  {steps} steps at B {cfg.batch_size} (dedup overflow {over}); step ms median after "
+        f"warm-up {warm:.3f} (first {step_ms[0]:.3f}); train samples/s "
+        f"{cfg.batch_size * 1e3 / warm:.1f} (epoch wall {rec['samples_per_s']:.1f})")
+    say(f"  step losses: {[round(v, 6) for v in rec['step_losses']]}")
+    per_step = {k: (launches[k] - (dev_chunks if k == "msa_encoder_pooled" else 0)) / steps
+                for k in launches if k != "interactive_gat_layer_fused"}
+    say(f"  launches per step: A {per_step['msa_encoder_pooled']:g}, "
+        f"A' {per_step['msa_encoder_bwd']:g}, C-fwd {per_step['gat_scores_fwd']:g}, "
+        f"C-bwd {per_step['gat_scores_bwd']:g}, D {per_step['embedding_grad']:g}, "
+        f"A'' {per_step['keep_mask']:g} ({sites} graph dropout sites); dev scoring: "
+        f"A {dev_chunks}, B {launches['interactive_gat_layer_fused']}")
+    say(f"  dev on random weights: auc {rec['auc']:.4f} mrr {rec['mrr']:.4f}")
+    if steps < TRAIN_STEPS or not np.isfinite(rec["step_losses"]).all():
+        failures.append("training: too few steps or a loss not finite")
+    for k, n in want.items():
+        if launches[k] != n:
+            failures.append(f"training: {k} launched {launches[k]} times, want {n}")
+    if drawn != checked:
+        failures.append(f"training: A'' drew masks at {dict(drawn)}, phase 7 checked "
+                        f"{dict(checked)}")
+    return rec, warm, launches
+
+
+def training_parity(torch, cfg, corpus, dev, failures):
+    """Phase 9: three steps at B 8, full width, dropout on, from the same
+    weights, batches and seeds on the card and on the CPU plain path."""
+    from digat_tpu_torch.data import batching, sampling
+    from digat_tpu_torch.models.model import CorpusTables, Model
+    from digat_tpu_torch.train.optimizer import Adam
+    from digat_tpu_torch.train.train_step import step_seed, train_step
+
+    B = 8
+    neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets,
+                                    cfg.negative_sample_num, np.random.default_rng(SEED))
+    cap = B * ((1 + cfg.negative_sample_num) * cfg.news_graph_size + cfg.max_history_num)
+    split = corpus.splits["train"]
+    batches = list(batching.train_batches(
+        split.history_idx, split.cat_idx, corpus.train_behavior_row, corpus.train_pos, neg, B,
+        epoch_seed=SEED + 1, news_node_id=corpus.news_node_id, dedup_titles=cap))[:3]
+    out = []
+    for device in (dev, torch.device("cpu")):
+        model = Model(cfg, device=device, generator=torch.Generator().manual_seed(SEED + 7))
+        opt = Adam(model.named_parameters(), cfg.weight_decay, cfg.gradient_clip_norm)
+        tables = CorpusTables.from_arrays(corpus.tables(), device)
+        losses, grads = [], None
+        for k, b in enumerate(batches):
+            losses.append(float(train_step(model, opt, tables, batching.to_device(b, device),
+                                           step_seed(SEED, 1, k), cfg.lr)))
+            if k == 0:
+                grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        out.append((losses, grads))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    # each tensor's error over its own largest |cpu| gradient (a zeroed or
+    # lost gradient reads 1)
+    rows = sorted(((float((g_gpu[n] - g).abs().max()) / max(float(g.abs().max()), 1e-12),
+                    float((g_gpu[n] - g).abs().max()), float(g.abs().max()), n)
+                   for n, g in g_cpu.items()), reverse=True)
+    worst = rows[0][0]
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(l_gpu, l_cpu))
+    say(f"  losses card {[round(v, 7) for v in l_gpu]} cpu {[round(v, 7) for v in l_cpu]}; "
+        f"max loss err {loss_err:.3e} (limit {TRAIN_RTOL:g} * max(1, |cpu|)); step-1 "
+        f"gradients of {len(g_cpu)} tensors, max |card - cpu| / max |cpu| per tensor: worst "
+        f"{worst:.3e}, limit {TRAIN_RTOL:g}; smallest max |cpu| "
+        f"{min(r[2] for r in rows):.3e} ({min(rows, key=lambda r: r[2])[3]})")
+    for rel, err, top, n in rows[:6]:
+        say(f"    {n}: max |cpu| {top:.3e} max |card - cpu| {err:.3e} ratio {rel:.3e}")
+    if not (loss_err <= TRAIN_RTOL and worst <= TRAIN_RTOL and np.isfinite(l_gpu).all()):
+        failures.append("training parity card vs cpu")
 
 
 def main() -> int:
@@ -236,11 +580,12 @@ def main() -> int:
     try:
         ne = model.news_encoder
         mha, pool = ne.multiheadSelfattention, ne.attention
-        x = ne.word_embedding.weight[tables.news_title_text[:bs]].contiguous()
+        x = ne.word_embedding.weight.detach()[tables.news_title_text[:bs]].contiguous()
         mask = tables.news_title_mask[:bs].contiguous()
-        args_a = (x, mask, mha.W_Q.weight.t(), mha.W_Q.bias, mha.W_K.weight.t(),
-                  mha.W_V.weight.t(), mha.W_V.bias, pool.affine1.weight.t(), pool.affine1.bias,
-                  pool.affine2.weight[0], cfg.MSA_head_num)
+        args_a = (x, mask, *(t.detach() for t in (
+            mha.W_Q.weight.t(), mha.W_Q.bias, mha.W_K.weight.t(), mha.W_V.weight.t(),
+            mha.W_V.bias, pool.affine1.weight.t(), pool.affine1.bias, pool.affine2.weight[0])),
+            cfg.MSA_head_num)
         entries["msa_encoder_pooled"] = check_kernel(
             torch, f"msa_encoder_pooled [{bs},{L},{Din}]->[{bs},{D}]", msa_encoder_pooled,
             msa_encoder_pooled_plain, args_a, *msa_work(bs, L, Din, D, A))
@@ -263,19 +608,19 @@ def main() -> int:
             adj[0, 1] = False  # a row with no neighbour
             q = torch.randn((bs, D), generator=g, device=dev) * 0.5
             W, W3 = getattr(ge, f"{prefix}_W")[0], getattr(ge, f"{prefix}_ffn3")[0]
-            args_b = (xb, adj, q, W.weight.t(), W.bias,
-                      getattr(ge, f"{prefix}_ffn1")[0].weight.t(),
-                      getattr(ge, f"{prefix}_ffn2")[0].weight.t(), W3.weight.t(), W3.bias,
-                      getattr(ge, f"{prefix}_a")[0].weight[0])
+            args_b = (xb, adj, q, *(t.detach() for t in (
+                W.weight.t(), W.bias, getattr(ge, f"{prefix}_ffn1")[0].weight.t(),
+                getattr(ge, f"{prefix}_ffn2")[0].weight.t(), W3.weight.t(), W3.bias,
+                getattr(ge, f"{prefix}_a")[0].weight[0])))
             entry = check_kernel(
                 torch, f"interactive_gat_layer_fused B={bs} G={G} D={D}",
                 interactive_gat_layer_fused, interactive_gat_layer_plain, args_b,
                 *gat_work(bs, G, D))
             # the wrapper's two steps, each timed alone
-            wr = [w.weight for w in (W, getattr(ge, f"{prefix}_ffn1")[0],
-                                     getattr(ge, f"{prefix}_ffn2")[0], W3)]
-            project = lambda: gat_layer_project(xb, q, wr[0], W.bias, wr[1], wr[2], wr[3],
-                                                W3.bias)
+            wr = [w.weight.detach() for w in (W, getattr(ge, f"{prefix}_ffn1")[0],
+                                              getattr(ge, f"{prefix}_ffn2")[0], W3)]
+            project = lambda: gat_layer_project(xb, q, wr[0], args_b[4], wr[1], wr[2], wr[3],
+                                                args_b[8])
             y, k3 = project()
             entry["project_ms"] = time_ms(torch, project)
             entry["attend_ms"] = time_ms(torch, lambda: gat_layer_attend(xb, adj, y, k3,
@@ -370,20 +715,102 @@ def main() -> int:
         failures.append("slice parity")
     say(f"[6 parity] {time.perf_counter() - t0:.2f}s")
 
-    # ---- 7. kernels line ----
-    source = {"msa_encoder_pooled": ("digat_tpu_torch/csrc/msa_encoder.cu",
-                                     "digat_tpu/ops/pallas/msa_encoder.py:533"),
-              "interactive_gat_layer_fused": ("digat_tpu_torch/csrc/gat_layer.cu",
-                                              "digat_tpu/ops/pallas/gat_layer.py:135")}
+    # ---- 7. training kernels at the training shapes ----
+    t0 = time.perf_counter()
+    corpus = make_train_corpus(cfg, tables, (TRAIN_STEPS + 2) * cfg.batch_size, 2000, 32,
+                               SEED + 4)
+    train_entries, cap = {}, 0
+    try:
+        from digat_tpu_torch.data import batching, sampling
+
+        probe = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets,
+                                          cfg.negative_sample_num,
+                                          np.random.default_rng(cfg.seed))
+        cap = batching.estimate_dedup_capacity(
+            corpus.splits["train"].history_idx, corpus.train_behavior_row, corpus.train_pos,
+            probe, corpus.news_node_id, cfg.batch_size, seed=cfg.seed)
+        say(f"  dedup capacity at B {cfg.batch_size}: {cap} titles")
+        train_entries = training_kernels(torch, cfg, model, tables, cap, dev)
+    except Exception:
+        traceback.print_exc()
+        failures.append("training kernels")
+    for name, e in train_entries.items():
+        if not e.get("ok"):
+            failures.append(f"kernel {name} (training shapes)")
+    say(f"[7 training kernels] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 8. the training slice: main path ----
+    t0 = time.perf_counter()
+    train_launches, step_ms = {}, None
+    try:
+        with tempfile.TemporaryDirectory() as run_dir:
+            rec, step_ms, train_launches = training_slice(
+                torch, replace(cfg, epoch_override=1, dedup_titles=-1), model, corpus,
+                run_dir, failures)
+        parts = {"A fwd": train_entries["msa_encoder_pooled"]["ms"],
+                 "A'": train_entries["msa_encoder_bwd"]["ms"],
+                 "D": train_entries["embedding_grad"]["ms"]}
+        for G, shape in train_entries["interactive_gat_scores"]["by_shape"].items():
+            parts[f"3 x C-fwd {G}"] = 3 * shape["fwd"]["ms"]
+            parts[f"3 x C-bwd {G}"] = 3 * shape["bwd"]["ms"]
+        rest = step_ms - sum(parts.values())
+        say("  where a step goes (kernel times at these shapes, timed alone): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            + f", the rest (eager ops, GEMMs, A'' masks, optimizer) {rest:.3f} ms")
+    except Exception:
+        traceback.print_exc()
+        failures.append("training slice")
+    say(f"[8 training slice] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 9. training parity: card vs the plain path on the CPU ----
+    t0 = time.perf_counter()
+    try:
+        training_parity(torch, cfg, corpus, dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("training parity")
+    say(f"[9 training parity] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 10. kernels line ----
+    if "msa_encoder_pooled" in train_entries and "msa_encoder_pooled" in entries:
+        serve = entries["msa_encoder_pooled"]
+        entries["msa_encoder_pooled"] = dict(
+            serve, ok=serve.get("ok") and train_entries["msa_encoder_pooled"].get("ok"),
+            by_shape={f"serving N{bs}": serve,
+                      f"training N{cap} dropout {cfg.dropout_rate}":
+                          train_entries["msa_encoder_pooled"]})
+    for name, e in train_entries.items():
+        entries.setdefault(name, e)
+    by_path = {name: {"serving": launches.get(name, 0), "training": train_launches.get(name, 0)}
+               for name in counters()}
+    by_path["interactive_gat_scores"] = {
+        "training": {k: train_launches.get(k, 0) for k in ("gat_scores_fwd", "gat_scores_bwd")}}
+    source = {
+        "msa_encoder_pooled": ("digat_tpu_torch/csrc/msa_encoder.cu",
+                               "digat_tpu/ops/pallas/msa_encoder.py:533"),
+        "interactive_gat_layer_fused": ("digat_tpu_torch/csrc/gat_layer.cu",
+                                        "digat_tpu/ops/pallas/gat_layer.py:135"),
+        "msa_encoder_bwd": ("digat_tpu_torch/csrc/msa_encoder_bwd.cu",
+                            "digat_tpu/ops/pallas/msa_encoder.py:533"),
+        "keep_mask": ("digat_tpu_torch/csrc/dropout.cu", "digat_tpu/ops/pallas/msa_encoder.py:96"),
+        "interactive_gat_scores": ("digat_tpu_torch/csrc/gat_scores.cu",
+                                   "digat_tpu/ops/pallas/gat_scores.py:77"),
+        "embedding_grad": ("digat_tpu_torch/csrc/emb_grad.cu",
+                           "digat_tpu/ops/pallas/emb_grad.py:205"),
+    }
     kernels = []
     for name, (src, replaces) in source.items():
         e = entries.get(name, {})
+        paths = by_path[name]
+        total = sum(v if isinstance(v, int) else sum(v.values()) for v in paths.values())
+        if total == 0:
+            failures.append(f"kernel {name} was launched no time on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches.get(name, 0), "max_abs_err": e.get("max_abs_err"),
+            "launches": total, "launches_by_path": paths, "max_abs_err": e.get("max_abs_err"),
             "ms": e.get("ms"), "plain_ms": e.get("plain_ms"), "bound_ms": e.get("bound_ms"),
-            "bound_by": e.get("bound_by"), "library_ms": None, "ok": bool(e.get("ok")),
-            **({"by_shape": e["by_shape"]} if "by_shape" in e else {}),
+            "bound_by": e.get("bound_by"), "library_ms": e.get("library_ms"),
+            "ok": bool(e.get("ok")), **({"by_shape": e["by_shape"]} if "by_shape" in e else {}),
         })
     say(json.dumps({"kernels": kernels}))
     say(f"[total] {time.perf_counter() - t_start:.2f}s")

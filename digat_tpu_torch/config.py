@@ -1,9 +1,9 @@
-"""Experiment configuration for the port's serving slice.
+"""Experiment configuration for the port.
 
-A copy of the fields of `digat_tpu.config.Config` that the two-stage
-MSA-DIGAT scorer reads, with the same names, defaults and per-dataset
-protocol overrides. Kept as its own copy so the port never imports the JAX
-package."""
+A copy of the fields of `digat_tpu.config.Config` that MSA-DIGAT training
+and the two-stage scorer read, with the same names, defaults and
+per-dataset protocol overrides. Kept as its own copy so the port never
+imports the JAX package."""
 
 from __future__ import annotations
 
@@ -28,10 +28,16 @@ class Config:
     seed: int = 0
     dataset: str = "MIND-small"  # MIND-small | MIND-large | synthetic
     max_title_length: int = 32
+    negative_sample_num: int = 4
     max_history_num: int = 50
     epoch: int = 16
     epoch_override: int = 0
     batch_size: int = 64
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    gradient_clip_norm: float = 1.0
+    dev_criterion: str = "avg"  # auc | mrr | ndcg5 | ndcg10 | avg
+    early_stopping_epoch: int = 5
     word_embedding_dim: int = 300
     MSA_head_num: int = 16
     MSA_head_dim: int = 25
@@ -43,6 +49,10 @@ class Config:
     vocabulary_size: int = 0
     category_num: int = 0
     eval_batch_size: int = 0  # 0 = batch_size * 16
+    # unique-title dedup capacity of training batches: -1 auto-size, 0 off,
+    # > 0 fixed
+    dedup_titles: int = -1
+    resume: str = ""  # checkpoint to resume training from
 
     def __post_init__(self) -> None:
         # per-dataset protocol overrides, as the JAX package forces them
@@ -71,6 +81,11 @@ class Config:
     def model_name(self) -> str:
         return f"{self.news_encoder}-{self.graph_encoder}"
 
+    @property
+    def lr_decay_epoch(self) -> int:
+        """The epoch from which the learning rate is divided by 10."""
+        return self.epoch - ((self.epoch - 1) // 10 + 1) + 1
+
     def effective_eval_batch_size(self) -> int:
         return self.eval_batch_size or self.batch_size * 16
 
@@ -81,6 +96,8 @@ class Config:
             raise NotImplementedError(f"news_encoder={self.news_encoder} is not ported yet")
         if self.graph_encoder != "DIGAT":
             raise NotImplementedError(f"graph_encoder={self.graph_encoder} is not ported yet")
+        if self.dev_criterion not in ("auc", "mrr", "ndcg5", "ndcg10", "avg"):
+            raise ValueError(f"unknown dev_criterion {self.dev_criterion}")
         if self.vocabulary_size <= 0 or self.category_num <= 0:
             raise ValueError("vocabulary_size and category_num must be set from the corpus")
         return self

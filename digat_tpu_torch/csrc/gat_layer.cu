@@ -14,8 +14,7 @@
 // of inputs and outputs: far above the fp32 ridge.
 //
 // Design, two steps that the one wrapper call launches on the caller's stream:
-//   1. gat_layer_project_f32: a tiled fp32 GEMM (64x64 tiles, 16-deep k
-//      steps, 4x4 outputs per thread from float4 shared-memory reads) writes
+//   1. gat_layer_project_f32: the tiled fp32 GEMM of common.cuh writes
 //      y = x [W|W1|W2] + [bW|0|0] ([B*G, 3D]) and, with the same kernel,
 //      k3 = q W3 + b3 ([B, D]) into scratch that the wrapper allocates. It
 //      reads each weight in nn.Linear layout ([out, in]) through its own
@@ -34,96 +33,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kMaskFill = -1e9f;
 
-constexpr int BM = 64, BN = 64, BK = 16;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Up to three [rows, K] row-major matrices read as one stacked [N, K] one:
-// stacked row n is p[n / rows] + (n % rows) * K.
-struct RowSet {
-  const float* p[3];
-  int rows;
-};
-
-// C[M, N] = A[M, K] Bt[N, K]^T + bias[n] for n < nbias (row-major, fp32)
-__global__ void __launch_bounds__(kThreads)
-sgemm_bias_kernel(const float* __restrict__ A, RowSet Bt, const float* __restrict__ bias,
-                  int nbias, float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[BK][BM + 4];  // A tile, transposed: As[k][m]
-  __shared__ __align__(16) float Bs[BK][BN + 4];  // Bt tile, transposed: Bs[k][n]
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // outputs rows ty*4.., cols tx*4..
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  // The Bt rows this thread loads: 16 consecutive threads read one row's k
-  // step (64 contiguous bytes).
-  const float* brow[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gn = n0 + (tid + r * kThreads) / BK;
-    brow[r] = gn < N ? Bt.p[gn / Bt.rows] + (size_t)(gn % Bt.rows) * K : nullptr;
-  }
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int e = tid + r * kThreads;
-      const int mm = e / BK, kk = e % BK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int e = tid + r * kThreads;
-      const int nn = e / BK, kk = e % BK;
-      const int gk = k0 + kk;
-      Bs[kk][nn] = (brow[r] != nullptr && gk < K) ? brow[r][gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < N) C[(size_t)gm * N + gn] = acc[i][j] + (gn < nbias ? bias[gn] : 0.f);
-    }
-  }
-}
+using digat::warp_max;
+using digat::warp_sum;
 
 int g_max_smem = 0;  // opt-in shared memory per block, set by gat_layer_init
 
@@ -236,20 +155,18 @@ extern "C" int gat_layer_project_f32(const void* x, const void* q, const void* w
                                      int B, int G, int D, void* stream) {
   if (B <= 0 || G <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int M = B * G, N = 3 * D;
-  if ((M + BM - 1) / BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RowSet wcat{{static_cast<const float*>(w), static_cast<const float*>(w1),
-                     static_cast<const float*>(w2)}, D};
-  sgemm_bias_kernel<<<dim3((N + BN - 1) / BN, (M + BM - 1) / BM), kThreads, 0, st>>>(
-      static_cast<const float*>(x), wcat, static_cast<const float*>(bW), D,
-      static_cast<float*>(y), M, N, D);
-  cudaError_t e = cudaGetLastError();
+  const digat::Mat wcat{{static_cast<const float*>(w), static_cast<const float*>(w1),
+                         static_cast<const float*>(w2)}, D, D};
+  const digat::Bias bias_y{{static_cast<const float*>(bW), nullptr, nullptr}, D};
+  cudaError_t e = digat::gemm<false, true>(st, digat::mat1(static_cast<const float*>(x), D),
+                                           wcat, bias_y, static_cast<float*>(y), M, N, D, D);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const float* w3f = static_cast<const float*>(w3);
-  sgemm_bias_kernel<<<dim3((D + BN - 1) / BN, (B + BM - 1) / BM), kThreads, 0, st>>>(
-      static_cast<const float*>(q), RowSet{{w3f, w3f, w3f}, D},
-      static_cast<const float*>(b3), D, static_cast<float*>(k3), B, D, D);
-  return static_cast<int>(cudaGetLastError());
+  const digat::Bias bias_k3{{static_cast<const float*>(b3), nullptr, nullptr}, D};
+  return static_cast<int>(digat::gemm<false, true>(
+      st, digat::mat1(static_cast<const float*>(q), D),
+      digat::mat1(static_cast<const float*>(w3), D), bias_k3, static_cast<float*>(k3), B, D,
+      D, D));
 }
 
 // Step 2: scores, mask, softmax over j, out = relu(alpha h) + x.

@@ -1,7 +1,12 @@
-// Fused MSA news encoder, eval forward, fp32, for sm_90a.
+// Fused MSA news encoder, forward, fp32, for sm_90a (kernel A).
 //
 // Replaces the TPU kernel digat_tpu/ops/pallas/msa_encoder.py
-// (msa_encoder_pooled -> _call -> _fwd_kernel), forward at dropout rate 0.
+// (msa_encoder_pooled -> _call -> _fwd_kernel), with the word dropout in
+// the kernel: when the rate is above 0 each float4 of the embedded title is
+// kept or zeroed (and scaled by 1 / (1 - rate)) as it is loaded, from
+// Philox draws keyed by (seed, site) at counter (float4 index, title)
+// (philox.cuh). The mask never reaches device memory; the backward
+// (msa_encoder_bwd.cu) draws the same bits again.
 // Per title: Q/K/V projections of the embedded words, 16-head UNMASKED
 // softmax attention over the L=32 positions (pads attend, as in the
 // reference), ReLU, then the masked tanh-MLP attention pool with the -1e9
@@ -29,6 +34,10 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -37,17 +46,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kMaskFill = -1e9f;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+using digat::warp_max;
+using digat::warp_sum;
 
 // floats of the first shared region: the title tile, later the scratch
 __host__ __device__ inline int region0_floats(int Din, int dk) {
@@ -71,7 +71,8 @@ msa_encoder_pooled_kernel(const float* __restrict__ x,
                           const float* __restrict__ b1,  // [A]
                           const float* __restrict__ v,   // [A]
                           float* __restrict__ out,       // [N, D]
-                          int Din, int heads, int dk, int A, float scale) {
+                          int Din, int heads, int dk, int A, float scale,
+                          uint32_t thresh, float drop_scale, uint32_t seed, uint32_t site) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = heads * dk;
@@ -86,11 +87,21 @@ msa_encoder_pooled_kernel(const float* __restrict__ x,
   float* part = kT + dk * kL;                   // [kWarps][kL]
   float* alpha = part + kWarps * kL;            // [kL]
 
-  // ---- load the embedded title ----
+  // ---- load the embedded title, word dropout applied (thresh 0: none) ----
   {
     const float4* src = reinterpret_cast<const float4*>(x + n * kL * Din);
     float4* dst = reinterpret_cast<float4*>(xs);
-    for (int e = tid; e < kL * Din / 4; e += kThreads) dst[e] = src[e];
+    for (int e = tid; e < kL * Din / 4; e += kThreads) {
+      float4 v = src[e];
+      if (thresh) {
+        const digat::Philox4 d = digat::dropout_draws(uint32_t(n), uint32_t(e), seed, site);
+        v.x = d.x >= thresh ? v.x * drop_scale : 0.f;
+        v.y = d.y >= thresh ? v.y * drop_scale : 0.f;
+        v.z = d.z >= thresh ? v.z * drop_scale : 0.f;
+        v.w = d.w >= thresh ? v.w * drop_scale : 0.f;
+      }
+      dst[e] = v;
+    }
   }
   __syncthreads();
 
@@ -228,7 +239,9 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
                                       const void* bq, const void* wk, const void* wv,
                                       const void* bv, const void* w1, const void* b1,
                                       const void* v, void* out, int N, int L, int Din,
-                                      int heads, int dk, int A, float scale, void* stream) {
+                                      int heads, int dk, int A, float scale, unsigned thresh,
+                                      float drop_scale, unsigned seed, unsigned site,
+                                      void* stream) {
   const int D = heads * dk;
   if (N <= 0 || L != kL || Din <= 0 || Din % 4 != 0 || D % 4 != 0 || A <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -241,7 +254,7 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
       static_cast<const float*>(wk), static_cast<const float*>(wv),
       static_cast<const float*>(bv), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(v), static_cast<float*>(out),
-      Din, heads, dk, A, scale);
+      Din, heads, dk, A, scale, thresh, drop_scale, seed, site);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,46 @@
+// Philox4x32-10 counter-based generator and the inverted-dropout keep rule,
+// shared by the dropout-mask kernel (dropout.cu) and the MSA encoder's
+// forward and backward kernels (msa_encoder.cu, msa_encoder_bwd.cu).
+//
+// The stream of a dropout site is keyed by (seed, site). Element (row, col)
+// of a [rows, cols] tensor takes word col % 4 of the block at counter
+// (col / 4, row, 0, 0). For the encoder's word dropout a row is one title
+// (its absolute offset in the call) and col runs over its L * Din elements,
+// so the mask of a title does not depend on how the titles are tiled.
+// An element is kept iff its 32-bit draw is >= round(rate * 2^32).
+// ops/dropout.py computes the same bits with int64 tensor arithmetic.
+#pragma once
+
+#include <stdint.h>
+
+namespace digat {
+
+struct Philox4 {
+  uint32_t x, y, z, w;
+};
+
+__host__ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1, uint32_t c2,
+                                                          uint32_t c3, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint64_t p0 = uint64_t(0xD2511F53u) * c0;
+    const uint64_t p1 = uint64_t(0xCD9E8D57u) * c2;
+    const uint32_t hi0 = uint32_t(p0 >> 32), lo0 = uint32_t(p0);
+    const uint32_t hi1 = uint32_t(p1 >> 32), lo1 = uint32_t(p1);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return Philox4{c0, c1, c2, c3};
+}
+
+// The four draws of elements 4*group .. 4*group+3 of `row`.
+__host__ __device__ __forceinline__ Philox4 dropout_draws(uint32_t row, uint32_t group,
+                                                          uint32_t seed, uint32_t site) {
+  return philox4x32_10(group, row, 0u, 0u, seed, site);
+}
+
+}  // namespace digat

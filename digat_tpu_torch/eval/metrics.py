@@ -1,7 +1,7 @@
 """MIND ranking metrics in NumPy: the port's own copy.
 
 The same math as `digat_tpu/eval/metrics.py` (`score_impressions_flat`,
-`group_by_impression`, `write_rank_file`): mean AUC (midrank ties), MRR,
+`group_by_impression`, `write_rank_file`, `avg_metric`): mean AUC (midrank ties), MRR,
 nDCG@5 and nDCG@10 over impressions, and the leaderboard rank-file format.
 Copied so the port never imports the JAX package."""
 
@@ -168,3 +168,8 @@ def write_rank_file(path: str, scores_by_impression: Sequence[np.ndarray]) -> No
             ranks = np.empty(len(s), np.int64)
             ranks[order] = np.arange(1, len(s) + 1)
             f.write(("" if i == 0 else "\n") + f"{i + 1} " + json.dumps(ranks.tolist(), separators=(",", ":")))
+
+
+def avg_metric(auc: float, mrr: float, ndcg5: float, ndcg10: float) -> float:
+    """The composite dev criterion: (AUC + MRR + (nDCG@5 + nDCG@10) / 2) / 3."""
+    return (auc + mrr + (ndcg5 + ndcg10) / 2.0) / 3.0

@@ -1,17 +1,22 @@
-"""Carry the JAX package's parameters into a port model.
+"""Carry parameters between the JAX package's tree and a port model.
 
 `load_jax_params(model, params)` takes the `digat_tpu` MSA-DIGAT parameter
 tree (nested dicts of arrays, as `digat_tpu.models.model.Model.init` builds
 it, converted to numpy by the caller) and fills the port model's
 parameters. It is strict both ways, like `digat_tpu/interop.py`: every
 array of the tree is used exactly once and every parameter of the model is
-filled, or it raises. JAX stores linear weights `[in, out]`; `nn.Linear`
-stores `[out, in]`, so weights transpose. Per-depth stacks (leading depth
-axis) split into the `nn.ModuleList` entries."""
+filled, or it raises. `params_from_model(model)` goes the other way: the
+JAX tree, as numpy arrays in the model's dtype, so a port model's trained
+weights can be handed back to the JAX package.
+
+JAX stores linear weights `[in, out]`; `nn.Linear` stores `[out, in]`, so
+weights transpose. Per-depth stacks (leading depth axis) split into the
+`nn.ModuleList` entries. One table of (JAX path, port names) serves both
+directions."""
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -19,82 +24,73 @@ import torch
 from digat_tpu_torch.models.model import Model
 
 
-class _Tree:
-    """A nested parameter mapping with take-accounting."""
-
-    def __init__(self, params: Mapping):
-        self._leaves = {}
-
-        def walk(node, path):
-            if isinstance(node, Mapping):
-                for k, v in node.items():
-                    walk(v, path + (str(k),))
-            else:
-                self._leaves["/".join(path)] = np.asarray(node)
-
-        walk(params, ())
-        self._taken = set()
-
-    def take(self, path: str) -> np.ndarray:
-        if path not in self._leaves:
-            raise KeyError(f"JAX params have no array '{path}'")
-        if path in self._taken:
-            raise KeyError(f"array '{path}' used twice")
-        self._taken.add(path)
-        return self._leaves[path]
-
-    def finish(self) -> None:
-        left = sorted(set(self._leaves) - self._taken)
-        if left:
-            raise ValueError(f"JAX params hold arrays the port model has no place for: {left}")
-
-
-def _linear(t: _Tree, sd: dict, src: str, dst: str, bias: bool = True) -> None:
-    sd[f"{dst}.weight"] = t.take(f"{src}/w").T
+def _linear(src: str, dst: str, bias: bool = True):
+    yield f"{src}/w", [f"{dst}.weight"], True
     if bias:
-        sd[f"{dst}.bias"] = t.take(f"{src}/b")
+        yield f"{src}/b", [f"{dst}.bias"], False
 
 
-def _sdp(t: _Tree, sd: dict, src: str, dst: str) -> None:
-    _linear(t, sd, f"{src}/K", f"{dst}.K", bias=False)
-    _linear(t, sd, f"{src}/Q", f"{dst}.Q")
-
-
-def _gat_stack(t: _Tree, sd: dict, src: str, dst: str, depth: int) -> None:
+def _gat_stack(src: str, dst: str, depth: int):
     for name, bias in (("W", True), ("ffn1", False), ("ffn2", False), ("ffn3", True),
                        ("a", False)):
-        w = t.take(f"{src}/{name}/w")
-        b = t.take(f"{src}/{name}/b") if bias else None
-        if w.shape[0] != depth:
-            raise ValueError(f"{src}/{name}/w has depth {w.shape[0]}, the model {depth}")
-        for i in range(depth):
-            sd[f"{dst}_{name}.{i}.weight"] = w[i].T
-            if bias:
-                sd[f"{dst}_{name}.{i}.bias"] = b[i]
+        yield f"{src}/{name}/w", [f"{dst}_{name}.{i}.weight" for i in range(depth)], True
+        if bias:
+            yield f"{src}/{name}/b", [f"{dst}_{name}.{i}.bias" for i in range(depth)], False
+
+
+def _table(depth: int) -> Iterator[Tuple[str, List[str], bool]]:
+    """(JAX path, port state_dict names, transposed) for every parameter of
+    MSA-DIGAT. More than one name: a per-depth stack, one name per depth."""
+    m, g = "news_encoder.multiheadSelfattention", "graph_encoder"
+    yield "news_encoder/word_embedding", ["news_encoder.word_embedding.weight"], False
+    yield from _linear("news_encoder/pool/affine1", "news_encoder.attention.affine1")
+    yield from _linear("news_encoder/pool/affine2", "news_encoder.attention.affine2", bias=False)
+    yield from _linear("news_encoder/msa/W_K", f"{m}.W_K", bias=False)
+    yield from _linear("news_encoder/msa/W_Q", f"{m}.W_Q")
+    yield from _linear("news_encoder/msa/W_V", f"{m}.W_V")
+    yield f"{g}/topic_node_embedding", [f"{g}.topic_node_embedding"], False
+    yield from _linear(f"{g}/news_ctx/cand_attn/K", f"{g}.candidate_attention.K", bias=False)
+    yield from _linear(f"{g}/news_ctx/cand_attn/Q", f"{g}.candidate_attention.Q")
+    yield from _linear(f"{g}/news_ctx/gate", f"{g}.news_graph_W")
+    yield from _linear(f"{g}/user_ctx/K", f"{g}.user_news_K", bias=False)
+    yield from _linear(f"{g}/user_ctx/Q", f"{g}.user_news_Q")
+    yield from _linear(f"{g}/user_ctx/affine", f"{g}.featureAffine")
+    yield from _linear(f"{g}/user_ctx/attn/K", f"{g}.userAttention.K", bias=False)
+    yield from _linear(f"{g}/user_ctx/attn/Q", f"{g}.userAttention.Q")
+    yield from _gat_stack(f"{g}/news_gat", f"{g}.news_graph_attention", depth)
+    yield from _gat_stack(f"{g}/user_gat", f"{g}.user_graph_attention", depth)
+
+
+def _leaves(params: Mapping) -> dict:
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+        else:
+            out["/".join(path)] = np.asarray(node)
+
+    walk(params, ())
+    return out
 
 
 def _state_dict_from_jax(params: Mapping, depth: int) -> dict:
     """The port's state_dict (numpy arrays) for a `digat_tpu` MSA-DIGAT
     parameter tree; strict as described in the module docstring."""
-    t = _Tree(params)
-    sd = {"news_encoder.word_embedding.weight": t.take("news_encoder/word_embedding")}
-    _linear(t, sd, "news_encoder/pool/affine1", "news_encoder.attention.affine1")
-    _linear(t, sd, "news_encoder/pool/affine2", "news_encoder.attention.affine2", bias=False)
-    m = "news_encoder.multiheadSelfattention"
-    _linear(t, sd, "news_encoder/msa/W_K", f"{m}.W_K", bias=False)
-    _linear(t, sd, "news_encoder/msa/W_Q", f"{m}.W_Q")
-    _linear(t, sd, "news_encoder/msa/W_V", f"{m}.W_V")
-    g, s = "graph_encoder", "graph_encoder"
-    sd[f"{g}.topic_node_embedding"] = t.take(f"{s}/topic_node_embedding")
-    _sdp(t, sd, f"{s}/news_ctx/cand_attn", f"{g}.candidate_attention")
-    _linear(t, sd, f"{s}/news_ctx/gate", f"{g}.news_graph_W")
-    _linear(t, sd, f"{s}/user_ctx/K", f"{g}.user_news_K", bias=False)
-    _linear(t, sd, f"{s}/user_ctx/Q", f"{g}.user_news_Q")
-    _linear(t, sd, f"{s}/user_ctx/affine", f"{g}.featureAffine")
-    _sdp(t, sd, f"{s}/user_ctx/attn", f"{g}.userAttention")
-    _gat_stack(t, sd, f"{s}/news_gat", f"{g}.news_graph_attention", depth)
-    _gat_stack(t, sd, f"{s}/user_gat", f"{g}.user_graph_attention", depth)
-    t.finish()
+    leaves = _leaves(params)
+    sd = {}
+    for path, names, transposed in _table(depth):
+        if path not in leaves:
+            raise KeyError(f"JAX params have no array '{path}'")
+        arr = leaves.pop(path)
+        if len(names) > 1 and arr.shape[0] != depth:
+            raise ValueError(f"{path} has depth {arr.shape[0]}, the model {depth}")
+        for name, a in zip(names, arr if len(names) > 1 else [arr]):
+            sd[name] = a.T if transposed else a
+    if leaves:
+        raise ValueError(f"JAX params hold arrays the port model has no place for: "
+                         f"{sorted(leaves)}")
     return sd
 
 
@@ -103,6 +99,23 @@ def load_jax_params(model: Model, params: Mapping) -> Model:
     missing array, ValueError for one left over, and RuntimeError (from
     `load_state_dict`) for one of the wrong shape."""
     sd = _state_dict_from_jax(params, model.config.graph_depth)
-    tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    dtype = next(model.parameters()).dtype
+    tensors = {k: torch.from_numpy(np.array(v)).to(dtype) for k, v in sd.items()}
     model.load_state_dict(tensors, strict=True)
     return model
+
+
+def params_from_model(model: Model) -> dict:
+    """The JAX parameter tree of `model` (nested dicts of numpy arrays)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    tree: dict = {}
+    for path, names, transposed in _table(model.config.graph_depth):
+        arrs = [sd.pop(n).T if transposed else sd.pop(n) for n in names]
+        node = tree
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = np.stack(arrs) if len(names) > 1 else arrs[0]
+    if sd:
+        raise ValueError(f"model parameters with no place in the JAX tree: {sorted(sd)}")
+    return tree

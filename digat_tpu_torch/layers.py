@@ -1,10 +1,11 @@
-"""Core layers on the serving path, as PyTorch modules.
+"""Core layers, as PyTorch modules and functions.
 
 Counterpart of `digat_tpu/layers.py`: the same initialiser distributions
 (torch-default fan-in uniform, xavier-uniform with activation gains), the
-same -1e9 mask fill and an fp32 softmax. Modules keep the reference
-PyTorch `state_dict` names (`affine1`/`affine2`, `K`/`Q`, `W_K`/`W_Q`/`W_V`)
-so `digat_tpu.interop.torch_to_params` reads a port model directly.
+same -1e9 mask fill and an fp32 softmax, and inverted dropout for
+training. Modules keep the reference PyTorch `state_dict` names
+(`affine1`/`affine2`, `K`/`Q`, `W_K`/`W_Q`/`W_V`) so
+`digat_tpu.interop.torch_to_params` reads a port model directly.
 
 Weights live in `nn.Linear` layout `[out, in]` (apply `x @ W.T + b`), where
 the JAX package stores `[in, out]`; `interop.load_jax_params` transposes.
@@ -18,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from digat_tpu_torch.ops.dropout import keep_mask
 
 MASK_FILL = -1e9
 
@@ -61,9 +64,45 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return F.linear(x, lin.weight, lin.bias)
 
 
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int], site: int) -> torch.Tensor:
+    """Inverted dropout of training: x / (1 - rate) where kept, else 0. The
+    keep mask comes from kernel A'' (`ops.dropout.keep_mask`) over x seen as
+    [rows, last dim], under (seed, site), so the card and the CPU draw the
+    same mask. Identity when `seed` is None (eval) or the rate is 0. The JAX
+    package draws from `jax.random`, a different stream of the same law."""
+    if seed is None or rate <= 0.0:
+        return x
+    cols = x.shape[-1]
+    keep = keep_mask(x.numel() // cols, cols, rate, seed, site, device=x.device)
+    return torch.where(keep.reshape(x.shape), x * (1.0 / (1.0 - rate)),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropoutSites:
+    """The dropout sites of one training step, numbered in call order: call
+    k draws its mask under (seed, first_site + k). With `seed` None every
+    call is the identity (eval)."""
+
+    def __init__(self, seed: Optional[int], first_site: int = 0):
+        self.seed = seed
+        self.next_site = first_site
+
+    @property
+    def training(self) -> bool:
+        return self.seed is not None
+
+    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if self.seed is None:
+            return x
+        site = self.next_site
+        self.next_site += 1
+        return dropout(x, rate, self.seed, site)
+
+
 def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor], dim: int = -1) -> torch.Tensor:
     """softmax(where(mask, scores, -1e9)) in at least fp32; a fully masked
-    row becomes uniform, as in the reference."""
+    row becomes uniform, as in the reference. Training uses it unchanged on
+    the GAT scores, with dropout on its result."""
     dtype = scores.dtype
     if mask is not None:
         scores = torch.where(mask.to(torch.bool), scores, torch.full_like(scores, MASK_FILL))
@@ -117,7 +156,7 @@ def sdp_attn(attn: ScaledDotProductAttention, feature: torch.Tensor, query: torc
 
 class MultiHeadAttention(nn.Module):
     """The projections of the reference's unmasked multi-head self-attention.
-    On the serving path the whole encoder after the embedding runs in
+    The whole encoder after the embedding runs in
     `ops.msa_encoder.msa_encoder_pooled`, which reads these weights."""
 
     def __init__(self, heads: int, d_model: int, d_k: int, d_v: int, generator: torch.Generator):

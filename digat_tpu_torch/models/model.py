@@ -1,12 +1,18 @@
-"""Model assembly for serving: MSA news encoder, DIGAT graph encoder, dot
-product.
+"""Model assembly: MSA news encoder, DIGAT graph encoder, dot product, and
+the listwise training loss.
 
-Counterpart of `digat_tpu.models.model` (`CorpusTables`, `EvalBatch`,
-`Model.encode_news`, `initial_news_context`, `inference`), eval only: the
-training path belongs to a later slice. Parameters live in `nn.Module`s
-under the reference `state_dict` names, drawn from an explicit
-`torch.Generator` on the CPU and then moved to the model's device, so one
-seed gives the same weights on every device."""
+Counterpart of `digat_tpu.models.model` (`CorpusTables`, `TrainBatch`,
+`DedupTrainBatch`, `EvalBatch`, `Model.forward`, `forward_encoded`,
+`forward_indexed`, `loss_parts`, `loss`, `encode_news`,
+`initial_news_context`, `inference`). Parameters live in `nn.Module`s under
+the reference `state_dict` names, drawn from an explicit `torch.Generator`
+on the CPU and then moved to the model's device, so one seed gives the same
+weights on every device.
+
+Where the JAX package passes `train` and a PRNG key, the port passes a
+32-bit `seed`: with a seed the forward is the training forward (dropout
+under that seed, one site number per dropout call, kernel C in the GAT
+layers); without one it is eval (kernel B)."""
 
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import torch
 from torch import nn
 
 from digat_tpu_torch.config import Config
+from digat_tpu_torch.data.user_graph import build_user_graph
+from digat_tpu_torch.layers import DropoutSites
 from digat_tpu_torch.models.graph_encoders import DIGATGraphEncoder
 from digat_tpu_torch.models.news_encoders import NewsEncoder
 from digat_tpu_torch.runtime import exact_fp32, resolve_device
@@ -48,6 +56,31 @@ class CorpusTables(NamedTuple):
         )
 
 
+class TrainBatch(NamedTuple):
+    """Index-only training batch (device tensors, int64 indices)."""
+
+    history_idx: torch.Tensor  # [B, H] news ids (0 = pad)
+    cat_idx: torch.Tensor  # [B, H] category per slot (C = pad)
+    sample_idx: torch.Tensor  # [B, 1+K] candidate news ids (positive first)
+    weight: torch.Tensor  # [B] float (0 for padding rows of the last batch)
+
+
+class DedupTrainBatch(NamedTuple):
+    """Training batch with unique-title dedup: every news of the batch
+    (candidate-graph nodes and histories) is listed once in `uniq_ids`, the
+    encoder runs once per unique title, and inverse indices fan the
+    representations out. The same math as TrainBatch; the gather's
+    gradient sums the occurrences. Unlike the JAX package's, it carries no
+    sort metadata: kernel D sorts the token stream on the device."""
+
+    uniq_ids: torch.Tensor  # [U] news ids (0-padded to the capacity)
+    cand_inv: torch.Tensor  # [B, 1+K, Gn] indices into uniq_ids
+    hist_inv: torch.Tensor  # [B, H] indices into uniq_ids
+    cat_idx: torch.Tensor  # [B, H]
+    sample_idx: torch.Tensor  # [B, 1+K] (graph and mask gathers)
+    weight: torch.Tensor  # [B]
+
+
 class EvalBatch(NamedTuple):
     """Stage-2 batch: one impression item per row."""
 
@@ -56,9 +89,15 @@ class EvalBatch(NamedTuple):
     cand_idx: torch.Tensor  # [B] int64
 
 
+# Dropout site numbers of a training step: the word dropout of the news
+# encoder (candidates, or the unique titles of a dedup batch; then the
+# histories of a plain batch), then the graph encoder's sites in call order.
+SITE_NEWS, SITE_HISTORY, FIRST_GRAPH_SITE = 0, 1, 2
+
+
 class Model(nn.Module):
-    """MSA-DIGAT for serving. Runs on CUDA unless `device` names another
-    device; with no device and no CUDA it raises."""
+    """MSA-DIGAT. Runs on CUDA unless `device` names another device; with no
+    device and no CUDA it raises."""
 
     def __init__(self, config: Config, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -69,26 +108,86 @@ class Model(nn.Module):
         g = generator if generator is not None else torch.Generator().manual_seed(config.seed)
         self.news_encoder = NewsEncoder(
             config.vocabulary_size, config.word_embedding_dim, config.MSA_head_num,
-            config.MSA_head_dim, config.attention_dim, config.max_title_length, g,
+            config.MSA_head_dim, config.attention_dim, config.max_title_length,
+            config.dropout_rate, g,
         )
         self.graph_encoder = DIGATGraphEncoder(
             config.graph_depth, config.max_history_num, config.category_num,
-            config.news_embedding_dim, g,
+            config.news_embedding_dim, config.dropout_rate, g,
         )
-        self.requires_grad_(False)
-        super().train(False)
         self.to(device)
         self.device = device
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError("digat_tpu_torch ports the eval path only; training is a later slice")
-        return super().train(False)
+    # ------------------------------------------------------------------
+    def forward(self, user_title_text, user_title_mask, user_graph, user_category_mask,
+                user_category_indices, news_title_text, news_title_mask, news_graph,
+                news_graph_mask, seed: Optional[int] = None) -> torch.Tensor:
+        """Dense-tensor forward -> logits [B, N]. user_title_* [B, H, L];
+        news_title_* [B, N, Gn, L]; news_graph [B, N, Gn, Gn]."""
+        cand = self.news_encoder(news_title_text, news_title_mask, seed, SITE_NEWS)
+        hist = self.news_encoder(user_title_text, user_title_mask, seed, SITE_HISTORY)
+        return self.forward_encoded(cand, hist, user_graph, user_category_mask,
+                                    user_category_indices, news_graph, news_graph_mask, seed)
+
+    def forward_encoded(self, cand, hist, user_graph, user_category_mask,
+                        user_category_indices, news_graph, news_graph_mask,
+                        seed: Optional[int] = None) -> torch.Tensor:
+        """cand [B, N, Gn, D] and hist [B, H, D] already encoded -> logits
+        [B, N]. Every candidate graph is paired with its row's user graph."""
+        B, Nn = cand.shape[:2]
+        flat = lambda x: x.reshape((B * Nn,) + x.shape[2:])
+        rep = lambda x: x[:, None].expand((B, Nn) + x.shape[1:]).reshape((B * Nn,) + x.shape[1:])
+        news_rep, user_rep = self.graph_encoder(
+            flat(cand), flat(news_graph), flat(news_graph_mask), rep(hist), rep(user_graph),
+            rep(user_category_mask), rep(user_category_indices),
+            drop=DropoutSites(seed, FIRST_GRAPH_SITE),
+        )
+        return (news_rep * user_rep).sum(dim=-1).reshape(B, Nn)
+
+    def forward_indexed(self, tables: CorpusTables, batch, seed: Optional[int] = None):
+        """Index-batch forward: gathers titles and graphs on the device,
+        rebuilds the user graph from the category indices, then runs
+        `forward` (TrainBatch) or encodes each unique title once
+        (DedupTrainBatch)."""
+        cfg = self.config
+        news_graph = tables.news_graph[batch.sample_idx]  # [B, N, Gn, Gn]
+        news_graph_mask = tables.news_graph_mask[batch.sample_idx]
+        user_graph, user_category_mask = build_user_graph(batch.cat_idx, cfg.max_history_num,
+                                                          cfg.category_num)
+        if isinstance(batch, DedupTrainBatch):
+            # a title's dropout mask is shared by its occurrences, as in the
+            # JAX package
+            uniq = self.news_encoder(tables.news_title_text[batch.uniq_ids],
+                                     tables.news_title_mask[batch.uniq_ids], seed, SITE_NEWS)
+            return self.forward_encoded(uniq[batch.cand_inv], uniq[batch.hist_inv], user_graph,
+                                        user_category_mask, batch.cat_idx, news_graph,
+                                        news_graph_mask, seed)
+        node_ids = tables.news_node_id[batch.sample_idx]  # [B, N, Gn]
+        return self.forward(
+            tables.news_title_text[batch.history_idx], tables.news_title_mask[batch.history_idx],
+            user_graph, user_category_mask, batch.cat_idx,
+            tables.news_title_text[node_ids], tables.news_title_mask[node_ids],
+            news_graph, news_graph_mask, seed,
+        )
+
+    def loss_parts(self, tables: CorpusTables, batch, seed: int):
+        """(weighted NLL sum, weight sum) of the listwise loss; the positive
+        is candidate 0."""
+        logits = self.forward_indexed(tables, batch, seed)
+        nll = -torch.log_softmax(logits, dim=1)[:, 0]
+        w = batch.weight.to(logits.dtype)
+        return (nll * w).sum(), w.sum()
+
+    def loss(self, tables: CorpusTables, batch, seed: int) -> torch.Tensor:
+        """Listwise sampled-softmax NLL with per-row weights, so the padded
+        rows of a tail batch contribute nothing."""
+        num, den = self.loss_parts(tables, batch, seed)
+        return num / den.clamp(min=1.0)
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def encode_news(self, title_text: torch.Tensor, title_mask: torch.Tensor) -> torch.Tensor:
-        """Stage-1: encode news titles -> [..., D]."""
+        """Stage-1: encode news titles -> [..., D] (eval)."""
         return self.news_encoder(title_text, title_mask)
 
     @torch.inference_mode()
@@ -100,7 +199,7 @@ class Model(nn.Module):
     def inference(self, user_news_embedding, user_graph, user_category_mask,
                   user_category_indices, candidate_news_embedding, news_graph,
                   news_graph_mask, c_n0) -> torch.Tensor:
-        """Two-stage cached scoring -> logits [B]."""
+        """Two-stage cached scoring -> logits [B] (eval)."""
         news_rep, user_rep = self.graph_encoder(
             candidate_news_embedding, news_graph, news_graph_mask, user_news_embedding,
             user_graph, user_category_mask, user_category_indices, c_n0=c_n0,

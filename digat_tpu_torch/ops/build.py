@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -31,20 +33,35 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _LL = ctypes.c_uint, ctypes.c_longlong
 
-# C signatures: name -> argtypes (restype is int, a cudaError_t)
+# C signatures: name -> (argtypes, restype); an int restype is a cudaError_t
 SIGNATURES = {
-    # x, mask, wq, bq, wk, wv, bv, w1, b1, v, out, N, L, Din, heads, dk, A, scale, stream
-    "msa_encoder_pooled_f32": [_P] * 11 + [_I] * 6 + [_F, _P],
+    # x, mask, wq, bq, wk, wv, bv, w1, b1, v, out, N, L, Din, heads, dk, A, scale,
+    # thresh, drop_scale, seed, site, stream
+    "msa_encoder_pooled_f32": ([_P] * 11 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
+    # N, L, Din, heads, dk, A -> floats of scratch
+    "msa_encoder_bwd_scratch_floats": ([_I] * 6, _LL),
+    # x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, dx, dwqkv, dbqkv, dw1, db1, dv, scratch,
+    # N, L, Din, heads, dk, A, scale, thresh, drop_scale, seed, site, stream
+    "msa_encoder_bwd_f32": ([_P] * 18 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
+    # out, rows, cols, row_offset, seed, site, thresh, stream
+    "dropout_keep_mask_u8": ([_P, _LL, _I, _LL, _U, _U, _U, _P], _I),
     # x, q, w, bW, w1, w2, w3, b3, y, k3, B, G, D, stream
-    "gat_layer_project_f32": [_P] * 10 + [_I] * 3 + [_P],
+    "gat_layer_project_f32": ([_P] * 10 + [_I] * 3 + [_P], _I),
     # x, adj, y, k3, a, out, B, G, D, slope, stream
-    "gat_layer_attend_f32": [_P] * 6 + [_I] * 3 + [_F, _P],
+    "gat_layer_attend_f32": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),
+    # k1, ld1, k2, ld2, k3, a, out, B, G, D, stream
+    "gat_scores_fwd_f32": ([_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P], _I),
+    # k1, ld1, k2, ld2, k3, a, g, gk1, gk2, gk3, ga, ga_part, B, G, D, stream
+    "gat_scores_bwd_f32": ([_P, _I, _P, _I] + [_P] * 8 + [_I] * 3 + [_P], _I),
+    # g, perm, seg, first, last, partial, out, ntok, V, D, chunk, stream
+    "emb_grad_f32": ([_P] * 7 + [_LL, _LL, _I, _I, _P], _I),
 }
 
 # Run once when the library is loaded: each reads the card's opt-in
 # shared-memory limit and grants it to its kernels.
-INITS = ("msa_encoder_init", "gat_layer_init")
+INITS = ("msa_encoder_init", "msa_encoder_bwd_init", "gat_layer_init", "gat_scores_init")
 
 
 def _sources():
@@ -101,10 +118,10 @@ def load_library() -> ctypes.CDLL:
     kernels initialised on the current CUDA device."""
     path, _ = build_library()
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
+    for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     lib.digat_error_string.argtypes = [ctypes.c_int]
     lib.digat_error_string.restype = ctypes.c_char_p
     for name in INITS:
@@ -120,3 +137,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.digat_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def use_kernel(where) -> bool:
+    """The dispatch of every kernel wrapper, for a tensor or a device: True
+    on CUDA (launch the kernel), False on the CPU (run the plain version).
+    Any other device raises; there is no fallback from CUDA to the plain
+    version."""
+    device = where.device if isinstance(where, torch.Tensor) else torch.device(where)
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {device}")

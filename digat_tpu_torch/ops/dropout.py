@@ -1,0 +1,94 @@
+"""Inverted-dropout keep masks from Philox4x32-10 (kernel A'').
+
+Replaces `digat_tpu/ops/pallas/msa_encoder.py::dropout_keep_mask` (mask
+logic `_keep_mask`). The TPU drew its bits from the core's own generator,
+which has no counterpart here; the port uses Philox4x32-10 (Salmon et al.,
+Random123) everywhere a dropout mask is drawn:
+
+  * the stream of a dropout site is keyed by (seed, site), both 32-bit;
+  * element (row, col) of a [rows, cols] mask takes word col % 4 of the
+    Philox block at counter (col // 4, row_offset + row, 0, 0);
+  * it is kept iff that 32-bit draw is >= round(rate * 2^32), so
+    P(keep) = 1 - rate, as `_keep_mask` thresholds its bits.
+
+The MSA encoder kernels (`ops.msa_encoder`) draw the word-dropout mask
+inline with row = title offset and col = position * Din + feature, and
+never store it. `keep_mask` materialises a mask: kernel A''
+(`csrc/dropout.cu`) on a CUDA device, `keep_mask_plain` (the same
+arithmetic in int64 tensor ops) on the CPU. The two agree bit for bit, so
+one step draws the same masks on the card and on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from digat_tpu_torch.ops import build
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of a * b for a 32-bit constant a and int64 b in
+    [0, 2^32), without overflowing int64: b is split in 16-bit halves."""
+    p = a * (b >> 16)  # < 2^48
+    t = ((p & 0xFFFF) << 16) + a * (b & 0xFFFF)  # < 2^49
+    return (p >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 on int64 tensors. counter: four broadcastable int64
+    tensors with values in [0, 2^32); key: two Python ints. Returns the four
+    output words as int64 tensors."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def threshold(rate: float) -> int:
+    """The 32-bit draw at or above which an element is kept."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return min(int(round(rate * 2**32)), _MASK32)
+
+
+def keep_mask_plain(rows: int, cols: int, rate: float, seed: int, site: int,
+                    row_offset: int = 0, device="cpu") -> torch.Tensor:
+    """Plain PyTorch version of kernel A'': the [rows, cols] bool keep mask."""
+    groups = -(-cols // 4)
+    r = torch.arange(row_offset, row_offset + rows, dtype=torch.int64, device=device)[:, None]
+    g = torch.arange(groups, dtype=torch.int64, device=device)[None, :]
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    words = philox4x32_10((g, r, zero, zero), (seed, site))
+    draws = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(rows, groups * 4)
+    return draws[:, :cols] >= threshold(rate)
+
+
+def keep_mask(rows: int, cols: int, rate: float, seed: int, site: int,
+              row_offset: int = 0, device="cpu") -> torch.Tensor:
+    """Kernel A''. The same mask as `keep_mask_plain`: computed by it on the
+    CPU, by the CUDA kernel on a CUDA device."""
+    if not build.use_kernel(device):
+        return keep_mask_plain(rows, cols, rate, seed, site, row_offset, device)
+    thresh = threshold(rate)
+    if rows < 0 or cols <= 0 or row_offset < 0 or row_offset + rows > 2**32:
+        raise ValueError(f"keep_mask: bad shape rows={rows} cols={cols} row_offset={row_offset}")
+    out = torch.empty((rows, cols), dtype=torch.bool, device=device)
+    lib = build.load_library()
+    err = lib.dropout_keep_mask_u8(out.data_ptr(), rows, cols, row_offset, seed & _MASK32,
+                                   site & _MASK32, thresh,
+                                   torch.cuda.current_stream(device).cuda_stream)
+    build.check(lib, err, "keep_mask")
+    keep_mask.launches += 1
+    return out
+
+
+keep_mask.launches = 0

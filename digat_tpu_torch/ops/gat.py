@@ -4,8 +4,12 @@
 
 Counterpart of `digat_tpu.ops.gat.interactive_gat_scores_xla`. It
 materialises the [B, G, G, D] sum, so it runs over batch chunks that keep
-that intermediate under `_MAX_ELEMENTS` floats; the hand-written layer
-kernel (`ops.gat_layer`) never materialises it."""
+that intermediate under `_MAX_ELEMENTS` floats; the hand-written kernels
+(`ops.gat_layer`, `ops.gat_scores`) never materialise it. The sum is
+formed as k1[j] + (k2[i] + k3), in the order the kernels form it, so the
+relu mask is the same bits in all of them: where k1 + k2 + k3 rounds to
+within an ulp of 0, another order can flip the mask and move a gradient
+entry by a whole g * a term."""
 
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ def interactive_gat_scores(k1: torch.Tensor, k2: torch.Tensor, k3: torch.Tensor,
     step = max(1, _MAX_ELEMENTS // (G * G * D))
     out = []
     for s in range(0, B, step):
-        t = (k1[s:s + step, None, :, :] + k2[s:s + step, :, None, :]
-             + k3[s:s + step, None, None, :])
+        t = k1[s:s + step, None, :, :] + (k2[s:s + step, :, None, :]
+                                          + k3[s:s + step, None, None, :])
         out.append(torch.einsum("bijd,d->bij", torch.relu(t), a_vec))
     return torch.cat(out) if len(out) > 1 else out[0]

@@ -13,7 +13,10 @@ wrapper call: `gat_layer_project` (a tiled fp32 GEMM for the projections) and
 `gat_layer_attend` (one block per graph for the rest); its header says what bounds
 it on the card. On a CPU tensor the wrapper runs
 `interactive_gat_layer_plain`; on a CUDA tensor it launches the kernel or
-raises. fp32 only: bf16 input belongs to a later slice.
+raises. The kernel's output carries no gradient, so under grad mode with an
+input that requires grad the wrapper raises: training runs its own layer
+(`models.graph_encoders`, kernel C). fp32 only: bf16 input belongs to a
+later slice.
 """
 
 from __future__ import annotations
@@ -78,11 +81,14 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     The kernel reads W, W1, W2 and W3 in nn.Linear layout ([out, in]): a
     weight passed as `linear.weight.t()`, as the graph encoder does, is read
     in place; any other is copied into that layout."""
-    if x.device.type == "cpu":
+    if not build.use_kernel(x):
         return interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
                                            negative_slope)
-    if x.device.type != "cuda":
-        raise ValueError(f"interactive_gat_layer_fused: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, query, W, bW, W1, W2, W3, b3, a_vec)):
+        raise RuntimeError("interactive_gat_layer_fused is the eval layer and passes no "
+                           "gradient; the training layer runs Eq. (8) through "
+                           "ops.gat_scores.interactive_gat_scores")
     B, G, D = x.shape
     if x.dtype != torch.float32:
         raise TypeError(f"interactive_gat_layer_fused: x must be float32, got {x.dtype}")

@@ -19,6 +19,10 @@ import torch
 from digat_tpu_torch.config import Config
 from digat_tpu_torch.eval.scorer import CachedScorer
 from digat_tpu_torch.models.model import Model
+from digat_tpu_torch.ops import dropout as DR
+from digat_tpu_torch.ops import emb_grad as EG
+from digat_tpu_torch.ops import gat_scores as GS
+from digat_tpu_torch.ops import msa_encoder as ME
 from digat_tpu_torch.ops.gat_layer import interactive_gat_layer_fused, interactive_gat_layer_plain
 from digat_tpu_torch.ops.msa_encoder import msa_encoder_pooled, msa_encoder_pooled_plain
 
@@ -113,3 +117,110 @@ def test_scorer_card_matches_cpu(cuda):
     assert np.isfinite(s_gpu).all()
     assert np.abs(s_gpu - s_cpu).max() <= 1e-4 * max(1.0, float(np.abs(s_cpu).max()))
     assert not math.isnan(float(s_gpu.sum()))
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: A'' (dropout mask), A with dropout, A' (backward), C, D
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rows,cols,offset", [(37, 9600, 0), (5, 13, 3), (1000, 400, 70_000),
+                                               (320 * 26, 26, 0)])
+def test_keep_mask_kernel_is_bit_exact(cuda, rows, cols, offset):
+    before = DR.keep_mask.launches
+    got = DR.keep_mask(rows, cols, 0.2, 1234, 5, row_offset=offset, device=cuda)
+    assert DR.keep_mask.launches == before + 1
+    torch.cuda.synchronize()
+    want = DR.keep_mask_plain(rows, cols, 0.2, 1234, 5, row_offset=offset, device=cuda)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N,Din,heads,dk,A", [(37, 300, 16, 25, 256), (5, 24, 4, 8, 16)])
+def test_msa_encoder_dropout_kernel(cuda, N, Din, heads, dk, A):
+    """Kernel A at rate 0.2 equals the plain encoder on keep * x / (1 - p),
+    and gives the same bits twice for one seed."""
+    args = _msa_args(cuda, N, Din, heads, dk, A, seed=N + 1)
+    out = ME.msa_encoder_pooled(*args, dropout_rate=0.2, seed=77, site=3)
+    again = ME.msa_encoder_pooled(*args, dropout_rate=0.2, seed=77, site=3)
+    xd = ME.drop_titles_plain(args[0], 0.2, 77, 3)
+    _close(out, msa_encoder_pooled_plain(xd, *args[1:]))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("N,Din,heads,dk,A,rate", [
+    (37, 300, 16, 25, 256, 0.2), (37, 300, 16, 25, 256, 0.0), (5, 24, 4, 8, 16, 0.2)])
+def test_msa_encoder_bwd_kernel(cuda, N, Din, heads, dk, A, rate):
+    """Kernel A' (dx and the eight weight and bias gradients) against
+    autograd of the plain encoder, mask applied; title 0 is all pad."""
+    args = _msa_args(cuda, N, Din, heads, dk, A, seed=N + 2)
+    g = torch.Generator().manual_seed(3)
+    dp = torch.randn(N, heads * dk, generator=g).to(cuda)
+    before = ME.msa_encoder_bwd.launches
+    got = ME.msa_encoder_bwd(*args[:10], dp, heads, rate, 99, 0)
+    assert ME.msa_encoder_bwd.launches == before + 1
+    want = ME.msa_encoder_bwd_plain(*args[:10], dp, heads, rate, 99, 0)
+    for a, b in zip(got, want):
+        _close(a, b)
+    assert torch.equal(got[0], ME.msa_encoder_bwd(*args[:10], dp, heads, rate, 99, 0)[0])
+
+
+def test_msa_encoder_on_card_carries_gradients(cuda):
+    """Under grad mode the kernel's output has a graph whose backward is
+    kernel A'."""
+    args = [t.requires_grad_(True) if isinstance(t, torch.Tensor) and t.is_floating_point()
+            else t for t in _msa_args(cuda, 6, 24, 4, 8, 16, seed=8)]
+    out = ME.msa_encoder_pooled(*args, dropout_rate=0.2, seed=5)
+    assert out.grad_fn is not None
+    before = ME.msa_encoder_bwd.launches
+    out.sum().backward()
+    assert ME.msa_encoder_bwd.launches == before + 1
+    assert all(t.grad is not None for t in args if isinstance(t, torch.Tensor)
+               and t.requires_grad)
+
+
+def test_gat_layer_kernel_refuses_gradients(cuda):
+    gat = list(_gat_args(cuda, 3, 6, 32, seed=4))
+    gat[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="eval layer"):
+        interactive_gat_layer_fused(*gat)
+    with torch.no_grad():
+        interactive_gat_layer_fused(*gat)
+
+
+@pytest.mark.parametrize("B,G,D,strided", [(9, 6, 32, False), (11, 26, 400, True),
+                                           (7, 68, 400, True), (3, 33, 36, False),
+                                           (320, 68, 400, True)])
+def test_gat_scores_kernel(cuda, B, G, D, strided):
+    g = torch.Generator().manual_seed(G)
+    r = lambda *s: (torch.randn(*s, generator=g) * 0.5).to(cuda)
+    if strided:  # k1, k2 as column blocks of the fused projection y
+        y = r(B, G, 3 * D)
+        k1, k2 = y[..., D:2 * D], y[..., 2 * D:]
+    else:
+        k1, k2 = r(B, G, D), r(B, G, D)
+    k3, a, gout = r(B, D), r(D), r(B, G, G)
+    before = (GS.gat_scores_fwd.launches, GS.gat_scores_bwd.launches)
+    _close(GS.gat_scores_fwd(k1, k2, k3, a), GS.interactive_gat_scores_plain(k1, k2, k3, a))
+    got = GS.gat_scores_bwd(k1, k2, k3, a, gout)
+    assert (GS.gat_scores_fwd.launches, GS.gat_scores_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    want = GS.interactive_gat_scores_bwd_plain(k1, k2, k3, a, gout)
+    for x, w in zip(got, want):
+        _close(x, w)
+
+
+@pytest.mark.parametrize("V,ntok,D,skew", [(40_000, 50_000, 300, "uniform"),
+                                            (120, 400, 20, "zipf"), (50, 35, 36, "uniform"),
+                                            (40_000, 286_720, 300, "pad")])
+def test_emb_grad_kernel(cuda, V, ntok, D, skew):
+    """Uniform tokens; Zipf-like ones; and the training shape with 60 % of
+    the slots on token 0, as the pad positions of real titles are."""
+    rng = np.random.default_rng(V)
+    tok = {"uniform": lambda: rng.integers(0, V, ntok),
+           "zipf": lambda: np.minimum(rng.zipf(1.3, ntok) - 1, V - 1),
+           "pad": lambda: np.where(rng.random(ntok) < 0.6, 0, rng.integers(0, V, ntok))}[skew]()
+    tok = torch.from_numpy(tok).to(cuda)
+    gr = torch.from_numpy(rng.standard_normal((ntok, D)).astype(np.float32)).to(cuda)
+    before = EG.embedding_grad.launches
+    got = EG.embedding_grad(tok, gr, V)
+    assert EG.embedding_grad.launches == before + 1
+    _close(got, EG.embedding_grad_plain(tok, gr, V))
+    assert torch.equal(got, EG.embedding_grad(tok, gr, V))

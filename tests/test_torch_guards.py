@@ -5,9 +5,9 @@
 2. Entry points never fall back to the CPU quietly: with no device and no
    CUDA they raise.
 3. Weights cross between the packages strictly: `load_jax_params` raises
-   on a missing, superfluous or misshapen array, and
-   `digat_tpu.interop.torch_to_params(port.state_dict(), cfg)` gives back
-   the JAX parameters exactly."""
+   on a missing, superfluous or misshapen array, and both
+   `digat_tpu.interop.torch_to_params(port.state_dict(), cfg)` and the
+   port's own `params_from_model` give back the JAX parameters exactly."""
 
 import os
 import subprocess
@@ -20,7 +20,7 @@ import torch
 
 from digat_tpu import interop as jax_interop
 from digat_tpu_torch import runtime
-from digat_tpu_torch.interop import load_jax_params
+from digat_tpu_torch.interop import load_jax_params, params_from_model
 from digat_tpu_torch.models.model import Model
 from tests.test_torch_support import jax_config, models, port_config
 
@@ -54,7 +54,7 @@ def test_port_and_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 31  # 29 modules (serving and training) + 2
 
 
 def test_entry_point_without_device_or_cuda_raises(monkeypatch):
@@ -119,3 +119,16 @@ def test_load_jax_params_fills_every_parameter():
     back = jax_interop.torch_to_params(other.state_dict(), jax_config())
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(params)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_params_from_model_gives_back_the_jax_tree():
+    """The port's own way back to JAX (how trained weights go back to the
+    JAX package): the same tree structure and the same arrays."""
+    _, params, pm = models(seed=5)
+    back = params_from_model(pm)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(params)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(params)):
+        np.testing.assert_array_equal(a, b)
+    assert all(a.dtype == np.float64 for a in jax.tree_util.tree_leaves(
+        params_from_model(pm.double())))
+

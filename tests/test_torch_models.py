@@ -68,16 +68,16 @@ def test_news_and_user_graph_context(setup):
     gp, st = params["graph_encoder"], jm.graph_st
     want = np.asarray(JG.news_graph_context(gp["news_ctx"], st, _key(), False,
                                             jnp.asarray(x["news_x"]), jnp.asarray(x["gmask"])))
-    got = pm.graph_encoder.news_graph_context(_t(x["news_x"]), _t(x["gmask"])).numpy()
+    got = pm.graph_encoder.news_graph_context(_t(x["news_x"]), _t(x["gmask"])).detach().numpy()
     np.testing.assert_allclose(got, want, **MODULE_TOL)
     user_x = JG._user_graph_nodes(gp, st, _key(), False, jnp.asarray(x["hist"]))
-    got_ux = pm.graph_encoder.user_graph_nodes(_t(x["hist"]))
+    got_ux = pm.graph_encoder.user_graph_nodes(_t(x["hist"])).detach()
     np.testing.assert_allclose(got_ux.numpy(), np.asarray(user_x), rtol=0, atol=0)
     want = np.asarray(JG.user_graph_context(gp["user_ctx"], st, _key(), False, user_x,
                                             jnp.asarray(x["cat_mask"]), jnp.asarray(x["cat"]),
                                             jnp.asarray(x["c_n0"])))
     got = pm.graph_encoder.user_graph_context(got_ux, _t(x["cat_mask"]), _t(x["cat"]),
-                                              _t(x["c_n0"])).numpy()
+                                              _t(x["c_n0"])).detach().numpy()
     np.testing.assert_allclose(got, want, **MODULE_TOL)
 
 
@@ -116,7 +116,15 @@ def test_model_inference_and_initial_context(setup):
 
 
 def test_model_is_eval_only(setup):
-    _, _, pm, _ = setup
-    assert not pm.training
-    with pytest.raises(NotImplementedError):
-        pm.train()
+    """The eval entry points stay eval only: they run under inference mode
+    and their results carry no gradient, although the model now trains
+    (its parameters require grad and `train()` is the nn.Module one)."""
+    _, _, pm, x = setup
+    assert all(p.requires_grad for p in pm.parameters())
+    assert pm.train() is pm and pm.eval() is pm
+    rng = np.random.default_rng(1)
+    text = _t(rng.integers(0, pm.config.vocabulary_size, (3, pm.config.max_title_length)))
+    out = pm.encode_news(text, _t(rng.random(text.shape) < 0.7))
+    c0 = pm.initial_news_context(_t(x["news_x"]), _t(x["gmask"]))
+    for t in (out, c0):
+        assert t.is_inference() and not t.requires_grad

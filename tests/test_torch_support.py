@@ -83,3 +83,28 @@ def impressions(rng, news_num: int, cfg, n_imp: int, per_imp: int):
     labels[0::per_imp] = 1.0
     labels[1::per_imp] = 0.0
     return hist, cat, imp_index, cand, labels
+
+
+def train_corpus(rng, cfg, news_num: int, rows: int, samples: int, dev_imps: int = 6):
+    """A seeded corpus with the fields `digat_tpu_torch.train.trainer.Trainer`
+    reads (those of `digat_tpu.data.corpus.Corpus`): the tables, a train
+    split of `rows` behaviours with `samples` clicks and ragged non-clicks,
+    and a dev split of `dev_imps` impressions of 4 candidates."""
+    from types import SimpleNamespace
+
+    arrays = corpus_arrays(rng, news_num, cfg)
+    hist, cat, _, _, _ = impressions(rng, news_num, cfg, rows, 1)
+    dev_hist, dev_cat, dev_imp, dev_cand, dev_labels = impressions(rng, news_num, cfg,
+                                                                   dev_imps, 4)
+    neg_len = rng.integers(1, 9, samples)
+    return SimpleNamespace(
+        tables=lambda: SimpleNamespace(**arrays),
+        news_node_id=arrays["news_node_id"],
+        splits={"train": SimpleNamespace(history_idx=hist, cat_idx=cat),
+                "dev": SimpleNamespace(history_idx=dev_hist, cat_idx=dev_cat)},
+        train_behavior_row=rng.integers(0, rows, samples),
+        train_pos=rng.integers(1, news_num, samples).astype(np.int32),
+        train_neg_flat=rng.integers(1, news_num, int(neg_len.sum())).astype(np.int32),
+        train_neg_offsets=np.concatenate([[0], np.cumsum(neg_len)]),
+        dev_imp_index=dev_imp, dev_cand=dev_cand, dev_labels=dev_labels,
+    )
