@@ -5,8 +5,10 @@
 
 Builds the port's CUDA kernels from `digat_tpu_torch/csrc` (one nvcc call)
 and drives the production MSA-DIGAT model (full width: 300-d words, L 32,
-16 x 25 heads, depth 3, Gn 26, Gu 68; random weights from a seed) on a
-seeded 20,000-news corpus along both of the port's paths:
+16 x 25 heads, depth 3, Gn 26, Gu 68; random weights from a seed) and the
+production NRMS-SA model (300-d words, L 32, 20 x 20 heads, history 50,
+M 10 augmented neighbours) on a seeded 20,000-news corpus along the port's
+paths:
 
   serving  - kernels A and B against their plain versions at the serving
              shapes, the two-stage cached scorer with the launch counters
@@ -18,7 +20,15 @@ seeded 20,000-news corpus along both of the port's paths:
              training shapes; one epoch of `Trainer` (>= 20 steps at B 64,
              unique-title dedup, dropout 0.2) with the launch counters
              reset, whose launches per step are checked; and three steps at
-             B 8 on the card against the same steps on the CPU.
+             B 8 on the card against the same steps on the CPU;
+  NRMS-SA  - the masked attention pair (forward and backward, standing in
+             for TPU kernels E and F) against its plain version at the
+             serving and training shapes, packed and head-padded; the dual
+             cached scorer with the counters reset (one forward launch per
+             stage-1 chunk and per stage-2 batch) and card against CPU; one
+             `Trainer` epoch (>= 10 steps at B 64, no dedup, dropout 0.2:
+             4 forward and 4 backward launches and 7 masks per step); and
+             three steps at B 8 on the card against the CPU.
 
 Prints progress lines, the card's name and power limit, a `kernels` JSON
 line, and as its last line `{"ok": true, "device": {...}}`. Exits nonzero,
@@ -62,6 +72,7 @@ SLICE_RTOL = 1e-4
 # limit that a zeroed or lost gradient (which reads 1) cannot pass.
 TRAIN_RTOL = 1e-3
 TRAIN_STEPS = 20  # full-width training steps at B 64
+NRMS_TRAIN_STEPS = 10  # full-width NRMS-SA training steps at B 64
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): fp32 on the CUDA
 # cores and HBM3 bandwidth. A card below 700 W runs slower under load.
@@ -385,7 +396,8 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
 
 def counters():
     """The launch counter of every kernel wrapper, by kernels-line name."""
-    from digat_tpu_torch.ops import dropout, emb_grad, gat_layer, gat_scores, msa_encoder
+    from digat_tpu_torch.ops import (dropout, emb_grad, gat_layer, gat_scores, msa_attention,
+                                     msa_encoder)
 
     return {"msa_encoder_pooled": msa_encoder.msa_encoder_pooled,
             "msa_encoder_bwd": msa_encoder.msa_encoder_bwd,
@@ -393,7 +405,18 @@ def counters():
             "interactive_gat_layer_fused": gat_layer.interactive_gat_layer_fused,
             "gat_scores_fwd": gat_scores.gat_scores_fwd,
             "gat_scores_bwd": gat_scores.gat_scores_bwd,
-            "embedding_grad": emb_grad.embedding_grad}
+            "embedding_grad": emb_grad.embedding_grad,
+            "msa_attention_fwd": msa_attention.attention_fwd,
+            "msa_attention_bwd": msa_attention.attention_bwd}
+
+
+def reset_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def training_slice(torch, cfg, model, corpus, run_dir, failures):
@@ -458,27 +481,36 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures):
     return rec, warm, launches
 
 
-def training_parity(torch, cfg, corpus, dev, failures):
-    """Phase 9: three steps at B 8, full width, dropout on, from the same
+def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False):
+    """Phase 9 (MSA-DIGAT, dedup batches) and phase 13 (NRMS-SA, plain
+    batches): three steps at B 8, full width, dropout on, from the same
     weights, batches and seeds on the card and on the CPU plain path."""
     from digat_tpu_torch.data import batching, sampling
     from digat_tpu_torch.models.model import CorpusTables, Model
+    from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
     from digat_tpu_torch.train.optimizer import Adam
     from digat_tpu_torch.train.train_step import step_seed, train_step
 
     B = 8
     neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets,
                                     cfg.negative_sample_num, np.random.default_rng(SEED))
-    cap = B * ((1 + cfg.negative_sample_num) * cfg.news_graph_size + cfg.max_history_num)
+    cap = 0 if nrms else \
+        B * ((1 + cfg.negative_sample_num) * cfg.news_graph_size + cfg.max_history_num)
     split = corpus.splits["train"]
     batches = list(batching.train_batches(
         split.history_idx, split.cat_idx, corpus.train_behavior_row, corpus.train_pos, neg, B,
-        epoch_seed=SEED + 1, news_node_id=corpus.news_node_id, dedup_titles=cap))[:3]
+        epoch_seed=SEED + 1, news_node_id=None if nrms else corpus.news_node_id,
+        dedup_titles=cap))[:3]
     out = []
     for device in (dev, torch.device("cpu")):
-        model = Model(cfg, device=device, generator=torch.Generator().manual_seed(SEED + 7))
+        generator = torch.Generator().manual_seed(SEED + 7)
+        if nrms:
+            model = NRMSModel(cfg, device=device, generator=generator)
+            tables = NRMSTables.from_arrays(corpus.nrms_tables(), device)
+        else:
+            model = Model(cfg, device=device, generator=generator)
+            tables = CorpusTables.from_arrays(corpus.tables(), device)
         opt = Adam(model.named_parameters(), cfg.weight_decay, cfg.gradient_clip_norm)
-        tables = CorpusTables.from_arrays(corpus.tables(), device)
         losses, grads = [], None
         for k, b in enumerate(batches):
             losses.append(float(train_step(model, opt, tables, batching.to_device(b, device),
@@ -502,7 +534,211 @@ def training_parity(torch, cfg, corpus, dev, failures):
     for rel, err, top, n in rows[:6]:
         say(f"    {n}: max |cpu| {top:.3e} max |card - cpu| {err:.3e} ratio {rel:.3e}")
     if not (loss_err <= TRAIN_RTOL and worst <= TRAIN_RTOL and np.isfinite(l_gpu).all()):
-        failures.append("training parity card vs cpu")
+        failures.append(f"{'NRMS-SA ' if nrms else ''}training parity card vs cpu")
+
+
+def attention_work(N, L, heads, dk, rs, backward: bool):
+    """The attention pair: 4 N H L^2 dk FLOP forward (q k^T and a v), 10
+    backward (the scores again, do v^T, ds k, ds^T q and a^T do), against
+    q, k, v (and do) read and out (dq, dk, dv) written once, each [N, L, rs]
+    in its layout, and the mask read once."""
+    flops = (10 if backward else 4) * N * heads * L * L * dk
+    return flops, 4 * N * L * rs * (7 if backward else 4) + N * L
+
+
+def attention_kernels(torch, cfg, dev):
+    """Phase 10: the attention pair (E and F) forward and backward against its
+    plain version at the NRMS-SA shapes, packed and head-padded, each key
+    mask with an all-masked sequence (the pad news); the library yardstick is
+    `scaled_dot_product_attention` with an additive float mask (forward; and
+    forward with its autograd backward for the pair)."""
+    import torch.nn.functional as F
+
+    from digat_tpu_torch.ops import msa_attention as MA
+
+    heads, dk = cfg.nrms_head_num, cfg.nrms_head_dim
+    L_t, L_u = cfg.max_title_length, cfg.max_history_num
+    B = cfg.batch_size
+    n_titles = B * (1 + cfg.negative_sample_num) * (1 + cfg.augmented_news_num) \
+        + B * cfg.max_history_num
+    bs = cfg.effective_eval_batch_size()
+    shapes = [  # (name, N, L, head stride)
+        ("titles, serving chunk", bs, L_t, dk),
+        ("titles, training step", n_titles, L_t, dk),
+        ("user, serving batch", bs, L_u, dk),
+        ("user, training step", B, L_u, dk),
+        ("titles, E layout dkp 32", bs, L_t, 32),
+        ("user, E layout dkp 64", bs, L_u, 64),
+        ("F only (L > 128)", 256, 150, dk),
+    ]
+    by_shape = {}
+    for what, N, L, hs in shapes:
+        name = f"{what} [{N},{L},{heads}x{hs}]"
+        try:
+            g = torch.Generator(device=dev).manual_seed(SEED + N + L + hs)
+            rs = heads * hs
+            q, k, v, do = (F.pad(torch.randn((N, L, heads, dk), generator=g, device=dev),
+                                 (0, hs - dk)).reshape(N, L, rs) for _ in range(4))
+            mask = torch.rand((N, L), generator=g, device=dev) < 0.8
+            mask[:, 0] = True
+            mask[0] = False
+            bias = torch.zeros((N, 1, 1, L), device=dev).masked_fill(~mask[:, None, None, :],
+                                                                    -1e9)
+            heads_view = lambda t: t.view(N, L, heads, hs).transpose(1, 2)
+            sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+                heads_view(a), heads_view(b), heads_view(c), attn_mask=bias,
+                scale=1.0 / math.sqrt(dk))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            do_view = heads_view(do)
+            fwd = check_kernel(
+                torch, f"msa_attention fwd {name}",
+                lambda *a: MA.attention_fwd(*a, heads, dk),
+                lambda a, b, c, m: MA.attention_plain_strided(a, b, c, heads, dk, m),
+                (q, k, v, mask), *attention_work(N, L, heads, dk, rs, False),
+                library=lambda a, b, c, m: sdpa(a, b, c))
+            bwd = check_kernel(
+                torch, f"msa_attention bwd {name}",
+                lambda *a: MA.attention_bwd(*a, heads, dk),
+                lambda *a: MA.attention_bwd_plain(*a, heads, dk),
+                (q, k, v, mask, do), *attention_work(N, L, heads, dk, rs, True),
+                library=lambda *a: torch.autograd.grad(sdpa(*leaves), leaves, do_view))
+            pads = all(not t.reshape(N, L, heads, hs)[..., dk:].any()
+                       for t in (MA.attention_fwd(q, k, v, mask, heads, dk),
+                                 *MA.attention_bwd(q, k, v, mask, do, heads, dk)))
+            again = torch.equal(MA.attention_bwd(q, k, v, mask, do, heads, dk)[1],
+                                MA.attention_bwd(q, k, v, mask, do, heads, dk)[1])
+            say(f"    pad lanes zero: {pads}; the same backward bits twice: {again}")
+            by_shape[name] = dict(fwd=fwd, bwd=bwd, ok=fwd["ok"] and bwd["ok"] and pads and again)
+        except Exception:
+            traceback.print_exc()
+            by_shape[name] = dict(ok=False)
+    main_shape = by_shape.get(f"titles, training step [{n_titles},{L_t},{heads}x{dk}]", {})
+    pair = lambda key: (main_shape["fwd"][key] + main_shape["bwd"][key]) \
+        if main_shape.get("ok") else None
+    return dict(
+        ok=all(v.get("ok") for v in by_shape.values()),
+        max_abs_err=max((max(v["fwd"]["max_abs_err"], v["bwd"]["max_abs_err"])
+                         for v in by_shape.values() if v.get("ok")), default=math.inf),
+        ms=pair("ms"), plain_ms=pair("plain_ms"), bound_ms=pair("bound_ms"),
+        bound_by=main_shape["fwd"]["bound_by"] if main_shape.get("ok") else None,
+        library_ms=main_shape["bwd"]["library_ms"] if main_shape.get("ok") else None,
+        by_shape=by_shape)
+
+
+def nrms_tables_for(torch, cfg, tables, seed: int):
+    """The NRMS tables over a corpus's titles: M augmented neighbours per
+    news drawn from a seed, a fifth of them the pad news 0, none for news 0."""
+    from types import SimpleNamespace
+
+    dev = tables.news_title_text.device
+    n = tables.news_title_text.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    aug = torch.randint(1, n, (n, cfg.augmented_news_num), generator=g, device=dev)
+    aug[torch.rand(aug.shape, generator=g, device=dev) < 0.2] = 0
+    aug[0] = 0
+    return SimpleNamespace(news_title_text=tables.news_title_text,
+                           news_title_mask=tables.news_title_mask, augmented_news=aug)
+
+
+def nrms_serving(torch, cfg, model, ntables, imps, dev, failures):
+    """Phase 11: `NRMSCachedScorer` over the seeded corpus with the launch
+    counters reset (stage 1 one forward launch per chunk, stage 2 one per
+    batch, no backward), then a smaller corpus on the card against the CPU
+    plain path."""
+    from digat_tpu_torch.eval import metrics as M
+    from digat_tpu_torch.eval.scorer import NRMSCachedScorer
+    from digat_tpu_torch.models.nrms import NRMSModel
+
+    hist, cat, imp_index, cand, labels = imps
+    bs = cfg.effective_eval_batch_size()
+    news_num = ntables.news_title_text.shape[0]
+    chunks = -(-news_num // bs)
+    scorer = NRMSCachedScorer(model, bs)
+    reset_counters()
+    scorer.cache_news(ntables)
+    torch.cuda.synchronize()
+    stage1 = read_counters()
+    reset_counters()
+    scores = scorer.score_items(ntables, hist, cat, imp_index, cand)
+    launches = read_counters()
+    tm = dict(scorer.timings)
+    batches = tm["stage2_batches"]
+    scorer.score_items(ntables, hist, cat, imp_index, cand)  # warm pass, timing only
+    warm = scorer.timings
+    auc, mrr, n5, n10 = M.score_impressions_flat(imp_index, labels, scores)
+    say(f"  stage 1: {tm['stage1_s']:.3f}s ({news_num} news, warm {warm['stage1_s']:.3f}s); "
+        f"stage 2: {tm['items'] / tm['stage2_s']:.1f} items/s ({tm['items']} items, {batches} "
+        f"batches, warm {warm['items'] / warm['stage2_s']:.1f} items/s)")
+    say(f"  attention launches: stage 1 alone {stage1['msa_attention_fwd']} (want {chunks}); "
+        f"stage 1 + 2 fwd {launches['msa_attention_fwd']} (want {chunks} + {batches}), bwd "
+        f"{launches['msa_attention_bwd']}; other kernels "
+        f"{sum(v for k, v in launches.items() if not k.startswith('msa_attention'))}")
+    say(f"  metrics on random weights: auc {auc:.4f} mrr {mrr:.4f} ndcg5 {n5:.4f} "
+        f"ndcg10 {n10:.4f}")
+    if not (scores.shape == (len(cand),) and np.isfinite(scores).all()):
+        failures.append("NRMS-SA serving: scores not finite or of the wrong shape")
+    if stage1["msa_attention_fwd"] != chunks or launches["msa_attention_fwd"] != chunks + batches \
+            or launches["msa_attention_bwd"] != 0:
+        failures.append("NRMS-SA serving did not run the attention kernel once per chunk and "
+                        "once per stage-2 batch")
+    # card against the CPU plain path on a smaller corpus
+    small_news, small_bs = 2048, 256
+    small = nrms_tables_for(torch, cfg, make_tables(torch, cfg, small_news, dev, SEED + 2),
+                            SEED + 3)
+    small_cpu = type(small)(**{k: t.cpu() for k, t in vars(small).items()})
+    simps = make_impressions(cfg, small_news, 32, 8, SEED + 3)
+    cpu_model = NRMSModel(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, m, t in (("gpu", model, small), ("cpu", cpu_model, small_cpu)):
+            sc = NRMSCachedScorer(m, small_bs).score_items(t, *simps[:4])
+            rank_file = os.path.join(tmp, f"{tag}.txt")
+            M.write_rank_file(rank_file, M.group_by_impression(simps[2], sc))
+            with open(rank_file, encoding="utf-8") as f:
+                out[tag] = (sc, f.read())
+    (s_gpu, r_gpu), (s_cpu, r_cpu) = out["gpu"], out["cpu"]
+    err = float(np.abs(s_gpu - s_cpu).max())
+    limit = SLICE_RTOL * max(1.0, float(np.abs(s_cpu).max()))
+    say(f"  {small_news} news, {len(simps[3])} items: max |gpu - cpu| {err:.3e} (limit "
+        f"{limit:.3e}); rank files identical {r_gpu == r_cpu}")
+    if not (err <= limit and r_gpu == r_cpu and np.isfinite(s_gpu).all()):
+        failures.append("NRMS-SA serving parity card vs cpu")
+    return launches, tm, warm
+
+
+def nrms_training(torch, cfg, model, corpus, run_dir, failures):
+    """Phase 12: one `Trainer` epoch of NRMS-SA at B 64 (dropout, no dedup)
+    with the launch counters reset: per step 4 forward and 4 backward
+    attention launches (three title-tower calls and the user tower) and 7
+    A'' masks; then the dev scoring's forward launches."""
+    from digat_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(model, cfg, corpus, run_dir, verbose=False)
+    reset_counters()
+    (rec,) = trainer.train()
+    launches = read_counters()
+    steps = len(rec["step_losses"])
+    bs = cfg.effective_eval_batch_size()
+    dev_launches = -(-corpus.nrms_tables().news_title_text.shape[0] // bs) \
+        + -(-len(corpus.dev_cand) // bs)
+    want = {"msa_attention_fwd": 4 * steps + dev_launches, "msa_attention_bwd": 4 * steps,
+            "keep_mask": 7 * steps}
+    warm = float(np.median(rec["step_ms"][2:]))
+    say(f"  {steps} steps at B {cfg.batch_size} (no dedup); step ms median after warm-up "
+        f"{warm:.3f} (first {rec['step_ms'][0]:.3f}); train samples/s "
+        f"{cfg.batch_size * 1e3 / warm:.1f} (epoch wall {rec['samples_per_s']:.1f})")
+    say(f"  step losses: {[round(v, 6) for v in rec['step_losses']]}")
+    say(f"  launches per step: attention fwd "
+        f"{(launches['msa_attention_fwd'] - dev_launches) / steps:g}, bwd "
+        f"{launches['msa_attention_bwd'] / steps:g}, A'' {launches['keep_mask'] / steps:g}; "
+        f"dev scoring: attention fwd {dev_launches}; other kernels "
+        f"{sum(v for k, v in launches.items() if k not in want)}")
+    if steps < NRMS_TRAIN_STEPS or not np.isfinite(rec["step_losses"]).all():
+        failures.append("NRMS-SA training: too few steps or a loss not finite")
+    for k, n in want.items():
+        if launches[k] != n:
+            failures.append(f"NRMS-SA training: {k} launched {launches[k]} times, want {n}")
+    return launches, warm, steps
 
 
 def main() -> int:
@@ -520,6 +756,7 @@ def main() -> int:
         from digat_tpu_torch.eval import metrics as M
         from digat_tpu_torch.eval.scorer import CachedScorer
         from digat_tpu_torch.models.model import Model
+        from digat_tpu_torch.models.nrms import NRMSModel
         from digat_tpu_torch.ops import build
         from digat_tpu_torch.ops.gat_layer import (
             gat_layer_attend,
@@ -771,7 +1008,63 @@ def main() -> int:
         failures.append("training parity")
     say(f"[9 training parity] {time.perf_counter() - t0:.2f}s")
 
-    # ---- 10. kernels line ----
+    # ---- NRMS-SA at full width: 300-d words, L 32, 20 x 20 heads, history 50, M 10 ----
+    t0 = time.perf_counter()
+    ncfg = replace(cfg, model_family="nrms")
+    nmodel = NRMSModel(ncfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    ntables = nrms_tables_for(torch, ncfg, tables, SEED + 6)
+    torch.cuda.synchronize()
+    say(f"[nrms setup] {time.perf_counter() - t0:.2f}s model {nmodel.model_name} "
+        f"{ncfg.nrms_head_num} x {ncfg.nrms_head_dim} heads, attention "
+        f"{ncfg.nrms_attention_dim}, M {ncfg.augmented_news_num}, news {news_num}")
+
+    # ---- 10. the attention pair (E and F) at the NRMS-SA shapes ----
+    t0 = time.perf_counter()
+    try:
+        entries["msa_attention"] = attention_kernels(torch, ncfg, dev)
+    except Exception:
+        traceback.print_exc()
+        entries["msa_attention"] = dict(ok=False)
+    if not entries["msa_attention"].get("ok"):
+        failures.append("kernel msa_attention")
+    say(f"[10 attention kernels] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 11. NRMS-SA serving: main path and card vs cpu ----
+    t0 = time.perf_counter()
+    nrms_serve = {}
+    try:
+        nrms_serve, _, _ = nrms_serving(torch, ncfg, nmodel, ntables,
+                                        (hist, cat, imp_index, cand, labels), dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("NRMS-SA serving")
+    say(f"[11 NRMS-SA serving] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 12. NRMS-SA training: main path ----
+    t0 = time.perf_counter()
+    nrms_train, nrms_steps = {}, 0
+    ncorpus = make_train_corpus(ncfg, tables, (NRMS_TRAIN_STEPS + 2) * ncfg.batch_size, 2000,
+                                32, SEED + 5)
+    ncorpus.nrms_tables = lambda: ntables
+    try:
+        with tempfile.TemporaryDirectory() as run_dir:
+            nrms_train, _, nrms_steps = nrms_training(
+                torch, replace(ncfg, epoch_override=1), nmodel, ncorpus, run_dir, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("NRMS-SA training")
+    say(f"[12 NRMS-SA training] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 13. NRMS-SA training parity: card vs the plain path on the CPU ----
+    t0 = time.perf_counter()
+    try:
+        training_parity(torch, ncfg, ncorpus, dev, failures, nrms=True)
+    except Exception:
+        traceback.print_exc()
+        failures.append("NRMS-SA training parity")
+    say(f"[13 NRMS-SA training parity] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 14. kernels line ----
     if "msa_encoder_pooled" in train_entries and "msa_encoder_pooled" in entries:
         serve = entries["msa_encoder_pooled"]
         entries["msa_encoder_pooled"] = dict(
@@ -785,6 +1078,13 @@ def main() -> int:
                for name in counters()}
     by_path["interactive_gat_scores"] = {
         "training": {k: train_launches.get(k, 0) for k in ("gat_scores_fwd", "gat_scores_bwd")}}
+    by_path["msa_attention"] = {
+        "nrms serving": {"fwd": nrms_serve.get("msa_attention_fwd", 0),
+                         "bwd": nrms_serve.get("msa_attention_bwd", 0)},
+        "nrms training": {"fwd": nrms_train.get("msa_attention_fwd", 0),
+                          "bwd": nrms_train.get("msa_attention_bwd", 0),
+                          "steps": nrms_steps}}
+    by_path["keep_mask"]["nrms training"] = nrms_train.get("keep_mask", 0)
     source = {
         "msa_encoder_pooled": ("digat_tpu_torch/csrc/msa_encoder.cu",
                                "digat_tpu/ops/pallas/msa_encoder.py:533"),
@@ -794,15 +1094,22 @@ def main() -> int:
                             "digat_tpu/ops/pallas/msa_encoder.py:533"),
         "keep_mask": ("digat_tpu_torch/csrc/dropout.cu", "digat_tpu/ops/pallas/msa_encoder.py:96"),
         "interactive_gat_scores": ("digat_tpu_torch/csrc/gat_scores.cu",
-                                   "digat_tpu/ops/pallas/gat_scores.py:77"),
+                                   "digat_tpu/ops/pallas/gat_scores.py:77; "
+                                   "digat_tpu/ops/pallas/gat_scores.py:182; "
+                                   "digat_tpu/ops/pallas/gat_scores.py:295"),
         "embedding_grad": ("digat_tpu_torch/csrc/emb_grad.cu",
                            "digat_tpu/ops/pallas/emb_grad.py:205"),
+        "msa_attention": ("digat_tpu_torch/csrc/msa_attention.cu",
+                          "digat_tpu/ops/pallas/msa_attention_grouped.py:292; "
+                          "digat_tpu/ops/pallas/msa_attention.py:141; "
+                          "digat_tpu/ops/pallas/msa_attention.py:177"),
     }
     kernels = []
     for name, (src, replaces) in source.items():
         e = entries.get(name, {})
         paths = by_path[name]
-        total = sum(v if isinstance(v, int) else sum(v.values()) for v in paths.values())
+        total = sum(v if isinstance(v, int) else
+                    sum(n for key, n in v.items() if key != "steps") for v in paths.values())
         if total == 0:
             failures.append(f"kernel {name} was launched no time on the main paths")
         kernels.append({

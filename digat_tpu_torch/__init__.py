@@ -1,6 +1,9 @@
 """digat_tpu_torch: the PyTorch/CUDA port of digat_tpu for one NVIDIA H100.
 
-It trains and serves the production MSA-DIGAT model:
+It trains and serves the production MSA-DIGAT model, and the NRMS family
+(NRMS and NRMS-SA, `models.nrms.NRMSModel`: both towers' masked multi-head
+attention as a hand-written kernel pair forward and backward,
+`ops.msa_attention`; served by `eval.scorer.NRMSCachedScorer`):
 
   * training (`train.trainer.Trainer`, `train.train_step.train_step`): the
     listwise loss over unique-title dedup batches, Adam with a global-norm
@@ -16,8 +19,9 @@ It trains and serves the production MSA-DIGAT model:
     `ops.gat_layer`.
 
 The package imports torch and numpy only, never jax or digat_tpu. Entry
-points (`models.model.Model`, the trainer, the scorer) run on CUDA unless
-the caller passes `device="cpu"`; with no device and no CUDA they raise.
+points (`models.model.Model`, `models.nrms.NRMSModel`, the trainer, the
+scorers) run on CUDA unless the caller passes `device="cpu"`; with no
+device and no CUDA they raise.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

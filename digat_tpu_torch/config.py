@@ -1,9 +1,9 @@
 """Experiment configuration for the port.
 
-A copy of the fields of `digat_tpu.config.Config` that MSA-DIGAT training
-and the two-stage scorer read, with the same names, defaults and
-per-dataset protocol overrides. Kept as its own copy so the port never
-imports the JAX package."""
+A copy of the fields of `digat_tpu.config.Config` that MSA-DIGAT and the
+NRMS family (NRMS, NRMS-SA) read for training and the cached scorers, with
+the same names, defaults and per-dataset protocol overrides. Kept as its
+own copy so the port never imports the JAX package."""
 
 from __future__ import annotations
 
@@ -46,6 +46,14 @@ class Config:
     graph_depth: int = 3
     SAG_hops: int = 2
     SAG_neighbors: int = 5
+    # model family: 'digat' (the main experiment) or 'nrms' (the SA strategy
+    # on a sequence model)
+    model_family: str = "digat"
+    nrms_model: str = "NRMS-SA"  # NRMS-SA | NRMS
+    nrms_head_num: int = 20
+    nrms_head_dim: int = 20
+    nrms_attention_dim: int = 200
+    augmented_news_num: int = 10
     vocabulary_size: int = 0
     category_num: int = 0
     eval_batch_size: int = 0  # 0 = batch_size * 16
@@ -90,14 +98,21 @@ class Config:
         return self.eval_batch_size or self.batch_size * 16
 
     def validate(self) -> "Config":
-        """This slice ports the MSA news encoder and the DIGAT graph encoder
-        only; other choices raise."""
-        if self.news_encoder != "MSA":
-            raise NotImplementedError(f"news_encoder={self.news_encoder} is not ported yet")
-        if self.graph_encoder != "DIGAT":
-            raise NotImplementedError(f"graph_encoder={self.graph_encoder} is not ported yet")
+        """The port has MSA-DIGAT and the NRMS family (which reads neither
+        encoder field); the CNN encoder and the DIGAT ablations raise."""
+        if self.model_family not in ("digat", "nrms"):
+            raise ValueError(f"unknown model_family {self.model_family}")
+        if self.nrms_model not in ("NRMS-SA", "NRMS"):
+            raise ValueError(f"unknown nrms_model {self.nrms_model}")
+        if self.model_family == "digat":
+            if self.news_encoder != "MSA":
+                raise NotImplementedError(f"news_encoder={self.news_encoder} is not ported yet")
+            if self.graph_encoder != "DIGAT":
+                raise NotImplementedError(f"graph_encoder={self.graph_encoder} is not ported yet")
+            if self.category_num <= 0:
+                raise ValueError("category_num must be set from the corpus")
         if self.dev_criterion not in ("auc", "mrr", "ndcg5", "ndcg10", "avg"):
             raise ValueError(f"unknown dev_criterion {self.dev_criterion}")
-        if self.vocabulary_size <= 0 or self.category_num <= 0:
-            raise ValueError("vocabulary_size and category_num must be set from the corpus")
+        if self.vocabulary_size <= 0:
+            raise ValueError("vocabulary_size must be set from the corpus")
         return self

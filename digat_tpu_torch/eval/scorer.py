@@ -1,7 +1,7 @@
 """Two-stage cached evaluation on one device.
 
 Counterpart of `digat_tpu.eval.scorer` (`CachedScorer.cache_news`,
-`score_items`, `compute_scores`):
+`score_items`, `NRMSCachedScorer`, `compute_scores`). For MSA-DIGAT:
 
   stage 1: encode every unique news once (kernel A, one launch per chunk of
            `batch_size` titles) -> news_reps [news_num, D]; then the initial
@@ -10,6 +10,15 @@ Counterpart of `digat_tpu.eval.scorer` (`CachedScorer.cache_news`,
            [news_num, D] caches (never a [news_num, Gn, D] one), rebuild the
            user graph and run the graph encoder (kernel B, 2 * depth
            launches per batch); the score is a dot product.
+
+For the NRMS family, the dual cache of the reference's Appendix-B eval:
+
+  stage 1: encode every news title once (the attention kernel, one forward
+           launch per chunk) -> plain reps; for NRMS-SA the fused reps are
+           formed from the cached plain reps of each news's augmented
+           neighbours, never by encoding their titles again;
+  stage 2: per batch, the user tower on the plain reps of the history (one
+           forward launch), scored against the fused rep of the candidate.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from digat_tpu_torch.data.batching import eval_batches
 from digat_tpu_torch.data.user_graph import build_user_graph
 from digat_tpu_torch.eval import metrics as M
 from digat_tpu_torch.models.model import CorpusTables, EvalBatch, Model
+from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
 
 
 def _sync(device: torch.device) -> None:
@@ -95,17 +105,71 @@ class CachedScorer:
         return scores
 
 
+class NRMSCachedScorer:
+    """Dual-cache scorer for the NRMS family: plain reps feed the user
+    tower, fused reps (NRMS-SA; the plain ones for NRMS) score candidates.
+    After `score_items`, `timings` holds what `CachedScorer`'s does."""
+
+    def __init__(self, model: NRMSModel, batch_size: int = 1024):
+        self.model = model
+        self.batch_size = batch_size
+        self.device = model.device
+        self.timings: dict = {}
+
+    @torch.inference_mode()
+    def cache_news(self, tables) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stage 1 -> (plain [N, D], fused [N, D]) on the model's device."""
+        t = NRMSTables.from_arrays(tables, self.device)
+        n, bs = t.news_title_text.shape[0], self.batch_size
+        plain = torch.cat([
+            self.model.encode_titles(t.news_title_text[s:s + bs], t.news_title_mask[s:s + bs])
+            for s in range(0, n, bs)
+        ])
+        if not self.model.sa:
+            return plain, plain
+        fused = torch.cat([
+            self.model.fuse_sa(plain[s:s + bs], plain[t.augmented_news[s:s + bs]])
+            for s in range(0, n, bs)
+        ])
+        return plain, fused
+
+    @torch.inference_mode()
+    def score_items(self, tables, history_idx: np.ndarray, cat_idx: np.ndarray,
+                    imp_index: np.ndarray, cand: np.ndarray) -> np.ndarray:
+        """Stage 1, then stage 2 over every impression item -> scores
+        [items] float32 (host). `cat_idx` is unused by this family."""
+        t0 = time.perf_counter()
+        plain, fused = self.cache_news(tables)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        pending = []
+        for batch, valid in eval_batches(history_idx, cat_idx, imp_index, cand,
+                                         self.batch_size, self.device):
+            user = self.model.encode_user(plain[batch.history_idx], batch.history_idx != 0)
+            pending.append(((fused[batch.cand_idx] * user).sum(dim=-1), valid))
+        scores = np.zeros(len(cand), np.float32)
+        if pending:
+            scores[:] = torch.cat([s[:v] for s, v in pending]).float().cpu().numpy()
+        t2 = time.perf_counter()
+        self.timings = {"stage1_s": t1 - t0, "stage2_s": t2 - t1, "items": len(cand),
+                        "stage2_batches": len(pending)}
+        return scores
+
+
 def compute_scores(
-    model: Model,
+    model,
     corpus,
     mode: str,
     batch_size: Optional[int] = None,
     result_file: Optional[str] = None,
 ) -> Tuple[float, float, float, float]:
-    """End-to-end dev/test scoring -> (auc, mrr, ndcg5, ndcg10).
+    """End-to-end dev/test scoring -> (auc, mrr, ndcg5, ndcg10), by the
+    model's family: `CachedScorer` for MSA-DIGAT, `NRMSCachedScorer` for
+    NRMS and NRMS-SA.
 
     `corpus` provides `tables()` (the five `CorpusTables` fields, numpy or
-    tensors), `splits[mode].history_idx` / `.cat_idx`, and
+    tensors) or, for the NRMS family, `nrms_tables()` (the three
+    `NRMSTables` fields), `splits[mode].history_idx` / `.cat_idx`, and
     `{mode}_imp_index`, `{mode}_cand`, `{mode}_labels`, as
     `digat_tpu.data.corpus.Corpus` does."""
     if mode not in ("dev", "test"):
@@ -115,9 +179,11 @@ def compute_scores(
     imp_index = getattr(corpus, f"{mode}_imp_index")
     cand = getattr(corpus, f"{mode}_cand")
     labels = getattr(corpus, f"{mode}_labels")
-    scores = CachedScorer(model, bs).score_items(
-        corpus.tables(), split.history_idx, split.cat_idx, imp_index, cand
-    )
+    if getattr(model, "family", "digat") == "nrms":
+        scorer, tables = NRMSCachedScorer(model, bs), corpus.nrms_tables()
+    else:
+        scorer, tables = CachedScorer(model, bs), corpus.tables()
+    scores = scorer.score_items(tables, split.history_idx, split.cat_idx, imp_index, cand)
     if result_file:
         M.write_rank_file(result_file, M.group_by_impression(imp_index, scores))
     if getattr(corpus, f"{mode}_unlabeled", np.asarray(labels).sum() == 0):

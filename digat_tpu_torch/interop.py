@@ -1,9 +1,10 @@
 """Carry parameters between the JAX package's tree and a port model.
 
-`load_jax_params(model, params)` takes the `digat_tpu` MSA-DIGAT parameter
-tree (nested dicts of arrays, as `digat_tpu.models.model.Model.init` builds
-it, converted to numpy by the caller) and fills the port model's
-parameters. It is strict both ways, like `digat_tpu/interop.py`: every
+`load_jax_params(model, params)` takes the `digat_tpu` parameter tree of
+the model's family (nested dicts of arrays, as `digat_tpu.models.model.
+Model.init` builds it for MSA-DIGAT and `digat_tpu.models.nrms.NRMSModel.
+init` for NRMS and NRMS-SA, converted to numpy by the caller) and fills the
+port model's parameters. It is strict both ways, like `digat_tpu/interop.py`: every
 array of the tree is used exactly once and every parameter of the model is
 filled, or it raises. `params_from_model(model)` goes the other way: the
 JAX tree, as numpy arrays in the model's dtype, so a port model's trained
@@ -12,7 +13,7 @@ weights can be handed back to the JAX package.
 JAX stores linear weights `[in, out]`; `nn.Linear` stores `[out, in]`, so
 weights transpose. Per-depth stacks (leading depth axis) split into the
 `nn.ModuleList` entries. One table of (JAX path, port names) serves both
-directions."""
+directions (one table per family)."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Iterator, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from digat_tpu_torch.models.model import Model
+from torch import nn
 
 
 def _linear(src: str, dst: str, bias: bool = True):
@@ -61,6 +62,31 @@ def _table(depth: int) -> Iterator[Tuple[str, List[str], bool]]:
     yield from _gat_stack(f"{g}/user_gat", f"{g}.user_graph_attention", depth)
 
 
+def _nrms_table(sa: bool) -> Iterator[Tuple[str, List[str], bool]]:
+    """(JAX path, port state_dict name, transposed) for every parameter of
+    NRMS, and of NRMS-SA with `sa`."""
+    yield "word_embedding", ["news_encoder.word_embedding.weight"], False
+    for tower in ("news", "user"):
+        m = f"{tower}_encoder.multiheadAttention"
+        yield from _linear(f"{tower}_msa/W_K", f"{m}.W_K", bias=False)
+        yield from _linear(f"{tower}_msa/W_Q", f"{m}.W_Q")
+        yield from _linear(f"{tower}_msa/W_V", f"{m}.W_V")
+        yield from _linear(f"{tower}_pool/affine1", f"{tower}_encoder.attention.affine1")
+        yield from _linear(f"{tower}_pool/affine2", f"{tower}_encoder.attention.affine2",
+                           bias=False)
+    if sa:
+        yield from _linear("sa_attn/K", "news_encoder.SA_attention.K", bias=False)
+        yield from _linear("sa_attn/Q", "news_encoder.SA_attention.Q")
+        yield from _linear("sa_gate", "news_encoder.SA_transformation")
+
+
+def _table_of(model: nn.Module) -> list:
+    """The parameter table of the model's family."""
+    if getattr(model, "family", "digat") == "nrms":
+        return list(_nrms_table(model.sa))
+    return list(_table(model.config.graph_depth))
+
+
 def _leaves(params: Mapping) -> dict:
     out = {}
 
@@ -75,17 +101,17 @@ def _leaves(params: Mapping) -> dict:
     return out
 
 
-def _state_dict_from_jax(params: Mapping, depth: int) -> dict:
-    """The port's state_dict (numpy arrays) for a `digat_tpu` MSA-DIGAT
-    parameter tree; strict as described in the module docstring."""
+def _state_dict_from_jax(params: Mapping, table: list) -> dict:
+    """The port's state_dict (numpy arrays) for a `digat_tpu` parameter
+    tree, by `table`; strict as described in the module docstring."""
     leaves = _leaves(params)
     sd = {}
-    for path, names, transposed in _table(depth):
+    for path, names, transposed in table:
         if path not in leaves:
             raise KeyError(f"JAX params have no array '{path}'")
         arr = leaves.pop(path)
-        if len(names) > 1 and arr.shape[0] != depth:
-            raise ValueError(f"{path} has depth {arr.shape[0]}, the model {depth}")
+        if len(names) > 1 and arr.shape[0] != len(names):
+            raise ValueError(f"{path} has depth {arr.shape[0]}, the model {len(names)}")
         for name, a in zip(names, arr if len(names) > 1 else [arr]):
             sd[name] = a.T if transposed else a
     if leaves:
@@ -94,22 +120,23 @@ def _state_dict_from_jax(params: Mapping, depth: int) -> dict:
     return sd
 
 
-def load_jax_params(model: Model, params: Mapping) -> Model:
-    """Fill `model` from the JAX parameter tree. Raises KeyError for a
-    missing array, ValueError for one left over, and RuntimeError (from
-    `load_state_dict`) for one of the wrong shape."""
-    sd = _state_dict_from_jax(params, model.config.graph_depth)
+def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
+    """Fill `model` (a `Model` or an `NRMSModel`) from the JAX parameter
+    tree. Raises KeyError for a missing array, ValueError for one left
+    over, and RuntimeError (from `load_state_dict`) for one of the wrong
+    shape."""
+    sd = _state_dict_from_jax(params, _table_of(model))
     dtype = next(model.parameters()).dtype
     tensors = {k: torch.from_numpy(np.array(v)).to(dtype) for k, v in sd.items()}
     model.load_state_dict(tensors, strict=True)
     return model
 
 
-def params_from_model(model: Model) -> dict:
+def params_from_model(model: nn.Module) -> dict:
     """The JAX parameter tree of `model` (nested dicts of numpy arrays)."""
     sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
     tree: dict = {}
-    for path, names, transposed in _table(model.config.graph_depth):
+    for path, names, transposed in _table_of(model):
         arrs = [sd.pop(n).T if transposed else sd.pop(n) for n in names]
         node = tree
         *parents, leaf = path.split("/")

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from digat_tpu_torch.ops.dropout import keep_mask
+from digat_tpu_torch.ops.msa_attention import msa_attention
 
 MASK_FILL = -1e9
 
@@ -99,6 +100,9 @@ class DropoutSites:
         return dropout(x, rate, self.seed, site)
 
 
+EVAL = DropoutSites(None)  # no dropout: the eval path
+
+
 def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor], dim: int = -1) -> torch.Tensor:
     """softmax(where(mask, scores, -1e9)) in at least fp32; a fully masked
     row becomes uniform, as in the reference. Training uses it unchanged on
@@ -125,9 +129,39 @@ class AttentionPool(nn.Module):
 
 def attn_pool(pool: AttentionPool, feature: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """feature [..., L, D], mask [..., L] -> [..., D]."""
-    a = linear(torch.tanh(linear(feature, pool.affine1)), pool.affine2)
-    alpha = masked_softmax(a.squeeze(-1), mask, dim=-1)
-    return torch.einsum("...l,...ld->...d", alpha, feature)
+    a = linear(torch.tanh(linear(feature, pool.affine1)), pool.affine2).squeeze(-1)
+    if mask is not None:
+        a = torch.where(mask.to(torch.bool), a, torch.full_like(a, MASK_FILL))
+    return SoftmaxPool.apply(a, feature)
+
+
+class SoftmaxPool(torch.autograd.Function):
+    """out = sum_l softmax(scores)_l feature_l (softmax in at least fp32),
+    with its backward written for accuracy. Autograd would form the score
+    gradient as ds_l = a_l (g.f_l - sum_m a_m g.f_m), the difference of two
+    nearly equal dot products where the rows f_l are alike (the many pad
+    slots of a history), and the rounding of that difference leaks into
+    every later sum over l, whose exact value is 0 (the pool's bias
+    gradient). The written backward takes the difference first, ds_l = a_l
+    g.(f_l - out), and removes what rounding leaves of sum_l ds_l. The same
+    function; at full width the NRMS user pool's fp32 bias gradient comes 60
+    x closer to fp64 (4.1e-3 -> 6.6e-5 of its scale on the CPU,
+    `scripts/nrms_gradient_precision.py`)."""
+
+    @staticmethod
+    def forward(ctx, scores, feature):
+        alpha = torch.softmax(scores.to(torch.promote_types(scores.dtype, torch.float32)),
+                              dim=-1).to(feature.dtype)
+        out = torch.einsum("...l,...ld->...d", alpha, feature)
+        ctx.save_for_backward(alpha, feature, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        alpha, feature, out = ctx.saved_tensors
+        ds = alpha * torch.einsum("...ld,...d->...l", feature - out[..., None, :], g)
+        ds = ds - alpha * ds.sum(dim=-1, keepdim=True)
+        return ds, alpha[..., None] * g[..., None, :]
 
 
 class ScaledDotProductAttention(nn.Module):
@@ -155,9 +189,10 @@ def sdp_attn(attn: ScaledDotProductAttention, feature: torch.Tensor, query: torc
 
 
 class MultiHeadAttention(nn.Module):
-    """The projections of the reference's unmasked multi-head self-attention.
-    The whole encoder after the embedding runs in
-    `ops.msa_encoder.msa_encoder_pooled`, which reads these weights."""
+    """Multi-head self-attention (reference "MultiHeadAttention"). The DIGAT
+    news encoder reads only these projections: its whole encoder after the
+    embedding runs in `ops.msa_encoder.msa_encoder_pooled`. The NRMS family
+    calls `forward` (`mha`), with a key mask."""
 
     def __init__(self, heads: int, d_model: int, d_k: int, d_v: int, generator: torch.Generator):
         super().__init__()
@@ -165,3 +200,27 @@ class MultiHeadAttention(nn.Module):
         self.W_K = make_linear(d_model, heads * d_k, generator, bias=False)
         self.W_Q = make_linear(d_model, heads * d_k, generator, bias_init="zeros")
         self.W_V = make_linear(d_model, heads * d_v, generator, bias_init="zeros")
+
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return mha(self, x, self.heads, key_mask)
+
+
+def mha(module: MultiHeadAttention, x: torch.Tensor, heads: int,
+        key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention, the counterpart of `digat_tpu.layers.mha`. x [..., L,
+    d_model] -> [..., L, heads * d_v]; `key_mask` [..., L] masks keys with
+    the -1e9 fill (the Appendix-B masked variant), None leaves every key in.
+
+    The projections are plain products, as the JAX package forms them
+    outside any kernel. The attention core is the kernel pair of
+    `ops.msa_attention` on the packed layout. The JAX package routes it by
+    `ops.msa_attention_grouped.group_size(heads, L, dk)`: to E (heads padded
+    to 128 / g lanes) when it is positive, to F (packed) when it is 0. Here
+    both geometries take the one packed kernel pair: E's padding is a TPU
+    lane layout and would cost the card its pad lanes' bytes (3.2 x at the
+    NRMS user tower)."""
+    L, D = x.shape[-2], module.W_Q.out_features
+    q, k, v = (linear(x, lin).reshape(-1, L, D) for lin in (module.W_Q, module.W_K,
+                                                            module.W_V))
+    mask = None if key_mask is None else key_mask.reshape(-1, L).to(torch.bool)
+    return msa_attention(q, k, v, heads, mask).reshape(*x.shape[:-1], D)

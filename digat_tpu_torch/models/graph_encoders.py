@@ -6,10 +6,11 @@ Counterpart of the DIGAT variant of `digat_tpu.models.graph_encoders`
 every interactive GAT layer as one call of kernel B
 (`ops.gat_layer.interactive_gat_layer_fused`). Training runs the composed
 layer of the JAX package: input dropout p/2, one fused x [W|W1|W2]
-product, Eq. (8) through kernel C (`ops.gat_scores`, forward and
-backward), leaky ReLU, masked softmax, dropout p on alpha, aggregation and
-residual. The other dropout sites mirror the reference's rates too: gate
-logits p/2, topic p, topic-node broadcast p/2. Each site draws its mask
+product y, Eq. (8) read from y in place through kernel C
+(`ops.gat_scores.interactive_gat_scores_fused_y`, forward and backward),
+leaky ReLU, masked softmax, dropout p on alpha, aggregation and residual.
+The other dropout sites mirror the reference's rates too: gate logits
+p/2, topic p, topic-node broadcast p/2. Each site draws its mask
 from kernel A'' under the step's seed and its own site number
 (`layers.DropoutSites`). The five ablations and the vanilla GAT belong to a
 later slice.
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from digat_tpu_torch.layers import (
+    EVAL,
     GAIN_RELU,
     DropoutSites,
     ScaledDotProductAttention,
@@ -38,10 +40,8 @@ from digat_tpu_torch.layers import (
     sdp_attn,
 )
 from digat_tpu_torch.ops.gat_layer import interactive_gat_layer_fused
-from digat_tpu_torch.ops.gat_scores import interactive_gat_scores
+from digat_tpu_torch.ops.gat_scores import interactive_gat_scores_fused_y
 from digat_tpu_torch.ops.segment import segment_softmax_sum
-
-EVAL = DropoutSites(None)  # no dropout: the eval path
 
 
 def _gat_stack(module: nn.Module, prefix: str, depth: int, dim: int, g: torch.Generator):
@@ -135,8 +135,7 @@ class DIGATGraphEncoder(nn.Module):
         # one [D, 3D] product for the three per-node projections
         y = x @ torch.cat([W.weight, W1.weight, W2.weight]).t()
         h = y[..., :D] + W.bias
-        scores = interactive_gat_scores(y[..., D:2 * D], y[..., 2 * D:], linear(query, W3),
-                                        a_vec)
+        scores = interactive_gat_scores_fused_y(y, linear(query, W3), a_vec)
         alpha = masked_softmax(F.leaky_relu(scores, 0.2), adj, dim=2)
         alpha = drop(alpha, p)
         return torch.relu(torch.einsum("bij,bjd->bid", alpha, h)) + x

@@ -30,6 +30,12 @@ from digat_tpu_torch.models.news_encoders import NewsEncoder
 from digat_tpu_torch.runtime import exact_fp32, resolve_device
 
 
+def as_device_tensor(x, device, dtype) -> torch.Tensor:
+    """A numpy array or tensor as a contiguous tensor of `dtype` on `device`."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
 class CorpusTables(NamedTuple):
     """Corpus arrays on the model's device, shared by every batch."""
 
@@ -43,10 +49,7 @@ class CorpusTables(NamedTuple):
     def from_arrays(cls, tables, device) -> "CorpusTables":
         """Any object with the five fields (numpy arrays or tensors) ->
         CorpusTables on `device`."""
-        def put(x, dtype):
-            t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
-            return t.to(device=device, dtype=dtype).contiguous()
-
+        put = lambda x, dtype: as_device_tensor(x, device, dtype)
         return cls(
             news_title_text=put(tables.news_title_text, torch.int64),
             news_title_mask=put(tables.news_title_mask, torch.bool),

@@ -8,10 +8,14 @@ hash of the sources and flags, so a changed source rebuilds and an
 unchanged one is reused.
 
 Each C entry point takes device pointers, sizes and a `cudaStream_t`,
-launches on that stream, and returns `cudaGetLastError()` as an int."""
+launches on that stream, and returns `cudaGetLastError()` as an int. A
+wrapper makes the call inside `launch_on(tensor.device)`, which makes the
+tensor's device current around it and hands over the library, initialised
+on that device, and that device's current stream."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -57,11 +61,16 @@ SIGNATURES = {
     "gat_scores_bwd_f32": ([_P, _I, _P, _I] + [_P] * 8 + [_I] * 3 + [_P], _I),
     # g, perm, seg, first, last, partial, out, ntok, V, D, chunk, stream
     "emb_grad_f32": ([_P] * 7 + [_LL, _LL, _I, _I, _P], _I),
+    # q, k, v, mask, out, N, H, L, dk, rs, hs, scale, stream
+    "msa_attention_fwd_f32": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
+    # q, k, v, mask, do, dq, dk, dv, N, H, L, dk, rs, hs, scale, stream
+    "msa_attention_bwd_f32": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
 }
 
-# Run once when the library is loaded: each reads the card's opt-in
-# shared-memory limit and grants it to its kernels.
-INITS = ("msa_encoder_init", "msa_encoder_bwd_init", "gat_layer_init", "gat_scores_init")
+# Run once per device, with that device current: each reads the card's
+# opt-in shared-memory limit and grants it to its kernels there.
+INITS = ("msa_encoder_init", "msa_encoder_bwd_init", "gat_layer_init", "gat_scores_init",
+         "msa_attention_init")
 
 
 def _sources():
@@ -113,9 +122,10 @@ def build_library() -> tuple:
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """The kernels' library, built on first use, with argtypes set and its
-    kernels initialised on the current CUDA device."""
+def _library() -> ctypes.CDLL:
+    """The kernels' library, built on first use, with argtypes set. Loaded
+    once per process; its kernels are initialised per device by
+    `load_library`."""
     path, _ = build_library()
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in SIGNATURES.items():
@@ -128,8 +138,37 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ctypes.c_int
-        check(lib, fn(), name)
     return lib
+
+
+_READY: set = set()  # CUDA device indices whose kernels are initialised
+
+
+def load_library(device=None) -> ctypes.CDLL:
+    """The kernels' library with its kernels initialised on `device` (a
+    CUDA device; by default the current one). Each `*_init` grants its
+    kernels' opt-in shared memory on the current device, so it runs once
+    per device index, with that device current."""
+    lib = _library()
+    device = None if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device is None or device.index is None \
+        else device.index
+    if index not in _READY:
+        with torch.cuda.device(index):
+            for name in INITS:
+                check(lib, getattr(lib, name)(), name)
+        _READY.add(index)
+    return lib
+
+
+@contextlib.contextmanager
+def launch_on(device):
+    """Around one kernel's C call: makes `device` current and yields (the
+    library initialised there, the device's current stream as an int), so
+    a tensor on any CUDA device launches on that device."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        yield load_library(device), torch.cuda.current_stream(device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

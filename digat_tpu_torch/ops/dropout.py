@@ -82,10 +82,9 @@ def keep_mask(rows: int, cols: int, rate: float, seed: int, site: int,
     if rows < 0 or cols <= 0 or row_offset < 0 or row_offset + rows > 2**32:
         raise ValueError(f"keep_mask: bad shape rows={rows} cols={cols} row_offset={row_offset}")
     out = torch.empty((rows, cols), dtype=torch.bool, device=device)
-    lib = build.load_library()
-    err = lib.dropout_keep_mask_u8(out.data_ptr(), rows, cols, row_offset, seed & _MASK32,
-                                   site & _MASK32, thresh,
-                                   torch.cuda.current_stream(device).cuda_stream)
+    with build.launch_on(out.device) as (lib, stream):
+        err = lib.dropout_keep_mask_u8(out.data_ptr(), rows, cols, row_offset, seed & _MASK32,
+                                       site & _MASK32, thresh, stream)
     build.check(lib, err, "keep_mask")
     keep_mask.launches += 1
     return out

@@ -65,10 +65,10 @@ def embedding_grad(tok, g, vocab_size: int):
     perm, seg, first, last, segments = sort_metadata(tok.long(), vocab_size)
     partial = torch.empty((segments, D), dtype=torch.float32, device=g.device)
     out = torch.empty((vocab_size, D), dtype=torch.float32, device=g.device)
-    lib = build.load_library()
-    err = lib.emb_grad_f32(g2.data_ptr(), perm.data_ptr(), seg.data_ptr(), first.data_ptr(),
-                           last.data_ptr(), partial.data_ptr(), out.data_ptr(), g2.shape[0],
-                           vocab_size, D, CHUNK, torch.cuda.current_stream(g.device).cuda_stream)
+    with build.launch_on(g.device) as (lib, stream):
+        err = lib.emb_grad_f32(g2.data_ptr(), perm.data_ptr(), seg.data_ptr(), first.data_ptr(),
+                               last.data_ptr(), partial.data_ptr(), out.data_ptr(), g2.shape[0],
+                               vocab_size, D, CHUNK, stream)
     build.check(lib, err, "embedding_grad")
     embedding_grad.launches += 1
     return out

@@ -50,12 +50,12 @@ def gat_layer_project(x, query, W, bW, W1, W2, W3, b3):
     B, G, D = x.shape
     y = torch.empty((B * G, 3 * D), dtype=torch.float32, device=x.device)
     k3 = torch.empty((B, D), dtype=torch.float32, device=x.device)
-    lib = build.load_library()
-    err = lib.gat_layer_project_f32(
-        x.data_ptr(), query.data_ptr(), W.data_ptr(), bW.data_ptr(), W1.data_ptr(),
-        W2.data_ptr(), W3.data_ptr(), b3.data_ptr(), y.data_ptr(), k3.data_ptr(), B, G, D,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with build.launch_on(x.device) as (lib, stream):
+        err = lib.gat_layer_project_f32(
+            x.data_ptr(), query.data_ptr(), W.data_ptr(), bW.data_ptr(), W1.data_ptr(),
+            W2.data_ptr(), W3.data_ptr(), b3.data_ptr(), y.data_ptr(), k3.data_ptr(), B, G, D,
+            stream,
+        )
     build.check(lib, err, "interactive_gat_layer_fused (project)")
     return y, k3
 
@@ -65,12 +65,11 @@ def gat_layer_attend(x, adj, y, k3, a_vec, negative_slope):
     relu(alpha h) + x -> [B, G, D]. Counts no launch: the wrapper counts."""
     B, G, D = x.shape
     out = torch.empty_like(x)
-    lib = build.load_library()
-    err = lib.gat_layer_attend_f32(
-        x.data_ptr(), adj.data_ptr(), y.data_ptr(), k3.data_ptr(), a_vec.data_ptr(),
-        out.data_ptr(), B, G, D, float(negative_slope),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with build.launch_on(x.device) as (lib, stream):
+        err = lib.gat_layer_attend_f32(
+            x.data_ptr(), adj.data_ptr(), y.data_ptr(), k3.data_ptr(), a_vec.data_ptr(),
+            out.data_ptr(), B, G, D, float(negative_slope), stream,
+        )
     build.check(lib, err, "interactive_gat_layer_fused (attend)")
     return out
 

@@ -18,7 +18,9 @@ expression of `ops.gat`) and `interactive_gat_scores_bwd_plain` (the same
 sums, chunked the same way: autograd through the plain forward would keep
 the [chunk, G, G, D] intermediates). On a CUDA tensor they launch
 `csrc/gat_scores.cu` or raise. k1 and k2 may be column blocks of the fused
-projection y [B, G, 3D]; the kernel reads them in place.
+projection y [B, G, 3D]; the kernel reads them in place. The training GAT
+layer passes y itself to `interactive_gat_scores_fused_y`, the counterpart
+of `interactive_gat_scores_fused_y_pallas` (C', whose backward reuses C's).
 """
 
 from __future__ import annotations
@@ -78,10 +80,9 @@ def gat_scores_fwd(k1, k2, k3, a_vec):
         return out
     (k1, ld1), (k2, ld2) = _rows(k1, G), _rows(k2, G)
     k3, a_vec = k3.contiguous(), a_vec.contiguous()
-    lib = build.load_library()
-    err = lib.gat_scores_fwd_f32(k1.data_ptr(), ld1, k2.data_ptr(), ld2, k3.data_ptr(),
-                                 a_vec.data_ptr(), out.data_ptr(), B, G, D,
-                                 torch.cuda.current_stream(k1.device).cuda_stream)
+    with build.launch_on(k1.device) as (lib, stream):
+        err = lib.gat_scores_fwd_f32(k1.data_ptr(), ld1, k2.data_ptr(), ld2, k3.data_ptr(),
+                                     a_vec.data_ptr(), out.data_ptr(), B, G, D, stream)
     build.check(lib, err, "gat_scores_fwd")
     gat_scores_fwd.launches += 1
     return out
@@ -105,11 +106,11 @@ def gat_scores_bwd(k1, k2, k3, a_vec, g):
     ga_part = torch.empty((B, D), dtype=torch.float32, device=dev)
     (k1, ld1), (k2, ld2) = _rows(k1, G), _rows(k2, G)
     k3, a_vec, g = k3.contiguous(), a_vec.contiguous(), g.contiguous()
-    lib = build.load_library()
-    err = lib.gat_scores_bwd_f32(k1.data_ptr(), ld1, k2.data_ptr(), ld2, k3.data_ptr(),
-                                 a_vec.data_ptr(), g.data_ptr(), gk1.data_ptr(), gk2.data_ptr(),
-                                 gk3.data_ptr(), ga.data_ptr(), ga_part.data_ptr(), B, G, D,
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    with build.launch_on(dev) as (lib, stream):
+        err = lib.gat_scores_bwd_f32(k1.data_ptr(), ld1, k2.data_ptr(), ld2, k3.data_ptr(),
+                                     a_vec.data_ptr(), g.data_ptr(), gk1.data_ptr(),
+                                     gk2.data_ptr(), gk3.data_ptr(), ga.data_ptr(),
+                                     ga_part.data_ptr(), B, G, D, stream)
     build.check(lib, err, "gat_scores_bwd")
     gat_scores_bwd.launches += 1
     return gk1, gk2, gk3, ga
@@ -133,6 +134,33 @@ def interactive_gat_scores(k1, k2, k3, a_vec):
     """k1, k2 [B, G, D]; k3 [B, D]; a_vec [D] -> [B, G, G] logits (before
     leaky ReLU and mask), differentiable in all four."""
     return InteractiveGATScores.apply(k1, k2, k3, a_vec)
+
+
+class InteractiveGATScoresFusedY(torch.autograd.Function):
+    """Eq. (8) scores read from the fused projection y (C'): kernel C
+    forward and backward on y's k1 and k2 column blocks, in place."""
+
+    @staticmethod
+    def forward(ctx, y, k3, a_vec):
+        ctx.save_for_backward(y, k3, a_vec)
+        D = y.shape[-1] // 3
+        return gat_scores_fwd(y[..., D:2 * D], y[..., 2 * D:], k3, a_vec)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, k3, a_vec = ctx.saved_tensors
+        D = y.shape[-1] // 3
+        gk1, gk2, gk3, ga = gat_scores_bwd(y[..., D:2 * D], y[..., 2 * D:], k3, a_vec,
+                                           g.contiguous())
+        return torch.cat([torch.zeros_like(gk1), gk1, gk2], dim=-1), gk3, ga
+
+
+def interactive_gat_scores_fused_y(y, k3, a_vec):
+    """Replaces `interactive_gat_scores_fused_y_pallas` (C'). y [B, G, 3D] =
+    x [W|W1|W2], so k1 is its middle column block and k2 its last; k3
+    [B, D]; a_vec [D] -> [B, G, G]. Its gradient into y is [0 | gk1 | gk2].
+    On the CPU the plain versions run on the slices of y."""
+    return InteractiveGATScoresFusedY.apply(y, k3, a_vec)
 
 
 gat_scores_fwd.launches = 0

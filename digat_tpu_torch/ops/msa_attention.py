@@ -1,0 +1,191 @@
+"""Masked multi-head self-attention over packed heads, forward and backward
+(the kernel pair that stands in for TPU kernels E and F).
+
+Replaces `digat_tpu/ops/pallas/msa_attention.py::msa_attention` (F: the
+forward `_fwd_kernel` and the custom-VJP backward `_bwd_kernel`) and, through
+`ops.msa_attention_grouped`, `msa_attention_grouped` (E). Per head:
+
+    out = softmax(where(key_mask, q k^T / sqrt(dk), -1e9)) v
+
+on projections laid out [N, L, H * dk]. The mask is a select, as the
+reference's `masked_fill` and the JAX package's XLA path (`_attention_xla`)
+take it: a masked key passes no gradient. (E and F add -1e9 to the scores
+instead; the two differ only on a sequence whose keys are all masked, where
+the sum rounds to -1e9 for every key and E and F pass a gradient to q and k.)
+
+On a CPU tensor `msa_attention` runs `_attention_plain`, whose gradients
+are autograd's. On a CUDA tensor it goes through `MSAAttentionFunction`:
+forward `attention_fwd`, backward `attention_bwd`, both launching
+`csrc/msa_attention.cu` (whose header says what bounds it on the card) or
+raising. The kernels keep one head of one sequence in shared memory, so a
+sequence longer than `max_length(dk)` raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from digat_tpu_torch.ops import build
+
+MASK_FILL = -1e9  # layers.MASK_FILL; layers imports this module for `mha`
+# an sm_90 block's opt-in shared memory (227 KB); the C entry points check
+# the device's own limit again
+MAX_SMEM_BYTES = 232_448
+_THREADS, _CHUNK = 128, 32  # as csrc/msa_attention.cu
+
+
+def _smem_bytes(L: int, dk: int, backward: bool) -> int:
+    """Shared memory of one block of the kernel (as csrc/msa_attention.cu
+    counts it)."""
+    r4 = -(-dk // 4)
+    kv4 = r4 | 1
+    if backward:
+        floats = 4 * (2 * L * r4 + 2 * L * kv4) + 2 * L * dk + 2 * _CHUNK * L + L
+    else:
+        floats = 4 * (L * r4 + 2 * L * kv4) + (_THREADS // 32) * L + L
+    return 4 * floats
+
+
+def max_length(dk: int, backward: bool = True) -> int:
+    """The longest sequence the kernel takes at head width dk."""
+    L = 1
+    while _smem_bytes(L + 1, dk, backward) <= MAX_SMEM_BYTES:
+        L += 1
+    return L
+
+
+def _attention_plain(q, k, v, heads: int, mask=None):
+    """Plain PyTorch version, the counterpart of `_attention_xla`. q, k, v
+    [N, L, H * dk]; mask [N, L] bool or None -> [N, L, H * dk]."""
+    N, L, D = q.shape
+    dk = D // heads
+    qh, kh, vh = (t.reshape(N, L, heads, dk) for t in (q, k, v))
+    s = torch.einsum("nihd,njhd->nhij", qh, kh) / math.sqrt(float(dk))
+    if mask is not None:
+        s = torch.where(mask[:, None, None, :].to(torch.bool), s,
+                        torch.full((), MASK_FILL, dtype=s.dtype, device=s.device))
+    acc = torch.promote_types(vh.dtype, torch.float32)
+    a = torch.softmax(s.to(acc), dim=-1).to(vh.dtype)
+    return torch.einsum("nhij,njhd->nihd", a, vh).reshape(N, L, D)
+
+
+def attention_bwd_plain(q, k, v, mask, do, heads: int, dk: int):
+    """Plain PyTorch version of the backward on either layout: autograd
+    through the plain forward (on the heads' first dk lanes, as the kernel
+    reads them). Returns (dq, dk, dv) in the layout of q."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_plain_strided(*leaves, heads, dk, mask)
+        return torch.autograd.grad(out, leaves, do)
+
+
+def attention_plain_strided(q, k, v, heads: int, dk: int, mask=None):
+    """Plain PyTorch version of the forward on either layout: heads hs =
+    width / heads lanes apart, of which the first dk are read; the other
+    lanes of the result are zero."""
+    N, L, width = q.shape
+    hs = width // heads
+    if hs == dk:
+        return _attention_plain(q, k, v, heads, mask)
+    unpad = lambda t: t.reshape(N, L, heads, hs)[..., :dk].reshape(N, L, heads * dk)
+    out = _attention_plain(unpad(q), unpad(k), unpad(v), heads, mask)
+    return torch.nn.functional.pad(out.reshape(N, L, heads, dk),
+                                   (0, hs - dk)).reshape(N, L, width)
+
+
+def _check(q, k, v, mask, heads, dk, backward, what):
+    """Shapes, types and sizes the kernels take -> (N, L, rs, hs)."""
+    N, L, rs = q.shape
+    if rs % heads or rs // heads < dk:
+        raise ValueError(f"{what}: width {rs} is not {heads} heads of at least {dk} lanes")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (N, L, rs) or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be float32 {(N, L, rs)} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if mask is not None and (mask.dtype != torch.bool or tuple(mask.shape) != (N, L)
+                             or mask.device != q.device):
+        raise ValueError(f"{what}: mask must be bool [{N}, {L}] on {q.device}, got "
+                         f"{mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    need = _smem_bytes(L, dk, backward)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: a sequence of {L} at head width {dk} needs {need} bytes of "
+                         f"shared memory (one head's q, k, v per block), more than the "
+                         f"{MAX_SMEM_BYTES} a block has; the longest it takes is "
+                         f"{max_length(dk, backward)}")
+    return N, L, rs, rs // heads
+
+
+def _ptr(mask):
+    return 0 if mask is None else mask.data_ptr()
+
+
+def attention_fwd(q, k, v, mask, heads: int, dk: int):
+    """The forward kernel on either layout (heads width / heads lanes apart,
+    the first dk read) -> out in the layout of q."""
+    N, L, rs, hs = _check(q, k, v, mask, heads, dk, False, "msa_attention")
+    out = torch.empty((N, L, rs), dtype=torch.float32, device=q.device)
+    if N == 0:
+        return out
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    mask = None if mask is None else mask.contiguous()
+    with build.launch_on(q.device) as (lib, stream):
+        err = lib.msa_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+                                        out.data_ptr(), N, heads, L, dk, rs, hs,
+                                        1.0 / math.sqrt(float(dk)), stream)
+    build.check(lib, err, "msa_attention")
+    attention_fwd.launches += 1
+    return out
+
+
+def attention_bwd(q, k, v, mask, do, heads: int, dk: int):
+    """The backward kernel -> (dq, dk, dv) in the layout of q."""
+    N, L, rs, hs = _check(q, k, v, mask, heads, dk, True, "msa_attention backward")
+    if do.dtype != torch.float32 or do.shape != q.shape:
+        raise ValueError(f"msa_attention backward: do must be float32 {tuple(q.shape)}, got "
+                         f"{do.dtype} {tuple(do.shape)}")
+    dq, dkk, dv = (torch.empty((N, L, rs), dtype=torch.float32, device=q.device)
+                   for _ in range(3))
+    if N == 0:
+        return dq, dkk, dv
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    mask = None if mask is None else mask.contiguous()
+    with build.launch_on(q.device) as (lib, stream):
+        err = lib.msa_attention_bwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+                                        do.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
+                                        dv.data_ptr(), N, heads, L, dk, rs, hs,
+                                        1.0 / math.sqrt(float(dk)), stream)
+    build.check(lib, err, "msa_attention backward")
+    attention_bwd.launches += 1
+    return dq, dkk, dv
+
+
+class MSAAttentionFunction(torch.autograd.Function):
+    """The kernel pair as an autograd Function (CUDA tensors), on either
+    layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, heads, dk):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.args = (heads, dk)
+        return attention_fwd(q, k, v, mask, heads, dk)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, mask, do.contiguous(), *ctx.args), None, None, None)
+
+
+def msa_attention(q, k, v, heads: int, mask=None):
+    """softmax(q k^T / sqrt(dk), key-masked) v per head over packed [N, L,
+    heads * dk] projections; mask [N, L] bool or None. Differentiable in q,
+    k and v."""
+    if not build.use_kernel(q):
+        return _attention_plain(q, k, v, heads, mask)
+    mask = None if mask is None else mask.to(torch.bool)
+    return MSAAttentionFunction.apply(q, k, v, mask, heads, q.shape[-1] // heads)
+
+
+attention_fwd.launches = 0
+attention_bwd.launches = 0

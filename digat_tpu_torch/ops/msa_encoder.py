@@ -130,13 +130,13 @@ def _forward_kernel(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, rate, seed, s
     if N == 0:
         return out
     bq, bv, b1, v = bq.contiguous(), bv.contiguous(), b1.contiguous(), v.contiguous()
-    lib = build.load_library()
-    err = lib.msa_encoder_pooled_f32(
-        x.data_ptr(), mask.data_ptr(), wq_r.data_ptr(), bq.data_ptr(), wk_r.data_ptr(),
-        wv_r.data_ptr(), bv.data_ptr(), w1_r.data_ptr(), b1.data_ptr(), v.data_ptr(),
-        out.data_ptr(), N, L, Din, heads, dk, A, 1.0 / math.sqrt(float(dk)),
-        *_dropout_args(rate, seed, site), torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with build.launch_on(x.device) as (lib, stream):
+        err = lib.msa_encoder_pooled_f32(
+            x.data_ptr(), mask.data_ptr(), wq_r.data_ptr(), bq.data_ptr(), wk_r.data_ptr(),
+            wv_r.data_ptr(), bv.data_ptr(), w1_r.data_ptr(), b1.data_ptr(), v.data_ptr(),
+            out.data_ptr(), N, L, Din, heads, dk, A, 1.0 / math.sqrt(float(dk)),
+            *_dropout_args(rate, seed, site), stream,
+        )
     build.check(lib, err, "msa_encoder_pooled")
     msa_encoder_pooled.launches += 1
     return out
@@ -164,18 +164,17 @@ def msa_encoder_bwd(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
     dv = torch.empty(A, dtype=torch.float32, device=dev)
     if N == 0:
         return (dx, *(torch.zeros_like(t) for t in (wq, bq, wk, wv, bv, w1, b1, v)))
-    lib = build.load_library()
-    scratch = torch.empty(lib.msa_encoder_bwd_scratch_floats(N, L, Din, heads, dk, A),
-                          dtype=torch.float32, device=dev)
     dp, bq, bv, b1, v = (t.contiguous() for t in (dp, bq, bv, b1, v))
-    err = lib.msa_encoder_bwd_f32(
-        x.data_ptr(), mask.data_ptr(), wq_r.data_ptr(), bq.data_ptr(), wk_r.data_ptr(),
-        wv_r.data_ptr(), bv.data_ptr(), w1_r.data_ptr(), b1.data_ptr(), v.data_ptr(),
-        dp.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dw1.data_ptr(),
-        db1.data_ptr(), dv.data_ptr(), scratch.data_ptr(), N, L, Din, heads, dk, A,
-        1.0 / math.sqrt(float(dk)), *_dropout_args(dropout_rate, seed, site),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with build.launch_on(dev) as (lib, stream):
+        scratch = torch.empty(lib.msa_encoder_bwd_scratch_floats(N, L, Din, heads, dk, A),
+                              dtype=torch.float32, device=dev)
+        err = lib.msa_encoder_bwd_f32(
+            x.data_ptr(), mask.data_ptr(), wq_r.data_ptr(), bq.data_ptr(), wk_r.data_ptr(),
+            wv_r.data_ptr(), bv.data_ptr(), w1_r.data_ptr(), b1.data_ptr(), v.data_ptr(),
+            dp.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dw1.data_ptr(),
+            db1.data_ptr(), dv.data_ptr(), scratch.data_ptr(), N, L, Din, heads, dk, A,
+            1.0 / math.sqrt(float(dk)), *_dropout_args(dropout_rate, seed, site), stream,
+        )
     build.check(lib, err, "msa_encoder_bwd")
     msa_encoder_bwd.launches += 1
     dwq, dwk, dwv = dwqkv[:D].t(), dwqkv[D:2 * D].t(), dwqkv[2 * D:].t()

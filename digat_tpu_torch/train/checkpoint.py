@@ -10,11 +10,12 @@ import os
 
 import torch
 
-from digat_tpu_torch.models.model import Model
+from torch import nn
+
 from digat_tpu_torch.train.optimizer import Adam
 
 
-def save(path: str, model: Model, optimizer: Adam, epoch: int) -> None:
+def save(path: str, model: nn.Module, optimizer: Adam, epoch: int) -> None:
     state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
              "epoch": epoch}
     tmp = f"{path}.tmp"
@@ -22,7 +23,7 @@ def save(path: str, model: Model, optimizer: Adam, epoch: int) -> None:
     os.replace(tmp, path)
 
 
-def load(path: str, model: Model, optimizer: Adam) -> int:
+def load(path: str, model: nn.Module, optimizer: Adam) -> int:
     """Restore `model` and `optimizer` in place; returns the epoch saved."""
     state = torch.load(path, map_location=model.device, weights_only=True)
     model.load_state_dict(state["model"])

@@ -11,7 +11,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from digat_tpu_torch.models.model import CorpusTables, Model
 from digat_tpu_torch.train.optimizer import Adam
 
 
@@ -20,10 +19,11 @@ def step_seed(seed: int, epoch: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, epoch * 1_000_000 + step]).generate_state(1)[0])
 
 
-def train_step(model: Model, optimizer: Adam, tables: CorpusTables, batch, seed: int,
-               lr: float) -> torch.Tensor:
-    """Loss, gradients, clip and Adam update in place; returns the loss (a
-    0-d tensor on the model's device; reading it waits for the step)."""
+def train_step(model, optimizer: Adam, tables, batch, seed: int, lr: float) -> torch.Tensor:
+    """Loss, gradients, clip and Adam update in place, for a `Model` with
+    its `CorpusTables` or an `NRMSModel` with its `NRMSTables`; returns the
+    loss (a 0-d tensor on the model's device; reading it waits for the
+    step)."""
     optimizer.zero_grad()
     loss = model.loss(tables, batch, seed)
     loss.backward()

@@ -10,8 +10,13 @@ the best checkpoint by the configured criterion, early stopping after
 Batches are assembled on a background thread and copied to the device
 from pinned memory (`data.batching.Prefetcher`).
 
+The model is a `Model` (MSA-DIGAT) or an `NRMSModel`. The NRMS family takes
+`nrms_tables()` and plain batches (no dedup), as the JAX trainer does; the
+rest of the epoch loop is the same for both.
+
 The corpus is any object with the fields the JAX package's `Corpus` has
-for this: `tables()` (the five `CorpusTables` arrays), `news_node_id`,
+for this: `tables()` (the five `CorpusTables` arrays) or, for the NRMS
+family, `nrms_tables()` (the three `NRMSTables` arrays), `news_node_id`,
 `splits["train"]` and `splits["dev"]` (`history_idx`, `cat_idx`),
 `train_behavior_row`, `train_pos`, `train_neg_flat`, `train_neg_offsets`,
 and `dev_imp_index`, `dev_cand`, `dev_labels`. Building one from MIND is
@@ -33,14 +38,15 @@ from digat_tpu_torch.config import Config
 from digat_tpu_torch.data import batching, sampling
 from digat_tpu_torch.eval import metrics as M
 from digat_tpu_torch.eval.scorer import compute_scores
-from digat_tpu_torch.models.model import CorpusTables, DedupTrainBatch, Model
+from digat_tpu_torch.models.model import CorpusTables, DedupTrainBatch
+from digat_tpu_torch.models.nrms import NRMSTables
 from digat_tpu_torch.train import checkpoint
 from digat_tpu_torch.train.optimizer import Adam, lr_at_epoch
 from digat_tpu_torch.train.train_step import step_seed, train_step
 
 
 class Trainer:
-    def __init__(self, model: Model, config: Config, corpus, run_dir: str,
+    def __init__(self, model, config: Config, corpus, run_dir: str,
                  verbose: bool = True):
         self.model = model
         self.config = config
@@ -63,8 +69,11 @@ class Trainer:
                 "avg": M.avg_metric(auc, mrr, ndcg5, ndcg10)}[self.config.dev_criterion]
 
     def dedup_capacity(self) -> int:
-        """Unique-title capacity of a training batch (0: dedup off)."""
+        """Unique-title capacity of a training batch (0: dedup off; always
+        off for the NRMS family)."""
         cfg, corpus = self.config, self.corpus
+        if self.nrms:
+            return 0
         if cfg.dedup_titles >= 0:
             return cfg.dedup_titles
         probe = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets,
@@ -74,7 +83,11 @@ class Trainer:
             corpus.splits["train"].history_idx, corpus.train_behavior_row, corpus.train_pos,
             probe, corpus.news_node_id, cfg.batch_size, seed=cfg.seed)
 
-    def train_epoch(self, epoch: int, tables: CorpusTables, dedup: int) -> dict:
+    @property
+    def nrms(self) -> bool:
+        return getattr(self.model, "family", "digat") == "nrms"
+
+    def train_epoch(self, epoch: int, tables, dedup: int) -> dict:
         """One pass over the training samples -> the epoch's record."""
         cfg, corpus, model = self.config, self.corpus, self.model
         negatives = sampling.sample_negatives(
@@ -120,7 +133,10 @@ class Trainer:
         if cfg.resume:
             start_epoch = checkpoint.load(cfg.resume, model, self.optimizer) + 1
             self._log(f"[resume] {cfg.resume} -> continuing at epoch {start_epoch}")
-        tables = CorpusTables.from_arrays(self.corpus.tables(), model.device)
+        if self.nrms:
+            tables = NRMSTables.from_arrays(self.corpus.nrms_tables(), model.device)
+        else:
+            tables = CorpusTables.from_arrays(self.corpus.tables(), model.device)
         dedup = self.dedup_capacity()
         self._log(f"[dedup] unique-title capacity = {dedup}")
         best, stale = -1.0, 0

@@ -18,10 +18,13 @@ import torch
 
 from digat_tpu_torch.config import Config
 from digat_tpu_torch.eval.scorer import CachedScorer
-from digat_tpu_torch.models.model import Model
+from digat_tpu_torch.models.model import Model, TrainBatch
+from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
 from digat_tpu_torch.ops import dropout as DR
 from digat_tpu_torch.ops import emb_grad as EG
 from digat_tpu_torch.ops import gat_scores as GS
+from digat_tpu_torch.ops import msa_attention as MA
+from digat_tpu_torch.ops import msa_attention_grouped as MG
 from digat_tpu_torch.ops import msa_encoder as ME
 from digat_tpu_torch.ops.gat_layer import interactive_gat_layer_fused, interactive_gat_layer_plain
 from digat_tpu_torch.ops.msa_encoder import msa_encoder_pooled, msa_encoder_pooled_plain
@@ -224,3 +227,99 @@ def test_emb_grad_kernel(cuda, V, ntok, D, skew):
     assert EG.embedding_grad.launches == before + 1
     _close(got, EG.embedding_grad_plain(tok, gr, V))
     assert torch.equal(got, EG.embedding_grad(tok, gr, V))
+
+
+# ---------------------------------------------------------------------------
+# The NRMS slice: the masked attention pair (E and F) and an NRMS-SA step
+# ---------------------------------------------------------------------------
+def _attention_args(dev, N, L, heads, dk, hs, seed, mask_kind="masked"):
+    """q, k, v, do [N, L, heads * hs] (pad lanes zero where hs > dk) and a
+    key mask with sequence 0 all masked."""
+    g = torch.Generator().manual_seed(seed)
+    t = [torch.nn.functional.pad(torch.randn(N, L, heads, dk, generator=g), (0, hs - dk))
+         .reshape(N, L, heads * hs).to(dev) for _ in range(4)]
+    mask = None
+    if mask_kind == "masked":
+        mask = torch.rand(N, L, generator=g) < 0.7
+        mask[:, 0] = True
+        mask[0] = False
+        mask = mask.to(dev)
+    return t, mask
+
+
+@pytest.mark.parametrize("N,L,heads,dk,hs,mask_kind", [
+    (37, 32, 20, 20, 20, "masked"), (9, 50, 20, 20, 20, "masked"), (7, 150, 20, 20, 20, "none"),
+    (7, 150, 20, 20, 20, "masked"), (11, 32, 20, 20, 32, "masked"), (9, 50, 20, 20, 64, "masked"),
+    (5, 12, 4, 6, 6, "none"), (6, 33, 3, 7, 7, "masked"), (4, 300, 20, 20, 20, "masked")])
+def test_msa_attention_kernel_pair(cuda, N, L, heads, dk, hs, mask_kind):
+    """Forward and backward against the plain version, packed (hs == dk,
+    F's layout) and head-padded (hs > dk, E's), with an all-masked
+    sequence; the pad lanes of every result are zero; the same bits twice."""
+    (q, k, v, do), mask = _attention_args(cuda, N, L, heads, dk, hs, seed=L + hs,
+                                          mask_kind=mask_kind)
+    before = (MA.attention_fwd.launches, MA.attention_bwd.launches)
+    out = MA.attention_fwd(q, k, v, mask, heads, dk)
+    grads = MA.attention_bwd(q, k, v, mask, do, heads, dk)
+    assert (MA.attention_fwd.launches, MA.attention_bwd.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    _close(out, MA.attention_plain_strided(q, k, v, heads, dk, mask))
+    for got, want in zip(grads, MA.attention_bwd_plain(q, k, v, mask, do, heads, dk)):
+        _close(got, want)
+    for t in (out, *grads):
+        assert not t.reshape(N, L, heads, hs)[..., dk:].any()
+    assert torch.equal(grads[1], MA.attention_bwd(q, k, v, mask, do, heads, dk)[1])
+
+
+def test_msa_attention_entry_points_on_card(cuda):
+    """`msa_attention` and `msa_attention_grouped` run the pair through
+    autograd; a sequence beyond the cap raises."""
+    (q, k, v, do), mask = _attention_args(cuda, 8, 32, 20, 20, 20, seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = MA.attention_bwd.launches
+    MA.msa_attention(*leaves, 20, mask).backward(do)
+    assert MA.attention_bwd.launches == before + 1
+    for leaf, want in zip(leaves, MA.attention_bwd_plain(q, k, v, mask, do, 20, 20)):
+        _close(leaf.grad, want)
+    (qp, kp, vp, dop), _ = _attention_args(cuda, 8, 32, 20, 20, 32, seed=2)
+    _close(MG.msa_attention_grouped(qp, kp, vp, 20, 20, mask),
+           MA.attention_plain_strided(qp, kp, vp, 20, 20, mask))
+    long = torch.zeros(1, MA.max_length(20) + 1, 400, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        MA.attention_bwd(long, long, long, None, long, 20, 20)
+
+
+def test_nrms_sa_step_card_matches_cpu(cuda):
+    """One NRMS-SA training step (dropout 0.2) on the card and on the CPU
+    from the same weights, batch and seed: 4 forward and 4 backward
+    attention launches, 7 dropout masks, the same loss and gradients
+    within the training limit (1e-3 of each tensor's max |cpu|)."""
+    cfg = Config(dataset="synthetic", model_family="nrms", vocabulary_size=300,
+                 category_num=4, word_embedding_dim=24, nrms_head_num=4, nrms_head_dim=6,
+                 nrms_attention_dim=16, max_title_length=12, max_history_num=10,
+                 augmented_news_num=3, dropout_rate=0.2)
+    rng = np.random.default_rng(0)
+    n, L = 60, 12
+    arrays = SimpleNamespace(news_title_text=rng.integers(1, 300, (n, L)),
+                             news_title_mask=np.arange(L)[None] < rng.integers(0, L + 1, (n, 1)),
+                             augmented_news=rng.integers(0, n, (n, 3)))
+    hist = rng.integers(0, n, (8, 10))
+    hist[0] = 0
+    batch = TrainBatch(history_idx=torch.from_numpy(hist), cat_idx=torch.zeros(8, 10).long(),
+                       sample_idx=torch.from_numpy(rng.integers(1, n, (8, 5))),
+                       weight=torch.ones(8))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = NRMSModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        counts = (MA.attention_fwd.launches, MA.attention_bwd.launches, DR.keep_mask.launches)
+        loss = model.loss(NRMSTables.from_arrays(arrays, dev),
+                          TrainBatch(*(t.to(dev) for t in batch)), seed=11)
+        loss.backward()
+        if dev.type == "cuda":
+            assert (MA.attention_fwd.launches - counts[0], MA.attention_bwd.launches - counts[1],
+                    DR.keep_mask.launches - counts[2]) == (4, 4, 7)
+        out[dev.type] = (float(loss.detach()),
+                         {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-3 * max(1.0, abs(l_cpu))
+    for name, g in g_cpu.items():
+        assert float((g_gpu[name] - g).abs().max()) <= 1e-3 * float(g.abs().max()), name

@@ -7,11 +7,16 @@
 3. Weights cross between the packages strictly: `load_jax_params` raises
    on a missing, superfluous or misshapen array, and both
    `digat_tpu.interop.torch_to_params(port.state_dict(), cfg)` and the
-   port's own `params_from_model` give back the JAX parameters exactly."""
+   port's own `params_from_model` give back the JAX parameters exactly.
+4. Kernels launch on their tensor's device: the library initialises its
+   kernels once per device, with that device current, and every wrapper
+   makes its tensor's device current around the C call (a stub library
+   and device guard stand in for the cards)."""
 
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -132,3 +137,91 @@ def test_params_from_model_gives_back_the_jax_tree():
     assert all(a.dtype == np.float64 for a in jax.tree_util.tree_leaves(
         params_from_model(pm.double())))
 
+
+
+# ---------------------------------------------------------------------------
+# 4. launches on the tensor's own device: the kernels' library is loaded once
+#    and initialised once per device, and every wrapper makes its tensor's
+#    device current around the C call. A one-card machine cannot show the
+#    fault this guards against (a model on cuda:1 launching from cuda:0), so
+#    a stub library and a stub device guard stand in for the card here.
+# ---------------------------------------------------------------------------
+class _StubCuda:
+    """torch.cuda's device guard, current device and stream, and the
+    kernels' library, recording under which device each C call ran."""
+
+    def __init__(self, monkeypatch):
+        from digat_tpu_torch.ops import build
+
+        self.current, self.calls = [], []
+        stub = self
+
+        class Guard:
+            def __init__(self, device):
+                self.device = torch.device("cuda", device) if isinstance(device, int) \
+                    else torch.device(device)
+
+            def __enter__(self):
+                stub.current.append(self.device)
+
+            def __exit__(self, *exc):
+                stub.current.pop()
+
+        class Library:
+            def __getattr__(self, name):
+                def call(*args):
+                    stub.calls.append((name, stub.current[-1] if stub.current else None))
+                    return 0
+                return call
+
+        monkeypatch.setattr(torch.cuda, "device", Guard)
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: SimpleNamespace(cuda_stream=0))
+        monkeypatch.setattr(build, "_library", lambda: Library())
+        monkeypatch.setattr(build, "_READY", set())
+
+
+def test_kernels_initialise_once_per_device(monkeypatch):
+    from digat_tpu_torch.ops import build
+
+    stub = _StubCuda(monkeypatch)
+    for device in ("cuda:1", "cuda:0", torch.device("cuda", 1), None, "cuda", "cuda:1"):
+        build.load_library(device)
+    inits = [(name, str(device)) for name, device in stub.calls if name.endswith("_init")]
+    # cuda:1 first, then cuda:0; each device's inits once, with it current
+    assert inits == [(name, f"cuda:{d}") for d in (1, 0) for name in build.INITS]
+    assert "msa_attention_init" in build.INITS
+
+
+def test_every_wrapper_launches_under_its_tensors_device(monkeypatch):
+    from digat_tpu_torch.ops import build
+    from digat_tpu_torch.ops import dropout as DR
+    from digat_tpu_torch.ops import emb_grad as EG
+    from digat_tpu_torch.ops import gat_layer as GL
+    from digat_tpu_torch.ops import gat_scores as GS
+    from digat_tpu_torch.ops import msa_attention as MA
+    from digat_tpu_torch.ops import msa_encoder as ME
+
+    stub = _StubCuda(monkeypatch)
+    monkeypatch.setattr(build, "use_kernel", lambda where: True)
+    r = lambda *s: torch.randn(*s)
+    x, mask = r(3, 32, 8), torch.rand(3, 32) < 0.7
+    w = (r(8, 8), r(8), r(8, 8), r(8, 8), r(8), r(8, 4), r(4), r(4))
+    ME._forward_kernel(x, mask, *w, 2, 0.0, 0, 0)
+    ME.msa_encoder_bwd(x, mask, *w, r(3, 8), 2)
+    B, G, D = 2, 5, 8
+    GL.interactive_gat_layer_fused(r(B, G, D), torch.ones(B, G, G, dtype=torch.bool),
+                                   r(B, D), r(D, D), r(D), r(D, D), r(D, D), r(D, D), r(D),
+                                   r(D))
+    GS.gat_scores_fwd(r(B, G, D), r(B, G, D), r(B, D), r(D))
+    GS.gat_scores_bwd(r(B, G, D), r(B, G, D), r(B, D), r(D), r(B, G, G))
+    DR.keep_mask(4, 6, 0.2, 1, 2, device="cpu")
+    EG.embedding_grad(torch.randint(0, 7, (3, 4)), r(3, 4, 8), 7)
+    q = r(2, 12, 8)
+    MA.attention_fwd(q, q, q, None, 2, 4)
+    MA.attention_bwd(q, q, q, torch.ones(2, 12, dtype=torch.bool), q, 2, 4)
+    launches = [c for c in stub.calls if not c[0].endswith(("_init", "_scratch_floats"))]
+    assert sorted({name for name, _ in launches}) == sorted(
+        n for n in build.SIGNATURES if not n.endswith("_scratch_floats"))
+    assert all(device == torch.device("cpu") for _, device in launches), launches

@@ -108,3 +108,53 @@ def train_corpus(rng, cfg, news_num: int, rows: int, samples: int, dev_imps: int
         train_neg_offsets=np.concatenate([[0], np.cumsum(neg_len)]),
         dev_imp_index=dev_imp, dev_cand=dev_cand, dev_labels=dev_labels,
     )
+
+
+# ---------------------------------------------------------------------------
+# the NRMS family: 4 heads of width 6 (D 24), L 12, history 10, M 3
+# ---------------------------------------------------------------------------
+NRMS_GEO = dict(
+    dataset="synthetic", model_family="nrms", vocabulary_size=60, category_num=4,
+    word_embedding_dim=24, nrms_head_num=4, nrms_head_dim=6, nrms_attention_dim=16,
+    max_title_length=12, max_history_num=10, augmented_news_num=3,
+)
+
+
+def nrms_models(seed: int = 0, use_pallas: bool = False, **over):
+    """(jax NRMSModel, its params as numpy, the port NRMSModel on the CPU
+    with the same params)."""
+    from digat_tpu.models.nrms import NRMSModel as JaxNRMS
+    from digat_tpu_torch.models.nrms import NRMSModel
+
+    geo = {**NRMS_GEO, **over}
+    jm = JaxNRMS(JaxConfig(use_pallas=use_pallas, **geo).validate())
+    params = to_numpy(jm.init(jax.random.PRNGKey(seed)))
+    pm = load_jax_params(NRMSModel(Config(**geo).validate(), device="cpu"), params)
+    return jm, params, pm
+
+
+def nrms_arrays(rng, news_num: int, cfg):
+    """Seeded NRMS tables as numpy arrays: news 0 the all-pad news, title
+    lengths 0..L as valid prefixes, M augmented neighbours (0 = pad)."""
+    L, M = cfg.max_title_length, cfg.augmented_news_num
+    mask = np.arange(L)[None, :] < rng.integers(0, L + 1, (news_num, 1))
+    mask[0] = False
+    aug = rng.integers(0, news_num, (news_num, M)).astype(np.int32)
+    aug[rng.random((news_num, M)) < 0.2] = 0
+    return dict(
+        news_title_text=rng.integers(1, cfg.vocabulary_size, (news_num, L)).astype(np.int32),
+        news_title_mask=mask, augmented_news=aug)
+
+
+def nrms_train_corpus(rng, cfg, news_num: int, rows: int, samples: int, dev_imps: int = 6):
+    """`train_corpus` with the NRMS tables (`nrms_tables()`) beside the
+    graph ones; every fifth history is all pad (a cold user)."""
+    from types import SimpleNamespace
+
+    corpus = train_corpus(rng, cfg, news_num, rows, samples, dev_imps)
+    for split in corpus.splits.values():
+        split.history_idx[::5] = 0
+        split.cat_idx[::5] = cfg.category_num
+    arrays = nrms_arrays(rng, news_num, cfg)
+    corpus.nrms_tables = lambda: SimpleNamespace(**arrays)
+    return corpus

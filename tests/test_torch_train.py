@@ -349,13 +349,14 @@ def test_gat_layer_kernel_refuses_gradients(monkeypatch):
 
 
 def test_training_layer_uses_kernel_c_and_eval_uses_kernel_b(corpus, monkeypatch):
-    """Training GAT layers run Eq. (8) through kernel C's autograd Function;
-    eval layers through kernel B, as `_gat_layer` picks the fused kernel only
+    """Training GAT layers run Eq. (8) through kernel C's autograd Function,
+    reading k1 and k2 from the fused projection y (the C' entry point); eval
+    layers through kernel B, as `_gat_layer` picks the fused kernel only
     when not training."""
     from digat_tpu_torch.models import graph_encoders as GE
 
     calls = {"B": 0, "C": 0}
-    real_b, real_c = GE.interactive_gat_layer_fused, GE.interactive_gat_scores
+    real_b, real_c = GE.interactive_gat_layer_fused, GE.interactive_gat_scores_fused_y
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -364,7 +365,7 @@ def test_training_layer_uses_kernel_c_and_eval_uses_kernel_b(corpus, monkeypatch
         return wrapped
 
     monkeypatch.setattr(GE, "interactive_gat_layer_fused", count("B", real_b))
-    monkeypatch.setattr(GE, "interactive_gat_scores", count("C", real_c))
+    monkeypatch.setattr(GE, "interactive_gat_scores_fused_y", count("C", real_c))
     pm = Model(port_config(), device="cpu", generator=torch.Generator().manual_seed(0))
     neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets, 4,
                                     np.random.default_rng(1))
