@@ -23,7 +23,10 @@ paths:
              B 8 on the card against the same steps on the CPU;
   NRMS-SA  - the masked attention pair (forward and backward, standing in
              for TPU kernels E and F) against its plain version at the
-             serving and training shapes, packed and head-padded; the dual
+             serving and training shapes, packed and head-padded, timed
+             beside scaled_dot_product_attention (forward, backward alone,
+             both) and by its C entry points alone, with ptxas's registers
+             and spills for every instantiation of the pair; the dual
              cached scorer with the counters reset (one forward launch per
              stage-1 chunk and per stage-2 batch) and card against CPU; one
              `Trainer` epoch (>= 10 steps at B 64, no dedup, dropout 0.2:
@@ -174,6 +177,26 @@ def time_ms(torch, fn, warmup: int = 3, iters: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_ms(torch, launch, reps: int = 20, windows: int = 5) -> float:
+    """A C entry point's own time: the median over `windows` of CUDA events
+    around `reps` back-to-back calls of launch() (which returns a CUDA error
+    code), divided by `reps`, after one checked warm-up call."""
+    if launch() != 0:
+        raise RuntimeError("the C entry point returned a CUDA error")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -546,14 +569,43 @@ def attention_work(N, L, heads, dk, rs, backward: bool):
     return flops, 4 * N * L * rs * (7 if backward else 4) + N * L
 
 
+def ptxas_report(build, needle: str) -> dict:
+    """Registers and spill bytes of every kernel whose mangled name holds
+    `needle`, from the build's `nvcc.log` (`-Xptxas -v`): mangled name ->
+    (registers, spill stores, spill loads)."""
+    import re
+
+    log = build.BUILD_DIR / "nvcc.log"
+    report, name, spills = {}, None, (0, 0)
+    for line in log.read_text().splitlines() if log.exists() else []:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if needle in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name] = (int(m.group(1)), *spills)
+    return report
+
+
 def attention_kernels(torch, cfg, dev):
     """Phase 10: the attention pair (E and F) forward and backward against its
     plain version at the NRMS-SA shapes, packed and head-padded, each key
-    mask with an all-masked sequence (the pad news); the library yardstick is
-    `scaled_dot_product_attention` with an additive float mask (forward; and
-    forward with its autograd backward for the pair)."""
+    mask with an all-masked sequence (the pad news). Yardsticks:
+    `scaled_dot_product_attention` with an additive float mask, forward
+    (`library_ms` of the fwd entry), forward with its autograd backward
+    (`library_ms` of the bwd entry, as in the kernels line) and its backward
+    alone on a kept graph (`library_bwd_ms`). `device_ms` is the C entry
+    point's own time: CUDA events around 20 back-to-back launches on
+    preallocated outputs, without the wrapper's host path."""
+    import re
+
     import torch.nn.functional as F
 
+    from digat_tpu_torch.ops import build
     from digat_tpu_torch.ops import msa_attention as MA
 
     heads, dk = cfg.nrms_head_num, cfg.nrms_head_dim
@@ -571,6 +623,14 @@ def attention_kernels(torch, cfg, dev):
         ("user, E layout dkp 64", bs, L_u, 64),
         ("F only (L > 128)", 256, 150, dk),
     ]
+    sm_smem = torch.cuda.get_device_properties(dev).shared_memory_per_multiprocessor
+    regs = {}  # (fwd or bwd, W, float4 loads) -> registers per thread
+    for mangled, (n_regs, st, ld) in sorted(ptxas_report(build, "msa_attention_").items()):
+        m = re.search(r"msa_attention_(fwd|bwd|bwd_long)_kernelILi(\d+)ELb([01])E", mangled)
+        if m:
+            regs[m.group(1), int(m.group(2)), m.group(3) == "1"] = n_regs
+            say(f"  ptxas {m.group(1)} W {m.group(2)} {'float4' if m.group(3) == '1' else 'scalar'}"
+                f" loads: {n_regs} registers, spill stores {st} B, spill loads {ld} B")
     by_shape = {}
     for what, N, L, hs in shapes:
         name = f"{what} [{N},{L},{heads}x{hs}]"
@@ -602,11 +662,35 @@ def attention_kernels(torch, cfg, dev):
                 lambda *a: MA.attention_bwd_plain(*a, heads, dk),
                 (q, k, v, mask, do), *attention_work(N, L, heads, dk, rs, True),
                 library=lambda *a: torch.autograd.grad(sdpa(*leaves), leaves, do_view))
+            kept = sdpa(*leaves)
+            bwd["library_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                kept, leaves, do_view, retain_graph=True))
+            del kept
+            out, dq, dkk, dv = (torch.empty_like(q) for _ in range(4))
+            scale = 1.0 / math.sqrt(float(dk))
+            with build.launch_on(dev) as (lib, stream):
+                fwd["device_ms"] = device_ms(torch, lambda: lib.msa_attention_fwd_f32(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                    N, heads, L, dk, rs, hs, scale, stream))
+                bwd["device_ms"] = device_ms(torch, lambda: lib.msa_attention_bwd_f32(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(),
+                    dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(), N, heads, L, dk, rs, hs, scale,
+                    stream))
+            plan = MA.launch_plan([t.data_ptr() for t in (q, k, v, do, dq)], rs, hs, dk)
+            for entry, backward in ((fwd, False), (bwd, True)):
+                kernel = ("bwd_long" if L > MA.SHORT_L else "bwd") if backward else "fwd"
+                n_regs = regs.get((kernel, *plan))
+                warps, shared = MA.block_shape(L, dk, backward, sm_smem, n_regs or 0)
+                entry["block"] = dict(kernel=kernel, width=plan[0], float4=plan[1],
+                                      registers=n_regs, warps=warps, shared_bytes=shared)
+            say(f"    device_ms (20 launches of the C entry): fwd {fwd['device_ms']:.4f} bwd "
+                f"{bwd['device_ms']:.4f}; SDPA bwd alone {bwd['library_bwd_ms']:.4f}; "
+                f"blocks: fwd {fwd['block']}, bwd {bwd['block']}")
             pads = all(not t.reshape(N, L, heads, hs)[..., dk:].any()
                        for t in (MA.attention_fwd(q, k, v, mask, heads, dk),
                                  *MA.attention_bwd(q, k, v, mask, do, heads, dk)))
-            again = torch.equal(MA.attention_bwd(q, k, v, mask, do, heads, dk)[1],
-                                MA.attention_bwd(q, k, v, mask, do, heads, dk)[1])
+            first, second = (MA.attention_bwd(q, k, v, mask, do, heads, dk) for _ in range(2))
+            again = all(torch.equal(a, b) for a, b in zip(first, second))
             say(f"    pad lanes zero: {pads}; the same backward bits twice: {again}")
             by_shape[name] = dict(fwd=fwd, bwd=bwd, ok=fwd["ok"] and bwd["ok"] and pads and again)
         except Exception:

@@ -28,222 +28,635 @@
 // What bounds it on an H100: at the NRMS shapes (L 32-50, dk 20) memory.
 // The forward does 4 L dk FLOP per (i, j) against 16 L dk bytes per head,
 // 8 FLOP per byte at L 32: below the 20 FLOP per byte where fp32 CUDA-core
-// arithmetic (67 TFLOP/s) would take over from HBM (3.35 TB/s).
+// arithmetic (67 TFLOP/s) would take over from HBM (3.35 TB/s). Inside the
+// SM the shared-memory pipe (about one warp-wide load a clock, against four
+// warp-wide FMAs) is the limit once each FMA needs its own shared load; so
+// every shared load below feeds 4 FMAs in each of 32 lanes.
 //
-// Design: one block of 4 warps per (n, h), q, k and v of that head in shared
-// memory (rows zero-padded to a multiple of 4 floats so the dot products read
-// float4; k and v rows at an odd float4 stride, so 32 lanes reading 32 rows
-// hit distinct banks), one warp per query row: each lane forms the scores of
-// keys lane, lane + 32, ..., the warp reduces max and sum with shuffles, the
-// probabilities go to the warp's row of shared memory, and lane c forms
-// out[i, c]. The backward recomputes a, as the TPU kernel does, and walks the
-// query rows in chunks of 32: each warp writes a row's a and ds to shared
-// memory and its dq to memory; then each thread owns elements (j, c) of dk
-// and dv in shared memory and adds the chunk's rows to them in row order. So
-// no float atomics are used and every result is the same on every run. The
-// sequence must fit shared memory (the wrapper checks it).
+// Design. One warp owns one (sequence, head), a "unit", up to L 32; beyond,
+// the warps of a block share one. The head width
+// is a template parameter W, dk padded up to one of kWidths (dk <= 64), so
+// that a row lives in registers as W floats; lanes c in [dk, W) are zero.
+// In the backward, rows sit in shared memory kv_stride(W) floats apart (W,
+// or W + 4 where W is a multiple of 8), so that 32 lanes reading 32 rows as
+// float4 hit every bank once; all lanes reading one row is a broadcast.
+//
+//  * Forward: k and v of the unit go to shared memory (by cp.async), W
+//    floats a row, and each lane owns one query row i (32 rows a pass;
+//    beyond L 32 the min(8, ceil(L / 32)) warps of a block share one unit
+//    and take its chunks of 32 rows in turn): its q row, loaded from global
+//    memory, and its output accumulator sit in registers, and every k_j
+//    and v_j is read by all lanes at one address,
+//    a broadcast 16-byte load feeding 4 FMAs for every lane. Softmax is
+//    online over tiles of kTile = 16 keys, inside the lane: the tile's
+//    scores in registers, a running max and sum, the accumulator rescaled
+//    by exp(m_old - m_new). Keys past L score -inf (they count
+//    exactly 0), masked keys -1e9, so an all-masked sequence is uniform over
+//    its L keys. The first tile always holds key 0, so m is finite after it
+//    and exp(m_old - m_new) is never exp(-inf + inf). Up to L 32 a block
+//    holds 1-4 independent warps on consecutive units (consecutive heads of
+//    a sequence), as many as keep the most warps resident per SM by shared
+//    memory and the kernel's registers (read at init).
+//  * Backward, L <= 32 (the titles): a warp per unit, its q, do, k and v in
+//    shared memory, two passes, and no score is computed twice.
+//    Pass 1, lane per query row i, over the keys in order: s_ij to P and
+//    the row max; then e_ij = exp(s_ij - m), the sum, dp_ij = do_i . v_j
+//    to S and t_i = (sum_j e_ij dp_ij) / sum; then p_ij = e_ij / sum,
+//    ds_ij = keep_j ? p_ij (dp_ij - t_i) scale : 0 back into P and S, and
+//    dq_i = sum_j ds_ij k_j in registers, written once.
+//    Pass 2, lane per key j: dk_j = sum_i ds_ij q_i and dv_j = sum_i p_ij
+//    do_i in registers over the rows in order, reading P and S down column
+//    j and q_i, do_i as broadcast loads, written once.
+//    P and S are [L][32] with column i of key j at j * 32 + (i ^ (j & 31)):
+//    pass 1 (lanes = i, one j) and pass 2 (lanes = j, one i) both touch 32
+//    distinct banks.
+//  * Backward, L > 32 (the user tower, F's long sequences): storing P and S
+//    for 32 rows by L keys per warp would take 38 KB at L 150 on top of
+//    the unit's 48 KB of rows and leave 2 warps an SM, so this kernel
+//    recomputes the scores instead and shares one unit's rows among the
+//    min(8, ceil(L / 32)) warps of its block.
+//    Part 1, lane per query row, the warps taking 32-row chunks in turn:
+//    s_ij and dp_ij over 16-key tiles with the max, the sum and
+//    sum_j e_ij dp_ij online (rescaled tile by tile), t_i = that / sum;
+//    the row's max, sum and t go to shared memory; then over the keys in
+//    order, s_ij and dp_ij again, p_ij = exp(s_ij - m_i) / sum_i,
+//    ds_ij and dq_i = sum_j ds_ij k_j, written once.
+//    Part 2 (after a block barrier), lane per key j, the warps taking 32-key
+//    tiles in turn: the transposed pass. Over the rows i in order, with q_i,
+//    do_i and row i's max, sum and t read as broadcasts and k_j, v_j held by
+//    the lane: s_ij, p_ij, dp_ij and ds_ij again, dk_j += ds_ij q_i and
+//    dv_j += p_ij do_i in registers, written once.
+//    That is 9 W FMAs per (i, j) against 5 W for the kernel above, for
+//    50 KB of shared memory a block at L 150: 10 warps an SM, not 2.
+// Every "/ sum" is a multiply by the reciprocal, taken once per row.
+// Registers: without a minimum of blocks per SM in __launch_bounds__, ptxas
+// traded spills for occupancy (a few bytes in some instantiations, which
+// ones changing from build to build); with a minimum of 1 it spills nothing.
+// scripts/attention_variants.py times the two and the other choices above.
+// Each element of dq, dk and dv is summed by one lane in one fixed order,
+// with no float atomics, so the same bits come out on every run.
+//
+//  * Loads: where rs, hs and every pointer are 16-byte aligned, rows move
+//    as float4 (cp.async into shared memory, zero-filled past dk) and
+//    results are stored as float4; else a scalar instantiation of the same
+//    kernel loads and stores floats (dk 6 or 7, a view with an odd storage
+//    offset). ops/msa_attention.py's `launch_plan` states the same rule.
+//
+// Shared memory, with KS = kv_stride(W) and L mask bytes rounded up to 16
+// after the floats: forward 2 L W a unit; backward at L <= 32 4 L KS + 64 L
+// a unit, at L > 32 4 L KS + 3 L. A launch needs one unit's worth, which
+// caps L (ops/msa_attention.py's `max_length`): at dk 20 the backward takes
+// L up to 698 and the forward 1,443.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
-
-#include "common.cuh"
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;  // query rows per backward pass over the keys
+constexpr int kMaxWarps = 4;  // warps of a block of independent warps
+constexpr int kMaxGroup = 8;  // warps sharing one unit beyond kShortL
+constexpr int kTile = 16;     // keys per step of an online softmax
+constexpr int kShortL = 32;   // the longest L at which a warp owns a unit
 constexpr float kMaskFill = -1e9f;
+constexpr int kWidths[] = {8, 16, 20, 24, 32, 48, 64};  // as ops/msa_attention.py's WIDTHS
+constexpr int kNumWidths = sizeof(kWidths) / sizeof(kWidths[0]);
+constexpr int kBlockReserve = 1024;  // shared memory the card keeps per block
 
-int g_max_smem = 0;  // opt-in shared memory per block, set by msa_attention_init
+// set by msa_attention_init
+int g_max_smem = 0;  // opt-in shared memory per block
+int g_sm_smem = 0;   // shared memory per SM
+int g_sm_regs = 0;   // registers per SM
+int g_regs[2][2][kNumWidths] = {};  // [forward, short backward][float4 loads][width]
 
-// float4s of a q / do row (dk rounded up to 4), and of a k / v row (that, made
-// odd so that lanes reading different rows use different banks)
-__host__ __device__ inline int row4(int dk) { return (dk + 3) / 4; }
-__host__ __device__ inline int kv_row4(int dk) { return row4(dk) | 1; }
-
-__host__ __device__ inline size_t fwd_smem_floats(int L, int dk) {
-  return 4 * (size_t(L) * row4(dk) + 2 * size_t(L) * kv_row4(dk)) + size_t(kWarps) * L + L;
-}
-
-__host__ __device__ inline size_t bwd_smem_floats(int L, int dk) {
-  return 4 * (2 * size_t(L) * row4(dk) + 2 * size_t(L) * kv_row4(dk)) + 2 * size_t(L) * dk +
-         2 * size_t(kChunk) * L + L;
-}
-
-__device__ __forceinline__ float dot4(const float4* __restrict__ a, const float4* __restrict__ b,
-                                      int n4) {
-  float s = 0.f;
-  for (int u = 0; u < n4; ++u) {
-    const float4 x = a[u], y = b[u];
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-    s = fmaf(x.z, y.z, s);
-    s = fmaf(x.w, y.w, s);
+int width_index(int dk) {
+  for (int i = 0; i < kNumWidths; ++i) {
+    if (dk <= kWidths[i]) return i;
   }
-  return s;
+  return -1;
 }
 
-// rows [L][dk] of head h of sequence n -> shared rows of `stride4` float4s,
-// zero beyond dk
-__device__ __forceinline__ void load_head(float4* __restrict__ dst, int stride4,
-                                          const float* __restrict__ src, int L, int dk, int rs) {
-  float* d = reinterpret_cast<float*>(dst);
-  const int w = 4 * stride4;
-  for (int e = threadIdx.x; e < L * w; e += kThreads) {
-    const int l = e / w, c = e - l * w;
-    d[e] = c < dk ? src[size_t(l) * rs + c] : 0.f;
+int width_for(int dk) { return width_index(dk) < 0 ? 0 : kWidths[width_index(dk)]; }
+
+__host__ __device__ constexpr int kv_stride(int W) { return W % 8 ? W : W + 4; }
+
+// floats of shared memory: the rows, then L mask bytes rounded up to 16
+// bytes (so that consecutive warps' regions stay 16-byte aligned)
+__host__ __device__ inline size_t keep_floats(int L) { return 4 * size_t((L + 15) / 16); }
+__host__ __device__ inline size_t fwd_warp_floats(int L, int W) {
+  return 2 * size_t(L) * W + keep_floats(L);
+}
+__host__ __device__ inline size_t bwd_warp_floats(int L, int W) {
+  return 4 * size_t(L) * kv_stride(W) + 64 * size_t(L) + keep_floats(L);
+}
+__host__ __device__ inline size_t bwd_long_floats(int L, int W) {
+  return 4 * size_t(L) * kv_stride(W) + 3 * size_t(L) + keep_floats(L);
+}
+
+__device__ __forceinline__ int sw(int j, int i) { return j * 32 + (i ^ (j & 31)); }
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// rows [L][dk] at src (row stride rs) -> shared rows KS floats apart, zero
+// in [dk, W); thread t of `threads`
+template <int W, int KS, bool VEC>
+__device__ __forceinline__ void load_rows(float* __restrict__ dst, const float* __restrict__ src,
+                                          int L, int dk, int rs, int t, int threads) {
+  if constexpr (VEC) {
+    constexpr int W4 = W / 4;
+    for (int e = t; e < L * W4; e += threads) {
+      const int l = e / W4, c = (e - l * W4) * 4;
+      const int bytes = 4 * max(0, min(4, dk - c));
+      cp_async16(dst + l * KS + c, src + size_t(l) * rs + (bytes ? c : 0), bytes);
+    }
+  } else {
+    for (int e = t; e < L * W; e += threads) {
+      const int l = e / W, c = e - l * W;
+      dst[l * KS + c] = c < dk ? src[size_t(l) * rs + c] : 0.f;
+    }
   }
 }
 
-__device__ __forceinline__ void load_keep(int* __restrict__ keep,
-                                          const unsigned char* __restrict__ mask, size_t n, int L) {
-  for (int j = threadIdx.x; j < L; j += kThreads) keep[j] = mask == nullptr || mask[n * L + j];
+__device__ __forceinline__ void load_keep(unsigned char* __restrict__ keep,
+                                          const unsigned char* __restrict__ mask, size_t n, int L,
+                                          int t, int threads) {
+  for (int j = t; j < L; j += threads) keep[j] = mask == nullptr || mask[n * L + j];
 }
 
-// The warp's scores of query row q4 against every key into `row`, then
-// exp(s - max) in place; returns the sum of the exponentials (every lane).
-__device__ __forceinline__ float exp_scores(float* __restrict__ row, const float4* __restrict__ q4,
-                                            const float4* __restrict__ K4, int ks,
-                                            const int* __restrict__ keep, int L, int n4,
-                                            float scale, int lane) {
-  float m = -INFINITY;
-  for (int j = lane; j < L; j += 32) {
-    const float s = keep[j] ? dot4(q4, K4 + j * ks, n4) * scale : kMaskFill;
-    row[j] = s;
-    m = fmaxf(m, s);
+template <int W>
+__device__ __forceinline__ void row_from_smem(float (&r)[W], const float* __restrict__ s) {
+#pragma unroll
+  for (int c4 = 0; c4 < W / 4; ++c4) {
+    const float4 x = reinterpret_cast<const float4*>(s)[c4];
+    r[4 * c4] = x.x;
+    r[4 * c4 + 1] = x.y;
+    r[4 * c4 + 2] = x.z;
+    r[4 * c4 + 3] = x.w;
   }
-  m = digat::warp_max(m);
-  float sum = 0.f;
-  for (int j = lane; j < L; j += 32) {
-    const float e = expf(row[j] - m);
-    row[j] = e;
-    sum += e;
-  }
-  return digat::warp_sum(sum);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// the first dk floats of a row at src (global memory) -> r, zero in [dk, W)
+template <int W, bool VEC>
+__device__ __forceinline__ void row_from_global(float (&r)[W], const float* src, int dk) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int c4 = 0; c4 < W / 4; ++c4) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (4 * c4 < dk) x = *reinterpret_cast<const float4*>(src + 4 * c4);
+      r[4 * c4] = x.x;
+      r[4 * c4 + 1] = 4 * c4 + 1 < dk ? x.y : 0.f;
+      r[4 * c4 + 2] = 4 * c4 + 2 < dk ? x.z : 0.f;
+      r[4 * c4 + 3] = 4 * c4 + 3 < dk ? x.w : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) r[c] = c < dk ? src[c] : 0.f;
+  }
+}
+
+// r[c] for c < dk and 0 for c in [dk, hs) -> the row at dst
+template <int W, bool VEC>
+__device__ __forceinline__ void store_row(float* dst, const float (&r)[W], int dk, int hs) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int c4 = 0; c4 < W / 4; ++c4) {
+      if (4 * c4 < hs) {
+        float4 x;
+        x.x = 4 * c4 < dk ? r[4 * c4] : 0.f;
+        x.y = 4 * c4 + 1 < dk ? r[4 * c4 + 1] : 0.f;
+        x.z = 4 * c4 + 2 < dk ? r[4 * c4 + 2] : 0.f;
+        x.w = 4 * c4 + 3 < dk ? r[4 * c4 + 3] : 0.f;
+        *reinterpret_cast<float4*>(dst + 4 * c4) = x;
+      }
+    }
+    for (int c = W; c < hs; c += 4) *reinterpret_cast<float4*>(dst + c) = make_float4(0, 0, 0, 0);
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+      if (c < hs) dst[c] = c < dk ? r[c] : 0.f;
+    }
+    for (int c = W; c < hs; ++c) dst[c] = 0.f;
+  }
+}
+
+// a . b[0:W]: a in registers, b in shared memory read as float4 (a
+// broadcast when every lane reads the same row); two chains
+template <int W>
+__device__ __forceinline__ float dot_rs(const float (&a)[W], const float* __restrict__ b) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int c4 = 0; c4 < W / 4; ++c4) {
+    const float4 y = reinterpret_cast<const float4*>(b)[c4];
+    s0 = fmaf(a[4 * c4], y.x, s0);
+    s1 = fmaf(a[4 * c4 + 1], y.y, s1);
+    s0 = fmaf(a[4 * c4 + 2], y.z, s0);
+    s1 = fmaf(a[4 * c4 + 3], y.w, s1);
+  }
+  return s0 + s1;
+}
+
+// the same with a in shared memory too: the same products in the same order
+template <int W>
+__device__ __forceinline__ float dot_ss(const float* __restrict__ a, const float* __restrict__ b) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int c4 = 0; c4 < W / 4; ++c4) {
+    const float4 x = reinterpret_cast<const float4*>(a)[c4];
+    const float4 y = reinterpret_cast<const float4*>(b)[c4];
+    s0 = fmaf(x.x, y.x, s0);
+    s1 = fmaf(x.y, y.y, s1);
+    s0 = fmaf(x.z, y.z, s0);
+    s1 = fmaf(x.w, y.w, s1);
+  }
+  return s0 + s1;
+}
+
+// acc += x * b[0:W], b in shared memory read as float4
+template <int W>
+__device__ __forceinline__ void axpy(float (&acc)[W], float x, const float* __restrict__ b) {
+#pragma unroll
+  for (int c4 = 0; c4 < W / 4; ++c4) {
+    const float4 y = reinterpret_cast<const float4*>(b)[c4];
+    acc[4 * c4] = fmaf(x, y.x, acc[4 * c4]);
+    acc[4 * c4 + 1] = fmaf(x, y.y, acc[4 * c4 + 1]);
+    acc[4 * c4 + 2] = fmaf(x, y.z, acc[4 * c4 + 2]);
+    acc[4 * c4 + 3] = fmaf(x, y.w, acc[4 * c4 + 3]);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void zero(float (&r)[W]) {
+#pragma unroll
+  for (int c = 0; c < W; ++c) r[c] = 0.f;
+}
+
+// A row a lane owns (its query row, or its key's row) in the long
+// backward: held in registers up to W 32, read from shared memory beyond
+// (registers for two such rows and two accumulators would not fit).
+template <int W, bool REG = (W <= 32)>
+struct LaneRow {
+  float r[REG ? W : 1];
+  const float* p;
+  __device__ __forceinline__ void load(const float* src) {
+    p = src;
+    if constexpr (REG) row_from_smem<W>(r, src);
+  }
+  __device__ __forceinline__ float dot(const float* __restrict__ b) const {
+    if constexpr (REG) {
+      return dot_rs<W>(r, b);
+    } else {
+      return dot_ss<W>(p, b);
+    }
+  }
+};
+
+// At L <= kShortL each warp of the block owns one unit; beyond, the block's
+// warps share one unit and take its 32-row chunks in turn.
+template <int W, bool VEC>
+__global__ void __launch_bounds__(kMaxGroup * 32, 1)
 msa_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                         float* __restrict__ out, int H, int L, int dk, int rs, int hs,
+                         float* __restrict__ out, int units, int H, int L, int dk, int rs, int hs,
                          float scale) {
   extern __shared__ float4 smem4[];
-  const int n4 = row4(dk), ks = kv_row4(dk);
-  float4* Q4 = smem4;                                     // [L][n4]
-  float4* K4 = Q4 + L * n4;                               // [L][ks]
-  float4* V4 = K4 + L * ks;                               // [L][ks]
-  float* P = reinterpret_cast<float*>(V4 + L * ks);       // [kWarps][L]
-  int* keep = reinterpret_cast<int*>(P + kWarps * L);     // [L]
-  const size_t n = blockIdx.x / H;
-  const int h = blockIdx.x - int(n) * H;
-  const size_t base = n * L * rs + size_t(h) * hs;
-  load_head(Q4, n4, q + base, L, dk, rs);
-  load_head(K4, ks, k + base, L, dk, rs);
-  load_head(V4, ks, v + base, L, dk, rs);
-  load_keep(keep, mask, n, L);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* Vs = reinterpret_cast<const float*>(V4);
-  float* row = P + warp * L;
-  for (int i = warp; i < L; i += kWarps) {
-    const float sum = exp_scores(row, Q4 + i * n4, K4, ks, keep, L, n4, scale, lane);
-    for (int j = lane; j < L; j += 32) row[j] = row[j] / sum;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const bool shared = L > kShortL;
+  const int unit = shared ? blockIdx.x : blockIdx.x * warps + warp;
+  if (unit >= units) return;  // only where each warp owns a unit
+  const int t = shared ? threadIdx.x : lane, threads = shared ? blockDim.x : 32;
+  // k and v are only read as broadcasts: rows W floats apart
+  float* Ks = reinterpret_cast<float*>(smem4) + (shared ? 0 : warp * fwd_warp_floats(L, W));
+  float* Vs = Ks + L * W;                                               // [L][W]
+  unsigned char* keep = reinterpret_cast<unsigned char*>(Vs + L * W);   // [L]
+  const int n = unit / H, h = unit - n * H;
+  const size_t base = size_t(n) * L * rs + size_t(h) * hs;
+  load_rows<W, W, VEC>(Ks, k + base, L, dk, rs, t, threads);
+  load_rows<W, W, VEC>(Vs, v + base, L, dk, rs, t, threads);
+  load_keep(keep, mask, n, L, t, threads);
+  if constexpr (VEC) cp_async_wait_all();
+  if (shared) {
+    __syncthreads();
+  } else {
     __syncwarp();
-    for (int c = lane; c < hs; c += 32) {
-      float o = 0.f;
-      if (c < dk) {
-        for (int j = 0; j < L; ++j) o = fmaf(row[j], Vs[j * 4 * ks + c], o);
+  }
+  for (int i0 = shared ? 32 * warp : 0; i0 < L; i0 += shared ? 32 * warps : 32) {
+    const int i = i0 + lane;
+    float qr[W], acc[W];
+    row_from_global<W, VEC>(qr, q + base + size_t(min(i, L - 1)) * rs, dk);
+    zero<W>(acc);
+    float m = -INFINITY, sum = 0.f;
+    for (int j0 = 0; j0 < L; j0 += kTile) {
+      float s[kTile];
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < kTile; ++jj) {
+        const int j = j0 + jj;
+        float x = -INFINITY;  // past L: counts exactly 0
+        if (j < L) x = keep[j] ? dot_rs<W>(qr, Ks + j * W) * scale : kMaskFill;
+        s[jj] = x;
+        tile_max = fmaxf(tile_max, x);
       }
-      out[base + size_t(i) * rs + c] = o;
+      const float m_new = fmaxf(m, tile_max);  // finite: tile 0 holds key 0
+      const float corr = expf(m - m_new);
+      sum *= corr;
+#pragma unroll
+      for (int c = 0; c < W; ++c) acc[c] *= corr;
+      m = m_new;
+#pragma unroll
+      for (int jj = 0; jj < kTile; ++jj) {
+        const int j = j0 + jj;
+        if (j < L) {
+          const float e = expf(s[jj] - m_new);
+          sum += e;
+          axpy<W>(acc, e, Vs + j * W);
+        }
+      }
     }
-    __syncwarp();
+    if (i < L) {
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int c = 0; c < W; ++c) acc[c] *= inv;
+      store_row<W, VEC>(out + base + size_t(i) * rs, acc, dk, hs);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// the backward at L <= 32: a warp per unit, scores stored in P and S
+template <int W, bool VEC>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
 msa_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const unsigned char* __restrict__ mask,
                          const float* __restrict__ dout, float* __restrict__ dq,
-                         float* __restrict__ dk_out, float* __restrict__ dv_out, int H, int L,
-                         int dk, int rs, int hs, float scale) {
+                         float* __restrict__ dk_out, float* __restrict__ dv_out, int units, int H,
+                         int L, int dk, int rs, int hs, float scale) {
+  constexpr int KS = kv_stride(W);
   extern __shared__ float4 smem4[];
-  const int n4 = row4(dk), ks = kv_row4(dk);
-  float4* Q4 = smem4;                                     // [L][n4]
-  float4* D4 = Q4 + L * n4;                               // [L][n4]: do
-  float4* K4 = D4 + L * n4;                               // [L][ks]
-  float4* V4 = K4 + L * ks;                               // [L][ks]
-  float* dK = reinterpret_cast<float*>(V4 + L * ks);      // [L][dk]
-  float* dV = dK + L * dk;                                // [L][dk]
-  float* P = dV + L * dk;                                 // [kChunk][L]: a
-  float* S = P + kChunk * L;                              // [kChunk][L]: ds
-  int* keep = reinterpret_cast<int*>(S + kChunk * L);     // [L]
-  const size_t n = blockIdx.x / H;
-  const int h = blockIdx.x - int(n) * H;
-  const size_t base = n * L * rs + size_t(h) * hs;
-  load_head(Q4, n4, q + base, L, dk, rs);
-  load_head(D4, n4, dout + base, L, dk, rs);
-  load_head(K4, ks, k + base, L, dk, rs);
-  load_head(V4, ks, v + base, L, dk, rs);
-  load_keep(keep, mask, n, L);
-  for (int e = threadIdx.x; e < 2 * L * dk; e += kThreads) dK[e] = 0.f;
-  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* Qs = reinterpret_cast<const float*>(Q4);
-  const float* Ds = reinterpret_cast<const float*>(D4);
-  const float* Ks = reinterpret_cast<const float*>(K4);
-  for (int i0 = 0; i0 < L; i0 += kChunk) {
-    const int rows = min(kChunk, L - i0);
-    for (int r = warp; r < rows; r += kWarps) {
-      const int i = i0 + r;
-      float* a = P + r * L;
-      float* ds = S + r * L;
-      const float sum = exp_scores(a, Q4 + i * n4, K4, ks, keep, L, n4, scale, lane);
-      float t = 0.f;
-      for (int j = lane; j < L; j += 32) {
-        const float p = a[j] / sum;
-        const float dp = dot4(D4 + i * n4, V4 + j * ks, n4);
-        a[j] = p;
-        ds[j] = dp;
-        t = fmaf(p, dp, t);
-      }
-      t = digat::warp_sum(t);
-      for (int j = lane; j < L; j += 32) ds[j] = keep[j] ? a[j] * (ds[j] - t) * scale : 0.f;
-      __syncwarp();
-      for (int c = lane; c < hs; c += 32) {
-        float g = 0.f;
-        if (c < dk) {
-          for (int j = 0; j < L; ++j) g = fmaf(ds[j], Ks[j * 4 * ks + c], g);
+  const int unit = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (unit >= units) return;
+  float* Qs = reinterpret_cast<float*>(smem4) + warp * bwd_warp_floats(L, W);  // [L][KS]
+  float* Ds = Qs + L * KS;                                                      // [L][KS]: do
+  float* Ks = Ds + L * KS;                                                      // [L][KS]
+  float* Vs = Ks + L * KS;                                                      // [L][KS]
+  float* P = Vs + L * KS;  // [L][32]: s, then e, then p (swizzled, see sw)
+  float* S = P + 32 * L;   // [L][32]: dp, then ds
+  unsigned char* keep = reinterpret_cast<unsigned char*>(S + 32 * L);  // [L]
+  const int n = unit / H, h = unit - n * H;
+  const size_t base = size_t(n) * L * rs + size_t(h) * hs;
+  load_rows<W, KS, VEC>(Qs, q + base, L, dk, rs, lane, 32);
+  load_rows<W, KS, VEC>(Ds, dout + base, L, dk, rs, lane, 32);
+  load_rows<W, KS, VEC>(Ks, k + base, L, dk, rs, lane, 32);
+  load_rows<W, KS, VEC>(Vs, v + base, L, dk, rs, lane, 32);
+  load_keep(keep, mask, n, L, lane, 32);
+  if constexpr (VEC) cp_async_wait_all();
+  __syncwarp();
+  const int i = min(lane, L - 1);  // lanes past L redo row L - 1, unused
+  // ---- pass 1, lane per query row ----
+  float m = -INFINITY;
+  {
+    float qr[W];
+    row_from_smem<W>(qr, Qs + i * KS);
+#pragma unroll 4
+    for (int j = 0; j < L; ++j) {
+      const float x = keep[j] ? dot_rs<W>(qr, Ks + j * KS) * scale : kMaskFill;
+      P[sw(j, lane)] = x;
+      m = fmaxf(m, x);
+    }
+  }
+  float sum = 0.f, tu = 0.f;
+  {
+    float dr[W];
+    row_from_smem<W>(dr, Ds + i * KS);
+#pragma unroll 4
+    for (int j = 0; j < L; ++j) {
+      const float e = expf(P[sw(j, lane)] - m);
+      const float dp = dot_rs<W>(dr, Vs + j * KS);
+      P[sw(j, lane)] = e;
+      S[sw(j, lane)] = dp;
+      sum += e;
+      tu = fmaf(e, dp, tu);
+    }
+  }
+  const float inv = 1.f / sum;
+  const float t = tu * inv;
+  {
+    float g[W];
+    zero<W>(g);
+#pragma unroll 4
+    for (int j = 0; j < L; ++j) {
+      const float p = P[sw(j, lane)] * inv;
+      const float ds = keep[j] ? p * (S[sw(j, lane)] - t) * scale : 0.f;
+      P[sw(j, lane)] = p;
+      S[sw(j, lane)] = ds;
+      axpy<W>(g, ds, Ks + j * KS);
+    }
+    if (lane < L) store_row<W, VEC>(dq + base + size_t(lane) * rs, g, dk, hs);
+  }
+  __syncwarp();
+  // ---- pass 2, lane per key: the rows in order ----
+  if (lane < L) {
+    float gk[W], gv[W];
+    zero<W>(gk);
+    zero<W>(gv);
+    for (int r = 0; r < L; ++r) {
+      axpy<W>(gk, S[sw(lane, r)], Qs + r * KS);
+      axpy<W>(gv, P[sw(lane, r)], Ds + r * KS);
+    }
+    store_row<W, VEC>(dk_out + base + size_t(lane) * rs, gk, dk, hs);
+    store_row<W, VEC>(dv_out + base + size_t(lane) * rs, gv, dk, hs);
+  }
+}
+
+// the backward at L > 32: a block of up to kMaxGroup warps per unit, the
+// scores recomputed, dk and dv by the transposed pass
+template <int W, bool VEC>
+__global__ void __launch_bounds__(kMaxGroup * 32, 1)
+msa_attention_bwd_long_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                              const float* __restrict__ dout, float* __restrict__ dq,
+                              float* __restrict__ dk_out, float* __restrict__ dv_out, int units,
+                              int H, int L, int dk, int rs, int hs, float scale) {
+  constexpr int KS = kv_stride(W);
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, group = blockDim.x >> 5;
+  float* Qs = reinterpret_cast<float*>(smem4);  // [L][KS]
+  float* Ds = Qs + L * KS;                      // [L][KS]: do
+  float* Ks = Ds + L * KS;                      // [L][KS]
+  float* Vs = Ks + L * KS;                      // [L][KS]
+  float* M = Vs + L * KS;                       // [L]: each row's max,
+  float* R = M + L;                             // 1 / sum of exp(s - max)
+  float* T = R + L;                             // and t
+  unsigned char* keep = reinterpret_cast<unsigned char*>(T + L);  // [L]
+  const int unit = blockIdx.x;
+  const int n = unit / H, h = unit - n * H;
+  const size_t base = size_t(n) * L * rs + size_t(h) * hs;
+  load_rows<W, KS, VEC>(Qs, q + base, L, dk, rs, threadIdx.x, blockDim.x);
+  load_rows<W, KS, VEC>(Ds, dout + base, L, dk, rs, threadIdx.x, blockDim.x);
+  load_rows<W, KS, VEC>(Ks, k + base, L, dk, rs, threadIdx.x, blockDim.x);
+  load_rows<W, KS, VEC>(Vs, v + base, L, dk, rs, threadIdx.x, blockDim.x);
+  load_keep(keep, mask, n, L, threadIdx.x, blockDim.x);
+  if constexpr (VEC) cp_async_wait_all();
+  __syncthreads();
+  // ---- part 1, lane per query row: row statistics, then dq ----
+  for (int i0 = 32 * warp; i0 < L; i0 += 32 * group) {
+    const int i = min(i0 + lane, L - 1);  // lanes past L redo row L - 1, unused
+    LaneRow<W> qi, di;
+    qi.load(Qs + i * KS);
+    di.load(Ds + i * KS);
+    float m = -INFINITY, z = 0.f, tu = 0.f;
+    for (int j0 = 0; j0 < L; j0 += kTile) {
+      float s[kTile], dp[kTile];
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < kTile; ++jj) {
+        const int j = j0 + jj;
+        float x = -INFINITY, y = 0.f;  // past L: counts exactly 0
+        if (j < L) {
+          x = keep[j] ? qi.dot(Ks + j * KS) * scale : kMaskFill;
+          y = di.dot(Vs + j * KS);
         }
-        dq[base + size_t(i) * rs + c] = g;
+        s[jj] = x;
+        dp[jj] = y;
+        tile_max = fmaxf(tile_max, x);
+      }
+      const float m_new = fmaxf(m, tile_max);  // finite: tile 0 holds key 0
+      const float corr = expf(m - m_new);
+      z *= corr;
+      tu *= corr;
+      m = m_new;
+#pragma unroll
+      for (int jj = 0; jj < kTile; ++jj) {
+        if (j0 + jj < L) {
+          const float e = expf(s[jj] - m_new);
+          z += e;
+          tu = fmaf(e, dp[jj], tu);
+        }
       }
     }
-    __syncthreads();
-    // dk[j, c] += sum_r ds[r, j] q[i0 + r, c]; dv[j, c] += sum_r a[r, j] do[i0 + r, c]
-    for (int e = threadIdx.x; e < L * dk; e += kThreads) {
-      const int j = e / dk, c = e - j * dk;
-      float gk = dK[e], gv = dV[e];
-      for (int r = 0; r < rows; ++r) {
-        const int i = i0 + r;
-        gk = fmaf(S[r * L + j], Qs[i * 4 * n4 + c], gk);
-        gv = fmaf(P[r * L + j], Ds[i * 4 * n4 + c], gv);
+    const float inv = 1.f / z;
+    const float t = tu * inv;
+    float g[W];
+    zero<W>(g);
+#pragma unroll 2
+    for (int j = 0; j < L; ++j) {
+      if (keep[j]) {  // a masked key has ds 0
+        const float p = expf(qi.dot(Ks + j * KS) * scale - m) * inv;
+        axpy<W>(g, p * (di.dot(Vs + j * KS) - t) * scale, Ks + j * KS);
       }
-      dK[e] = gk;
-      dV[e] = gv;
     }
-    __syncthreads();
+    if (i0 + lane < L) {
+      M[i] = m;
+      R[i] = inv;
+      T[i] = t;
+      store_row<W, VEC>(dq + base + size_t(i) * rs, g, dk, hs);
+    }
   }
-  for (int e = threadIdx.x; e < L * hs; e += kThreads) {
-    const int j = e / hs, c = e - j * hs;
-    const size_t o = base + size_t(j) * rs + c;
-    dk_out[o] = c < dk ? dK[j * dk + c] : 0.f;
-    dv_out[o] = c < dk ? dV[j * dk + c] : 0.f;
+  __syncthreads();
+  // ---- part 2, lane per key: dk and dv over the rows in order ----
+  for (int j0 = 32 * warp; j0 < L; j0 += 32 * group) {
+    const int j = min(j0 + lane, L - 1);  // lanes past L redo key L - 1, unused
+    LaneRow<W> kj, vj;
+    kj.load(Ks + j * KS);
+    vj.load(Vs + j * KS);
+    const bool kept = keep[j];
+    float gk[W], gv[W];
+    zero<W>(gk);
+    zero<W>(gv);
+#pragma unroll 2
+    for (int r = 0; r < L; ++r) {
+      const float x = kept ? kj.dot(Qs + r * KS) * scale : kMaskFill;
+      const float p = expf(x - M[r]) * R[r];
+      const float ds = kept ? p * (vj.dot(Ds + r * KS) - T[r]) * scale : 0.f;
+      axpy<W>(gk, ds, Qs + r * KS);
+      axpy<W>(gv, p, Ds + r * KS);
+    }
+    if (j0 + lane < L) {
+      store_row<W, VEC>(dk_out + base + size_t(j) * rs, gk, dk, hs);
+      store_row<W, VEC>(dv_out + base + size_t(j) * rs, gv, dk, hs);
+    }
   }
+}
+
+using FwdKernel = void (*)(const float*, const float*, const float*, const unsigned char*, float*,
+                           int, int, int, int, int, int, float);
+using BwdKernel = void (*)(const float*, const float*, const float*, const unsigned char*,
+                           const float*, float*, float*, float*, int, int, int, int, int, int,
+                           float);
+
+template <bool VEC>
+FwdKernel fwd_kernel(int W) {
+  switch (W) {
+    case 8: return msa_attention_fwd_kernel<8, VEC>;
+    case 16: return msa_attention_fwd_kernel<16, VEC>;
+    case 20: return msa_attention_fwd_kernel<20, VEC>;
+    case 24: return msa_attention_fwd_kernel<24, VEC>;
+    case 32: return msa_attention_fwd_kernel<32, VEC>;
+    case 48: return msa_attention_fwd_kernel<48, VEC>;
+    case 64: return msa_attention_fwd_kernel<64, VEC>;
+    default: return nullptr;
+  }
+}
+
+template <bool VEC, bool LONG>
+BwdKernel bwd_kernel(int W) {
+#define DIGAT_BWD(w) LONG ? msa_attention_bwd_long_kernel<w, VEC> : msa_attention_bwd_kernel<w, VEC>
+  switch (W) {
+    case 8: return DIGAT_BWD(8);
+    case 16: return DIGAT_BWD(16);
+    case 20: return DIGAT_BWD(20);
+    case 24: return DIGAT_BWD(24);
+    case 32: return DIGAT_BWD(32);
+    case 48: return DIGAT_BWD(48);
+    case 64: return DIGAT_BWD(64);
+    default: return nullptr;
+  }
+#undef DIGAT_BWD
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// float4 rows: the strides and every pointer 16-byte aligned
+bool vector_path(const void* const* ptrs, int count, int rs, int hs) {
+  bool ok = rs % 4 == 0 && hs % 4 == 0;
+  for (int a = 0; a < count; ++a) ok = ok && aligned16(ptrs[a]);
+  return ok;
+}
+
+int lesser(int a, int b) { return a < b ? a : b; }
+
+// warps per block (1..kMaxWarps) of independent warps for the most warps
+// resident per SM, by shared memory, registers (allocated 256 a warp), at
+// most 32 blocks and 64 warps; the larger block on a tie; 0 if not one warp
+// fits a block. ops/msa_attention.py's `warps_per_block` is the same rule.
+int warps_per_block(size_t warp_bytes, int regs) {
+  const int warp_regs = (regs + 7) / 8 * 8 * 32;
+  const int reg_warps = g_sm_regs / warp_regs;
+  int best = 0, best_resident = 0;
+  for (int w = 1; w <= kMaxWarps; ++w) {
+    const size_t block = w * warp_bytes;
+    if (block > size_t(g_max_smem)) break;
+    const int by_smem = int(size_t(g_sm_smem) / (block + kBlockReserve));
+    const int blocks = lesser(lesser(by_smem, reg_warps / w), lesser(32, 64 / w));
+    if (blocks * w >= best_resident) {
+      best = w;
+      best_resident = blocks * w;
+    }
+  }
+  return best;
 }
 
 bool bad_geometry(int N, int H, int L, int dk, int rs, int hs) {
   return N <= 0 || H <= 0 || L <= 0 || dk <= 0 || hs < dk || rs < H * hs ||
-         size_t(N) * H > size_t(INT_MAX);
+         size_t(N) * H > size_t(INT_MAX) || width_for(dk) == 0;
 }
 
 }  // namespace
@@ -255,12 +668,32 @@ extern "C" int msa_attention_init() {
     e = cudaDeviceGetAttribute(&g_max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(msa_attention_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+    e = cudaDeviceGetAttribute(&g_sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   }
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(msa_attention_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+    e = cudaDeviceGetAttribute(&g_sm_regs, cudaDevAttrMaxRegistersPerMultiprocessor, dev);
+  }
+  for (int i = 0; i < kNumWidths; ++i) {
+    const int w = kWidths[i];
+    const void* kernels[3][2] = {
+        {reinterpret_cast<const void*>(fwd_kernel<false>(w)),
+         reinterpret_cast<const void*>(fwd_kernel<true>(w))},
+        {reinterpret_cast<const void*>(bwd_kernel<false, false>(w)),
+         reinterpret_cast<const void*>(bwd_kernel<true, false>(w))},
+        {reinterpret_cast<const void*>(bwd_kernel<false, true>(w)),
+         reinterpret_cast<const void*>(bwd_kernel<true, true>(w))},
+    };
+    for (int kind = 0; kind < 3; ++kind) {
+      for (int vec = 0; vec < 2; ++vec) {
+        cudaFuncAttributes attr;
+        if (e == cudaSuccess) {
+          e = cudaFuncSetAttribute(kernels[kind][vec],
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+        }
+        if (e == cudaSuccess && kind < 2) e = cudaFuncGetAttributes(&attr, kernels[kind][vec]);
+        if (e == cudaSuccess && kind < 2) g_regs[kind][vec][i] = attr.numRegs;
+      }
+    }
   }
   return static_cast<int>(e);
 }
@@ -271,11 +704,22 @@ extern "C" int msa_attention_fwd_f32(const void* q, const void* k, const void* v
                                      const void* mask, void* out, int N, int H, int L, int dk,
                                      int rs, int hs, float scale, void* stream) {
   if (bad_geometry(N, H, L, dk, rs, hs)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * fwd_smem_floats(L, dk);
-  if (smem > size_t(g_max_smem)) return static_cast<int>(cudaErrorInvalidValue);
-  msa_attention_fwd_kernel<<<N * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int W = width_for(dk);
+  const void* ptrs[] = {q, k, v, out};
+  const bool vec = vector_path(ptrs, 4, rs, hs);
+  const size_t unit_bytes = sizeof(float) * fwd_warp_floats(L, W);
+  const int units = N * H;
+  int blocks = units, warps = lesser(kMaxGroup, (L + 31) / 32);
+  if (unit_bytes > size_t(g_max_smem)) return static_cast<int>(cudaErrorInvalidValue);
+  if (L <= kShortL) {
+    warps = warps_per_block(unit_bytes, g_regs[0][vec][width_index(dk)]);
+    blocks = (units + warps - 1) / warps;
+  }
+  const FwdKernel kern = vec ? fwd_kernel<true>(W) : fwd_kernel<false>(W);
+  kern<<<blocks, 32 * warps, (L <= kShortL ? warps : 1) * unit_bytes,
+         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const unsigned char*>(mask), static_cast<float*>(out), H, L, dk, rs, hs,
+      static_cast<const unsigned char*>(mask), static_cast<float*>(out), units, H, L, dk, rs, hs,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -286,12 +730,31 @@ extern "C" int msa_attention_bwd_f32(const void* q, const void* k, const void* v
                                      void* dv_out, int N, int H, int L, int dk, int rs, int hs,
                                      float scale, void* stream) {
   if (bad_geometry(N, H, L, dk, rs, hs)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * bwd_smem_floats(L, dk);
-  if (smem > size_t(g_max_smem)) return static_cast<int>(cudaErrorInvalidValue);
-  msa_attention_bwd_kernel<<<N * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int W = width_for(dk);
+  const void* ptrs[] = {q, k, v, dout, dq, dk_out, dv_out};
+  const bool vec = vector_path(ptrs, 7, rs, hs);
+  const int units = N * H;
+  int blocks = units, threads = 0;
+  size_t smem = 0;
+  BwdKernel kern = nullptr;
+  if (L <= kShortL) {
+    const size_t warp_bytes = sizeof(float) * bwd_warp_floats(L, W);
+    const int warps = warps_per_block(warp_bytes, g_regs[1][vec][width_index(dk)]);
+    if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
+    kern = vec ? bwd_kernel<true, false>(W) : bwd_kernel<false, false>(W);
+    blocks = (units + warps - 1) / warps;
+    threads = 32 * warps;
+    smem = warps * warp_bytes;
+  } else {
+    smem = sizeof(float) * bwd_long_floats(L, W);
+    if (smem > size_t(g_max_smem)) return static_cast<int>(cudaErrorInvalidValue);
+    kern = vec ? bwd_kernel<true, true>(W) : bwd_kernel<false, true>(W);
+    threads = 32 * lesser(kMaxGroup, (L + 31) / 32);
+  }
+  kern<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const unsigned char*>(mask), static_cast<const float*>(dout),
-      static_cast<float*>(dq), static_cast<float*>(dk_out), static_cast<float*>(dv_out), H, L,
-      dk, rs, hs, scale);
+      static_cast<float*>(dq), static_cast<float*>(dk_out), static_cast<float*>(dv_out), units, H,
+      L, dk, rs, hs, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,9 +16,11 @@ the sum rounds to -1e9 for every key and E and F pass a gradient to q and k.)
 On a CPU tensor `msa_attention` runs `_attention_plain`, whose gradients
 are autograd's. On a CUDA tensor it goes through `MSAAttentionFunction`:
 forward `attention_fwd`, backward `attention_bwd`, both launching
-`csrc/msa_attention.cu` (whose header says what bounds it on the card) or
-raising. The kernels keep one head of one sequence in shared memory, so a
-sequence longer than `max_length(dk)` raises; there is no fallback.
+`csrc/msa_attention.cu` (whose header says what bounds it on the card and
+how the kernels are laid out) or raising. The kernels keep one head of one
+sequence in the shared memory of a warp (L <= SHORT_L) or of a block, so a
+sequence longer than `max_length(dk)` raises, as does a head wider than the
+widest of `WIDTHS`; there is no fallback.
 """
 
 from __future__ import annotations
@@ -33,19 +35,86 @@ MASK_FILL = -1e9  # layers.MASK_FILL; layers imports this module for `mha`
 # an sm_90 block's opt-in shared memory (227 KB); the C entry points check
 # the device's own limit again
 MAX_SMEM_BYTES = 232_448
-_THREADS, _CHUNK = 128, 32  # as csrc/msa_attention.cu
+# the kernels' compiled head widths: dk is padded up to the first that holds
+# it (as csrc/msa_attention.cu's kWidths)
+WIDTHS = (8, 16, 20, 24, 32, 48, 64)
+
+
+def head_width(dk: int) -> int:
+    """The compiled width W that a head of dk lanes is padded to."""
+    for w in WIDTHS:
+        if dk <= w:
+            return w
+    raise ValueError(f"msa_attention: head width {dk} is wider than the widest the kernels "
+                     f"take ({WIDTHS[-1]})")
+
+
+def launch_plan(pointers, rs: int, hs: int, dk: int) -> tuple:
+    """(W, vector) of the kernel instantiation that the C entry points pick
+    for these operands, by the same rule: the width `head_width(dk)`, and
+    float4 loads and stores where the row stride rs, the head stride hs (in
+    floats) and every pointer (`data_ptr()`) are 16-byte aligned, scalar
+    ones otherwise."""
+    vector = rs % 4 == 0 and hs % 4 == 0 and all(p % 16 == 0 for p in pointers)
+    return head_width(dk), vector
+
+
+SHORT_L = 32  # the longest L at which a warp owns a head of a sequence
+
+
+def _row_stride(W: int) -> int:
+    """Floats between two rows in the kernels' shared memory."""
+    return W if W % 8 else W + 4
 
 
 def _smem_bytes(L: int, dk: int, backward: bool) -> int:
-    """Shared memory of one block of the kernel (as csrc/msa_attention.cu
-    counts it)."""
-    r4 = -(-dk // 4)
-    kv4 = r4 | 1
-    if backward:
-        floats = 4 * (2 * L * r4 + 2 * L * kv4) + 2 * L * dk + 2 * _CHUNK * L + L
+    """Shared memory that one launch needs at the least (as
+    csrc/msa_attention.cu counts it), with rows `_row_stride(W)` floats
+    apart in the backward and W apart in the forward, then L mask bytes
+    rounded up to 16, for one (sequence, head): the forward's k and v rows;
+    the backward's q, do, k and v rows and, at L <= SHORT_L, the [L][32]
+    score tiles P and S, beyond that three floats of statistics per row."""
+    W = head_width(dk)
+    KS = _row_stride(W)
+    if not backward:
+        floats = 2 * L * W
+    elif L <= SHORT_L:
+        floats = 4 * L * KS + 64 * L
     else:
-        floats = 4 * (L * r4 + 2 * L * kv4) + (_THREADS // 32) * L + L
-    return 4 * floats
+        floats = 4 * L * KS + 3 * L
+    return 4 * (floats + 4 * -(-L // 16))
+
+
+def warps_per_block(warp_bytes: int, sm_bytes: int, regs: int = 0,
+                    block_bytes: int = MAX_SMEM_BYTES, sm_regs: int = 65_536) -> int:
+    """The warps (1-4) of a block of independent warps that the C entry
+    points launch, as they pick it: the most warps resident on an SM of
+    `sm_bytes` shared memory and `sm_regs` registers, for one warp's shared
+    memory `warp_bytes` and the kernel's `regs` per thread (allocated 256 a
+    warp; 0: not counted); the card keeps 1 KB per block and runs at most
+    32 blocks and 64 warps an SM; the larger block on a tie; 0 if not one
+    warp fits `block_bytes`."""
+    reg_warps = sm_regs // (-(-regs // 8) * 8 * 32) if regs else 64
+    best, best_resident = 0, 0
+    for warps in range(1, 5):
+        block = warps * warp_bytes
+        if block > block_bytes:
+            break
+        blocks = min(sm_bytes // (block + 1024), reg_warps // warps, 32, 64 // warps)
+        if blocks * warps >= best_resident:
+            best, best_resident = warps, blocks * warps
+    return best
+
+
+def block_shape(L: int, dk: int, backward: bool, sm_bytes: int, regs: int = 0) -> tuple:
+    """(warps, shared bytes) of the blocks the C entry points launch: beyond
+    SHORT_L min(8, ceil(L / 32)) warps on one (sequence, head); otherwise
+    `warps_per_block` independent warps, one each."""
+    need = _smem_bytes(L, dk, backward)
+    if L > SHORT_L:
+        return min(8, -(-L // 32)), need
+    warps = warps_per_block(need, sm_bytes, regs)
+    return warps, warps * need
 
 
 def max_length(dk: int, backward: bool = True) -> int:
@@ -111,7 +180,7 @@ def _check(q, k, v, mask, heads, dk, backward, what):
     need = _smem_bytes(L, dk, backward)
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{what}: a sequence of {L} at head width {dk} needs {need} bytes of "
-                         f"shared memory (one head's q, k, v per block), more than the "
+                         f"shared memory (one head of one sequence per warp), more than the "
                          f"{MAX_SMEM_BYTES} a block has; the longest it takes is "
                          f"{max_length(dk, backward)}")
     return N, L, rs, rs // heads

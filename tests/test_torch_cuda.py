@@ -232,12 +232,17 @@ def test_emb_grad_kernel(cuda, V, ntok, D, skew):
 # ---------------------------------------------------------------------------
 # The NRMS slice: the masked attention pair (E and F) and an NRMS-SA step
 # ---------------------------------------------------------------------------
-def _attention_args(dev, N, L, heads, dk, hs, seed, mask_kind="masked"):
-    """q, k, v, do [N, L, heads * hs] (pad lanes zero where hs > dk) and a
-    key mask with sequence 0 all masked."""
+def _attention_args(dev, N, L, heads, dk, hs, seed, mask_kind="masked", offset=0):
+    """q, k, v, do [N, L, heads * hs] (pad lanes zero where hs > dk), each a
+    view `offset` floats into its storage, and a key mask with sequence 0
+    all masked."""
     g = torch.Generator().manual_seed(seed)
-    t = [torch.nn.functional.pad(torch.randn(N, L, heads, dk, generator=g), (0, hs - dk))
-         .reshape(N, L, heads * hs).to(dev) for _ in range(4)]
+    t = []
+    for _ in range(4):
+        x = torch.nn.functional.pad(torch.randn(N, L, heads, dk, generator=g), (0, hs - dk))
+        buf = torch.zeros(offset + x.numel(), device=dev)
+        buf[offset:] = x.reshape(-1).to(dev)
+        t.append(buf[offset:].view(N, L, heads * hs))
     mask = None
     if mask_kind == "masked":
         mask = torch.rand(N, L, generator=g) < 0.7
@@ -247,16 +252,41 @@ def _attention_args(dev, N, L, heads, dk, hs, seed, mask_kind="masked"):
     return t, mask
 
 
-@pytest.mark.parametrize("N,L,heads,dk,hs,mask_kind", [
-    (37, 32, 20, 20, 20, "masked"), (9, 50, 20, 20, 20, "masked"), (7, 150, 20, 20, 20, "none"),
-    (7, 150, 20, 20, 20, "masked"), (11, 32, 20, 20, 32, "masked"), (9, 50, 20, 20, 64, "masked"),
-    (5, 12, 4, 6, 6, "none"), (6, 33, 3, 7, 7, "masked"), (4, 300, 20, 20, 20, "masked")])
-def test_msa_attention_kernel_pair(cuda, N, L, heads, dk, hs, mask_kind):
+# (N, L, heads, dk, hs, mask_kind, offset): packed (hs == dk, F's layout) and
+# head-padded (hs > dk, E's) at every edge of the 32-row and 32-key tiles;
+# float4 loads where hs is a multiple of 4 and the views are aligned, scalar
+# ones at dk 6 and 7 and on a view 1 float into its storage; the widest head
+# (64) and one past it, which raises
+_PAIR_CASES = [
+    (37, 32, 20, 20, 20, "masked", 0), (9, 50, 20, 20, 20, "masked", 0),
+    (7, 150, 20, 20, 20, "none", 0), (7, 150, 20, 20, 20, "masked", 0),
+    (11, 32, 20, 20, 32, "masked", 0), (9, 50, 20, 20, 64, "masked", 0),
+    (5, 12, 4, 6, 6, "none", 0), (6, 33, 3, 7, 7, "masked", 0), (4, 300, 20, 20, 20, "masked", 0),
+] + [(5, L, heads, dk, hs, "masked", 0) for L in (1, 31, 32, 33, 50, 64, 65, 150, 300)
+     for heads, dk, hs in ((20, 20, 20), (20, 20, 32), (6, 20, 64), (3, 6, 6), (3, 7, 7))] + [
+    (6, 40, 2, 64, 64, "masked", 0), (3, 33, 2, 65, 65, "masked", 0),
+    (5, 50, 20, 20, 20, "masked", 1), (5, 65, 4, 20, 32, "masked", 1),
+]
+
+
+@pytest.mark.parametrize("N,L,heads,dk,hs,mask_kind,offset", _PAIR_CASES)
+def test_msa_attention_kernel_pair(cuda, N, L, heads, dk, hs, mask_kind, offset):
     """Forward and backward against the plain version, packed (hs == dk,
-    F's layout) and head-padded (hs > dk, E's), with an all-masked
-    sequence; the pad lanes of every result are zero; the same bits twice."""
+    F's layout) and head-padded (hs > dk, E's), with an all-masked sequence
+    (its dq and dk rows zero); the pad lanes of every result are zero; the
+    same backward bits twice."""
     (q, k, v, do), mask = _attention_args(cuda, N, L, heads, dk, hs, seed=L + hs,
-                                          mask_kind=mask_kind)
+                                          mask_kind=mask_kind, offset=offset)
+    if dk > MA.WIDTHS[-1]:
+        with pytest.raises(ValueError, match=f"widest the kernels take \\({MA.WIDTHS[-1]}\\)"):
+            MA.attention_fwd(q, k, v, mask, heads, dk)
+        with pytest.raises(ValueError, match="widest"):
+            MA.attention_bwd(q, k, v, mask, do, heads, dk)
+        return
+    rs = heads * hs
+    vector = offset == 0 and hs % 4 == 0
+    assert MA.launch_plan([t.data_ptr() for t in (q, k, v, do)], rs, hs, dk) == (
+        MA.head_width(dk), vector)
     before = (MA.attention_fwd.launches, MA.attention_bwd.launches)
     out = MA.attention_fwd(q, k, v, mask, heads, dk)
     grads = MA.attention_bwd(q, k, v, mask, do, heads, dk)
@@ -267,12 +297,16 @@ def test_msa_attention_kernel_pair(cuda, N, L, heads, dk, hs, mask_kind):
         _close(got, want)
     for t in (out, *grads):
         assert not t.reshape(N, L, heads, hs)[..., dk:].any()
-    assert torch.equal(grads[1], MA.attention_bwd(q, k, v, mask, do, heads, dk)[1])
+    if mask is not None:
+        assert not grads[0][0].any() and not grads[1][0].any()
+    again = MA.attention_bwd(q, k, v, mask, do, heads, dk)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 def test_msa_attention_entry_points_on_card(cuda):
     """`msa_attention` and `msa_attention_grouped` run the pair through
-    autograd; a sequence beyond the cap raises."""
+    autograd; the caps hold L 300 at dk 20 and the backward runs at its
+    cap; a sequence beyond the cap raises."""
     (q, k, v, do), mask = _attention_args(cuda, 8, 32, 20, 20, 20, seed=1)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = MA.attention_bwd.launches
@@ -283,6 +317,11 @@ def test_msa_attention_entry_points_on_card(cuda):
     (qp, kp, vp, dop), _ = _attention_args(cuda, 8, 32, 20, 20, 32, seed=2)
     _close(MG.msa_attention_grouped(qp, kp, vp, 20, 20, mask),
            MA.attention_plain_strided(qp, kp, vp, 20, 20, mask))
+    assert 314 <= MA.max_length(20) < 894 <= MA.max_length(20, backward=False)
+    (q, k, v, do), _ = _attention_args(cuda, 1, MA.max_length(20), 20, 20, 20, seed=3)
+    for got, want in zip(MA.attention_bwd(q, k, v, None, do, 20, 20),
+                         MA.attention_bwd_plain(q, k, v, None, do, 20, 20)):
+        _close(got, want)
     long = torch.zeros(1, MA.max_length(20) + 1, 400, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         MA.attention_bwd(long, long, long, None, long, 20, 20)

@@ -183,6 +183,8 @@ def test_kernel_path_refuses_sequences_beyond_its_cap(monkeypatch):
     monkeypatch.setattr(build, "use_kernel", lambda where: True)
     longest = MA.max_length(DK)
     assert 300 < longest < MA.max_length(DK, backward=False)
+    assert 314 <= MA.max_length(20) < 894 <= MA.max_length(20, backward=False)
+    assert MA.max_length(64) >= 127 and MA.max_length(64, backward=False) >= 283
     ok = torch.zeros(1, longest, HEADS * DK)
     MA._check(ok, ok, ok, None, HEADS, DK, True, "msa_attention")
     long = torch.zeros(1, longest + 1, HEADS * DK, requires_grad=True)
