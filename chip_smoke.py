@@ -15,9 +15,15 @@ paths:
              reset (stage 1 must run A, stage 2 B), and a smaller corpus
              scored on the card against the plain path on the CPU;
   training - kernels A'' (dropout mask), A with dropout, A' (encoder
-             backward), C (Eq. 8 scores forward and backward) and D
-             (embedding gradient) against their plain versions at the
-             training shapes; one epoch of `Trainer` (>= 20 steps at B 64,
+             backward: its bound on two lines, fp32 CUDA cores and its
+             products at 3xTF32, the same bits twice for every output), C
+             (Eq. 8 scores forward and backward) and D (embedding gradient,
+             on the uniform token stream and on the pad stream, each beside
+             embedding_dense_backward) against their plain versions at the
+             training shapes, with A''s and D's device ms by launch
+             (torch.profiler), ptxas's registers and spills of their kernels
+             and a cuobjdump check that A''s products issue TF32 tensor-core
+             instructions; one epoch of `Trainer` (>= 20 steps at B 64,
              unique-title dedup, dropout 0.2) with the launch counters
              reset, whose launches per step are checked; and three steps at
              B 8 on the card against the same steps on the CPU;
@@ -81,6 +87,7 @@ NRMS_TRAIN_STEPS = 10  # full-width NRMS-SA training steps at B 64
 # cores and HBM3 bandwidth. A card below 700 W runs slower under load.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 
 
 def say(msg: str) -> None:
@@ -123,6 +130,24 @@ def msa_bwd_work(N, L, Din, D, A):
     weights = Din * 3 * D + 3 * D + D * A + 2 * A
     nbytes = 8 * N * L * Din + N * L + 4 * N * D + 8 * weights
     return flops, nbytes
+
+
+def msa_bwd_products(N, L, Din, D, A):
+    """The FLOP of kernel A''s six matrix products, out of msa_bwd_work's:
+    the Q|K|V projections three times (recompute, dx, dW) and the pool's
+    product three times (u, dh, dW1)."""
+    return 3 * (2 * N * L * Din * 3 * D) + 3 * (2 * N * L * D * A)
+
+
+def bound_3xtf32(N, L, Din, D, A):
+    """Kernel A''s bound with its products on the tensor cores at 3xTF32:
+    three TF32 products per fp32 product at the dense TF32 peak, plus the
+    rest of msa_bwd_work's FLOP at the fp32 CUDA-core peak, plus its bytes
+    at the memory rate (ms)."""
+    flops, nbytes = msa_bwd_work(N, L, Din, D, A)
+    products = msa_bwd_products(N, L, Din, D, A)
+    return (3 * products / PEAK_TF32_FLOPS + (flops - products) / PEAK_FP32_FLOPS
+            + nbytes / PEAK_BYTES) * 1e3
 
 
 def scores_work(B, G, D, backward: bool):
@@ -198,6 +223,40 @@ def device_ms(torch, launch, reps: int = 20, windows: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def stage_split(torch, fn, reps: int = 5) -> list:
+    """Device ms of each launch that one call of fn() makes, in launch order
+    and averaged over `reps` traced calls (torch.profiler, CUDA activity),
+    consecutive launches of one kernel merged: [(kernel, launches, ms)]."""
+    import re
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.device_time_total > 0), key=lambda e: e.time_range.start)
+    per_call = len(kernels) // reps
+    stages = []
+    for k in range(per_call):
+        name = re.sub(r"\(anonymous namespace\)::|void |at::native::|\(.*$", "", kernels[k].name)
+        ms = sum(kernels[r * per_call + k].device_time_total for r in range(reps)) / reps / 1e3
+        if stages and stages[-1][0] == name[:70]:
+            stages[-1] = (stages[-1][0], stages[-1][1] + 1, stages[-1][2] + ms)
+        else:
+            stages.append((name[:70], 1, ms))
+    return stages
+
+
+def say_stages(what: str, stages: list) -> None:
+    total = sum(s[2] for s in stages)
+    say(f"    stages of {what} (device ms per call, {total:.4f} in all):")
+    for name, n, ms in stages:
+        say(f"      {ms:10.4f}  x{n:<3d} {name}")
 
 
 def make_tables(torch, cfg, news_num: int, device, seed: int):
@@ -374,10 +433,25 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
     guarded("msa_encoder_pooled", encoder_dropout_check)
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     dp = torch.randn((cap, D), generator=g, device=dev)
-    guarded("msa_encoder_bwd", lambda: check_kernel(
-        torch, f"msa_encoder_bwd [{cap},{L},{Din}] dropout {p} (dx + 8 weight grads)",
-        ME.msa_encoder_bwd, ME.msa_encoder_bwd_plain,
-        (x, tmask, *w, dp, heads, p, 987, 0), *msa_bwd_work(cap, L, Din, D, A)))
+
+    def encoder_bwd_check():
+        args = (x, tmask, *w, dp, heads, p, 987, 0)
+        e = check_kernel(
+            torch, f"msa_encoder_bwd [{cap},{L},{Din}] dropout {p} (dx + 8 weight grads)",
+            ME.msa_encoder_bwd, ME.msa_encoder_bwd_plain, args, *msa_bwd_work(cap, L, Din, D, A))
+        say(f"    bound with the products at 3xTF32: {bound_3xtf32(cap, L, Din, D, A):.4f} ms "
+            f"({msa_bwd_products(cap, L, Din, D, A) / 1e9:.1f} GFLOP of products); fp32 "
+            f"CUDA-core bound {e['bound_ms']:.4f} ms")
+        again = all(torch.equal(a, b) for a, b in zip(ME.msa_encoder_bwd(*args),
+                                                      ME.msa_encoder_bwd(*args)))
+        say(f"    same bits twice, every output: {again}")
+        stages = stage_split(torch, lambda: ME.msa_encoder_bwd(*args))
+        say_stages("msa_encoder_bwd", stages)
+        e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
+        e["ok"] = e["ok"] and again
+        return e
+
+    guarded("msa_encoder_bwd", encoder_bwd_check)
 
     by_shape = {}
     B = cfg.batch_size * (1 + cfg.negative_sample_num)
@@ -408,12 +482,33 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
         ms=sum_of("ms"), plain_ms=sum_of("plain_ms"), bound_ms=sum_of("bound_ms"),
         bound_by="operations", library_ms=None, by_shape=by_shape)
 
-    tok = text.reshape(-1)
-    gr = torch.randn((tok.numel(), Din), generator=g, device=dev)
-    guarded("embedding_grad", lambda: check_kernel(
-        torch, f"embedding_grad ntok={tok.numel()} V={V} D={Din}", EG.embedding_grad,
-        EG.embedding_grad_plain, (tok, gr, V), *emb_work(tok.numel(), V, Din),
-        library=lambda t, gg, v: torch.ops.aten.embedding_dense_backward(gg, t, v, -1, False)))
+    # D on the uniform stream (the seeded corpus's tokens, as the training
+    # phase reads them) and on the pad stream (token 0 wherever the title
+    # mask is False, as the corpus writes real titles)
+    gr = torch.randn((text.numel(), Din), generator=g, device=dev)
+
+    def emb_check():
+        by_shape = {}
+        streams = {"uniform": text.reshape(-1),
+                   "pad": torch.where(tmask, text, torch.zeros_like(text)).reshape(-1)}
+        for what, tok in streams.items():
+            pad = float((tok == 0).float().mean())
+            e = check_kernel(
+                torch, f"embedding_grad {what} stream (token 0 on {pad:.3f}) ntok={tok.numel()} "
+                f"V={V} D={Din}", EG.embedding_grad, EG.embedding_grad_plain, (tok, gr, V),
+                *emb_work(tok.numel(), V, Din),
+                library=lambda t, gg, v: torch.ops.aten.embedding_dense_backward(gg, t, v, -1,
+                                                                                 False))
+            again = torch.equal(EG.embedding_grad(tok, gr, V), EG.embedding_grad(tok, gr, V))
+            stages = stage_split(torch, lambda: EG.embedding_grad(tok, gr, V))
+            say_stages(f"embedding_grad ({what})", stages)
+            e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
+            e["ok"] = e["ok"] and again
+            by_shape[what] = e
+        return dict(by_shape["uniform"], by_shape=by_shape,
+                    ok=all(v["ok"] for v in by_shape.values()))
+
+    guarded("embedding_grad", emb_check)
     return entries
 
 
@@ -589,6 +684,54 @@ def ptxas_report(build, needle: str) -> dict:
         if m and name:
             report[name] = (int(m.group(1)), *spills)
     return report
+
+
+def sass_tensor_core_check(build) -> dict:
+    """TF32 tensor-core instructions (SASS `HMMA...TF32`) in each instantiation
+    of the 3xTF32 product kernel (tc_gemm.cuh) of the built library, read
+    with `cuobjdump -sass`: label -> count."""
+    import re
+    import shutil
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump") or tool
+    sass = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
+                          text=True, timeout=300).stdout
+    epilogues = ["store", "bias", "pool", "dh", "dropout"]
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"2tc11gemm_kernelILb([01])ELb([01])ELi(\d+)ELi(\d)E", m.group(1))
+            name = None if k is None else (
+                f"A {'K' if k.group(1) == '1' else 'M'}-major, B "
+                f"{'K' if k.group(2) == '1' else 'N'}-major, BN {k.group(3)}, "
+                f"{epilogues[int(k.group(4))]} epilogue")
+            if name:
+                counts[name] = 0
+            continue
+        if name and re.search(r"HMMA\.\S*TF32", line):
+            counts[name] += 1
+    return counts
+
+
+def redesign_report(build) -> bool:
+    """Prints ptxas's registers and spills of kernel A''s and D's kernels and
+    the SASS check that A''s products issue TF32 tensor-core instructions;
+    False if a product kernel issues none."""
+    ok = True
+    for needle in ("tc11gemm_kernel", "msa_attn_", "msa_pool_kernel", "emb_grad_"):
+        for mangled, (n_regs, st, ld) in sorted(ptxas_report(build, needle).items()):
+            say(f"  ptxas {mangled[:90]}: {n_regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
+    counts = sass_tensor_core_check(build)
+    for label, n in counts.items():
+        say(f"  SASS {label}: {n} HMMA TF32 instructions")
+    if len(counts) < 6 or not all(counts.values()):
+        say("  SASS check FAILED: a product kernel of A' issues no TF32 HMMA")
+        ok = False
+    return ok
 
 
 def attention_kernels(torch, cfg, dev):
@@ -1052,6 +1195,8 @@ def main() -> int:
             probe, corpus.news_node_id, cfg.batch_size, seed=cfg.seed)
         say(f"  dedup capacity at B {cfg.batch_size}: {cap} titles")
         train_entries = training_kernels(torch, cfg, model, tables, cap, dev)
+        if not redesign_report(build):
+            failures.append("a product kernel of A' issues no TF32 HMMA (SASS)")
     except Exception:
         traceback.print_exc()
         failures.append("training kernels")
@@ -1201,6 +1346,7 @@ def main() -> int:
             "launches": total, "launches_by_path": paths, "max_abs_err": e.get("max_abs_err"),
             "ms": e.get("ms"), "plain_ms": e.get("plain_ms"), "bound_ms": e.get("bound_ms"),
             "bound_by": e.get("bound_by"), "library_ms": e.get("library_ms"),
+            **({"stages": e["stages"]} if "stages" in e else {}),
             "ok": bool(e.get("ok")), **({"by_shape": e["by_shape"]} if "by_shape" in e else {}),
         })
     say(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
-// Helpers shared by the port's kernels: warp reductions and one tiled fp32
-// GEMM, used by the GAT layer's projections (gat_layer.cu) and by the MSA
-// encoder backward's products and weight gradients (msa_encoder_bwd.cu).
+// Helpers shared by the port's kernels: warp reductions, and one tiled fp32
+// GEMM on the CUDA cores, which the GAT layer's projections use
+// (gat_layer.cu).
 //
 // The GEMM: C[z] (+ bias) = op(A)[M, K_z] op(B)[K_z, N] over the z-th slice
 // of K (k_per_split rows each; one slice when k_per_split >= K), with

@@ -10,32 +10,76 @@
 // applied to x on the way in and to dx on the way out; it never reaches
 // device memory.
 //
-// What bounds it on an H100: arithmetic. At N titles the projections cost
-// 2*N*L*Din*3D FLOP three times (recompute, dx, dW) and the pool product
-// 2*N*L*D*A three times (recompute, dh, dW1): at N = 10,240, L 32, Din 300,
-// D 400, A 256 that is 0.91 TFLOP, against about 0.8 GB that must move.
+// What bounds it on an H100: the six matrix products. Over M = N L rows
+// they cost 2 M Din 3D FLOP three times (the Q|K|V recompute, dx, dW) and
+// 2 M D A three times (the pool's u = h W1^T, dh = dpre W1, dW1): at
+// N 8,960 (M 286,720), Din 300, D 400, A 256 that is 0.80 TFLOP, against
+// about 0.06 TFLOP of attention and a few GB of scratch traffic.
 //
-// Design. The TPU kernel keeps a tile of titles in 16 MB of VMEM and sums
-// the weight gradients in output blocks revisited across its sequential
-// grid. A block here has at most 227 KB of shared memory and blocks run in
-// no order, so the backward is a chain of launches on the caller's stream,
-// with scratch in device memory that the wrapper allocates:
+// Design. A chain of launches on the caller's stream, with scratch in
+// device memory that the wrapper allocates:
 //   1. xd = dropout(x) (Philox, per title), written to scratch;
-//   2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv], the tiled fp32 GEMM of
-//      common.cuh ([N*L, 3D]);
-//   3. one block per title (msa_bwd_title_kernel) keeps its q|k|v rows
-//      (154 KB) and the pool gradient (32 KB) in shared memory: attention
-//      forward, h = relu(P v) (written out), the tanh-MLP pool forward and
-//      backward (dpre = dLoss/d(h W1^T + b1) written out), then per head
-//      dh = alpha dp + dpre W1 masked by h > 0, and the attention backward,
-//      whose dq|dk|dv overwrite that title's qkv rows;
-//   4. dx = dqkv [Wq;Wk;Wv] (GEMM), then the dropout mask on dx in place;
-//   5. dW = dqkv^T xd and dW1 = dpre^T h, GEMMs split over the N*L rows into
-//      fixed slices, each slice to its own partial, then summed in slice
-//      order; the bias and v gradients are column sums reduced the same way.
-// Every reduction is a fixed-order sum of partials (no atomics), so the
-// result is the same bits on every run. Plain fp32 FMA on the CUDA cores;
-// wgmma/TMA are later work.
+//   2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv]                  (tc_gemm, kBias)
+//   3. msa_attn_fwd_kernel, a block per (title, head): P = softmax(q k^T
+//      scale), h = relu(P v), its log-sum-exp per row, and the head's part
+//      of dalpha = dp . h per position; it marks a unit where a
+//      pre-activation lies within rounding of 0 (below);
+//  3b. msa_attn_relu_fix_kernel: those units' h again in fp32 CUDA-core
+//      order;
+//   4. u = tanh(h W1^T + b1) with its v-product per warp column (tc_gemm,
+//      kPool);
+//   5. msa_pool_kernel, a warp per title: the masked softmax over the 32
+//      positions and its backward; dpre = dlg v (1 - u^2) in place of u, and
+//      the title's parts of db1 and dv;
+//   6. dW1 = dpre^T h                                      (tc_gemm, split)
+//   7. dO = (alpha dp + dpre W1) * (h > 0)                 (tc_gemm, kDh)
+//   8. msa_attn_bwd_kernel, a block per (title, head): the attention
+//      backward, dq|dk|dv written over the title's q|k|v, and their column
+//      sums (the bias gradients' parts);
+//   9. dx = dqkv [Wq;Wk;Wv] with the dropout mask        (tc_gemm, kDrop)
+//  10. dWqkv = dqkv^T xd                                   (tc_gemm, split)
+//  11. the column sums of the parts, in title order.
+// The products run on the tensor cores at 3xTF32 (tc_gemm.cuh), which keeps
+// fp32-class accuracy: within about 1e-6 of the exact value relative to
+// the sums' terms. The one place where that is not enough is the ReLU after
+// the attention: a pre-activation within rounding of 0 takes the ReLU's
+// gradient (0 or the whole upstream term) from the sign that rounding gives
+// it, and at N 8,960 a dozen of the 115M pre-activations fall on the other
+// side of 0 than in fp32 arithmetic, enough to move dx by 3e-3 where the
+// gate is 1e-4 (scripts/msa_bwd_precision.py). So the forward marks each
+// unit with a pre-activation within kReluTol of its scale (about 3,500 of
+// 143,360 units at N 8,960), and step 3b recomputes just those units'
+// q|k|v, scores and h on the CUDA cores as an fp32 product summed over Din
+// in order gives them; the ReLU's side is then that of fp32 CUDA-core
+// arithmetic. That is what holds the kernel to its fp32 plain version
+// within the gate at N 8,960, where the plain version itself is further
+// from float64 than the gate (dx 4.0e-4, dwq 3.9e-3 against limits of 1e-4
+// and 1e-3). It rests on an assumption about the plain version: that
+// cuBLAS's fp32 SGEMM sums over Din in order, one thread an output, with no
+// split over K, as step 3b does. A torch or cuBLAS that sums otherwise (a
+// split-K SGEMM, or TF32 left on in the plain version, which
+// runtime.exact_fp32 turns off) can put a pre-activation on the other side
+// of 0 outside kReluTol and fail the gate with no fault in this kernel;
+// scripts/msa_bwd_precision.py --seeds reads the margin. The weight
+// gradients split the M rows into fixed slices, each slice's partial
+// written apart and summed in slice order; every other reduction also sums
+// in a fixed order, with no atomics, so the result is the same bits on
+// every run.
+//
+// The attention kernels: a block of 4 warps per (title, head), a unit, in
+// place of one 8-warp block per title that held the title's whole q|k|v
+// (228 KB of shared memory: 8 warps an SM). The unit's q, k, v (and do)
+// rows sit in shared memory as float4 rows kv_stride(dk) floats apart, so
+// that 8 lanes reading 8 rows hit 8 bank quads and all lanes reading one row
+// is a broadcast; the scores P and their gradient dS as [32][33]. Each
+// thread owns a query row i (its lane) and 8 keys (its warp's) for the
+// scores, a row and up to 4 column groups of 4 for dq and the output, and a
+// key and the same groups for dk and dv. The forward's softmax combines the
+// four warps' maxima and sums over their keys of a row. The backward takes
+// t_i = sum_j p_ij dp_ij as 4 per-warp parts summed in order, and
+// p_ij = exp(s_ij - lse_i) from the forward's log-sum-exp. Rows come in by
+// cp.async. About 24 KB of shared memory and at most 64 registers a thread
+// at dk 25: 8 or more blocks, 32 or more warps an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,19 +87,93 @@
 
 #include "common.cuh"
 #include "philox.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-constexpr int kL = 32;  // title length: one warp lane per position
+constexpr int kL = 32;  // title length
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kAttnThreads = 128;  // a unit: 4 warps
+constexpr int kAttnWarps = kAttnThreads / 32;
+constexpr int kKeys = kL / kAttnWarps;  // keys per warp in the row pass
+constexpr int kMaxGroups = 4;          // float4 column groups per thread: dk <= 64
+constexpr int kMaxDk = 4 * kAttnWarps * kMaxGroups;
+constexpr int kPS = kL + 1;            // row stride of P and dS
+constexpr int kMaxA4 = 4;              // pool float4 columns per lane: A <= 512
 constexpr float kMaskFill = -1e9f;
-constexpr int kRowsPerSplit = 8192;  // rows of one slice of a split reduction
+// |pre-activation| <= kReluTol * sum_j p_ij |v_jc| marks a unit for
+// msa_attn_relu_fix_kernel: 5 to 10 times the largest gap between the
+// tensor-core q|k|v path and fp32 CUDA-core arithmetic, relative to that sum,
+// over the training step's 115M pre-activations (about 1e-6)
+constexpr float kReluTol = 1e-5f;
+constexpr int kFixBlocks = 2 * 132;  // blocks walking the list of units to fix
+constexpr int kFixThreads = 256;  // a block of the ReLU fix
+constexpr int kFixWarps = kFixThreads / 32;
+constexpr int kFixRows = kMaxDk / kFixWarps;  // W rows of q, k or v per warp in the fix
+constexpr int kRowsPerSplit = 4096;    // rows of one slice of a weight gradient
+constexpr int kColRows = 256;          // rows of one slice of a column sum over titles
+constexpr int kBNq = 128, kBNp = 128, kBN = 160;  // tile widths: Q|K|V, pool, the rest
 
-using digat::Bias;
-using digat::Mat;
 using digat::warp_max;
 using digat::warp_sum;
+namespace tc = digat::tc;
+
+// Row stride of a unit's rows in shared memory: dk padded to a float4, plus
+// 4 where that is a multiple of 8 floats, so that float4 rows are an odd
+// number of bank quads apart.
+__host__ __device__ inline int kv_stride(int dk) {
+  const int w = (dk + 3) & ~3;
+  return (w / 4) % 2 ? w : w + 4;
+}
+
+__host__ __device__ inline int attn_fwd_floats(int dk) {
+  return 3 * kL * kv_stride(dk) + kL * kPS + kv_stride(dk) + 2 * kAttnWarps * kL;
+}
+
+__host__ __device__ inline int attn_bwd_floats(int dk) {
+  return 4 * kL * kv_stride(dk) + 2 * kL * kPS + kAttnWarps * kL;
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+__device__ __forceinline__ void axpy4(float a, const float4 x, float4& y) {
+  y.x = fmaf(a, x.x, y.x);
+  y.y = fmaf(a, x.y, y.y);
+  y.z = fmaf(a, x.z, y.z);
+  y.w = fmaf(a, x.w, y.w);
+}
+
+// rows [32][RS] of a unit's dk columns of a row-major [*, ld] array, zero
+// past dk, by cp.async: the caller commits and waits
+__device__ __forceinline__ void load_unit(float* dst, const float* src, size_t ld, int dk,
+                                          int RS) {
+  const int W = (dk + 3) & ~3;
+  for (int e = threadIdx.x; e < kL * W; e += kAttnThreads) {
+    const int i = e / W, c = e - i * W;
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + i * RS + c));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(c < dk ? src + i * ld + c : src), "r"(c < dk ? 4 : 0));
+  }
+}
+
+__device__ __forceinline__ void load_unit_wait() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+}
+
+__device__ __forceinline__ void store_unit(float* dst, const float* src, size_t ld, int dk,
+                                           int RS) {
+  for (int e = threadIdx.x; e < kL * dk; e += kAttnThreads) {
+    const int i = e / dk, c = e - i * dk;
+    dst[i * ld + c] = src[i * RS + c];
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Dropout on [n, per_title] rows, in place allowed (Philox as in kernel A)
@@ -104,287 +222,468 @@ __global__ void colsum_kernel(const float* __restrict__ A, int M, int N, int row
 }
 
 // ---------------------------------------------------------------------------
-// Per-title recompute and backward
+// Attention forward of a unit (title n, head hd): h, lse and dalpha's part
 // ---------------------------------------------------------------------------
-__host__ __device__ inline int align4(int f) { return (f + 3) & ~3; }
+__global__ void __launch_bounds__(kAttnThreads, 8)
+msa_attn_fwd_kernel(const float* __restrict__ qkv,  // [N*L, 3D]
+                    const float* __restrict__ dp,   // [N, D]
+                    float* __restrict__ h,          // [N*L, D] out
+                    float* __restrict__ lse,        // [N, heads, L] out
+                    float* __restrict__ dap,        // [N, heads, L] out: dp . h per head
+                    int* __restrict__ unsure,       // [1 + N * heads]: count, then units
+                    int heads, int dk, float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int RS = kv_stride(dk), G = (dk + 3) / 4, D = heads * dk;
+  const int n = blockIdx.x / heads, hd = blockIdx.x - n * heads;
+  const int i = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float* qs = smem;  // q, then h
+  float* ks = qs + kL * RS;
+  float* vs = ks + kL * RS;
+  float* P = vs + kL * RS;  // [kL][kPS]
+  float* dps = P + kL * kPS;
+  float* red_m = dps + kv_stride(dk);  // [kAttnWarps][kL]: each warp's max and sum of a row
+  float* red_l = red_m + kAttnWarps * kL;
+  const float* rows = qkv + (size_t)n * kL * 3 * D + hd * dk;
+  load_unit(qs, rows, 3 * D, dk, RS);
+  load_unit(ks, rows + D, 3 * D, dk, RS);
+  load_unit(vs, rows + 2 * D, 3 * D, dk, RS);
+  for (int c = threadIdx.x; c < RS; c += kAttnThreads)
+    dps[c] = c < dk ? dp[(size_t)n * D + hd * dk + c] : 0.f;
+  load_unit_wait();
 
-// floats of the union region: the attention forward's scratch, or the
-// per-head backward's (W1 head slice, dO, P, dP/dS, k or v transposed)
-__host__ __device__ inline int title_scratch_floats(int dk, int A) {
-  const int fwd = kL * kL + dk * kL;
-  const int bwd = A * dk + kL * dk + 2 * kL * kL + dk * kL;
-  return align4(fwd > bwd ? fwd : bwd);
+  // scores of row i against this warp's keys; the softmax from each warp's
+  // max and sum over its keys
+  {
+    const float4* q4 = reinterpret_cast<const float4*>(qs + i * RS);
+    float s[kKeys];
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) s[jj] = 0.f;
+    for (int gi = 0; gi < G; ++gi) {
+      const float4 qv = q4[gi];
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj)
+        s[jj] = dot4(qv, reinterpret_cast<const float4*>(ks + (w * kKeys + jj) * RS)[gi], s[jj]);
+    }
+    float mw = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) {
+      s[jj] *= scale;
+      mw = fmaxf(mw, s[jj]);
+    }
+    float lw = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) lw += expf(s[jj] - mw);
+    red_m[w * kL + i] = mw;
+    red_l[w * kL + i] = lw;
+    __syncthreads();
+    float m = red_m[i];
+#pragma unroll
+    for (int ww = 1; ww < kAttnWarps; ++ww) m = fmaxf(m, red_m[ww * kL + i]);
+    float l = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kAttnWarps; ++ww) l += red_l[ww * kL + i] * expf(red_m[ww * kL + i] - m);
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) P[i * kPS + w * kKeys + jj] = expf(s[jj] - m) * inv;
+    if (w == 0) lse[((size_t)n * heads + hd) * kL + i] = m + logf(l);
+  }
+  __syncthreads();
+  // h = relu(P v) for this thread's column groups, over q's rows; a
+  // pre-activation within kReluTol of sum_j p_ij |v_jc| of 0 marks the unit
+  int near0 = 0;
+#pragma unroll
+  for (int r = 0; r < kMaxGroups; ++r) {
+    const int gi = w + kAttnWarps * r;
+    if (gi < G) {
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f), a = o;
+#pragma unroll 8
+      for (int j = 0; j < kL; ++j) {
+        const float pj = P[i * kPS + j];
+        const float4 vj = reinterpret_cast<const float4*>(vs + j * RS)[gi];
+        axpy4(pj, vj, o);
+        axpy4(pj, make_float4(fabsf(vj.x), fabsf(vj.y), fabsf(vj.z), fabsf(vj.w)), a);
+      }
+      const float ov[4] = {o.x, o.y, o.z, o.w}, av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) near0 |= 4 * gi + c < dk && fabsf(ov[c]) <= kReluTol * av[c];
+      o.x = fmaxf(o.x, 0.f);
+      o.y = fmaxf(o.y, 0.f);
+      o.z = fmaxf(o.z, 0.f);
+      o.w = fmaxf(o.w, 0.f);
+      reinterpret_cast<float4*>(qs + i * RS)[gi] = o;
+    }
+  }
+  // the list's order varies from run to run; each unit's fix does not
+  if (__syncthreads_or(near0) && threadIdx.x == 0) unsure[1 + atomicAdd(unsure, 1)] = blockIdx.x;
+  if (w == 0) {
+    float da = 0.f;
+    for (int gi = 0; gi < G; ++gi)
+      da = dot4(reinterpret_cast<const float4*>(qs + i * RS)[gi],
+                reinterpret_cast<const float4*>(dps)[gi], da);
+    dap[((size_t)n * heads + hd) * kL + i] = da;
+  }
+  store_unit(h + (size_t)n * kL * D + hd * dk, qs, D, dk, RS);
 }
 
-__host__ __device__ inline size_t title_smem_bytes(int D, int dk, int A) {
-  const int misc = 2 * kL + kWarps * kL;  // alpha, dlg, per-warp logit partials
-  return sizeof(float) *
-         (size_t(kL) * 3 * D + align4(kL * A) + align4(misc) + title_scratch_floats(dk, A));
+// ---------------------------------------------------------------------------
+// The ReLU of a unit that msa_attn_fwd_kernel marked: its h again in the
+// fp32 order of a CUDA-core product (q|k|v summed over Din in order from 0,
+// then the bias; the scores over dk in order; the softmax's sum as a warp's
+// butterfly; P v over the keys in order), so that a pre-activation within
+// rounding of 0 falls on the side that fp32 arithmetic in that order puts it.
+// ---------------------------------------------------------------------------
+// x rows sit kx_stride(Din) floats apart: an odd number of float4s, so that
+// 8 lanes reading 8 rows as float4 hit 8 bank quads
+__host__ __device__ inline int kx_stride(int Din) { return (Din / 4) % 2 ? Din : Din + 4; }
+
+__host__ __device__ inline int relu_fix_floats(int Din, int dk) {
+  return kL * kx_stride(Din) + dk * Din + 3 * kL * (dk + 1) + kL * kPS;
+}
+
+// Blocks walk the list of marked units. The title's x rows and, in turn,
+// the dk rows of Wq, Wk and Wv of the unit's head sit in shared memory; lane
+// i owns position i and warp w the columns c = w, w + 8, ..., each summed
+// in one pass over Din (the x row and the W row as float4), in order from
+// k = 0.
+__global__ void __launch_bounds__(kFixThreads)
+msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
+                         const float* __restrict__ wqkv,   // [3D, Din]
+                         const float* __restrict__ bqkv,   // [3D]
+                         const int* __restrict__ unsure,   // count, then units
+                         float* __restrict__ h,            // [N*L, D]: the unit's rows again
+                         int Din, int heads, int dk, float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D = heads * dk, XS = kx_stride(Din), TS = dk + 1, D4 = Din / 4;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float* xs = smem;             // [kL][XS]
+  float* ws = xs + kL * XS;     // [dk][Din]: the head's rows of Wq, Wk or Wv
+  float* t = ws + dk * Din;     // [3][kL][TS]: q, k, v
+  float* S = t + 3 * kL * TS;   // [kL][kPS]
+  const int count = unsure[0];
+  for (int u = blockIdx.x; u < count; u += gridDim.x) {
+    const int unit = unsure[1 + u];
+    const int n = unit / heads, hd = unit - n * heads;
+    const float4* xrows = reinterpret_cast<const float4*>(xin + (size_t)n * kL * Din);
+    for (int e = threadIdx.x; e < kL * D4; e += kFixThreads) {
+      const int i = e / D4;
+      reinterpret_cast<float4*>(xs + i * XS)[e - i * D4] = xrows[e];
+    }
+    const float4* x4 = reinterpret_cast<const float4*>(xs + lane * XS);
+    for (int which = 0; which < 3; ++which) {  // the head's q, k, v columns
+      const float4* wb =
+          reinterpret_cast<const float4*>(wqkv + ((size_t)which * D + hd * dk) * Din);
+      for (int e = threadIdx.x; e < dk * D4; e += kFixThreads)
+        reinterpret_cast<float4*>(ws)[e] = __ldg(wb + e);
+      __syncthreads();
+      float acc[kFixRows];
+#pragma unroll
+      for (int m = 0; m < kFixRows; ++m) acc[m] = 0.f;
+      for (int k4 = 0; k4 < D4; ++k4) {
+        const float4 x = x4[k4];
+#pragma unroll
+        for (int m = 0; m < kFixRows; ++m) {
+          const int c = w + kFixWarps * m;
+          if (c < dk) {
+            const float4 wv = reinterpret_cast<const float4*>(ws + c * Din)[k4];
+            float a = acc[m];
+            a = fmaf(x.x, wv.x, a);
+            a = fmaf(x.y, wv.y, a);
+            a = fmaf(x.z, wv.z, a);
+            acc[m] = fmaf(x.w, wv.w, a);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kFixRows; ++m) {
+        const int c = w + kFixWarps * m;
+        if (c < dk) t[(which * kL + lane) * TS + c] = acc[m] + bqkv[which * D + hd * dk + c];
+      }
+      __syncthreads();  // ws read for the last time
+    }
+    const float* q = t;
+    const float* kk = t + kL * TS;
+    const float* v = t + 2 * kL * TS;
+    for (int e = threadIdx.x; e < kL * kL; e += kFixThreads) {
+      const int i = e >> 5, j = e & 31;
+      float s = 0.f;
+      for (int c = 0; c < dk; ++c) s = fmaf(q[i * TS + c], kk[j * TS + c], s);
+      S[i * kPS + j] = s * scale;
+    }
+    __syncthreads();
+    for (int i = w; i < kL; i += kFixWarps) {
+      const float s = S[i * kPS + lane];
+      const float p = expf(s - warp_max(s));
+      S[i * kPS + lane] = p / warp_sum(p);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kL * dk; e += kFixThreads) {
+      const int i = e / dk, c = e - i * dk;
+      float o = 0.f;
+      for (int j = 0; j < kL; ++j) o = fmaf(S[i * kPS + j], v[j * TS + c], o);
+      h[((size_t)n * kL + i) * D + hd * dk + c] = fmaxf(o, 0.f);
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The pool's softmax over a title's positions, its backward, and dpre
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+msa_pool_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
+                int parts,
+                const unsigned char* __restrict__ mask,  // [N, L]
+                const float* __restrict__ dap,           // [N, heads, L]
+                const float* __restrict__ v,             // [A]
+                float* __restrict__ u,                   // [N*L, A]: u in, dpre out
+                float* __restrict__ alpha_out,           // [N*L]
+                float* __restrict__ dv_part,             // [N, A]
+                float* __restrict__ db1_part,            // [N, A]
+                int N, int heads, int A) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const size_t M = (size_t)N * kL, row = (size_t)n * kL + lane;
+  float lg = 0.f;
+  for (int q = 0; q < parts; ++q) lg += lgpart[q * M + row];
+  const bool keep = mask[row] != 0;
+  const float logit = keep ? lg : kMaskFill;  // all-pad title -> uniform
+  const float mx = warp_max(logit);
+  const float e = expf(logit - mx);
+  const float alpha = e / warp_sum(e);
+  float da = 0.f;
+  for (int hd = 0; hd < heads; ++hd) da += dap[((size_t)n * heads + hd) * kL + lane];
+  const float s = warp_sum(alpha * da);
+  const float dlg = keep ? (da - s) * alpha : 0.f;  // a masked logit passes no gradient
+  alpha_out[row] = alpha;
+
+  const int A4 = A / 4;
+  float4 vv[kMaxA4], dva[kMaxA4], dba[kMaxA4];
+#pragma unroll
+  for (int r = 0; r < kMaxA4; ++r) {
+    const int a = lane + 32 * r;
+    vv[r] = a < A4 ? reinterpret_cast<const float4*>(v)[a] : make_float4(0.f, 0.f, 0.f, 0.f);
+    dva[r] = dba[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float4* u4 = reinterpret_cast<float4*>(u + (size_t)n * kL * A);
+  for (int l = 0; l < kL; ++l) {
+    const float g = __shfl_sync(0xffffffffu, dlg, l);
+#pragma unroll
+    for (int r = 0; r < kMaxA4; ++r) {
+      const int a = lane + 32 * r;
+      if (a < A4) {
+        const float4 x = u4[l * A4 + a];
+        float4 z;
+        z.x = g * vv[r].x * (1.f - x.x * x.x);
+        z.y = g * vv[r].y * (1.f - x.y * x.y);
+        z.z = g * vv[r].z * (1.f - x.z * x.z);
+        z.w = g * vv[r].w * (1.f - x.w * x.w);
+        axpy4(g, x, dva[r]);
+        dba[r].x += z.x;
+        dba[r].y += z.y;
+        dba[r].z += z.z;
+        dba[r].w += z.w;
+        u4[l * A4 + a] = z;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kMaxA4; ++r) {
+    const int a = lane + 32 * r;
+    if (a < A4) {
+      reinterpret_cast<float4*>(dv_part + (size_t)n * A)[a] = dva[r];
+      reinterpret_cast<float4*>(db1_part + (size_t)n * A)[a] = dba[r];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention backward of a unit: dq|dk|dv over q|k|v, and their column sums
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kAttnThreads, 8)
+msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq|dk|dv out
+                    const float* __restrict__ dO,     // [N*L, D]
+                    const float* __restrict__ lse,    // [N, heads, L]
+                    float* __restrict__ dbias_part,   // [N, 3D] out
+                    int heads, int dk, float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int RS = kv_stride(dk), G = (dk + 3) / 4, D = heads * dk;
+  const int n = blockIdx.x / heads, hd = blockIdx.x - n * heads;
+  const int i = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float* qs = smem;
+  float* ks = qs + kL * RS;
+  float* vs = ks + kL * RS;
+  float* dos = vs + kL * RS;
+  float* P = dos + kL * RS;  // [kL][kPS]
+  float* S = P + kL * kPS;   // [kL][kPS]: dP, then dS
+  float* red = S + kL * kPS;  // [kAttnWarps][kL]
+  float* rows = qkv + (size_t)n * kL * 3 * D + hd * dk;
+  load_unit(qs, rows, 3 * D, dk, RS);
+  load_unit(ks, rows + D, 3 * D, dk, RS);
+  load_unit(vs, rows + 2 * D, 3 * D, dk, RS);
+  load_unit(dos, dO + (size_t)n * kL * D + hd * dk, D, dk, RS);
+  const float lse_i = lse[((size_t)n * heads + hd) * kL + i];
+  load_unit_wait();
+
+  // row pass: p_ij and dp_ij for this warp's keys, t_i's part
+  {
+    const float4* q4 = reinterpret_cast<const float4*>(qs + i * RS);
+    const float4* o4 = reinterpret_cast<const float4*>(dos + i * RS);
+    float s[kKeys], d[kKeys];
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) s[jj] = d[jj] = 0.f;
+    for (int gi = 0; gi < G; ++gi) {
+      const float4 qv = q4[gi], ov = o4[gi];
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj) {
+        const int j = w * kKeys + jj;
+        s[jj] = dot4(qv, reinterpret_cast<const float4*>(ks + j * RS)[gi], s[jj]);
+        d[jj] = dot4(ov, reinterpret_cast<const float4*>(vs + j * RS)[gi], d[jj]);
+      }
+    }
+    float t = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) {
+      const float pv = expf(s[jj] * scale - lse_i);
+      t = fmaf(pv, d[jj], t);
+      P[i * kPS + w * kKeys + jj] = pv;
+      S[i * kPS + w * kKeys + jj] = d[jj];
+    }
+    red[w * kL + i] = t;
+  }
+  __syncthreads();
+  {
+    float t = red[i];
+#pragma unroll
+    for (int ww = 1; ww < kAttnWarps; ++ww) t += red[ww * kL + i];
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) {
+      const int e = i * kPS + w * kKeys + jj;
+      S[e] = P[e] * (S[e] - t) * scale;
+    }
+  }
+  __syncthreads();
+  // dq_i = sum_j dS_ij k_j for this thread's column groups
+  float4 acc[kMaxGroups];
+#pragma unroll
+  for (int r = 0; r < kMaxGroups; ++r) {
+    const int gi = w + kAttnWarps * r;
+    acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gi < G) {
+#pragma unroll 8
+      for (int j = 0; j < kL; ++j)
+        axpy4(S[i * kPS + j], reinterpret_cast<const float4*>(ks + j * RS)[gi], acc[r]);
+    }
+  }
+  __syncthreads();  // k read for the last time
+#pragma unroll
+  for (int r = 0; r < kMaxGroups; ++r) {
+    const int gi = w + kAttnWarps * r;
+    if (gi < G) reinterpret_cast<float4*>(ks + i * RS)[gi] = acc[r];
+  }
+  // key pass, lane = key j: dk_j = sum_i dS_ij q_i, dv_j = sum_i p_ij do_i
+  float4 dkv[kMaxGroups], dvv[kMaxGroups];
+#pragma unroll
+  for (int r = 0; r < kMaxGroups; ++r) {
+    const int gi = w + kAttnWarps * r;
+    dkv[r] = dvv[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gi < G) {
+#pragma unroll 4
+      for (int ii = 0; ii < kL; ++ii) {
+        axpy4(S[ii * kPS + i], reinterpret_cast<const float4*>(qs + ii * RS)[gi], dkv[r]);
+        axpy4(P[ii * kPS + i], reinterpret_cast<const float4*>(dos + ii * RS)[gi], dvv[r]);
+      }
+    }
+  }
+  __syncthreads();  // q read for the last time
+#pragma unroll
+  for (int r = 0; r < kMaxGroups; ++r) {
+    const int gi = w + kAttnWarps * r;
+    if (gi < G) {
+      reinterpret_cast<float4*>(qs + i * RS)[gi] = dkv[r];
+      reinterpret_cast<float4*>(vs + i * RS)[gi] = dvv[r];
+    }
+  }
+  __syncthreads();
+  store_unit(rows, ks, 3 * D, dk, RS);      // dq
+  store_unit(rows + D, qs, 3 * D, dk, RS);  // dk
+  store_unit(rows + 2 * D, vs, 3 * D, dk, RS);  // dv
+  // the unit's column sums of dq, dk, dv over its 32 rows, in row order
+  for (int e = threadIdx.x; e < 3 * dk; e += kAttnThreads) {
+    const int which = e / dk, c = e - which * dk;
+    const float* tile = which == 0 ? ks : (which == 1 ? qs : vs);
+    float s = 0.f;
+    for (int r = 0; r < kL; ++r) s += tile[r * RS + c];
+    dbias_part[(size_t)n * 3 * D + which * D + hd * dk + c] = s;
+  }
 }
 
 int g_max_smem = 0;  // opt-in shared memory per block, set by msa_encoder_bwd_init
-
-__global__ void __launch_bounds__(kThreads)
-msa_bwd_title_kernel(float* __restrict__ qkv_g,              // [N*L, 3D]: q|k|v in, dq|dk|dv out
-                     const unsigned char* __restrict__ mask,  // [N, L]
-                     const float* __restrict__ w1,            // [A, D]
-                     const float* __restrict__ b1,            // [A]
-                     const float* __restrict__ v,             // [A]
-                     const float* __restrict__ dp,            // [N, D]
-                     float* __restrict__ h_g,                 // [N*L, D] out
-                     float* __restrict__ dpre_g,              // [N*L, A] out
-                     float* __restrict__ dv_part,             // [N, A] out
-                     int heads, int dk, int A, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int D = heads * dk, N3 = 3 * D;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t n = blockIdx.x;
-  float* qkv = smem;                    // [kL][3D]; q columns hold h in phases 2-3
-  float* dpre = qkv + kL * N3;          // [kL][A]
-  float* alpha = dpre + align4(kL * A);  // [kL]
-  float* dlg = alpha + kL;              // [kL]
-  float* part = dlg + kL;               // [kWarps][kL]
-  float* scr = alpha + align4(2 * kL + kWarps * kL);
-  float* qkv_rows = qkv_g + n * kL * N3;
-
-  // ---- 1. this title's q|k|v ----
-  for (int e = tid; e < kL * N3 / 4; e += kThreads)
-    reinterpret_cast<float4*>(qkv)[e] = reinterpret_cast<const float4*>(qkv_rows)[e];
-  __syncthreads();
-
-  // ---- 2. attention forward per head; relu(P v) overwrites q (as kernel A) ----
-  {
-    float* S = scr;
-    float* kT = scr + kL * kL;
-    for (int hd = 0; hd < heads; ++hd) {
-      const int qo = hd * dk, ko = D + hd * dk, vo = 2 * D + hd * dk;
-      for (int e = tid; e < kL * dk; e += kThreads) {
-        const int j = e / dk, c = e - j * dk;
-        kT[c * kL + j] = qkv[j * N3 + ko + c];
-      }
-      __syncthreads();
-      for (int e = tid; e < kL * kL; e += kThreads) {
-        const int i = e >> 5, j = e & 31;
-        const float* qi = qkv + i * N3 + qo;
-        float s = 0.f;
-        for (int c = 0; c < dk; ++c) s = fmaf(qi[c], kT[c * kL + j], s);
-        S[e] = s * scale;
-      }
-      __syncthreads();
-      for (int i = warp; i < kL; i += kWarps) {
-        const float s = S[i * kL + lane];
-        const float m = warp_max(s);
-        const float p = expf(s - m);
-        S[i * kL + lane] = p / warp_sum(p);
-      }
-      __syncthreads();
-      for (int e = tid; e < kL * dk; e += kThreads) {
-        const int i = e / dk, c = e - i * dk;
-        float o = 0.f;
-#pragma unroll 8
-        for (int j = 0; j < kL; ++j) o = fmaf(S[i * kL + j], qkv[j * N3 + vo + c], o);
-        qkv[i * N3 + qo + c] = fmaxf(o, 0.f);
-      }
-      __syncthreads();
-    }
-  }
-  for (int e = tid; e < kL * D; e += kThreads) {
-    const int l = e / D, d = e - l * D;
-    h_g[(n * kL + l) * D + d] = qkv[l * N3 + d];
-  }
-
-  // ---- 3. pool forward and backward; thread `tid` owns pool column tid ----
-  const bool has_col = tid < A;
-  float u[kL];
-  float lg[kL];
-#pragma unroll
-  for (int l = 0; l < kL; ++l) u[l] = lg[l] = 0.f;
-  if (has_col) {
-    const float* wrow = w1 + (size_t)tid * D;
-    for (int k = 0; k < D; k += 4) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(wrow + k));
-#pragma unroll
-      for (int l = 0; l < kL; ++l) {
-        const float4 hv = *reinterpret_cast<const float4*>(qkv + l * N3 + k);
-        float a = u[l];
-        a = fmaf(hv.x, w.x, a);
-        a = fmaf(hv.y, w.y, a);
-        a = fmaf(hv.z, w.z, a);
-        a = fmaf(hv.w, w.w, a);
-        u[l] = a;
-      }
-    }
-    const float bb = b1[tid], vv = v[tid];
-#pragma unroll
-    for (int l = 0; l < kL; ++l) {
-      u[l] = tanhf(u[l] + bb);
-      lg[l] = u[l] * vv;
-    }
-  }
-#pragma unroll
-  for (int l = 0; l < kL; ++l) {
-    const float t = warp_sum(lg[l]);
-    if (lane == 0) part[warp * kL + l] = t;
-  }
-  __syncthreads();
-  if (warp == 0) {  // masked softmax over positions (-1e9 fill; all-pad -> uniform)
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += part[w * kL + lane];
-    const float logit = mask[n * kL + lane] ? s : kMaskFill;
-    const float m = warp_max(logit);
-    const float p = expf(logit - m);
-    alpha[lane] = p / warp_sum(p);
-  }
-  // dalpha[l] = dp . h[l] (held in dlg until the softmax backward)
-  for (int l = warp; l < kL; l += kWarps) {
-    float t = 0.f;
-    for (int d = lane; d < D; d += 32) t = fmaf(dp[n * D + d], qkv[l * N3 + d], t);
-    t = warp_sum(t);
-    if (lane == 0) dlg[l] = t;
-  }
-  __syncthreads();
-  if (warp == 0) {  // softmax backward; a masked logit passes no gradient
-    const float a = alpha[lane], da = dlg[lane];
-    const float s = warp_sum(a * da);
-    dlg[lane] = mask[n * kL + lane] ? (da - s) * a : 0.f;
-  }
-  __syncthreads();
-  if (has_col) {
-    const float vv = v[tid];
-    float dvacc = 0.f;
-#pragma unroll
-    for (int l = 0; l < kL; ++l) {
-      const float g = dlg[l];
-      dvacc = fmaf(u[l], g, dvacc);
-      const float dz = g * vv * (1.f - u[l] * u[l]);
-      dpre[l * A + tid] = dz;
-      dpre_g[(n * kL + l) * A + tid] = dz;
-    }
-    dv_part[n * A + tid] = dvacc;
-  }
-
-  // ---- 4. q back in place of h (h is read from h_g from here on) ----
-  __syncthreads();
-  for (int e = tid; e < kL * D; e += kThreads) {
-    const int l = e / D, d = e - l * D;
-    qkv[l * N3 + d] = qkv_rows[(size_t)l * N3 + d];
-  }
-  __syncthreads();
-
-  // ---- 5. per head: dO = (alpha dp + dpre W1) * (h > 0), attention backward ----
-  float* Ws = scr;                 // [A][dk]: W1 columns of this head
-  float* dO = Ws + A * dk;         // [kL][dk]
-  float* P = dO + kL * dk;         // [kL][kL]
-  float* PS = P + kL * kL;         // [kL][kL]: dP, then dS
-  float* kvT = PS + kL * kL;       // [dk][kL]: k, then v, transposed
-  for (int hd = 0; hd < heads; ++hd) {
-    const int qo = hd * dk, ko = D + hd * dk, vo = 2 * D + hd * dk;
-    for (int e = tid; e < A * dk; e += kThreads) {
-      const int a = e / dk, c = e - a * dk;
-      Ws[e] = w1[(size_t)a * D + qo + c];
-    }
-    for (int e = tid; e < kL * dk; e += kThreads) {
-      const int j = e / dk, c = e - j * dk;
-      kvT[c * kL + j] = qkv[j * N3 + ko + c];
-    }
-    __syncthreads();
-    for (int e = tid; e < kL * kL; e += kThreads) {
-      const int i = e >> 5, j = e & 31;
-      const float* qi = qkv + i * N3 + qo;
-      float s = 0.f;
-      for (int c = 0; c < dk; ++c) s = fmaf(qi[c], kvT[c * kL + j], s);
-      P[e] = s * scale;
-    }
-    for (int e = tid; e < kL * dk; e += kThreads) {
-      const int i = e / dk, c = e - i * dk, col = qo + c;
-      float acc = alpha[i] * dp[n * D + col];
-      const float* zi = dpre + i * A;
-      for (int a = 0; a < A; ++a) acc = fmaf(zi[a], Ws[a * dk + c], acc);
-      dO[e] = h_g[(n * kL + i) * D + col] > 0.f ? acc : 0.f;
-    }
-    __syncthreads();
-    for (int i = warp; i < kL; i += kWarps) {
-      const float s = P[i * kL + lane];
-      const float m = warp_max(s);
-      const float p = expf(s - m);
-      P[i * kL + lane] = p / warp_sum(p);
-    }
-    for (int e = tid; e < kL * dk; e += kThreads) {
-      const int j = e / dk, c = e - j * dk;
-      kvT[c * kL + j] = qkv[j * N3 + vo + c];
-    }
-    __syncthreads();
-    for (int e = tid; e < kL * kL; e += kThreads) {  // dP = dO v^T
-      const int i = e >> 5, j = e & 31;
-      const float* oi = dO + i * dk;
-      float s = 0.f;
-      for (int c = 0; c < dk; ++c) s = fmaf(oi[c], kvT[c * kL + j], s);
-      PS[e] = s;
-    }
-    __syncthreads();
-    for (int i = warp; i < kL; i += kWarps) {  // dS = P (dP - rowsum(P dP)) scale
-      const float p = P[i * kL + lane], d = PS[i * kL + lane];
-      const float r = warp_sum(p * d);
-      PS[i * kL + lane] = p * (d - r) * scale;
-    }
-    __syncthreads();
-    for (int e = tid; e < kL * dk; e += kThreads) {
-      const int r = e / dk, c = e - r * dk;
-      float dq = 0.f, dkk = 0.f, dvv = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < kL; ++j) {
-        dq = fmaf(PS[r * kL + j], qkv[j * N3 + ko + c], dq);
-        dkk = fmaf(PS[j * kL + r], qkv[j * N3 + qo + c], dkk);
-        dvv = fmaf(P[j * kL + r], dO[j * dk + c], dvv);
-      }
-      float* row = qkv_rows + (size_t)r * N3;
-      row[qo + c] = dq;
-      row[ko + c] = dkk;
-      row[vo + c] = dvv;
-    }
-    __syncthreads();
-  }
-}
 
 inline int grid_1d(long long work) {
   const long long b = (work + kThreads - 1) / kThreads;
   return int(b < 132 * 32 ? (b > 0 ? b : 1) : 132 * 32);
 }
 
-inline int splits_of(long long rows) { return int((rows + kRowsPerSplit - 1) / kRowsPerSplit); }
+inline int splits_of(long long rows, int per) { return int((rows + per - 1) / per); }
 
 // floats of each scratch array, in the order they sit in the scratch buffer
 struct Scratch {
-  size_t xd, qkv, h, dpre, dvp, part, cpart;
-  size_t total() const { return xd + qkv + h + dpre + dvp + part + cpart; }
+  size_t xd, qkv, h, dO, u, lgpart, lse, dap, alpha, unsure, dbp, dvp, db1p, part, cpart;
+  size_t total() const {
+    return xd + qkv + h + dO + u + lgpart + lse + dap + alpha + unsure + dbp + dvp + db1p +
+           part + cpart;
+  }
+  // every array starts 16-byte aligned (float4 and tensor-core loads)
+  void align() {
+    for (size_t* f : {&xd, &qkv, &h, &dO, &u, &lgpart, &lse, &dap, &alpha, &unsure, &dbp, &dvp,
+                      &db1p, &part, &cpart})
+      *f = (*f + 3) & ~size_t(3);
+  }
 };
 
-Scratch scratch_of(int N, int Din, int D, int A) {
+Scratch scratch_of(int N, int Din, int heads, int D, int A) {
   const long long M = (long long)N * kL;
-  const long long S = splits_of(M), Sn = splits_of(N);
+  const long long S = splits_of(M, kRowsPerSplit), Sn = splits_of(N, kColRows);
   Scratch s;
   s.xd = size_t(M) * Din;
   s.qkv = size_t(M) * 3 * D;
   s.h = size_t(M) * D;
-  s.dpre = size_t(M) * A;
+  s.dO = size_t(M) * D;
+  s.u = size_t(M) * A;  // u, then dpre
+  s.lgpart = size_t(tc::pool_parts<kBNp>(A)) * M;
+  s.lse = size_t(M) * heads;
+  s.dap = size_t(M) * heads;
+  s.alpha = size_t(M);
+  s.unsure = size_t(N) * heads + 1;  // ints: a count, then units
+  s.dbp = size_t(N) * 3 * D;
   s.dvp = size_t(N) * A;
+  s.db1p = size_t(N) * A;
   const long long p1 = S * 3LL * D * Din, p2 = S * (long long)A * D;
   s.part = size_t(p1 > p2 ? p1 : p2);
-  const long long c1 = S * 3LL * D, c2 = S * (long long)A, c3 = Sn * (long long)A;
-  s.cpart = size_t(c1 > c2 ? (c1 > c3 ? c1 : c3) : (c2 > c3 ? c2 : c3));
+  s.cpart = size_t(Sn * (3LL * D > A ? 3LL * D : A));
+  s.align();
   return s;
 }
 
-// out[0:N] = column sums of A [M, N] (fixed slices, then summed in order)
-cudaError_t colsum(cudaStream_t st, const float* A, int M, int N, float* part, float* out) {
-  const int S = splits_of(M);
-  colsum_kernel<<<dim3((N + kThreads - 1) / kThreads, S), kThreads, 0, st>>>(
-      A, M, N, kRowsPerSplit, part);
+// out[0:C] = column sums of a [R, C] array of per-title parts (fixed slices
+// of kColRows rows, then summed in slice order)
+cudaError_t colsum(cudaStream_t st, const float* A, int R, int C, float* part, float* out) {
+  const int S = splits_of(R, kColRows);
+  colsum_kernel<<<dim3((C + kThreads - 1) / kThreads, S), kThreads, 0, st>>>(A, R, C, kColRows,
+                                                                             part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  sum_splits_kernel<<<grid_1d(N), kThreads, 0, st>>>(part, out, N, S);
+  sum_splits_kernel<<<grid_1d(C), kThreads, 0, st>>>(part, out, C, S);
+  return cudaGetLastError();
+}
+
+// out = the slices of `part` ([S, n]) summed in order
+cudaError_t sum_splits(cudaStream_t st, const float* part, float* out, long long n, int S) {
+  sum_splits_kernel<<<grid_1d(n), kThreads, 0, st>>>(part, out, n, S);
   return cudaGetLastError();
 }
 
@@ -393,13 +692,17 @@ cudaError_t colsum(cudaStream_t st, const float* A, int M, int N, float* part, f
 extern "C" int msa_encoder_bwd_init() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
+  if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&g_max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(msa_bwd_title_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(msa_attn_relu_fix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              g_max_smem);
-  }
+  if (e == cudaSuccess) e = tc::init<true, true, kBNq, tc::kBias>();
+  if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kPool>();
+  if (e == cudaSuccess) e = tc::init<false, false, kBN, tc::kStore>();
+  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDh>();
+  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDrop>();
+  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kStore>();
   return static_cast<int>(e);
 }
 
@@ -408,45 +711,65 @@ extern "C" int msa_encoder_bwd_init() {
 extern "C" long long msa_encoder_bwd_scratch_floats(int N, int L, int Din, int heads, int dk,
                                                     int A) {
   if (N <= 0 || L != kL || Din <= 0 || heads <= 0 || dk <= 0 || A <= 0) return 0;
-  return (long long)scratch_of(N, Din, heads * dk, A).total();
+  return (long long)scratch_of(N, Din, heads, heads * dk, A).total();
 }
 
-// dx [N, L, Din]; dwqkv [3D, Din] (dWq, dWk, dWv stacked, nn.Linear layout);
-// dbqkv [3D]; dw1 [A, D]; db1 [A]; dv [A]. Weights in nn.Linear layout.
-extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* wq,
-                                   const void* bq, const void* wk, const void* wv,
-                                   const void* bv, const void* w1, const void* b1,
+// x [N, L, Din]; wqkv [3D, Din] (Wq, Wk, Wv stacked, nn.Linear layout);
+// bqkv [3D] ([bq | 0 | bv]); w1 [A, D]; outputs dx [N, L, Din], dwqkv
+// [3D, Din], dbqkv [3D], dw1 [A, D], db1 [A], dv [A].
+extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* wqkv,
+                                   const void* bqkv, const void* w1, const void* b1,
                                    const void* v, const void* dp, void* dx, void* dwqkv,
                                    void* dbqkv, void* dw1, void* db1, void* dv, void* scratch,
                                    int N, int L, int Din, int heads, int dk, int A, float scale,
                                    unsigned thresh, float drop_scale, unsigned seed,
                                    unsigned site, void* stream) {
   const int D = heads * dk;
-  if (N <= 0 || L != kL || Din <= 0 || Din % 4 != 0 || D % 4 != 0 || A <= 0 || A > kThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (title_smem_bytes(D, dk, A) > size_t(g_max_smem)) {
+  if (N <= 0 || L != kL || Din <= 0 || Din % 4 != 0 || D % 4 != 0 || dk > kMaxDk || A <= 0 ||
+      A % 4 != 0 || A > 128 * kMaxA4 ||
+      sizeof(float) * relu_fix_floats(Din, dk) > size_t(g_max_smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Scratch sz = scratch_of(N, Din, D, A);
+  const Scratch sz = scratch_of(N, Din, heads, D, A);
   float* xd = static_cast<float*>(scratch);
   float* qkv = xd + sz.xd;
   float* h = qkv + sz.qkv;
-  float* dpre = h + sz.h;
-  float* dvp = dpre + sz.dpre;
-  float* part = dvp + sz.dvp;
+  float* dO = h + sz.h;
+  float* u = dO + sz.dO;
+  float* lgpart = u + sz.u;
+  float* lse = lgpart + sz.lgpart;
+  float* dap = lse + sz.lse;
+  float* alpha = dap + sz.dap;
+  int* unsure = reinterpret_cast<int*>(alpha + sz.alpha);
+  float* dbp = alpha + sz.alpha + sz.unsure;
+  float* dvp = dbp + sz.dbp;
+  float* db1p = dvp + sz.dvp;
+  float* part = db1p + sz.db1p;
   float* cpart = part + sz.part;
   const int M = N * kL;
-  const int S = splits_of(M);
+  const int S = splits_of(M, kRowsPerSplit);
   const float* fx = static_cast<const float*>(x);
-  const float* fwq = static_cast<const float*>(wq);
-  const float* fwk = static_cast<const float*>(wk);
-  const float* fwv = static_cast<const float*>(wv);
+  const float* fw = static_cast<const float*>(wqkv);
   const float* fw1 = static_cast<const float*>(w1);
-  const Mat wstack{{fwq, fwk, fwv}, D, Din};  // [3D, Din]
-  const Bias none{{nullptr, nullptr, nullptr}, 0};
+  const float* fdp = static_cast<const float*>(dp);
+  float* fdx = static_cast<float*>(dx);
   cudaError_t e;
+  auto args = [](const float* A_, const float* B_, float* C_, int M_, int N_, int K_, int lda,
+                 int ldb, int ldc, int kps) {
+    tc::Args a{};
+    a.A = A_;
+    a.B = B_;
+    a.C = C_;
+    a.M = M_;
+    a.N = N_;
+    a.K = K_;
+    a.lda = lda;
+    a.ldb = ldb;
+    a.ldc = ldc;
+    a.k_per_split = kps;
+    return a;
+  };
 
   // 1. xd = dropout(x); without dropout xd is x itself
   const float* xin = fx;
@@ -457,42 +780,67 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
     xin = xd;
   }
   // 2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv]
-  const Bias bqkv{{static_cast<const float*>(bq), nullptr, static_cast<const float*>(bv)}, D};
-  e = digat::gemm<false, true>(st, digat::mat1(xin, Din), wstack, bqkv, qkv, M, 3 * D, Din,
-                              Din);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // 3. per title
-  msa_bwd_title_kernel<<<N, kThreads, title_smem_bytes(D, dk, A), st>>>(
-      qkv, static_cast<const unsigned char*>(mask), fw1, static_cast<const float*>(b1),
-      static_cast<const float*>(v), static_cast<const float*>(dp), h, dpre, dvp, heads, dk, A,
-      scale);
+  tc::Args a = args(xin, fw, qkv, M, 3 * D, Din, Din, Din, 3 * D, Din);
+  a.bias = static_cast<const float*>(bqkv);
+  if ((e = tc::gemm<true, true, kBNq, tc::kBias>(st, a)) != cudaSuccess) return int(e);
+  // 3. attention forward per unit, with the list of units to fix
+  if ((e = cudaMemsetAsync(unsure, 0, sizeof(int), st)) != cudaSuccess) return int(e);
+  msa_attn_fwd_kernel<<<N * heads, kAttnThreads, sizeof(float) * attn_fwd_floats(dk), st>>>(
+      qkv, fdp, h, lse, dap, unsure, heads, dk, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  // 4. dx = dqkv [Wq;Wk;Wv], then the dropout mask
-  float* fdx = static_cast<float*>(dx);
-  e = digat::gemm<false, false>(st, digat::mat1(qkv, 3 * D), wstack, none, fdx, M, Din,
-                               3 * D, 3 * D);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (thresh) {
-    dropout_apply_kernel<<<grid_1d((long long)N * kL * Din / 4), kThreads, 0, st>>>(
-        fdx, fdx, N, kL * Din, thresh, drop_scale, seed, site);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  }
-  // 5. weight gradients: split over rows, partials summed in order
-  e = digat::gemm<true, false>(st, digat::mat1(qkv, 3 * D), digat::mat1(xin, Din), none, part,
-                              3 * D, Din, M, kRowsPerSplit);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  sum_splits_kernel<<<grid_1d(3LL * D * Din), kThreads, 0, st>>>(
-      part, static_cast<float*>(dwqkv), 3LL * D * Din, S);
+  // 3b. the marked units' ReLU again in CUDA-core fp32 order
+  msa_attn_relu_fix_kernel<<<kFixBlocks, kFixThreads, sizeof(float) * relu_fix_floats(Din, dk),
+                             st>>>(xin, fw, static_cast<const float*>(bqkv), unsure, h, Din,
+                                   heads, dk, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  e = digat::gemm<true, false>(st, digat::mat1(dpre, A), digat::mat1(h, D), none, part, A, D,
-                              M, kRowsPerSplit);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  sum_splits_kernel<<<grid_1d((long long)A * D), kThreads, 0, st>>>(
-      part, static_cast<float*>(dw1), (long long)A * D, S);
+  // 4. u = tanh(h W1^T + b1), lgpart = its v-product per warp column
+  a = args(h, fw1, u, M, A, D, D, D, A, D);
+  a.bias = static_cast<const float*>(b1);
+  a.v = static_cast<const float*>(v);
+  a.lgpart = lgpart;
+  if ((e = tc::gemm<true, true, kBNp, tc::kPool>(st, a)) != cudaSuccess) return int(e);
+  // 5. the pool's softmax and its backward; dpre over u
+  msa_pool_kernel<<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
+      lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), dap,
+      static_cast<const float*>(v), u, alpha, dvp, db1p, N, heads, A);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  if ((e = colsum(st, qkv, M, 3 * D, cpart, static_cast<float*>(dbqkv))) != cudaSuccess)
+  float* dpre = u;
+  // 6. dW1 = dpre^T h, split over rows
+  a = args(dpre, h, part, A, D, M, A, D, D, kRowsPerSplit);
+  if ((e = tc::gemm<false, false, kBN, tc::kStore>(st, a)) != cudaSuccess) return int(e);
+  if ((e = sum_splits(st, part, static_cast<float*>(dw1), (long long)A * D, S)) != cudaSuccess)
     return static_cast<int>(e);
-  if ((e = colsum(st, dpre, M, A, cpart, static_cast<float*>(db1))) != cudaSuccess)
+  // 7. dO = (alpha dp + dpre W1) * (h > 0)
+  a = args(dpre, fw1, dO, M, D, A, A, D, D, A);
+  a.alpha = alpha;
+  a.dp = fdp;
+  a.h = h;
+  if ((e = tc::gemm<true, false, kBN, tc::kDh>(st, a)) != cudaSuccess) return int(e);
+  // 8. attention backward per unit; dq|dk|dv over q|k|v
+  msa_attn_bwd_kernel<<<N * heads, kAttnThreads, sizeof(float) * attn_bwd_floats(dk), st>>>(
+      qkv, dO, lse, dbp, heads, dk, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  // 9. dx = dqkv [Wq;Wk;Wv], with the dropout mask
+  a = args(qkv, fw, fdx, M, Din, 3 * D, 3 * D, Din, Din, 3 * D);
+  if (thresh) {
+    a.thresh = thresh;
+    a.drop_scale = drop_scale;
+    a.seed = seed;
+    a.site = site;
+    e = tc::gemm<true, false, kBN, tc::kDrop>(st, a);
+  } else {
+    e = tc::gemm<true, false, kBN, tc::kStore>(st, a);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 10. dWqkv = dqkv^T xd, split over rows
+  a = args(qkv, xin, part, 3 * D, Din, M, 3 * D, Din, Din, kRowsPerSplit);
+  if ((e = tc::gemm<false, false, kBN, tc::kStore>(st, a)) != cudaSuccess) return int(e);
+  if ((e = sum_splits(st, part, static_cast<float*>(dwqkv), 3LL * D * Din, S)) != cudaSuccess)
+    return static_cast<int>(e);
+  // 11. the bias and v gradients from the per-title parts
+  if ((e = colsum(st, dbp, N, 3 * D, cpart, static_cast<float*>(dbqkv))) != cudaSuccess)
+    return static_cast<int>(e);
+  if ((e = colsum(st, db1p, N, A, cpart, static_cast<float*>(db1))) != cudaSuccess)
     return static_cast<int>(e);
   return static_cast<int>(colsum(st, dvp, N, A, cpart, static_cast<float*>(dv)));
 }

@@ -46,9 +46,9 @@ SIGNATURES = {
     "msa_encoder_pooled_f32": ([_P] * 11 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
     # N, L, Din, heads, dk, A -> floats of scratch
     "msa_encoder_bwd_scratch_floats": ([_I] * 6, _LL),
-    # x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, dx, dwqkv, dbqkv, dw1, db1, dv, scratch,
+    # x, mask, wqkv, bqkv, w1, b1, v, dp, dx, dwqkv, dbqkv, dw1, db1, dv, scratch,
     # N, L, Din, heads, dk, A, scale, thresh, drop_scale, seed, site, stream
-    "msa_encoder_bwd_f32": ([_P] * 18 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
+    "msa_encoder_bwd_f32": ([_P] * 15 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
     # out, rows, cols, row_offset, seed, site, thresh, stream
     "dropout_keep_mask_u8": ([_P, _LL, _I, _LL, _U, _U, _U, _P], _I),
     # x, q, w, bW, w1, w2, w3, b3, y, k3, B, G, D, stream
@@ -59,8 +59,8 @@ SIGNATURES = {
     "gat_scores_fwd_f32": ([_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P], _I),
     # k1, ld1, k2, ld2, k3, a, g, gk1, gk2, gk3, ga, ga_part, B, G, D, stream
     "gat_scores_bwd_f32": ([_P, _I, _P, _I] + [_P] * 8 + [_I] * 3 + [_P], _I),
-    # g, perm, seg, first, last, partial, out, ntok, V, D, chunk, stream
-    "emb_grad_f32": ([_P] * 7 + [_LL, _LL, _I, _I, _P], _I),
+    # g, ids, perm, partial, out, ntok, V, D, chunk, stream
+    "emb_grad_f32": ([_P] * 5 + [_LL, _I, _I, _I, _P], _I),
     # q, k, v, mask, out, N, H, L, dk, rs, hs, scale, stream
     "msa_attention_fwd_f32": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
     # q, k, v, mask, do, dq, dk, dv, N, H, L, dk, rs, hs, scale, stream

@@ -8,12 +8,13 @@ gather `table[tok]`, as in the JAX package. The backward is
 
 On a CPU tensor it is `embedding_grad_plain` (`index_add_`). On a CUDA
 tensor it is kernel D (`csrc/emb_grad.cu`): the token stream is sorted on
-the device (stable `torch.sort`), cut into segments (runs of one token
-within chunks of `CHUNK` sorted slots), each segment summed by one warp,
-and each table row then sums its segments in order. The JAX package built
-its work list on the host for the TPU's scalar prefetch; here every piece
-of sort metadata is made on the device, with no host round trip. The sum
-is deterministic (no atomics).
+the device (a stable `torch.sort` of 32-bit keys), and that sort is the
+only metadata. A warp sums each chunk of `CHUNK` sorted slots run by run and
+writes a run that lies inside its chunk straight to its table row; the
+pieces of runs that cross a chunk boundary (the pad token's run above all)
+go to scratch and are summed in a fixed order by a second pass. The JAX
+package built its work list on the host for the TPU's scalar prefetch; here
+nothing leaves the device. The sum is deterministic (no atomics).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from digat_tpu_torch.ops import build
 
-CHUNK = 32  # sorted slots per warp in the segment pass
+CHUNK = 64  # sorted slots per warp in the chunk pass (a multiple of 32)
 
 
 def embedding_grad_plain(tok, g, vocab_size: int):
@@ -33,19 +34,16 @@ def embedding_grad_plain(tok, g, vocab_size: int):
     return out.index_add_(0, tok.reshape(-1), g.reshape(-1, D))
 
 
-def sort_metadata(tok, vocab_size: int, chunk: int = CHUNK):
-    """(perm, seg, first, last, segments) for the flat token stream: the
-    stable sort permutation, each sorted slot's segment, the [first, last)
-    sorted slots of every table row, and a bound on the segment count."""
-    ids, perm = torch.sort(tok.reshape(-1), stable=True)
-    n = ids.numel()
-    start = torch.arange(n, device=ids.device) % chunk == 0
-    start[1:] |= ids[1:] != ids[:-1]
-    seg = torch.cumsum(start, 0) - 1
-    rows = torch.arange(vocab_size, dtype=ids.dtype, device=ids.device)
-    first = torch.searchsorted(ids, rows)
-    last = torch.searchsorted(ids, rows, right=True)
-    return perm, seg, first, last, -(-n // chunk) + min(vocab_size, n)
+def sort_metadata(tok):
+    """(ids, perm) of the flat token stream: the tokens sorted as int32 and
+    the stable sort's permutation (int64), the sorted slots in token order."""
+    return torch.sort(tok.reshape(-1).int(), stable=True)
+
+
+def partial_rows(ntok: int, chunk: int = CHUNK) -> int:
+    """Rows of kernel D's scratch: two per chunk, the piece of the run that
+    crosses the chunk's start and that of the run that crosses its end."""
+    return 2 * -(-ntok // chunk)
 
 
 def embedding_grad(tok, g, vocab_size: int):
@@ -61,14 +59,16 @@ def embedding_grad(tok, g, vocab_size: int):
     if tok.shape != g.shape[:-1]:
         raise ValueError(f"embedding_grad: tok {tuple(tok.shape)} does not match g "
                          f"{tuple(g.shape)}")
+    if vocab_size >= 2 ** 31:
+        raise ValueError(f"embedding_grad: vocab_size {vocab_size} does not fit int32 ids")
     g2 = g.reshape(-1, D).contiguous()
-    perm, seg, first, last, segments = sort_metadata(tok.long(), vocab_size)
-    partial = torch.empty((segments, D), dtype=torch.float32, device=g.device)
+    ids, perm = sort_metadata(tok)
+    partial = torch.empty((partial_rows(g2.shape[0]), D), dtype=torch.float32, device=g.device)
     out = torch.empty((vocab_size, D), dtype=torch.float32, device=g.device)
     with build.launch_on(g.device) as (lib, stream):
-        err = lib.emb_grad_f32(g2.data_ptr(), perm.data_ptr(), seg.data_ptr(), first.data_ptr(),
-                               last.data_ptr(), partial.data_ptr(), out.data_ptr(), g2.shape[0],
-                               vocab_size, D, CHUNK, stream)
+        err = lib.emb_grad_f32(g2.data_ptr(), ids.data_ptr(), perm.data_ptr(),
+                               partial.data_ptr(), out.data_ptr(), g2.shape[0], vocab_size, D,
+                               CHUNK, stream)
     build.check(lib, err, "embedding_grad")
     embedding_grad.launches += 1
     return out

@@ -17,8 +17,9 @@ it again.
 On a CPU tensor `msa_encoder_pooled` runs `msa_encoder_pooled_plain`, whose
 gradients are autograd's. On a CUDA tensor it goes through
 `MSAEncoderFunction`: forward kernel A (`csrc/msa_encoder.cu`), backward
-kernel A' (`csrc/msa_encoder_bwd.cu`); each header says what bounds it on
-the card and how the design answers that. There is no fallback: a CUDA
+kernel A' (`csrc/msa_encoder_bwd.cu`, its six matrix products on the
+tensor cores at 3xTF32 through `csrc/tc_gemm.cuh`); each header says what
+bounds it on the card and how the design answers that. There is no fallback: a CUDA
 tensor launches the kernels or raises.
 """
 
@@ -31,8 +32,21 @@ import torch
 from digat_tpu_torch.layers import MASK_FILL
 from digat_tpu_torch.ops import build
 from digat_tpu_torch.ops.dropout import keep_mask_plain, threshold
+from digat_tpu_torch.ops.msa_attention import MAX_SMEM_BYTES
 
 TITLE_LENGTH = 32  # the kernels keep one warp lane per title position
+MAX_HEAD_DIM = 64  # kernel A': 4 warps a (title, head), 4 float4 column groups each
+MAX_POOL_DIM = 512  # kernel A': the pool kernel's 4 float4 columns a lane
+
+
+def relu_fix_smem_bytes(Din: int, dk: int) -> int:
+    """Shared memory of kernel A''s ReLU-fix block (`relu_fix_floats` in
+    csrc/msa_encoder_bwd.cu): a title's x rows, padded to an odd number of
+    float4s, one head's dk rows of Wq, Wk or Wv, its q, k and v, and the
+    scores."""
+    L = TITLE_LENGTH
+    x_stride = Din if (Din // 4) % 2 else Din + 4
+    return 4 * (L * x_stride + dk * Din + 3 * L * (dk + 1) + L * (L + 1))
 
 
 def drop_titles_plain(x, rate: float, seed: int, site: int):
@@ -154,8 +168,21 @@ def msa_encoder_bwd(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
     if tuple(dp.shape) != (N, D) or dp.dtype != torch.float32:
         raise ValueError(f"msa_encoder_bwd: dp must be float32 [{N}, {D}], got {dp.dtype} "
                          f"{tuple(dp.shape)}")
-    wq_r, wk_r, wv_r, w1_r = _linear_layout(wq, wk, wv, w1)
+    if dk > MAX_HEAD_DIM or A % 4 or A > MAX_POOL_DIM:
+        raise ValueError(f"msa_encoder_bwd: the kernel takes dk <= {MAX_HEAD_DIM} and A a "
+                         f"multiple of 4 up to {MAX_POOL_DIM}, got dk={dk} A={A}")
+    if relu_fix_smem_bytes(Din, dk) > MAX_SMEM_BYTES:
+        raise ValueError(f"msa_encoder_bwd: at Din={Din} dk={dk} the ReLU-fix block needs "
+                         f"{relu_fix_smem_bytes(Din, dk)} B of shared memory, more than the "
+                         f"{MAX_SMEM_BYTES} B a block has")
+    if x.data_ptr() % 16:
+        raise ValueError("msa_encoder_bwd: x must be 16-byte aligned")
     dev = x.device
+    # the Q|K|V weights stacked [3D, Din] (nn.Linear layout) and their bias
+    # [bq | 0 | bv], as the kernel's products read them
+    wqkv = torch.cat([wq.t(), wk.t(), wv.t()]).contiguous()
+    bqkv = torch.cat([bq, torch.zeros_like(bq), bv]).contiguous()
+    (w1_r,) = _linear_layout(w1)
     dx = torch.empty_like(x)
     dwqkv = torch.empty((3 * D, Din), dtype=torch.float32, device=dev)
     dbqkv = torch.empty(3 * D, dtype=torch.float32, device=dev)
@@ -164,16 +191,16 @@ def msa_encoder_bwd(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
     dv = torch.empty(A, dtype=torch.float32, device=dev)
     if N == 0:
         return (dx, *(torch.zeros_like(t) for t in (wq, bq, wk, wv, bv, w1, b1, v)))
-    dp, bq, bv, b1, v = (t.contiguous() for t in (dp, bq, bv, b1, v))
+    dp, b1, v = (t.contiguous() for t in (dp, b1, v))
     with build.launch_on(dev) as (lib, stream):
         scratch = torch.empty(lib.msa_encoder_bwd_scratch_floats(N, L, Din, heads, dk, A),
                               dtype=torch.float32, device=dev)
         err = lib.msa_encoder_bwd_f32(
-            x.data_ptr(), mask.data_ptr(), wq_r.data_ptr(), bq.data_ptr(), wk_r.data_ptr(),
-            wv_r.data_ptr(), bv.data_ptr(), w1_r.data_ptr(), b1.data_ptr(), v.data_ptr(),
-            dp.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dw1.data_ptr(),
-            db1.data_ptr(), dv.data_ptr(), scratch.data_ptr(), N, L, Din, heads, dk, A,
-            1.0 / math.sqrt(float(dk)), *_dropout_args(dropout_rate, seed, site), stream,
+            x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), w1_r.data_ptr(),
+            b1.data_ptr(), v.data_ptr(), dp.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(),
+            dbqkv.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+            N, L, Din, heads, dk, A, 1.0 / math.sqrt(float(dk)),
+            *_dropout_args(dropout_rate, seed, site), stream,
         )
     build.check(lib, err, "msa_encoder_bwd")
     msa_encoder_bwd.launches += 1

@@ -148,12 +148,22 @@ def test_msa_encoder_dropout_kernel(cuda, N, Din, heads, dk, A):
     assert torch.equal(out, again)
 
 
-@pytest.mark.parametrize("N,Din,heads,dk,A,rate", [
-    (37, 300, 16, 25, 256, 0.2), (37, 300, 16, 25, 256, 0.0), (5, 24, 4, 8, 16, 0.2)])
-def test_msa_encoder_bwd_kernel(cuda, N, Din, heads, dk, A, rate):
+@pytest.mark.parametrize("N,Din,heads,dk,A,rate,bias", [
+    (37, 300, 16, 25, 256, 0.2, True), (37, 300, 16, 25, 256, 0.0, True),
+    (5, 24, 4, 8, 16, 0.2, True), (1, 300, 16, 25, 256, 0.2, True),
+    (2, 300, 16, 25, 256, 0.2, True), (129, 300, 16, 25, 256, 0.2, True),
+    (7, 300, 16, 25, 256, 0.0, False), (3, 64, 2, 64, 512, 0.2, True)])
+def test_msa_encoder_bwd_kernel(cuda, N, Din, heads, dk, A, rate, bias):
     """Kernel A' (dx and the eight weight and bias gradients) against
-    autograd of the plain encoder, mask applied; title 0 is all pad."""
-    args = _msa_args(cuda, N, Din, heads, dk, A, seed=N + 2)
+    autograd of the plain encoder, mask applied; title 0 is all pad. N runs
+    over the product tiles' edges (N * 32 rows against 128-row tiles: 1, 2,
+    37 and 7 leave a ragged tile, 129 one row of titles past 4,096 rows);
+    one case has no biases and no dropout. Every output is the same bits on
+    a second run."""
+    args = list(_msa_args(cuda, N, Din, heads, dk, A, seed=N + 2))
+    if not bias:
+        for i in (3, 6, 8):  # bq, bv, b1
+            args[i] = torch.zeros_like(args[i])
     g = torch.Generator().manual_seed(3)
     dp = torch.randn(N, heads * dk, generator=g).to(cuda)
     before = ME.msa_encoder_bwd.launches
@@ -162,7 +172,23 @@ def test_msa_encoder_bwd_kernel(cuda, N, Din, heads, dk, A, rate):
     want = ME.msa_encoder_bwd_plain(*args[:10], dp, heads, rate, 99, 0)
     for a, b in zip(got, want):
         _close(a, b)
-    assert torch.equal(got[0], ME.msa_encoder_bwd(*args[:10], dp, heads, rate, 99, 0)[0])
+    again = ME.msa_encoder_bwd(*args[:10], dp, heads, rate, 99, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("Din,heads,dk,A,match", [
+    (6, 1, 4, 16, "multiples of 4"), (64, 1, 68, 16, "dk <= 64"),
+    (64, 2, 8, 18, "multiple of 4 up to 512"), (64, 2, 8, 516, "multiple of 4 up to 512"),
+    (600, 1, 64, 16, "shared memory")])
+def test_msa_encoder_bwd_kernel_refuses_shapes(cuda, Din, heads, dk, A, match):
+    """Kernel A' raises a ValueError naming the limit for a shape it does not
+    take, before any launch."""
+    args = _msa_args(cuda, 2, Din, heads, dk, A, seed=5)
+    dp = torch.zeros(2, heads * dk, device=cuda)
+    before = ME.msa_encoder_bwd.launches
+    with pytest.raises(ValueError, match=match):
+        ME.msa_encoder_bwd(*args[:10], dp, heads, 0.2, 99, 0)
+    assert ME.msa_encoder_bwd.launches == before
 
 
 def test_msa_encoder_on_card_carries_gradients(cuda):
@@ -212,14 +238,22 @@ def test_gat_scores_kernel(cuda, B, G, D, strided):
 
 @pytest.mark.parametrize("V,ntok,D,skew", [(40_000, 50_000, 300, "uniform"),
                                             (120, 400, 20, "zipf"), (50, 35, 36, "uniform"),
-                                            (40_000, 286_720, 300, "pad")])
+                                            (40_000, 286_720, 300, "pad"),
+                                            (1_003, 70_000, 20, "long pad"),
+                                            (40_001, 50_000, 300, "uniform"),
+                                            (37, 0, 4, "uniform"), (37, 1, 4, "uniform"),
+                                            (600, 9_000, 512, "zipf")])
 def test_emb_grad_kernel(cuda, V, ntok, D, skew):
-    """Uniform tokens; Zipf-like ones; and the training shape with 60 % of
-    the slots on token 0, as the pad positions of real titles are."""
+    """Uniform tokens; Zipf-like ones; the training shape with 60 % of the
+    slots on token 0, as the pad positions of real titles are; a pad run
+    over more than 1,000 chunks of the sorted stream; an odd V; no token and
+    one token; the widest D."""
     rng = np.random.default_rng(V)
     tok = {"uniform": lambda: rng.integers(0, V, ntok),
            "zipf": lambda: np.minimum(rng.zipf(1.3, ntok) - 1, V - 1),
-           "pad": lambda: np.where(rng.random(ntok) < 0.6, 0, rng.integers(0, V, ntok))}[skew]()
+           "pad": lambda: np.where(rng.random(ntok) < 0.6, 0, rng.integers(0, V, ntok)),
+           "long pad": lambda: np.where(rng.random(ntok) < 0.97, 0,
+                                        rng.integers(0, V, ntok))}[skew]()
     tok = torch.from_numpy(tok).to(cuda)
     gr = torch.from_numpy(rng.standard_normal((ntok, D)).astype(np.float32)).to(cuda)
     before = EG.embedding_grad.launches

@@ -138,18 +138,22 @@ def test_embedding_grad_plain_vs_jax(V, shape, skew):
 
 
 def test_sort_metadata_segments():
-    """The segments of kernel D's metadata: runs of one token, cut at every
-    chunk boundary, numbered in sorted order; first/last bound each row's
-    run, and the segment count stays under the bound that sizes the
-    scratch."""
+    """Kernel D's metadata: the tokens sorted as int32 with the stable
+    permutation, so the runs of one token (the segments the kernels cut at
+    every chunk boundary) hold each row's slots in slot order; every row's
+    run has as many slots as the row has tokens, and the scratch holds two
+    pieces a chunk, at least the number of segments that cross a chunk
+    boundary."""
     rng = np.random.default_rng(3)
     tok = torch.from_numpy(np.minimum(rng.zipf(1.2, 700) - 1, 49))
-    perm, seg, first, last, bound = EG.sort_metadata(tok, 60, chunk=16)
-    ids = tok[perm]
+    ids, perm = EG.sort_metadata(tok)
+    assert ids.dtype == torch.int32
+    assert torch.equal(ids.long(), tok[perm])
     assert bool((ids[1:] >= ids[:-1]).all())
-    assert int(seg[-1]) + 1 <= bound
-    k = torch.arange(700)
-    new = (k % 16 == 0) | torch.cat([torch.tensor([True]), ids[1:] != ids[:-1]])
-    assert torch.equal(seg, torch.cumsum(new.long(), 0) - 1)
+    same = ids[1:] == ids[:-1]
+    assert bool((perm[1:][same] > perm[:-1][same]).all())  # stable
     for v in range(60):
-        assert int(last[v] - first[v]) == int((tok == v).sum())
+        assert int((ids == v).sum()) == int((tok == v).sum())
+    k = torch.arange(1, 700)
+    crossing = int((same & (k % EG.CHUNK == 0)).sum())  # runs cut by a chunk boundary
+    assert 2 * crossing <= EG.partial_rows(700)
