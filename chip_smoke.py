@@ -11,19 +11,22 @@ M 10 augmented neighbours) on a seeded 20,000-news corpus along the port's
 paths:
 
   serving  - kernels A and B against their plain versions at the serving
-             shapes, the two-stage cached scorer with the launch counters
-             reset (stage 1 must run A, stage 2 B), and a smaller corpus
-             scored on the card against the plain path on the CPU;
+             shapes (A with its device ms by launch and its bound on two
+             lines, fp32 CUDA cores and its products at 3xTF32), the
+             two-stage cached scorer with the launch counters reset (stage 1
+             must run A, stage 2 B), and a smaller corpus scored on the card
+             against the plain path on the CPU;
   training - kernels A'' (dropout mask), A with dropout, A' (encoder
              backward: its bound on two lines, fp32 CUDA cores and its
              products at 3xTF32, the same bits twice for every output), C
-             (Eq. 8 scores forward and backward) and D (embedding gradient,
-             on the uniform token stream and on the pad stream, each beside
+             (Eq. 8 scores forward and backward, the same bits twice for
+             every output) and D (embedding gradient, on the uniform token
+             stream and on the pad stream, each beside
              embedding_dense_backward) against their plain versions at the
-             training shapes, with A''s and D's device ms by launch
+             training shapes, with A's, A''s, C's and D's device ms by launch
              (torch.profiler), ptxas's registers and spills of their kernels
-             and a cuobjdump check that A''s products issue TF32 tensor-core
-             instructions; one epoch of `Trainer` (>= 20 steps at B 64,
+             and a cuobjdump check that the products of A and A' issue TF32
+             tensor-core instructions; one epoch of `Trainer` (>= 20 steps at B 64,
              unique-title dedup, dropout 0.2) with the launch counters
              reset, whose launches per step are checked; and three steps at
              B 8 on the card against the same steps on the CPU;
@@ -132,22 +135,31 @@ def msa_bwd_work(N, L, Din, D, A):
     return flops, nbytes
 
 
+def msa_products(N, L, Din, D, A):
+    """The FLOP of kernel A's two matrix products, out of msa_work's: the
+    Q|K|V projections and the pool's product."""
+    return 2 * N * L * Din * 3 * D + 2 * N * L * D * A
+
+
 def msa_bwd_products(N, L, Din, D, A):
     """The FLOP of kernel A''s six matrix products, out of msa_bwd_work's:
     the Q|K|V projections three times (recompute, dx, dW) and the pool's
     product three times (u, dh, dW1)."""
-    return 3 * (2 * N * L * Din * 3 * D) + 3 * (2 * N * L * D * A)
+    return 3 * msa_products(N, L, Din, D, A)
 
 
-def bound_3xtf32(N, L, Din, D, A):
-    """Kernel A''s bound with its products on the tensor cores at 3xTF32:
-    three TF32 products per fp32 product at the dense TF32 peak, plus the
-    rest of msa_bwd_work's FLOP at the fp32 CUDA-core peak, plus its bytes
-    at the memory rate (ms)."""
-    flops, nbytes = msa_bwd_work(N, L, Din, D, A)
-    products = msa_bwd_products(N, L, Din, D, A)
+def bound_3xtf32(flops, nbytes, products):
+    """A kernel's bound with its matrix products (`products` of its `flops`)
+    on the tensor cores at 3xTF32: three TF32 products per fp32 product at
+    the dense TF32 peak, plus the rest of its FLOP at the fp32 CUDA-core
+    peak, plus its bytes at the memory rate (ms)."""
     return (3 * products / PEAK_TF32_FLOPS + (flops - products) / PEAK_FP32_FLOPS
             + nbytes / PEAK_BYTES) * 1e3
+
+
+def say_bound_3xtf32(work, products, fp32_ms) -> None:
+    say(f"    bound with the products at 3xTF32: {bound_3xtf32(*work, products):.4f} ms "
+        f"({products / 1e9:.1f} GFLOP of products); fp32 CUDA-core bound {fp32_ms:.4f} ms")
 
 
 def scores_work(B, G, D, backward: bool):
@@ -418,15 +430,19 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
 
     def encoder_dropout_check():
         seed = 987
+        fwd = lambda: ME.msa_encoder_pooled(x, tmask, *w, heads, p, seed, 0)
         e = check_kernel(
-            torch, f"msa_encoder_pooled [{cap},{L},{Din}] dropout {p}",
-            lambda: ME.msa_encoder_pooled(x, tmask, *w, heads, p, seed, 0),
+            torch, f"msa_encoder_pooled [{cap},{L},{Din}] dropout {p}", fwd,
             lambda: ME.msa_encoder_pooled_plain(ME.drop_titles_plain(x, p, seed, 0), tmask,
                                                 *w, heads),
             (), *msa_work(cap, L, Din, D, A))
-        again = torch.equal(ME.msa_encoder_pooled(x, tmask, *w, heads, p, seed, 0),
-                            ME.msa_encoder_pooled(x, tmask, *w, heads, p, seed, 0))
+        say_bound_3xtf32(msa_work(cap, L, Din, D, A), msa_products(cap, L, Din, D, A),
+                         e["bound_ms"])
+        again = torch.equal(fwd(), fwd())
         say(f"    same bits twice for one seed: {again}")
+        stages = stage_split(torch, fwd)
+        say_stages("msa_encoder_pooled", stages)
+        e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
         e["ok"] = e["ok"] and again
         return e
 
@@ -439,9 +455,8 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
         e = check_kernel(
             torch, f"msa_encoder_bwd [{cap},{L},{Din}] dropout {p} (dx + 8 weight grads)",
             ME.msa_encoder_bwd, ME.msa_encoder_bwd_plain, args, *msa_bwd_work(cap, L, Din, D, A))
-        say(f"    bound with the products at 3xTF32: {bound_3xtf32(cap, L, Din, D, A):.4f} ms "
-            f"({msa_bwd_products(cap, L, Din, D, A) / 1e9:.1f} GFLOP of products); fp32 "
-            f"CUDA-core bound {e['bound_ms']:.4f} ms")
+        say_bound_3xtf32(msa_bwd_work(cap, L, Din, D, A), msa_bwd_products(cap, L, Din, D, A),
+                         e["bound_ms"])
         again = all(torch.equal(a, b) for a, b in zip(ME.msa_encoder_bwd(*args),
                                                       ME.msa_encoder_bwd(*args)))
         say(f"    same bits twice, every output: {again}")
@@ -460,13 +475,23 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
             r = lambda *s: torch.randn(s, generator=g, device=dev) * 0.5
             y = r(B, G, 3 * D)  # k1, k2 as column blocks of the fused projection
             args = (y[..., D:2 * D], y[..., 2 * D:], r(B, D), r(D))
-            fwd = check_kernel(torch, f"gat_scores_fwd B={B} G={G} D={D}", GS.gat_scores_fwd,
-                               GS.interactive_gat_scores_plain, args,
+            bargs = (*args, r(B, G, G))
+            fwd = check_kernel(torch, f"gat_scores_fwd B={B} G={G} D={D} {GS.fwd_plan(G)}",
+                               GS.gat_scores_fwd, GS.interactive_gat_scores_plain, args,
                                *scores_work(B, G, D, False))
-            bwd = check_kernel(torch, f"gat_scores_bwd B={B} G={G} D={D}", GS.gat_scores_bwd,
-                               GS.interactive_gat_scores_bwd_plain, (*args, r(B, G, G)),
+            bwd = check_kernel(torch, f"gat_scores_bwd B={B} G={G} D={D} {GS.bwd_plan(G, D)}",
+                               GS.gat_scores_bwd, GS.interactive_gat_scores_bwd_plain, bargs,
                                *scores_work(B, G, D, True))
-            return dict(fwd=fwd, bwd=bwd, ok=fwd["ok"] and bwd["ok"])
+            again = torch.equal(GS.gat_scores_fwd(*args), GS.gat_scores_fwd(*args)) and all(
+                torch.equal(a, b) for a, b in zip(GS.gat_scores_bwd(*bargs),
+                                                  GS.gat_scores_bwd(*bargs)))
+            say(f"    same bits twice, forward and every backward output: {again}")
+            for e, fn in ((fwd, lambda: GS.gat_scores_fwd(*args)),
+                          (bwd, lambda: GS.gat_scores_bwd(*bargs))):
+                stages = stage_split(torch, fn)
+                say_stages(f"gat_scores_{'fwd' if e is fwd else 'bwd'} G {G}", stages)
+                e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
+            return dict(fwd=fwd, bwd=bwd, ok=fwd["ok"] and bwd["ok"] and again)
 
         try:
             by_shape[f"G{G}"] = scores_check()
@@ -698,16 +723,18 @@ def sass_tensor_core_check(build) -> dict:
         tool = shutil.which("cuobjdump") or tool
     sass = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
                           text=True, timeout=300).stdout
-    epilogues = ["store", "bias", "pool", "dh", "dropout"]
+    epilogues = ["store", "bias", "pool", "dh", "dropout", "logits"]
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"2tc11gemm_kernelILb([01])ELb([01])ELi(\d+)ELi(\d)E", m.group(1))
+            k = re.search(r"2tc11gemm_kernelILb([01])ELb([01])ELi(\d+)ELi(\d)ELb([01])E",
+                          m.group(1))
             name = None if k is None else (
                 f"A {'K' if k.group(1) == '1' else 'M'}-major, B "
                 f"{'K' if k.group(2) == '1' else 'N'}-major, BN {k.group(3)}, "
-                f"{epilogues[int(k.group(4))]} epilogue")
+                f"{epilogues[int(k.group(4))]} epilogue"
+                + (", k-tile sums rounded to nearest" if k.group(5) == "1" else ""))
             if name:
                 counts[name] = 0
             continue
@@ -716,20 +743,25 @@ def sass_tensor_core_check(build) -> dict:
     return counts
 
 
+# the product instantiations of kernels A and A' (tc_gemm.cuh), as
+# sass_tensor_core_check labels them: A' six, A two
+PRODUCT_KERNELS = 8
+
+
 def redesign_report(build) -> bool:
-    """Prints ptxas's registers and spills of kernel A''s and D's kernels and
-    the SASS check that A''s products issue TF32 tensor-core instructions;
-    False if a product kernel issues none."""
+    """Prints ptxas's registers and spills of the kernels of A, A', C and D
+    and the SASS check that the products of A and A' issue TF32 tensor-core
+    instructions; False if a product kernel issues none."""
     ok = True
-    for needle in ("tc11gemm_kernel", "msa_attn_", "msa_pool_kernel", "emb_grad_"):
+    for needle in ("tc11gemm_kernel", "msa_attn_", "msa_pool", "gat_scores_", "emb_grad_"):
         for mangled, (n_regs, st, ld) in sorted(ptxas_report(build, needle).items()):
             say(f"  ptxas {mangled[:90]}: {n_regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
     counts = sass_tensor_core_check(build)
     for label, n in counts.items():
         say(f"  SASS {label}: {n} HMMA TF32 instructions")
-    if len(counts) < 6 or not all(counts.values()):
-        say("  SASS check FAILED: a product kernel of A' issues no TF32 HMMA")
+    if len(counts) < PRODUCT_KERNELS or not all(counts.values()):
+        say("  SASS check FAILED: a product kernel of A or A' issues no TF32 HMMA")
         ok = False
     return ok
 
@@ -1050,9 +1082,18 @@ def main() -> int:
             mha.W_Q.weight.t(), mha.W_Q.bias, mha.W_K.weight.t(), mha.W_V.weight.t(),
             mha.W_V.bias, pool.affine1.weight.t(), pool.affine1.bias, pool.affine2.weight[0])),
             cfg.MSA_head_num)
-        entries["msa_encoder_pooled"] = check_kernel(
+        e = check_kernel(
             torch, f"msa_encoder_pooled [{bs},{L},{Din}]->[{bs},{D}]", msa_encoder_pooled,
             msa_encoder_pooled_plain, args_a, *msa_work(bs, L, Din, D, A))
+        say_bound_3xtf32(msa_work(bs, L, Din, D, A), msa_products(bs, L, Din, D, A),
+                         e["bound_ms"])
+        again = torch.equal(msa_encoder_pooled(*args_a), msa_encoder_pooled(*args_a))
+        say(f"    same bits twice: {again}")
+        stages = stage_split(torch, lambda: msa_encoder_pooled(*args_a))
+        say_stages("msa_encoder_pooled", stages)
+        e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
+        e["ok"] = e["ok"] and again
+        entries["msa_encoder_pooled"] = e
     except Exception:
         traceback.print_exc()
         entries["msa_encoder_pooled"] = dict(ok=False)
@@ -1196,7 +1237,7 @@ def main() -> int:
         say(f"  dedup capacity at B {cfg.batch_size}: {cap} titles")
         train_entries = training_kernels(torch, cfg, model, tables, cap, dev)
         if not redesign_report(build):
-            failures.append("a product kernel of A' issues no TF32 HMMA (SASS)")
+            failures.append("a product kernel of A or A' issues no TF32 HMMA (SASS)")
     except Exception:
         traceback.print_exc()
         failures.append("training kernels")

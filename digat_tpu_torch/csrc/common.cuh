@@ -2,18 +2,16 @@
 // GEMM on the CUDA cores, which the GAT layer's projections use
 // (gat_layer.cu).
 //
-// The GEMM: C[z] (+ bias) = op(A)[M, K_z] op(B)[K_z, N] over the z-th slice
-// of K (k_per_split rows each; one slice when k_per_split >= K), with
-// op(A)(m, k) = TA ? A[k][m] : A[m][k] and op(B)(k, n) = TB ? B[n][k] : B[k][n].
+// The GEMM: C (+ bias) = A[M, K] B[N, K]^T, A row-major and B an nn.Linear
+// weight ([out, in]) whose rows may come from up to three arrays stacked.
 // 64x64 output tiles, 16-deep k steps, 256 threads each owning 4x4 outputs
 // read from shared memory as float4. Tiles are loaded with neighbouring
-// threads on neighbouring addresses of the stored matrix. Where a thread's
-// stored row is its output row (A not transposed, B transposed) the row
-// pointers are computed once, before the k loop. A stacked row's array is
-// picked by compares and selects: a division costs about 20 instructions,
-// and a runtime index into a kernel's parameter struct copies the struct to
-// local memory. Sums run over k in order, then the bias is added: the same
-// bits on every run.
+// threads on neighbouring addresses of the stored matrix; each thread's
+// stored rows of A and B are fixed, so their pointers are computed once,
+// before the k loop. A stacked row's array is picked by compares and
+// selects: a division costs about 20 instructions, and a runtime index into
+// a kernel's parameter struct copies the struct to local memory. Sums run
+// over k in order, then the bias is added: the same bits on every run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,21 +57,16 @@ struct Bias {
   int len;
 };
 
-template <bool TA, bool TB>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(Mat A, Mat B, Bias bias, float* __restrict__ C, int M, int N, int K,
-            int k_per_split) {
+// static: each source that includes this header has its own copy
+static __global__ void __launch_bounds__(kGemmThreads)
+gemm_kernel(Mat A, Mat B, Bias bias, float* __restrict__ C, int M, int N, int K) {
   constexpr int BM = kGemmBM, BN = kGemmBN, BK = kGemmBK, T = kGemmThreads;
-  __shared__ __align__(16) float As[BK][BM + 4];  // op(A) tile, k-major
-  __shared__ __align__(16) float Bs[BK][BN + 4];  // op(B) tile, k-major
+  __shared__ __align__(16) float As[BK][BM + 4];  // A tile, k-major
+  __shared__ __align__(16) float Bs[BK][BN + 4];  // B^T tile, k-major
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;  // outputs rows ty*4.., cols tx*4..
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * k_per_split;
-  const int kend = min(K, kbeg + k_per_split);
-  C += (size_t)blockIdx.z * M * N;
-  // the stored rows of A (not transposed) and of B (transposed) this thread
-  // loads: fixed for the whole k loop
+  // the stored rows of A and B this thread loads: fixed for the whole k loop
   const float* arow[4];
   const float* brow[4];
 #pragma unroll
@@ -81,8 +74,8 @@ gemm_kernel(Mat A, Mat B, Bias bias, float* __restrict__ C, int M, int N, int K,
     const int e = tid + r * T;
     arow[r] = nullptr;
     brow[r] = nullptr;
-    if (!TA && m0 + e / BK < M) arow[r] = mat_row(A, m0 + e / BK);
-    if (TB && n0 + e / BK < N) brow[r] = mat_row(B, n0 + e / BK);
+    if (m0 + e / BK < M) arow[r] = mat_row(A, m0 + e / BK);
+    if (n0 + e / BK < N) brow[r] = mat_row(B, n0 + e / BK);
   }
   float acc[4][4];
 #pragma unroll
@@ -90,28 +83,18 @@ gemm_kernel(Mat A, Mat B, Bias bias, float* __restrict__ C, int M, int N, int K,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
+  for (int k0 = 0; k0 < K; k0 += BK) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int e = tid + r * T;
-      if (TA) {
-        const int mm = e % BM, kk = e / BM, gm = m0 + mm, gk = k0 + kk;
-        As[kk][mm] = (gm < M && gk < kend) ? mat_row(A, gk)[gm] : 0.f;
-      } else {
-        const int mm = e / BK, kk = e % BK, gk = k0 + kk;
-        As[kk][mm] = (arow[r] != nullptr && gk < kend) ? arow[r][gk] : 0.f;
-      }
+      const int mm = e / BK, kk = e % BK, gk = k0 + kk;
+      As[kk][mm] = (arow[r] != nullptr && gk < K) ? arow[r][gk] : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int e = tid + r * T;
-      if (TB) {
-        const int nn = e / BK, kk = e % BK, gk = k0 + kk;
-        Bs[kk][nn] = (brow[r] != nullptr && gk < kend) ? brow[r][gk] : 0.f;
-      } else {
-        const int nn = e % BN, kk = e / BN, gn = n0 + nn, gk = k0 + kk;
-        Bs[kk][nn] = (gn < N && gk < kend) ? mat_row(B, gk)[gn] : 0.f;
-      }
+      const int nn = e / BK, kk = e % BK, gk = k0 + kk;
+      Bs[kk][nn] = (brow[r] != nullptr && gk < K) ? brow[r][gk] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -146,16 +129,12 @@ gemm_kernel(Mat A, Mat B, Bias bias, float* __restrict__ C, int M, int N, int K,
   }
 }
 
-// Launches gemm_kernel on `st`: ceil(K / k_per_split) slices of K, slice z
-// written to C + z * M * N. Returns the launch's error.
-template <bool TA, bool TB>
-inline cudaError_t gemm(cudaStream_t st, Mat A, Mat B, Bias bias, float* C, int M, int N, int K,
-                        int k_per_split) {
-  if (M <= 0 || N <= 0 || K <= 0 || k_per_split <= 0) return cudaErrorInvalidValue;
-  const int splits = (K + k_per_split - 1) / k_per_split;
-  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM, splits);
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  gemm_kernel<TA, TB><<<grid, kGemmThreads, 0, st>>>(A, B, bias, C, M, N, K, k_per_split);
+// Launches gemm_kernel on `st`. Returns the launch's error.
+inline cudaError_t gemm(cudaStream_t st, Mat A, Mat B, Bias bias, float* C, int M, int N, int K) {
+  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  gemm_kernel<<<grid, kGemmThreads, 0, st>>>(A, B, bias, C, M, N, K);
   return cudaGetLastError();
 }
 

@@ -159,14 +159,13 @@ extern "C" int gat_layer_project_f32(const void* x, const void* q, const void* w
   const digat::Mat wcat{{static_cast<const float*>(w), static_cast<const float*>(w1),
                          static_cast<const float*>(w2)}, D, D};
   const digat::Bias bias_y{{static_cast<const float*>(bW), nullptr, nullptr}, D};
-  cudaError_t e = digat::gemm<false, true>(st, digat::mat1(static_cast<const float*>(x), D),
-                                           wcat, bias_y, static_cast<float*>(y), M, N, D, D);
+  cudaError_t e = digat::gemm(st, digat::mat1(static_cast<const float*>(x), D), wcat, bias_y,
+                              static_cast<float*>(y), M, N, D);
   if (e != cudaSuccess) return static_cast<int>(e);
   const digat::Bias bias_k3{{static_cast<const float*>(b3), nullptr, nullptr}, D};
-  return static_cast<int>(digat::gemm<false, true>(
-      st, digat::mat1(static_cast<const float*>(q), D),
-      digat::mat1(static_cast<const float*>(w3), D), bias_k3, static_cast<float*>(k3), B, D,
-      D, D));
+  return static_cast<int>(digat::gemm(st, digat::mat1(static_cast<const float*>(q), D),
+                                      digat::mat1(static_cast<const float*>(w3), D), bias_k3,
+                                      static_cast<float*>(k3), B, D, D));
 }
 
 // Step 2: scores, mask, softmax over j, out = relu(alpha h) + x.

@@ -1,260 +1,211 @@
 // Fused MSA news encoder, forward, fp32, for sm_90a (kernel A).
 //
 // Replaces the TPU kernel digat_tpu/ops/pallas/msa_encoder.py
-// (msa_encoder_pooled -> _call -> _fwd_kernel), with the word dropout in
-// the kernel: when the rate is above 0 each float4 of the embedded title is
-// kept or zeroed (and scaled by 1 / (1 - rate)) as it is loaded, from
-// Philox draws keyed by (seed, site) at counter (float4 index, title)
-// (philox.cuh). The mask never reaches device memory; the backward
-// (msa_encoder_bwd.cu) draws the same bits again.
-// Per title: Q/K/V projections of the embedded words, 16-head UNMASKED
+// (msa_encoder_pooled -> _call -> _fwd_kernel). Per title: word dropout of
+// the embedded words (training), Q/K/V projections, 16-head UNMASKED
 // softmax attention over the L=32 positions (pads attend, as in the
 // reference), ReLU, then the masked tanh-MLP attention pool with the -1e9
 // fill, giving one [D] vector. Heads stay unpadded (dk 25, D = 400).
 //
-// What bounds it on an H100: arithmetic. Per title the projections are
-// 2*L*Din*3D = 23 MFLOP, the pool product 2*L*D*A = 6.6 MFLOP and the
-// attention 4*L*L*D = 1.6 MFLOP, against 38 KB of input: about 800 FLOP
-// per byte, far above the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s).
+// What bounds it on an H100: the two matrix products. Over M = N L rows
+// the Q|K|V projection costs 2 M Din 3D FLOP and the pool's 2 M D A: at
+// N 8,960 (M 286,720), Din 300, D 400, A 256 that is 265 GFLOP, against
+// 15 GFLOP of attention and 0.36 GB of input. At 3xTF32 on the tensor cores
+// (three TF32 products per fp32 product) the products alone take at least
+// 1.6 ms; on the fp32 CUDA cores 4.0 ms.
 //
-// Design: one block of 256 threads per title, everything in shared memory.
-// The title [32, Din] is loaded once; each thread owns whole output columns
-// of the Q|K|V projection and keeps the 32 row sums of a column in
-// registers, so a weight element read from L2 feeds 32 FMAs and each
-// shared-memory float4 of the title (a broadcast) feeds 4. The weights are
-// read in nn.Linear layout ([out, in], one float4 of a column's row per
-// step) straight from the three projections, so nothing is repacked per
-// call. q|k|v [32, 3D]
-// (154 KB) stay in shared memory; the attention of each head overwrites that
-// head's q columns with relu(P V), which makes q the pool input h. The pool
-// uses the same column-per-thread scheme over W1 (read as [A, D]) and reduces the
-// tanh(.)*v terms across the block, never storing [32, A]. The title tile
-// region is reused as scratch once the projections are done. Plain fp32 FMA
-// on the CUDA cores: wgmma/TMA are later work.
+// Design: the forward half of kernel A''s chain (msa_encoder_bwd.cu), on
+// the caller's stream, with scratch in device memory that the wrapper
+// allocates (msa_encoder_fwd_scratch_floats):
+//   1. xd = dropout(x) (Philox by (seed, site) at counter (float4 index,
+//      title), msa_title.cuh), written to scratch; without dropout xd is x.
+//      The mask is never stored: kernel A' draws the same bits again.
+//      Chosen over a load-side mask in the product's A operand: the product
+//      reads each A tile once for each of its 10 tiles of 128 columns of
+//      3D = 1,200, so a load-side mask would draw every Philox block 10
+//      times (about 22 G integer operations at N 8,960, over 1 ms at the
+//      card's int32 issue rate, taken from the product's own issue slots)
+//      where this pass moves 0.69 GB in about 0.23 ms.
+//   2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv]  (tc_gemm.cuh, kBias, kRN, BN 96).
+//      Kernel A''s step 2 is the same product and split, summed in the
+//      tensor cores throughout; A's sums round to nearest (kRN), so the two
+//      q|k|v differ in their last bits. Why: the tensor cores round their
+//      accumulation toward zero, and the card-against-CPU check of a
+//      training step holds the step-1 gradients of the graph encoder to 1e-3
+//      of their scale. Those gradients pass kernel C's relu masks, which
+//      flip wherever the forward's error moves a k1 + k2 + k3 across 0, each
+//      flip moving a gradient entry by a whole a g term; with A's products
+//      summed toward zero the worst read 5.4e-3 on an H100, against 3.8e-4
+//      with the fp32 CUDA-core kernel this replaces.
+//   3. msa_attn_fwd_kernel<false>, a block of 4 warps per (title, head)
+//      (msa_title.cuh): h = relu(P v), written over the unit's q columns.
+//   4. the pool logits (tc_gemm.cuh, kLogits, kRN, BN 96): tanh(h W1^T + b1)
+//      times v, summed over each warp's 32 columns into lgpart [parts, M];
+//      u [M, A] is never stored.
+//   5. msa_pool_fwd_kernel, a warp per title: the logit of each position
+//      summed from its parts in order, the masked softmax (-1e9 fill; an
+//      all-pad title gives uniform weights), out[n] = sum_l alpha_l h_l
+//      over l in order.
+// The products run at 3xTF32 (tc_gemm.cuh), each 32-deep k-tile's sums
+// added to the running sums rounding to nearest: fp32-class accuracy.
+//
+// No ReLU fix. Kernel A' recomputes the units whose pre-activations lie
+// within rounding of 0 on the CUDA cores because the backward takes the
+// ReLU's gradient (0 or the whole upstream term) from each pre-activation's
+// sign. The forward's output is relu itself, which is continuous: a
+// pre-activation within 1e-6 of 0 that rounds to the other side moves h by
+// no more than that, inside the gate.
+//
+// Every reduction runs in a fixed order with no atomics: the same bits on
+// every run. Limits, as kernel A''s: L 32, Din and D multiples of 4,
+// dk <= 64, A a multiple of 4 up to 512.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
-#include "philox.cuh"
+#include "msa_title.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-constexpr int kL = 32;  // title length: one warp lane per position
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kMaskFill = -1e9f;
+// tile widths of the Q|K|V and pool products: kRN's second set of
+// accumulators fits in the registers at 96 columns a block, not at 128
+constexpr int kBNq = 96, kBNp = 96;
 
-using digat::warp_max;
-using digat::warp_sum;
+namespace tc = digat::tc;
 
-// floats of the first shared region: the title tile, later the scratch
-__host__ __device__ inline int region0_floats(int Din, int dk) {
-  int tile = kL * Din;
-  int scratch = kL * kL + dk * kL + kWarps * kL + kL;
-  int r = tile > scratch ? tile : scratch;
-  return (r + 3) & ~3;  // keep the next region 16-byte aligned
+// out[n] = sum_l alpha_l h[n, l], a warp per title: lane l takes alpha_l,
+// then each lane sums float4 columns over l in order
+__global__ void __launch_bounds__(kThreads)
+msa_pool_fwd_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
+                    int parts,
+                    const unsigned char* __restrict__ mask,  // [N, L]
+                    const float* __restrict__ h, int ldh,    // [N*L, ldh]
+                    float* __restrict__ out,                 // [N, D]
+                    int N, int D) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const size_t M = (size_t)N * kL, row = (size_t)n * kL + lane;
+  const float alpha = pool_alpha(lgpart, parts, M, row, mask[row] != 0);
+  float al[kL];
+#pragma unroll
+  for (int l = 0; l < kL; ++l) al[l] = __shfl_sync(0xffffffffu, alpha, l);
+  const float* hn = h + (size_t)n * kL * ldh;
+  for (int c = lane; c < D / 4; c += 32) {
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int l = 0; l < kL; ++l)
+      axpy4(al[l], __ldg(reinterpret_cast<const float4*>(hn + (size_t)l * ldh) + c), o);
+    reinterpret_cast<float4*>(out + (size_t)n * D)[c] = o;
+  }
 }
 
-int g_max_smem = 0;  // opt-in shared memory per block, set by msa_encoder_init
+// floats of each scratch array, in the order they sit in the scratch buffer
+struct FwdScratch {
+  size_t xd, qkv, lgpart;
+  size_t total() const { return xd + qkv + lgpart; }
+};
 
-__global__ void __launch_bounds__(kThreads)
-msa_encoder_pooled_kernel(const float* __restrict__ x,
-                          const unsigned char* __restrict__ mask,
-                          const float* __restrict__ wq,  // [D, Din]
-                          const float* __restrict__ bq,  // [D]
-                          const float* __restrict__ wk,  // [D, Din] (no bias)
-                          const float* __restrict__ wv,  // [D, Din]
-                          const float* __restrict__ bv,  // [D]
-                          const float* __restrict__ w1,  // [A, D]
-                          const float* __restrict__ b1,  // [A]
-                          const float* __restrict__ v,   // [A]
-                          float* __restrict__ out,       // [N, D]
-                          int Din, int heads, int dk, int A, float scale,
-                          uint32_t thresh, float drop_scale, uint32_t seed, uint32_t site) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int D = heads * dk;
-  const int N3 = 3 * D;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t n = blockIdx.x;
+FwdScratch fwd_scratch_of(int N, int Din, int D, int A, bool drop) {
+  const size_t M = size_t(N) * kL;
+  auto a4 = [](size_t f) { return (f + 3) & ~size_t(3); };  // 16-byte aligned starts
+  return FwdScratch{drop ? a4(M * Din) : 0, a4(M * 3 * D),
+                    a4(size_t(tc::pool_parts<kBNp>(A)) * M)};
+}
 
-  float* xs = smem;                             // [kL][Din]
-  float* qkv = smem + region0_floats(Din, dk);  // [kL][3D]
-  float* S = smem;                              // [kL][kL]  (after projections)
-  float* kT = S + kL * kL;                      // [dk][kL]
-  float* part = kT + dk * kL;                   // [kWarps][kL]
-  float* alpha = part + kWarps * kL;            // [kL]
-
-  // ---- load the embedded title, word dropout applied (thresh 0: none) ----
-  {
-    const float4* src = reinterpret_cast<const float4*>(x + n * kL * Din);
-    float4* dst = reinterpret_cast<float4*>(xs);
-    for (int e = tid; e < kL * Din / 4; e += kThreads) {
-      float4 v = src[e];
-      if (thresh) {
-        const digat::Philox4 d = digat::dropout_draws(uint32_t(n), uint32_t(e), seed, site);
-        v.x = d.x >= thresh ? v.x * drop_scale : 0.f;
-        v.y = d.y >= thresh ? v.y * drop_scale : 0.f;
-        v.z = d.z >= thresh ? v.z * drop_scale : 0.f;
-        v.w = d.w >= thresh ? v.w * drop_scale : 0.f;
-      }
-      dst[e] = v;
-    }
-  }
-  __syncthreads();
-
-  // ---- Q|K|V projection: thread owns columns c, all 32 rows ----
-  for (int c = tid; c < N3; c += kThreads) {
-    const int part = c / D, cc = c - part * D;
-    const float* wrow = (part == 0 ? wq : part == 1 ? wk : wv) + (size_t)cc * Din;
-    float acc[kL];
-#pragma unroll
-    for (int l = 0; l < kL; ++l) acc[l] = 0.f;
-    for (int k = 0; k < Din; k += 4) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(wrow + k));
-#pragma unroll
-      for (int l = 0; l < kL; ++l) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + l * Din + k);
-        float a = acc[l];
-        a = fmaf(xv.x, w.x, a);
-        a = fmaf(xv.y, w.y, a);
-        a = fmaf(xv.z, w.z, a);
-        a = fmaf(xv.w, w.w, a);
-        acc[l] = a;
-      }
-    }
-    const float bias = part == 0 ? bq[cc] : part == 2 ? bv[cc] : 0.f;
-#pragma unroll
-    for (int l = 0; l < kL; ++l) qkv[l * N3 + c] = acc[l] + bias;
-  }
-  __syncthreads();
-
-  // ---- per head: unmasked softmax attention; relu(P V) overwrites q_h ----
-  for (int hd = 0; hd < heads; ++hd) {
-    const int qo = hd * dk, ko = D + hd * dk, vo = 2 * D + hd * dk;
-    for (int e = tid; e < kL * dk; e += kThreads) {
-      const int j = e / dk, c = e - j * dk;
-      kT[c * kL + j] = qkv[j * N3 + ko + c];
-    }
-    __syncthreads();
-    for (int e = tid; e < kL * kL; e += kThreads) {
-      const int i = e >> 5, j = e & 31;
-      const float* qi = qkv + i * N3 + qo;
-      float s = 0.f;
-      for (int c = 0; c < dk; ++c) s = fmaf(qi[c], kT[c * kL + j], s);
-      S[e] = s * scale;
-    }
-    __syncthreads();
-    for (int i = warp; i < kL; i += kWarps) {
-      const float s = S[i * kL + lane];
-      const float m = warp_max(s);
-      const float p = expf(s - m);
-      S[i * kL + lane] = p / warp_sum(p);
-    }
-    __syncthreads();
-    for (int e = tid; e < kL * dk; e += kThreads) {
-      const int i = e / dk, c = e - i * dk;
-      float o = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < kL; ++j) o = fmaf(S[i * kL + j], qkv[j * N3 + vo + c], o);
-      qkv[i * N3 + qo + c] = fmaxf(o, 0.f);
-    }
-    __syncthreads();
-  }
-
-  // ---- pool logits: sum_a v[a] * tanh(h W1 + b1)[l, a], per row l ----
-  float lg[kL];
-#pragma unroll
-  for (int l = 0; l < kL; ++l) lg[l] = 0.f;
-  for (int col = tid; col < A; col += kThreads) {
-    float acc[kL];
-#pragma unroll
-    for (int l = 0; l < kL; ++l) acc[l] = 0.f;
-    const float* wrow = w1 + (size_t)col * D;
-    for (int k = 0; k < D; k += 4) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(wrow + k));
-#pragma unroll
-      for (int l = 0; l < kL; ++l) {
-        const float4 hv = *reinterpret_cast<const float4*>(qkv + l * N3 + k);
-        float a = acc[l];
-        a = fmaf(hv.x, w.x, a);
-        a = fmaf(hv.y, w.y, a);
-        a = fmaf(hv.z, w.z, a);
-        a = fmaf(hv.w, w.w, a);
-        acc[l] = a;
-      }
-    }
-    const float bb = b1[col], vv = v[col];
-#pragma unroll
-    for (int l = 0; l < kL; ++l) lg[l] = fmaf(tanhf(acc[l] + bb), vv, lg[l]);
-  }
-#pragma unroll
-  for (int l = 0; l < kL; ++l) {
-    const float t = warp_sum(lg[l]);
-    if (lane == 0) part[warp * kL + l] = t;
-  }
-  __syncthreads();
-
-  // ---- masked softmax over positions (-1e9 fill; all-pad -> uniform) ----
-  if (warp == 0) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += part[w * kL + lane];
-    const float logit = mask[n * kL + lane] ? s : kMaskFill;
-    const float m = warp_max(logit);
-    const float p = expf(logit - m);
-    alpha[lane] = p / warp_sum(p);
-  }
-  __syncthreads();
-
-  // ---- pooled output: sum_l alpha[l] h[l, :] ----
-  for (int d = tid; d < D; d += kThreads) {
-    float o = 0.f;
-#pragma unroll 8
-    for (int l = 0; l < kL; ++l) o = fmaf(alpha[l], qkv[l * N3 + d], o);
-    out[n * D + d] = o;
-  }
+bool shapes_taken(int N, int L, int Din, int D, int dk, int A) {
+  return N > 0 && L == kL && Din > 0 && Din % 4 == 0 && D % 4 == 0 && dk > 0 && dk <= kMaxDk &&
+         A > 0 && A % 4 == 0 && A <= 128 * kMaxA4;
 }
 
 }  // namespace
 
-// Reads the card's opt-in shared-memory limit and grants it to the kernel.
-// Called once, when the library is loaded.
+// Grants the products their shared memory on the current device. Called
+// once per device, when the library is loaded.
 extern "C" int msa_encoder_init() {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&g_max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(msa_encoder_pooled_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
-  }
+  cudaError_t e = tc::init<true, true, kBNq, tc::kBias, true>();
+  if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kLogits, true>();
   return static_cast<int>(e);
 }
 
-extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const void* wq,
-                                      const void* bq, const void* wk, const void* wv,
-                                      const void* bv, const void* w1, const void* b1,
-                                      const void* v, void* out, int N, int L, int Din,
-                                      int heads, int dk, int A, float scale, unsigned thresh,
-                                      float drop_scale, unsigned seed, unsigned site,
-                                      void* stream) {
+// Floats of scratch that msa_encoder_pooled_f32 needs (0 if the shapes are
+// not taken); `drop` is whether word dropout is on.
+extern "C" long long msa_encoder_fwd_scratch_floats(int N, int L, int Din, int heads, int dk,
+                                                    int A, int drop) {
+  if (heads <= 0 || !shapes_taken(N, L, Din, heads * dk, dk, A)) return 0;
+  return (long long)fwd_scratch_of(N, Din, heads * dk, A, drop != 0).total();
+}
+
+// x [N, L, Din]; mask [N, L] (bytes); wqkv [3D, Din] (Wq, Wk, Wv stacked,
+// nn.Linear layout); bqkv [3D] ([bq | 0 | bv]); w1 [A, D]; b1, v [A];
+// out [N, D].
+extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const void* wqkv,
+                                      const void* bqkv, const void* w1, const void* b1,
+                                      const void* v, void* out, void* scratch, int N, int L,
+                                      int Din, int heads, int dk, int A, float scale,
+                                      unsigned thresh, float drop_scale, unsigned seed,
+                                      unsigned site, void* stream) {
   const int D = heads * dk;
-  if (N <= 0 || L != kL || Din <= 0 || Din % 4 != 0 || D % 4 != 0 || A <= 0) {
+  if (heads <= 0 || !shapes_taken(N, L, Din, D, dk, A)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(float) * (size_t(region0_floats(Din, dk)) + size_t(kL) * 3 * D);
-  if (smem > size_t(g_max_smem)) return static_cast<int>(cudaErrorInvalidValue);
-  msa_encoder_pooled_kernel<<<N, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const unsigned char*>(mask),
-      static_cast<const float*>(wq), static_cast<const float*>(bq),
-      static_cast<const float*>(wk), static_cast<const float*>(wv),
-      static_cast<const float*>(bv), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(v), static_cast<float*>(out),
-      Din, heads, dk, A, scale, thresh, drop_scale, seed, site);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FwdScratch sz = fwd_scratch_of(N, Din, D, A, thresh != 0);
+  float* xd = static_cast<float*>(scratch);
+  float* qkv = xd + sz.xd;
+  float* lgpart = qkv + sz.qkv;
+  const int M = N * kL;
+  cudaError_t e;
+
+  // 1. xd = dropout(x); without dropout xd is x itself
+  const float* xin = static_cast<const float*>(x);
+  if (thresh) {
+    dropout_apply_kernel<<<grid_1d((long long)M * Din / 4), kThreads, 0, st>>>(
+        xin, xd, N, kL * Din, thresh, drop_scale, seed, site);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    xin = xd;
+  }
+  // 2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv]
+  tc::Args a{};
+  a.A = xin;
+  a.B = static_cast<const float*>(wqkv);
+  a.C = qkv;
+  a.M = M;
+  a.N = 3 * D;
+  a.K = Din;
+  a.lda = Din;
+  a.ldb = Din;
+  a.ldc = 3 * D;
+  a.k_per_split = Din;
+  a.bias = static_cast<const float*>(bqkv);
+  if ((e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a)) != cudaSuccess) return int(e);
+  // 3. h = relu(P v) per unit, over q
+  msa_attn_fwd_kernel<false><<<N * heads, kAttnThreads,
+                               sizeof(float) * attn_fwd_floats(dk, false), st>>>(
+      qkv, nullptr, qkv, 3 * D, nullptr, nullptr, nullptr, heads, dk, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  // 4. lgpart = the v-product of tanh(h W1^T + b1), per warp column
+  a = tc::Args{};
+  a.A = qkv;  // h, over q: rows 3D apart
+  a.B = static_cast<const float*>(w1);
+  a.C = nullptr;
+  a.M = M;
+  a.N = A;
+  a.K = D;
+  a.lda = 3 * D;
+  a.ldb = D;
+  a.ldc = A;
+  a.k_per_split = D;
+  a.bias = static_cast<const float*>(b1);
+  a.v = static_cast<const float*>(v);
+  a.lgpart = lgpart;
+  if ((e = tc::gemm<true, true, kBNp, tc::kLogits, true>(st, a)) != cudaSuccess) return int(e);
+  // 5. the pool's softmax and the pooled vector
+  msa_pool_fwd_kernel<<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
+      lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), qkv, 3 * D,
+      static_cast<float*>(out), N, D);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,11 @@
 // fp32 matrix products on the tensor cores at 3xTF32, for sm_90a: the
-// products of the MSA encoder's backward (msa_encoder_bwd.cu, kernel A').
+// products of the MSA encoder's forward (msa_encoder.cu, kernel A) and
+// backward (msa_encoder_bwd.cu, kernel A').
 //
 // C[z] = op(A)[M, K_z] op(B)[K_z, N] over the z-th slice of K
 // (k_per_split rows each), then an epilogue (bias, tanh pool with its
-// v-product, the ReLU-masked pool gradient, or the word-dropout mask).
+// v-product, that v-product alone, the ReLU-masked pool gradient, or the
+// word-dropout mask).
 // A is "K-major" when its rows run along K (A[m][k], lda >= K) and
 // "M-major" when stored transposed (A[k][m]); B is K-major when stored
 // [N][K] (an nn.Linear weight) and N-major when stored [K][N].
@@ -27,7 +29,7 @@
 // which reads only K-major TF32 operands, so the split pass would also
 // transpose.
 //
-// Tiles: 128 x BN outputs (BN 128 or 160) and 32-deep k-steps per block of
+// Tiles: 128 x BN outputs (BN 96, 128 or 160) and 32-deep k-steps per block of
 // 256 threads; 8 warps as 2 (m) x 4 (n), each 64 x BN/4. Shared rows are
 // padded (K-major rows 36 floats, M- or N-major rows BM/BN + 8) so that a
 // warp's fragment loads hit 32 different banks. One block per SM (about
@@ -36,6 +38,18 @@
 // Sums run over k in order within a slice, and the slices' partials are
 // written apart and summed by the caller in slice order: the same bits on
 // every run, no atomics.
+//
+// Rounding of the sums (kRN). The tensor cores add each product into the
+// fp32 accumulator rounding toward zero, not to nearest, so over K 300 the
+// 114 accumulations of the three passes drift one way: emulated, the sum is
+// about 9 times further from the exact value (RMS) than an fp32 CUDA-core
+// product, where 3xTF32 rounded to nearest would be as close
+// (tests/test_torch_msa_fwd_chain.py). With kRN each 32-deep k-tile's
+// products accumulate into fresh registers, which are then added to the
+// running sum on the CUDA cores, rounding to nearest: about as close as an
+// fp32 CUDA-core product, for one add per accumulator a tile and as many
+// registers again. Kernel A's products take kRN, at tiles 96 wide; kernel
+// A''s accumulate in the tensor cores throughout.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,6 +71,7 @@ enum Epilogue : int {
                // of u * v[n]
   kDh = 3,     // C = (acc + alpha[m] * dp[m / 32][n]) * (h[m][n] > 0)
   kDrop = 4,   // C = keep(m, n) ? acc * drop_scale : 0 (the word-dropout mask of title m / 32)
+  kLogits = 5,  // lgpart as kPool, and C not written (C may be null)
 };
 
 struct Args {
@@ -64,9 +79,9 @@ struct Args {
   const float* B;
   float* C;
   int M, N, K, lda, ldb, ldc, k_per_split;
-  const float* bias;    // kBias, kPool: [N]
-  const float* v;       // kPool: [N]
-  float* lgpart;        // kPool: [gridDim.x * 4, M]
+  const float* bias;    // kBias, kPool, kLogits: [N]
+  const float* v;       // kPool, kLogits: [N]
+  float* lgpart;        // kPool, kLogits: [gridDim.x * 4, M]
   const float* alpha;   // kDh: [M]
   const float* dp;      // kDh: [M / 32, N]
   const float* h;       // kDh: [M, ldc]
@@ -163,7 +178,7 @@ __device__ __forceinline__ int at(int r, int c) {
   return KM ? r * (kBK + 4) + c : c * (W + 8) + r;
 }
 
-template <bool AK, bool BK, int BN, int EPI>
+template <bool AK, bool BK, int BN, int EPI, bool kRN = false>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
   constexpr int WN = BN / 4, NT = WN / 8;
   constexpr int AT = tile_floats(AK, kBM), BT = tile_floats(BK, BN);
@@ -179,7 +194,11 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
   const int kend = min(p.K, kbeg + p.k_per_split);
   const int ntiles = (kend - kbeg + kBK - 1) / kBK;
 
-  float acc[kMT][NT][4];
+  // the running sums, and the registers the products accumulate into: a
+  // k-tile's own (kRN; without kRN `part` is never used and takes none) or
+  // the running sums
+  float acc[kMT][NT][4], part[kMT][NT][4];
+  float (&sums)[kMT][NT][4] = kRN ? part : acc;
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
 #pragma unroll
@@ -200,6 +219,14 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
     if (more) {
       load_tile<AK, kBM>(ra, p.A, p.lda, p.M, m0, kbeg + (kt + 1) * kBK, kend);
       load_tile<BK, BN>(rb, p.B, p.ldb, p.N, n0, kbeg + (kt + 1) * kBK, kend);
+    }
+    if (kRN) {
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sums[i][j][c] = 0.f;
     }
     const uint32_t* st = sm + (kt & 1) * STAGE;
     const uint32_t *ahi = st, *alo = st + AT, *bhi = st + 2 * AT, *blo = st + 2 * AT + BT;
@@ -231,15 +258,23 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
+        for (int j = 0; j < NT; ++j) mma_tf32(sums[i][j], al[i], bh[j]);
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
+        for (int j = 0; j < NT; ++j) mma_tf32(sums[i][j], ah[i], bl[j]);
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
+        for (int j = 0; j < NT; ++j) mma_tf32(sums[i][j], ah[i], bh[j]);
+    }
+    if (kRN) {  // the k-tile's sums into the running sums, rounding to nearest
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][j][c] += sums[i][j][c];
     }
     if (more) {
       uint32_t* d = sm + ((kt + 1) & 1) * STAGE;
@@ -267,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
         if (EPI == kBias) {
           val.x += __ldg(p.bias + col);
           val.y += __ldg(p.bias + col + 1);
-        } else if (EPI == kPool) {
+        } else if (EPI == kPool || EPI == kLogits) {
           val.x = tanhf(val.x + __ldg(p.bias + col));
           val.y = tanhf(val.y + __ldg(p.bias + col + 1));
           lg = fmaf(val.x, __ldg(p.v + col), lg);
@@ -288,9 +323,10 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
           val.x = d0 >= p.thresh ? val.x * p.drop_scale : 0.f;
           val.y = d1 >= p.thresh ? val.y * p.drop_scale : 0.f;
         }
-        *dst = val;
+        if (EPI != kLogits) *dst = val;
       }
-      if (EPI == kPool) {  // the v-product over this warp's WN columns, one part per warp column
+      if (EPI == kPool || EPI == kLogits) {  // the v-product over this warp's WN columns, one
+                                             // part per warp column
         lg += __shfl_xor_sync(0xffffffffu, lg, 1);
         lg += __shfl_xor_sync(0xffffffffu, lg, 2);
         if (t == 0 && row_in) p.lgpart[(size_t)(blockIdx.x * 4 + wn) * p.M + row] = lg;
@@ -300,9 +336,9 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
 }
 
 // Grants the kernel its shared memory on the current device.
-template <bool AK, bool BK, int BN, int EPI>
+template <bool AK, bool BK, int BN, int EPI, bool kRN = false>
 inline cudaError_t init() {
-  return cudaFuncSetAttribute(gemm_kernel<AK, BK, BN, EPI>,
+  return cudaFuncSetAttribute(gemm_kernel<AK, BK, BN, EPI, kRN>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem_bytes<AK, BK, BN>());
 }
@@ -316,7 +352,7 @@ __host__ __device__ constexpr int pool_parts(int N) {
 // Launches gemm_kernel on `st`: ceil(K / k_per_split) slices of K. Every
 // dimension and leading dimension a multiple of 4 and every matrix 16-byte
 // aligned (float4 loads); returns the launch's error.
-template <bool AK, bool BK, int BN, int EPI>
+template <bool AK, bool BK, int BN, int EPI, bool kRN = false>
 inline cudaError_t gemm(cudaStream_t st, const Args& p) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.k_per_split <= 0 || (p.M | p.N | p.K) % 4 ||
       (p.lda | p.ldb | p.ldc) % 4 || (reinterpret_cast<uintptr_t>(p.A) |
@@ -327,7 +363,7 @@ inline cudaError_t gemm(cudaStream_t st, const Args& p) {
   const int splits = (p.K + p.k_per_split - 1) / p.k_per_split;
   const dim3 grid((p.N + BN - 1) / BN, (p.M + kBM - 1) / kBM, splits);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  gemm_kernel<AK, BK, BN, EPI><<<grid, kThreads, smem_bytes<AK, BK, BN>(), st>>>(p);
+  gemm_kernel<AK, BK, BN, EPI, kRN><<<grid, kThreads, smem_bytes<AK, BK, BN>(), st>>>(p);
   return cudaGetLastError();
 }
 

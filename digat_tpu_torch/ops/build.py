@@ -41,9 +41,11 @@ _U, _LL = ctypes.c_uint, ctypes.c_longlong
 
 # C signatures: name -> (argtypes, restype); an int restype is a cudaError_t
 SIGNATURES = {
-    # x, mask, wq, bq, wk, wv, bv, w1, b1, v, out, N, L, Din, heads, dk, A, scale,
+    # N, L, Din, heads, dk, A, dropout on -> floats of scratch
+    "msa_encoder_fwd_scratch_floats": ([_I] * 7, _LL),
+    # x, mask, wqkv, bqkv, w1, b1, v, out, scratch, N, L, Din, heads, dk, A, scale,
     # thresh, drop_scale, seed, site, stream
-    "msa_encoder_pooled_f32": ([_P] * 11 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
+    "msa_encoder_pooled_f32": ([_P] * 9 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
     # N, L, Din, heads, dk, A -> floats of scratch
     "msa_encoder_bwd_scratch_floats": ([_I] * 6, _LL),
     # x, mask, wqkv, bqkv, w1, b1, v, dp, dx, dwqkv, dbqkv, dw1, db1, dv, scratch,
@@ -55,10 +57,11 @@ SIGNATURES = {
     "gat_layer_project_f32": ([_P] * 10 + [_I] * 3 + [_P], _I),
     # x, adj, y, k3, a, out, B, G, D, slope, stream
     "gat_layer_attend_f32": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),
-    # k1, ld1, k2, ld2, k3, a, out, B, G, D, stream
-    "gat_scores_fwd_f32": ([_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P], _I),
-    # k1, ld1, k2, ld2, k3, a, g, gk1, gk2, gk3, ga, ga_part, B, G, D, stream
-    "gat_scores_bwd_f32": ([_P, _I, _P, _I] + [_P] * 8 + [_I] * 3 + [_P], _I),
+    # k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream
+    "gat_scores_fwd_f32": ([_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P], _I),
+    # k1, ld1, k2, ld2, k3, a, g, gk1, gk2, gk3, ga, ga_part, B, G, D, ntiles, JT, DT,
+    # stream
+    "gat_scores_bwd_f32": ([_P, _I, _P, _I] + [_P] * 8 + [_I] * 6 + [_P], _I),
     # g, ids, perm, partial, out, ntok, V, D, chunk, stream
     "emb_grad_f32": ([_P] * 5 + [_LL, _I, _I, _I, _P], _I),
     # q, k, v, mask, out, N, H, L, dk, rs, hs, scale, stream

@@ -21,14 +21,98 @@ the [chunk, G, G, D] intermediates). On a CUDA tensor they launch
 projection y [B, G, 3D]; the kernel reads them in place. The training GAT
 layer passes y itself to `interactive_gat_scores_fused_y`, the counterpart
 of `interactive_gat_scores_fused_y_pallas` (C', whose backward reuses C's).
+
+The kernels' launch plans are made here and passed to the C side, which
+checks them: `fwd_plan` (register tiles of R x R scores a thread, the
+threads' tiles of a block) and `bwd_plan` (tiles of JT columns held in
+registers, blocks of DT features). `tests/test_torch_gat_scores_tiles.py`
+replays the kernels' order of work from these plans on the CPU.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
 from digat_tpu_torch.ops import build, gat
 from digat_tpu_torch.ops.gat import interactive_gat_scores as interactive_gat_scores_plain
+from digat_tpu_torch.ops.msa_attention import MAX_SMEM_BYTES
+
+SLICE = 32  # features of one forward slice (kDS in csrc/gat_scores.cu)
+MAX_FWD_THREADS = 512  # a forward block
+MAX_BWD_THREADS = 256  # a backward block: one slice of D
+MAX_JT = 40  # backward columns j a thread holds in registers
+
+
+class FwdPlan(NamedTuple):
+    R: int  # a thread's tile: R x R scores
+    TIb: int  # threads' tiles along i in a block
+    TJb: int  # threads' tiles along j in a block
+    row_blocks: int
+    col_blocks: int
+
+
+class BwdPlan(NamedTuple):
+    ntiles: int  # tiles of JT columns j, walked in order
+    JT: int
+    DT: int  # features (threads) a block
+    slices: int  # blocks of DT features over D
+
+
+def _round32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def fwd_plan(G: int) -> FwdPlan:
+    """The forward's tiling of one graph: R 4 where the graph has at least
+    128 tiles of 4 x 4, else R 2; a block takes up to 32 threads' tiles
+    along j and as many rows as keep it at <= 512 threads."""
+    R = 4 if math.ceil(G / 4) ** 2 >= 128 else 2
+    TI = math.ceil(G / R)
+    TJb = math.ceil(TI / math.ceil(TI / 32))
+    nbi = math.ceil(TI * TJb / MAX_FWD_THREADS)
+    while _round32(math.ceil(TI / nbi) * TJb) > MAX_FWD_THREADS:
+        nbi += 1
+    TIb = math.ceil(TI / nbi)
+    return FwdPlan(R, TIb, TJb, math.ceil(TI / TIb), math.ceil(TI / TJb))
+
+
+def _slice_stride(w: int) -> int:
+    return w if (w // 4) % 2 else w + 4
+
+
+def fwd_smem_bytes(plan: FwdPlan) -> int:
+    """Shared memory of a forward block (`fwd_smem_floats` in the C side):
+    one slice of k2 + k3 and of k1, transposed, and of a."""
+    return 4 * (SLICE * (_slice_stride(plan.TIb * plan.R) + _slice_stride(plan.TJb * plan.R))
+                + SLICE)
+
+
+def bwd_smem_bytes(G: int, JT: int, DT: int, ntiles: int) -> int:
+    """Shared memory of a backward block (`bwd_smem_floats`): the tile's
+    columns of g, and the rows' running sums where there are several tiles."""
+    return 4 * (G * JT + (G * DT if ntiles > 1 else 0))
+
+
+def bwd_plan(G: int, D: int) -> BwdPlan:
+    """The backward's plan: the fewest tiles of at most 40 columns, each as
+    narrow as covers G (a multiple of 4); D in the fewest slices of at most
+    256 features (more while the block's shared memory would not fit).
+    Raises ValueError for a graph too large for a block of 32 features."""
+    ntiles = math.ceil(G / MAX_JT)
+    JT = 4 * math.ceil(math.ceil(G / ntiles) / 4)
+    slices = math.ceil(D / MAX_BWD_THREADS)
+    while True:
+        DT = _round32(math.ceil(D / slices))
+        if bwd_smem_bytes(G, JT, DT, ntiles) <= MAX_SMEM_BYTES:
+            return BwdPlan(ntiles, JT, DT, math.ceil(D / DT))
+        if DT == 32:
+            raise ValueError(f"gat_scores_bwd: a graph of G={G} nodes needs "
+                             f"{bwd_smem_bytes(G, JT, DT, ntiles)} B of shared memory at 32 "
+                             f"features a block, more than the {MAX_SMEM_BYTES} B a block has")
+        slices += 1
 
 
 def interactive_gat_scores_bwd_plain(k1, k2, k3, a_vec, g):
@@ -80,9 +164,11 @@ def gat_scores_fwd(k1, k2, k3, a_vec):
         return out
     (k1, ld1), (k2, ld2) = _rows(k1, G), _rows(k2, G)
     k3, a_vec = k3.contiguous(), a_vec.contiguous()
+    plan = fwd_plan(G)
     with build.launch_on(k1.device) as (lib, stream):
         err = lib.gat_scores_fwd_f32(k1.data_ptr(), ld1, k2.data_ptr(), ld2, k3.data_ptr(),
-                                     a_vec.data_ptr(), out.data_ptr(), B, G, D, stream)
+                                     a_vec.data_ptr(), out.data_ptr(), B, G, D, plan.R,
+                                     plan.TIb, plan.TJb, stream)
     build.check(lib, err, "gat_scores_fwd")
     gat_scores_fwd.launches += 1
     return out
@@ -96,6 +182,7 @@ def gat_scores_bwd(k1, k2, k3, a_vec, g):
     if tuple(g.shape) != (B, G, G) or g.dtype != torch.float32:
         raise ValueError(f"gat_scores_bwd: g must be float32 [{B}, {G}, {G}], got {g.dtype} "
                          f"{tuple(g.shape)}")
+    plan = bwd_plan(G, D)
     dev = k1.device
     gk1 = torch.empty((B, G, D), dtype=torch.float32, device=dev)
     gk2 = torch.empty((B, G, D), dtype=torch.float32, device=dev)
@@ -110,7 +197,8 @@ def gat_scores_bwd(k1, k2, k3, a_vec, g):
         err = lib.gat_scores_bwd_f32(k1.data_ptr(), ld1, k2.data_ptr(), ld2, k3.data_ptr(),
                                      a_vec.data_ptr(), g.data_ptr(), gk1.data_ptr(),
                                      gk2.data_ptr(), gk3.data_ptr(), ga.data_ptr(),
-                                     ga_part.data_ptr(), B, G, D, stream)
+                                     ga_part.data_ptr(), B, G, D, plan.ntiles, plan.JT, plan.DT,
+                                     stream)
     build.check(lib, err, "gat_scores_bwd")
     gat_scores_bwd.launches += 1
     return gk1, gk2, gk3, ga

@@ -16,11 +16,13 @@ it again.
 
 On a CPU tensor `msa_encoder_pooled` runs `msa_encoder_pooled_plain`, whose
 gradients are autograd's. On a CUDA tensor it goes through
-`MSAEncoderFunction`: forward kernel A (`csrc/msa_encoder.cu`), backward
-kernel A' (`csrc/msa_encoder_bwd.cu`, its six matrix products on the
-tensor cores at 3xTF32 through `csrc/tc_gemm.cuh`); each header says what
-bounds it on the card and how the design answers that. There is no fallback: a CUDA
-tensor launches the kernels or raises.
+`MSAEncoderFunction`: forward kernel A (`csrc/msa_encoder.cu`, its two
+matrix products on the tensor cores at 3xTF32 through `csrc/tc_gemm.cuh`),
+backward kernel A' (`csrc/msa_encoder_bwd.cu`, its six products the same
+way); the attention forward, the word dropout and the pool's softmax are
+one text in `csrc/msa_title.cuh`, which both include. Each header says what
+bounds it on the card and how the design answers that. There is no
+fallback: a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ from digat_tpu_torch.ops.dropout import keep_mask_plain, threshold
 from digat_tpu_torch.ops.msa_attention import MAX_SMEM_BYTES
 
 TITLE_LENGTH = 32  # the kernels keep one warp lane per title position
-MAX_HEAD_DIM = 64  # kernel A': 4 warps a (title, head), 4 float4 column groups each
-MAX_POOL_DIM = 512  # kernel A': the pool kernel's 4 float4 columns a lane
+MAX_HEAD_DIM = 64  # kernels A and A': 4 warps a (title, head), 4 float4 column groups each
+MAX_POOL_DIM = 512  # kernels A and A': the pool kernel's 4 float4 columns a lane
 
 
 def relu_fix_smem_bytes(Din: int, dk: int) -> int:
@@ -119,6 +121,21 @@ def _check(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, what):
     return N, L, Din, D, D // heads, A
 
 
+def _refuse_shapes(dk: int, A: int, what: str) -> None:
+    """The kernels' limits on the head and pool widths, raised before any
+    launch."""
+    if dk > MAX_HEAD_DIM or A % 4 or A > MAX_POOL_DIM:
+        raise ValueError(f"{what}: the kernel takes dk <= {MAX_HEAD_DIM} and A a multiple of 4 "
+                         f"up to {MAX_POOL_DIM}, got dk={dk} A={A}")
+
+
+def _stacked_qkv(wq, bq, wk, wv, bv):
+    """The Q|K|V weights stacked [3D, Din] (nn.Linear layout) and their bias
+    [bq | 0 | bv], as the kernels' products read them."""
+    wqkv = torch.cat([wq.t(), wk.t(), wv.t()]).contiguous()
+    return wqkv, torch.cat([bq, torch.zeros_like(bq), bv]).contiguous()
+
+
 def _dropout_args(rate: float, seed: int, site: int):
     """(thresh, drop_scale, seed, site) as the kernels take them."""
     return (threshold(rate), 1.0 / (1.0 - rate) if rate > 0 else 1.0, seed & 0xFFFFFFFF,
@@ -137,19 +154,23 @@ def _linear_layout(*ws):
 def _forward_kernel(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, rate, seed, site):
     N, L, Din, D, dk, A = _check(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads,
                                  "msa_encoder_pooled")
-    wq_r, wk_r, wv_r, w1_r = _linear_layout(wq, wk, wv, w1)
+    _refuse_shapes(dk, A, "msa_encoder_pooled")
     if x.data_ptr() % 16:
         raise ValueError("msa_encoder_pooled: x must be 16-byte aligned")
     out = torch.empty((N, D), dtype=torch.float32, device=x.device)
     if N == 0:
         return out
-    bq, bv, b1, v = bq.contiguous(), bv.contiguous(), b1.contiguous(), v.contiguous()
+    wqkv, bqkv = _stacked_qkv(wq, bq, wk, wv, bv)
+    (w1_r,) = _linear_layout(w1)
+    b1, v = b1.contiguous(), v.contiguous()
     with build.launch_on(x.device) as (lib, stream):
+        scratch = torch.empty(lib.msa_encoder_fwd_scratch_floats(N, L, Din, heads, dk, A,
+                                                                 int(rate > 0)),
+                              dtype=torch.float32, device=x.device)
         err = lib.msa_encoder_pooled_f32(
-            x.data_ptr(), mask.data_ptr(), wq_r.data_ptr(), bq.data_ptr(), wk_r.data_ptr(),
-            wv_r.data_ptr(), bv.data_ptr(), w1_r.data_ptr(), b1.data_ptr(), v.data_ptr(),
-            out.data_ptr(), N, L, Din, heads, dk, A, 1.0 / math.sqrt(float(dk)),
-            *_dropout_args(rate, seed, site), stream,
+            x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), w1_r.data_ptr(),
+            b1.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, L, Din, heads,
+            dk, A, 1.0 / math.sqrt(float(dk)), *_dropout_args(rate, seed, site), stream,
         )
     build.check(lib, err, "msa_encoder_pooled")
     msa_encoder_pooled.launches += 1
@@ -168,9 +189,7 @@ def msa_encoder_bwd(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
     if tuple(dp.shape) != (N, D) or dp.dtype != torch.float32:
         raise ValueError(f"msa_encoder_bwd: dp must be float32 [{N}, {D}], got {dp.dtype} "
                          f"{tuple(dp.shape)}")
-    if dk > MAX_HEAD_DIM or A % 4 or A > MAX_POOL_DIM:
-        raise ValueError(f"msa_encoder_bwd: the kernel takes dk <= {MAX_HEAD_DIM} and A a "
-                         f"multiple of 4 up to {MAX_POOL_DIM}, got dk={dk} A={A}")
+    _refuse_shapes(dk, A, "msa_encoder_bwd")
     if relu_fix_smem_bytes(Din, dk) > MAX_SMEM_BYTES:
         raise ValueError(f"msa_encoder_bwd: at Din={Din} dk={dk} the ReLU-fix block needs "
                          f"{relu_fix_smem_bytes(Din, dk)} B of shared memory, more than the "
@@ -178,10 +197,7 @@ def msa_encoder_bwd(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
     if x.data_ptr() % 16:
         raise ValueError("msa_encoder_bwd: x must be 16-byte aligned")
     dev = x.device
-    # the Q|K|V weights stacked [3D, Din] (nn.Linear layout) and their bias
-    # [bq | 0 | bv], as the kernel's products read them
-    wqkv = torch.cat([wq.t(), wk.t(), wv.t()]).contiguous()
-    bqkv = torch.cat([bq, torch.zeros_like(bq), bv]).contiguous()
+    wqkv, bqkv = _stacked_qkv(wq, bq, wk, wv, bv)
     (w1_r,) = _linear_layout(w1)
     dx = torch.empty_like(x)
     dwqkv = torch.empty((3 * D, Din), dtype=torch.float32, device=dev)
@@ -229,10 +245,10 @@ class MSAEncoderFunction(torch.autograd.Function):
 def msa_encoder_pooled(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads: int,
                        dropout_rate: float = 0.0, seed: int = 0, site: int = 0):
     """Kernel A (forward) with kernel A' as its backward. Same arguments and
-    result as `msa_encoder_pooled_plain`. The kernels read wq, wk, wv and w1
-    in nn.Linear layout ([out, in]): a weight passed as `linear.weight.t()`,
-    as the news encoder does, is read in place; any other is copied into
-    that layout."""
+    result as `msa_encoder_pooled_plain`. The kernels read Wq, Wk and Wv
+    stacked [3D, Din] (a copy of 1.4 MB a call at the production widths)
+    and w1 in nn.Linear layout ([out, in]): a w1 passed as
+    `linear.weight.t()`, as the news encoder does, is read in place."""
     if not build.use_kernel(x):
         return msa_encoder_pooled_plain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads,
                                         dropout_rate, seed, site)

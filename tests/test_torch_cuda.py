@@ -59,13 +59,48 @@ def _msa_args(dev, N, Din, heads, dk, A, seed):
             r(A, sc=A ** -0.5), heads)
 
 
-@pytest.mark.parametrize("N,Din,heads,dk,A", [(37, 300, 16, 25, 256), (5, 24, 4, 8, 16)])
-def test_msa_encoder_kernel(cuda, N, Din, heads, dk, A):
+def _no_bias(args):
+    """The encoder's arguments with bq, bv and b1 zeroed."""
+    args = list(args)
+    for i in (3, 6, 8):
+        args[i] = torch.zeros_like(args[i])
+    return tuple(args)
+
+
+# N over the product tiles' edges (N * 32 rows against 128-row tiles: 1, 2,
+# 5 and 37 leave a ragged tile), the serving chunk of 1,024 titles, and a
+# case without biases
+_MSA_FWD_CASES = [(37, 300, 16, 25, 256, True), (5, 24, 4, 8, 16, True),
+                  (1, 300, 16, 25, 256, True), (2, 300, 16, 25, 256, True),
+                  (129, 300, 16, 25, 256, True), (1024, 300, 16, 25, 256, True),
+                  (7, 300, 16, 25, 256, False)]
+
+
+@pytest.mark.parametrize("N,Din,heads,dk,A,bias", _MSA_FWD_CASES)
+def test_msa_encoder_kernel(cuda, N, Din, heads, dk, A, bias):
+    """Kernel A against the plain encoder (title 0 all pad), and the same
+    bits on a second run."""
     args = _msa_args(cuda, N, Din, heads, dk, A, seed=N)
+    if not bias:
+        args = _no_bias(args)
     before = msa_encoder_pooled.launches
     out = msa_encoder_pooled(*args)
     assert msa_encoder_pooled.launches == before + 1
     _close(out, msa_encoder_pooled_plain(*args))
+    assert torch.equal(out, msa_encoder_pooled(*args))
+
+
+@pytest.mark.parametrize("Din,heads,dk,A,match", [
+    (6, 1, 4, 16, "multiples of 4"), (64, 1, 68, 16, "dk <= 64"),
+    (64, 2, 8, 516, "multiple of 4 up to 512")])
+def test_msa_encoder_kernel_refuses_shapes(cuda, Din, heads, dk, A, match):
+    """Kernel A raises a ValueError naming the limit for a shape it does not
+    take, before any launch."""
+    args = _msa_args(cuda, 2, Din, heads, dk, A, seed=6)
+    before = msa_encoder_pooled.launches
+    with pytest.raises(ValueError, match=match):
+        msa_encoder_pooled(*args)
+    assert msa_encoder_pooled.launches == before
 
 
 def _gat_args(dev, B, G, D, seed):
@@ -136,11 +171,13 @@ def test_keep_mask_kernel_is_bit_exact(cuda, rows, cols, offset):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("N,Din,heads,dk,A", [(37, 300, 16, 25, 256), (5, 24, 4, 8, 16)])
-def test_msa_encoder_dropout_kernel(cuda, N, Din, heads, dk, A):
+@pytest.mark.parametrize("N,Din,heads,dk,A,bias", _MSA_FWD_CASES)
+def test_msa_encoder_dropout_kernel(cuda, N, Din, heads, dk, A, bias):
     """Kernel A at rate 0.2 equals the plain encoder on keep * x / (1 - p),
     and gives the same bits twice for one seed."""
     args = _msa_args(cuda, N, Din, heads, dk, A, seed=N + 1)
+    if not bias:
+        args = _no_bias(args)
     out = ME.msa_encoder_pooled(*args, dropout_rate=0.2, seed=77, site=3)
     again = ME.msa_encoder_pooled(*args, dropout_rate=0.2, seed=77, site=3)
     xd = ME.drop_titles_plain(args[0], 0.2, 77, 3)
@@ -214,10 +251,16 @@ def test_gat_layer_kernel_refuses_gradients(cuda):
         interactive_gat_layer_fused(*gat)
 
 
-@pytest.mark.parametrize("B,G,D,strided", [(9, 6, 32, False), (11, 26, 400, True),
-                                           (7, 68, 400, True), (3, 33, 36, False),
-                                           (320, 68, 400, True)])
-def test_gat_scores_kernel(cuda, B, G, D, strided):
+@pytest.mark.parametrize("B,G,D,strided,zero_g", [
+    (9, 6, 32, False, False), (11, 26, 400, True, False), (7, 68, 400, True, False),
+    (3, 33, 36, False, False), (320, 68, 400, True, False), (320, 26, 400, True, False),
+    (5, 3, 400, True, False), (13, 6, 400, False, False), (6, 96, 400, True, False),
+    (4, 68, 400, True, True)])
+def test_gat_scores_kernel(cuda, B, G, D, strided, zero_g):
+    """Kernel C forward and backward against their plain versions: graphs
+    of one, two and three backward tiles (G 96 above the 72-node cap of the
+    kernel this replaced), k1 and k2 strided as C' reads them, a zero score
+    gradient; every output the same bits on a second run."""
     g = torch.Generator().manual_seed(G)
     r = lambda *s: (torch.randn(*s, generator=g) * 0.5).to(cuda)
     if strided:  # k1, k2 as column blocks of the fused projection y
@@ -226,14 +269,21 @@ def test_gat_scores_kernel(cuda, B, G, D, strided):
     else:
         k1, k2 = r(B, G, D), r(B, G, D)
     k3, a, gout = r(B, D), r(D), r(B, G, G)
+    if zero_g:
+        gout = torch.zeros_like(gout)
     before = (GS.gat_scores_fwd.launches, GS.gat_scores_bwd.launches)
-    _close(GS.gat_scores_fwd(k1, k2, k3, a), GS.interactive_gat_scores_plain(k1, k2, k3, a))
+    s = GS.gat_scores_fwd(k1, k2, k3, a)
+    _close(s, GS.interactive_gat_scores_plain(k1, k2, k3, a))
     got = GS.gat_scores_bwd(k1, k2, k3, a, gout)
     assert (GS.gat_scores_fwd.launches, GS.gat_scores_bwd.launches) == (before[0] + 1,
                                                                         before[1] + 1)
     want = GS.interactive_gat_scores_bwd_plain(k1, k2, k3, a, gout)
     for x, w in zip(got, want):
         _close(x, w)
+        if zero_g:
+            assert not x.any()
+    assert torch.equal(s, GS.gat_scores_fwd(k1, k2, k3, a))
+    assert all(torch.equal(x, w) for x, w in zip(got, GS.gat_scores_bwd(k1, k2, k3, a, gout)))
 
 
 @pytest.mark.parametrize("V,ntok,D,skew", [(40_000, 50_000, 300, "uniform"),
