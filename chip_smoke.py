@@ -11,25 +11,28 @@ M 10 augmented neighbours) on a seeded 20,000-news corpus along the port's
 paths:
 
   serving  - kernels A and B against their plain versions at the serving
-             shapes (A with its device ms by launch and its bound on two
-             lines, fp32 CUDA cores and its products at 3xTF32), the
-             two-stage cached scorer with the launch counters reset (stage 1
-             must run A, stage 2 B), and a smaller corpus scored on the card
-             against the plain path on the CPU;
-  training - kernels A'' (dropout mask), A with dropout, A' (encoder
-             backward: its bound on two lines, fp32 CUDA cores and its
-             products at 3xTF32, the same bits twice for every output), C
-             (Eq. 8 scores forward and backward, the same bits twice for
-             every output) and D (embedding gradient, on the uniform token
-             stream and on the pad stream, each beside
-             embedding_dense_backward) against their plain versions at the
-             training shapes, with A's, A''s, C's and D's device ms by launch
-             (torch.profiler), ptxas's registers and spills of their kernels
-             and a cuobjdump check that the products of A and A' issue TF32
-             tensor-core instructions; one epoch of `Trainer` (>= 20 steps at B 64,
-             unique-title dedup, dropout 0.2) with the launch counters
-             reset, whose launches per step are checked; and three steps at
-             B 8 on the card against the same steps on the CPU;
+             shapes (A and B with their device ms by launch and their bounds
+             on two lines, fp32 CUDA cores and their products at 3xTF32; B
+             on graphs of 6, 26, 68 and 96 nodes and at a D not a multiple
+             of 4), the two-stage cached scorer with the launch counters
+             reset (stage 1 must run A, stage 2 B), and a smaller corpus
+             scored on the card against the plain path on the CPU;
+  training - kernels A'' (the fused dropout forward and backward, and the
+             keep mask, bit for bit at every graph dropout site, beside
+             torch's own dropout), A with dropout, A' (encoder backward: its
+             bound on two lines, fp32 CUDA cores and its products at 3xTF32,
+             the same bits twice for every output), C (Eq. 8 scores forward
+             and backward, the same bits twice for every output) and D
+             (embedding gradient, on the uniform token stream and on the pad
+             stream, each beside embedding_dense_backward) against their
+             plain versions at the training shapes, with A's, A''s, C's and
+             D's device ms by launch (torch.profiler), ptxas's registers and
+             spills of their kernels and B's, and a cuobjdump check that the
+             products of A, A' and B issue TF32 tensor-core instructions; one
+             epoch of `Trainer` (>= 20 steps at B 64, unique-title dedup,
+             dropout 0.2) with the launch counters reset, whose launches per
+             step are checked; and three steps at B 8 on the card against
+             the CPU;
   NRMS-SA  - the masked attention pair (forward and backward, standing in
              for TPU kernels E and F) against its plain version at the
              serving and training shapes, packed and head-padded, timed
@@ -39,8 +42,9 @@ paths:
              cached scorer with the counters reset (one forward launch per
              stage-1 chunk and per stage-2 batch) and card against CPU; one
              `Trainer` epoch (>= 10 steps at B 64, no dedup, dropout 0.2:
-             4 forward and 4 backward launches and 7 masks per step); and
-             three steps at B 8 on the card against the CPU.
+             4 forward and 4 backward attention launches and 7 dropouts,
+             forward and backward, per step); and three steps at B 8 on the
+             card against the CPU.
 
 Prints progress lines, the card's name and power limit, a `kernels` JSON
 line, and as its last line `{"ok": true, "device": {...}}`. Exits nonzero,
@@ -181,6 +185,13 @@ def mask_work(rows, cols):
     """Kernel A'': one Philox4x32-10 block (about 104 integer operations)
     per four mask bytes, counted at the fp32 CUDA-core rate."""
     return 26 * rows * cols, rows * cols
+
+
+def dropout_work(rows, cols):
+    """Kernel A'' as the fused dropout, one direction: a Philox block per
+    four elements and a multiply each (27 operations an element, at the
+    fp32 CUDA-core rate), each element read and written once."""
+    return 27 * rows * cols, 8 * rows * cols
 
 
 def mask_sites(cfg):
@@ -348,22 +359,92 @@ def check_kernel(torch, name, kernel, plain, args, flops, nbytes, exact=False, l
     ref = plain(*args)
     torch.cuda.synchronize()
     outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
-    err, ok = 0.0, True
+    err, ok, limits = 0.0, True, []
     for o, r in zip(outs, refs):
         e = float((o.double() - r.double()).abs().max()) if o.numel() else 0.0
         limit = 0.0 if exact else KERNEL_RTOL * max(1.0, float(r.double().abs().max()))
         ok = ok and bool(torch.isfinite(o.double()).all()) and e <= limit
         err = max(err, e)
+        limits.append(limit)
     ms = time_ms(torch, lambda: kernel(*args))
     plain_ms = time_ms(torch, lambda: plain(*args))
     library_ms = time_ms(torch, lambda: library(*args)) if library is not None else None
     bound_ms, bound_by = bound(flops, nbytes)
-    say(f"  {name}: max_abs_err {err:.3e} ({'exact' if exact else 'limit per output'}) "
+    lim = f"limit {limits[0]:.3e}" if len(limits) == 1 else \
+        f"limits {min(limits):.3e}-{max(limits):.3e}"
+    say(f"  {name}: max_abs_err {err:.3e} ({'exact' if exact else f'{lim} per output'}) "
         f"ms {ms:.4f} plain_ms {plain_ms:.4f} "
         + (f"library_ms {library_ms:.4f} " if library is not None else "")
         + f"bound_ms {bound_ms:.4f} ({bound_by}) ok {ok}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+
+
+def gat_products(B, G, D):
+    """The FLOP of kernel B's projections, out of gat_work's: y = x [W|W1|W2]
+    and k3 = q W3."""
+    return 2 * B * G * D * 3 * D + 2 * B * D * D
+
+
+def gat_layer_kernels(torch, cfg, model, bs: int, dev):
+    """Phase 4: kernel B against its plain version at the serving batch on
+    graphs of 6, 26, 68 and 96 nodes (the model's news-graph weights up to
+    26 nodes, its user-graph weights above) and, with random weights, at
+    D 398 (not a multiple of 4: padded to 400); a row with no neighbour in
+    each. At G 26 and 68 the device ms of each of B's launches and both
+    bounds (fp32 CUDA cores, and the projections at 3xTF32)."""
+    from digat_tpu_torch.ops.gat_layer import (
+        interactive_gat_layer_fused,
+        interactive_gat_layer_plain,
+    )
+
+    ge, D = model.graph_encoder, cfg.news_embedding_dim
+    cases = [(bs, G, D) for G in (6, cfg.news_graph_size, cfg.user_graph_size, 96)]
+    cases.append((256, cfg.news_graph_size, D - 2))
+    by_shape = {}
+    for B, G, Dc in cases:
+        try:
+            g = torch.Generator(device=dev).manual_seed(SEED + G + Dc)
+            r = lambda *s, sc=0.5: torch.randn(s, generator=g, device=dev) * sc
+            xb, q = r(B, G, Dc), r(B, Dc)
+            adj = (torch.rand((B, G, G), generator=g, device=dev) < 0.25) \
+                | torch.eye(G, dtype=torch.bool, device=dev)
+            adj[0, 1] = False  # a row with no neighbour
+            if Dc == D:
+                prefix = "news_graph_attention" if G <= cfg.news_graph_size \
+                    else "user_graph_attention"
+                W, W1, W2, W3 = (getattr(ge, f"{prefix}_{n}")[0]
+                                 for n in ("W", "ffn1", "ffn2", "ffn3"))
+                weights = tuple(t.detach() for t in (
+                    W.weight.t(), W.bias, W1.weight.t(), W2.weight.t(), W3.weight.t(), W3.bias,
+                    getattr(ge, f"{prefix}_a")[0].weight[0]))
+            else:
+                sc = Dc ** -0.5
+                weights = (r(Dc, Dc, sc=sc), r(Dc, sc=0.05), r(Dc, Dc, sc=sc), r(Dc, Dc, sc=sc),
+                           r(Dc, Dc, sc=sc), r(Dc, sc=0.05), r(Dc, sc=sc))
+            args = (xb, adj, q, *weights)
+            work = gat_work(B, G, Dc)
+            entry = check_kernel(torch, f"interactive_gat_layer_fused B={B} G={G} D={Dc}",
+                                 interactive_gat_layer_fused, interactive_gat_layer_plain, args,
+                                 *work)
+            again = torch.equal(interactive_gat_layer_fused(*args),
+                                interactive_gat_layer_fused(*args))
+            say(f"    same bits twice: {again}")
+            entry["ok"] = entry["ok"] and again
+            if Dc == D and G in (cfg.news_graph_size, cfg.user_graph_size):
+                say_bound_3xtf32(work, gat_products(B, G, Dc), entry["bound_ms"])
+                stages = stage_split(torch, lambda: interactive_gat_layer_fused(*args))
+                say_stages(f"interactive_gat_layer_fused G {G}", stages)
+                entry["stages"] = [dict(kernel=k, launches=n, device_ms=ms)
+                                   for k, n, ms in stages]
+            by_shape[f"G{G} D{Dc}"] = entry
+        except Exception:
+            traceback.print_exc()
+            by_shape[f"G{G} D{Dc}"] = dict(ok=False)
+    big = by_shape.get(f"G{cfg.user_graph_size} D{D}", {})
+    return dict(big, ok=all(v.get("ok") for v in by_shape.values()),
+                max_abs_err=max(v.get("max_abs_err", math.inf) for v in by_shape.values()),
+                by_shape=by_shape)
 
 
 def training_kernels(torch, cfg, model, tables, cap: int, dev):
@@ -387,21 +468,83 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
             traceback.print_exc()
             entries[name] = dict(ok=False)
 
-    # A'': bit for bit at every graph dropout site's shape, as the main path
-    # launches it; the keep fraction within 0.002 of 1 - p over the
-    # word-dropout shape's >= 1e7 draws (A and A' draw those inline)
-    def mask_check():
-        by_shape, total, work = {}, dict(ms=0.0, plain_ms=0.0), np.zeros(2)
+    # A'': at every graph dropout site's shape, as the main path launches it,
+    # the fused dropout forward and forward + backward the same bits as its
+    # plain version (the topic nodes an expanded view of their [C, D]
+    # parameter, the gradient summed back into it), and the keep mask the
+    # same bits as the plain Philox; torch's own dropout timed beside each
+    # (the same work on torch's stream, another function). The keep
+    # fraction within 0.002 of 1 - p over the word-dropout shape's >= 1e7
+    # draws (A and A' draw those inline).
+    def dropout_check():
+        import torch.nn.functional as F
+
+        by_shape, work, errs = {}, np.zeros(2), []
         for k, (what, rows, cols, rate, per_step) in enumerate(mask_sites(cfg)):
-            e = check_kernel(torch, f"keep_mask {what} [{rows},{cols}] rate {rate:g}",
-                             lambda: DR.keep_mask(rows, cols, rate, 4321, k, device=dev),
-                             lambda: DR.keep_mask_plain(rows, cols, rate, 4321, k, device=dev),
-                             (), *mask_work(rows, cols), exact=True)
-            by_shape[what] = dict(e, launches_per_step=per_step)
-            for key in total:
-                total[key] += per_step * e[key]
-            work += per_step * np.array(mask_work(rows, cols), dtype=float)
-        total["bound_ms"], total["bound_by"] = bound(*work)
+            g = torch.Generator(device=dev).manual_seed(SEED + 11 + k)
+            if what == "topic nodes":
+                leaf = torch.randn((cfg.category_num, cols), generator=g, device=dev)
+                view = lambda t: t[None].expand(rows // cfg.category_num, *t.shape)
+            else:
+                leaf = torch.randn((rows, cols), generator=g, device=dev)
+                view = lambda t: t
+            up = torch.randn((rows, cols), generator=g, device=dev).reshape(view(leaf).shape)
+            lg = leaf.clone().requires_grad_(True)
+            name = f"{what} [{rows},{cols}] rate {rate:g}"
+            fwd = check_kernel(torch, f"dropout fwd {name}",
+                               lambda: DR.dropout(view(leaf), rate, 4321, k),
+                               lambda: DR.dropout_plain(view(leaf), rate, 4321, k), (),
+                               *dropout_work(rows, cols), exact=True)
+            # the backward is the same launch on the gradient: timed so,
+            # apart from autograd's own host path
+            grad = check_kernel(torch, f"dropout on the gradient {name}",
+                                lambda: DR.dropout(up, rate, 4321, k),
+                                lambda: DR.dropout_plain(up, rate, 4321, k), (),
+                                *dropout_work(rows, cols), exact=True)
+            both = check_kernel(
+                torch, f"dropout fwd + bwd through autograd.grad {name}",
+                lambda: torch.autograd.grad(DR.dropout(view(lg), rate, 4321, k), lg, up)[0],
+                lambda: torch.autograd.grad(DR.dropout_plain(view(lg), rate, 4321, k), lg,
+                                            up)[0],
+                (), *(2 * w for w in dropout_work(rows, cols)), exact=True)
+            mask = check_kernel(torch, f"keep_mask {name}",
+                                lambda: DR.keep_mask(rows, cols, rate, 4321, k, device=dev),
+                                lambda: DR.keep_mask_plain(rows, cols, rate, 4321, k,
+                                                           device=dev),
+                                (), *mask_work(rows, cols), exact=True)
+            torch_fwd = time_ms(torch, lambda: F.dropout(view(leaf), rate, training=True))
+            torch_both = time_ms(torch, lambda: torch.autograd.grad(
+                F.dropout(view(lg), rate, training=True), lg, up)[0])
+            say(f"    torch.nn.functional.dropout at this shape (the same work on torch's "
+                f"stream, not the same function): fwd {torch_fwd:.4f} ms, fwd + bwd "
+                f"{torch_both:.4f} ms")
+            by_shape[what] = dict(fwd=fwd, on_gradient=grad, fwd_bwd=both, keep_mask=mask,
+                                  torch_dropout_ms=dict(fwd=torch_fwd, fwd_bwd=torch_both),
+                                  ok=fwd["ok"] and grad["ok"] and both["ok"] and mask["ok"])
+            errs += [fwd["max_abs_err"], grad["max_abs_err"], both["max_abs_err"],
+                     mask["max_abs_err"]]
+            work += per_step * 2 * np.array(dropout_work(rows, cols), dtype=float)
+        total = dict(zip(("bound_ms", "bound_by"), bound(*work)))
+
+        # one training step's sites, forward and backward through autograd,
+        # timed as a whole: the fused dropout against its plain version
+        g = torch.Generator(device=dev).manual_seed(SEED + 19)
+        step_inputs = [(torch.randn((rows, cols), generator=g, device=dev).requires_grad_(True),
+                        torch.randn((rows, cols), generator=g, device=dev), rate, k, per_step)
+                       for k, (_, rows, cols, rate, per_step) in enumerate(mask_sites(cfg))]
+
+        def step_dropouts(fn):
+            for x, up, rate, k, n in step_inputs:
+                for _ in range(n):
+                    torch.autograd.grad(fn(x, rate, 4321, k), x, up)
+
+        total["ms"] = time_ms(torch, lambda: step_dropouts(DR.dropout))
+        total["plain_ms"] = time_ms(torch, lambda: step_dropouts(DR.dropout_plain))
+        stages = stage_split(torch, lambda: step_dropouts(DR.dropout))
+        fused = [st for st in stages if "dropout_site_kernel" in st[0]]
+        say(f"    one step's {sum(s[4] for s in mask_sites(cfg))} sites, forward and backward: "
+            f"{sum(st[1] for st in fused)} launches of the fused kernel, device "
+            f"{sum(st[2] for st in fused):.4f} ms")
         rows = max(cap, 1100)
         word = check_kernel(torch, f"keep_mask word dropout [{rows},{L * Din}] rate {p:g}",
                             lambda: DR.keep_mask(rows, L * Din, p, 4321, 99, device=dev),
@@ -410,14 +553,17 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
         frac = float((~DR.keep_mask(rows, L * Din, p, 4321, 99, device=dev)).float().mean())
         say(f"    dropped fraction {frac:.5f} over {rows * L * Din} draws (rate {p})")
         word["ok"] = word["ok"] and abs(frac - p) < 0.002
-        by_shape["word dropout (drawn inline on the main path)"] = word
-        say(f"    one step's {sum(s[4] for s in mask_sites(cfg))} site masks: ms {total['ms']:.4f} "
-            f"plain_ms {total['plain_ms']:.4f} bound_ms {total['bound_ms']:.4f}")
+        by_shape["word dropout mask (drawn inline on the main path)"] = word
+        errs.append(word["max_abs_err"])
+        say(f"    one step's {sum(s[4] for s in mask_sites(cfg))} site dropouts, forward and "
+            f"backward through autograd (timed as a whole): ms {total['ms']:.4f} plain_ms "
+            f"{total['plain_ms']:.4f} bound_ms {total['bound_ms']:.4f}")
         return dict(total, ok=all(v["ok"] for v in by_shape.values()),
-                    max_abs_err=max(v["max_abs_err"] for v in by_shape.values()),
-                    library_ms=None, by_shape=by_shape)
+                    max_abs_err=max(errs), library_ms=None, by_shape=by_shape,
+                    step_device_ms=sum(st[2] for st in fused),
+                    step_launches=sum(st[1] for st in fused))
 
-    guarded("keep_mask", mask_check)
+    guarded("dropout", dropout_check)
 
     ne = model.news_encoder
     mha, pool = ne.multiheadSelfattention, ne.attention
@@ -544,6 +690,7 @@ def counters():
 
     return {"msa_encoder_pooled": msa_encoder.msa_encoder_pooled,
             "msa_encoder_bwd": msa_encoder.msa_encoder_bwd,
+            "dropout": dropout.dropout,
             "keep_mask": dropout.keep_mask,
             "interactive_gat_layer_fused": gat_layer.interactive_gat_layer_fused,
             "gat_scores_fwd": gat_scores.gat_scores_fwd,
@@ -572,19 +719,19 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures):
     wrappers = counters()
     # the shapes at which the dropout sites call kernel A'', to hold them
     # against those phase 7 checked
-    drawn, keep_mask = Counter(), layers.keep_mask
+    drawn, apply_dropout = Counter(), layers.apply_dropout
 
-    def recording(rows, cols, rate, seed, site, row_offset=0, device="cpu"):
-        drawn[(rows, cols, rate)] += 1
-        return keep_mask(rows, cols, rate, seed, site, row_offset, device)
+    def recording(x, rate, seed, site):
+        drawn[(x.numel() // x.shape[-1], x.shape[-1], rate)] += 1
+        return apply_dropout(x, rate, seed, site)
 
-    layers.keep_mask = recording
+    layers.apply_dropout = recording
     for fn in wrappers.values():
         fn.launches = 0
     try:
         (rec,) = trainer.train()
     finally:
-        layers.keep_mask = keep_mask
+        layers.apply_dropout = apply_dropout
     launches = {name: fn.launches for name, fn in wrappers.items()}
     steps, over = len(rec["step_losses"]), rec["overflow_batches"]
     bs = cfg.effective_eval_batch_size()
@@ -597,7 +744,7 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures):
         checked[(rows, cols, rate)] += per_step * steps
     want = {"msa_encoder_pooled": steps + over + dev_chunks, "msa_encoder_bwd": steps + over,
             "embedding_grad": steps + over, "gat_scores_fwd": 2 * depth * steps,
-            "gat_scores_bwd": 2 * depth * steps, "keep_mask": sites * steps,
+            "gat_scores_bwd": 2 * depth * steps, "dropout": 2 * sites * steps, "keep_mask": 0,
             "interactive_gat_layer_fused": 2 * depth * dev_batches}
     step_ms = rec["step_ms"]
     warm = float(np.median(step_ms[2:]))
@@ -610,7 +757,8 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures):
     say(f"  launches per step: A {per_step['msa_encoder_pooled']:g}, "
         f"A' {per_step['msa_encoder_bwd']:g}, C-fwd {per_step['gat_scores_fwd']:g}, "
         f"C-bwd {per_step['gat_scores_bwd']:g}, D {per_step['embedding_grad']:g}, "
-        f"A'' {per_step['keep_mask']:g} ({sites} graph dropout sites); dev scoring: "
+        f"A'' {per_step['dropout']:g} (forward and backward at {sites} graph dropout sites); "
+        f"dev scoring: "
         f"A {dev_chunks}, B {launches['interactive_gat_layer_fused']}")
     say(f"  dev on random weights: auc {rec['auc']:.4f} mrr {rec['mrr']:.4f}")
     if steps < TRAIN_STEPS or not np.isfinite(rec["step_losses"]).all():
@@ -714,7 +862,10 @@ def ptxas_report(build, needle: str) -> dict:
 def sass_tensor_core_check(build) -> dict:
     """TF32 tensor-core instructions (SASS `HMMA...TF32`) in each instantiation
     of the 3xTF32 product kernel (tc_gemm.cuh) of the built library, read
-    with `cuobjdump -sass`: label -> count."""
+    with `cuobjdump -sass`: label -> count. Each source's code is its own
+    ELF section of the library; a product is labelled by its kernel (A, A'
+    or B: the section that holds that kernel's own pool, ReLU-fix or attend
+    kernel) and its template arguments."""
     import re
     import shutil
 
@@ -723,37 +874,43 @@ def sass_tensor_core_check(build) -> dict:
         tool = shutil.which("cuobjdump") or tool
     sass = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
                           text=True, timeout=300).stdout
+    owners = {"msa_pool_fwd_kernel": "A", "msa_attn_relu_fix_kernel": "A'",
+              "gat_layer_attend_kernel": "B"}
     epilogues = ["store", "bias", "pool", "dh", "dropout", "logits"]
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            k = re.search(r"2tc11gemm_kernelILb([01])ELb([01])ELi(\d+)ELi(\d)ELb([01])E",
-                          m.group(1))
-            name = None if k is None else (
-                f"A {'K' if k.group(1) == '1' else 'M'}-major, B "
-                f"{'K' if k.group(2) == '1' else 'N'}-major, BN {k.group(3)}, "
-                f"{epilogues[int(k.group(4))]} epilogue"
-                + (", k-tile sums rounded to nearest" if k.group(5) == "1" else ""))
-            if name:
-                counts[name] = 0
-            continue
-        if name and re.search(r"HMMA\.\S*TF32", line):
-            counts[name] += 1
+    counts = {}
+    for section in re.split(r"^Fatbin elf code", sass, flags=re.M):
+        owner = next((o for marker, o in owners.items() if marker in section), "?")
+        name = None
+        for line in section.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                k = re.search(r"2tc11gemm_kernelILb([01])ELb([01])ELi(\d+)ELi(\d)ELb([01])E",
+                              m.group(1))
+                name = None if k is None else (
+                    f"{owner}: A {'K' if k.group(1) == '1' else 'M'}-major, B "
+                    f"{'K' if k.group(2) == '1' else 'N'}-major, BN {k.group(3)}, "
+                    f"{epilogues[int(k.group(4))]} epilogue"
+                    + (", k-tile sums rounded to nearest" if k.group(5) == "1" else ""))
+                if name:
+                    counts[name] = 0
+                continue
+            if name and re.search(r"HMMA\.\S*TF32", line):
+                counts[name] += 1
     return counts
 
 
-# the product instantiations of kernels A and A' (tc_gemm.cuh), as
-# sass_tensor_core_check labels them: A' six, A two
-PRODUCT_KERNELS = 8
+# the product instantiations of kernels A, A' and B (tc_gemm.cuh), as
+# sass_tensor_core_check labels them: A' six, A two, B one
+PRODUCT_KERNELS = 9
 
 
 def redesign_report(build) -> bool:
-    """Prints ptxas's registers and spills of the kernels of A, A', C and D
-    and the SASS check that the products of A and A' issue TF32 tensor-core
-    instructions; False if a product kernel issues none."""
+    """Prints ptxas's registers and spills of the kernels of A, A', A'', B,
+    C and D and the SASS check that the products of A, A' and B issue TF32
+    tensor-core instructions; False if a product kernel issues none."""
     ok = True
-    for needle in ("tc11gemm_kernel", "msa_attn_", "msa_pool", "gat_scores_", "emb_grad_"):
+    for needle in ("tc11gemm_kernel", "msa_attn_", "msa_pool", "gat_scores_", "gat_layer_",
+                   "dropout_", "emb_grad_"):
         for mangled, (n_regs, st, ld) in sorted(ptxas_report(build, needle).items()):
             say(f"  ptxas {mangled[:90]}: {n_regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
@@ -761,7 +918,7 @@ def redesign_report(build) -> bool:
     for label, n in counts.items():
         say(f"  SASS {label}: {n} HMMA TF32 instructions")
     if len(counts) < PRODUCT_KERNELS or not all(counts.values()):
-        say("  SASS check FAILED: a product kernel of A or A' issues no TF32 HMMA")
+        say("  SASS check FAILED: a product kernel of A, A' or B issues no TF32 HMMA")
         ok = False
     return ok
 
@@ -969,7 +1126,8 @@ def nrms_training(torch, cfg, model, corpus, run_dir, failures):
     """Phase 12: one `Trainer` epoch of NRMS-SA at B 64 (dropout, no dedup)
     with the launch counters reset: per step 4 forward and 4 backward
     attention launches (three title-tower calls and the user tower) and 7
-    A'' masks; then the dev scoring's forward launches."""
+    A'' dropouts, forward and backward; then the dev scoring's forward
+    launches."""
     from digat_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(model, cfg, corpus, run_dir, verbose=False)
@@ -981,7 +1139,7 @@ def nrms_training(torch, cfg, model, corpus, run_dir, failures):
     dev_launches = -(-corpus.nrms_tables().news_title_text.shape[0] // bs) \
         + -(-len(corpus.dev_cand) // bs)
     want = {"msa_attention_fwd": 4 * steps + dev_launches, "msa_attention_bwd": 4 * steps,
-            "keep_mask": 7 * steps}
+            "dropout": 14 * steps, "keep_mask": 0}
     warm = float(np.median(rec["step_ms"][2:]))
     say(f"  {steps} steps at B {cfg.batch_size} (no dedup); step ms median after warm-up "
         f"{warm:.3f} (first {rec['step_ms'][0]:.3f}); train samples/s "
@@ -989,7 +1147,8 @@ def nrms_training(torch, cfg, model, corpus, run_dir, failures):
     say(f"  step losses: {[round(v, 6) for v in rec['step_losses']]}")
     say(f"  launches per step: attention fwd "
         f"{(launches['msa_attention_fwd'] - dev_launches) / steps:g}, bwd "
-        f"{launches['msa_attention_bwd'] / steps:g}, A'' {launches['keep_mask'] / steps:g}; "
+        f"{launches['msa_attention_bwd'] / steps:g}, A'' {launches['dropout'] / steps:g} "
+        f"(7 sites forward and backward); "
         f"dev scoring: attention fwd {dev_launches}; other kernels "
         f"{sum(v for k, v in launches.items() if k not in want)}")
     if steps < NRMS_TRAIN_STEPS or not np.isfinite(rec["step_losses"]).all():
@@ -1017,12 +1176,7 @@ def main() -> int:
         from digat_tpu_torch.models.model import Model
         from digat_tpu_torch.models.nrms import NRMSModel
         from digat_tpu_torch.ops import build
-        from digat_tpu_torch.ops.gat_layer import (
-            gat_layer_attend,
-            gat_layer_project,
-            interactive_gat_layer_fused,
-            interactive_gat_layer_plain,
-        )
+        from digat_tpu_torch.ops.gat_layer import interactive_gat_layer_fused
         from digat_tpu_torch.ops.msa_encoder import msa_encoder_pooled, msa_encoder_pooled_plain
         from digat_tpu_torch.runtime import exact_fp32
     except ImportError as e:
@@ -1099,50 +1253,13 @@ def main() -> int:
         entries["msa_encoder_pooled"] = dict(ok=False)
     say(f"[3 kernel A] {time.perf_counter() - t0:.2f}s")
 
-    # ---- 4. kernel B at G = 26 and 68 ----
+    # ---- 4. kernel B at G = 6, 26, 68 and 96, and at a D not a multiple of 4 ----
     t0 = time.perf_counter()
-    ge = model.graph_encoder
-    by_shape = {}
-    for G, prefix in ((cfg.news_graph_size, "news_graph_attention"),
-                      (cfg.user_graph_size, "user_graph_attention")):
-        try:
-            g = torch.Generator(device=dev).manual_seed(SEED + G)
-            xb = torch.randn((bs, G, D), generator=g, device=dev) * 0.5
-            adj = (torch.rand((bs, G, G), generator=g, device=dev) < 0.25) \
-                | torch.eye(G, dtype=torch.bool, device=dev)
-            adj[0, 1] = False  # a row with no neighbour
-            q = torch.randn((bs, D), generator=g, device=dev) * 0.5
-            W, W3 = getattr(ge, f"{prefix}_W")[0], getattr(ge, f"{prefix}_ffn3")[0]
-            args_b = (xb, adj, q, *(t.detach() for t in (
-                W.weight.t(), W.bias, getattr(ge, f"{prefix}_ffn1")[0].weight.t(),
-                getattr(ge, f"{prefix}_ffn2")[0].weight.t(), W3.weight.t(), W3.bias,
-                getattr(ge, f"{prefix}_a")[0].weight[0])))
-            entry = check_kernel(
-                torch, f"interactive_gat_layer_fused B={bs} G={G} D={D}",
-                interactive_gat_layer_fused, interactive_gat_layer_plain, args_b,
-                *gat_work(bs, G, D))
-            # the wrapper's two steps, each timed alone
-            wr = [w.weight.detach() for w in (W, getattr(ge, f"{prefix}_ffn1")[0],
-                                              getattr(ge, f"{prefix}_ffn2")[0], W3)]
-            project = lambda: gat_layer_project(xb, q, wr[0], args_b[4], wr[1], wr[2], wr[3],
-                                                args_b[8])
-            y, k3 = project()
-            entry["project_ms"] = time_ms(torch, project)
-            entry["attend_ms"] = time_ms(torch, lambda: gat_layer_attend(xb, adj, y, k3,
-                                                                         args_b[9], 0.2))
-            project_flops = 2 * bs * G * D * 3 * D + 2 * bs * D * D
-            say(f"    steps: project {entry['project_ms']:.4f} ms "
-                f"({project_flops / entry['project_ms'] / 1e9:.1f} TFLOP/s), "
-                f"attend {entry['attend_ms']:.4f} ms")
-            by_shape[f"G{G}"] = entry
-        except Exception:
-            traceback.print_exc()
-            by_shape[f"G{G}"] = dict(ok=False)
-    big = by_shape.get(f"G{cfg.user_graph_size}", {})
-    entries["interactive_gat_layer_fused"] = dict(
-        big, ok=all(v.get("ok") for v in by_shape.values()),
-        max_abs_err=max((v.get("max_abs_err", math.inf) for v in by_shape.values())),
-        by_shape=by_shape)
+    try:
+        entries["interactive_gat_layer_fused"] = gat_layer_kernels(torch, cfg, model, bs, dev)
+    except Exception:
+        traceback.print_exc()
+        entries["interactive_gat_layer_fused"] = dict(ok=False)
     say(f"[4 kernel B] {time.perf_counter() - t0:.2f}s")
     for name, e in entries.items():
         if not e.get("ok"):
@@ -1237,7 +1354,7 @@ def main() -> int:
         say(f"  dedup capacity at B {cfg.batch_size}: {cap} titles")
         train_entries = training_kernels(torch, cfg, model, tables, cap, dev)
         if not redesign_report(build):
-            failures.append("a product kernel of A or A' issues no TF32 HMMA (SASS)")
+            failures.append("a product kernel of A, A' or B issues no TF32 HMMA (SASS)")
     except Exception:
         traceback.print_exc()
         failures.append("training kernels")
@@ -1354,7 +1471,7 @@ def main() -> int:
         "nrms training": {"fwd": nrms_train.get("msa_attention_fwd", 0),
                           "bwd": nrms_train.get("msa_attention_bwd", 0),
                           "steps": nrms_steps}}
-    by_path["keep_mask"]["nrms training"] = nrms_train.get("keep_mask", 0)
+    by_path["dropout"]["nrms training"] = nrms_train.get("dropout", 0)
     source = {
         "msa_encoder_pooled": ("digat_tpu_torch/csrc/msa_encoder.cu",
                                "digat_tpu/ops/pallas/msa_encoder.py:533"),
@@ -1362,7 +1479,7 @@ def main() -> int:
                                         "digat_tpu/ops/pallas/gat_layer.py:135"),
         "msa_encoder_bwd": ("digat_tpu_torch/csrc/msa_encoder_bwd.cu",
                             "digat_tpu/ops/pallas/msa_encoder.py:533"),
-        "keep_mask": ("digat_tpu_torch/csrc/dropout.cu", "digat_tpu/ops/pallas/msa_encoder.py:96"),
+        "dropout": ("digat_tpu_torch/csrc/dropout.cu", "digat_tpu/ops/pallas/msa_encoder.py:96"),
         "interactive_gat_scores": ("digat_tpu_torch/csrc/gat_scores.cu",
                                    "digat_tpu/ops/pallas/gat_scores.py:77; "
                                    "digat_tpu/ops/pallas/gat_scores.py:182; "

@@ -1,19 +1,35 @@
-// Materialised inverted-dropout keep mask (kernel A''), for sm_90a.
+// Inverted dropout (kernel A''), for sm_90a: the fused dropout of the
+// training path and the materialised keep mask.
 //
 // Replaces the TPU helper digat_tpu/ops/pallas/msa_encoder.py
 // (dropout_keep_mask, mask logic _keep_mask). The TPU drew its bits from the
-// core's own generator seeded per (seed, title offset); this kernel draws
+// core's own generator seeded per (seed, title offset); these kernels draw
 // them from Philox4x32-10 (philox.cuh) keyed by (seed, site) with counter
 // (col / 4, row_offset + row), so the mask of a row is the same whatever
 // rows a call covers. The MSA encoder kernels generate the same bits inline
-// and never store them; this entry point writes the mask for the graph
-// encoder's dropout sites and for the tests.
+// and never store them.
 //
-// What bounds it on an H100: operations, narrowly. One Philox block (10
-// rounds of two 32x32->64 multiplies, xors and key adds, about 104 integer
-// operations) gives four mask bytes: about 26 operations per byte written,
-// above the card's ridge of about 20 fp32 operations per byte. Design: one thread per four consecutive elements of a row, one
-// Philox call each, a 4-byte store when the row is 4-aligned.
+// dropout_apply_f32 is the graph encoders' dropout at every site, forward
+// and backward: out[r, c] = keep(r, c) ? x[r, c] * scale : 0, scale the fp32
+// value of 1 / (1 - rate), so that it equals torch's
+// where(keep, x * (1 / (1 - rate)), 0) bit for bit. The backward is the
+// same launch on the gradient under the same (seed, site): the same bits,
+// so dx = keep * scale * g, and no mask is stored or saved.
+// dropout_keep_mask_u8 writes the mask itself, for the tests and the check
+// that the card draws the CPU's bits.
+//
+// What bounds it on an H100. Per four elements one Philox block: 10 rounds
+// of two 32x32->64 multiplies, xors and key adds, about 104 integer
+// operations, against 32 bytes moved by the fused pass (about 3 operations a
+// byte, under the card's ridge: bytes bound it) and 4 bytes written by the
+// mask (about 26 a byte: operations). At the training path's sizes
+// ([320 x 68, 400] at most, 8.7 MB each way) a launch moves too little to
+// fill the card for long: its time is the launch and, before this kernel,
+// the host path around it: the mask kernel's wrapper, then a multiply, a
+// zero scalar and a select in eager passes, and a select again backward.
+// Design: one thread per four consecutive elements of a row, one Philox call
+// each, float4 loads and stores when the row length is a multiple of 4; one
+// launch a direction.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +63,31 @@ dropout_keep_mask_kernel(unsigned char* __restrict__ out, int64_t rows, int cols
   }
 }
 
+// one thread a group of four elements of a row; the arithmetic is
+// philox.cuh's dropout_value, as in the MSA encoder's word-dropout pass
+template <bool V4>
+__global__ void __launch_bounds__(kThreads)
+dropout_site_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t rows,
+                     int cols, int64_t row_offset, uint32_t seed, uint32_t site,
+                     uint32_t thresh, float scale) {
+  const int groups = (cols + 3) / 4;
+  const int64_t t = blockIdx.x * int64_t(kThreads) + threadIdx.x;
+  if (t >= rows * groups) return;
+  const int64_t r = t / groups;
+  const int g = int(t - r * groups);
+  const digat::Philox4 d =
+      digat::dropout_draws(uint32_t(row_offset + r), uint32_t(g), seed, site);
+  const size_t at = size_t(r) * cols + 4 * g;
+  if (V4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x + at));
+    *reinterpret_cast<float4*>(out + at) = digat::dropout_value4(v, d, thresh, scale);
+  } else {
+    const uint32_t k[4] = {d.x, d.y, d.z, d.w};
+    for (int e = 0; e < 4 && 4 * g + e < cols; ++e)
+      out[at + e] = digat::dropout_value(x[at + e], k[e], thresh, scale);
+  }
+}
+
 }  // namespace
 
 // out: [rows, cols] bool (one byte each), written as 0 / 1.
@@ -59,5 +100,29 @@ extern "C" int dropout_keep_mask_u8(void* out, long long rows, int cols, long lo
   const int blocks = int(blocks_needed < 132 * 32 ? blocks_needed : 132 * 32);
   dropout_keep_mask_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned char*>(out), rows, cols, row_offset, seed, site, thresh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = keep ? x * scale : 0 over x [rows, cols] (row-major, contiguous):
+// float4 loads and stores when cols is a multiple of 4 and both arrays are
+// 16-byte aligned.
+extern "C" int dropout_apply_f32(const void* x, void* out, long long rows, int cols,
+                                 long long row_offset, unsigned seed, unsigned site,
+                                 unsigned thresh, float scale, void* stream) {
+  if (rows < 0 || cols <= 0 || row_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  const long long blocks = (rows * ((cols + 3) / 4) + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* px = static_cast<const float*>(x);
+  float* po = static_cast<float*>(out);
+  if (cols % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 == 0) {
+    dropout_site_kernel<true><<<unsigned(blocks), kThreads, 0, st>>>(
+        px, po, rows, cols, row_offset, seed, site, thresh, scale);
+  } else {
+    dropout_site_kernel<false><<<unsigned(blocks), kThreads, 0, st>>>(
+        px, po, rows, cols, row_offset, seed, site, thresh, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }

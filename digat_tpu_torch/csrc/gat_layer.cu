@@ -1,183 +1,263 @@
-// Fused interactive GAT layer, eval forward, fp32, for sm_90a.
+// Fused interactive GAT layer, eval forward, fp32, for sm_90a (kernel B).
 //
 // Replaces the TPU kernel digat_tpu/ops/pallas/gat_layer.py
 // (interactive_gat_layer_fused -> _layer_kernel). For each graph b:
 //
 //     h  = x W + bW        k1 = x W1        k2 = x W2        k3 = q W3 + b3
-//     s[i, j]  = a . relu(k1[j] + k2[i] + k3)          (Eq. 8 scores)
+//     s[i, j]  = a . relu(k1[j] + (k2[i] + k3))        (Eq. 8 scores)
 //     alpha    = softmax_j(where(adj, leaky_relu(s, 0.2), -1e9))
 //     out      = relu(alpha h) + x
 //
-// What bounds it on an H100: arithmetic. At B = 1024, G = 68, D = 400 the
-// projections are 2*B*G*D*3D = 67 GFLOP, the score sweep about 4*B*G*G*D =
-// 7.6 GFLOP and the aggregation 2*B*G*G*D = 3.8 GFLOP, against about 0.2 GB
-// of inputs and outputs: far above the fp32 ridge.
+// What bounds it on an H100: the projections. At B 1,024, G 68, D 400 they
+// are 2 B G D 3D = 67 GFLOP; the score sweep is about 4 B G G D = 7.6 GFLOP
+// on the CUDA cores and the aggregation 2 B G G D = 3.8 GFLOP, against about
+// 0.23 GB of inputs and outputs. On the fp32 CUDA cores that is 1.17 ms; with
+// the projections on the tensor cores at 3xTF32 (three TF32 products per
+// fp32 product) about 0.65 ms.
 //
-// Design, two steps that the one wrapper call launches on the caller's stream:
-//   1. gat_layer_project_f32: the tiled fp32 GEMM of common.cuh writes
-//      y = x [W|W1|W2] + [bW|0|0] ([B*G, 3D]) and, with the same kernel,
-//      k3 = q W3 + b3 ([B, D]) into scratch that the wrapper allocates. It
-//      reads each weight in nn.Linear layout ([out, in]) through its own
-//      pointer, so nothing is packed per call. Full fp32 products, where the
-//      TPU ran them at DEFAULT (bf16-pass) precision.
-//   2. gat_layer_attend_f32, the rest:
-//      one block per graph keeps k1 [G, D] in shared memory with a padded
-//      row stride (D+1, so the 32 lanes of a warp, one neighbour j each,
-//      read 32 different banks). A warp takes a centre row i, stages
-//      k2[i] + k3 in shared memory, and each lane reduces over D for its j,
-//      never storing the [G, G, D] sum. Leaky ReLU, the -1e9 mask and the
-//      softmax over j follow per row (a row with no neighbour becomes
-//      uniform, as in the reference). h then replaces k1 in shared memory
-//      and the block writes relu(alpha h) + x.
+// Design: three launches that the one wrapper call (ops/gat_layer.py) makes
+// on the caller's stream, through scratch that the wrapper allocates:
+//   1. gat_layer_project_f32: y = x [W|W1|W2]^T + [bW|0|0] ([B G, 3Dp]) and
+//      k3 = q W3^T + b3 ([B, Dp]) on the tensor cores at 3xTF32
+//      (tc_gemm.cuh, K-major x and nn.Linear weights, BN 96), each 32-deep
+//      k-tile's sums added to the running sums rounding to nearest (kRN):
+//      the tensor cores' own accumulation rounds toward zero, which moved
+//      kernel A's outputs several times further from the exact product than
+//      an fp32 product (PERF.md) and would move B's scores and the serving
+//      rank file the same way. The wrapper stacks W, W1 and W2 into
+//      one [3Dp, Dp] weight, because the 96-wide column tiles cross the
+//      blocks' boundaries. Dp is D rounded up to a multiple of 4 (float4
+//      loads): where D is not one, the wrapper pads x, q and the weights
+//      with zeros, and the padded columns of y and k3 come out 0.
+//   2. kernel C's forward (gat_scores.cu, gat_scores_fwd_f32, its launch
+//      plan from ops/gat_scores.py) on y's column blocks k1 = y[:, Dp:2Dp]
+//      and k2 = y[:, 2Dp:3Dp] in place (row stride 3Dp), writing s
+//      [B, G, G]: register tiles of R x R scores, features staged in
+//      transposed 32-wide slices, each score summed over d in order from 0.
+//      The padded features carry a = 0 and add nothing.
+//   3. gat_layer_attend_kernel, the rest. A block takes one graph, a tile of
+//      TI rows i (TI <= 32, a multiple of 4) and a slice of 4 CG features:
+//      it stages h[:, slice] ([G][4 CG]) in shared memory, forms its rows'
+//      leaky ReLU, mask and softmax over j (a warp per row, a lane per j; a
+//      row with no neighbour becomes uniform, as in the reference) into
+//      alpha^T [G][TI], and each thread keeps a 4 x 4 register tile of
+//      outputs (4 rows, one float4 of features), reading one float4 of
+//      alpha and one of h per j for 16 multiply-adds. Sums over j run in
+//      order from 0. A block holds a few tens of KB (43.5 KB at G 68, D 400:
+//      three row tiles of 24, three slices of 136 features), so several
+//      blocks run per SM; the one-block-per-graph kernel this replaces held
+//      142 KB and read two shared words per multiply-add.
+// Every reduction runs in a fixed order with no atomics: the same bits on
+// every run.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kMaskFill = -1e9f;
-
+namespace tc = digat::tc;
 using digat::warp_max;
 using digat::warp_sum;
 
+constexpr int kBN = 96;  // the products' tile width: kRN's second set of accumulators fits
+constexpr int kRI = 4;   // rows of a thread's output tile
+constexpr int kMaxRows = 32;  // rows i of an attend block
+constexpr int kMaxAttendThreads = 256;
+constexpr float kMaskFill = -1e9f;
+
 int g_max_smem = 0;  // opt-in shared memory per block, set by gat_layer_init
 
-__host__ __device__ inline size_t layer_smem_floats(int G, int D) {
-  return size_t(G) * (D + 1) + size_t(G) * G + size_t(kWarps) * D + D;
+// h's slice [G][4 CG] and alpha^T [G][TI]
+__host__ __device__ inline size_t attend_smem_floats(int G, int TI, int CG) {
+  return size_t(G) * (4 * CG + TI);
 }
 
-__global__ void __launch_bounds__(kThreads)
-gat_layer_kernel(const float* __restrict__ x,            // [B, G, D]
-                 const unsigned char* __restrict__ adj,  // [B, G, G]
-                 const float* __restrict__ y,            // [B, G, 3D]: h | k1 | k2
-                 const float* __restrict__ k3,           // [B, D]
-                 const float* __restrict__ a,            // [D]
-                 float* __restrict__ out,                // [B, G, D]
-                 int G, int D, float slope) {
-  extern __shared__ float smem[];
-  const int Dp = D + 1;
-  float* T = smem;                 // [G][D+1]: k1 rows, then h rows
-  float* S = T + G * Dp;           // [G][G]: scores, then alpha
-  float* Cw = S + G * G;           // [kWarps][D]: k2[i] + k3 of the warp's row
-  float* As = Cw + kWarps * D;     // [D]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t b = blockIdx.x;
-  const int D3 = 3 * D;
-  const float* yb = y + b * G * D3;
+// grid (slices of D, tiles of rows, B); block round32(TI / 4 * CG) threads
+template <bool V4>
+__global__ void __launch_bounds__(kMaxAttendThreads)
+gat_layer_attend_kernel(const float* __restrict__ x,            // [B, G, D]
+                        const unsigned char* __restrict__ adj,  // [B, G, G]
+                        const float* __restrict__ s,            // [B, G, G] scores
+                        const float* __restrict__ h, int ldh,   // [B G, ldh]: h in 0..D
+                        float* __restrict__ out,                // [B, G, D]
+                        int G, int D, int TI, int CG, float slope) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int DS = 4 * CG;
+  float4* Hs = smem4;          // [G][CG] float4: h of the slice, zero past D
+  float* At = smem + G * DS;   // [G][TI]: alpha transposed, zero past the tile's rows
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const size_t b = blockIdx.z;
+  const int i0 = blockIdx.y * TI, d0 = blockIdx.x * DS;
+  const int rows = min(TI, G - i0);
 
-  for (int e = tid; e < G * D; e += kThreads) {
-    const int j = e / D, d = e - j * D;
-    T[j * Dp + d] = yb[(size_t)j * D3 + D + d];
+  const float* hb = h + b * G * ldh;
+  for (int e = tid; e < G * CG; e += blockDim.x) {
+    const int j = e / CG, dj = d0 + 4 * (e - j * CG);
+    Hs[e] = dj < D ? __ldg(reinterpret_cast<const float4*>(hb + (size_t)j * ldh + dj))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int d = tid; d < D; d += kThreads) As[d] = a[d];
-  __syncthreads();
 
-  // Eq. (8) scores: warp per centre row i, lane per neighbour j
-  float* c = Cw + warp * D;
-  for (int i = warp; i < G; i += kWarps) {
-    for (int d = lane; d < D; d += 32) c[d] = yb[(size_t)i * D3 + 2 * D + d] + k3[b * D + d];
-    __syncwarp();
-    for (int j = lane; j < G; j += 32) {
-      const float* kj = T + j * Dp;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(As[d], fmaxf(kj[d] + c[d], 0.f), s);
-      S[i * G + j] = s;
+  // leaky ReLU, the mask and the softmax over j of each row: lane j keeps
+  // its own entries of alpha^T
+  const float* sb = s + (b * G + i0) * G;
+  const unsigned char* ab = adj + (b * G + i0) * G;
+  for (int r = warp; r < TI; r += nwarps) {
+    if (r >= rows) {
+      for (int j = lane; j < G; j += 32) At[j * TI + r] = 0.f;
+      continue;
     }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // leaky ReLU, mask, softmax over j
-  const unsigned char* adjb = adj + b * G * G;
-  for (int i = warp; i < G; i += kWarps) {
     float m = -INFINITY;
     for (int j = lane; j < G; j += 32) {
-      const float s = S[i * G + j];
-      float e = s > 0.f ? s : slope * s;
-      e = adjb[i * G + j] ? e : kMaskFill;
-      S[i * G + j] = e;
+      const float v = sb[(size_t)r * G + j];
+      const float e = ab[(size_t)r * G + j] ? (v > 0.f ? v : slope * v) : kMaskFill;
+      At[j * TI + r] = e;
       m = fmaxf(m, e);
     }
     m = warp_max(m);
     float sum = 0.f;
     for (int j = lane; j < G; j += 32) {
-      const float p = expf(S[i * G + j] - m);
-      S[i * G + j] = p;
+      const float p = expf(At[j * TI + r] - m);
+      At[j * TI + r] = p;
       sum += p;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < G; j += 32) S[i * G + j] = S[i * G + j] / sum;
+    for (int j = lane; j < G; j += 32) At[j * TI + r] = At[j * TI + r] / sum;
   }
   __syncthreads();
 
-  // h replaces k1, then out = relu(alpha h) + x
-  for (int e = tid; e < G * D; e += kThreads) {
-    const int j = e / D, d = e - j * D;
-    T[j * Dp + d] = yb[(size_t)j * D3 + d];
+  // out = relu(alpha h) + x: a 4 x 4 tile a thread, j in order from 0
+  const int c = tid % CG, rg = tid / CG;
+  if (rg >= TI / kRI) return;
+  float acc[kRI][4];
+#pragma unroll
+  for (int r = 0; r < kRI; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+  const float* ar = At + rg * kRI;
+#pragma unroll 4
+  for (int j = 0; j < G; ++j) {
+    const float4 a = *reinterpret_cast<const float4*>(ar + j * TI);
+    const float4 v = Hs[j * CG + c];
+    const float al[kRI] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int r = 0; r < kRI; ++r) {
+      acc[r][0] = fmaf(al[r], v.x, acc[r][0]);
+      acc[r][1] = fmaf(al[r], v.y, acc[r][1]);
+      acc[r][2] = fmaf(al[r], v.z, acc[r][2]);
+      acc[r][3] = fmaf(al[r], v.w, acc[r][3]);
+    }
   }
-  __syncthreads();
-  const float* xb = x + b * G * D;
-  float* ob = out + b * G * D;
-  for (int e = tid; e < G * D; e += kThreads) {
-    const int i = e / D, d = e - i * D;
-    const float* al = S + i * G;
-    float o = 0.f;
-    for (int j = 0; j < G; ++j) o = fmaf(al[j], T[j * Dp + d], o);
-    ob[e] = fmaxf(o, 0.f) + xb[e];
+  const int d = d0 + 4 * c;
+  if (d >= D) return;
+#pragma unroll
+  for (int r = 0; r < kRI; ++r) {
+    const int i = rg * kRI + r;
+    if (i >= rows) break;
+    const size_t row = (b * G + i0 + i) * (size_t)D;
+    if (V4) {
+      const float4 xv = __ldg(reinterpret_cast<const float4*>(x + row + d));
+      *reinterpret_cast<float4*>(out + row + d) =
+          make_float4(fmaxf(acc[r][0], 0.f) + xv.x, fmaxf(acc[r][1], 0.f) + xv.y,
+                      fmaxf(acc[r][2], 0.f) + xv.z, fmaxf(acc[r][3], 0.f) + xv.w);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (d + q < D) out[row + d + q] = fmaxf(acc[r][q], 0.f) + x[row + d + q];
+    }
   }
 }
 
 }  // namespace
 
-// Reads the card's opt-in shared-memory limit and grants it to the
-// per-graph kernel. Called once, when the library is loaded.
+// Grants the projections and the attend kernel their shared memory on the
+// current device. Called once per device, when the library is loaded.
 extern "C" int gat_layer_init() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(&g_max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
+  if (e == cudaSuccess) e = tc::init<true, true, kBN, tc::kBias, true>();
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(gat_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             g_max_smem);
+    e = cudaFuncSetAttribute(gat_layer_attend_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+  }
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(gat_layer_attend_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
   }
   return static_cast<int>(e);
 }
 
-// Step 1: y = x [W|W1|W2] + [bW|0|0] and k3 = q W3 + b3, weights [out, in].
-extern "C" int gat_layer_project_f32(const void* x, const void* q, const void* w,
-                                     const void* bW, const void* w1, const void* w2,
-                                     const void* w3, const void* b3, void* y, void* k3,
-                                     int B, int G, int D, void* stream) {
-  if (B <= 0 || G <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int M = B * G, N = 3 * D;
+// Step 1: y = x wy^T + by and k3 = q w3^T + b3. x [M, Dp] (M = B G rows),
+// q [B, Dp], wy [3Dp, Dp] (W, W1, W2 stacked, nn.Linear layout), by [3Dp]
+// ([bW | 0 | 0]), w3 [Dp, Dp], b3 [Dp]; y [M, 3Dp], k3 [B, Dp]. Dp a
+// multiple of 4 and every array 16-byte aligned.
+extern "C" int gat_layer_project_f32(const void* x, const void* q, const void* wy,
+                                     const void* by, const void* w3, const void* b3, void* y,
+                                     void* k3, int M, int B, int Dp, void* stream) {
+  if (M <= 0 || B <= 0 || Dp <= 0 || Dp % 4) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const digat::Mat wcat{{static_cast<const float*>(w), static_cast<const float*>(w1),
-                         static_cast<const float*>(w2)}, D, D};
-  const digat::Bias bias_y{{static_cast<const float*>(bW), nullptr, nullptr}, D};
-  cudaError_t e = digat::gemm(st, digat::mat1(static_cast<const float*>(x), D), wcat, bias_y,
-                              static_cast<float*>(y), M, N, D);
+  tc::Args a{};
+  a.A = static_cast<const float*>(x);
+  a.B = static_cast<const float*>(wy);
+  a.C = static_cast<float*>(y);
+  a.M = M;
+  a.N = 3 * Dp;
+  a.K = Dp;
+  a.lda = Dp;
+  a.ldb = Dp;
+  a.ldc = 3 * Dp;
+  a.k_per_split = Dp;
+  a.bias = static_cast<const float*>(by);
+  cudaError_t e = tc::gemm<true, true, kBN, tc::kBias, true>(st, a);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const digat::Bias bias_k3{{static_cast<const float*>(b3), nullptr, nullptr}, D};
-  return static_cast<int>(digat::gemm(st, digat::mat1(static_cast<const float*>(q), D),
-                                      digat::mat1(static_cast<const float*>(w3), D), bias_k3,
-                                      static_cast<float*>(k3), B, D, D));
+  a.A = static_cast<const float*>(q);
+  a.B = static_cast<const float*>(w3);
+  a.C = static_cast<float*>(k3);
+  a.M = B;
+  a.N = Dp;
+  a.ldc = Dp;
+  a.bias = static_cast<const float*>(b3);
+  return static_cast<int>(tc::gemm<true, true, kBN, tc::kBias, true>(st, a));
 }
 
-// Step 2: scores, mask, softmax over j, out = relu(alpha h) + x.
-extern "C" int gat_layer_attend_f32(const void* x, const void* adj, const void* y,
-                                    const void* k3, const void* a, void* out, int B, int G,
-                                    int D, float slope, void* stream) {
-  if (B <= 0 || G <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * layer_smem_floats(G, D);
+// Step 3: out [B, G, D] from x [B, G, D], adj [B, G, G] (bytes), the
+// scores s [B, G, G] and h, the first D columns of rows of ldh floats (ldh a
+// multiple of 4, 16-byte aligned, columns up to D rounded to 4 readable).
+// The plan (gat_layer.py::attend_plan): TI rows (a multiple of 4, at most
+// 32) and 4 CG features a block, TI / 4 * CG <= 256 threads.
+extern "C" int gat_layer_attend_f32(const void* x, const void* adj, const void* s,
+                                    const void* h, int ldh, void* out, int B, int G, int D,
+                                    int TI, int CG, float slope, void* stream) {
+  if (B <= 0 || G <= 0 || D <= 0 || ldh < D || ldh % 4 || TI <= 0 || TI % kRI ||
+      TI > kMaxRows || CG <= 0 || TI / kRI * CG > kMaxAttendThreads ||
+      reinterpret_cast<uintptr_t>(h) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(float) * attend_smem_floats(G, TI, CG);
   if (smem > size_t(g_max_smem)) return static_cast<int>(cudaErrorInvalidValue);
-  gat_layer_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const unsigned char*>(adj),
-      static_cast<const float*>(y), static_cast<const float*>(k3),
-      static_cast<const float*>(a), static_cast<float*>(out), G, D, slope);
+  const dim3 grid((D + 4 * CG - 1) / (4 * CG), (G + TI - 1) / TI, B);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = (TI / kRI * CG + 31) / 32 * 32;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool v4 = D % 4 == 0 &&
+                  (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const float* px = static_cast<const float*>(x);
+  const unsigned char* pa = static_cast<const unsigned char*>(adj);
+  const float *ps = static_cast<const float*>(s), *ph = static_cast<const float*>(h);
+  float* po = static_cast<float*>(out);
+  if (v4) {
+    gat_layer_attend_kernel<true><<<grid, threads, smem, st>>>(px, pa, ps, ph, ldh, po, G, D,
+                                                               TI, CG, slope);
+  } else {
+    gat_layer_attend_kernel<false><<<grid, threads, smem, st>>>(px, pa, ps, ph, ldh, po, G, D,
+                                                                TI, CG, slope);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -124,12 +124,7 @@ dropout_apply_kernel(const float* in, float* out, long long n, int per_title, ui
     const long long r = t / groups;
     const digat::Philox4 d =
         digat::dropout_draws(uint32_t(r), uint32_t(t - r * groups), seed, site);
-    float4 v = in4[t];
-    v.x = d.x >= thresh ? v.x * drop_scale : 0.f;
-    v.y = d.y >= thresh ? v.y * drop_scale : 0.f;
-    v.z = d.z >= thresh ? v.z * drop_scale : 0.f;
-    v.w = d.w >= thresh ? v.w * drop_scale : 0.f;
-    out4[t] = v;
+    out4[t] = digat::dropout_value4(in4[t], d, thresh, drop_scale);
   }
 }
 

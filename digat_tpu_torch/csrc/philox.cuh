@@ -1,6 +1,7 @@
-// Philox4x32-10 counter-based generator and the inverted-dropout keep rule,
-// shared by the dropout-mask kernel (dropout.cu) and the MSA encoder's
-// forward and backward kernels (msa_encoder.cu, msa_encoder_bwd.cu).
+// Philox4x32-10 counter-based generator and the inverted-dropout rule,
+// shared by the dropout kernels (dropout.cu), the MSA encoder's word-dropout
+// pass (msa_title.cuh) and the products' dropout epilogue (tc_gemm.cuh): the
+// one definition of which elements a dropout keeps and what it makes of them.
 //
 // The stream of a dropout site is keyed by (seed, site). Element (row, col)
 // of a [rows, cols] tensor takes word col % 4 of the block at counter
@@ -41,6 +42,20 @@ __host__ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t 
 __host__ __device__ __forceinline__ Philox4 dropout_draws(uint32_t row, uint32_t group,
                                                           uint32_t seed, uint32_t site) {
   return philox4x32_10(group, row, 0u, 0u, seed, site);
+}
+
+// Inverted dropout of one element from its draw: kept (draw >= thresh) it is
+// v * scale, scale the fp32 value of 1 / (1 - rate); dropped it is 0.
+__device__ __forceinline__ float dropout_value(float v, uint32_t draw, uint32_t thresh,
+                                               float scale) {
+  return draw >= thresh ? v * scale : 0.f;
+}
+
+// The same for four consecutive elements and their block of draws.
+__device__ __forceinline__ float4 dropout_value4(float4 v, const Philox4& d, uint32_t thresh,
+                                                 float scale) {
+  return make_float4(dropout_value(v.x, d.x, thresh, scale), dropout_value(v.y, d.y, thresh, scale),
+                     dropout_value(v.z, d.z, thresh, scale), dropout_value(v.w, d.w, thresh, scale));
 }
 
 }  // namespace digat

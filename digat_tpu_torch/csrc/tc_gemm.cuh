@@ -1,6 +1,7 @@
 // fp32 matrix products on the tensor cores at 3xTF32, for sm_90a: the
 // products of the MSA encoder's forward (msa_encoder.cu, kernel A) and
-// backward (msa_encoder_bwd.cu, kernel A').
+// backward (msa_encoder_bwd.cu, kernel A') and the eval GAT layer's
+// projections (gat_layer.cu, kernel B).
 //
 // C[z] = op(A)[M, K_z] op(B)[K_z, N] over the z-th slice of K
 // (k_per_split rows each), then an epilogue (bias, tanh pool with its
@@ -48,8 +49,8 @@
 // products accumulate into fresh registers, which are then added to the
 // running sum on the CUDA cores, rounding to nearest: about as close as an
 // fp32 CUDA-core product, for one add per accumulator a tile and as many
-// registers again. Kernel A's products take kRN, at tiles 96 wide; kernel
-// A''s accumulate in the tensor cores throughout.
+// registers again. The products of kernels A and B take kRN, at tiles 96
+// wide; kernel A''s accumulate in the tensor cores throughout.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -320,8 +321,8 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
           const Philox4 d = dropout_draws(uint32_t(row / kTitle), uint32_t(flat >> 2), p.seed,
                                           p.site);
           const uint32_t d0 = (flat & 3) ? d.z : d.x, d1 = (flat & 3) ? d.w : d.y;
-          val.x = d0 >= p.thresh ? val.x * p.drop_scale : 0.f;
-          val.y = d1 >= p.thresh ? val.y * p.drop_scale : 0.f;
+          val.x = dropout_value(val.x, d0, p.thresh, p.drop_scale);
+          val.y = dropout_value(val.y, d1, p.thresh, p.drop_scale);
         }
         if (EPI != kLogits) *dst = val;
       }
@@ -349,12 +350,13 @@ __host__ __device__ constexpr int pool_parts(int N) {
   return (N + BN - 1) / BN * 4;
 }
 
-// Launches gemm_kernel on `st`: ceil(K / k_per_split) slices of K. Every
-// dimension and leading dimension a multiple of 4 and every matrix 16-byte
-// aligned (float4 loads); returns the launch's error.
+// Launches gemm_kernel on `st`: ceil(K / k_per_split) slices of K. N, K,
+// every leading dimension and, for an M-major A, M a multiple of 4, and
+// every matrix 16-byte aligned (float4 loads); returns the launch's error.
 template <bool AK, bool BK, int BN, int EPI, bool kRN = false>
 inline cudaError_t gemm(cudaStream_t st, const Args& p) {
-  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.k_per_split <= 0 || (p.M | p.N | p.K) % 4 ||
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.k_per_split <= 0 ||
+      ((AK ? 0 : p.M) | p.N | p.K) % 4 ||
       (p.lda | p.ldb | p.ldc) % 4 || (reinterpret_cast<uintptr_t>(p.A) |
                                       reinterpret_cast<uintptr_t>(p.B) |
                                       reinterpret_cast<uintptr_t>(p.C)) % 16) {

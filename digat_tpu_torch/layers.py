@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from digat_tpu_torch.ops.dropout import keep_mask
+from digat_tpu_torch.ops.dropout import dropout as apply_dropout
 from digat_tpu_torch.ops.msa_attention import msa_attention
 
 MASK_FILL = -1e9
@@ -66,17 +66,16 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, seed: Optional[int], site: int) -> torch.Tensor:
-    """Inverted dropout of training: x / (1 - rate) where kept, else 0. The
-    keep mask comes from kernel A'' (`ops.dropout.keep_mask`) over x seen as
-    [rows, last dim], under (seed, site), so the card and the CPU draw the
-    same mask. Identity when `seed` is None (eval) or the rate is 0. The JAX
-    package draws from `jax.random`, a different stream of the same law."""
+    """Inverted dropout of training: x / (1 - rate) where kept, else 0, by
+    kernel A'' (`ops.dropout.dropout`: one fused launch forward and one
+    backward on the card, `dropout_plain` on the CPU). The keep mask of x
+    seen as [rows, last dim] under (seed, site) is the same bits on the card
+    and the CPU. Identity when `seed` is None (eval) or the rate is 0. The
+    JAX package draws from `jax.random`, a different stream of the same
+    law."""
     if seed is None or rate <= 0.0:
         return x
-    cols = x.shape[-1]
-    keep = keep_mask(x.numel() // cols, cols, rate, seed, site, device=x.device)
-    return torch.where(keep.reshape(x.shape), x * (1.0 / (1.0 - rate)),
-                       torch.zeros((), dtype=x.dtype, device=x.device))
+    return apply_dropout(x, rate, seed, site)
 
 
 class DropoutSites:

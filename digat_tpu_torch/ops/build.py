@@ -10,18 +10,19 @@ unchanged one is reused.
 Each C entry point takes device pointers, sizes and a `cudaStream_t`,
 launches on that stream, and returns `cudaGetLastError()` as an int. A
 wrapper makes the call inside `launch_on(tensor.device)`, which makes the
-tensor's device current around it and hands over the library, initialised
-on that device, and that device's current stream."""
+tensor's device current around it (a guard only where another device is
+current) and hands over the library, initialised on that device, and that
+device's current stream."""
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -53,10 +54,12 @@ SIGNATURES = {
     "msa_encoder_bwd_f32": ([_P] * 15 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
     # out, rows, cols, row_offset, seed, site, thresh, stream
     "dropout_keep_mask_u8": ([_P, _LL, _I, _LL, _U, _U, _U, _P], _I),
-    # x, q, w, bW, w1, w2, w3, b3, y, k3, B, G, D, stream
-    "gat_layer_project_f32": ([_P] * 10 + [_I] * 3 + [_P], _I),
-    # x, adj, y, k3, a, out, B, G, D, slope, stream
-    "gat_layer_attend_f32": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),
+    # x, out, rows, cols, row_offset, seed, site, thresh, scale, stream
+    "dropout_apply_f32": ([_P, _P, _LL, _I, _LL, _U, _U, _U, _F, _P], _I),
+    # x, q, wy, by, w3, b3, y, k3, M, B, Dp, stream
+    "gat_layer_project_f32": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    # x, adj, s, h, ldh, out, B, G, D, TI, CG, slope, stream
+    "gat_layer_attend_f32": ([_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _P], _I),
     # k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream
     "gat_scores_fwd_f32": ([_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P], _I),
     # k1, ld1, k2, ld2, k3, a, g, gk1, gk2, gk3, ga, ga_part, B, G, D, ntiles, JT, DT,
@@ -147,15 +150,9 @@ def _library() -> ctypes.CDLL:
 _READY: set = set()  # CUDA device indices whose kernels are initialised
 
 
-def load_library(device=None) -> ctypes.CDLL:
-    """The kernels' library with its kernels initialised on `device` (a
-    CUDA device; by default the current one). Each `*_init` grants its
-    kernels' opt-in shared memory on the current device, so it runs once
-    per device index, with that device current."""
+def _ready(index: int) -> ctypes.CDLL:
+    """The library with its kernels initialised on device `index`."""
     lib = _library()
-    device = None if device is None else torch.device(device)
-    index = torch.cuda.current_device() if device is None or device.index is None \
-        else device.index
     if index not in _READY:
         with torch.cuda.device(index):
             for name in INITS:
@@ -164,14 +161,52 @@ def load_library(device=None) -> ctypes.CDLL:
     return lib
 
 
-@contextlib.contextmanager
-def launch_on(device):
-    """Around one kernel's C call: makes `device` current and yields (the
-    library initialised there, the device's current stream as an int), so
-    a tensor on any CUDA device launches on that device."""
-    device = torch.device(device)
-    with torch.cuda.device(device):
-        yield load_library(device), torch.cuda.current_stream(device).cuda_stream
+def load_library(device=None) -> ctypes.CDLL:
+    """The kernels' library with its kernels initialised on `device` (a
+    CUDA device; by default the current one). Each `*_init` grants its
+    kernels' opt-in shared memory on the current device, so it runs once
+    per device index, with that device current."""
+    device = None if device is None else torch.device(device)
+    return _ready(torch.cuda.current_device() if device is None or device.index is None
+                  else device.index)
+
+
+def _current_stream(index: int) -> int:
+    """The raw `cudaStream_t` of device `index`'s current stream."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+class launch_on:
+    """Around one kernel's C call: `with launch_on(device) as (lib, stream)`
+    makes `device` current and yields the library initialised there and the
+    device's current stream as an int, so a tensor on any CUDA device
+    launches on that device. Where `device` is already current (the common
+    case) no guard is entered; otherwise `torch.cuda.device` switches and
+    restores."""
+
+    __slots__ = ("_device", "_guard")
+
+    def __init__(self, device):
+        self._device = device if isinstance(device, torch.device) else torch.device(device)
+        self._guard = None
+
+    def __enter__(self):
+        device, current = self._device, torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if device.type != "cuda" or index != current:
+            self._guard = torch.cuda.device(device)
+            self._guard.__enter__()
+        try:
+            return _ready(index), _current_stream(index)
+        except BaseException:
+            # `with` calls no __exit__ when __enter__ raises: leave the guard here
+            self.__exit__(*sys.exc_info())
+            raise
+
+    def __exit__(self, *exc):
+        if self._guard is not None:
+            self._guard.__exit__(*exc)
+        return False
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

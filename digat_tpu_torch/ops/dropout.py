@@ -1,4 +1,4 @@
-"""Inverted-dropout keep masks from Philox4x32-10 (kernel A'').
+"""Inverted dropout from Philox4x32-10 keep masks (kernel A'').
 
 Replaces `digat_tpu/ops/pallas/msa_encoder.py::dropout_keep_mask` (mask
 logic `_keep_mask`). The TPU drew its bits from the core's own generator,
@@ -13,10 +13,19 @@ Random123) everywhere a dropout mask is drawn:
 
 The MSA encoder kernels (`ops.msa_encoder`) draw the word-dropout mask
 inline with row = title offset and col = position * Din + feature, and
-never store it. `keep_mask` materialises a mask: kernel A''
-(`csrc/dropout.cu`) on a CUDA device, `keep_mask_plain` (the same
-arithmetic in int64 tensor ops) on the CPU. The two agree bit for bit, so
-one step draws the same masks on the card and on the CPU.
+never store it. `dropout` is the dropout of every other training site
+(`layers.dropout`): x seen as [rows, last dim] keeps x * (1 / (1 - rate))
+where the mask keeps it and 0 elsewhere. On the CPU it runs `dropout_plain`
+(`keep_mask_plain`, the same arithmetic in int64 tensor ops, and
+`torch.where`); on a CUDA tensor it is `DropoutFunction`, whose forward
+and backward each launch `dropout_apply_f32` of `csrc/dropout.cu` once,
+the backward on the gradient under the same (seed, site), so nothing is
+saved. The kernel multiplies by the fp32 value of 1 / (1 - rate), as torch
+does for `x * (1 / (1 - rate))` on a float32 tensor, so the card equals the
+plain version bit for bit, forward and backward. `keep_mask` materialises a
+mask (the kernel `dropout_keep_mask_u8` on a CUDA device, `keep_mask_plain`
+on the CPU), for the tests and the check that card and CPU draw the same
+bits.
 """
 
 from __future__ import annotations
@@ -90,4 +99,56 @@ def keep_mask(rows: int, cols: int, rate: float, seed: int, site: int,
     return out
 
 
+def dropout_plain(x: torch.Tensor, rate: float, seed: int, site: int) -> torch.Tensor:
+    """Plain PyTorch version of `dropout`: the keep mask of x seen as
+    [rows, last dim], then where(keep, x * (1 / (1 - rate)), 0)."""
+    cols = x.shape[-1]
+    keep = keep_mask_plain(x.numel() // cols, cols, rate, seed, site, device=x.device)
+    return torch.where(keep.reshape(x.shape), x * (1.0 / (1.0 - rate)),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _apply(x: torch.Tensor, args) -> torch.Tensor:
+    """One launch of `dropout_apply_f32` on the contiguous float32 x."""
+    out = torch.empty_like(x)
+    cols = x.shape[-1]
+    with build.launch_on(x.device) as (lib, stream):
+        err = lib.dropout_apply_f32(x.data_ptr(), out.data_ptr(), x.numel() // cols, cols, 0,
+                                    *args, stream)
+    build.check(lib, err, "dropout")
+    dropout.launches += 1
+    return out
+
+
+class DropoutFunction(torch.autograd.Function):
+    """Kernel A'' forward on x and backward on the gradient, with the same
+    (seed, site): the same bits, so dx = keep * scale * g."""
+
+    @staticmethod
+    def forward(ctx, x, args):
+        ctx.args = args
+        return _apply(x.contiguous(), args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _apply(g.contiguous(), ctx.args), None
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int, site: int) -> torch.Tensor:
+    """Inverted dropout of x under (seed, site): `dropout_plain` on the CPU,
+    kernel A'' forward and backward on a CUDA tensor (float32; `x` may be a
+    view, as the expanded topic nodes are)."""
+    if not build.use_kernel(x):
+        return dropout_plain(x, rate, seed, site)
+    if x.dtype != torch.float32:
+        raise TypeError(f"dropout: the kernel takes float32, got {x.dtype}")
+    if x.numel() == 0:
+        return x.clone()
+    args = (seed & _MASK32, site & _MASK32, threshold(rate), 1.0 / (1.0 - rate))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return DropoutFunction.apply(x, args)
+    return _apply(x.contiguous(), args)
+
+
 keep_mask.launches = 0
+dropout.launches = 0  # forward and backward launches

@@ -8,24 +8,75 @@ Replaces `digat_tpu/ops/pallas/gat_layer.py::interactive_gat_layer_fused`
     alpha    = softmax_j(where(adj, leaky_relu(s, 0.2), -1e9))
     out      = relu(alpha h) + x
 
-The CUDA kernel is `csrc/gat_layer.cu`, launched in two steps by the one
-wrapper call: `gat_layer_project` (a tiled fp32 GEMM for the projections) and
-`gat_layer_attend` (one block per graph for the rest); its header says what bounds
-it on the card. On a CPU tensor the wrapper runs
-`interactive_gat_layer_plain`; on a CUDA tensor it launches the kernel or
-raises. The kernel's output carries no gradient, so under grad mode with an
-input that requires grad the wrapper raises: training runs its own layer
-(`models.graph_encoders`, kernel C). fp32 only: bf16 input belongs to a
-later slice.
+The CUDA kernel is `csrc/gat_layer.cu`, three launches of the one wrapper
+call on the caller's stream: `gat_layer_project_f32` (y = x [W|W1|W2] +
+[bW|0|0] and k3 on the tensor cores at 3xTF32), kernel C's forward
+(`csrc/gat_scores.cu`, with `ops.gat_scores.fwd_plan`) on y's k1 and k2
+column blocks, and `gat_layer_attend_f32` (mask, softmax over j and
+relu(alpha h) + x, with `attend_plan`); its header says what bounds it on
+the card. On a CPU tensor the wrapper runs `interactive_gat_layer_plain`;
+on a CUDA tensor it launches the kernels or raises. The kernel's output
+carries no gradient, so under grad mode with an input that requires grad
+the wrapper raises: training runs its own layer (`models.graph_encoders`,
+kernel C). fp32 only: bf16 input belongs to a later slice.
 """
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 from digat_tpu_torch.layers import MASK_FILL
 from digat_tpu_torch.ops import build
 from digat_tpu_torch.ops.gat import interactive_gat_scores
+from digat_tpu_torch.ops.gat_scores import fwd_plan
+from digat_tpu_torch.ops.msa_attention import MAX_SMEM_BYTES
+
+MAX_ROWS = 32  # rows i of an attend block (kMaxRows in csrc/gat_layer.cu)
+MAX_THREADS = 256  # an attend block: TI / 4 row groups x CG float4 columns
+
+
+class AttendPlan(NamedTuple):
+    TI: int  # rows i a block, a multiple of 4
+    CG: int  # float4 columns of features a block
+    row_tiles: int
+    slices: int
+
+
+def padded_width(D: int) -> int:
+    """D rounded up to a multiple of 4: the width of the projections' blocks
+    (their float4 loads)."""
+    return -(-D // 4) * 4
+
+
+def attend_smem_bytes(G: int, TI: int, CG: int) -> int:
+    """Shared memory of an attend block (`attend_smem_floats` in the C
+    side): h's slice [G][4 CG] and alpha^T [G][TI]."""
+    return 4 * G * (4 * CG + TI)
+
+
+def attend_plan(G: int, D: int) -> AttendPlan:
+    """The attend step's tiling: the fewest tiles of at most 32 rows, each a
+    multiple of 4 as narrow as covers G; D in the fewest slices whose float4
+    columns keep the block at <= 256 threads, more while its shared memory
+    would not fit. Raises ValueError for a graph too large for a block of
+    one float4 column."""
+    row_tiles = math.ceil(G / MAX_ROWS)
+    TI = 4 * math.ceil(math.ceil(G / row_tiles) / 4)
+    D4 = math.ceil(D / 4)
+    slices = math.ceil(D4 / (MAX_THREADS // (TI // 4)))
+    while True:
+        CG = math.ceil(D4 / slices)
+        if attend_smem_bytes(G, TI, CG) <= MAX_SMEM_BYTES:
+            return AttendPlan(TI, CG, row_tiles, math.ceil(D4 / CG))
+        if CG == 1:
+            raise ValueError(f"interactive_gat_layer_fused: a graph of G={G} nodes needs "
+                             f"{attend_smem_bytes(G, TI, 1)} B of shared memory at 4 features "
+                             f"a block, more than the {MAX_SMEM_BYTES} B a block has")
+        slices += 1
 
 
 def interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
@@ -43,43 +94,27 @@ def interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     return torch.relu(torch.einsum("bij,bjd->bid", alpha, h)) + x
 
 
-def gat_layer_project(x, query, W, bW, W1, W2, W3, b3):
-    """Step 1 of kernel B -> (y [B*G, 3D] = x [W|W1|W2] + [bW|0|0],
-    k3 [B, D] = query W3 + b3). Weights are [out, in] and contiguous; the
-    caller checks the inputs. Counts no launch: the wrapper counts."""
-    B, G, D = x.shape
-    y = torch.empty((B * G, 3 * D), dtype=torch.float32, device=x.device)
-    k3 = torch.empty((B, D), dtype=torch.float32, device=x.device)
-    with build.launch_on(x.device) as (lib, stream):
-        err = lib.gat_layer_project_f32(
-            x.data_ptr(), query.data_ptr(), W.data_ptr(), bW.data_ptr(), W1.data_ptr(),
-            W2.data_ptr(), W3.data_ptr(), b3.data_ptr(), y.data_ptr(), k3.data_ptr(), B, G, D,
-            stream,
-        )
-    build.check(lib, err, "interactive_gat_layer_fused (project)")
-    return y, k3
-
-
-def gat_layer_attend(x, adj, y, k3, a_vec, negative_slope):
-    """Step 2 of kernel B: Eq. 8 scores, mask, softmax over j, then
-    relu(alpha h) + x -> [B, G, D]. Counts no launch: the wrapper counts."""
-    B, G, D = x.shape
-    out = torch.empty_like(x)
-    with build.launch_on(x.device) as (lib, stream):
-        err = lib.gat_layer_attend_f32(
-            x.data_ptr(), adj.data_ptr(), y.data_ptr(), k3.data_ptr(), a_vec.data_ptr(),
-            out.data_ptr(), B, G, D, float(negative_slope), stream,
-        )
-    build.check(lib, err, "interactive_gat_layer_fused (attend)")
-    return out
+def stacked_weights(W, bW, W1, W2, W3, b3, a_vec):
+    """The weights as the kernels read them, each D padded with zeros to Dp
+    (`padded_width`): wy [3Dp, Dp] (W, W1, W2 stacked in nn.Linear layout),
+    by [3Dp] ([bW | 0 | 0]), w3 [Dp, Dp], b3 [Dp] and a [Dp]. W..W3 are
+    given [in, out]."""
+    D = W.shape[0]
+    p = padded_width(D) - D
+    lin = (lambda w: w.t()) if p == 0 else (lambda w: F.pad(w.t(), (0, p, 0, p)))
+    vec = (lambda v: v) if p == 0 else (lambda v: F.pad(v, (0, p)))
+    wy = torch.cat([lin(W), lin(W1), lin(W2)]).contiguous()
+    by = torch.cat([vec(bW), torch.zeros(2 * (D + p), dtype=bW.dtype, device=bW.device)])
+    return wy, by, lin(W3).contiguous(), vec(b3).contiguous(), vec(a_vec).contiguous()
 
 
 def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
                                 negative_slope: float = 0.2):
     """Kernel B. Same arguments and result as `interactive_gat_layer_plain`.
-    The kernel reads W, W1, W2 and W3 in nn.Linear layout ([out, in]): a
-    weight passed as `linear.weight.t()`, as the graph encoder does, is read
-    in place; any other is copied into that layout."""
+    The kernels read W, W1 and W2 stacked [3D, D] in nn.Linear layout: the
+    wrapper stacks them each call (1.92 MB at D 400, one copy on the
+    device). Where D is not a multiple of 4, x, query and the weights are
+    padded with zeros to the next one (zero terms change no sum)."""
     if not build.use_kernel(x):
         return interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
                                            negative_slope)
@@ -105,9 +140,28 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
         raise ValueError("interactive_gat_layer_fused: x, adj and query must be contiguous")
     if B == 0:
         return torch.empty_like(x)
-    W, W1, W2, W3 = (w.t().contiguous() for w in (W, W1, W2, W3))
-    y, k3 = gat_layer_project(x, query, W, bW.contiguous(), W1, W2, W3, b3.contiguous())
-    out = gat_layer_attend(x, adj, y, k3, a_vec.contiguous(), negative_slope)
+    plan, splan = attend_plan(G, D), fwd_plan(G)
+    Dp = padded_width(D)
+    xk, qk = x.reshape(B * G, D), query
+    if Dp != D or xk.data_ptr() % 16 or qk.data_ptr() % 16:
+        xk, qk = F.pad(xk, (0, Dp - D)), F.pad(qk, (0, Dp - D))
+    wy, by, w3, b3p, ap = stacked_weights(W, bW, W1, W2, W3, b3, a_vec)
+    dev = x.device
+    y = torch.empty((B * G, 3 * Dp), dtype=torch.float32, device=dev)
+    k3 = torch.empty((B, Dp), dtype=torch.float32, device=dev)
+    s = torch.empty((B, G, G), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    what = "interactive_gat_layer_fused"
+    with build.launch_on(dev) as (lib, stream):
+        build.check(lib, lib.gat_layer_project_f32(
+            xk.data_ptr(), qk.data_ptr(), wy.data_ptr(), by.data_ptr(), w3.data_ptr(),
+            b3p.data_ptr(), y.data_ptr(), k3.data_ptr(), B * G, B, Dp, stream), what)
+        build.check(lib, lib.gat_scores_fwd_f32(
+            y.data_ptr() + 4 * Dp, 3 * Dp, y.data_ptr() + 8 * Dp, 3 * Dp, k3.data_ptr(),
+            ap.data_ptr(), s.data_ptr(), B, G, Dp, splan.R, splan.TIb, splan.TJb, stream), what)
+        build.check(lib, lib.gat_layer_attend_f32(
+            x.data_ptr(), adj.data_ptr(), s.data_ptr(), y.data_ptr(), 3 * Dp, out.data_ptr(), B,
+            G, D, plan.TI, plan.CG, float(negative_slope), stream), what)
     interactive_gat_layer_fused.launches += 1
     return out
 

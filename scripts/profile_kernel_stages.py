@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where kernels A (MSA-encoder forward), A' (its backward), C (Eq. 8 scores)
-and D (embedding gradient) spend their time on the card, stage by stage, at
-the main path's shapes.
+"""Where kernels A (MSA-encoder forward), A' (its backward), B (the eval GAT
+layer), C (Eq. 8 scores) and D (embedding gradient) spend their time on the
+card, stage by stage, at the main path's shapes.
 
     python3 scripts/profile_kernel_stages.py [--reps 5]
 
@@ -10,8 +10,9 @@ MSA-DIGAT, random weights from a seed, the seeded 20,000-news corpus, the
 dedup capacity at B 64 (8,960 titles). Traces `--reps` calls of each wrapper
 with `torch.profiler` and prints the device ms of every launch of one call
 in launch order (`chip_smoke.stage_split`): A with word dropout 0.2 at the
-dedup capacity and without at the serving chunk of 1,024 titles, A' with
-word dropout 0.2, C forward and backward at B 320 and G 26 and 68 (k1 and
+dedup capacity and without at the serving chunk of 1,024 titles, B at the
+serving batch of 1,024 graphs of 26 and of 68 nodes (the model's weights),
+A' with word dropout 0.2, C forward and backward at B 320 and G 26 and 68 (k1 and
 k2 as column blocks of the fused projection, as the training GAT layer
 passes them), D on the uniform token stream and on the pad stream (token 0
 wherever the title mask is False, as the corpus writes titles). Beside each
@@ -40,6 +41,7 @@ from digat_tpu_torch.data import batching, sampling  # noqa: E402
 from digat_tpu_torch.models.model import Model  # noqa: E402
 from digat_tpu_torch.ops import emb_grad as EG  # noqa: E402
 from digat_tpu_torch.ops import gat_scores as GS  # noqa: E402
+from digat_tpu_torch.ops.gat_layer import interactive_gat_layer_fused  # noqa: E402
 from digat_tpu_torch.ops import msa_encoder as ME  # noqa: E402
 from digat_tpu_torch.runtime import exact_fp32  # noqa: E402
 
@@ -86,8 +88,23 @@ def main() -> int:
         smoke.say_stages(f"A (N {n})", smoke.stage_split(torch, fwd, args.reps))
 
     D = cfg.news_embedding_dim
-    B = cfg.batch_size * (1 + cfg.negative_sample_num)
+    ge = model.graph_encoder
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 9)
+    for G, prefix in ((cfg.news_graph_size, "news_graph_attention"),
+                      (cfg.user_graph_size, "user_graph_attention")):
+        W, W1, W2, W3 = (getattr(ge, f"{prefix}_{n}")[0] for n in ("W", "ffn1", "ffn2", "ffn3"))
+        bargs = (torch.randn((bs, G, D), generator=gen, device=dev) * 0.5,
+                 (torch.rand((bs, G, G), generator=gen, device=dev) < 0.25)
+                 | torch.eye(G, dtype=torch.bool, device=dev),
+                 torch.randn((bs, D), generator=gen, device=dev) * 0.5,
+                 *(t.detach() for t in (W.weight.t(), W.bias, W1.weight.t(), W2.weight.t(),
+                                        W3.weight.t(), W3.bias,
+                                        getattr(ge, f"{prefix}_a")[0].weight[0])))
+        fn = lambda: interactive_gat_layer_fused(*bargs)
+        print(f"B [{bs},{G},{D}]: wrapper ms {smoke.time_ms(torch, fn):.4f}", flush=True)
+        smoke.say_stages(f"B (G {G})", smoke.stage_split(torch, fn, args.reps))
+
+    B = cfg.batch_size * (1 + cfg.negative_sample_num)
     for G in (cfg.news_graph_size, cfg.user_graph_size):
         r = lambda *s: torch.randn(s, generator=gen, device=dev) * 0.5
         y = r(B, G, 3 * D)

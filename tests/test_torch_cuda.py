@@ -113,13 +113,29 @@ def _gat_args(dev, B, G, D, seed):
             r(D, sc=0.05), r(D, sc=D ** -0.5))
 
 
-@pytest.mark.parametrize("B,G,D", [(9, 6, 32), (9, 26, 400), (70, 68, 400), (3, 33, 36)])
+@pytest.mark.parametrize("B,G,D", [(9, 6, 32), (9, 26, 400), (70, 68, 400), (3, 33, 36),
+                                   (1, 6, 400), (5, 96, 400), (7, 26, 398), (4, 68, 30),
+                                   (3, 5, 7), (300, 68, 400)])
 def test_gat_layer_kernel(cuda, B, G, D):
+    """Kernel B against the plain layer (a row with no neighbour): graphs of
+    5 to 96 nodes, B G not a multiple of 4, D not a multiple of 4 (padded
+    with zeros), ragged row tiles; the same bits on a second run."""
     args = _gat_args(cuda, B, G, D, seed=G)
     before = interactive_gat_layer_fused.launches
     out = interactive_gat_layer_fused(*args)
     assert interactive_gat_layer_fused.launches == before + 1
     _close(out, interactive_gat_layer_plain(*args))
+    assert torch.equal(out, interactive_gat_layer_fused(*args))
+
+
+def test_gat_layer_kernel_on_an_unaligned_x(cuda):
+    """x a contiguous view 4 bytes into its storage: the wrapper copies it
+    into an aligned buffer for the projections, the attend step reads it
+    with scalar loads."""
+    args = list(_gat_args(cuda, 4, 26, 400, seed=3))
+    args[0] = torch.cat([torch.zeros(1, device=cuda), args[0].reshape(-1)])[1:].view(4, 26, 400)
+    assert args[0].data_ptr() % 16
+    _close(interactive_gat_layer_fused(*args), interactive_gat_layer_plain(*args))
 
 
 def test_wrappers_raise_on_bad_input(cuda):
@@ -169,6 +185,31 @@ def test_keep_mask_kernel_is_bit_exact(cuda, rows, cols, offset):
     torch.cuda.synchronize()
     want = DR.keep_mask_plain(rows, cols, 0.2, 1234, 5, row_offset=offset, device=cuda)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,rate,view", [
+    ((320 * 26, 400), 0.1, False), ((320, 68, 68), 0.2, False), ((5, 13), 0.3, False),
+    ((320, 18, 400), 0.1, True), ((7, 3, 6), 0.2, True), ((1, 1), 0.5, False)])
+def test_fused_dropout_kernel_is_bit_exact(cuda, shape, rate, view):
+    """Kernel A'' as the training path's dropout: forward, and forward with
+    backward, the same bits as `dropout_plain` on the card; one launch
+    forward and one backward; an expanded view (the topic nodes) summed back
+    into its parameter."""
+    g = torch.Generator(device=cuda).manual_seed(len(shape))
+    leaf = torch.randn(shape[1:] if view else shape, generator=g, device=cuda)
+    as_x = (lambda t: t[None].expand(*shape)) if view else (lambda t: t)
+    up = torch.randn(shape, generator=g, device=cuda)
+    before = DR.dropout.launches
+    got = DR.dropout(as_x(leaf), rate, 77, 3)
+    assert DR.dropout.launches == before + 1
+    assert torch.equal(got, DR.dropout_plain(as_x(leaf), rate, 77, 3))
+    grads = []
+    for fn in (DR.dropout, DR.dropout_plain):
+        lg = leaf.clone().requires_grad_(True)
+        (dx,) = torch.autograd.grad(fn(as_x(lg), rate, 77, 3), lg, up)
+        grads.append(dx)
+    assert DR.dropout.launches == before + 3
+    assert torch.equal(*grads)
 
 
 @pytest.mark.parametrize("N,Din,heads,dk,A,bias", _MSA_FWD_CASES)
@@ -414,7 +455,8 @@ def test_msa_attention_entry_points_on_card(cuda):
 def test_nrms_sa_step_card_matches_cpu(cuda):
     """One NRMS-SA training step (dropout 0.2) on the card and on the CPU
     from the same weights, batch and seed: 4 forward and 4 backward
-    attention launches, 7 dropout masks, the same loss and gradients
+    attention launches, 7 dropouts forward and backward (14 launches of
+    kernel A''), the same loss and gradients
     within the training limit (1e-3 of each tensor's max |cpu|)."""
     cfg = Config(dataset="synthetic", model_family="nrms", vocabulary_size=300,
                  category_num=4, word_embedding_dim=24, nrms_head_num=4, nrms_head_dim=6,
@@ -433,13 +475,13 @@ def test_nrms_sa_step_card_matches_cpu(cuda):
     out = {}
     for dev in (cuda, torch.device("cpu")):
         model = NRMSModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
-        counts = (MA.attention_fwd.launches, MA.attention_bwd.launches, DR.keep_mask.launches)
+        counts = (MA.attention_fwd.launches, MA.attention_bwd.launches, DR.dropout.launches)
         loss = model.loss(NRMSTables.from_arrays(arrays, dev),
                           TrainBatch(*(t.to(dev) for t in batch)), seed=11)
         loss.backward()
         if dev.type == "cuda":
             assert (MA.attention_fwd.launches - counts[0], MA.attention_bwd.launches - counts[1],
-                    DR.keep_mask.launches - counts[2]) == (4, 4, 7)
+                    DR.dropout.launches - counts[2]) == (4, 4, 14)
         out[dev.type] = (float(loss.detach()),
                          {k: p.grad.cpu() for k, p in model.named_parameters()})
     (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]

@@ -11,7 +11,10 @@
 4. Kernels launch on their tensor's device: the library initialises its
    kernels once per device, with that device current, and every wrapper
    makes its tensor's device current around the C call (a stub library
-   and device guard stand in for the cards)."""
+   and device guard stand in for the cards). The guard is skipped only
+   where the tensor's device is already current; kernel B's three C calls
+   and the fused dropout's forward and backward launches are checked call
+   by call."""
 
 import os
 import subprocess
@@ -153,7 +156,7 @@ class _StubCuda:
     def __init__(self, monkeypatch):
         from digat_tpu_torch.ops import build
 
-        self.current, self.calls = [], []
+        self.current, self.calls, self.args = [], [], []
         stub = self
 
         class Guard:
@@ -170,7 +173,10 @@ class _StubCuda:
         class Library:
             def __getattr__(self, name):
                 def call(*args):
-                    stub.calls.append((name, stub.current[-1] if stub.current else None))
+                    # with no guard entered, the current device (cuda:0) is in force
+                    stub.calls.append((name, stub.current[-1] if stub.current
+                                       else torch.device("cuda", 0)))
+                    stub.args.append(args)
                     return 0
                 return call
 
@@ -178,6 +184,7 @@ class _StubCuda:
         monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
         monkeypatch.setattr(torch.cuda, "current_stream",
                             lambda device=None: SimpleNamespace(cuda_stream=0))
+        monkeypatch.setattr(build, "_current_stream", lambda index: 0)
         monkeypatch.setattr(build, "_library", lambda: Library())
         monkeypatch.setattr(build, "_READY", set())
 
@@ -217,6 +224,7 @@ def test_every_wrapper_launches_under_its_tensors_device(monkeypatch):
     GS.gat_scores_fwd(r(B, G, D), r(B, G, D), r(B, D), r(D))
     GS.gat_scores_bwd(r(B, G, D), r(B, G, D), r(B, D), r(D), r(B, G, G))
     DR.keep_mask(4, 6, 0.2, 1, 2, device="cpu")
+    DR.dropout(r(4, 6), 0.2, 1, 2)
     EG.embedding_grad(torch.randint(0, 7, (3, 4)), r(3, 4, 8), 7)
     q = r(2, 12, 8)
     MA.attention_fwd(q, q, q, None, 2, 4)
@@ -225,3 +233,115 @@ def test_every_wrapper_launches_under_its_tensors_device(monkeypatch):
     assert sorted({name for name, _ in launches}) == sorted(
         n for n in build.SIGNATURES if not n.endswith("_scratch_floats"))
     assert all(device == torch.device("cpu") for _, device in launches), launches
+
+
+def test_launch_on_skips_the_guard_only_on_the_current_device(monkeypatch):
+    """cuda:0 is current: a C call for a cuda:0 (or bare "cuda") tensor runs
+    with no guard entered, one for cuda:1 inside a guard of cuda:1, and each
+    device's inits run once, under that device."""
+    from digat_tpu_torch.ops import build
+
+    stub = _StubCuda(monkeypatch)
+    for device in (torch.device("cuda", 0), "cuda", "cuda:1", torch.device("cuda", 0)):
+        with build.launch_on(device) as (lib, stream):
+            depth = len(stub.current)
+            lib.dropout_apply_f32()
+        assert depth == (1 if str(device) == "cuda:1" else 0), device
+        assert not stub.current
+    launches = [(n, str(d)) for n, d in stub.calls if not n.endswith("_init")]
+    assert launches == [("dropout_apply_f32", d) for d in ("cuda:0", "cuda:0", "cuda:1",
+                                                           "cuda:0")]
+    inits = [(n, str(d)) for n, d in stub.calls if n.endswith("_init")]
+    assert inits == [(name, f"cuda:{d}") for d in (0, 1) for name in build.INITS]
+
+
+def test_launch_on_leaves_its_guard_when_an_init_fails(monkeypatch):
+    """An init that reports a CUDA error for cuda:1 raises out of
+    `launch_on("cuda:1")` with the guard left (cuda:0 current again, as
+    before the call) and cuda:1 not marked ready, so the next call retries."""
+    from digat_tpu_torch.ops import build
+
+    stub = _StubCuda(monkeypatch)
+    failing = {"on": True}
+
+    class FailingLibrary:
+        def __getattr__(self, name):
+            def call(*args):
+                device = stub.current[-1] if stub.current else torch.device("cuda", 0)
+                stub.calls.append((name, device))
+                if name == "digat_error_string":
+                    return b"stub error"
+                if failing["on"] and name.endswith("_init") and device.index == 1:
+                    return 700
+                return 0
+            return call
+
+    monkeypatch.setattr(build, "_library", lambda: FailingLibrary())
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        with build.launch_on("cuda:1"):
+            raise AssertionError("the body ran after a failed init")
+    assert not stub.current
+    assert 1 not in build._READY
+    failing["on"] = False
+    with build.launch_on("cuda:1") as (lib, stream):
+        assert [str(d) for d in stub.current] == ["cuda:1"]
+    assert not stub.current and 1 in build._READY
+
+
+def test_gat_layer_makes_its_three_calls_under_its_tensors_device(monkeypatch):
+    """Kernel B's wrapper: the projection, kernel C's forward on y's k1 and
+    k2 column blocks (row stride 3 Dp), then the attend step, each under the
+    tensor's device, and one count. D 6 is padded to 8."""
+    from digat_tpu_torch.ops import build
+    from digat_tpu_torch.ops import gat_layer as GL
+    from digat_tpu_torch.ops import gat_scores as GS
+
+    stub = _StubCuda(monkeypatch)
+    monkeypatch.setattr(build, "use_kernel", lambda where: True)
+    B, G, D, Dp = 3, 7, 6, 8
+    r = lambda *s: torch.randn(*s)
+    before = GL.interactive_gat_layer_fused.launches
+    GL.interactive_gat_layer_fused(r(B, G, D), torch.ones(B, G, G, dtype=torch.bool), r(B, D),
+                                   r(D, D), r(D), r(D, D), r(D, D), r(D, D), r(D), r(D))
+    assert GL.interactive_gat_layer_fused.launches == before + 1
+    calls = [(n, a) for (n, d), a in zip(stub.calls, stub.args) if not n.endswith("_init")]
+    assert [n for n, _ in calls] == ["gat_layer_project_f32", "gat_scores_fwd_f32",
+                                     "gat_layer_attend_f32"]
+    assert all(d == torch.device("cpu") for n, d in stub.calls if not n.endswith("_init"))
+    project, scores, attend = (a for _, a in calls)
+    y = project[6]
+    assert project[8:11] == (B * G, B, Dp)
+    plan = GS.fwd_plan(G)
+    assert scores == (y + 4 * Dp, 3 * Dp, y + 8 * Dp, 3 * Dp, project[7], scores[5], scores[6],
+                      B, G, Dp, plan.R, plan.TIb, plan.TJb, 0)
+    tiles = GL.attend_plan(G, D)
+    assert attend[2] == scores[6] and attend[3:5] == (y, 3 * Dp)
+    assert attend[6:11] == (B, G, D, tiles.TI, tiles.CG)
+
+
+def test_dropout_launches_forward_then_backward_with_the_same_bits(monkeypatch):
+    """The fused dropout on a tensor that needs its gradient: one launch of
+    `dropout_apply_f32` forward on x and one backward on the gradient, with
+    the same (row offset, seed, site, threshold, scale), both under the
+    tensor's device, counted twice; an expanded view (the topic nodes) gets
+    its gradient summed back into its parameter's shape."""
+    from digat_tpu_torch.ops import build
+    from digat_tpu_torch.ops import dropout as DR
+
+    stub = _StubCuda(monkeypatch)
+    monkeypatch.setattr(build, "use_kernel", lambda where: True)
+    param = torch.randn(5, 12, requires_grad=True)
+    x = param[None].expand(3, 5, 12)
+    before = DR.dropout.launches
+    out = DR.dropout(x, 0.1, 2**33 + 7, 4)
+    assert len(stub.calls) == len(build.INITS) + 1
+    g = torch.randn(3, 5, 12)
+    out.backward(g)
+    assert DR.dropout.launches == before + 2
+    assert param.grad.shape == param.shape
+    calls = [(n, d, a) for (n, d), a in zip(stub.calls, stub.args) if not n.endswith("_init")]
+    assert [(n, d) for n, d, _ in calls] == [("dropout_apply_f32", torch.device("cpu"))] * 2
+    fwd, bwd = (a for _, _, a in calls)
+    assert fwd[2:4] == bwd[2:4] == (15, 12)
+    assert fwd[4:9] == bwd[4:9] == (0, 7, 4, DR.threshold(0.1), 1.0 / (1.0 - 0.1))
+    assert bwd[0] == g.data_ptr()  # the backward launches on the gradient

@@ -200,13 +200,13 @@ def test_training_step_draws_its_dropout_sites(arrays, model, sites, monkeypatch
     seed: the same seed gives the same loss and gradients, another another
     loss."""
     drawn = []
-    real = layers.keep_mask
+    real = layers.apply_dropout
 
-    def recording(rows, cols, rate, seed, site, row_offset=0, device="cpu"):
+    def recording(x, rate, seed, site):
         drawn.append((site, rate))
-        return real(rows, cols, rate, seed, site, row_offset, device)
+        return real(x, rate, seed, site)
 
-    monkeypatch.setattr(layers, "keep_mask", recording)
+    monkeypatch.setattr(layers, "apply_dropout", recording)
     tables = NRMSTables.from_arrays(SimpleNamespace(**arrays), "cpu")
     batch = batching.to_device(_batch(10), "cpu")
     losses, grads = [], []
