@@ -44,7 +44,19 @@ paths:
              `Trainer` epoch (>= 10 steps at B 64, no dedup, dropout 0.2:
              4 forward and 4 backward attention launches and 7 dropouts,
              forward and backward, per step); and three steps at B 8 on the
-             card against the CPU.
+             card against the CPU;
+  titles   - kernels A and A' at titles shorter than 32: L 16 at the parity
+             matrix's widths (Din 100, 10 x 20 heads, A 64, N 4,096) and
+             L 7 at the production widths, title 0 all pad, against their
+             plain versions (in phases 3 and 7);
+  CLI      - `digat_tpu_torch.cli` from MIND-layout TSV files that the
+             port's generator writes: the production cell of
+             scripts/torch_parity_cells.py (word 300, L 32, 16 x 25 heads,
+             B 32, lr 1e-3, 6 epochs, dedup; its news graph mined on the
+             card against the CPU) with a best dev AUC of at least 0.55, and
+             the matrix cell at L 16 (B 32, lr 1e-3, 8 epochs) with at
+             least 0.66; each epoch's rank file through the official scorer,
+             and best.ckpt scored again by `--mode test`.
 
 Prints progress lines, the card's name and power limit, a `kernels` JSON
 line, and as its last line `{"ok": true, "device": {...}}`. Exits nonzero,
@@ -538,13 +550,21 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
                 for _ in range(n):
                     torch.autograd.grad(fn(x, rate, 4321, k), x, up)
 
+        torch_dropout = lambda x, rate, seed, site: F.dropout(x, rate, training=True)
         total["ms"] = time_ms(torch, lambda: step_dropouts(DR.dropout))
         total["plain_ms"] = time_ms(torch, lambda: step_dropouts(DR.dropout_plain))
+        # the library: torch's own dropout at the same sites, timed as a whole
+        # the same way, and its device time by launch
+        total["library_ms"] = time_ms(torch, lambda: step_dropouts(torch_dropout))
         stages = stage_split(torch, lambda: step_dropouts(DR.dropout))
         fused = [st for st in stages if "dropout_site_kernel" in st[0]]
+        lib_stages = stage_split(torch, lambda: step_dropouts(torch_dropout))
         say(f"    one step's {sum(s[4] for s in mask_sites(cfg))} sites, forward and backward: "
             f"{sum(st[1] for st in fused)} launches of the fused kernel, device "
-            f"{sum(st[2] for st in fused):.4f} ms")
+            f"{sum(st[2] for st in fused):.4f} ms; torch.nn.functional.dropout "
+            f"{sum(st[1] for st in lib_stages)} launches, device "
+            f"{sum(st[2] for st in lib_stages):.4f} ms, timed as a whole "
+            f"{total['library_ms']:.4f} ms")
         rows = max(cap, 1100)
         word = check_kernel(torch, f"keep_mask word dropout [{rows},{L * Din}] rate {p:g}",
                             lambda: DR.keep_mask(rows, L * Din, p, 4321, 99, device=dev),
@@ -559,9 +579,10 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
             f"backward through autograd (timed as a whole): ms {total['ms']:.4f} plain_ms "
             f"{total['plain_ms']:.4f} bound_ms {total['bound_ms']:.4f}")
         return dict(total, ok=all(v["ok"] for v in by_shape.values()),
-                    max_abs_err=max(errs), library_ms=None, by_shape=by_shape,
+                    max_abs_err=max(errs), by_shape=by_shape,
                     step_device_ms=sum(st[2] for st in fused),
-                    step_launches=sum(st[1] for st in fused))
+                    step_launches=sum(st[1] for st in fused),
+                    library_device_ms=sum(st[2] for st in lib_stages))
 
     guarded("dropout", dropout_check)
 
@@ -826,6 +847,190 @@ def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False):
         say(f"    {n}: max |cpu| {top:.3e} max |card - cpu| {err:.3e} ratio {rel:.3e}")
     if not (loss_err <= TRAIN_RTOL and worst <= TRAIN_RTOL and np.isfinite(l_gpu).all()):
         failures.append(f"{'NRMS-SA ' if nrms else ''}training parity card vs cpu")
+
+
+# Kernels A and A' at titles shorter than 32 (the lanes past L idle): the
+# parity matrix's L 16 at its widths, and an odd L at the production widths
+# whose N * L rows are 1 past a multiple of 4 (the weight gradients of A'
+# sum over them as their K); title 0 all pad. (what, N, L, Din, heads, dk, A)
+SHORT_TITLES = [("matrix L16", 4096, 16, 100, 10, 20, 64),
+                ("odd L7", 1023, 7, 300, 16, 25, 256)]
+
+
+def short_title_args(torch, dev, N, L, Din, heads, dk, A, seed):
+    """Random encoder inputs and weights at one shape, title 0 all pad."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = heads * dk
+    r = lambda *s, sc=1.0: torch.randn(s, generator=g, device=dev) * sc
+    x = r(N, L, Din)
+    mask = torch.rand((N, L), generator=g, device=dev) < 0.75
+    mask[0] = False
+    return (x, mask, r(Din, D, sc=Din ** -0.5), r(D, sc=0.1), r(Din, D, sc=Din ** -0.5),
+            r(Din, D, sc=Din ** -0.5), r(D, sc=0.1), r(D, A, sc=D ** -0.5), r(A, sc=0.1),
+            r(A, sc=A ** -0.5))
+
+
+def short_title_kernels(torch, dev, train: bool) -> dict:
+    """Phase 3 (A, eval) or phase 7 (A with dropout 0.2, and A') at
+    SHORT_TITLES: each against its plain version, the same bits on a second
+    run; -> {kernel name: {shape: entry}}."""
+    from digat_tpu_torch.ops import msa_encoder as ME
+
+    out = {"msa_encoder_pooled": {}}
+    if train:
+        out["msa_encoder_bwd"] = {}
+    for k, (what, N, L, Din, heads, dk, A) in enumerate(SHORT_TITLES):
+        D, p, seed = heads * dk, 0.2 if train else 0.0, 555
+        args = short_title_args(torch, dev, N, L, Din, heads, dk, A, SEED + 30 + k)
+        name = f"{what} [{N},{L},{Din}] {heads}x{dk} A {A}"
+        tag = f"{what} N{N}" + (f" dropout {p:g}" if train else "")
+        try:
+            fwd = lambda: ME.msa_encoder_pooled(*args, heads, p, seed, 1)
+            e = check_kernel(
+                torch, f"msa_encoder_pooled {name}" + (f" dropout {p:g}" if train else ""), fwd,
+                lambda: ME.msa_encoder_pooled_plain(ME.drop_titles_plain(args[0], p, seed, 1),
+                                                    *args[1:], heads),
+                (), *msa_work(N, L, Din, D, A))
+            again = torch.equal(fwd(), fwd())
+            say(f"    same bits twice: {again}")
+            e["ok"] = e["ok"] and again
+        except Exception:
+            traceback.print_exc()
+            e = dict(ok=False)
+        out["msa_encoder_pooled"][tag] = e
+        if not train:
+            continue
+        try:
+            dp = torch.randn((N, D), generator=torch.Generator(device=dev).manual_seed(SEED + k),
+                             device=dev)
+            bargs = (*args, dp, heads, p, seed, 1)
+            e = check_kernel(torch, f"msa_encoder_bwd {name} dropout {p:g}", ME.msa_encoder_bwd,
+                             ME.msa_encoder_bwd_plain, bargs, *msa_bwd_work(N, L, Din, D, A))
+            again = all(torch.equal(a, b) for a, b in zip(ME.msa_encoder_bwd(*bargs),
+                                                          ME.msa_encoder_bwd(*bargs)))
+            say(f"    same bits twice, every output: {again}")
+            e["ok"] = e["ok"] and again
+        except Exception:
+            traceback.print_exc()
+            e = dict(ok=False)
+        out["msa_encoder_bwd"][tag] = e
+    return out
+
+
+def parity_cells():
+    """scripts/torch_parity_cells.py: the JAX study's cell settings, the
+    corpus and GloVe writers, and the CLI's command line for a cell."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_parity_cells.py")
+    spec = importlib.util.spec_from_file_location("torch_parity_cells", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sag_card_vs_cpu(torch, cfg, failures) -> None:
+    """The news graph's neighbour lists mined on the card against the same
+    lists mined on the CPU: a list may differ only where the CPU's cosines
+    at each of its places lie within 1e-6 of the card's (a near-tie of the
+    fp32 sums); and the graph the CLI cached (built on the card) against
+    the graph expanded from the CPU's lists."""
+    from digat_tpu_torch.data import corpus as C
+    from digat_tpu_torch.data import sag
+
+    p = C._paths(cfg)
+    with open(p["dicts"], encoding="utf-8") as f:
+        dicts = json.load(f)
+    roots = {s: os.path.join(cfg.data_root, cfg.dataset, s) for s in C.SPLITS}
+    rows = C._rows_by_category(roots, dicts["category"])
+    sims = {d: sag.mine_similarity(rows, dicts["news"], cfg.SAG_neighbors,
+                                   exclude_test_from_corpus=cfg.dataset != "MIND-large",
+                                   seed=cfg.seed, device=d) for d in ("cuda", "cpu")}
+    differ, near_tie = 0, 0
+    for news_id, cpu in sims["cpu"].items():
+        card = sims["cuda"][news_id]
+        if [n for n, _ in card] == [n for n, _ in cpu]:
+            continue
+        differ += 1
+        near_tie += len(card) == len(cpu) and all(abs(a[1] - b[1]) <= 1e-6
+                                                  for a, b in zip(card, cpu))
+    node_id, graph, mask = sag.expand_graph(sims["cpu"], dicts["news"], cfg.SAG_neighbors,
+                                            cfg.SAG_hops, cfg.news_graph_size)
+    graph |= np.eye(cfg.news_graph_size, dtype=bool)[None]
+    cached = np.load(p["graph"])
+    graph_rows = int(((cached["news_node_id"] != node_id).any(1)
+                      | (cached["news_graph"] != graph).any((1, 2))
+                      | (cached["news_graph_mask"] != mask).any(1)).sum())
+    say(f"  SAG card vs cpu: {len(sims['cpu'])} neighbour lists, {differ} differ, {near_tie} of "
+        f"them at near-ties (cosines within 1e-6); cached graph rows differing from the CPU's "
+        f"{graph_rows}")
+    if differ != near_tie:
+        failures.append(f"SAG: {differ - near_tie} neighbour lists differ card vs cpu beyond "
+                        f"near-ties")
+
+
+def cli_cell(torch, cells, cell, workdir, gate, failures, sag_check=False) -> dict:
+    """Phases 14 and 15: one cell of scripts/torch_parity_cells.py through
+    `digat_tpu_torch.cli.main` on the card, seed 0: the corpus from the
+    port's generator, its GloVe file and cache (the SAG mined on the card),
+    then the train run with the launch counters reset. Checks the run's
+    files, every epoch's rank file against the official scorer, a
+    standalone `--mode test` run of best.ckpt against the auto-test (1e-6)
+    and the best dev AUC against `gate`."""
+    from digat_tpu_torch import cli
+    from digat_tpu_torch.config import Config
+    from digat_tpu_torch.eval import metrics as M
+
+    t0 = time.perf_counter()
+    corpus_dir = cells.prepare_cell(cell, workdir, "cuda")
+    flags = cells.cell_flags(cell, corpus_dir, 0, "cuda")
+    cfg = Config.from_args(flags)
+    prep_s = time.perf_counter() - t0
+    if sag_check:
+        sag_card_vs_cpu(torch, cfg, failures)
+    reset_counters()
+    t0 = time.perf_counter()
+    rec = cli.main(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    keys = ("auc", "mrr", "ndcg5", "ndcg10")
+    name = "NRMS-SA" if cfg.model_family == "nrms" else cfg.model_name
+    results = os.path.join(cfg.run_root, "results", cfg.dataset, name)
+    truth = os.path.join(cfg.run_root, "dev", cfg.dataset, "ref", "truth.txt")
+    scorer_err = 0.0
+    for h in rec["history"]:
+        got = M.scoring_from_files(truth, os.path.join(rec["run_dir"],
+                                                       f"dev-epoch{h['epoch']}.txt"))
+        scorer_err = max(scorer_err, max(abs(a - h[k]) for a, k in zip(got, keys)))
+        say(f"  epoch {h['epoch']}: loss {h['loss']:.4f} dev auc {h['auc']:.4f} mrr "
+            f"{h['mrr']:.4f} ndcg5 {h['ndcg5']:.4f} ndcg10 {h['ndcg10']:.4f}; "
+            f"{len(h['step_ms'])} steps, median step {np.median(h['step_ms']):.3f} ms")
+    steps = [t for h in rec["history"] for t in h["step_ms"][2:]]
+    best = max(h["auc"] for h in rec["history"])
+    retest = cli.main(flags + ["--mode", "test", "--test_model_path",
+                               os.path.join(rec["run_dir"], "best.ckpt")])
+    test_err = max(abs(a - b) for a, b in zip(retest, rec["test"])) if rec["test"] else math.inf
+    files = all(os.path.exists(os.path.join(results, f"#{rec['run_index']}-{s}"))
+                for s in ("dev", "test"))
+    say(f"  {cell}: L {cfg.max_title_length}, {cfg.MSA_head_num} x {cfg.MSA_head_dim} heads, "
+        f"B {cfg.batch_size}, lr {cfg.lr:g}, {cfg.epoch} epochs; preparation {prep_s:.2f}s, "
+        f"train + dev + test wall {wall:.2f}s, median step {np.median(steps):.3f} ms; best dev "
+        f"auc {best:.4f} (gate {gate}) at epoch {rec['best_epoch']}; test "
+        f"{np.round(rec['test'], 4).tolist() if rec['test'] else None}, again from best.ckpt "
+        f"within {test_err:.2e}; official scorer within {scorer_err:.2e}; #N-dev and #N-test "
+        f"written {files}")
+    say(f"  launches: {launches}")
+    for k in ("msa_encoder_pooled", "msa_encoder_bwd", "embedding_grad", "dropout",
+              "gat_scores_fwd", "gat_scores_bwd", "interactive_gat_layer_fused"):
+        if launches[k] == 0:
+            failures.append(f"{cell}: kernel {k} was launched no time")
+    if not (files and test_err <= 1e-6 and scorer_err <= 1e-6 and best >= gate
+            and all(np.isfinite(h["loss"]) for h in rec["history"])):
+        failures.append(f"{cell}: files {files}, test again {test_err:.2e}, scorer "
+                        f"{scorer_err:.2e}, best dev auc {best:.4f} (gate {gate})")
+    return launches
 
 
 def attention_work(N, L, heads, dk, rs, backward: bool):
@@ -1251,6 +1456,9 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         entries["msa_encoder_pooled"] = dict(ok=False)
+    short = {"msa_encoder_pooled": {}, "msa_encoder_bwd": {}}
+    for k, shapes in short_title_kernels(torch, dev, train=False).items():
+        short[k].update(shapes)
     say(f"[3 kernel A] {time.perf_counter() - t0:.2f}s")
 
     # ---- 4. kernel B at G = 6, 26, 68 and 96, and at a D not a multiple of 4 ----
@@ -1353,6 +1561,8 @@ def main() -> int:
             probe, corpus.news_node_id, cfg.batch_size, seed=cfg.seed)
         say(f"  dedup capacity at B {cfg.batch_size}: {cap} titles")
         train_entries = training_kernels(torch, cfg, model, tables, cap, dev)
+        for k, shapes in short_title_kernels(torch, dev, train=True).items():
+            short[k].update(shapes)
         if not redesign_report(build):
             failures.append("a product kernel of A, A' or B issues no TF32 HMMA (SASS)")
     except Exception:
@@ -1451,16 +1661,48 @@ def main() -> int:
         failures.append("NRMS-SA training parity")
     say(f"[13 NRMS-SA training parity] {time.perf_counter() - t0:.2f}s")
 
-    # ---- 14. kernels line ----
+    # ---- 14. the CLI at the production cell, from TSV files ----
+    cells = parity_cells()
+    cli_launches = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        try:
+            cli_launches["cli prod"] = cli_cell(torch, cells, "prod", workdir, 0.55, failures,
+                                                sag_check=True)
+        except Exception:
+            traceback.print_exc()
+            failures.append("CLI, production cell")
+        say(f"[14 CLI, production cell] {time.perf_counter() - t0:.2f}s")
+
+        # ---- 15. the CLI at the matrix cell: titles of L 16 ----
+        t0 = time.perf_counter()
+        try:
+            cli_launches["cli matrix L16"] = cli_cell(torch, cells, "matrix-msa", workdir, 0.66,
+                                                      failures)
+        except Exception:
+            traceback.print_exc()
+            failures.append("CLI, matrix cell at L 16")
+        say(f"[15 CLI, matrix cell at L 16] {time.perf_counter() - t0:.2f}s")
+
+    # ---- kernels line ----
     if "msa_encoder_pooled" in train_entries and "msa_encoder_pooled" in entries:
         serve = entries["msa_encoder_pooled"]
         entries["msa_encoder_pooled"] = dict(
-            serve, ok=serve.get("ok") and train_entries["msa_encoder_pooled"].get("ok"),
-            by_shape={f"serving N{bs}": serve,
-                      f"training N{cap} dropout {cfg.dropout_rate}":
-                          train_entries["msa_encoder_pooled"]})
+            serve, by_shape={f"serving N{bs}": serve,
+                             f"training N{cap} dropout {cfg.dropout_rate}":
+                                 train_entries["msa_encoder_pooled"]})
+    if "msa_encoder_bwd" in train_entries:
+        main_bwd = train_entries["msa_encoder_bwd"]
+        train_entries["msa_encoder_bwd"] = dict(
+            main_bwd, by_shape={f"training N{cap} dropout {cfg.dropout_rate}": main_bwd})
     for name, e in train_entries.items():
         entries.setdefault(name, e)
+    for name, shapes in short.items():  # A and A' at titles shorter than 32
+        e = entries.setdefault(name, dict(ok=False))
+        e.setdefault("by_shape", {}).update(shapes)
+        e["ok"] = all(v.get("ok") for v in e["by_shape"].values())
+        if not all(v.get("ok") for v in shapes.values()):
+            failures.append(f"kernel {name} at titles shorter than 32")
     by_path = {name: {"serving": launches.get(name, 0), "training": train_launches.get(name, 0)}
                for name in counters()}
     by_path["interactive_gat_scores"] = {
@@ -1472,6 +1714,11 @@ def main() -> int:
                           "bwd": nrms_train.get("msa_attention_bwd", 0),
                           "steps": nrms_steps}}
     by_path["dropout"]["nrms training"] = nrms_train.get("dropout", 0)
+    for path, counts in cli_launches.items():
+        for name in counters():
+            by_path[name][path] = counts.get(name, 0)
+        by_path["interactive_gat_scores"][path] = {
+            k: counts.get(k, 0) for k in ("gat_scores_fwd", "gat_scores_bwd")}
     source = {
         "msa_encoder_pooled": ("digat_tpu_torch/csrc/msa_encoder.cu",
                                "digat_tpu/ops/pallas/msa_encoder.py:533"),

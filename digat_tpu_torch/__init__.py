@@ -16,7 +16,12 @@ attention as a hand-written kernel pair forward and backward,
     stage 1 encodes every unique news title once and caches the initial
     news context c_n0; stage 2 runs the DIGAT graph encoder per impression
     item, each interactive GAT layer as one call of the kernel
-    `ops.gat_layer`.
+    `ops.gat_layer`;
+  * the experiment driver (`cli`, `python -m digat_tpu_torch.cli`): train,
+    dev and test modes from MIND-layout TSV files through the data
+    pipeline (`data.tokenize`, `data.synthetic`, `data.prepare`,
+    `data.sag`, `data.corpus`), with the JAX package's flags, cache names
+    and run layout.
 
 The package imports torch and numpy only, never jax or digat_tpu. Entry
 points (`models.model.Model`, `models.nrms.NRMSModel`, the trainer, the
@@ -24,4 +29,4 @@ scorers) run on CUDA unless the caller passes `device="cpu"`; with no
 device and no CUDA they raise.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

@@ -1,14 +1,23 @@
 """Experiment configuration for the port.
 
-A copy of the fields of `digat_tpu.config.Config` that MSA-DIGAT and the
-NRMS family (NRMS, NRMS-SA) read for training and the cached scorers, with
-the same names, defaults and per-dataset protocol overrides. Kept as its
-own copy so the port never imports the JAX package."""
+A copy of the fields of `digat_tpu.config.Config` that the port reads
+(MSA-DIGAT and the NRMS family, training, the cached scorers, the data
+pipeline and the CLI), with the same names, defaults and per-dataset
+protocol overrides, plus `device` (cuda | cpu). Kept as its own copy so the
+port never imports the JAX package.
+
+`from_args` also takes the JAX package's TPU-only flags, so that a JAX
+command line parses. Each is checked and dropped: a value the port runs
+(float32, one device, no profile directory, the sorted embedding gradient,
+any PRNG or Pallas setting, which read nothing on the card) passes, any
+other raises naming the ROADMAP item that would bring it."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-
+import json
+from typing import Optional
 
 def news_graph_size(sag_neighbors: int, sag_hops: int) -> int:
     """Number of nodes in a SAG news graph: hop 0 adds M neighbours, each
@@ -21,12 +30,46 @@ def news_graph_size(sag_neighbors: int, sag_hops: int) -> int:
     return size
 
 
+# The JAX package's TPU-only flags: name -> (default, is the value one the
+# port runs, the ROADMAP item that would bring the others)
+_ROADMAP_BF16 = "ROADMAP.md section 1, item 3 (compute_dtype=bfloat16)"
+_ROADMAP_MULTI = "ROADMAP.md section 1, item 3 (multi-GPU)"
+JAX_ONLY_FLAGS = {
+    "use_pallas": (True, lambda v: True, ""),
+    "rng_impl": ("rbg", lambda v: True, ""),
+    "compilation_cache_dir": ("", lambda v: True, ""),
+    "compute_dtype": ("float32", lambda v: v == "float32", _ROADMAP_BF16),
+    "mesh_data": (0, lambda v: v <= 1, _ROADMAP_MULTI),
+    "mesh_model": (1, lambda v: v <= 1, _ROADMAP_MULTI),
+    "coordinator_address": ("", lambda v: v == "", _ROADMAP_MULTI),
+    "num_processes": (0, lambda v: v <= 1, _ROADMAP_MULTI),
+    "process_id": (-1, lambda v: v <= 0, _ROADMAP_MULTI),
+    "profile_dir": ("", lambda v: v == "",
+                    "ROADMAP.md section 1, item 3 (sweep, aggregate and StepTimer)"),
+    "sorted_emb_grad": (True, lambda v: v,
+                        "ROADMAP.md section 2 (the port always runs kernel D, the sorted "
+                        "embedding gradient)"),
+}
+
+MAX_CARD_TITLE_LENGTH = 32  # kernels A and A' (ops/msa_encoder.py)
+
+
+def _parse_bool(s: str) -> bool:
+    return s.lower() in ("1", "true", "yes")
+
+
 @dataclasses.dataclass
 class Config:
+    mode: str = "train"  # train | dev | test
     news_encoder: str = "MSA"
     graph_encoder: str = "DIGAT"
+    dev_model_path: str = ""
+    test_model_path: str = ""
+    test_output_file: str = ""
     seed: int = 0
     dataset: str = "MIND-small"  # MIND-small | MIND-large | synthetic
+    data_root: str = "data"
+    word_threshold: int = 3
     max_title_length: int = 32
     negative_sample_num: int = 4
     max_history_num: int = 50
@@ -44,8 +87,15 @@ class Config:
     attention_dim: int = 256
     dropout_rate: float = 0.2
     graph_depth: int = 3
+    # the CNN encoder's fields (read only to refuse the encoder: not ported)
+    cnn_method: str = "naive"
+    cnn_kernel_num: int = 400
+    cnn_window_size: int = 3
     SAG_hops: int = 2
     SAG_neighbors: int = 5
+    glove_path: str = ""  # GloVe .txt (word + floats a line); '' = pseudo-GloVe
+    sag_embedder: str = "hash"  # hash (sentence_transformer, jax_mpnet: not ported)
+    sag_embedder_model: str = "sentence-transformers/all-mpnet-base-v2"
     # model family: 'digat' (the main experiment) or 'nrms' (the SA strategy
     # on a sequence model)
     model_family: str = "digat"
@@ -56,11 +106,15 @@ class Config:
     augmented_news_num: int = 10
     vocabulary_size: int = 0
     category_num: int = 0
+    user_num: int = 0
     eval_batch_size: int = 0  # 0 = batch_size * 16
+    run_root: str = "runs"
+    run_index: int = 0
     # unique-title dedup capacity of training batches: -1 auto-size, 0 off,
     # > 0 fixed
     dedup_titles: int = -1
     resume: str = ""  # checkpoint to resume training from
+    device: str = "cuda"  # cuda | cpu: where the CLI runs the model and the SAG
 
     def __post_init__(self) -> None:
         # per-dataset protocol overrides, as the JAX package forces them
@@ -97,9 +151,15 @@ class Config:
     def effective_eval_batch_size(self) -> int:
         return self.eval_batch_size or self.batch_size * 16
 
-    def validate(self) -> "Config":
-        """The port has MSA-DIGAT and the NRMS family (which reads neither
-        encoder field); the CNN encoder and the DIGAT ablations raise."""
+    def check_options(self) -> "Config":
+        """The options alone, before a corpus fills the sizes: the port has
+        MSA-DIGAT and the NRMS family (which reads neither encoder field);
+        the CNN encoder and the DIGAT ablations raise. Titles of any length
+        run on the CPU; on the card kernels A and A' take L <= 32."""
+        if self.mode not in ("train", "dev", "test"):
+            raise ValueError(f"unknown mode {self.mode}")
+        if self.device not in ("cuda", "cpu"):
+            raise ValueError(f"device must be cuda or cpu, got {self.device}")
         if self.model_family not in ("digat", "nrms"):
             raise ValueError(f"unknown model_family {self.model_family}")
         if self.nrms_model not in ("NRMS-SA", "NRMS"):
@@ -109,10 +169,38 @@ class Config:
                 raise NotImplementedError(f"news_encoder={self.news_encoder} is not ported yet")
             if self.graph_encoder != "DIGAT":
                 raise NotImplementedError(f"graph_encoder={self.graph_encoder} is not ported yet")
-            if self.category_num <= 0:
-                raise ValueError("category_num must be set from the corpus")
+            if self.device == "cuda" and not 1 <= self.max_title_length <= MAX_CARD_TITLE_LENGTH:
+                raise ValueError(f"max_title_length={self.max_title_length}: on the card kernels "
+                                 f"A and A' take titles of length 1 to {MAX_CARD_TITLE_LENGTH}")
         if self.dev_criterion not in ("auc", "mrr", "ndcg5", "ndcg10", "avg"):
             raise ValueError(f"unknown dev_criterion {self.dev_criterion}")
+        return self
+
+    def validate(self) -> "Config":
+        """`check_options` and the sizes the corpus sets."""
+        self.check_options()
+        if self.model_family == "digat" and self.category_num <= 0:
+            raise ValueError("category_num must be set from the corpus")
         if self.vocabulary_size <= 0:
             raise ValueError("vocabulary_size must be set from the corpus")
         return self
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_args(cls, argv: Optional[list] = None) -> "Config":
+        """A configuration from `--name value` flags under the JAX package's
+        names (every field, and the TPU-only flags of `JAX_ONLY_FLAGS`)."""
+        parser = argparse.ArgumentParser(description="digat_tpu_torch experiments")
+        defaults = {f.name: f.default for f in dataclasses.fields(cls)}
+        defaults.update({k: v[0] for k, v in JAX_ONLY_FLAGS.items()})
+        for name, default in defaults.items():
+            kind = _parse_bool if isinstance(default, bool) else type(default)
+            parser.add_argument(f"--{name}", type=kind, default=default)
+        ns = vars(parser.parse_args(argv))
+        for name, (_, runs, item) in JAX_ONLY_FLAGS.items():
+            value = ns.pop(name)
+            if not runs(value):
+                raise NotImplementedError(f"--{name} {value} is not ported: {item}")
+        return cls(**ns).check_options()

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel digat_tpu/ops/pallas/msa_encoder.py
 // (msa_encoder_pooled -> _call -> _fwd_kernel). Per title: word dropout of
 // the embedded words (training), Q/K/V projections, 16-head UNMASKED
-// softmax attention over the L=32 positions (pads attend, as in the
+// softmax attention over the L <= 32 positions (pads attend, as in the
 // reference), ReLU, then the masked tanh-MLP attention pool with the -1e9
 // fill, giving one [D] vector. Heads stay unpadded (dk 25, D = 400).
 //
@@ -57,8 +57,10 @@
 // no more than that, inside the gate.
 //
 // Every reduction runs in a fixed order with no atomics: the same bits on
-// every run. Limits, as kernel A''s: L 32, Din and D multiples of 4,
-// dk <= 64, A a multiple of 4 up to 512.
+// every run. Limits, as kernel A''s: L 1 to 32, Din and D multiples of 4,
+// dk <= 64, A a multiple of 4 up to 512. A title of L < 32 runs on the first
+// L lanes of the attention unit and of the pool's warp (msa_title.cuh); x,
+// qkv and the logits keep L rows a title in global memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,29 +77,35 @@ constexpr int kBNq = 96, kBNp = 96;
 
 namespace tc = digat::tc;
 
-// out[n] = sum_l alpha_l h[n, l], a warp per title: lane l takes alpha_l,
-// then each lane sums float4 columns over l in order
+// out[n] = sum_l alpha_l h[n, l], a warp per title: lane l < L takes
+// alpha_l, then each lane sums float4 columns over l < L in order
+template <int kFixedL>
 __global__ void __launch_bounds__(kThreads)
 msa_pool_fwd_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
                     int parts,
                     const unsigned char* __restrict__ mask,  // [N, L]
                     const float* __restrict__ h, int ldh,    // [N*L, ldh]
                     float* __restrict__ out,                 // [N, D]
-                    int N, int D) {
+                    int N, int title_len, int D) {
+  constexpr bool kFull = kFixedL == kL;  // no slot past L
+  const int L = kFixedL > 0 ? kFixedL : title_len;
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (n >= N) return;
-  const size_t M = (size_t)N * kL, row = (size_t)n * kL + lane;
-  const float alpha = pool_alpha(lgpart, parts, M, row, mask[row] != 0);
+  const bool present = kFull || lane < L;
+  const size_t M = (size_t)N * L, row = (size_t)n * L + lane;
+  const float alpha = pool_alpha(lgpart, parts, M, row, present, present && mask[row] != 0);
   float al[kL];
 #pragma unroll
   for (int l = 0; l < kL; ++l) al[l] = __shfl_sync(0xffffffffu, alpha, l);
-  const float* hn = h + (size_t)n * kL * ldh;
+  const float* hn = h + (size_t)n * L * ldh;
   for (int c = lane; c < D / 4; c += 32) {
     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int l = 0; l < kL; ++l)
+    for (int l = 0; l < kL; ++l) {
+      if (!kFull && l >= L) break;
       axpy4(al[l], __ldg(reinterpret_cast<const float4*>(hn + (size_t)l * ldh) + c), o);
+    }
     reinterpret_cast<float4*>(out + (size_t)n * D)[c] = o;
   }
 }
@@ -108,16 +116,16 @@ struct FwdScratch {
   size_t total() const { return xd + qkv + lgpart; }
 };
 
-FwdScratch fwd_scratch_of(int N, int Din, int D, int A, bool drop) {
-  const size_t M = size_t(N) * kL;
+FwdScratch fwd_scratch_of(int N, int L, int Din, int D, int A, bool drop) {
+  const size_t M = size_t(N) * L;
   auto a4 = [](size_t f) { return (f + 3) & ~size_t(3); };  // 16-byte aligned starts
   return FwdScratch{drop ? a4(M * Din) : 0, a4(M * 3 * D),
                     a4(size_t(tc::pool_parts<kBNp>(A)) * M)};
 }
 
 bool shapes_taken(int N, int L, int Din, int D, int dk, int A) {
-  return N > 0 && L == kL && Din > 0 && Din % 4 == 0 && D % 4 == 0 && dk > 0 && dk <= kMaxDk &&
-         A > 0 && A % 4 == 0 && A <= 128 * kMaxA4;
+  return N > 0 && L > 0 && L <= kL && Din > 0 && Din % 4 == 0 && D % 4 == 0 && dk > 0 &&
+         dk <= kMaxDk && A > 0 && A % 4 == 0 && A <= 128 * kMaxA4;
 }
 
 }  // namespace
@@ -135,7 +143,7 @@ extern "C" int msa_encoder_init() {
 extern "C" long long msa_encoder_fwd_scratch_floats(int N, int L, int Din, int heads, int dk,
                                                     int A, int drop) {
   if (heads <= 0 || !shapes_taken(N, L, Din, heads * dk, dk, A)) return 0;
-  return (long long)fwd_scratch_of(N, Din, heads * dk, A, drop != 0).total();
+  return (long long)fwd_scratch_of(N, L, Din, heads * dk, A, drop != 0).total();
 }
 
 // x [N, L, Din]; mask [N, L] (bytes); wqkv [3D, Din] (Wq, Wk, Wv stacked,
@@ -152,18 +160,18 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const FwdScratch sz = fwd_scratch_of(N, Din, D, A, thresh != 0);
+  const FwdScratch sz = fwd_scratch_of(N, L, Din, D, A, thresh != 0);
   float* xd = static_cast<float*>(scratch);
   float* qkv = xd + sz.xd;
   float* lgpart = qkv + sz.qkv;
-  const int M = N * kL;
+  const int M = N * L;
   cudaError_t e;
 
   // 1. xd = dropout(x); without dropout xd is x itself
   const float* xin = static_cast<const float*>(x);
   if (thresh) {
     dropout_apply_kernel<<<grid_1d((long long)M * Din / 4), kThreads, 0, st>>>(
-        xin, xd, N, kL * Din, thresh, drop_scale, seed, site);
+        xin, xd, N, L * Din, thresh, drop_scale, seed, site);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
     xin = xd;
   }
@@ -182,10 +190,13 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
   a.bias = static_cast<const float*>(bqkv);
   if ((e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a)) != cudaSuccess) return int(e);
   // 3. h = relu(P v) per unit, over q
-  msa_attn_fwd_kernel<false><<<N * heads, kAttnThreads,
-                               sizeof(float) * attn_fwd_floats(dk, false), st>>>(
-      qkv, nullptr, qkv, 3 * D, nullptr, nullptr, nullptr, heads, dk, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  e = with_title_length(L, [&](auto fixed) {
+    msa_attn_fwd_kernel<false, decltype(fixed)::value>
+        <<<N * heads, kAttnThreads, sizeof(float) * attn_fwd_floats(dk, false), st>>>(
+            qkv, nullptr, qkv, 3 * D, nullptr, nullptr, nullptr, L, heads, dk, scale);
+    return cudaGetLastError();
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
   // 4. lgpart = the v-product of tanh(h W1^T + b1), per warp column
   a = tc::Args{};
   a.A = qkv;  // h, over q: rows 3D apart
@@ -203,10 +214,13 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
   a.lgpart = lgpart;
   if ((e = tc::gemm<true, true, kBNp, tc::kLogits, true>(st, a)) != cudaSuccess) return int(e);
   // 5. the pool's softmax and the pooled vector
-  msa_pool_fwd_kernel<<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
-      lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), qkv, 3 * D,
-      static_cast<float*>(out), N, D);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_title_length(L, [&](auto fixed) {
+    msa_pool_fwd_kernel<decltype(fixed)::value>
+        <<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
+            lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), qkv,
+            3 * D, static_cast<float*>(out), N, L, D);
+    return cudaGetLastError();
+  }));
 }
 
 extern "C" const char* digat_error_string(int err) {

@@ -75,10 +75,19 @@
 // column groups of 4 for dq, and a key and the same groups for dk and dv.
 // It takes t_i = sum_j p_ij dp_ij as 4 per-warp parts summed in order, and
 // p_ij = exp(s_ij - lse_i) from the forward's log-sum-exp.
+//
+// Title length. Titles of L = 1 to 32 positions take the first L of the 32
+// slots of a unit and of a pool warp (msa_title.cuh); every array in
+// global memory keeps L rows a title (M = N L), and p_ij and dS_ij are 0
+// past L. At an odd L, M is often not a multiple of 4: the products that
+// read an M-major operand (the weight gradients, steps 6 and 10) sum over M,
+// as their K, row by row, which tc::gemm takes at any K.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "common.cuh"
 #include "msa_title.cuh"
@@ -130,7 +139,8 @@ __global__ void colsum_kernel(const float* __restrict__ A, int M, int N, int row
 // rounding of 0 falls on the side that fp32 arithmetic in that order puts it.
 // ---------------------------------------------------------------------------
 // x rows sit kx_stride(Din) floats apart: an odd number of float4s, so that
-// 8 lanes reading 8 rows as float4 hit 8 bank quads
+// 8 lanes reading 8 rows as float4 hit 8 bank quads; 32 rows whatever L,
+// zero past L
 __host__ __device__ inline int kx_stride(int Din) { return (Din / 4) % 2 ? Din : Din + 4; }
 
 __host__ __device__ inline int relu_fix_floats(int Din, int dk) {
@@ -142,13 +152,16 @@ __host__ __device__ inline int relu_fix_floats(int Din, int dk) {
 // i owns position i and warp w the columns c = w, w + 8, ..., each summed
 // in one pass over Din (the x row and the W row as float4), in order from
 // k = 0.
+template <int kFixedL>
 __global__ void __launch_bounds__(kFixThreads)
 msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
                          const float* __restrict__ wqkv,   // [3D, Din]
                          const float* __restrict__ bqkv,   // [3D]
                          const int* __restrict__ unsure,   // count, then units
                          float* __restrict__ h,            // [N*L, D]: the unit's rows again
-                         int Din, int heads, int dk, float scale) {
+                         int title_len, int Din, int heads, int dk, float scale) {
+  constexpr bool kFull = kFixedL == kL;  // no slot past L
+  const int L = kFixedL > 0 ? kFixedL : title_len;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = heads * dk, XS = kx_stride(Din), TS = dk + 1, D4 = Din / 4;
@@ -161,10 +174,11 @@ msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
   for (int u = blockIdx.x; u < count; u += gridDim.x) {
     const int unit = unsure[1 + u];
     const int n = unit / heads, hd = unit - n * heads;
-    const float4* xrows = reinterpret_cast<const float4*>(xin + (size_t)n * kL * Din);
+    const float4* xrows = reinterpret_cast<const float4*>(xin + (size_t)n * L * Din);
     for (int e = threadIdx.x; e < kL * D4; e += kFixThreads) {
       const int i = e / D4;
-      reinterpret_cast<float4*>(xs + i * XS)[e - i * D4] = xrows[e];
+      reinterpret_cast<float4*>(xs + i * XS)[e - i * D4] =
+          kFull || i < L ? xrows[e] : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     const float4* x4 = reinterpret_cast<const float4*>(xs + lane * XS);
     for (int which = 0; which < 3; ++which) {  // the head's q, k, v columns
@@ -205,20 +219,20 @@ msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
       const int i = e >> 5, j = e & 31;
       float s = 0.f;
       for (int c = 0; c < dk; ++c) s = fmaf(q[i * TS + c], kk[j * TS + c], s);
-      S[i * kPS + j] = s * scale;
+      S[i * kPS + j] = kFull || j < L ? s * scale : -INFINITY;
     }
     __syncthreads();
-    for (int i = w; i < kL; i += kFixWarps) {
+    for (int i = w; i < L; i += kFixWarps) {
       const float s = S[i * kPS + lane];
       const float p = expf(s - warp_max(s));
       S[i * kPS + lane] = p / warp_sum(p);
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < kL * dk; e += kFixThreads) {
+    for (int e = threadIdx.x; e < L * dk; e += kFixThreads) {
       const int i = e / dk, c = e - i * dk;
       float o = 0.f;
-      for (int j = 0; j < kL; ++j) o = fmaf(S[i * kPS + j], v[j * TS + c], o);
-      h[((size_t)n * kL + i) * D + hd * dk + c] = fmaxf(o, 0.f);
+      for (int j = 0; j < L; ++j) o = fmaf(S[i * kPS + j], v[j * TS + c], o);
+      h[((size_t)n * L + i) * D + hd * dk + c] = fmaxf(o, 0.f);
     }
     __syncthreads();
   }
@@ -237,18 +251,20 @@ msa_pool_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
                 float* __restrict__ alpha_out,           // [N*L]
                 float* __restrict__ dv_part,             // [N, A]
                 float* __restrict__ db1_part,            // [N, A]
-                int N, int heads, int A) {
+                int N, int L, int heads, int A) {
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (n >= N) return;
-  const size_t M = (size_t)N * kL, row = (size_t)n * kL + lane;
-  const bool keep = mask[row] != 0;
-  const float alpha = pool_alpha(lgpart, parts, M, row, keep);
+  const bool present = lane < L;
+  const size_t M = (size_t)N * L, row = (size_t)n * L + lane;
+  const bool keep = present && mask[row] != 0;
+  const float alpha = pool_alpha(lgpart, parts, M, row, present, keep);
   float da = 0.f;
-  for (int hd = 0; hd < heads; ++hd) da += dap[((size_t)n * heads + hd) * kL + lane];
+  if (present)
+    for (int hd = 0; hd < heads; ++hd) da += dap[((size_t)n * heads + hd) * L + lane];
   const float s = warp_sum(alpha * da);
   const float dlg = keep ? (da - s) * alpha : 0.f;  // a masked logit passes no gradient
-  alpha_out[row] = alpha;
+  if (present) alpha_out[row] = alpha;
 
   const int A4 = A / 4;
   float4 vv[kMaxA4], dva[kMaxA4], dba[kMaxA4];
@@ -258,8 +274,8 @@ msa_pool_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
     vv[r] = a < A4 ? reinterpret_cast<const float4*>(v)[a] : make_float4(0.f, 0.f, 0.f, 0.f);
     dva[r] = dba[r] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  float4* u4 = reinterpret_cast<float4*>(u + (size_t)n * kL * A);
-  for (int l = 0; l < kL; ++l) {
+  float4* u4 = reinterpret_cast<float4*>(u + (size_t)n * L * A);
+  for (int l = 0; l < L; ++l) {
     const float g = __shfl_sync(0xffffffffu, dlg, l);
 #pragma unroll
     for (int r = 0; r < kMaxA4; ++r) {
@@ -293,12 +309,15 @@ msa_pool_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
 // ---------------------------------------------------------------------------
 // Attention backward of a unit: dq|dk|dv over q|k|v, and their column sums
 // ---------------------------------------------------------------------------
+template <int kFixedL>
 __global__ void __launch_bounds__(kAttnThreads, 8)
 msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq|dk|dv out
                     const float* __restrict__ dO,     // [N*L, D]
                     const float* __restrict__ lse,    // [N, heads, L]
                     float* __restrict__ dbias_part,   // [N, 3D] out
-                    int heads, int dk, float scale) {
+                    int title_len, int heads, int dk, float scale) {
+  constexpr bool kFull = kFixedL == kL;  // no slot past L
+  const int L = kFixedL > 0 ? kFixedL : title_len;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int RS = kv_stride(dk), G = (dk + 3) / 4, D = heads * dk;
@@ -311,15 +330,16 @@ msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq
   float* P = dos + kL * RS;  // [kL][kPS]
   float* S = P + kL * kPS;   // [kL][kPS]: dP, then dS
   float* red = S + kL * kPS;  // [kAttnWarps][kL]
-  float* rows = qkv + (size_t)n * kL * 3 * D + hd * dk;
-  load_unit(qs, rows, 3 * D, dk, RS);
-  load_unit(ks, rows + D, 3 * D, dk, RS);
-  load_unit(vs, rows + 2 * D, 3 * D, dk, RS);
-  load_unit(dos, dO + (size_t)n * kL * D + hd * dk, D, dk, RS);
-  const float lse_i = lse[((size_t)n * heads + hd) * kL + i];
+  float* rows = qkv + (size_t)n * L * 3 * D + hd * dk;
+  load_unit(qs, rows, 3 * D, dk, RS, L);
+  load_unit(ks, rows + D, 3 * D, dk, RS, L);
+  load_unit(vs, rows + 2 * D, 3 * D, dk, RS, L);
+  load_unit(dos, dO + (size_t)n * L * D + hd * dk, D, dk, RS, L);
+  const float lse_i = kFull || i < L ? lse[((size_t)n * heads + hd) * L + i] : 0.f;
   load_unit_wait();
 
-  // row pass: p_ij and dp_ij for this warp's keys, t_i's part
+  // row pass: p_ij and dp_ij for this warp's keys, t_i's part; p_ij is 0
+  // for a row or key past L
   {
     const float4* q4 = reinterpret_cast<const float4*>(qs + i * RS);
     const float4* o4 = reinterpret_cast<const float4*>(dos + i * RS);
@@ -338,7 +358,8 @@ msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq
     float t = 0.f;
 #pragma unroll
     for (int jj = 0; jj < kKeys; ++jj) {
-      const float pv = expf(s[jj] * scale - lse_i);
+      const float pv =
+          kFull || (i < L && w * kKeys + jj < L) ? expf(s[jj] * scale - lse_i) : 0.f;
       t = fmaf(pv, d[jj], t);
       P[i * kPS + w * kKeys + jj] = pv;
       S[i * kPS + w * kKeys + jj] = d[jj];
@@ -365,7 +386,7 @@ msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq
     acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (gi < G) {
 #pragma unroll 8
-      for (int j = 0; j < kL; ++j)
+      for (int j = 0; j < L; ++j)
         axpy4(S[i * kPS + j], reinterpret_cast<const float4*>(ks + j * RS)[gi], acc[r]);
     }
   }
@@ -383,7 +404,7 @@ msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq
     dkv[r] = dvv[r] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (gi < G) {
 #pragma unroll 4
-      for (int ii = 0; ii < kL; ++ii) {
+      for (int ii = 0; ii < L; ++ii) {
         axpy4(S[ii * kPS + i], reinterpret_cast<const float4*>(qs + ii * RS)[gi], dkv[r]);
         axpy4(P[ii * kPS + i], reinterpret_cast<const float4*>(dos + ii * RS)[gi], dvv[r]);
       }
@@ -399,15 +420,15 @@ msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq
     }
   }
   __syncthreads();
-  store_unit(rows, ks, 3 * D, dk, RS);      // dq
-  store_unit(rows + D, qs, 3 * D, dk, RS);  // dk
-  store_unit(rows + 2 * D, vs, 3 * D, dk, RS);  // dv
-  // the unit's column sums of dq, dk, dv over its 32 rows, in row order
+  store_unit(rows, ks, 3 * D, dk, RS, L);      // dq
+  store_unit(rows + D, qs, 3 * D, dk, RS, L);  // dk
+  store_unit(rows + 2 * D, vs, 3 * D, dk, RS, L);  // dv
+  // the unit's column sums of dq, dk, dv over its L rows, in row order
   for (int e = threadIdx.x; e < 3 * dk; e += kAttnThreads) {
     const int which = e / dk, c = e - which * dk;
     const float* tile = which == 0 ? ks : (which == 1 ? qs : vs);
     float s = 0.f;
-    for (int r = 0; r < kL; ++r) s += tile[r * RS + c];
+    for (int r = 0; r < L; ++r) s += tile[r * RS + c];
     dbias_part[(size_t)n * 3 * D + which * D + hd * dk + c] = s;
   }
 }
@@ -431,8 +452,8 @@ struct Scratch {
   }
 };
 
-Scratch scratch_of(int N, int Din, int heads, int D, int A) {
-  const long long M = (long long)N * kL;
+Scratch scratch_of(int N, int L, int Din, int heads, int D, int A) {
+  const long long M = (long long)N * L;
   const long long S = splits_of(M, kRowsPerSplit), Sn = splits_of(N, kColRows);
   Scratch s;
   s.xd = size_t(M) * Din;
@@ -480,9 +501,12 @@ extern "C" int msa_encoder_bwd_init() {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&g_max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(msa_attn_relu_fix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             g_max_smem);
+  for (int L : {32, 16, 0})
+    if (e == cudaSuccess)
+      e = with_title_length(L, [](auto fixed) {
+        return cudaFuncSetAttribute(msa_attn_relu_fix_kernel<decltype(fixed)::value>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+      });
   if (e == cudaSuccess) e = tc::init<true, true, kBNq, tc::kBias>();
   if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kPool>();
   if (e == cudaSuccess) e = tc::init<false, false, kBN, tc::kStore>();
@@ -496,8 +520,8 @@ extern "C" int msa_encoder_bwd_init() {
 // taken).
 extern "C" long long msa_encoder_bwd_scratch_floats(int N, int L, int Din, int heads, int dk,
                                                     int A) {
-  if (N <= 0 || L != kL || Din <= 0 || heads <= 0 || dk <= 0 || A <= 0) return 0;
-  return (long long)scratch_of(N, Din, heads, heads * dk, A).total();
+  if (N <= 0 || L <= 0 || L > kL || Din <= 0 || heads <= 0 || dk <= 0 || A <= 0) return 0;
+  return (long long)scratch_of(N, L, Din, heads, heads * dk, A).total();
 }
 
 // x [N, L, Din]; wqkv [3D, Din] (Wq, Wk, Wv stacked, nn.Linear layout);
@@ -511,13 +535,13 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
                                    unsigned thresh, float drop_scale, unsigned seed,
                                    unsigned site, void* stream) {
   const int D = heads * dk;
-  if (N <= 0 || L != kL || Din <= 0 || Din % 4 != 0 || D % 4 != 0 || dk > kMaxDk || A <= 0 ||
-      A % 4 != 0 || A > 128 * kMaxA4 ||
+  if (N <= 0 || L <= 0 || L > kL || Din <= 0 || Din % 4 != 0 || D % 4 != 0 || dk > kMaxDk ||
+      A <= 0 || A % 4 != 0 || A > 128 * kMaxA4 ||
       sizeof(float) * relu_fix_floats(Din, dk) > size_t(g_max_smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Scratch sz = scratch_of(N, Din, heads, D, A);
+  const Scratch sz = scratch_of(N, L, Din, heads, D, A);
   float* xd = static_cast<float*>(scratch);
   float* qkv = xd + sz.xd;
   float* h = qkv + sz.qkv;
@@ -533,7 +557,7 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   float* db1p = dvp + sz.dvp;
   float* part = db1p + sz.db1p;
   float* cpart = part + sz.part;
-  const int M = N * kL;
+  const int M = N * L;
   const int S = splits_of(M, kRowsPerSplit);
   const float* fx = static_cast<const float*>(x);
   const float* fw = static_cast<const float*>(wqkv);
@@ -560,8 +584,8 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   // 1. xd = dropout(x); without dropout xd is x itself
   const float* xin = fx;
   if (thresh) {
-    dropout_apply_kernel<<<grid_1d((long long)N * kL * Din / 4), kThreads, 0, st>>>(
-        fx, xd, N, kL * Din, thresh, drop_scale, seed, site);
+    dropout_apply_kernel<<<grid_1d((long long)M * Din / 4), kThreads, 0, st>>>(
+        fx, xd, N, L * Din, thresh, drop_scale, seed, site);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
     xin = xd;
   }
@@ -569,16 +593,22 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   tc::Args a = args(xin, fw, qkv, M, 3 * D, Din, Din, Din, 3 * D, Din);
   a.bias = static_cast<const float*>(bqkv);
   if ((e = tc::gemm<true, true, kBNq, tc::kBias>(st, a)) != cudaSuccess) return int(e);
-  // 3. attention forward per unit, with the list of units to fix
+  // 3. attention forward per unit, with the list of units to fix; 3b. the
+  // marked units' ReLU again in CUDA-core fp32 order
   if ((e = cudaMemsetAsync(unsure, 0, sizeof(int), st)) != cudaSuccess) return int(e);
-  msa_attn_fwd_kernel<true><<<N * heads, kAttnThreads, sizeof(float) * attn_fwd_floats(dk, true),
-                               st>>>(qkv, fdp, h, D, lse, dap, unsure, heads, dk, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  // 3b. the marked units' ReLU again in CUDA-core fp32 order
-  msa_attn_relu_fix_kernel<<<kFixBlocks, kFixThreads, sizeof(float) * relu_fix_floats(Din, dk),
-                             st>>>(xin, fw, static_cast<const float*>(bqkv), unsure, h, Din,
-                                   heads, dk, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  e = with_title_length(L, [&](auto fixed) {
+    constexpr int kF = decltype(fixed)::value;
+    msa_attn_fwd_kernel<true, kF>
+        <<<N * heads, kAttnThreads, sizeof(float) * attn_fwd_floats(dk, true), st>>>(
+            qkv, fdp, h, D, lse, dap, unsure, L, heads, dk, scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    msa_attn_relu_fix_kernel<kF>
+        <<<kFixBlocks, kFixThreads, sizeof(float) * relu_fix_floats(Din, dk), st>>>(
+            xin, fw, static_cast<const float*>(bqkv), unsure, h, L, Din, heads, dk, scale);
+    return cudaGetLastError();
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
   // 4. u = tanh(h W1^T + b1), lgpart = its v-product per warp column
   a = args(h, fw1, u, M, A, D, D, D, A, D);
   a.bias = static_cast<const float*>(b1);
@@ -588,7 +618,7 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   // 5. the pool's softmax and its backward; dpre over u
   msa_pool_kernel<<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
       lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), dap,
-      static_cast<const float*>(v), u, alpha, dvp, db1p, N, heads, A);
+      static_cast<const float*>(v), u, alpha, dvp, db1p, N, L, heads, A);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   float* dpre = u;
   // 6. dW1 = dpre^T h, split over rows
@@ -601,11 +631,16 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   a.alpha = alpha;
   a.dp = fdp;
   a.h = h;
+  a.title = L;
   if ((e = tc::gemm<true, false, kBN, tc::kDh>(st, a)) != cudaSuccess) return int(e);
   // 8. attention backward per unit; dq|dk|dv over q|k|v
-  msa_attn_bwd_kernel<<<N * heads, kAttnThreads, sizeof(float) * attn_bwd_floats(dk), st>>>(
-      qkv, dO, lse, dbp, heads, dk, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  e = with_title_length(L, [&](auto fixed) {
+    msa_attn_bwd_kernel<decltype(fixed)::value>
+        <<<N * heads, kAttnThreads, sizeof(float) * attn_bwd_floats(dk), st>>>(
+            qkv, dO, lse, dbp, L, heads, dk, scale);
+    return cudaGetLastError();
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
   // 9. dx = dqkv [Wq;Wk;Wv], with the dropout mask
   a = args(qkv, fw, fdx, M, Din, 3 * D, 3 * D, Din, Din, 3 * D);
   if (thresh) {
@@ -613,6 +648,7 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
     a.drop_scale = drop_scale;
     a.seed = seed;
     a.site = site;
+    a.title = L;
     e = tc::gemm<true, false, kBN, tc::kDrop>(st, a);
   } else {
     e = tc::gemm<true, false, kBN, tc::kStore>(st, a);

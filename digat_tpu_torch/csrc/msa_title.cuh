@@ -13,6 +13,13 @@
 // 8 bank quads and all lanes reading one row is a broadcast; the scores P as
 // [32][33]. Each thread owns a query row i (its lane) and 8 keys (its warp's)
 // for the scores, and a row and up to 4 column groups of 4 for the output.
+// A title of L < 32 positions takes the first L of the 32 slots: rows past L
+// are zero in shared memory and never written back, keys past L take score
+// -inf (absent, not masked), and the pool gives slots past L weight 0. The
+// attention kernels take L as a template constant kFixedL where the repo's
+// configurations use it (32 and 16: loops of a known count, unrolled, and
+// no test of a slot against L at 32) and at run time otherwise (kFixedL 0);
+// with_title_length picks the instance.
 // The softmax combines the four warps' maxima and sums over their keys of a
 // row. Rows come in by cp.async. About 24 KB of shared memory and at most 64
 // registers a thread at dk 25: 8 or more blocks, 32 or more warps an SM.
@@ -22,12 +29,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kL = 32;  // title length: one warp lane per position
+constexpr int kL = 32;  // title slots: one warp lane per position; a title takes L <= kL
 constexpr int kThreads = 256;
 constexpr int kAttnThreads = 128;  // a unit: 4 warps
 constexpr int kAttnWarps = kAttnThreads / 32;
@@ -45,6 +54,16 @@ constexpr float kReluTol = 1e-5f;
 
 using digat::warp_max;
 using digat::warp_sum;
+
+// Calls f(std::integral_constant<int, kFixedL>{}) with kFixedL = L where an
+// instance is compiled for it (32, 16), else 0 (L taken at run time);
+// returns what f returns.
+template <typename F>
+inline cudaError_t with_title_length(int L, F&& f) {
+  if (L == 32) return f(std::integral_constant<int, 32>{});
+  if (L == 16) return f(std::integral_constant<int, 16>{});
+  return f(std::integral_constant<int, 0>{});
+}
 
 // Row stride of a unit's rows in shared memory: dk padded to a float4, plus
 // 4 where that is a multiple of 8 floats, so that float4 rows are an odd
@@ -74,16 +93,17 @@ __device__ __forceinline__ void axpy4(float a, const float4 x, float4& y) {
   y.w = fmaf(a, x.w, y.w);
 }
 
-// rows [32][RS] of a unit's dk columns of a row-major [*, ld] array, zero
-// past dk, by cp.async: the caller commits and waits
+// rows [32][RS] of a unit's dk columns of a row-major [L, ld] array, zero
+// past dk and past row L, by cp.async: the caller commits and waits
 __device__ __forceinline__ void load_unit(float* dst, const float* src, size_t ld, int dk,
-                                          int RS) {
+                                          int RS, int L) {
   const int W = (dk + 3) & ~3;
   for (int e = threadIdx.x; e < kL * W; e += kAttnThreads) {
     const int i = e / W, c = e - i * W;
+    const bool in = c < dk && (L == kL || i < L);
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + i * RS + c));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(c < dk ? src + i * ld + c : src), "r"(c < dk ? 4 : 0));
+                 "l"(in ? src + i * ld + c : src), "r"(in ? 4 : 0));
   }
 }
 
@@ -93,9 +113,10 @@ __device__ __forceinline__ void load_unit_wait() {
   __syncthreads();
 }
 
+// the unit's first L rows back to global memory
 __device__ __forceinline__ void store_unit(float* dst, const float* src, size_t ld, int dk,
-                                           int RS) {
-  for (int e = threadIdx.x; e < kL * dk; e += kAttnThreads) {
+                                           int RS, int L) {
+  for (int e = threadIdx.x; e < L * dk; e += kAttnThreads) {
     const int i = e / dk, c = e - i * dk;
     dst[i * ld + c] = src[i * RS + c];
   }
@@ -129,14 +150,14 @@ dropout_apply_kernel(const float* in, float* out, long long n, int per_title, ui
 }
 
 // ---------------------------------------------------------------------------
-// Attention forward of a unit (title n, head hd): h = relu(P v) with
-// P = softmax(q k^T scale), written to the unit's columns of h (row stride
-// ldh). kTrain (kernel A') also writes the rows' log-sum-exp and the head's
+// Attention forward of a unit (title n of L positions, head hd): h =
+// relu(P v) with P = softmax(q k^T scale) over the L keys, written to the
+// unit's columns of h (row stride ldh). kTrain (kernel A') also writes the rows' log-sum-exp and the head's
 // part of dalpha = dp . h, and lists the unit where a pre-activation lies
 // within kReluTol of 0; kernel A needs none of these, and may pass h = the
 // q columns of qkv (ldh = 3D): a unit reads its q, k, v before it writes h.
 // ---------------------------------------------------------------------------
-template <bool kTrain>
+template <bool kTrain, int kFixedL>
 __global__ void __launch_bounds__(kAttnThreads, 8)
 msa_attn_fwd_kernel(const float* qkv,                 // [N*L, 3D]
                     const float* __restrict__ dp,     // kTrain: [N, D]
@@ -144,7 +165,9 @@ msa_attn_fwd_kernel(const float* qkv,                 // [N*L, 3D]
                     float* __restrict__ lse,          // kTrain: [N, heads, L] out
                     float* __restrict__ dap,          // kTrain: [N, heads, L] out: dp . h per head
                     int* __restrict__ unsure,         // kTrain: [1 + N * heads]: count, then units
-                    int heads, int dk, float scale) {
+                    int title_len, int heads, int dk, float scale) {
+  constexpr bool kFull = kFixedL == kL;  // no slot past L
+  const int L = kFixedL > 0 ? kFixedL : title_len;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int RS = kv_stride(dk), G = (dk + 3) / 4, D = heads * dk;
@@ -157,18 +180,19 @@ msa_attn_fwd_kernel(const float* qkv,                 // [N*L, 3D]
   float* red_m = P + kL * kPS;  // [kAttnWarps][kL]: each warp's max and sum of a row
   float* red_l = red_m + kAttnWarps * kL;
   float* dps = red_l + kAttnWarps * kL;  // kTrain: the unit's dp
-  const float* rows = qkv + (size_t)n * kL * 3 * D + hd * dk;
-  load_unit(qs, rows, 3 * D, dk, RS);
-  load_unit(ks, rows + D, 3 * D, dk, RS);
-  load_unit(vs, rows + 2 * D, 3 * D, dk, RS);
+  const float* rows = qkv + (size_t)n * L * 3 * D + hd * dk;
+  load_unit(qs, rows, 3 * D, dk, RS, L);
+  load_unit(ks, rows + D, 3 * D, dk, RS, L);
+  load_unit(vs, rows + 2 * D, 3 * D, dk, RS, L);
   if (kTrain) {
     for (int c = threadIdx.x; c < RS; c += kAttnThreads)
       dps[c] = c < dk ? dp[(size_t)n * D + hd * dk + c] : 0.f;
   }
   load_unit_wait();
 
-  // scores of row i against this warp's keys; the softmax from each warp's
-  // max and sum over its keys
+  // scores of row i against this warp's keys (-inf past L); the softmax
+  // from each warp's max and sum over its keys (a warp with no key left
+  // sums 0)
   {
     const float4* q4 = reinterpret_cast<const float4*>(qs + i * RS);
     float s[kKeys];
@@ -183,12 +207,14 @@ msa_attn_fwd_kernel(const float* qkv,                 // [N*L, 3D]
     float mw = -INFINITY;
 #pragma unroll
     for (int jj = 0; jj < kKeys; ++jj) {
-      s[jj] *= scale;
+      s[jj] = kFull || w * kKeys + jj < L ? s[jj] * scale : -INFINITY;
       mw = fmaxf(mw, s[jj]);
     }
     float lw = 0.f;
+    if (kFull || mw != -INFINITY) {
 #pragma unroll
-    for (int jj = 0; jj < kKeys; ++jj) lw += expf(s[jj] - mw);
+      for (int jj = 0; jj < kKeys; ++jj) lw += expf(s[jj] - mw);
+    }
     red_m[w * kL + i] = mw;
     red_l[w * kL + i] = lw;
     __syncthreads();
@@ -201,12 +227,12 @@ msa_attn_fwd_kernel(const float* qkv,                 // [N*L, 3D]
     const float inv = 1.f / l;
 #pragma unroll
     for (int jj = 0; jj < kKeys; ++jj) P[i * kPS + w * kKeys + jj] = expf(s[jj] - m) * inv;
-    if (kTrain && w == 0) lse[((size_t)n * heads + hd) * kL + i] = m + logf(l);
+    if (kTrain && w == 0 && (kFull || i < L)) lse[((size_t)n * heads + hd) * L + i] = m + logf(l);
   }
   __syncthreads();
   // h = relu(P v) for this thread's column groups, over q's rows; for
-  // kernel A', a pre-activation within kReluTol of sum_j p_ij |v_jc| of 0
-  // marks the unit
+  // kernel A', a pre-activation of a row < L within kReluTol of
+  // sum_j p_ij |v_jc| of 0 marks the unit
   int near0 = 0;
 #pragma unroll
   for (int r = 0; r < kMaxGroups; ++r) {
@@ -214,7 +240,7 @@ msa_attn_fwd_kernel(const float* qkv,                 // [N*L, 3D]
     if (gi < G) {
       float4 o = make_float4(0.f, 0.f, 0.f, 0.f), a = o;
 #pragma unroll 8
-      for (int j = 0; j < kL; ++j) {
+      for (int j = 0; j < L; ++j) {
         const float pj = P[i * kPS + j];
         const float4 vj = reinterpret_cast<const float4*>(vs + j * RS)[gi];
         axpy4(pj, vj, o);
@@ -223,7 +249,8 @@ msa_attn_fwd_kernel(const float* qkv,                 // [N*L, 3D]
       if (kTrain) {
         const float ov[4] = {o.x, o.y, o.z, o.w}, av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) near0 |= 4 * gi + c < dk && fabsf(ov[c]) <= kReluTol * av[c];
+        for (int c = 0; c < 4; ++c)
+          near0 |= (kFull || i < L) && 4 * gi + c < dk && fabsf(ov[c]) <= kReluTol * av[c];
       }
       o.x = fmaxf(o.x, 0.f);
       o.y = fmaxf(o.y, 0.f);
@@ -235,27 +262,30 @@ msa_attn_fwd_kernel(const float* qkv,                 // [N*L, 3D]
   if (kTrain) {
     // the list's order varies from run to run; each unit's fix does not
     if (__syncthreads_or(near0) && threadIdx.x == 0) unsure[1 + atomicAdd(unsure, 1)] = blockIdx.x;
-    if (w == 0) {
+    if (w == 0 && (kFull || i < L)) {
       float da = 0.f;
       for (int gi = 0; gi < G; ++gi)
         da = dot4(reinterpret_cast<const float4*>(qs + i * RS)[gi],
                   reinterpret_cast<const float4*>(dps)[gi], da);
-      dap[((size_t)n * heads + hd) * kL + i] = da;
+      dap[((size_t)n * heads + hd) * L + i] = da;
     }
   } else {
     __syncthreads();
   }
-  store_unit(h + (size_t)n * kL * ldh + hd * dk, qs, ldh, dk, RS);
+  store_unit(h + (size_t)n * L * ldh + hd * dk, qs, ldh, dk, RS, L);
 }
 
-// The pool's softmax weight of position `lane` (row = n * 32 + lane) of a
+// The pool's softmax weight of position `lane` (row = n * L + lane) of a
 // title: its logit summed from `parts` per-warp-column parts in order, the
-// -1e9 fill where the mask is off (an all-pad title gives uniform weights).
+// -1e9 fill where the mask is off (an all-pad title gives uniform weights
+// 1 / L), and -inf, weight 0, for a slot past L (`present` false). Every
+// lane of the warp calls it.
 __device__ __forceinline__ float pool_alpha(const float* __restrict__ lgpart, int parts,
-                                            size_t M, size_t row, bool keep) {
+                                            size_t M, size_t row, bool present, bool keep) {
   float lg = 0.f;
-  for (int q = 0; q < parts; ++q) lg += lgpart[q * M + row];
-  const float logit = keep ? lg : kMaskFill;
+  if (present)
+    for (int q = 0; q < parts; ++q) lg += lgpart[q * M + row];
+  const float logit = present ? (keep ? lg : kMaskFill) : -INFINITY;
   const float mx = warp_max(logit);
   const float e = expf(logit - mx);
   return e / warp_sum(e);

@@ -63,15 +63,14 @@ namespace tc {
 
 constexpr int kThreads = 256;
 constexpr int kBM = 128, kBK = 32, kWM = 64, kMT = kWM / 16;
-constexpr int kTitle = 32;  // rows of one title (the dropout and pool-gradient epilogues)
 
 enum Epilogue : int {
   kStore = 0,  // C = acc (split-K partial z at C + z * M * N)
   kBias = 1,   // C = acc + bias[n]
   kPool = 2,   // C = u = tanh(acc + bias[n]); lgpart[part][m] = sum over a warp's columns
                // of u * v[n]
-  kDh = 3,     // C = (acc + alpha[m] * dp[m / 32][n]) * (h[m][n] > 0)
-  kDrop = 4,   // C = keep(m, n) ? acc * drop_scale : 0 (the word-dropout mask of title m / 32)
+  kDh = 3,     // C = (acc + alpha[m] * dp[m / title][n]) * (h[m][n] > 0)
+  kDrop = 4,   // C = keep(m, n) ? acc * drop_scale : 0 (the word-dropout mask of title m / title)
   kLogits = 5,  // lgpart as kPool, and C not written (C may be null)
 };
 
@@ -84,16 +83,25 @@ struct Args {
   const float* v;       // kPool, kLogits: [N]
   float* lgpart;        // kPool, kLogits: [gridDim.x * 4, M]
   const float* alpha;   // kDh: [M]
-  const float* dp;      // kDh: [M / 32, N]
+  const float* dp;      // kDh: [M / title, N]
   const float* h;       // kDh: [M, ldc]
   uint32_t thresh, seed, site;  // kDrop
   float drop_scale;             // kDrop
+  int title;                    // kDh, kDrop: rows of one title (its length L)
 };
 
 __device__ __forceinline__ uint32_t rna_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
+}
+
+// title t and position pos of row `row` for titles of `title` rows (a
+// shift at the production length 32, where a division by a run-time value
+// would cost its epilogue 5-8 %)
+__device__ __forceinline__ void title_row(int row, int title, int& t, int& pos) {
+  t = title == 32 ? row >> 5 : row / title;
+  pos = row - t * title;
 }
 
 __device__ __forceinline__ void split4(const float4 x, uint4& hi, uint4& lo) {
@@ -293,6 +301,8 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
     for (int half = 0; half < 2; ++half) {
       const int row = m0 + wm * kWM + i * 16 + g + half * 8;
       const bool row_in = row < p.M;
+      int tt = 0, pos = 0;  // the row's title and position in it (kDh, kDrop)
+      if (EPI == kDh || EPI == kDrop) title_row(row, p.title, tt, pos);
       float lg = 0.f;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -312,14 +322,13 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
           // read-only loads: the compiler may issue them ahead of the stores
           const float a = __ldg(p.alpha + row);
           const float2 d = __ldg(reinterpret_cast<const float2*>(
-              p.dp + (size_t)(row / kTitle) * p.N + col));
+              p.dp + (size_t)tt * p.N + col));
           const float2 h = __ldg(reinterpret_cast<const float2*>(p.h + (size_t)row * p.ldc + col));
           val.x = h.x > 0.f ? fmaf(a, d.x, val.x) : 0.f;
           val.y = h.y > 0.f ? fmaf(a, d.y, val.y) : 0.f;
         } else if (EPI == kDrop) {
-          const int flat = (row % kTitle) * p.N + col;  // col even, N % 4 == 0: one group
-          const Philox4 d = dropout_draws(uint32_t(row / kTitle), uint32_t(flat >> 2), p.seed,
-                                          p.site);
+          const int flat = pos * p.N + col;  // col even, N % 4 == 0: one group
+          const Philox4 d = dropout_draws(uint32_t(tt), uint32_t(flat >> 2), p.seed, p.site);
           const uint32_t d0 = (flat & 3) ? d.z : d.x, d1 = (flat & 3) ? d.w : d.y;
           val.x = dropout_value(val.x, d0, p.thresh, p.drop_scale);
           val.y = dropout_value(val.y, d1, p.thresh, p.drop_scale);
@@ -350,13 +359,15 @@ __host__ __device__ constexpr int pool_parts(int N) {
   return (N + BN - 1) / BN * 4;
 }
 
-// Launches gemm_kernel on `st`: ceil(K / k_per_split) slices of K. N, K,
-// every leading dimension and, for an M-major A, M a multiple of 4, and
-// every matrix 16-byte aligned (float4 loads); returns the launch's error.
+// Launches gemm_kernel on `st`: ceil(K / k_per_split) slices of K. N, every
+// leading dimension, K where an operand is K-major, and M where A is M-major
+// a multiple of 4, and every matrix 16-byte aligned (float4 loads: an
+// M-major or N-major operand reads its float4s along M or N and a k-row at a
+// time, so it takes any K); returns the launch's error.
 template <bool AK, bool BK, int BN, int EPI, bool kRN = false>
 inline cudaError_t gemm(cudaStream_t st, const Args& p) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.k_per_split <= 0 ||
-      ((AK ? 0 : p.M) | p.N | p.K) % 4 ||
+      ((AK ? 0 : p.M) | p.N | (AK || BK ? p.K : 0)) % 4 ||
       (p.lda | p.ldb | p.ldc) % 4 || (reinterpret_cast<uintptr_t>(p.A) |
                                       reinterpret_cast<uintptr_t>(p.B) |
                                       reinterpret_cast<uintptr_t>(p.C)) % 16) {

@@ -1,9 +1,16 @@
 """MIND ranking metrics in NumPy: the port's own copy.
 
-The same math as `digat_tpu/eval/metrics.py` (`score_impressions_flat`,
-`group_by_impression`, `write_rank_file`, `avg_metric`): mean AUC (midrank ties), MRR,
-nDCG@5 and nDCG@10 over impressions, and the leaderboard rank-file format.
-Copied so the port never imports the JAX package."""
+The same math as `digat_tpu/eval/metrics.py` (`score_impressions`,
+`score_impressions_flat`, `group_by_impression`, `write_truth_file`,
+`write_rank_file`, `read_rank_or_truth_file`, `scoring_from_files`,
+`avg_metric`, `main`): mean AUC (midrank ties), MRR, nDCG@5 and nDCG@10
+over impressions, and the official scorer's truth and rank files. Copied so
+the port never imports the JAX package.
+
+    python -m digat_tpu_torch.eval.metrics <input_dir> <output_dir>
+
+scores <input_dir>/res/prediction.txt against <input_dir>/ref/truth.txt
+into <output_dir>/scores.txt."""
 
 from __future__ import annotations
 
@@ -11,6 +18,70 @@ import json
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+
+def _midranks(sorted_scores: np.ndarray) -> np.ndarray:
+    """1-based midranks of an ascending-sorted score vector."""
+    n = len(sorted_scores)
+    if n == 0:
+        return np.empty(0, np.float64)
+    new_group = np.r_[True, sorted_scores[1:] != sorted_scores[:-1]]
+    gid = np.cumsum(new_group) - 1
+    cnt = np.bincount(gid)
+    start = np.cumsum(cnt) - cnt + 1
+    return (start + (cnt - 1) / 2.0)[gid]
+
+
+def auc_score(y_true: np.ndarray, y_score: np.ndarray) -> float:
+    """Rank-based ROC-AUC with midrank ties (== sklearn.roc_auc_score)."""
+    y_true = np.asarray(y_true, np.float64)
+    y_score = np.asarray(y_score, np.float64)
+    n_pos = y_true.sum()
+    n_neg = len(y_true) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    order = np.argsort(y_score, kind="mergesort")
+    ranks = np.empty(len(y_score), np.float64)
+    ranks[order] = _midranks(y_score[order])
+    pos_rank_sum = ranks[y_true > 0].sum()
+    return float((pos_rank_sum - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def dcg_score(y_true, y_score, k: int = 10) -> float:
+    order = np.argsort(y_score)[::-1]
+    taken = np.take(np.asarray(y_true, np.float64), order[:k])
+    gains = 2**taken - 1
+    discounts = np.log2(np.arange(len(taken)) + 2)
+    return float(np.sum(gains / discounts))
+
+
+def ndcg_score(y_true, y_score, k: int = 10) -> float:
+    best = dcg_score(y_true, y_true, k)
+    return dcg_score(y_true, y_score, k) / best
+
+
+def mrr_score(y_true, y_score) -> float:
+    order = np.argsort(y_score)[::-1]
+    taken = np.take(np.asarray(y_true, np.float64), order)
+    rr = taken / (np.arange(len(taken)) + 1)
+    return float(np.sum(rr) / np.sum(taken))
+
+
+def score_impressions(
+    labels: Sequence[np.ndarray], scores: Sequence[np.ndarray]
+) -> Tuple[float, float, float, float]:
+    """Mean AUC/MRR/nDCG@5/nDCG@10 over impressions, one array each;
+    impressions with no labels are skipped."""
+    aucs, mrrs, n5s, n10s = [], [], [], []
+    for y, s in zip(labels, scores):
+        if len(y) == 0:
+            continue
+        aucs.append(auc_score(y, s))
+        mrrs.append(mrr_score(y, s))
+        n5s.append(ndcg_score(y, s, 5))
+        n10s.append(ndcg_score(y, s, 10))
+    return (float(np.mean(aucs)), float(np.mean(mrrs)), float(np.mean(n5s)),
+            float(np.mean(n10s)))
 
 
 def group_by_impression(
@@ -170,6 +241,74 @@ def write_rank_file(path: str, scores_by_impression: Sequence[np.ndarray]) -> No
             f.write(("" if i == 0 else "\n") + f"{i + 1} " + json.dumps(ranks.tolist(), separators=(",", ":")))
 
 
+def write_truth_file(behaviors_path: str, out_path: str) -> None:
+    """The official scorer's ground truth from behaviors.tsv: `<row>
+    [l1,l2,...]` per impression row. Only a labeled split (impressions with
+    -1 / -0 suffixes) has one; an unlabeled split writes nothing."""
+    with open(behaviors_path, "r", encoding="utf-8") as f:
+        for line in f:
+            if line.strip():
+                first = line.split("\t")[4].strip().split(" ")[0]
+                if not (len(first) > 2 and first[-2] == "-" and first[-1] in "01"):
+                    return  # unlabeled split: no ground truth to write
+                break
+    with open(behaviors_path, "r", encoding="utf-8") as f_in, open(
+            out_path, "w", encoding="utf-8") as f_out:
+        row = 0
+        for line in f_in:
+            if not line.strip():
+                continue
+            impressions = line.split("\t")[4].strip()
+            labels = [int(x[-1]) for x in impressions.split(" ")]
+            f_out.write(("" if row == 0 else "\n") + f"{row + 1} "
+                        + json.dumps(labels, separators=(",", ":")))
+            row += 1
+
+
+def read_rank_or_truth_file(path: str) -> List[np.ndarray]:
+    out = []
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            _, payload = line.strip().split(" ", 1)
+            out.append(np.asarray(json.loads(payload)))
+    return out
+
+
+def scoring_from_files(truth_path: str, rank_path: str):
+    """The official scorer: metrics from a truth file and a rank file,
+    each candidate scored 1 / rank."""
+    truth = read_rank_or_truth_file(truth_path)
+    ranks = read_rank_or_truth_file(rank_path)
+    labels = [t for t in truth if len(t)]
+    scores = [1.0 / r for t, r in zip(truth, ranks) if len(t)]
+    return score_impressions(labels, scores)
+
+
 def avg_metric(auc: float, mrr: float, ndcg5: float, ndcg10: float) -> float:
     """The composite dev criterion: (AUC + MRR + (nDCG@5 + nDCG@10) / 2) / 3."""
     return (auc + mrr + (ndcg5 + ndcg10) / 2.0) / 3.0
+
+
+def main(argv=None) -> None:
+    """`<input_dir> <output_dir>`: scores res/prediction.txt against
+    ref/truth.txt of input_dir into output_dir/scores.txt."""
+    import os
+    import sys
+
+    args = argv if argv is not None else sys.argv[1:]
+    input_dir, output_dir = args[0], args[1]
+    truth = os.path.join(input_dir, "ref", "truth.txt")
+    pred = os.path.join(input_dir, "res", "prediction.txt")
+    os.makedirs(output_dir, exist_ok=True)
+    auc, mrr, ndcg5, ndcg10 = scoring_from_files(truth, pred)
+    out = os.path.join(output_dir, "scores.txt")
+    with open(out, "w", encoding="utf-8") as f:
+        f.write("AUC:%.4f\nMRR:%.4f\nnDCG@5:%.4f\nnDCG@10:%.4f" % (auc, mrr, ndcg5, ndcg10))
+    with open(out, encoding="utf-8") as f:
+        print(f.read())
+
+
+if __name__ == "__main__":
+    main()

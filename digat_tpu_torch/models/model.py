@@ -98,16 +98,30 @@ class EvalBatch(NamedTuple):
 SITE_NEWS, SITE_HISTORY, FIRST_GRAPH_SITE = 0, 1, 2
 
 
+def set_word_embedding(encoder: nn.Module, word_embedding) -> None:
+    """The corpus's [V, word_dim] table (GloVe rows or pseudo-GloVe) as the
+    encoder's initial word embedding, as the JAX package's
+    `init(key, word_embedding)` takes it."""
+    if word_embedding is not None:
+        with torch.no_grad():
+            encoder.word_embedding.weight.copy_(as_device_tensor(
+                word_embedding, encoder.word_embedding.weight.device, torch.float32))
+
+
 class Model(nn.Module):
     """MSA-DIGAT. Runs on CUDA unless `device` names another device; with no
-    device and no CUDA it raises."""
+    device and no CUDA it raises. `word_embedding` (numpy [V, word_dim]), if
+    given, replaces the drawn word table; the other weights are drawn the
+    same either way."""
 
-    def __init__(self, config: Config, device=None, generator: Optional[torch.Generator] = None):
+    def __init__(self, config: Config, device=None, generator: Optional[torch.Generator] = None,
+                 word_embedding=None):
         super().__init__()
         config.validate()
         device = resolve_device(device)
         exact_fp32()
         self.config = config
+        self.model_name = config.model_name
         g = generator if generator is not None else torch.Generator().manual_seed(config.seed)
         self.news_encoder = NewsEncoder(
             config.vocabulary_size, config.word_embedding_dim, config.MSA_head_num,
@@ -118,6 +132,7 @@ class Model(nn.Module):
             config.graph_depth, config.max_history_num, config.category_num,
             config.news_embedding_dim, config.dropout_rate, g,
         )
+        set_word_embedding(self.news_encoder, word_embedding)
         self.to(device)
         self.device = device
 

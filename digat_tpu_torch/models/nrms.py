@@ -46,7 +46,7 @@ from digat_tpu_torch.layers import (
     make_linear,
     sdp_attn,
 )
-from digat_tpu_torch.models.model import as_device_tensor
+from digat_tpu_torch.models.model import as_device_tensor, set_word_embedding
 from digat_tpu_torch.runtime import exact_fp32, resolve_device
 
 
@@ -100,11 +100,14 @@ class NRMSUserEncoder(nn.Module):
 
 class NRMSModel(nn.Module):
     """NRMS or NRMS-SA (`config.nrms_model`). Runs on CUDA unless `device`
-    names another device; with no device and no CUDA it raises."""
+    names another device; with no device and no CUDA it raises.
+    `word_embedding` (numpy [V, word_dim]), if given, replaces the drawn
+    word table."""
 
     family = "nrms"
 
-    def __init__(self, config: Config, device=None, generator: Optional[torch.Generator] = None):
+    def __init__(self, config: Config, device=None, generator: Optional[torch.Generator] = None,
+                 word_embedding=None):
         super().__init__()
         config.validate()
         device = resolve_device(device)
@@ -121,6 +124,7 @@ class NRMSModel(nn.Module):
             config.nrms_head_dim, config.nrms_attention_dim, self.sa, g)
         self.user_encoder = NRMSUserEncoder(config.nrms_head_num, config.nrms_head_dim,
                                             config.nrms_attention_dim, g)
+        set_word_embedding(self.news_encoder, word_embedding)
         self.to(device)
         self.device = device
 

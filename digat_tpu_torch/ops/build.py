@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-One `nvcc` call compiles every `csrc/*.cu` for `sm_90a` into one shared
-library with a plain C interface, which `ctypes` loads. No PyTorch headers
+`nvcc` compiles every `csrc/*.cu` for `sm_90a`, one process a source, all
+started together, and links the objects into one shared library with a
+plain C interface, which `ctypes` loads. No PyTorch headers
 are included, so the build takes seconds, not minutes. The library goes to
 `digat_tpu_torch/_build/` (ignored by git) under a name that carries the
 hash of the sources and flags, so a changed source rebuilds and an
@@ -114,15 +115,36 @@ def build_library() -> tuple:
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []  # (command, process), one a source, all running at once
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    try:
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+            cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        logs = [(cmd, proc.communicate(timeout=600)[0], proc.returncode)
+                for cmd, _, proc in jobs]
+        objs = [str(obj) for _, obj, _ in jobs]
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]
+        if all(rc == 0 for _, _, rc in logs):
+            proc = subprocess.run(link, capture_output=True, text=True, timeout=600)
+            logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    (BUILD_DIR / "nvcc.log").write_text("".join(text for _, text, _ in logs))
+    failed = [(cmd, text, rc) for cmd, text, rc in logs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        cmd, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
     os.replace(tmp, out)
     return out, seconds
 

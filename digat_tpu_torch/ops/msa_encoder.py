@@ -6,7 +6,9 @@ forward `_fwd_kernel` and the custom-VJP backward `_bwd_kernel` (and its
 restructured `_bwd_kernel_v2`, same gradients). Per title: word dropout,
 Q/K/V projections, multi-head UNMASKED softmax attention (pads attend),
 ReLU, and the masked tanh-MLP attention pool (-1e9 fill, fp32 softmax).
-Heads are not padded: the result is [N, H*dk].
+Heads are not padded: the result is [N, H*dk]. The kernels take titles of
+any length L from 1 to 32 (one warp lane per position: a shorter title
+leaves the lanes past L idle) and heads of dk <= 64.
 
 The word dropout of training is applied inside the kernels: each element of
 x is kept with probability 1 - rate and scaled by 1 / (1 - rate), from the
@@ -36,7 +38,7 @@ from digat_tpu_torch.ops import build
 from digat_tpu_torch.ops.dropout import keep_mask_plain, threshold
 from digat_tpu_torch.ops.msa_attention import MAX_SMEM_BYTES
 
-TITLE_LENGTH = 32  # the kernels keep one warp lane per title position
+MAX_TITLE_LENGTH = 32  # the kernels keep one warp lane per title position
 MAX_HEAD_DIM = 64  # kernels A and A': 4 warps a (title, head), 4 float4 column groups each
 MAX_POOL_DIM = 512  # kernels A and A': the pool kernel's 4 float4 columns a lane
 
@@ -45,8 +47,8 @@ def relu_fix_smem_bytes(Din: int, dk: int) -> int:
     """Shared memory of kernel A''s ReLU-fix block (`relu_fix_floats` in
     csrc/msa_encoder_bwd.cu): a title's x rows, padded to an odd number of
     float4s, one head's dk rows of Wq, Wk or Wv, its q, k and v, and the
-    scores."""
-    L = TITLE_LENGTH
+    scores; 32 rows whatever the title length."""
+    L = MAX_TITLE_LENGTH
     x_stride = Din if (Din // 4) % 2 else Din + 4
     return 4 * (L * x_stride + dk * Din + 3 * L * (dk + 1) + L * (L + 1))
 
@@ -105,8 +107,9 @@ def _check(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, what):
         raise TypeError(f"{what}: x must be float32, got {x.dtype}")
     if mask.dtype != torch.bool or tuple(mask.shape) != (N, L):
         raise TypeError(f"{what}: mask must be bool [N, L], got {mask.dtype} {tuple(mask.shape)}")
-    if L != TITLE_LENGTH:
-        raise ValueError(f"{what}: the kernels take titles of length {TITLE_LENGTH}, got {L}")
+    if not 1 <= L <= MAX_TITLE_LENGTH:
+        raise ValueError(f"{what}: the kernels take titles of length 1 to {MAX_TITLE_LENGTH}, "
+                         f"got {L}")
     if Din % 4 or D % 4:
         raise ValueError(f"{what}: Din={Din} and D={D} must be multiples of 4")
     shapes = {"wq": (wq, (Din, D)), "wk": (wk, (Din, D)), "wv": (wv, (Din, D)),

@@ -7,6 +7,7 @@ is killed mid-write leaves the previous checkpoint whole."""
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
@@ -23,9 +24,11 @@ def save(path: str, model: nn.Module, optimizer: Adam, epoch: int) -> None:
     os.replace(tmp, path)
 
 
-def load(path: str, model: nn.Module, optimizer: Adam) -> int:
-    """Restore `model` and `optimizer` in place; returns the epoch saved."""
+def load(path: str, model: nn.Module, optimizer: Optional[Adam] = None) -> int:
+    """Restore `model` and, if given, `optimizer` in place; returns the
+    epoch saved."""
     state = torch.load(path, map_location=model.device, weights_only=True)
     model.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
+    if optimizer is not None:
+        optimizer.load_state_dict(state["optimizer"])
     return int(state["epoch"])

@@ -19,8 +19,8 @@ for this: `tables()` (the five `CorpusTables` arrays) or, for the NRMS
 family, `nrms_tables()` (the three `NRMSTables` arrays), `news_node_id`,
 `splits["train"]` and `splits["dev"]` (`history_idx`, `cat_idx`),
 `train_behavior_row`, `train_pos`, `train_neg_flat`, `train_neg_offsets`,
-and `dev_imp_index`, `dev_cand`, `dev_labels`. Building one from MIND is
-the data pipeline's work.
+and `dev_imp_index`, `dev_cand`, `dev_labels`: `data.corpus.Corpus` builds
+one from MIND-layout files.
 
 Each epoch's record in `history` holds its loss, the loss of every step,
 each step's time (CUDA events on the card, host clock on the CPU), the
@@ -45,13 +45,34 @@ from digat_tpu_torch.train.optimizer import Adam, lr_at_epoch
 from digat_tpu_torch.train.train_step import step_seed, train_step
 
 
+def get_run_index(results_dir: str) -> int:
+    """The next run index #N: one past the largest `#N-dev` file under
+    `results_dir`, whose empty `#N-dev` it writes to claim the index."""
+    os.makedirs(results_dir, exist_ok=True)
+    max_index = 0
+    for name in os.listdir(results_dir):
+        name = name.strip()
+        if name.startswith("#") and name.endswith("-dev"):
+            try:
+                max_index = max(max_index, int(name[1:-4]))
+            except ValueError:
+                pass
+    open(os.path.join(results_dir, f"#{max_index + 1}-dev"), "w").close()
+    return max_index + 1
+
+
 class Trainer:
+    """`run_dir` receives the checkpoints, the dev rank files and the dev
+    log; with `results_dir` the best epoch's dev metrics also go to
+    `<results_dir>/#<config.run_index>-dev`, as the JAX trainer writes them."""
+
     def __init__(self, model, config: Config, corpus, run_dir: str,
-                 verbose: bool = True):
+                 verbose: bool = True, results_dir: str = ""):
         self.model = model
         self.config = config
         self.corpus = corpus
         self.run_dir = run_dir
+        self.results_dir = results_dir
         self.verbose = verbose
         self.optimizer = Adam(model.named_parameters(), config.weight_decay,
                               config.gradient_clip_norm)
@@ -153,6 +174,9 @@ class Trainer:
             crit = self._criterion(metrics)
             if crit >= best:
                 best, stale, self.best_epoch = crit, 0, epoch
+                if self.results_dir:
+                    with open(os.path.join(self.results_dir, f"#{cfg.run_index}-dev"), "w") as f:
+                        f.write(f"#{cfg.run_index}\t" + "\t".join(map(str, metrics)) + "\n")
                 checkpoint.save(os.path.join(self.run_dir, "best.ckpt"), model, self.optimizer,
                                 epoch)
             else:

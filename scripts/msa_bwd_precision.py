@@ -2,7 +2,7 @@
 """How far kernel A' and its fp32 plain version are from float64, output by
 output, and why: the ReLU after the attention.
 
-    python3 scripts/msa_bwd_precision.py [N ...] [--seeds S ...]
+    python3 scripts/msa_bwd_precision.py [N ...] [--seeds S ...] [--geometry prod|matrix]
 
 Builds the setting of `chip_smoke.py`'s phase 7 (full-width MSA-DIGAT,
 random weights from a seed, the seeded 20,000-news corpus, word dropout
@@ -25,7 +25,10 @@ which the kernel's ReLU fix would not catch.
 Each seed offset S (default 0, phase 7's setting) draws the weights, the
 corpus, dp and the dropout bits anew (seeds SEED + S, SEED + 5 + S and
 987 + S), and the last line of each seed gives the worst |kernel - plain|
-as a share of its limit. Needs a CUDA device; imports nothing of JAX.
+as a share of its limit. `--geometry matrix` runs the parity matrix's
+widths instead of the production ones: titles of L 16, 100-d words, 10 x 20
+heads, attention 64 (scripts/torch_parity_cells.py GEOMETRY). Needs a CUDA
+device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ from digat_tpu_torch.runtime import exact_fp32  # noqa: E402
 RATE, DROP_SEED, SITE = 0.2, 987, 0
 RELU_TOL = 1e-5  # kReluTol in csrc/msa_encoder_bwd.cu
 NAMES = ("dx", "dwq", "dbq", "dwk", "dwv", "dbv", "dw1", "db1", "dv")
+MATRIX = dict(max_title_length=16, word_embedding_dim=100, MSA_head_num=10, MSA_head_dim=20,
+              attention_dim=64)
 
 
 def rna_tf32(t):
@@ -140,14 +145,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("sizes", nargs="*", type=int, default=[8960])
     ap.add_argument("--seeds", nargs="+", type=int, default=[0])
+    ap.add_argument("--geometry", choices=("prod", "matrix"), default="prod")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("msa_bwd_precision: no CUDA device", file=sys.stderr)
         return 2
     exact_fp32()
     dev = torch.device("cuda", 0)
-    cfg = Config(dataset="synthetic", vocabulary_size=40_000, category_num=18)
-    print(torch.cuda.get_device_name(0), torch.__version__, flush=True)
+    widths = MATRIX if args.geometry == "matrix" else {}
+    cfg = Config(dataset="synthetic", vocabulary_size=40_000, category_num=18, **widths)
+    print(torch.cuda.get_device_name(0), torch.__version__, f"geometry {args.geometry}: L "
+          f"{cfg.max_title_length}, Din {cfg.word_embedding_dim}, {cfg.MSA_head_num} x "
+          f"{cfg.MSA_head_dim} heads, A {cfg.attention_dim}", flush=True)
     for offset in args.seeds:
         one_seed(cfg, dev, args.sizes, offset)
         torch.cuda.empty_cache()

@@ -1,0 +1,232 @@
+#!/usr/bin/env python3
+"""Train the parity cells of the JAX package's study through the port's CLI.
+
+    python3 scripts/torch_parity_cells.py --cell prod --seeds 0 1 2 3 4
+        [--device cuda|cpu] [--workdir DIR] [--out DIR] [--epochs N]
+
+Cells (each names its JAX target in docs/PARITY.md):
+
+  prod           production geometry (word 300, L 32, 16 x 25 heads,
+                 attention 256, depth 3, SAG 5 x 2, history 50), B 32,
+                 lr 1e-3, 6 epochs, unique-title dedup, on the prod corpus
+                 (scripts/parity/run_parity_prod.py GEOMETRY and DATASET)
+  refprot        the prod cell at the reference protocol: B 64, lr 1e-4,
+                 16 epochs (scripts/parity/run_parity_refprot.py PROTOCOL)
+  matrix-msa     the matrix geometry (word 100, L 16, 10 x 20 heads,
+                 attention 64, depth 3, SAG 3 x 2, history 16), B 32,
+                 lr 1e-3, 8 epochs, no dedup, on the matrix corpus
+                 (scripts/parity/run_parity.py GEOMETRY and DATASET)
+  matrix-nrms-sa NRMS-SA at the matrix geometry (run_parity.py
+                 NRMS_GEOMETRY: 10 x 20 heads, attention 64, M 10)
+  matrix-nrms    NRMS at the same geometry
+
+Each cell's corpus is generated with the port's `data.synthetic.generate`
+and its GloVe-format word file with `gen_glove` (seed 123, N(0, 0.3),
+five decimals), then preprocessed once at seed 0, as the JAX study does;
+each seed then runs `digat_tpu_torch.cli.main` in train mode (training,
+dev scoring each epoch, the best checkpoint's test). One JSON a seed goes
+to `--out`: the best epoch's dev metrics, the test metrics, each epoch's
+dev metrics and step times (CUDA events on the card), the wall time, and
+the card's name and power limit. The copies of the JAX study's settings
+below are the port's own: this script imports torch and numpy only."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from digat_tpu_torch import cli  # noqa: E402
+from digat_tpu_torch.config import Config  # noqa: E402
+from digat_tpu_torch.data import corpus as corpus_lib  # noqa: E402
+from digat_tpu_torch.data import synthetic  # noqa: E402
+from digat_tpu_torch.data import tokenize as tok  # noqa: E402
+
+# scripts/parity/run_parity.py: the matrix geometry and corpus
+GEOMETRY = dict(
+    word_embedding_dim=100,
+    MSA_head_num=10, MSA_head_dim=20,
+    cnn_kernel_num=200,
+    attention_dim=64,
+    max_title_length=16,
+    max_history_num=16,
+    SAG_neighbors=3, SAG_hops=2,
+    graph_depth=3,
+    negative_sample_num=4,
+    batch_size=32,
+    lr=1e-3,
+    epoch=8,
+    early_stopping_epoch=5,
+    word_threshold=3,
+    dev_criterion="avg",
+)
+DATASET = dict(
+    news_num=600, categories=6, train_behaviors=1500, dev_behaviors=400,
+    test_behaviors=400, users=150, max_impressions=10, seed=7,
+    pref_alpha=0.12, click_base=0.05, click_scale=0.9,
+    min_history=4, max_history=24,
+)
+NRMS_GEOMETRY = dict(
+    word_embedding_dim=100, head_num=10, head_dim=20, attention_dim=64,
+    max_title_length=16, max_history_num=16, negative_sample_num=4,
+    batch_size=32, lr=1e-3, epoch=8, early_stopping_epoch=5,
+    word_threshold=3, dev_criterion="avg", augmented_news_num=10,
+)
+
+# scripts/parity/run_parity_prod.py: the production geometry and corpus
+PROD_GEOMETRY = dict(
+    word_embedding_dim=300,
+    MSA_head_num=16, MSA_head_dim=25,
+    cnn_kernel_num=400,
+    attention_dim=256,
+    max_title_length=32,
+    max_history_num=50,
+    SAG_neighbors=5, SAG_hops=2,
+    graph_depth=3,
+    negative_sample_num=4,
+    batch_size=32,
+    lr=1e-3,
+    epoch=6,
+    early_stopping_epoch=5,
+    word_threshold=3,
+    dev_criterion="avg",
+)
+PROD_DATASET = dict(
+    news_num=3000, categories=10, train_behaviors=1500, dev_behaviors=500,
+    test_behaviors=500, users=300, max_impressions=10, seed=11,
+    pref_alpha=0.10, click_base=0.03, click_scale=0.95,
+    min_history=8, max_history=60,
+)
+
+# scripts/parity/run_parity_refprot.py: the reference's own protocol
+PROTOCOL = dict(batch_size=64, lr=1e-4, epoch=16, dropout_rate=0.2)
+
+_NRMS = dict(model_family="nrms", nrms_head_num=NRMS_GEOMETRY["head_num"],
+             nrms_head_dim=NRMS_GEOMETRY["head_dim"],
+             nrms_attention_dim=NRMS_GEOMETRY["attention_dim"],
+             augmented_news_num=NRMS_GEOMETRY["augmented_news_num"])
+
+# cell -> (corpus name, geometry, corpus, options); the JAX study's dedup:
+# on (auto) at the production geometry, off in the matrix
+CELLS = {
+    "prod": ("prod", PROD_GEOMETRY, PROD_DATASET, dict(dedup_titles=-1)),
+    "refprot": ("prod", {**PROD_GEOMETRY, **PROTOCOL}, PROD_DATASET, dict(dedup_titles=-1)),
+    "matrix-msa": ("matrix", GEOMETRY, DATASET, dict(dedup_titles=0)),
+    "matrix-nrms-sa": ("matrix", GEOMETRY, DATASET, dict(dedup_titles=0, nrms_model="NRMS-SA",
+                                                          **_NRMS)),
+    "matrix-nrms": ("matrix", GEOMETRY, DATASET, dict(dedup_titles=0, nrms_model="NRMS",
+                                                       **_NRMS)),
+}
+
+
+def gen_glove(data_root: str, path: str, dim: int, seed: int = 123) -> None:
+    """A GloVe-format file with one random vector for every title word of
+    the corpus, N(0, 0.3) from `seed`, five decimals: the JAX study's
+    shared initial word vectors."""
+    if os.path.exists(path):
+        return
+    words = []
+    seen = set()
+    for split in ("train", "dev", "test"):
+        with open(os.path.join(data_root, split, "news.tsv"), encoding="utf-8") as f:
+            for line in f:
+                title = line.split("\t")[3]
+                for w in tok.tokenize(title.lower()):
+                    if w not in seen and not tok.is_number(w):
+                        seen.add(w)
+                        words.append(w)
+    rng = np.random.default_rng(seed)
+    with open(path, "w", encoding="utf-8") as f:
+        for w in words:
+            vec = rng.normal(0.0, 0.3, size=dim)
+            f.write(w + " " + " ".join(f"{x:.5f}" for x in vec) + "\n")
+
+
+def cell_flags(cell: str, corpus_dir: str, seed: int, device: str, epochs: int = 0) -> list:
+    """The CLI's command line for one seed of a cell."""
+    _, geometry, _, options = CELLS[cell]
+    kw = {k: v for k, v in geometry.items() if k != "epoch"}
+    kw.update(options)
+    kw.update(dataset="MIND-small", data_root=os.path.join(corpus_dir, "data"),
+              run_root=os.path.join(corpus_dir, f"runs-{cell}"),
+              glove_path=os.path.join(corpus_dir, "glove.txt"), seed=seed, device=device,
+              epoch_override=epochs or geometry["epoch"])
+    return [a for k, v in kw.items() for a in (f"--{k}", str(v))]
+
+
+def prepare_cell(cell: str, workdir: str, device: str) -> str:
+    """The cell's corpus, GloVe file and cached artifacts (at seed 0, shared
+    by every seed) -> the corpus directory."""
+    name, geometry, dataset, _ = CELLS[cell]
+    corpus_dir = os.path.join(workdir, name)
+    root = os.path.join(corpus_dir, "data", "MIND-small")
+    if not os.path.exists(os.path.join(root, "train", "behaviors.tsv")):
+        synthetic.generate(root, **dataset)
+    gen_glove(root, os.path.join(corpus_dir, "glove.txt"), geometry["word_embedding_dim"])
+    cfg = Config.from_args(cell_flags(cell, corpus_dir, 0, device))
+    corpus_lib.preprocess(cfg, verbose=True)
+    return corpus_dir
+
+
+def card() -> str:
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "not measured"
+
+
+def run_seed(cell: str, corpus_dir: str, seed: int, device: str, epochs: int) -> dict:
+    t0 = time.perf_counter()
+    rec = cli.main(cell_flags(cell, corpus_dir, seed, device, epochs))
+    wall = time.perf_counter() - t0
+    keys = ("auc", "mrr", "ndcg5", "ndcg10")
+    per_epoch = [{"epoch": h["epoch"], "loss": h["loss"], **{k: h[k] for k in keys},
+                  "step_ms_median": float(np.median(h["step_ms"])) if h["step_ms"] else None,
+                  "steps": len(h["step_ms"]), "train_wall_s": h["wall_s"]}
+                 for h in rec["history"]]
+    best = rec["history"][rec["best_epoch"] - 1]
+    all_steps = [t for h in rec["history"] for t in h["step_ms"][2:]]  # past 2 warm-up steps
+    return {
+        "framework": "digat_tpu_torch", "cell": cell, "seed": seed, "device": device,
+        "card": card() if device == "cuda" else "cpu", "run_index": rec["run_index"],
+        "best_dev_epoch": rec["best_epoch"], "dev": {k: best[k] for k in keys},
+        "test": dict(zip(keys, rec["test"])) if rec["test"] else {},
+        "per_epoch": per_epoch, "wall_s": wall,
+        "step_ms_median": float(np.median(all_steps)) if all_steps else None,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cell", choices=sorted(CELLS), required=True)
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--workdir", default="", help="corpora and runs (default: a temp dir)")
+    ap.add_argument("--out", default="torch_parity_cells_out", help="one JSON a seed")
+    ap.add_argument("--epochs", type=int, default=0, help="0: the cell's own count")
+    args = ap.parse_args(argv)
+    workdir = args.workdir or tempfile.mkdtemp(prefix="torch_parity_cells_")
+    os.makedirs(args.out, exist_ok=True)
+    corpus_dir = prepare_cell(args.cell, workdir, args.device)
+    for seed in args.seeds:
+        res = run_seed(args.cell, corpus_dir, seed, args.device, args.epochs)
+        path = os.path.join(args.out, f"{args.cell}-seed{seed}.json")
+        with open(path, "w") as f:
+            json.dump(res, f, indent=2)
+        print(json.dumps({k: res[k] for k in ("cell", "seed", "best_dev_epoch", "dev", "test",
+                                              "step_ms_median", "wall_s")}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

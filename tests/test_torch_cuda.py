@@ -47,12 +47,12 @@ def _close(out, ref):
     assert err <= 1e-4 * max(1.0, float(ref.abs().max())), err
 
 
-def _msa_args(dev, N, Din, heads, dk, A, seed):
+def _msa_args(dev, N, Din, heads, dk, A, seed, L=32):
     g = torch.Generator().manual_seed(seed)
     D = heads * dk
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(dev)
-    x = r(N, 32, Din)
-    mask = (torch.rand(N, 32, generator=g) < 0.75).to(dev)
+    x = r(N, L, Din)
+    mask = (torch.rand(N, L, generator=g) < 0.75).to(dev)
     mask[0] = False  # all-pad title
     return (x, mask, r(Din, D, sc=Din ** -0.5), r(D, sc=0.1), r(Din, D, sc=Din ** -0.5),
             r(Din, D, sc=Din ** -0.5), r(D, sc=0.1), r(D, A, sc=D ** -0.5), r(A, sc=0.1),
@@ -69,18 +69,22 @@ def _no_bias(args):
 
 # N over the product tiles' edges (N * 32 rows against 128-row tiles: 1, 2,
 # 5 and 37 leave a ragged tile), the serving chunk of 1,024 titles, and a
-# case without biases
-_MSA_FWD_CASES = [(37, 300, 16, 25, 256, True), (5, 24, 4, 8, 16, True),
-                  (1, 300, 16, 25, 256, True), (2, 300, 16, 25, 256, True),
-                  (129, 300, 16, 25, 256, True), (1024, 300, 16, 25, 256, True),
-                  (7, 300, 16, 25, 256, False)]
+# case without biases; titles of L 16 at the parity matrix's widths and of
+# odd L 7, 20 and 1, whose N * L rows are 1, 2 or 3 past a multiple of 4
+_MSA_FWD_CASES = [(37, 300, 16, 25, 256, True, 32), (5, 24, 4, 8, 16, True, 32),
+                  (1, 300, 16, 25, 256, True, 32), (2, 300, 16, 25, 256, True, 32),
+                  (129, 300, 16, 25, 256, True, 32), (1024, 300, 16, 25, 256, True, 32),
+                  (7, 300, 16, 25, 256, False, 32), (37, 100, 10, 20, 64, True, 16),
+                  (4096, 100, 10, 20, 64, True, 16), (37, 300, 16, 25, 256, True, 7),
+                  (38, 100, 10, 20, 64, True, 7), (39, 100, 10, 20, 64, False, 7),
+                  (129, 24, 4, 8, 16, True, 20), (3, 24, 4, 8, 16, True, 1)]
 
 
-@pytest.mark.parametrize("N,Din,heads,dk,A,bias", _MSA_FWD_CASES)
-def test_msa_encoder_kernel(cuda, N, Din, heads, dk, A, bias):
+@pytest.mark.parametrize("N,Din,heads,dk,A,bias,L", _MSA_FWD_CASES)
+def test_msa_encoder_kernel(cuda, N, Din, heads, dk, A, bias, L):
     """Kernel A against the plain encoder (title 0 all pad), and the same
     bits on a second run."""
-    args = _msa_args(cuda, N, Din, heads, dk, A, seed=N)
+    args = _msa_args(cuda, N, Din, heads, dk, A, seed=N, L=L)
     if not bias:
         args = _no_bias(args)
     before = msa_encoder_pooled.launches
@@ -90,13 +94,13 @@ def test_msa_encoder_kernel(cuda, N, Din, heads, dk, A, bias):
     assert torch.equal(out, msa_encoder_pooled(*args))
 
 
-@pytest.mark.parametrize("Din,heads,dk,A,match", [
-    (6, 1, 4, 16, "multiples of 4"), (64, 1, 68, 16, "dk <= 64"),
-    (64, 2, 8, 516, "multiple of 4 up to 512")])
-def test_msa_encoder_kernel_refuses_shapes(cuda, Din, heads, dk, A, match):
+@pytest.mark.parametrize("Din,heads,dk,A,L,match", [
+    (6, 1, 4, 16, 32, "multiples of 4"), (64, 1, 68, 16, 32, "dk <= 64"),
+    (64, 2, 8, 516, 32, "multiple of 4 up to 512"), (64, 2, 8, 16, 33, "length 1 to 32")])
+def test_msa_encoder_kernel_refuses_shapes(cuda, Din, heads, dk, A, L, match):
     """Kernel A raises a ValueError naming the limit for a shape it does not
     take, before any launch."""
-    args = _msa_args(cuda, 2, Din, heads, dk, A, seed=6)
+    args = _msa_args(cuda, 2, Din, heads, dk, A, seed=6, L=L)
     before = msa_encoder_pooled.launches
     with pytest.raises(ValueError, match=match):
         msa_encoder_pooled(*args)
@@ -212,11 +216,11 @@ def test_fused_dropout_kernel_is_bit_exact(cuda, shape, rate, view):
     assert torch.equal(*grads)
 
 
-@pytest.mark.parametrize("N,Din,heads,dk,A,bias", _MSA_FWD_CASES)
-def test_msa_encoder_dropout_kernel(cuda, N, Din, heads, dk, A, bias):
+@pytest.mark.parametrize("N,Din,heads,dk,A,bias,L", _MSA_FWD_CASES)
+def test_msa_encoder_dropout_kernel(cuda, N, Din, heads, dk, A, bias, L):
     """Kernel A at rate 0.2 equals the plain encoder on keep * x / (1 - p),
     and gives the same bits twice for one seed."""
-    args = _msa_args(cuda, N, Din, heads, dk, A, seed=N + 1)
+    args = _msa_args(cuda, N, Din, heads, dk, A, seed=N + 1, L=L)
     if not bias:
         args = _no_bias(args)
     out = ME.msa_encoder_pooled(*args, dropout_rate=0.2, seed=77, site=3)
@@ -226,19 +230,25 @@ def test_msa_encoder_dropout_kernel(cuda, N, Din, heads, dk, A, bias):
     assert torch.equal(out, again)
 
 
-@pytest.mark.parametrize("N,Din,heads,dk,A,rate,bias", [
-    (37, 300, 16, 25, 256, 0.2, True), (37, 300, 16, 25, 256, 0.0, True),
-    (5, 24, 4, 8, 16, 0.2, True), (1, 300, 16, 25, 256, 0.2, True),
-    (2, 300, 16, 25, 256, 0.2, True), (129, 300, 16, 25, 256, 0.2, True),
-    (7, 300, 16, 25, 256, 0.0, False), (3, 64, 2, 64, 512, 0.2, True)])
-def test_msa_encoder_bwd_kernel(cuda, N, Din, heads, dk, A, rate, bias):
+@pytest.mark.parametrize("N,Din,heads,dk,A,rate,bias,L", [
+    (37, 300, 16, 25, 256, 0.2, True, 32), (37, 300, 16, 25, 256, 0.0, True, 32),
+    (5, 24, 4, 8, 16, 0.2, True, 32), (1, 300, 16, 25, 256, 0.2, True, 32),
+    (2, 300, 16, 25, 256, 0.2, True, 32), (129, 300, 16, 25, 256, 0.2, True, 32),
+    (7, 300, 16, 25, 256, 0.0, False, 32), (3, 64, 2, 64, 512, 0.2, True, 32),
+    (37, 100, 10, 20, 64, 0.2, True, 16), (300, 100, 10, 20, 64, 0.0, True, 16),
+    (37, 300, 16, 25, 256, 0.2, True, 7), (38, 100, 10, 20, 64, 0.2, True, 7),
+    (39, 100, 10, 20, 64, 0.0, False, 7), (700, 24, 4, 8, 16, 0.2, True, 7),
+    (129, 24, 4, 8, 16, 0.2, True, 20), (3, 24, 4, 8, 16, 0.2, True, 1)])
+def test_msa_encoder_bwd_kernel(cuda, N, Din, heads, dk, A, rate, bias, L):
     """Kernel A' (dx and the eight weight and bias gradients) against
     autograd of the plain encoder, mask applied; title 0 is all pad. N runs
     over the product tiles' edges (N * 32 rows against 128-row tiles: 1, 2,
     37 and 7 leave a ragged tile, 129 one row of titles past 4,096 rows);
-    one case has no biases and no dropout. Every output is the same bits on
-    a second run."""
-    args = list(_msa_args(cuda, N, Din, heads, dk, A, seed=N + 2))
+    one case has no biases and no dropout. Titles of L 16, 7, 20 and 1: N * L
+    rows 1, 2 and 3 past a multiple of 4 (the weight gradients sum over
+    them as their K), 700 titles of 7 rows past the 4,096-row slices. Every
+    output is the same bits on a second run."""
+    args = list(_msa_args(cuda, N, Din, heads, dk, A, seed=N + 2, L=L))
     if not bias:
         for i in (3, 6, 8):  # bq, bv, b1
             args[i] = torch.zeros_like(args[i])
@@ -254,14 +264,15 @@ def test_msa_encoder_bwd_kernel(cuda, N, Din, heads, dk, A, rate, bias):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("Din,heads,dk,A,match", [
-    (6, 1, 4, 16, "multiples of 4"), (64, 1, 68, 16, "dk <= 64"),
-    (64, 2, 8, 18, "multiple of 4 up to 512"), (64, 2, 8, 516, "multiple of 4 up to 512"),
-    (600, 1, 64, 16, "shared memory")])
-def test_msa_encoder_bwd_kernel_refuses_shapes(cuda, Din, heads, dk, A, match):
+@pytest.mark.parametrize("Din,heads,dk,A,L,match", [
+    (6, 1, 4, 16, 32, "multiples of 4"), (64, 1, 68, 16, 32, "dk <= 64"),
+    (64, 2, 8, 18, 32, "multiple of 4 up to 512"),
+    (64, 2, 8, 516, 32, "multiple of 4 up to 512"), (600, 1, 64, 16, 32, "shared memory"),
+    (64, 2, 8, 16, 33, "length 1 to 32")])
+def test_msa_encoder_bwd_kernel_refuses_shapes(cuda, Din, heads, dk, A, L, match):
     """Kernel A' raises a ValueError naming the limit for a shape it does not
     take, before any launch."""
-    args = _msa_args(cuda, 2, Din, heads, dk, A, seed=5)
+    args = _msa_args(cuda, 2, Din, heads, dk, A, seed=5, L=L)
     dp = torch.zeros(2, heads * dk, device=cuda)
     before = ME.msa_encoder_bwd.launches
     with pytest.raises(ValueError, match=match):

@@ -11,7 +11,9 @@ p_ij = exp(s_ij - lse_i) from the forward's log-sum-exp, t_i = sum_j p_ij
 dp_ij as four per-warp parts (8 keys each) summed in order, and the bias
 gradients as per-title column sums summed in title order; the weight
 gradients sum fixed row slices in order. The replay runs those steps with
-the kernel's cuts and shows that they compute what the plain version does."""
+the kernel's cuts and shows that they compute what the plain version does,
+at L 32 and at titles of L < 32 on the first L of the 32 slots (p_ij and
+dS_ij 0 past L; each warp's part of t_i over its 8 slots)."""
 
 import math
 
@@ -23,13 +25,14 @@ from digat_tpu_torch.ops import msa_encoder as ME
 from digat_tpu_torch.ops.dropout import keep_mask_plain
 
 L = 32
-WARPS = 4  # warps of an attention unit; each takes 8 keys in the row pass
+SLOTS = 32  # title slots of an attention unit
+WARPS = 4  # warps of an attention unit; each takes 8 key slots in the row pass
 POOL_BN = 128  # the pool product's tile width; 4 warp columns a tile
 ROWS_PER_SPLIT = 64  # a cut of the kernel's fixed row slices, scaled to the test
 
 
 def replay(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads, rate, seed, site):
-    N, _, Din = x.shape
+    N, L, Din = x.shape
     D, A = wq.shape[1], w1.shape[1]
     dk = D // heads
     scale = 1.0 / math.sqrt(dk)
@@ -81,7 +84,8 @@ def replay(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads, rate, seed, site):
     # 8. attention backward per unit: p from lse, t from four warps' parts
     p_b = torch.exp(s - lse[..., None])
     dpp = torch.einsum("nhic,nhjc->nhij", do, val)
-    t = sum((p_b * dpp)[..., w * 8:(w + 1) * 8].sum(-1) for w in range(WARPS))
+    pdp = torch.cat([p_b * dpp, torch.zeros(N, heads, L, SLOTS - L, dtype=x.dtype)], -1)
+    t = sum(pdp[..., w * 8:(w + 1) * 8].sum(-1) for w in range(WARPS))
     ds = p_b * (dpp - t[..., None]) * scale
     dq = torch.einsum("nhij,nhjc->nhic", ds, k)
     dkk = torch.einsum("nhij,nhic->nhjc", ds, q)
@@ -100,7 +104,7 @@ def replay(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads, rate, seed, site):
             dwqkv[2 * D:].t(), dbias[2 * D:], dw1.t(), db1, dv)
 
 
-def _args(N, Din, heads, dk, A, seed):
+def _args(N, Din, heads, dk, A, seed, L=L):
     g = torch.Generator().manual_seed(seed)
     D = heads * dk
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=g, dtype=torch.float64) * sc)
@@ -117,6 +121,25 @@ def _args(N, Din, heads, dk, A, seed):
     (2, 8, 1, 64, 8, 0.0)])
 def test_order_of_work_matches_plain(N, Din, heads, dk, A, rate):
     args = _args(N, Din, heads, dk, A, seed=N + dk)
+    dp = torch.randn(N, heads * dk, generator=torch.Generator().manual_seed(9),
+                     dtype=torch.float64)
+    got = replay(*args, dp, heads, rate, 31, 2)
+    want = ME.msa_encoder_bwd_plain(*args, dp, heads, rate, 31, 2)
+    names = ("dx", "dwq", "dbq", "dwk", "dwv", "dbv", "dw1", "db1", "dv")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("N,Din,heads,dk,A,L", [
+    (5, 100, 10, 20, 64, 16), (6, 24, 4, 8, 16, 7), (3, 12, 4, 25, 32, 20),
+    (4, 8, 1, 64, 8, 1)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_order_of_work_matches_plain_short_titles(N, Din, heads, dk, A, L, rate):
+    """Titles of L < 32 (the matrix cells' L 16 at their widths, odd L 7 and
+    20, and L 1), title 0 all pad; N * L rows that end partway through the
+    row slices."""
+    args = _args(N, Din, heads, dk, A, seed=N + dk + L, L=L)
     dp = torch.randn(N, heads * dk, generator=torch.Generator().manual_seed(9),
                      dtype=torch.float64)
     got = replay(*args, dp, heads, rate, 31, 2)

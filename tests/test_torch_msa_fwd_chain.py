@@ -5,15 +5,19 @@ by stage as the kernel runs it, replayed in plain torch on the CPU.
    kernels draw; kernel A' draws them again);
 2. q|k|v = xd [Wq|Wk|Wv]^T + [bq | 0 | bv], one product over Din;
 3. per (title, head) unit: scores, the softmax from four warps' maxima and
-   sums over their 8 keys each, h = relu(P v) written over q;
+   sums over their 8 key slots each (a title of L < 32 leaves the slots
+   past L at -inf: a warp with none left sums 0), h = relu(P v) written
+   over q;
 4. the pool logits as per-warp-column parts: tanh(h W1^T + b1) times v
    summed over each 32 columns, in tiles of 128 columns (4 parts a tile,
    the parts past A empty), u never kept;
 5. a warp per title: the parts summed in order, the masked softmax (-1e9
-   fill, all-pad uniform), out = sum_l alpha_l h_l in order.
+   fill, all-pad uniform over the L positions, slots past L weight 0),
+   out = sum_l alpha_l h_l in order.
 
 The replay is held against `msa_encoder_pooled_plain` (fp32, 1e-5) with and
-without dropout, against the JAX `msa_encoder_pooled` through its XLA
+without dropout at L 32, 16, 7 and 1, against the JAX `msa_encoder_pooled`
+through its XLA
 composition and its Pallas kernel in interpret mode (fp32, 1e-5), and, with
 the two products replaced by the 3xTF32 split of `tc_gemm.cuh` emulated as
 tests/test_torch_tf32x3.py does, at A's product shapes (K 300 and K 400)
@@ -40,7 +44,8 @@ from digat_tpu_torch.ops import msa_encoder as ME
 from tests.test_torch_tf32x3 import split
 
 L = 32
-WARPS = 4  # warps of an attention unit; each takes 8 keys in the row pass
+SLOTS = 32  # title slots of an attention unit: one lane per position
+WARPS = 4  # warps of an attention unit; each takes 8 key slots in the row pass
 POOL_BN = 128  # the pool product's tile width; 4 warp columns of 32 a tile
 GATE = 1e-4
 
@@ -89,7 +94,7 @@ def product_tf32x3(a, b):
 
 def chain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, rate=0.0, seed=0, site=0,
           product=matmul):
-    N, _, Din = x.shape
+    N, L, Din = x.shape
     D, A = wq.shape[1], w1.shape[1]
     dk = D // heads
     M = N * L
@@ -101,11 +106,14 @@ def chain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, rate=0.0, seed=0, site=
     qkv = product(xd, wqkv.t().contiguous()) + torch.cat([bq, torch.zeros_like(bq), bv])
     q, k, val = (qkv[:, i * D:(i + 1) * D].reshape(N, L, heads, dk).permute(0, 2, 1, 3)
                  for i in range(3))  # [N, heads, L, dk]
-    # 3. per unit: four warps' maxima and sums of each row, then P and h
+    # 3. per unit: four warps' maxima and sums of each row over their key
+    # slots (-inf past L), then P and h
     s = torch.einsum("nhic,nhjc->nhij", q, k) * scale
-    sw = s.reshape(N, heads, L, WARPS, L // WARPS)
+    absent = torch.full((N, heads, L, SLOTS - L), -math.inf, dtype=s.dtype)
+    sw = torch.cat([s, absent], -1).reshape(N, heads, L, WARPS, SLOTS // WARPS)
     mw = sw.max(-1).values  # [N, heads, L, WARPS]
-    lw = torch.exp(sw - mw[..., None]).sum(-1)
+    empty = mw == -math.inf  # a warp with no key left
+    lw = torch.where(empty, 0.0, torch.exp(sw - torch.where(empty, 0.0, mw)[..., None]).sum(-1))
     m = mw.max(-1).values
     l_sum = (lw * torch.exp(mw - m[..., None])).sum(-1)
     p = torch.exp(s - m[..., None]) * (1.0 / l_sum)[..., None]
@@ -132,7 +140,7 @@ def chain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, rate=0.0, seed=0, site=
     return out
 
 
-def _args(N, Din, heads, dk, A, seed, dtype=torch.float32):
+def _args(N, Din, heads, dk, A, seed, dtype=torch.float32, L=L):
     rng = np.random.default_rng(seed)
     D = heads * dk
     r = lambda *s, sc=1.0: torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)
@@ -156,7 +164,28 @@ def test_chain_matches_plain(N, Din, heads, dk, A, rate):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
 
 
-def _jax_case(n, din, heads, dk, A, seed):
+@pytest.mark.parametrize("N,Din,heads,dk,A,L", [
+    (5, 100, 10, 20, 64, 16), (6, 24, 4, 8, 16, 7), (4, 300, 16, 25, 256, 20),
+    (3, 16, 2, 25, 160, 1)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_chain_matches_plain_short_titles(N, Din, heads, dk, A, L, rate):
+    """Titles of L < 32 on the first L slots: the matrix cells' L 16 at
+    their widths, odd L 7 and 20, and L 1; title 0 all pad, pooled with
+    weight 1 / L."""
+    args = _args(N, Din, heads, dk, A, seed=N + dk + A + L, L=L)
+    got = chain(*args, heads, rate, 41, 3)
+    want = ME.msa_encoder_pooled_plain(*args, heads, rate, 41, 3)
+    assert got.shape == want.shape == (N, heads * dk)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+    if rate == 0.0:  # the all-pad title: the mean of its L rows of h
+        x, _, wq, bq, wk, wv, bv = args[:7]
+        h = ME.msa_encoder_pooled_plain(x[:1], torch.ones(1, L, dtype=torch.bool), wq, bq, wk,
+                                        wv, bv, torch.zeros_like(args[7]), args[8], args[9],
+                                        heads)
+        np.testing.assert_allclose(got[0].numpy(), h[0].numpy(), rtol=0, atol=1e-5)
+
+
+def _jax_case(n, din, heads, dk, A, seed, L=L):
     ks = jax.random.split(jax.random.PRNGKey(seed), 2)
     msa = JL.mha_init(ks[0], heads, din, dk, dk)
     pool = JL.attn_pool_init(ks[1], heads * dk, A)
@@ -213,3 +242,86 @@ def test_tensor_core_rounding_and_krn(what, M, K, N):
     krn = rms(tc_3xtf32(a, b, rn_tiles=True))
     assert toward_zero > 4 * fp32, (what, toward_zero, fp32)
     assert krn <= 1.5 * fp32, (what, krn, fp32)
+
+
+# the parity matrix's widths (scripts/parity/run_parity.py GEOMETRY): word
+# 100, L 16, 10 x 20 heads, attention 64, history 16, SAG 3 neighbours and 2
+# hops, depth 3
+MATRIX = dict(word_embedding_dim=100, max_title_length=16, MSA_head_num=10, MSA_head_dim=20,
+              attention_dim=64, max_history_num=16, SAG_neighbors=3, SAG_hops=2,
+              graph_depth=3, vocabulary_size=80, category_num=6)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _encoder_args(msa, pool, x, mask):
+    return (_t(x), _t(mask), _t(msa["W_Q"]["w"]), _t(msa["W_Q"]["b"]), _t(msa["W_K"]["w"]),
+            _t(msa["W_V"]["w"]), _t(msa["W_V"]["b"]), _t(pool["affine1"]["w"]),
+            _t(pool["affine1"]["b"]), _t(pool["affine2"]["w"][:, 0]))
+
+
+@pytest.mark.parametrize("interpret", [False, True], ids=["xla", "pallas_interpret"])
+def test_plain_encoder_matches_jax_at_matrix_widths(interpret):
+    """At L 16, Din 100, 10 x 20 heads and A 64 the JAX package runs its
+    fused kernel (group_size > 0); the port's plain forward and backward
+    (what kernels A and A' are held to on the card) match it, the forward
+    within 1e-5 and the gradients within 1e-4 * (max |grad| + 1e-3), as
+    tests/test_torch_train_kernels.py holds them at L 32."""
+    heads, dk = 10, 20
+    assert group_size(heads, 16, dk) > 0
+    msa, pool, x, mask = _jax_case(6, 100, heads, dk, 64, seed=16, L=16)
+    dp = np.random.default_rng(2).normal(size=(6, heads * dk)).astype(np.float32)
+
+    def enc(m, p, xx):
+        out, _ = jax_msa_encoder(xx, jnp.asarray(mask), m, p, heads, dk, tile=8,
+                                 interpret=interpret)
+        return unpad_heads(out, heads, dk)
+
+    args = _encoder_args(msa, pool, x, mask)
+    want = np.asarray(enc(msa, pool, jnp.asarray(x)))
+    got = ME.msa_encoder_pooled_plain(*args, heads)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    gm, gp, gx = jax.grad(lambda m, p, xx: jnp.sum(enc(m, p, xx) * dp), argnums=(0, 1, 2))(
+        msa, pool, jnp.asarray(x))
+    want_g = [np.asarray(a) for a in (gx, gm["W_Q"]["w"], gm["W_Q"]["b"], gm["W_K"]["w"],
+                                      gm["W_V"]["w"], gm["W_V"]["b"], gp["affine1"]["w"],
+                                      gp["affine1"]["b"], gp["affine2"]["w"][:, 0])]
+    for g, w in zip(ME.msa_encoder_bwd_plain(*args, _t(dp), heads), want_g):
+        scale = float(np.abs(w).max())
+        assert float(np.abs(g.numpy() - w).max()) < 1e-4 * (scale + 1e-3), scale
+
+
+def test_model_matches_jax_at_matrix_geometry_fp64():
+    """The whole MSA-DIGAT at the matrix geometry, on the JAX package's
+    weights (`interop.load_jax_params`), eval logits in float64 within
+    1e-12 of the JAX model's."""
+    from digat_tpu.data.user_graph import build_user_graph_np
+    from tests.test_torch_support import models
+
+    jm, params, pm = models(seed=4, **MATRIX)
+    cfg = jm.config
+    pm = pm.double()
+    rng = np.random.default_rng(6)
+    B, Nn, H, Gn, L, C = 3, 5, cfg.max_history_num, cfg.news_graph_size, 16, cfg.category_num
+    V = cfg.vocabulary_size
+    cat = rng.integers(0, C, (B, H)).astype(np.int32)
+    cat[0, 5:] = C
+    ug, cm = build_user_graph_np(cat, H, C)
+    user_text = rng.integers(0, V, (B, H, L)).astype(np.int32)
+    user_mask = rng.random((B, H, L)) < 0.7
+    user_mask[0, 5:] = False  # pad news: all-pad titles
+    news_text = rng.integers(0, V, (B, Nn, Gn, L)).astype(np.int32)
+    news_mask = rng.random((B, Nn, Gn, L)) < 0.7
+    news_graph = (rng.random((B, Nn, Gn, Gn)) < 0.3) | np.eye(Gn, dtype=bool)
+    gmask = np.concatenate([np.zeros((B, Nn, 1), bool), rng.random((B, Nn, Gn - 1)) < 0.8], -1)
+    inputs = (user_text, user_mask, ug, cm, cat, news_text, news_mask, news_graph, gmask)
+    with jax.enable_x64(True):
+        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
+        want = np.asarray(jm.forward(p64, jax.random.PRNGKey(0), False,
+                                     *(jnp.asarray(a) for a in inputs)))
+    with torch.no_grad():
+        got = pm.forward(*(_t(a) for a in inputs)).numpy()
+    assert want.dtype == got.dtype == np.float64 and got.shape == (B, Nn)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
