@@ -48,15 +48,32 @@ paths:
   titles   - kernels A and A' at titles shorter than 32: L 16 at the parity
              matrix's widths (Din 100, 10 x 20 heads, A 64, N 4,096) and
              L 7 at the production widths, title 0 all pad, against their
-             plain versions (in phases 3 and 7);
+             plain versions (in phases 3 and 7); and past the short unit
+             (phase 16): L 48, 64 and 128 at the production widths and
+             heads of dk 128, with A's and A''s device ms by launch at
+             L 128; the attention pair's wide instance (dk 80 and 128, at
+             L 32-160) in phase 10; titles of L 160 through the news
+             encoder (phase 17: the attention pair, its launches counted,
+             card against CPU);
+  ablations- the five DIGAT ablations (wo_SA, Seq_SA, wo_interaction,
+             news_graph_wo_inter, user_graph_wo_inter) and CNN-DIGAT
+             (cnn_kernel_num 400, naive, window 3) at full width (phase
+             18), each: serving over 1,024 news on the card with the
+             counters reset (A per chunk for MSA, B per interactive layer
+             and batch) and against the CPU; three B-8 training steps card
+             against CPU; 8 untraced steps at B 64 (dedup, dropout 0.2) with
+             the counters reset, their launches per step and dropout sites
+             checked, and the median step time;
   CLI      - `digat_tpu_torch.cli` from MIND-layout TSV files that the
              port's generator writes: the production cell of
              scripts/torch_parity_cells.py (word 300, L 32, 16 x 25 heads,
-             B 32, lr 1e-3, 6 epochs, dedup; its news graph mined on the
+             B 32, lr 1e-3, 5 of its 6 epochs, dedup; its news graph mined on the
              card against the CPU) with a best dev AUC of at least 0.55, and
-             the matrix cell at L 16 (B 32, lr 1e-3, 8 epochs) with at
-             least 0.66; each epoch's rank file through the official scorer,
-             and best.ckpt scored again by `--mode test`.
+             the matrix cell at L 16 (B 32, lr 1e-3, 4 of its 8 epochs) with at
+             least 0.66, and the matrix cell of wo_interaction (phase 19)
+             with at least 0.6675 (the JAX mean 0.6951 less 3 sigma); each
+             epoch's rank file through the official scorer, and best.ckpt
+             scored again by `--mode test`.
 
 Prints progress lines, the card's name and power limit, a `kernels` JSON
 line, and as its last line `{"ok": true, "device": {...}}`. Exits nonzero,
@@ -206,21 +223,33 @@ def dropout_work(rows, cols):
     return 27 * rows * cols, 8 * rows * cols
 
 
-def mask_sites(cfg):
-    """The graph encoder's dropout sites of one training step as kernel A''
-    sees them: (what, rows, cols, rate, launches per step). B graphs of Gn
-    and Gu nodes D wide, their alpha Gn and Gu wide, C topic nodes and
-    C + 1 topics per graph."""
+def mask_sites(cfg, cap: int = 0):
+    """The dropout sites of one training step that kernel A'' draws, as it
+    sees them: (what, rows, cols, rate, launches per step). The graph
+    encoder's: B graphs of Gn and Gu nodes D wide, their alpha Gn and Gu
+    wide, C topic nodes and C + 1 topics per graph, as many as the variant
+    calls (wo_SA: no news context and no news graph; Seq_SA: the news
+    context once and no news graph). The CNN news encoder's two, over the
+    `cap` unique titles of a dedup batch: its words and its bank's output
+    (the MSA encoder draws its word dropout inside kernel A)."""
     B = cfg.batch_size * (1 + cfg.negative_sample_num)
     D, C, depth, p = cfg.news_embedding_dim, cfg.category_num, cfg.graph_depth, cfg.dropout_rate
-    Gn, Gu = cfg.news_graph_size, cfg.user_graph_size
-    return [("topic nodes", B * C, D, p / 2, 1),
-            ("gate logits", B, D, p / 2, 1 + depth),
-            ("topics", B * (C + 1), D, p, 1 + depth),
-            ("GAT x news", B * Gn, D, p / 2, depth),
-            ("GAT alpha news", B * Gn, Gn, p, depth),
-            ("GAT x user", B * Gu, D, p / 2, depth),
-            ("GAT alpha user", B * Gu, Gu, p, depth)]
+    Gn, Gu, v = cfg.news_graph_size, cfg.user_graph_size, cfg.graph_encoder
+    news_contexts = {"wo_SA": 0, "Seq_SA": 1}.get(v, 1 + depth)
+    user_contexts = 1 if v == "wo_SA" else 1 + depth
+    news_layers = 0 if v in ("wo_SA", "Seq_SA") else depth
+    sites = [("topic nodes", B * C, D, p / 2, 1),
+             ("gate logits", B, D, p / 2, news_contexts),
+             ("topics", B * (C + 1), D, p, user_contexts),
+             ("GAT x news", B * Gn, D, p / 2, news_layers),
+             ("GAT alpha news", B * Gn, Gn, p, news_layers),
+             ("GAT x user", B * Gu, D, p / 2, depth),
+             ("GAT alpha user", B * Gu, Gu, p, depth)]
+    if cfg.news_encoder == "CNN":
+        L = cfg.max_title_length
+        sites += [("CNN words", cap * L, cfg.word_embedding_dim, p, 1),
+                  ("CNN bank", cap * L, D, p, 1)]
+    return [site for site in sites if site[4]]
 
 
 def time_ms(torch, fn, warmup: int = 3, iters: int = 10) -> float:
@@ -793,10 +822,11 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures):
     return rec, warm, launches
 
 
-def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False):
-    """Phase 9 (MSA-DIGAT, dedup batches) and phase 13 (NRMS-SA, plain
-    batches): three steps at B 8, full width, dropout on, from the same
-    weights, batches and seeds on the card and on the CPU plain path."""
+def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False, label: str = ""):
+    """Phase 9 (MSA-DIGAT, dedup batches), phase 13 (NRMS-SA, plain batches)
+    and phase 18 (each variant, `label`): three steps at B 8, full width,
+    dropout on, from the same weights, batches and seeds on the card and on
+    the CPU plain path."""
     from digat_tpu_torch.data import batching, sampling
     from digat_tpu_torch.models.model import CorpusTables, Model
     from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
@@ -838,7 +868,8 @@ def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False):
                    for n, g in g_cpu.items()), reverse=True)
     worst = rows[0][0]
     loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(l_gpu, l_cpu))
-    say(f"  losses card {[round(v, 7) for v in l_gpu]} cpu {[round(v, 7) for v in l_cpu]}; "
+    say(f"  {label + ': ' if label else ''}losses card {[round(v, 7) for v in l_gpu]} "
+        f"cpu {[round(v, 7) for v in l_cpu]}; "
         f"max loss err {loss_err:.3e} (limit {TRAIN_RTOL:g} * max(1, |cpu|)); step-1 "
         f"gradients of {len(g_cpu)} tensors, max |card - cpu| / max |cpu| per tensor: worst "
         f"{worst:.3e}, limit {TRAIN_RTOL:g}; smallest max |cpu| "
@@ -846,7 +877,8 @@ def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False):
     for rel, err, top, n in rows[:6]:
         say(f"    {n}: max |cpu| {top:.3e} max |card - cpu| {err:.3e} ratio {rel:.3e}")
     if not (loss_err <= TRAIN_RTOL and worst <= TRAIN_RTOL and np.isfinite(l_gpu).all()):
-        failures.append(f"{'NRMS-SA ' if nrms else ''}training parity card vs cpu")
+        failures.append(f"{label or ('NRMS-SA' if nrms else 'MSA-DIGAT')} training parity card "
+                        f"vs cpu")
 
 
 # Kernels A and A' at titles shorter than 32 (the lanes past L idle): the
@@ -970,11 +1002,12 @@ def sag_card_vs_cpu(torch, cfg, failures) -> None:
                         f"near-ties")
 
 
-def cli_cell(torch, cells, cell, workdir, gate, failures, sag_check=False) -> dict:
-    """Phases 14 and 15: one cell of scripts/torch_parity_cells.py through
-    `digat_tpu_torch.cli.main` on the card, seed 0: the corpus from the
-    port's generator, its GloVe file and cache (the SAG mined on the card),
-    then the train run with the launch counters reset. Checks the run's
+def cli_cell(torch, cells, cell, workdir, gate, failures, sag_check=False, epochs=0) -> dict:
+    """Phases 14, 15 and 19: one cell of scripts/torch_parity_cells.py through
+    `digat_tpu_torch.cli.main` on the card, seed 0 (`epochs` of them, 0: the
+    cell's own count): the corpus from the port's generator, its GloVe file
+    and cache (the SAG mined on the card), then the train run with the
+    launch counters reset. Checks the run's
     files, every epoch's rank file against the official scorer, a
     standalone `--mode test` run of best.ckpt against the auto-test (1e-6)
     and the best dev AUC against `gate`."""
@@ -984,7 +1017,7 @@ def cli_cell(torch, cells, cell, workdir, gate, failures, sag_check=False) -> di
 
     t0 = time.perf_counter()
     corpus_dir = cells.prepare_cell(cell, workdir, "cuda")
-    flags = cells.cell_flags(cell, corpus_dir, 0, "cuda")
+    flags = cells.cell_flags(cell, corpus_dir, 0, "cuda", epochs)
     cfg = Config.from_args(flags)
     prep_s = time.perf_counter() - t0
     if sag_check:
@@ -1022,8 +1055,11 @@ def cli_cell(torch, cells, cell, workdir, gate, failures, sag_check=False) -> di
         f"within {test_err:.2e}; official scorer within {scorer_err:.2e}; #N-dev and #N-test "
         f"written {files}")
     say(f"  launches: {launches}")
-    for k in ("msa_encoder_pooled", "msa_encoder_bwd", "embedding_grad", "dropout",
-              "gat_scores_fwd", "gat_scores_bwd", "interactive_gat_layer_fused"):
+    # the kernels of the cell's model: C and B where it has interactive layers
+    need = ["msa_encoder_pooled", "msa_encoder_bwd", "embedding_grad", "dropout"]
+    if cfg.model_family == "digat" and interactive_layers(cfg):
+        need += ["gat_scores_fwd", "gat_scores_bwd", "interactive_gat_layer_fused"]
+    for k in need:
         if launches[k] == 0:
             failures.append(f"{cell}: kernel {k} was launched no time")
     if not (files and test_err <= 1e-6 and scorer_err <= 1e-6 and best >= gate
@@ -1159,17 +1195,24 @@ def attention_kernels(torch, cfg, dev):
         ("titles, E layout dkp 32", bs, L_t, 32),
         ("user, E layout dkp 64", bs, L_u, 64),
         ("F only (L > 128)", 256, 150, dk),
+        # the wide instance (dk 65-128), as MSA titles with such heads take it
+        ("wide heads dk 128", 2048, 32, 128, 4, 128),
+        ("wide heads dk 128, L > 128", 256, 160, 128, 2, 128),
+        ("wide heads dk 80", 512, 64, 80, 4, 80),
     ]
     sm_smem = torch.cuda.get_device_properties(dev).shared_memory_per_multiprocessor
     regs = {}  # (fwd or bwd, W, float4 loads) -> registers per thread
     for mangled, (n_regs, st, ld) in sorted(ptxas_report(build, "msa_attention_").items()):
-        m = re.search(r"msa_attention_(fwd|bwd|bwd_long)_kernelILi(\d+)ELb([01])E", mangled)
+        m = re.search(r"msa_attention_(fwd|bwd|bwd_long|fwd_wide|bwd_wide)_kernelI(?:Li(\d+)E)?"
+                      r"Lb([01])E", mangled)
         if m:
-            regs[m.group(1), int(m.group(2)), m.group(3) == "1"] = n_regs
-            say(f"  ptxas {m.group(1)} W {m.group(2)} {'float4' if m.group(3) == '1' else 'scalar'}"
+            W = int(m.group(2) or MA.WIDE)
+            regs[m.group(1), W, m.group(3) == "1"] = n_regs
+            say(f"  ptxas {m.group(1)} W {W} {'float4' if m.group(3) == '1' else 'scalar'}"
                 f" loads: {n_regs} registers, spill stores {st} B, spill loads {ld} B")
     by_shape = {}
-    for what, N, L, hs in shapes:
+    for what, N, L, hs, *width in shapes:
+        heads, dk = width or (cfg.nrms_head_num, cfg.nrms_head_dim)
         name = f"{what} [{N},{L},{heads}x{hs}]"
         try:
             g = torch.Generator(device=dev).manual_seed(SEED + N + L + hs)
@@ -1216,6 +1259,8 @@ def attention_kernels(torch, cfg, dev):
             plan = MA.launch_plan([t.data_ptr() for t in (q, k, v, do, dq)], rs, hs, dk)
             for entry, backward in ((fwd, False), (bwd, True)):
                 kernel = ("bwd_long" if L > MA.SHORT_L else "bwd") if backward else "fwd"
+                if plan[0] == MA.WIDE:
+                    kernel = "bwd_wide" if backward else "fwd_wide"
                 n_regs = regs.get((kernel, *plan))
                 warps, shared = MA.block_shape(L, dk, backward, sm_smem, n_regs or 0)
                 entry["block"] = dict(kernel=kernel, width=plan[0], float4=plan[1],
@@ -1233,6 +1278,7 @@ def attention_kernels(torch, cfg, dev):
         except Exception:
             traceback.print_exc()
             by_shape[name] = dict(ok=False)
+    heads, dk = cfg.nrms_head_num, cfg.nrms_head_dim
     main_shape = by_shape.get(f"titles, training step [{n_titles},{L_t},{heads}x{dk}]", {})
     pair = lambda key: (main_shape["fwd"][key] + main_shape["bwd"][key]) \
         if main_shape.get("ok") else None
@@ -1364,6 +1410,267 @@ def nrms_training(torch, cfg, model, corpus, run_dir, failures):
     return launches, warm, steps
 
 
+# Kernels A and A' past the short unit (the long unit of msa_title.cuh): titles
+# of 48, 64 and 128 at the production widths, about 131,072 rows each, and
+# heads of dk 128 at L 32; title 0 all pad. (what, N, L, Din, heads, dk, A)
+LONG_TITLES = [("L48", 2730, 48, 300, 16, 25, 256), ("L64", 2048, 64, 300, 16, 25, 256),
+               ("L128", 1024, 128, 300, 16, 25, 256), ("dk128", 1024, 32, 300, 4, 128, 256)]
+
+
+def long_title_kernels(torch, dev) -> dict:
+    """Phase 16: kernels A (eval) and A' (dropout 0.2) at LONG_TITLES against
+    their plain versions, the same bits on a second run, with their bounds
+    (msa_work, msa_bwd_work) and device ms by launch at L 128; -> {kernel
+    name: {shape: entry}}."""
+    from digat_tpu_torch.ops import msa_encoder as ME
+
+    out = {"msa_encoder_pooled": {}, "msa_encoder_bwd": {}}
+    for k, (what, N, L, Din, heads, dk, A) in enumerate(LONG_TITLES):
+        D, p, seed = heads * dk, 0.2, 777
+        args = short_title_args(torch, dev, N, L, Din, heads, dk, A, SEED + 40 + k)
+        name = f"{what} [{N},{L},{Din}] {heads}x{dk} A {A}"
+        try:
+            fwd = lambda: ME.msa_encoder_pooled(*args, heads)
+            e = check_kernel(torch, f"msa_encoder_pooled {name}", fwd,
+                             lambda: ME.msa_encoder_pooled_plain(*args, heads), (),
+                             *msa_work(N, L, Din, D, A))
+            e["ok"] = e["ok"] and torch.equal(fwd(), fwd())
+            if what == "L128":
+                stages = stage_split(torch, fwd)
+                say_stages(f"msa_encoder_pooled {name}", stages)
+                e["stages"] = [dict(kernel=kn, launches=n, device_ms=ms) for kn, n, ms in stages]
+        except Exception:
+            traceback.print_exc()
+            e = dict(ok=False)
+        out["msa_encoder_pooled"][f"{what} N{N}"] = e
+        try:
+            dp = torch.randn((N, D), generator=torch.Generator(device=dev).manual_seed(SEED + k),
+                             device=dev)
+            bargs = (*args, dp, heads, p, seed, 1)
+            e = check_kernel(torch, f"msa_encoder_bwd {name} dropout {p:g}", ME.msa_encoder_bwd,
+                             ME.msa_encoder_bwd_plain, bargs, *msa_bwd_work(N, L, Din, D, A))
+            again = all(torch.equal(a, b) for a, b in zip(ME.msa_encoder_bwd(*bargs),
+                                                          ME.msa_encoder_bwd(*bargs)))
+            say(f"    same bits twice, every output: {again}")
+            e["ok"] = e["ok"] and again
+            if what == "L128":
+                stages = stage_split(torch, lambda: ME.msa_encoder_bwd(*bargs))
+                say_stages(f"msa_encoder_bwd {name}", stages)
+                e["stages"] = [dict(kernel=kn, launches=n, device_ms=ms) for kn, n, ms in stages]
+        except Exception:
+            traceback.print_exc()
+            e = dict(ok=False)
+        out["msa_encoder_bwd"][f"{what} N{N} dropout {p:g}"] = e
+    return out
+
+
+def long_route(torch, dev, failures) -> dict:
+    """Phase 17: MSA titles of L 160 at the production widths (group_size 0),
+    through the news encoder as the model calls it: the attention pair,
+    ReLU and the pool. Eval and a training forward and backward (dropout
+    0.2) of 512 titles with the counters reset (A 0; the pair one forward
+    and one backward; A'' the word dropout forward and backward; D once),
+    the eval output and the training step's gradients on the card against
+    the CPU; -> the training run's launches."""
+    from digat_tpu_torch.config import Config
+    from digat_tpu_torch.models.model import Model
+
+    cfg = Config(dataset="synthetic", vocabulary_size=40_000, category_num=18,
+                 max_title_length=160)
+    models = {d: Model(cfg, device=d, generator=torch.Generator().manual_seed(SEED + 9))
+              for d in (dev, "cpu")}
+    g = torch.Generator().manual_seed(SEED + 10)
+    text = torch.randint(0, cfg.vocabulary_size, (512, 160), generator=g)
+    mask = torch.arange(160)[None, :] < torch.randint(1, 161, (512, 1), generator=g)
+    mask[0] = False
+    up = torch.randn((512, cfg.news_embedding_dim), generator=g)
+    out = {}
+    launches = {}
+    for d, m in models.items():
+        enc = m.news_encoder
+        t, mk, u = text.to(d), mask.to(d), up.to(d)
+        with torch.inference_mode():
+            ev = enc(t, mk)
+        reset_counters()
+        m.zero_grad()
+        (enc(t, mk, seed=21, site=0) * u).sum().backward()
+        if d != "cpu":
+            torch.cuda.synchronize()
+            launches = read_counters()
+        out[d] = (ev.cpu(), {n: p.grad.detach().cpu() for n, p in enc.named_parameters()})
+    (ev_gpu, g_gpu), (ev_cpu, g_cpu) = out[dev], out["cpu"]
+    err = float((ev_gpu - ev_cpu).abs().max())
+    limit = KERNEL_RTOL * max(1.0, float(ev_cpu.abs().max()))
+    worst = max(float((g_gpu[n] - gc).abs().max()) / max(float(gc.abs().max()), 1e-12)
+                for n, gc in g_cpu.items())
+    want = {"msa_encoder_pooled": 0, "msa_encoder_bwd": 0, "msa_attention_fwd": 1,
+            "msa_attention_bwd": 1, "dropout": 2, "embedding_grad": 1}
+    say(f"  L 160, 16 x 25 heads, 512 titles: eval max |card - cpu| {err:.3e} (limit "
+        f"{limit:.3e}); training gradients, worst max |card - cpu| / max |cpu| {worst:.3e} "
+        f"(limit {TRAIN_RTOL:g}); launches {launches}")
+    if not (err <= limit and worst <= TRAIN_RTOL):
+        failures.append("L 160 route card vs cpu")
+    for k, n in want.items():
+        if launches.get(k) != n:
+            failures.append(f"L 160 route: {k} launched {launches.get(k)} times, want {n}")
+    return launches
+
+
+# The five DIGAT ablations and CNN-DIGAT at full width (phase 18): the
+# production configuration with `graph_encoder` or the CNN news encoder
+# (cnn_kernel_num 400, naive bank of window 3).
+VARIANTS = [("wo_SA", dict(graph_encoder="wo_SA")), ("Seq_SA", dict(graph_encoder="Seq_SA")),
+            ("wo_interaction", dict(graph_encoder="wo_interaction")),
+            ("news_graph_wo_inter", dict(graph_encoder="news_graph_wo_inter")),
+            ("user_graph_wo_inter", dict(graph_encoder="user_graph_wo_inter")),
+            ("CNN-DIGAT", dict(news_encoder="CNN", cnn_kernel_num=400, cnn_method="naive",
+                               cnn_window_size=3))]
+VARIANT_STEPS = 8  # the median untraced step at B 64 is taken over steps 3-8
+
+
+def interactive_layers(cfg) -> int:
+    """GAT layers a forward runs that are interactive (kernel B in eval, C in
+    training)."""
+    from digat_tpu_torch.models.graph_encoders import VARIANT_GATS
+
+    return VARIANT_GATS[cfg.graph_encoder].count("interactive") * cfg.graph_depth
+
+
+def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
+    """Phase 18 for one variant: serving over 1,024 news and 64 impressions of
+    8 on the card with the counters reset (stage 1 A once per chunk for MSA,
+    none for CNN; stage 2 B once per interactive layer and batch) and
+    against the CPU plain path (phase 6's gates); three B-8 training steps
+    card against CPU (phase 9's gates); then VARIANT_STEPS untraced steps at
+    B 64 with dedup and dropout, the counters reset: per step A and A' once
+    (MSA), C forward and backward once per interactive layer, D once, A''
+    twice per dropout site (whose shapes must be `mask_sites`'s), no B and
+    no keep mask; -> launches by path, timings."""
+    from digat_tpu_torch import layers
+    from digat_tpu_torch.data import batching, sampling
+    from digat_tpu_torch.eval import metrics as M
+    from digat_tpu_torch.eval.scorer import CachedScorer
+    from digat_tpu_torch.models.model import Model
+    from digat_tpu_torch.train.optimizer import Adam
+    from digat_tpu_torch.train.train_step import step_seed, train_step
+
+    msa = cfg.news_encoder == "MSA"
+    result = {}
+    # serving: main path on the card, then card against the CPU
+    news_num, bs = 1024, 256
+    small = head_tables(torch, tables, news_num)
+    imps = make_impressions(cfg, news_num, 64, 8, SEED + 12)
+    models = {d: Model(cfg, device=d, generator=torch.Generator().manual_seed(SEED + 13))
+              for d in (dev, "cpu")}
+    scores = {}
+    for d, m in models.items():
+        t = small if d != "cpu" else type(small)(*(x.cpu() for x in small))
+        reset_counters()
+        scorer = CachedScorer(m, bs)
+        scores[d] = scorer.score_items(t, *imps[:4])
+        if d != "cpu":
+            serve = read_counters()
+            batches = scorer.timings["stage2_batches"]
+            want_a = -(-news_num // bs) if msa else 0
+            want_b = interactive_layers(cfg) * batches
+            result["serving"] = {k: serve[k] for k in ("msa_encoder_pooled",
+                                                       "interactive_gat_layer_fused")}
+            if serve["msa_encoder_pooled"] != want_a or \
+                    serve["interactive_gat_layer_fused"] != want_b:
+                failures.append(f"{name} serving: A {serve['msa_encoder_pooled']} (want "
+                                f"{want_a}), B {serve['interactive_gat_layer_fused']} (want "
+                                f"{want_b})")
+    s_gpu, s_cpu = scores[dev], scores["cpu"]
+    err = float(np.abs(s_gpu - s_cpu).max())
+    limit = SLICE_RTOL * max(1.0, float(np.abs(s_cpu).max()))
+    flips = 0
+    for sg, sc in zip(M.group_by_impression(imps[2], s_gpu),
+                      M.group_by_impression(imps[2], s_cpu)):
+        og, oc = np.argsort(-sg, kind="stable"), np.argsort(-sc, kind="stable")
+        flips += sum(a != b and abs(float(sc[a]) - float(sc[b])) > 2 * limit
+                     for a, b in zip(og, oc))
+    say(f"  {name} serving: {len(imps[3])} items, max |card - cpu| {err:.3e} (limit "
+        f"{limit:.3e}), rank flips beyond ties {flips}; launches {result.get('serving')}")
+    if not (err <= limit and flips == 0 and np.isfinite(s_gpu).all()):
+        failures.append(f"{name} serving card vs cpu")
+    del models
+    # three B-8 steps, card against the CPU
+    corpus = make_train_corpus(cfg, tables, (VARIANT_STEPS + 2) * cfg.batch_size, 2000, 32,
+                               SEED + 14)
+    training_parity(torch, cfg, corpus, dev, failures, label=name)
+    # untraced steps at B 64, dedup and dropout on
+    model = Model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED + 15))
+    neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets,
+                                    cfg.negative_sample_num, np.random.default_rng(SEED))
+    split = corpus.splits["train"]
+    cap = batching.estimate_dedup_capacity(split.history_idx, corpus.train_behavior_row,
+                                           corpus.train_pos, neg, corpus.news_node_id,
+                                           cfg.batch_size, seed=cfg.seed)
+    batches = [b for b in batching.train_batches(
+        split.history_idx, split.cat_idx, corpus.train_behavior_row, corpus.train_pos, neg,
+        cfg.batch_size, epoch_seed=SEED, news_node_id=corpus.news_node_id, dedup_titles=cap)
+        if isinstance(b, batching.DedupTrainBatch)][:VARIANT_STEPS]
+    from digat_tpu_torch.models.model import CorpusTables
+
+    t = CorpusTables.from_arrays(tables, dev)
+    opt = Adam(model.named_parameters(), cfg.weight_decay, cfg.gradient_clip_norm)
+    drawn, apply_dropout = Counter(), layers.apply_dropout
+
+    def recording(x, rate, seed, site):
+        drawn[(x.numel() // x.shape[-1], x.shape[-1], rate)] += 1
+        return apply_dropout(x, rate, seed, site)
+
+    layers.apply_dropout = recording
+    reset_counters()
+    step_ms, losses = [], []
+    try:
+        for k, b in enumerate(batches):
+            b = batching.to_device(b, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(train_step(model, opt, t, b, step_seed(SEED, 1, k), cfg.lr)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        layers.apply_dropout = apply_dropout
+    launches = read_counters()
+    steps = len(batches)
+    sites = mask_sites(cfg, cap)
+    checked = Counter()
+    for _, rows, cols, rate, per_step in sites:
+        checked[(rows, cols, rate)] += per_step * steps
+    n_int = interactive_layers(cfg)
+    want = {"msa_encoder_pooled": steps if msa else 0, "msa_encoder_bwd": steps if msa else 0,
+            "embedding_grad": steps, "gat_scores_fwd": n_int * steps,
+            "gat_scores_bwd": n_int * steps,
+            "dropout": 2 * sum(site[4] for site in sites) * steps, "keep_mask": 0,
+            "interactive_gat_layer_fused": 0, "msa_attention_fwd": 0, "msa_attention_bwd": 0}
+    median = float(np.median(step_ms[2:]))
+    say(f"  {name} training: {steps} steps at B {cfg.batch_size} (dedup capacity {cap}), "
+        f"median step {median:.3f} ms after 2 (first {step_ms[0]:.3f}); train samples/s "
+        f"{cfg.batch_size * 1e3 / median:.1f}; losses {[round(v, 5) for v in losses]}; "
+        f"launches per step {({k: v / steps for k, v in launches.items() if v})}")
+    if steps < VARIANT_STEPS or not np.isfinite(losses).all():
+        failures.append(f"{name} training: too few steps or a loss not finite")
+    for k, n in want.items():
+        if launches[k] != n:
+            failures.append(f"{name} training: {k} launched {launches[k]} times, want {n}")
+    if drawn != checked:
+        failures.append(f"{name} training: A'' drew masks at {dict(drawn)}, want "
+                        f"{dict(checked)}")
+    result.update(training=launches, steps=steps, step_ms_median=median,
+                  samples_per_s=cfg.batch_size * 1e3 / median, cap=cap)
+    return result
+
+
+def head_tables(torch, tables, news_num: int):
+    """The first `news_num` news of a corpus's tables, its graph ids folded
+    into that range."""
+    return type(tables)(tables.news_title_text[:news_num], tables.news_title_mask[:news_num],
+                        tables.news_node_id[:news_num] % news_num, tables.news_graph[:news_num],
+                        tables.news_graph_mask[:news_num])
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _watchdog)
     signal.alarm(WATCHDOG_S)
@@ -1402,9 +1709,9 @@ def main() -> int:
             else f"nvidia-smi failed: {smi.stderr.strip()}"
     except (OSError, subprocess.TimeoutExpired) as e:
         card = f"nvidia-smi failed: {e}"
-    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    device_kind, device_count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     say(f"[1 device] {time.perf_counter() - t0:.2f}s torch {torch.__version__} "
-        f"cuda {torch.version.cuda} device_count {count}")
+        f"cuda {torch.version.cuda} device_count {device_count}")
     say(card)
 
     # ---- 2. build ----
@@ -1661,14 +1968,49 @@ def main() -> int:
         failures.append("NRMS-SA training parity")
     say(f"[13 NRMS-SA training parity] {time.perf_counter() - t0:.2f}s")
 
+    # ---- 16. kernels A and A' at titles of 48-128 and at heads of dk 128 ----
+    t0 = time.perf_counter()
+    try:
+        for k, shapes in long_title_kernels(torch, dev).items():
+            short[k].update(shapes)
+    except Exception:
+        traceback.print_exc()
+        failures.append("kernels A and A' at long titles")
+    say(f"[16 long titles] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 17. titles of L 160: the attention pair in the news encoder ----
+    t0 = time.perf_counter()
+    route_launches = {}
+    try:
+        route_launches = long_route(torch, dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("L 160 route")
+    say(f"[17 L 160 route] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 18. the five ablations and CNN-DIGAT at full width ----
+    variant_runs = {}
+    for name, over in VARIANTS:
+        t0 = time.perf_counter()
+        try:
+            variant_runs[name] = variant_phase(torch, name, replace(cfg, **over), tables, dev,
+                                               failures)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"variant {name}")
+        say(f"[18 {name}] {time.perf_counter() - t0:.2f}s")
+
     # ---- 14. the CLI at the production cell, from TSV files ----
     cells = parity_cells()
     cli_launches = {}
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
         try:
+            # 5 of the cell's 6 epochs, 4 of the matrix cell's 8 (the run's
+            # 300 s): the prod cell's seed 0 passes 0.55 at epoch 4,
+            # the matrix cell's 0.66 at epoch 3
             cli_launches["cli prod"] = cli_cell(torch, cells, "prod", workdir, 0.55, failures,
-                                                sag_check=True)
+                                                sag_check=True, epochs=5)
         except Exception:
             traceback.print_exc()
             failures.append("CLI, production cell")
@@ -1678,11 +2020,23 @@ def main() -> int:
         t0 = time.perf_counter()
         try:
             cli_launches["cli matrix L16"] = cli_cell(torch, cells, "matrix-msa", workdir, 0.66,
-                                                      failures)
+                                                      failures, epochs=4)
         except Exception:
             traceback.print_exc()
             failures.append("CLI, matrix cell at L 16")
         say(f"[15 CLI, matrix cell at L 16] {time.perf_counter() - t0:.2f}s")
+
+        # ---- 19. the CLI at the matrix cell of wo_interaction ----
+        t0 = time.perf_counter()
+        try:
+            mean, sigma, _ = cells.TARGETS["matrix-wo_interaction"]
+            cli_launches["cli matrix wo_interaction"] = cli_cell(
+                torch, cells, "matrix-wo_interaction", workdir, round(mean - 3 * sigma, 4),
+                failures)
+        except Exception:
+            traceback.print_exc()
+            failures.append("CLI, matrix cell of wo_interaction")
+        say(f"[19 CLI, matrix-wo_interaction] {time.perf_counter() - t0:.2f}s")
 
     # ---- kernels line ----
     if "msa_encoder_pooled" in train_entries and "msa_encoder_pooled" in entries:
@@ -1697,12 +2051,12 @@ def main() -> int:
             main_bwd, by_shape={f"training N{cap} dropout {cfg.dropout_rate}": main_bwd})
     for name, e in train_entries.items():
         entries.setdefault(name, e)
-    for name, shapes in short.items():  # A and A' at titles shorter than 32
+    for name, shapes in short.items():  # A and A' at titles shorter than 32, and longer
         e = entries.setdefault(name, dict(ok=False))
         e.setdefault("by_shape", {}).update(shapes)
         e["ok"] = all(v.get("ok") for v in e["by_shape"].values())
         if not all(v.get("ok") for v in shapes.values()):
-            failures.append(f"kernel {name} at titles shorter than 32")
+            failures.append(f"kernel {name} at titles other than 32")
     by_path = {name: {"serving": launches.get(name, 0), "training": train_launches.get(name, 0)}
                for name in counters()}
     by_path["interactive_gat_scores"] = {
@@ -1714,6 +2068,20 @@ def main() -> int:
                           "bwd": nrms_train.get("msa_attention_bwd", 0),
                           "steps": nrms_steps}}
     by_path["dropout"]["nrms training"] = nrms_train.get("dropout", 0)
+    by_path["msa_attention"]["L160 route"] = {
+        "fwd": route_launches.get("msa_attention_fwd", 0),
+        "bwd": route_launches.get("msa_attention_bwd", 0)}
+    for kernel in ("dropout", "embedding_grad"):
+        by_path[kernel]["L160 route"] = route_launches.get(kernel, 0)
+    for vname, run in variant_runs.items():
+        for stage in ("serving", "training"):
+            counts = run.get(stage, {})
+            for name in counters():
+                if name in by_path and counts.get(name):
+                    by_path[name][f"{vname} {stage}"] = counts[name]
+            if counts.get("gat_scores_fwd"):
+                by_path["interactive_gat_scores"][f"{vname} {stage}"] = {
+                    k: counts.get(k, 0) for k in ("gat_scores_fwd", "gat_scores_bwd")}
     for path, counts in cli_launches.items():
         for name in counters():
             by_path[name][path] = counts.get(name, 0)
@@ -1759,7 +2127,8 @@ def main() -> int:
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
-    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
+                                           "count": device_count}}))
     return 0
 
 

@@ -1,6 +1,8 @@
 """digat_tpu_torch: the PyTorch/CUDA port of digat_tpu for one NVIDIA H100.
 
-It trains and serves the production MSA-DIGAT model, and the NRMS family
+It trains and serves the DIGAT family (the production MSA-DIGAT, its five
+graph-encoder ablations with the vanilla GAT layer, and the CNN news
+encoder: `config.Config.graph_encoder`, `news_encoder`), and the NRMS family
 (NRMS and NRMS-SA, `models.nrms.NRMSModel`: both towers' masked multi-head
 attention as a hand-written kernel pair forward and backward,
 `ops.msa_attention`; served by `eval.scorer.NRMSCachedScorer`):
@@ -29,4 +31,4 @@ scorers) run on CUDA unless the caller passes `device="cpu"`; with no
 device and no CUDA they raise.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -1,9 +1,10 @@
 """Experiment configuration for the port.
 
 A copy of the fields of `digat_tpu.config.Config` that the port reads
-(MSA-DIGAT and the NRMS family, training, the cached scorers, the data
-pipeline and the CLI), with the same names, defaults and per-dataset
-protocol overrides, plus `device` (cuda | cpu). Kept as its own copy so the
+(the DIGAT family with either news encoder and every graph encoder, the
+NRMS family, training, the cached scorers, the data pipeline and the CLI),
+with the same names, defaults and per-dataset protocol overrides, plus
+`device` (cuda | cpu). Kept as its own copy so the
 port never imports the JAX package.
 
 `from_args` also takes the JAX package's TPU-only flags, so that a JAX
@@ -51,7 +52,10 @@ JAX_ONLY_FLAGS = {
                         "embedding gradient)"),
 }
 
-MAX_CARD_TITLE_LENGTH = 32  # kernels A and A' (ops/msa_encoder.py)
+NEWS_ENCODERS = ("MSA", "CNN")
+GRAPH_ENCODERS = ("DIGAT", "wo_SA", "Seq_SA", "wo_interaction", "news_graph_wo_inter",
+                  "user_graph_wo_inter")
+CNN_METHODS = ("naive", "group3", "group5")
 
 
 def _parse_bool(s: str) -> bool:
@@ -87,8 +91,7 @@ class Config:
     attention_dim: int = 256
     dropout_rate: float = 0.2
     graph_depth: int = 3
-    # the CNN encoder's fields (read only to refuse the encoder: not ported)
-    cnn_method: str = "naive"
+    cnn_method: str = "naive"  # naive | group3 | group5
     cnn_kernel_num: int = 400
     cnn_window_size: int = 3
     SAG_hops: int = 2
@@ -137,6 +140,8 @@ class Config:
 
     @property
     def news_embedding_dim(self) -> int:
+        if self.news_encoder == "CNN":
+            return self.cnn_kernel_num
         return self.MSA_head_num * self.MSA_head_dim
 
     @property
@@ -152,10 +157,9 @@ class Config:
         return self.eval_batch_size or self.batch_size * 16
 
     def check_options(self) -> "Config":
-        """The options alone, before a corpus fills the sizes: the port has
-        MSA-DIGAT and the NRMS family (which reads neither encoder field);
-        the CNN encoder and the DIGAT ablations raise. Titles of any length
-        run on the CPU; on the card kernels A and A' take L <= 32."""
+        """The options alone, before a corpus fills the sizes: every news and
+        graph encoder of the JAX package (the NRMS family reads neither
+        field), with its checks of the CNN bank's method and width."""
         if self.mode not in ("train", "dev", "test"):
             raise ValueError(f"unknown mode {self.mode}")
         if self.device not in ("cuda", "cpu"):
@@ -164,14 +168,16 @@ class Config:
             raise ValueError(f"unknown model_family {self.model_family}")
         if self.nrms_model not in ("NRMS-SA", "NRMS"):
             raise ValueError(f"unknown nrms_model {self.nrms_model}")
-        if self.model_family == "digat":
-            if self.news_encoder != "MSA":
-                raise NotImplementedError(f"news_encoder={self.news_encoder} is not ported yet")
-            if self.graph_encoder != "DIGAT":
-                raise NotImplementedError(f"graph_encoder={self.graph_encoder} is not ported yet")
-            if self.device == "cuda" and not 1 <= self.max_title_length <= MAX_CARD_TITLE_LENGTH:
-                raise ValueError(f"max_title_length={self.max_title_length}: on the card kernels "
-                                 f"A and A' take titles of length 1 to {MAX_CARD_TITLE_LENGTH}")
+        if self.news_encoder not in NEWS_ENCODERS:
+            raise ValueError(f"unknown news_encoder {self.news_encoder}")
+        if self.graph_encoder not in GRAPH_ENCODERS:
+            raise ValueError(f"unknown graph_encoder {self.graph_encoder}")
+        if self.cnn_method not in CNN_METHODS:
+            raise ValueError(f"unknown cnn_method {self.cnn_method}")
+        for method, k in (("group3", 3), ("group5", 5)):
+            if self.cnn_method == method and self.cnn_kernel_num % k:
+                raise ValueError(f"cnn_method={method} needs cnn_kernel_num divisible by {k}, "
+                                 f"got {self.cnn_kernel_num}")
         if self.dev_criterion not in ("auc", "mrr", "ndcg5", "ndcg10", "avg"):
             raise ValueError(f"unknown dev_criterion {self.dev_criterion}")
         return self

@@ -27,9 +27,8 @@
 //      card's int32 issue rate, taken from the product's own issue slots)
 //      where this pass moves 0.69 GB in about 0.23 ms.
 //   2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv]  (tc_gemm.cuh, kBias, kRN, BN 96).
-//      Kernel A''s step 2 is the same product and split, summed in the
-//      tensor cores throughout; A's sums round to nearest (kRN), so the two
-//      q|k|v differ in their last bits. Why: the tensor cores round their
+//      Kernel A''s step 2 is the same product, split and tiles, also with
+//      kRN, so the two q|k|v are the same bits. Why kRN: the tensor cores round their
 //      accumulation toward zero, and the card-against-CPU check of a
 //      training step holds the step-1 gradients of the graph encoder to 1e-3
 //      of their scale. Those gradients pass kernel C's relu masks, which
@@ -57,10 +56,14 @@
 // no more than that, inside the gate.
 //
 // Every reduction runs in a fixed order with no atomics: the same bits on
-// every run. Limits, as kernel A''s: L 1 to 32, Din and D multiples of 4,
-// dk <= 64, A a multiple of 4 up to 512. A title of L < 32 runs on the first
+// every run. Limits, as kernel A''s: L 1 to 128, Din and D multiples of 4,
+// dk <= 128, A a multiple of 4 up to 512: where the JAX package runs its
+// kernel (group_size(heads, L, dk) > 0). A title of L < 32 runs on the first
 // L lanes of the attention unit and of the pool's warp (msa_title.cuh); x,
-// qkv and the logits keep L rows a title in global memory.
+// qkv and the logits keep L rows a title in global memory. Titles of 33 to
+// 128, and heads of dk 65 to 128, run step 3 as msa_title.cuh's long unit
+// (msa_attn_fwd_long_kernel<false>) and, past L 32, step 5 as
+// msa_pool_fwd_long_kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -110,6 +113,33 @@ msa_pool_fwd_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
   }
 }
 
+// The same for a title of 33 to 128 positions: lane l takes positions l,
+// l + 32, ... of the softmax (pool_alpha_long), and the sum runs over l < L in
+// order.
+__global__ void __launch_bounds__(kThreads)
+msa_pool_fwd_long_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
+                         int parts,
+                         const unsigned char* __restrict__ mask,  // [N, L]
+                         const float* __restrict__ h, int ldh,    // [N*L, ldh]
+                         float* __restrict__ out,                 // [N, D]
+                         int N, int L, int D) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (n >= N) return;
+  float al[kLongWarps];
+  pool_alpha_long(lgpart, parts, (size_t)N * L, mask, n, L, lane, al);
+  const float* hn = h + (size_t)n * L * ldh;
+  for (int c0 = 0; c0 < D / 4; c0 += 32) {
+    const int c = c0 + lane;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int l = 0; l < L; ++l) {
+      const float a = lane_value(al, l);  // every lane takes part in the shuffle
+      if (c < D / 4) axpy4(a, __ldg(reinterpret_cast<const float4*>(hn + (size_t)l * ldh) + c), o);
+    }
+    if (c < D / 4) reinterpret_cast<float4*>(out + (size_t)n * D)[c] = o;
+  }
+}
+
 // floats of each scratch array, in the order they sit in the scratch buffer
 struct FwdScratch {
   size_t xd, qkv, lgpart;
@@ -124,8 +154,8 @@ FwdScratch fwd_scratch_of(int N, int L, int Din, int D, int A, bool drop) {
 }
 
 bool shapes_taken(int N, int L, int Din, int D, int dk, int A) {
-  return N > 0 && L > 0 && L <= kL && Din > 0 && Din % 4 == 0 && D % 4 == 0 && dk > 0 &&
-         dk <= kMaxDk && A > 0 && A % 4 == 0 && A <= 128 * kMaxA4;
+  return N > 0 && L > 0 && L <= kLongL && Din > 0 && Din % 4 == 0 && D % 4 == 0 && dk > 0 &&
+         dk <= kLongMaxDk && A > 0 && A % 4 == 0 && A <= 128 * kMaxA4;
 }
 
 }  // namespace
@@ -135,6 +165,10 @@ bool shapes_taken(int N, int L, int Din, int D, int dk, int A) {
 extern "C" int msa_encoder_init() {
   cudaError_t e = tc::init<true, true, kBNq, tc::kBias, true>();
   if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kLogits, true>();
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(msa_attn_fwd_long_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             sizeof(float) * attn_fwd_long_floats(kLongL));
   return static_cast<int>(e);
 }
 
@@ -190,12 +224,19 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
   a.bias = static_cast<const float*>(bqkv);
   if ((e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a)) != cudaSuccess) return int(e);
   // 3. h = relu(P v) per unit, over q
-  e = with_title_length(L, [&](auto fixed) {
-    msa_attn_fwd_kernel<false, decltype(fixed)::value>
-        <<<N * heads, kAttnThreads, sizeof(float) * attn_fwd_floats(dk, false), st>>>(
+  if (short_unit(L, dk)) {
+    e = with_title_length(L, [&](auto fixed) {
+      msa_attn_fwd_kernel<false, decltype(fixed)::value>
+          <<<N * heads, kAttnThreads, sizeof(float) * attn_fwd_floats(dk, false), st>>>(
+              qkv, nullptr, qkv, 3 * D, nullptr, nullptr, nullptr, L, heads, dk, scale);
+      return cudaGetLastError();
+    });
+  } else {
+    msa_attn_fwd_long_kernel<false>
+        <<<N * heads, long_threads(L), sizeof(float) * attn_fwd_long_floats(L), st>>>(
             qkv, nullptr, qkv, 3 * D, nullptr, nullptr, nullptr, L, heads, dk, scale);
-    return cudaGetLastError();
-  });
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   // 4. lgpart = the v-product of tanh(h W1^T + b1), per warp column
   a = tc::Args{};
@@ -214,6 +255,12 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
   a.lgpart = lgpart;
   if ((e = tc::gemm<true, true, kBNp, tc::kLogits, true>(st, a)) != cudaSuccess) return int(e);
   // 5. the pool's softmax and the pooled vector
+  if (L > kL) {
+    msa_pool_fwd_long_kernel<<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
+        lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), qkv, 3 * D,
+        static_cast<float*>(out), N, L, D);
+    return static_cast<int>(cudaGetLastError());
+  }
   return static_cast<int>(with_title_length(L, [&](auto fixed) {
     msa_pool_fwd_kernel<decltype(fixed)::value>
         <<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(

@@ -24,8 +24,7 @@
 //      scale), h = relu(P v), its log-sum-exp per row, and the head's part
 //      of dalpha = dp . h per position; it marks a unit where a
 //      pre-activation lies within rounding of 0 (below);
-//  3b. msa_attn_relu_fix_kernel: those units' h again in fp32 CUDA-core
-//      order;
+//  3b. msa_attn_relu_fix_kernel: those units' h again in float64;
 //   4. u = tanh(h W1^T + b1) with its v-product per warp column (tc_gemm,
 //      kPool);
 //   5. msa_pool_kernel, a warp per title: the masked softmax over the 32
@@ -39,28 +38,31 @@
 //   9. dx = dqkv [Wq;Wk;Wv] with the dropout mask        (tc_gemm, kDrop)
 //  10. dWqkv = dqkv^T xd                                   (tc_gemm, split)
 //  11. the column sums of the parts, in title order.
-// The products run on the tensor cores at 3xTF32 (tc_gemm.cuh), which keeps
-// fp32-class accuracy: within about 1e-6 of the exact value relative to
-// the sums' terms. The one place where that is not enough is the ReLU after
-// the attention: a pre-activation within rounding of 0 takes the ReLU's
-// gradient (0 or the whole upstream term) from the sign that rounding gives
-// it, and at N 8,960 a dozen of the 115M pre-activations fall on the other
-// side of 0 than in fp32 arithmetic, enough to move dx by 3e-3 where the
-// gate is 1e-4 (scripts/msa_bwd_precision.py). So the forward marks each
-// unit with a pre-activation within kReluTol of its scale (about 3,500 of
-// 143,360 units at N 8,960), and step 3b recomputes just those units'
-// q|k|v, scores and h on the CUDA cores as an fp32 product summed over Din
-// in order gives them; the ReLU's side is then that of fp32 CUDA-core
-// arithmetic. That is what holds the kernel to its fp32 plain version
-// within the gate at N 8,960, where the plain version itself is further
-// from float64 than the gate (dx 4.0e-4, dwq 3.9e-3 against limits of 1e-4
-// and 1e-3). It rests on an assumption about the plain version: that
-// cuBLAS's fp32 SGEMM sums over Din in order, one thread an output, with no
-// split over K, as step 3b does. A torch or cuBLAS that sums otherwise (a
-// split-K SGEMM, or TF32 left on in the plain version, which
-// runtime.exact_fp32 turns off) can put a pre-activation on the other side
-// of 0 outside kReluTol and fail the gate with no fault in this kernel;
-// scripts/msa_bwd_precision.py --seeds reads the margin. The weight
+// The products run on the tensor cores at 3xTF32 (tc_gemm.cuh), each
+// 32-deep k-tile's sums added to the running sums rounding to nearest
+// (kRN), as kernels A and B do, at tiles 96 wide (kRN's second set of
+// accumulators fits the registers there): fp32-class accuracy, within
+// about 1e-6 of the exact value relative to the sums' terms; step 2 is
+// then the same product, tiles and bits as kernel A's q|k|v. The one place
+// where that is not enough is the ReLU after the attention: a
+// pre-activation within rounding of 0 takes the ReLU's gradient (0 or the
+// whole upstream term) from the sign that rounding gives it, and at N 8,960
+// a dozen of the 115M pre-activations fall on the other side of 0 in one
+// fp32 order than in another, enough to move dx by 3e-3 where the gate is
+// 1e-4 (scripts/msa_bwd_precision.py). So the forward marks each unit with a
+// pre-activation within kReluTol of its scale (about 3,500 of 143,360 units
+// at N 8,960), and step 3b recomputes just those units' q|k|v, scores and h
+// in float64 from the fp32 inputs: the ReLU's side is then that of the
+// exact value. The plain version runs its attention in float64 too, so both
+// take the same side whatever order either sums in. (Until this kernel's
+// products took kRN, step 3b recomputed in fp32 in the order of cuBLAS's
+// fp32 SGEMM, and rested on cuBLAS summing over Din in order; at titles of
+// L 48 cuBLAS's batched attention products sum otherwise, and flips got
+// through. kRN alone could not lift that: it makes the tensor-core sum as
+// close to the exact value as an fp32 sum in order is, not the same
+// number.) The remaining assumption is kReluTol itself: the tensor-core
+// pre-activation must lie within it of the float64 value (measured 3.6e-7
+// to 4.1e-7 of the scale, 25 times under it). The weight
 // gradients split the M rows into fixed slices, each slice's partial
 // written apart and summed in slice order; every other reduction also sums
 // in a fixed order, with no atomics, so the result is the same bits on
@@ -79,8 +81,16 @@
 // Title length. Titles of L = 1 to 32 positions take the first L of the 32
 // slots of a unit and of a pool warp (msa_title.cuh); every array in
 // global memory keeps L rows a title (M = N L), and p_ij and dS_ij are 0
-// past L. At an odd L, M is often not a multiple of 4: the products that
-// read an M-major operand (the weight gradients, steps 6 and 10) sum over M,
+// past L. Titles of 33 to 128 positions, and heads of dk 65 to 128, run the
+// long unit (msa_title.cuh: a thread per position, the head in 32-column
+// chunks) for steps 3, 3b and 8: msa_attn_fwd_long_kernel<true>,
+// msa_attn_relu_fix_long_kernel (the unit's q|k|v in `fixbuf`, a slice of
+// the scratch per block, the scores in shared memory) and
+// msa_attn_bwd_long_kernel (P and dS in shared memory, summed chunk by
+// chunk); past L 32 the pool's backward is msa_pool_long_kernel (a lane
+// per position and its 32-apart neighbours). The products are the same.
+// At an odd L, M is often not a multiple of 4: the products that read an
+// M-major operand (the weight gradients, steps 6 and 10) sum over M,
 // as their K, row by row, which tc::gemm takes at any K.
 
 #include <cuda_runtime.h>
@@ -101,7 +111,9 @@ constexpr int kFixWarps = kFixThreads / 32;
 constexpr int kFixRows = kMaxDk / kFixWarps;  // W rows of q, k or v per warp in the fix
 constexpr int kRowsPerSplit = 4096;    // rows of one slice of a weight gradient
 constexpr int kColRows = 256;          // rows of one slice of a column sum over titles
-constexpr int kBNq = 128, kBNp = 128, kBN = 160;  // tile widths: Q|K|V, pool, the rest
+// tile width of the six products: kRN's second set of accumulators fits in
+// the registers at 96 columns a block (tc_gemm.cuh)
+constexpr int kBNq = 96, kBNp = 96, kBN = 96;
 
 namespace tc = digat::tc;
 
@@ -132,26 +144,41 @@ __global__ void colsum_kernel(const float* __restrict__ A, int M, int N, int row
 }
 
 // ---------------------------------------------------------------------------
-// The ReLU of a unit that msa_attn_fwd_kernel marked: its h again in the
-// fp32 order of a CUDA-core product (q|k|v summed over Din in order from 0,
-// then the bias; the scores over dk in order; the softmax's sum as a warp's
-// butterfly; P v over the keys in order), so that a pre-activation within
-// rounding of 0 falls on the side that fp32 arithmetic in that order puts it.
+// The ReLU of a unit that msa_attn_fwd_kernel marked: its h again in
+// float64 from the fp32 inputs (q|k|v summed over Din, then the bias; the
+// scores over dk times 1 / sqrt(dk); the softmax; P v over the keys), so
+// that a pre-activation within rounding of 0 falls on the side of its
+// float64 value, the side the plain version takes too (it runs the
+// attention in float64). Both sums are then the exact value to 1e-16 of the
+// terms, whatever order either takes.
 // ---------------------------------------------------------------------------
 // x rows sit kx_stride(Din) floats apart: an odd number of float4s, so that
 // 8 lanes reading 8 rows as float4 hit 8 bank quads; 32 rows whatever L,
 // zero past L
 __host__ __device__ inline int kx_stride(int Din) { return (Din / 4) % 2 ? Din : Din + 4; }
 
+// floats of the short fix's shared memory: x rows and W rows (fp32), then
+// q|k|v and the scores (float64, two floats each)
 __host__ __device__ inline int relu_fix_floats(int Din, int dk) {
-  return kL * kx_stride(Din) + dk * Din + 3 * kL * (dk + 1) + kL * kPS;
+  return kL * kx_stride(Din) + dk * Din + 2 * (3 * kL * (dk + 1) + kL * kPS);
+}
+
+__device__ __forceinline__ double warp_max_d(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // Blocks walk the list of marked units. The title's x rows and, in turn,
 // the dk rows of Wq, Wk and Wv of the unit's head sit in shared memory; lane
 // i owns position i and warp w the columns c = w, w + 8, ..., each summed
-// in one pass over Din (the x row and the W row as float4), in order from
-// k = 0.
+// in one pass over Din (the x row and the W row as float4) in float64.
 template <int kFixedL>
 __global__ void __launch_bounds__(kFixThreads)
 msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
@@ -159,17 +186,18 @@ msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
                          const float* __restrict__ bqkv,   // [3D]
                          const int* __restrict__ unsure,   // count, then units
                          float* __restrict__ h,            // [N*L, D]: the unit's rows again
-                         int title_len, int Din, int heads, int dk, float scale) {
+                         int title_len, int Din, int heads, int dk) {
   constexpr bool kFull = kFixedL == kL;  // no slot past L
   const int L = kFixedL > 0 ? kFixedL : title_len;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = heads * dk, XS = kx_stride(Din), TS = dk + 1, D4 = Din / 4;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const double dscale = 1.0 / sqrt(static_cast<double>(dk));
   float* xs = smem;             // [kL][XS]
   float* ws = xs + kL * XS;     // [dk][Din]: the head's rows of Wq, Wk or Wv
-  float* t = ws + dk * Din;     // [3][kL][TS]: q, k, v
-  float* S = t + 3 * kL * TS;   // [kL][kPS]
+  double* t = reinterpret_cast<double*>(ws + dk * Din);  // [3][kL][TS]: q, k, v
+  double* S = t + 3 * kL * TS;  // [kL][kPS]
   const int count = unsure[0];
   for (int u = blockIdx.x; u < count; u += gridDim.x) {
     const int unit = unsure[1 + u];
@@ -187,9 +215,9 @@ msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
       for (int e = threadIdx.x; e < dk * D4; e += kFixThreads)
         reinterpret_cast<float4*>(ws)[e] = __ldg(wb + e);
       __syncthreads();
-      float acc[kFixRows];
+      double acc[kFixRows];
 #pragma unroll
-      for (int m = 0; m < kFixRows; ++m) acc[m] = 0.f;
+      for (int m = 0; m < kFixRows; ++m) acc[m] = 0.0;
       for (int k4 = 0; k4 < D4; ++k4) {
         const float4 x = x4[k4];
 #pragma unroll
@@ -197,42 +225,43 @@ msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
           const int c = w + kFixWarps * m;
           if (c < dk) {
             const float4 wv = reinterpret_cast<const float4*>(ws + c * Din)[k4];
-            float a = acc[m];
-            a = fmaf(x.x, wv.x, a);
-            a = fmaf(x.y, wv.y, a);
-            a = fmaf(x.z, wv.z, a);
-            acc[m] = fmaf(x.w, wv.w, a);
+            double a = acc[m];
+            a = fma(double(x.x), double(wv.x), a);
+            a = fma(double(x.y), double(wv.y), a);
+            a = fma(double(x.z), double(wv.z), a);
+            acc[m] = fma(double(x.w), double(wv.w), a);
           }
         }
       }
 #pragma unroll
       for (int m = 0; m < kFixRows; ++m) {
         const int c = w + kFixWarps * m;
-        if (c < dk) t[(which * kL + lane) * TS + c] = acc[m] + bqkv[which * D + hd * dk + c];
+        if (c < dk)
+          t[(which * kL + lane) * TS + c] = acc[m] + double(bqkv[which * D + hd * dk + c]);
       }
       __syncthreads();  // ws read for the last time
     }
-    const float* q = t;
-    const float* kk = t + kL * TS;
-    const float* v = t + 2 * kL * TS;
+    const double* q = t;
+    const double* kk = t + kL * TS;
+    const double* v = t + 2 * kL * TS;
     for (int e = threadIdx.x; e < kL * kL; e += kFixThreads) {
       const int i = e >> 5, j = e & 31;
-      float s = 0.f;
-      for (int c = 0; c < dk; ++c) s = fmaf(q[i * TS + c], kk[j * TS + c], s);
-      S[i * kPS + j] = kFull || j < L ? s * scale : -INFINITY;
+      double s = 0.0;
+      for (int c = 0; c < dk; ++c) s = fma(q[i * TS + c], kk[j * TS + c], s);
+      S[i * kPS + j] = kFull || j < L ? s * dscale : -INFINITY;
     }
     __syncthreads();
     for (int i = w; i < L; i += kFixWarps) {
-      const float s = S[i * kPS + lane];
-      const float p = expf(s - warp_max(s));
-      S[i * kPS + lane] = p / warp_sum(p);
+      const double s = S[i * kPS + lane];
+      const double p = exp(s - warp_max_d(s));
+      S[i * kPS + lane] = p / warp_sum_d(p);
     }
     __syncthreads();
     for (int e = threadIdx.x; e < L * dk; e += kFixThreads) {
       const int i = e / dk, c = e - i * dk;
-      float o = 0.f;
-      for (int j = 0; j < L; ++j) o = fmaf(S[i * kPS + j], v[j * TS + c], o);
-      h[((size_t)n * L + i) * D + hd * dk + c] = fmaxf(o, 0.f);
+      double o = 0.0;
+      for (int j = 0; j < L; ++j) o = fma(S[i * kPS + j], v[j * TS + c], o);
+      h[((size_t)n * L + i) * D + hd * dk + c] = static_cast<float>(fmax(o, 0.0));
     }
     __syncthreads();
   }
@@ -433,26 +462,294 @@ msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq
   }
 }
 
+// ---------------------------------------------------------------------------
+// The long unit (msa_title.cuh: titles of 33 to 128, or dk 65 to 128): the
+// ReLU fix, the pool's backward and the attention backward
+// ---------------------------------------------------------------------------
+constexpr int kFixLongBlocks = 132;  // blocks walking the list of long units to fix
+
+// floats of the long fix's q|k|v of one unit (float64, two floats each), in
+// device memory (one a block)
+__host__ __device__ inline size_t relu_fix_long_unit_floats(int L, int dk) {
+  return 2 * 3 * size_t(L) * dk;
+}
+
+// The long ReLU fix, in float64 as the short one: a unit's q|k|v, each
+// element summed over Din and then its bias, written to the block's own
+// [3][L][dk] of `fixbuf`; its scores into S [L][long_ls(L)] (shared memory,
+// float64); a warp per row for the softmax; P v over the keys.
+__global__ void __launch_bounds__(kFixThreads)
+msa_attn_relu_fix_long_kernel(const float* __restrict__ xin,    // [N*L, Din]
+                              const float* __restrict__ wqkv,   // [3D, Din]
+                              const float* __restrict__ bqkv,   // [3D]
+                              const int* __restrict__ unsure,   // count, then units
+                              float* __restrict__ h,            // [N*L, D]
+                              float* __restrict__ fixbuf,       // [gridDim.x][3][L][dk] doubles
+                              int L, int Din, int heads, int dk) {
+  extern __shared__ float4 smem4[];
+  double* S = reinterpret_cast<double*>(smem4);  // [L][LS]
+  const int D = heads * dk, LS = long_ls(L), LD = L * dk;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const double dscale = 1.0 / sqrt(static_cast<double>(dk));
+  double* t = reinterpret_cast<double*>(fixbuf + blockIdx.x *
+                                        relu_fix_long_unit_floats(L, dk));  // q, k, v [L][dk]
+  const int count = unsure[0];
+  for (int u = blockIdx.x; u < count; u += gridDim.x) {
+    const int unit = unsure[1 + u];
+    const int n = unit / heads, hd = unit - n * heads;
+    for (int e = threadIdx.x; e < 3 * LD; e += kFixThreads) {
+      const int which = e / LD, r = e - which * LD, i = r / dk, c = r - i * dk;
+      const float4* x4 = reinterpret_cast<const float4*>(xin + ((size_t)n * L + i) * Din);
+      const float4* w4 =
+          reinterpret_cast<const float4*>(wqkv + ((size_t)which * D + hd * dk + c) * Din);
+      double a = 0.0;
+      for (int k4 = 0; k4 < Din / 4; ++k4) {
+        const float4 x = __ldg(x4 + k4), wv = __ldg(w4 + k4);
+        a = fma(double(x.x), double(wv.x), a);
+        a = fma(double(x.y), double(wv.y), a);
+        a = fma(double(x.z), double(wv.z), a);
+        a = fma(double(x.w), double(wv.w), a);
+      }
+      t[e] = a + double(bqkv[which * D + hd * dk + c]);
+    }
+    __syncthreads();
+    const double* q = t;
+    const double* kk = t + LD;
+    const double* v = t + 2 * LD;
+    for (int e = threadIdx.x; e < L * L; e += kFixThreads) {
+      const int i = e / L, j = e - i * L;
+      double s = 0.0;
+      for (int c = 0; c < dk; ++c) s = fma(q[i * dk + c], kk[j * dk + c], s);
+      S[i * LS + j] = s * dscale;
+    }
+    __syncthreads();
+    for (int i = w; i < L; i += kFixWarps) {
+      double m = -INFINITY;
+      for (int j = lane; j < L; j += 32) m = fmax(m, S[i * LS + j]);
+      m = warp_max_d(m);
+      double z = 0.0;
+      for (int j = lane; j < L; j += 32) z += exp(S[i * LS + j] - m);
+      const double inv = 1.0 / warp_sum_d(z);
+      for (int j = lane; j < L; j += 32) S[i * LS + j] = exp(S[i * LS + j] - m) * inv;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < LD; e += kFixThreads) {
+      const int i = e / dk, c = e - i * dk;
+      double o = 0.0;
+      for (int j = 0; j < L; ++j) o = fma(S[i * LS + j], v[j * dk + c], o);
+      h[((size_t)n * L + i) * D + hd * dk + c] = static_cast<float>(fmax(o, 0.0));
+    }
+    __syncthreads();  // t and S read for the last time
+  }
+}
+
+// The pool's softmax, its backward and dpre for a title of 33 to 128
+// positions: msa_pool_kernel with lane l taking positions l, l + 32, ...
+__global__ void __launch_bounds__(kThreads)
+msa_pool_long_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
+                     int parts,
+                     const unsigned char* __restrict__ mask,  // [N, L]
+                     const float* __restrict__ dap,           // [N, heads, L]
+                     const float* __restrict__ v,             // [A]
+                     float* __restrict__ u,                   // [N*L, A]: u in, dpre out
+                     float* __restrict__ alpha_out,           // [N*L]
+                     float* __restrict__ dv_part,             // [N, A]
+                     float* __restrict__ db1_part,            // [N, A]
+                     int N, int L, int heads, int A) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const size_t M = (size_t)N * L;
+  float al[kLongWarps], dlg[kLongWarps], da[kLongWarps];
+  pool_alpha_long(lgpart, parts, M, mask, n, L, lane, al);
+  float sd = 0.f;
+#pragma unroll
+  for (int r = 0; r < kLongWarps; ++r) {
+    const int l = lane + 32 * r;
+    da[r] = 0.f;
+    if (l < L)
+      for (int hd = 0; hd < heads; ++hd) da[r] += dap[((size_t)n * heads + hd) * L + l];
+    sd += al[r] * da[r];
+  }
+  const float s = warp_sum(sd);
+#pragma unroll
+  for (int r = 0; r < kLongWarps; ++r) {
+    const int l = lane + 32 * r;
+    const bool keep = l < L && mask[(size_t)n * L + l] != 0;
+    dlg[r] = keep ? (da[r] - s) * al[r] : 0.f;  // a masked logit passes no gradient
+    if (l < L) alpha_out[(size_t)n * L + l] = al[r];
+  }
+  const int A4 = A / 4;
+  float4 vv[kMaxA4], dva[kMaxA4], dba[kMaxA4];
+#pragma unroll
+  for (int r = 0; r < kMaxA4; ++r) {
+    const int a = lane + 32 * r;
+    vv[r] = a < A4 ? reinterpret_cast<const float4*>(v)[a] : make_float4(0.f, 0.f, 0.f, 0.f);
+    dva[r] = dba[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float4* u4 = reinterpret_cast<float4*>(u + (size_t)n * L * A);
+  for (int l = 0; l < L; ++l) {
+    const float g = lane_value(dlg, l);
+#pragma unroll
+    for (int r = 0; r < kMaxA4; ++r) {
+      const int a = lane + 32 * r;
+      if (a < A4) {
+        const float4 x = u4[l * A4 + a];
+        float4 z;
+        z.x = g * vv[r].x * (1.f - x.x * x.x);
+        z.y = g * vv[r].y * (1.f - x.y * x.y);
+        z.z = g * vv[r].z * (1.f - x.z * x.z);
+        z.w = g * vv[r].w * (1.f - x.w * x.w);
+        axpy4(g, x, dva[r]);
+        dba[r].x += z.x;
+        dba[r].y += z.y;
+        dba[r].z += z.z;
+        dba[r].w += z.w;
+        u4[l * A4 + a] = z;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kMaxA4; ++r) {
+    const int a = lane + 32 * r;
+    if (a < A4) {
+      reinterpret_cast<float4*>(dv_part + (size_t)n * A)[a] = dva[r];
+      reinterpret_cast<float4*>(db1_part + (size_t)n * A)[a] = dba[r];
+    }
+  }
+}
+
+// Floats of shared memory of msa_attn_bwd_long_kernel: P and dS, four chunks.
+__host__ __device__ inline int attn_bwd_long_floats(int L) {
+  return 2 * L * long_ls(L) + 4 * L * kChunkS;
+}
+
+// Attention backward of a long unit: dq|dk|dv over q|k|v and their column
+// sums, as msa_attn_bwd_kernel. P = exp(s scale - lse) and dP = do v^T are
+// summed chunk by chunk into shared memory, the columns in order; then
+// t_i = sum_j p_ij dp_ij over the keys in order and dS = P (dP - t) scale;
+// then, chunk by chunk, thread i forms row i of dq (over the keys in order)
+// and key i's rows of dk and dv (over the rows in order), which go over the
+// chunk's columns of q, k and v once every thread has read them.
+__global__ void __launch_bounds__(kLongL)
+msa_attn_bwd_long_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq|dk|dv out
+                         const float* __restrict__ dO,     // [N*L, D]
+                         const float* __restrict__ lse,    // [N, heads, L]
+                         float* __restrict__ dbias_part,   // [N, 3D] out
+                         int L, int heads, int dk, float scale) {
+  extern __shared__ float4 smem4[];
+  const int LS = long_ls(L), D = heads * dk;
+  float* P = reinterpret_cast<float*>(smem4);  // [L][LS]: s, then p
+  float* G = P + L * LS;                       // [L][LS]: dp, then ds
+  float* cq = G + L * LS;                      // [L][kChunkS] chunks of q, k, v, do
+  float* ck = cq + L * kChunkS;
+  float* cv = ck + L * kChunkS;
+  float* cd = cv + L * kChunkS;
+  const int n = blockIdx.x / heads, hd = blockIdx.x - n * heads;
+  const int i = threadIdx.x;
+  const bool row = i < L;
+  float* rows = qkv + (size_t)n * L * 3 * D + hd * dk;
+  const float* drows = dO + (size_t)n * L * D + hd * dk;
+  for (int c0 = 0; c0 < dk; c0 += kChunk) {
+    const int w = min(kChunk, dk - c0);
+    load_chunk(cq, rows + c0, 3 * D, L, w);
+    load_chunk(ck, rows + D + c0, 3 * D, L, w);
+    load_chunk(cv, rows + 2 * D + c0, 3 * D, L, w);
+    load_chunk(cd, drows + c0, D, L, w);
+    __syncthreads();
+    if (row) {
+      float qr[kChunk], dr[kChunk];
+      chunk_row(qr, cq, i);
+      chunk_row(dr, cd, i);
+      for (int j = 0; j < L; ++j) {
+        P[i * LS + j] = chunk_dot(qr, ck, j, c0 ? P[i * LS + j] : 0.f);
+        G[i * LS + j] = chunk_dot(dr, cv, j, c0 ? G[i * LS + j] : 0.f);
+      }
+    }
+    __syncthreads();
+  }
+  if (row) {
+    const float lse_i = lse[((size_t)n * heads + hd) * L + i];
+    float t = 0.f;
+    for (int j = 0; j < L; ++j) {
+      const float p = expf(P[i * LS + j] * scale - lse_i);
+      P[i * LS + j] = p;
+      t = fmaf(p, G[i * LS + j], t);
+    }
+    for (int j = 0; j < L; ++j) G[i * LS + j] = P[i * LS + j] * (G[i * LS + j] - t) * scale;
+  }
+  for (int c0 = 0; c0 < dk; c0 += kChunk) {
+    const int w = min(kChunk, dk - c0);
+    __syncthreads();  // P and dS complete; the last chunk's outputs stored
+    load_chunk(cq, rows + c0, 3 * D, L, w);
+    load_chunk(ck, rows + D + c0, 3 * D, L, w);
+    load_chunk(cd, drows + c0, D, L, w);
+    __syncthreads();
+    float gq[kChunk], gk[kChunk], gv[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) gq[c] = gk[c] = gv[c] = 0.f;
+    if (row) {
+      for (int j = 0; j < L; ++j) chunk_axpy(gq, G[i * LS + j], ck, j);
+      for (int r = 0; r < L; ++r) {
+        chunk_axpy(gk, G[r * LS + i], cq, r);
+        chunk_axpy(gv, P[r * LS + i], cd, r);
+      }
+    }
+    __syncthreads();  // the chunks read for the last time
+    if (row) {
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        cq[i * kChunkS + c] = gq[c];
+        ck[i * kChunkS + c] = gk[c];
+        cv[i * kChunkS + c] = gv[c];
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < 3 * L * kChunk; e += blockDim.x) {
+      const int which = e / (L * kChunk), r = e - which * L * kChunk;
+      const int ii = r / kChunk, c = r - ii * kChunk;
+      const float* tile = which == 0 ? cq : (which == 1 ? ck : cv);
+      if (c < w) rows[(size_t)ii * 3 * D + which * D + c0 + c] = tile[ii * kChunkS + c];
+    }
+    // the unit's column sums of dq, dk, dv over its L rows, in row order
+    for (int e = threadIdx.x; e < 3 * w; e += blockDim.x) {
+      const int which = e / w, c = e - which * w;
+      const float* tile = which == 0 ? cq : (which == 1 ? ck : cv);
+      float sum = 0.f;
+      for (int r = 0; r < L; ++r) sum += tile[r * kChunkS + c];
+      dbias_part[(size_t)n * 3 * D + which * D + hd * dk + c0 + c] = sum;
+    }
+  }
+}
+
 int g_max_smem = 0;  // opt-in shared memory per block, set by msa_encoder_bwd_init
+
+// Whether step 3b runs the long fix (q|k|v in device memory): for the long
+// unit, and for a short unit whose x and W rows do not fit the short fix's
+// block (Din 900 at dk 25, Din 600 at dk 64).
+bool long_fix(int L, int Din, int dk) {
+  return !short_unit(L, dk) || sizeof(float) * relu_fix_floats(Din, dk) > size_t(g_max_smem);
+}
 
 inline int splits_of(long long rows, int per) { return int((rows + per - 1) / per); }
 
 // floats of each scratch array, in the order they sit in the scratch buffer
 struct Scratch {
-  size_t xd, qkv, h, dO, u, lgpart, lse, dap, alpha, unsure, dbp, dvp, db1p, part, cpart;
+  size_t xd, qkv, h, dO, u, lgpart, lse, dap, alpha, unsure, dbp, dvp, db1p, part, cpart, fix;
   size_t total() const {
     return xd + qkv + h + dO + u + lgpart + lse + dap + alpha + unsure + dbp + dvp + db1p +
-           part + cpart;
+           part + cpart + fix;
   }
   // every array starts 16-byte aligned (float4 and tensor-core loads)
   void align() {
     for (size_t* f : {&xd, &qkv, &h, &dO, &u, &lgpart, &lse, &dap, &alpha, &unsure, &dbp, &dvp,
-                      &db1p, &part, &cpart})
+                      &db1p, &part, &cpart, &fix})
       *f = (*f + 3) & ~size_t(3);
   }
 };
 
 Scratch scratch_of(int N, int L, int Din, int heads, int D, int A) {
+  const int dk = D / heads;
   const long long M = (long long)N * L;
   const long long S = splits_of(M, kRowsPerSplit), Sn = splits_of(N, kColRows);
   Scratch s;
@@ -472,6 +769,7 @@ Scratch scratch_of(int N, int L, int Din, int heads, int D, int A) {
   const long long p1 = S * 3LL * D * Din, p2 = S * (long long)A * D;
   s.part = size_t(p1 > p2 ? p1 : p2);
   s.cpart = size_t(Sn * (3LL * D > A ? 3LL * D : A));
+  s.fix = long_fix(L, Din, dk) ? kFixLongBlocks * relu_fix_long_unit_floats(L, dk) : 0;
   s.align();
   return s;
 }
@@ -507,12 +805,21 @@ extern "C" int msa_encoder_bwd_init() {
         return cudaFuncSetAttribute(msa_attn_relu_fix_kernel<decltype(fixed)::value>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
       });
-  if (e == cudaSuccess) e = tc::init<true, true, kBNq, tc::kBias>();
-  if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kPool>();
-  if (e == cudaSuccess) e = tc::init<false, false, kBN, tc::kStore>();
-  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDh>();
-  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDrop>();
-  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kStore>();
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(msa_attn_relu_fix_long_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(msa_attn_fwd_long_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(msa_attn_bwd_long_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+  if (e == cudaSuccess) e = tc::init<true, true, kBNq, tc::kBias, true>();
+  if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kPool, true>();
+  if (e == cudaSuccess) e = tc::init<false, false, kBN, tc::kStore, true>();
+  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDh, true>();
+  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDrop, true>();
+  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kStore, true>();
   return static_cast<int>(e);
 }
 
@@ -520,7 +827,9 @@ extern "C" int msa_encoder_bwd_init() {
 // taken).
 extern "C" long long msa_encoder_bwd_scratch_floats(int N, int L, int Din, int heads, int dk,
                                                     int A) {
-  if (N <= 0 || L <= 0 || L > kL || Din <= 0 || heads <= 0 || dk <= 0 || A <= 0) return 0;
+  if (N <= 0 || L <= 0 || L > kLongL || Din <= 0 || heads <= 0 || dk <= 0 || dk > kLongMaxDk ||
+      A <= 0)
+    return 0;
   return (long long)scratch_of(N, L, Din, heads, heads * dk, A).total();
 }
 
@@ -535,9 +844,10 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
                                    unsigned thresh, float drop_scale, unsigned seed,
                                    unsigned site, void* stream) {
   const int D = heads * dk;
-  if (N <= 0 || L <= 0 || L > kL || Din <= 0 || Din % 4 != 0 || D % 4 != 0 || dk > kMaxDk ||
-      A <= 0 || A % 4 != 0 || A > 128 * kMaxA4 ||
-      sizeof(float) * relu_fix_floats(Din, dk) > size_t(g_max_smem)) {
+  const bool short_path = short_unit(L, dk);
+  if (N <= 0 || L <= 0 || L > kLongL || Din <= 0 || Din % 4 != 0 || D % 4 != 0 ||
+      dk > kLongMaxDk || A <= 0 || A % 4 != 0 || A > 128 * kMaxA4 ||
+      sizeof(float) * attn_bwd_long_floats(kLongL) > size_t(g_max_smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -557,6 +867,7 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   float* db1p = dvp + sz.dvp;
   float* part = db1p + sz.db1p;
   float* cpart = part + sz.part;
+  float* fixbuf = cpart + sz.cpart;
   const int M = N * L;
   const int S = splits_of(M, kRowsPerSplit);
   const float* fx = static_cast<const float*>(x);
@@ -592,38 +903,51 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   // 2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv]
   tc::Args a = args(xin, fw, qkv, M, 3 * D, Din, Din, Din, 3 * D, Din);
   a.bias = static_cast<const float*>(bqkv);
-  if ((e = tc::gemm<true, true, kBNq, tc::kBias>(st, a)) != cudaSuccess) return int(e);
+  if ((e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a)) != cudaSuccess) return int(e);
   // 3. attention forward per unit, with the list of units to fix; 3b. the
-  // marked units' ReLU again in CUDA-core fp32 order
+  // marked units' ReLU again in float64
   if ((e = cudaMemsetAsync(unsure, 0, sizeof(int), st)) != cudaSuccess) return int(e);
-  e = with_title_length(L, [&](auto fixed) {
+  const bool fix_long = long_fix(L, Din, dk);
+  if (!short_path) {
+    msa_attn_fwd_long_kernel<true>
+        <<<N * heads, long_threads(L), sizeof(float) * attn_fwd_long_floats(L), st>>>(
+            qkv, fdp, h, D, lse, dap, unsure, L, heads, dk, scale);
+    e = cudaGetLastError();
+  } else e = with_title_length(L, [&](auto fixed) {
     constexpr int kF = decltype(fixed)::value;
     msa_attn_fwd_kernel<true, kF>
         <<<N * heads, kAttnThreads, sizeof(float) * attn_fwd_floats(dk, true), st>>>(
             qkv, fdp, h, D, lse, dap, unsure, L, heads, dk, scale);
     cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess || fix_long) return err;
     msa_attn_relu_fix_kernel<kF>
         <<<kFixBlocks, kFixThreads, sizeof(float) * relu_fix_floats(Din, dk), st>>>(
-            xin, fw, static_cast<const float*>(bqkv), unsure, h, L, Din, heads, dk, scale);
+            xin, fw, static_cast<const float*>(bqkv), unsure, h, L, Din, heads, dk);
     return cudaGetLastError();
   });
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (fix_long) {
+    msa_attn_relu_fix_long_kernel<<<kFixLongBlocks, kFixThreads,
+                                    sizeof(double) * L * long_ls(L), st>>>(
+        xin, fw, static_cast<const float*>(bqkv), unsure, h, fixbuf, L, Din, heads, dk);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  }
   // 4. u = tanh(h W1^T + b1), lgpart = its v-product per warp column
   a = args(h, fw1, u, M, A, D, D, D, A, D);
   a.bias = static_cast<const float*>(b1);
   a.v = static_cast<const float*>(v);
   a.lgpart = lgpart;
-  if ((e = tc::gemm<true, true, kBNp, tc::kPool>(st, a)) != cudaSuccess) return int(e);
+  if ((e = tc::gemm<true, true, kBNp, tc::kPool, true>(st, a)) != cudaSuccess) return int(e);
   // 5. the pool's softmax and its backward; dpre over u
-  msa_pool_kernel<<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
-      lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), dap,
-      static_cast<const float*>(v), u, alpha, dvp, db1p, N, L, heads, A);
+  (L > kL ? msa_pool_long_kernel : msa_pool_kernel)
+      <<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
+          lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), dap,
+          static_cast<const float*>(v), u, alpha, dvp, db1p, N, L, heads, A);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   float* dpre = u;
   // 6. dW1 = dpre^T h, split over rows
   a = args(dpre, h, part, A, D, M, A, D, D, kRowsPerSplit);
-  if ((e = tc::gemm<false, false, kBN, tc::kStore>(st, a)) != cudaSuccess) return int(e);
+  if ((e = tc::gemm<false, false, kBN, tc::kStore, true>(st, a)) != cudaSuccess) return int(e);
   if ((e = sum_splits(st, part, static_cast<float*>(dw1), (long long)A * D, S)) != cudaSuccess)
     return static_cast<int>(e);
   // 7. dO = (alpha dp + dpre W1) * (h > 0)
@@ -632,9 +956,14 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   a.dp = fdp;
   a.h = h;
   a.title = L;
-  if ((e = tc::gemm<true, false, kBN, tc::kDh>(st, a)) != cudaSuccess) return int(e);
+  if ((e = tc::gemm<true, false, kBN, tc::kDh, true>(st, a)) != cudaSuccess) return int(e);
   // 8. attention backward per unit; dq|dk|dv over q|k|v
-  e = with_title_length(L, [&](auto fixed) {
+  if (!short_path) {
+    msa_attn_bwd_long_kernel<<<N * heads, long_threads(L),
+                               sizeof(float) * attn_bwd_long_floats(L), st>>>(
+        qkv, dO, lse, dbp, L, heads, dk, scale);
+    e = cudaGetLastError();
+  } else e = with_title_length(L, [&](auto fixed) {
     msa_attn_bwd_kernel<decltype(fixed)::value>
         <<<N * heads, kAttnThreads, sizeof(float) * attn_bwd_floats(dk), st>>>(
             qkv, dO, lse, dbp, L, heads, dk, scale);
@@ -649,14 +978,14 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
     a.seed = seed;
     a.site = site;
     a.title = L;
-    e = tc::gemm<true, false, kBN, tc::kDrop>(st, a);
+    e = tc::gemm<true, false, kBN, tc::kDrop, true>(st, a);
   } else {
-    e = tc::gemm<true, false, kBN, tc::kStore>(st, a);
+    e = tc::gemm<true, false, kBN, tc::kStore, true>(st, a);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   // 10. dWqkv = dqkv^T xd, split over rows
   a = args(qkv, xin, part, 3 * D, Din, M, 3 * D, Din, Din, kRowsPerSplit);
-  if ((e = tc::gemm<false, false, kBN, tc::kStore>(st, a)) != cudaSuccess) return int(e);
+  if ((e = tc::gemm<false, false, kBN, tc::kStore, true>(st, a)) != cudaSuccess) return int(e);
   if ((e = sum_splits(st, part, static_cast<float*>(dwqkv), 3LL * D * Din, S)) != cudaSuccess)
     return static_cast<int>(e);
   // 11. the bias and v gradients from the per-title parts

@@ -1,7 +1,8 @@
 // Pieces of the MSA encoder that its forward (msa_encoder.cu, kernel A) and
 // its recompute backward (msa_encoder_bwd.cu, kernel A') both run: the word
 // dropout of the embedded titles, the attention forward of one (title, head)
-// unit, and the pool's masked softmax over a title's positions. Each file
+// unit (the short unit, L <= 32 and dk <= 64, and the long one below), and
+// the pool's masked softmax over a title's positions. Each file
 // that includes this header gets its own copy of these kernels (an unnamed
 // namespace); the arithmetic is one text, so kernel A computes its q|k|v, h
 // and pool logits in the same order as kernel A' recomputes them.
@@ -47,9 +48,10 @@ constexpr int kPS = kL + 1;            // row stride of P and dS
 constexpr int kMaxA4 = 4;              // pool float4 columns per lane: A <= 512
 constexpr float kMaskFill = -1e9f;
 // |pre-activation| <= kReluTol * sum_j p_ij |v_jc| marks a unit for kernel
-// A''s msa_attn_relu_fix_kernel: 5 to 10 times the largest gap between the
-// tensor-core q|k|v path and fp32 CUDA-core arithmetic, relative to that sum,
-// over the training step's 115M pre-activations (about 1e-6)
+// A''s ReLU fix (msa_attn_relu_fix_kernel, which recomputes it in float64):
+// about 25 times the largest gap between the tensor-core path and float64,
+// relative to that sum, over the training step's 115M pre-activations
+// (3.6e-7 to 4.1e-7, scripts/msa_bwd_precision.py)
 constexpr float kReluTol = 1e-5f;
 
 using digat::warp_max;
@@ -289,6 +291,206 @@ __device__ __forceinline__ float pool_alpha(const float* __restrict__ lgpart, in
   const float mx = warp_max(logit);
   const float e = expf(logit - mx);
   return e / warp_sum(e);
+}
+
+
+// ---------------------------------------------------------------------------
+// The long unit: titles of 33 to 128 positions, or heads wider than 64 (dk up
+// to 128), the shapes the unit above does not take. A block of
+// long_threads(L) = 32 ceil(L / 32) threads per (title, head), thread i
+// owning query row i (and key i in kernel A''s backward). No row of q, k or v
+// is held whole: shared memory holds the unit's scores S [L][long_ls(L)] (an
+// odd row stride, so that thread i reading row i hits its own bank) and
+// chunks of kChunk columns of the unit's arrays, [L][kChunkS] each. The
+// scores are summed chunk by chunk, the columns in order; every output is
+// formed chunk by chunk from S. At L 128 the forward takes 98 KB of shared
+// memory and the backward (S, dS and four chunks) 195 KB, within the 227 KB
+// of a block, at any dk. A simple design, right first: its time at L 48-128
+// is in PERF.md, and making it fast is later work.
+// ---------------------------------------------------------------------------
+constexpr int kLongL = 128;         // the longest title: 4 warps, a row each thread
+constexpr int kLongMaxDk = 128;     // the widest head the long unit takes
+constexpr int kLongWarps = kLongL / 32;
+constexpr int kChunk = 32;          // columns of a chunk
+constexpr int kChunkS = kChunk + 1;  // row stride of a chunk in shared memory
+
+// Whether a unit of L positions and dk columns runs the unit above (the
+// short unit: L <= 32, dk <= 64) or the long one.
+__host__ __device__ inline bool short_unit(int L, int dk) { return L <= kL && dk <= kMaxDk; }
+__host__ __device__ inline int long_ls(int L) { return L | 1; }
+__host__ __device__ inline int long_threads(int L) { return (L + 31) / 32 * 32; }
+
+// Floats of shared memory of msa_attn_fwd_long_kernel: S, two chunks and a
+// chunk of dp.
+__host__ __device__ inline int attn_fwd_long_floats(int L) {
+  return L * long_ls(L) + 2 * L * kChunkS + kChunk;
+}
+
+// columns [0, w) of rows [0, L) of a row-major array (row stride ld) -> a
+// chunk [L][kChunkS], zero in columns [w, kChunk); every thread of the block
+// takes part (consecutive threads on consecutive columns), the caller syncs
+__device__ __forceinline__ void load_chunk(float* dst, const float* src, size_t ld, int L, int w) {
+  for (int e = threadIdx.x; e < L * kChunk; e += blockDim.x) {
+    const int i = e / kChunk, c = e - i * kChunk;
+    dst[i * kChunkS + c] = c < w ? src[(size_t)i * ld + c] : 0.f;
+  }
+}
+
+// row i of a chunk into registers
+__device__ __forceinline__ void chunk_row(float (&r)[kChunk], const float* chunk, int i) {
+#pragma unroll
+  for (int c = 0; c < kChunk; ++c) r[c] = chunk[i * kChunkS + c];
+}
+
+// a . row j of a chunk, columns in order, added to s
+__device__ __forceinline__ float chunk_dot(const float (&a)[kChunk], const float* chunk, int j,
+                                           float s) {
+#pragma unroll
+  for (int c = 0; c < kChunk; ++c) s = fmaf(a[c], chunk[j * kChunkS + c], s);
+  return s;
+}
+
+// acc += x * row j of a chunk
+__device__ __forceinline__ void chunk_axpy(float (&acc)[kChunk], float x, const float* chunk,
+                                           int j) {
+#pragma unroll
+  for (int c = 0; c < kChunk; ++c) acc[c] = fmaf(x, chunk[j * kChunkS + c], acc[c]);
+}
+
+// ---------------------------------------------------------------------------
+// Attention forward of a long unit, the same outputs as msa_attn_fwd_kernel:
+// h = relu(P v) into the unit's columns of h (row stride ldh); kTrain also
+// the rows' log-sum-exp, dp . h per row for this head, and the unit listed
+// where a pre-activation lies within kReluTol of 0. Kernel A may pass h = the
+// q columns of qkv: q is read whole (for S) before any h is written.
+// ---------------------------------------------------------------------------
+template <bool kTrain>
+__global__ void __launch_bounds__(kLongL)
+msa_attn_fwd_long_kernel(const float* qkv,                 // [N*L, 3D]
+                         const float* __restrict__ dp,     // kTrain: [N, D]
+                         float* h, int ldh,                // [N*L, ldh] out
+                         float* __restrict__ lse,          // kTrain: [N, heads, L] out
+                         float* __restrict__ dap,          // kTrain: [N, heads, L] out
+                         int* __restrict__ unsure,         // kTrain: [1 + N * heads]
+                         int L, int heads, int dk, float scale) {
+  extern __shared__ float4 smem4[];
+  float* S = reinterpret_cast<float*>(smem4);  // [L][LS]: scores, then P
+  const int LS = long_ls(L), D = heads * dk;
+  float* c1 = S + L * LS;        // [L][kChunkS]: a chunk of q, then of v
+  float* c2 = c1 + L * kChunkS;  // [L][kChunkS]: a chunk of k
+  float* dpc = c2 + L * kChunkS;  // [kChunk]: kTrain, a chunk of the unit's dp
+  const int n = blockIdx.x / heads, hd = blockIdx.x - n * heads;
+  const int i = threadIdx.x;
+  const bool row = i < L;
+  const float* rows = qkv + (size_t)n * L * 3 * D + hd * dk;
+  // S = q k^T scale, summed over the chunks in column order
+  for (int c0 = 0; c0 < dk; c0 += kChunk) {
+    const int w = min(kChunk, dk - c0);
+    load_chunk(c1, rows + c0, 3 * D, L, w);
+    load_chunk(c2, rows + D + c0, 3 * D, L, w);
+    __syncthreads();
+    if (row) {
+      float qr[kChunk];
+      chunk_row(qr, c1, i);
+      for (int j = 0; j < L; ++j) S[i * LS + j] = chunk_dot(qr, c2, j, c0 ? S[i * LS + j] : 0.f);
+    }
+    __syncthreads();
+  }
+  // the row's softmax, P over S
+  if (row) {
+    float m = -INFINITY;
+    for (int j = 0; j < L; ++j) m = fmaxf(m, S[i * LS + j] * scale);
+    float l = 0.f;
+    for (int j = 0; j < L; ++j) l += expf(S[i * LS + j] * scale - m);
+    const float inv = 1.f / l;
+    for (int j = 0; j < L; ++j) S[i * LS + j] = expf(S[i * LS + j] * scale - m) * inv;
+    if (kTrain) lse[((size_t)n * heads + hd) * L + i] = m + logf(l);
+  }
+  // h = relu(P v), chunk by chunk; kTrain: dp . h and the kReluTol test
+  int near0 = 0;
+  float da = 0.f;
+  for (int c0 = 0; c0 < dk; c0 += kChunk) {
+    const int w = min(kChunk, dk - c0);
+    __syncthreads();  // the last chunk's reads, and P, done
+    load_chunk(c1, rows + 2 * D + c0, 3 * D, L, w);
+    if (kTrain) {
+      for (int c = threadIdx.x; c < kChunk; c += blockDim.x)
+        dpc[c] = c < w ? dp[(size_t)n * D + hd * dk + c0 + c] : 0.f;
+    }
+    __syncthreads();
+    if (row) {
+      float o[kChunk], a[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) o[c] = a[c] = 0.f;
+      for (int j = 0; j < L; ++j) {
+        const float pj = S[i * LS + j];
+        chunk_axpy(o, pj, c1, j);
+        if (kTrain) {
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c) a[c] = fmaf(pj, fabsf(c1[j * kChunkS + c]), a[c]);
+        }
+      }
+      float* hi = h + ((size_t)n * L + i) * ldh + hd * dk + c0;
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        if (c < w) {
+          if (kTrain) near0 |= fabsf(o[c]) <= kReluTol * a[c];
+          const float r = fmaxf(o[c], 0.f);
+          if (kTrain) da = fmaf(r, dpc[c], da);
+          hi[c] = r;
+        }
+      }
+    }
+  }
+  if (kTrain) {
+    if (__syncthreads_or(near0) && threadIdx.x == 0) unsure[1 + atomicAdd(unsure, 1)] = blockIdx.x;
+    if (row) dap[((size_t)n * heads + hd) * L + i] = da;
+  }
+}
+
+// The pool's softmax weights of a title of L <= kLongL positions, a warp per
+// title: lane l takes positions l, l + 32, ... (al[r] for position l + 32 r),
+// each logit summed from its `parts` parts in order, the -1e9 fill where the
+// mask is off (an all-pad title gives uniform weights 1 / L), weight 0 past L.
+__device__ __forceinline__ void pool_alpha_long(const float* __restrict__ lgpart, int parts,
+                                                size_t M, const unsigned char* __restrict__ mask,
+                                                size_t n, int L, int lane,
+                                                float (&al)[kLongWarps]) {
+  float logit[kLongWarps];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < kLongWarps; ++r) {
+    const int l = lane + 32 * r;
+    logit[r] = -INFINITY;
+    if (l < L) {
+      const size_t row = n * L + l;
+      float lg = 0.f;
+      for (int q = 0; q < parts; ++q) lg += lgpart[q * M + row];
+      logit[r] = mask[row] != 0 ? lg : kMaskFill;
+    }
+    mx = fmaxf(mx, logit[r]);
+  }
+  mx = warp_max(mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int r = 0; r < kLongWarps; ++r) {
+    al[r] = expf(logit[r] - mx);
+    sum += al[r];
+  }
+  const float inv = 1.f / warp_sum(sum);
+#pragma unroll
+  for (int r = 0; r < kLongWarps; ++r) al[r] *= inv;
+}
+
+// the value that lane (l & 31) holds in al[l >> 5], for every lane of the warp
+__device__ __forceinline__ float lane_value(const float (&al)[kLongWarps], int l) {
+  float v = 0.f;
+#pragma unroll
+  for (int r = 0; r < kLongWarps; ++r) {
+    const float x = __shfl_sync(0xffffffffu, al[r], l & 31);
+    if ((l >> 5) == r) v = x;
+  }
+  return v;
 }
 
 }  // namespace

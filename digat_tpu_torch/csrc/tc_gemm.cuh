@@ -49,8 +49,8 @@
 // products accumulate into fresh registers, which are then added to the
 // running sum on the CUDA cores, rounding to nearest: about as close as an
 // fp32 CUDA-core product, for one add per accumulator a tile and as many
-// registers again. The products of kernels A and B take kRN, at tiles 96
-// wide; kernel A''s accumulate in the tensor cores throughout.
+// registers again. The products of kernels A, A' and B take kRN, at tiles
+// 96 wide.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,9 +1,10 @@
 """Carry parameters between the JAX package's tree and a port model.
 
 `load_jax_params(model, params)` takes the `digat_tpu` parameter tree of
-the model's family (nested dicts of arrays, as `digat_tpu.models.model.
-Model.init` builds it for MSA-DIGAT and `digat_tpu.models.nrms.NRMSModel.
-init` for NRMS and NRMS-SA, converted to numpy by the caller) and fills the
+the model's family (nested dicts of arrays, and the CNN bank's list of
+convolutions, as `digat_tpu.models.model.Model.init` builds it for the
+DIGAT family, every news and graph encoder, and `digat_tpu.models.nrms.
+NRMSModel.init` for NRMS and NRMS-SA, converted to numpy by the caller) and fills the
 port model's parameters. It is strict both ways, like `digat_tpu/interop.py`: every
 array of the tree is used exactly once and every parameter of the model is
 filled, or it raises. `params_from_model(model)` goes the other way: the
@@ -11,7 +12,8 @@ JAX tree, as numpy arrays in the model's dtype, so a port model's trained
 weights can be handed back to the JAX package.
 
 JAX stores linear weights `[in, out]`; `nn.Linear` stores `[out, in]`, so
-weights transpose. Per-depth stacks (leading depth axis) split into the
+weights transpose; a convolution's `[width, in, out]` reverses its axes into
+`nn.Conv1d`'s `[out, in, width]`. Per-depth stacks (leading depth axis) split into the
 `nn.ModuleList` entries. One table of (JAX path, port names) serves both
 directions (one table per family)."""
 
@@ -21,8 +23,9 @@ from typing import Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
-
 from torch import nn
+
+from digat_tpu_torch.models.graph_encoders import VARIANT_GATS
 
 
 def _linear(src: str, dst: str, bias: bool = True):
@@ -31,35 +34,55 @@ def _linear(src: str, dst: str, bias: bool = True):
         yield f"{src}/b", [f"{dst}.bias"], False
 
 
-def _gat_stack(src: str, dst: str, depth: int):
-    for name, bias in (("W", True), ("ffn1", False), ("ffn2", False), ("ffn3", True),
-                       ("a", False)):
+# the GAT stacks' parameters: name -> has a bias
+_GAT_PARAMS = {"interactive": (("W", True), ("ffn1", False), ("ffn2", False), ("ffn3", True),
+                               ("a", False)),
+               "vanilla": (("W", True), ("a1", False), ("a2", False))}
+
+# the CNN bank's convolutions by method, as the reference names them
+_CONV_NAMES = {"naive": ("conv",), "group3": ("conv1", "conv2", "conv3"),
+               "group5": ("conv1", "conv2", "conv3", "conv4", "conv5")}
+
+
+def _gat_stack(src: str, dst: str, kind: str, depth: int):
+    for name, bias in _GAT_PARAMS[kind]:
         yield f"{src}/{name}/w", [f"{dst}_{name}.{i}.weight" for i in range(depth)], True
         if bias:
             yield f"{src}/{name}/b", [f"{dst}_{name}.{i}.bias" for i in range(depth)], False
 
 
-def _table(depth: int) -> Iterator[Tuple[str, List[str], bool]]:
+def _table(config) -> Iterator[Tuple[str, List[str], bool]]:
     """(JAX path, port state_dict names, transposed) for every parameter of
-    MSA-DIGAT. More than one name: a per-depth stack, one name per depth."""
-    m, g = "news_encoder.multiheadSelfattention", "graph_encoder"
+    the DIGAT-family model of `config`. More than one name: a per-depth
+    stack, one name per depth. The CNN bank's list is indexed by position
+    (`conv/convs/0/w`)."""
+    depth, g = config.graph_depth, "graph_encoder"
     yield "news_encoder/word_embedding", ["news_encoder.word_embedding.weight"], False
     yield from _linear("news_encoder/pool/affine1", "news_encoder.attention.affine1")
     yield from _linear("news_encoder/pool/affine2", "news_encoder.attention.affine2", bias=False)
-    yield from _linear("news_encoder/msa/W_K", f"{m}.W_K", bias=False)
-    yield from _linear("news_encoder/msa/W_Q", f"{m}.W_Q")
-    yield from _linear("news_encoder/msa/W_V", f"{m}.W_V")
+    if config.news_encoder == "CNN":
+        for k, name in enumerate(_CONV_NAMES[config.cnn_method]):
+            yield from _linear(f"news_encoder/conv/convs/{k}", f"news_encoder.conv.{name}")
+    else:
+        m = "news_encoder.multiheadSelfattention"
+        yield from _linear("news_encoder/msa/W_K", f"{m}.W_K", bias=False)
+        yield from _linear("news_encoder/msa/W_Q", f"{m}.W_Q")
+        yield from _linear("news_encoder/msa/W_V", f"{m}.W_V")
     yield f"{g}/topic_node_embedding", [f"{g}.topic_node_embedding"], False
-    yield from _linear(f"{g}/news_ctx/cand_attn/K", f"{g}.candidate_attention.K", bias=False)
-    yield from _linear(f"{g}/news_ctx/cand_attn/Q", f"{g}.candidate_attention.Q")
-    yield from _linear(f"{g}/news_ctx/gate", f"{g}.news_graph_W")
+    if config.graph_encoder != "wo_SA":
+        yield from _linear(f"{g}/news_ctx/cand_attn/K", f"{g}.candidate_attention.K",
+                           bias=False)
+        yield from _linear(f"{g}/news_ctx/cand_attn/Q", f"{g}.candidate_attention.Q")
+        yield from _linear(f"{g}/news_ctx/gate", f"{g}.news_graph_W")
     yield from _linear(f"{g}/user_ctx/K", f"{g}.user_news_K", bias=False)
     yield from _linear(f"{g}/user_ctx/Q", f"{g}.user_news_Q")
     yield from _linear(f"{g}/user_ctx/affine", f"{g}.featureAffine")
     yield from _linear(f"{g}/user_ctx/attn/K", f"{g}.userAttention.K", bias=False)
     yield from _linear(f"{g}/user_ctx/attn/Q", f"{g}.userAttention.Q")
-    yield from _gat_stack(f"{g}/news_gat", f"{g}.news_graph_attention", depth)
-    yield from _gat_stack(f"{g}/user_gat", f"{g}.user_graph_attention", depth)
+    news_gat, user_gat = VARIANT_GATS[config.graph_encoder]
+    if news_gat is not None:
+        yield from _gat_stack(f"{g}/news_gat", f"{g}.news_graph_attention", news_gat, depth)
+    yield from _gat_stack(f"{g}/user_gat", f"{g}.user_graph_attention", user_gat, depth)
 
 
 def _nrms_table(sa: bool) -> Iterator[Tuple[str, List[str], bool]]:
@@ -84,7 +107,7 @@ def _table_of(model: nn.Module) -> list:
     """The parameter table of the model's family."""
     if getattr(model, "family", "digat") == "nrms":
         return list(_nrms_table(model.sa))
-    return list(_table(model.config.graph_depth))
+    return list(_table(model.config))
 
 
 def _leaves(params: Mapping) -> dict:
@@ -93,6 +116,9 @@ def _leaves(params: Mapping) -> dict:
     def walk(node, path):
         if isinstance(node, Mapping):
             for k, v in node.items():
+                walk(v, path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for k, v in enumerate(node):
                 walk(v, path + (str(k),))
         else:
             out["/".join(path)] = np.asarray(node)
@@ -145,4 +171,14 @@ def params_from_model(model: nn.Module) -> dict:
         node[leaf] = np.stack(arrs) if len(names) > 1 else arrs[0]
     if sd:
         raise ValueError(f"model parameters with no place in the JAX tree: {sorted(sd)}")
-    return tree
+    return _lists(tree)
+
+
+def _lists(node):
+    """The tree with every dict keyed 0, 1, ... as the list it stands for."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out

@@ -223,3 +223,63 @@ def mha(module: MultiHeadAttention, x: torch.Tensor, heads: int,
                                                             module.W_V))
     mask = None if key_mask is None else key_mask.reshape(-1, L).to(torch.bool)
     return msa_attention(q, k, v, heads, mask).reshape(*x.shape[:-1], D)
+
+
+# ---------------------------------------------------------------------------
+# 1-D convolution bank of the CNN news encoder (`digat_tpu.layers.
+# conv1d_bank`). The convolution is F.conv1d, a plain product outside any
+# kernel, as the JAX package leaves `lax.conv_general_dilated` to XLA.
+# ---------------------------------------------------------------------------
+def conv_bank_widths(method: str, window: int) -> tuple:
+    """The kernel widths of a bank: (window,) naive, (1, 3, 5) group3,
+    (1, 2, 3, 4, 5) group5."""
+    if method == "naive":
+        return (window,)
+    if method == "group3":
+        return (1, 3, 5)
+    if method == "group5":
+        return (1, 2, 3, 4, 5)
+    raise ValueError(f"unknown cnn_method {method}")
+
+
+def make_conv1d(in_ch: int, out_ch: int, width: int, generator: torch.Generator) -> nn.Conv1d:
+    """An `nn.Conv1d` (weight [out, in, width]) drawn from `generator` with
+    torch's default law, U(+-1 / sqrt(in * width)) for weight and bias, as
+    the JAX package's `_conv_init`."""
+    conv = nn.utils.skip_init(nn.Conv1d, in_ch, out_ch, width)
+    bound = 1.0 / math.sqrt(in_ch * width)
+    with torch.no_grad():
+        conv.weight.uniform_(-bound, bound, generator=generator)
+        conv.bias.uniform_(-bound, bound, generator=generator)
+    return conv
+
+
+class ConvBank(nn.Module):
+    """relu(concat of the bank's convolutions) over a title: [..., L, C_in]
+    -> [..., L, kernel_num], kernel_num / len(widths) channels a width.
+    state_dict names follow the reference: `conv` (naive), `conv1` ...
+    (group3, group5). Odd widths pad (w - 1) / 2 zero frames on each side
+    (the same length out); even widths one more on the right, as
+    `digat_tpu.layers._conv1d_same`."""
+
+    def __init__(self, method: str, in_ch: int, kernel_num: int, window: int,
+                 generator: torch.Generator):
+        super().__init__()
+        self.widths = conv_bank_widths(method, window)
+        self.names = ["conv"] if method == "naive" else [
+            f"conv{i + 1}" for i in range(len(self.widths))]
+        per = kernel_num // len(self.widths)
+        for name, w in zip(self.names, self.widths):
+            setattr(self, name, make_conv1d(in_ch, per, w, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead, (L, C) = x.shape[:-2], x.shape[-2:]
+        xt = x.reshape(-1, L, C).transpose(1, 2)  # [N, C_in, L]
+        outs = []
+        for name, w in zip(self.names, self.widths):
+            conv = getattr(self, name)
+            pad = (w - 1) // 2
+            xp = F.pad(xt, (pad, pad if w % 2 else pad + 1))
+            outs.append(F.conv1d(xp, conv.weight, conv.bias))
+        h = torch.relu(torch.cat(outs, dim=1)).transpose(1, 2)  # [N, L, kernel_num]
+        return h.reshape(*lead, L, h.shape[-1])

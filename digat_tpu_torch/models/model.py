@@ -1,5 +1,5 @@
-"""Model assembly: MSA news encoder, DIGAT graph encoder, dot product, and
-the listwise training loss.
+"""Model assembly: the news encoder (MSA or CNN), the graph encoder (DIGAT or
+one of its five ablations), dot product, and the listwise training loss.
 
 Counterpart of `digat_tpu.models.model` (`CorpusTables`, `TrainBatch`,
 `DedupTrainBatch`, `EvalBatch`, `Model.forward`, `forward_encoded`,
@@ -25,7 +25,7 @@ from torch import nn
 from digat_tpu_torch.config import Config
 from digat_tpu_torch.data.user_graph import build_user_graph
 from digat_tpu_torch.layers import DropoutSites
-from digat_tpu_torch.models.graph_encoders import DIGATGraphEncoder
+from digat_tpu_torch.models.graph_encoders import GraphEncoder
 from digat_tpu_torch.models.news_encoders import NewsEncoder
 from digat_tpu_torch.runtime import exact_fp32, resolve_device
 
@@ -109,8 +109,10 @@ def set_word_embedding(encoder: nn.Module, word_embedding) -> None:
 
 
 class Model(nn.Module):
-    """MSA-DIGAT. Runs on CUDA unless `device` names another device; with no
-    device and no CUDA it raises. `word_embedding` (numpy [V, word_dim]), if
+    """The DIGAT family: `config.news_encoder` (MSA, CNN) and
+    `config.graph_encoder` (DIGAT, wo_SA, Seq_SA, wo_interaction,
+    news_graph_wo_inter, user_graph_wo_inter). Runs on CUDA unless `device`
+    names another device; with no device and no CUDA it raises. `word_embedding` (numpy [V, word_dim]), if
     given, replaces the drawn word table; the other weights are drawn the
     same either way."""
 
@@ -126,10 +128,11 @@ class Model(nn.Module):
         self.news_encoder = NewsEncoder(
             config.vocabulary_size, config.word_embedding_dim, config.MSA_head_num,
             config.MSA_head_dim, config.attention_dim, config.max_title_length,
-            config.dropout_rate, g,
+            config.dropout_rate, g, encoder=config.news_encoder, cnn_method=config.cnn_method,
+            cnn_kernel_num=config.cnn_kernel_num, cnn_window_size=config.cnn_window_size,
         )
-        self.graph_encoder = DIGATGraphEncoder(
-            config.graph_depth, config.max_history_num, config.category_num,
+        self.graph_encoder = GraphEncoder(
+            config.graph_encoder, config.graph_depth, config.max_history_num, config.category_num,
             config.news_embedding_dim, config.dropout_rate, g,
         )
         set_word_embedding(self.news_encoder, word_embedding)
@@ -210,7 +213,8 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def initial_news_context(self, sag_embeddings: torch.Tensor, news_graph_mask: torch.Tensor):
-        """Stage-1: c_n0 from the SAG node representations [B, Gn, D]."""
+        """Stage-1: c_n0 from the SAG node representations [B, Gn, D] (node 0
+        itself for wo_SA)."""
         return self.graph_encoder.initial_news_context(sag_embeddings, news_graph_mask)
 
     @torch.inference_mode()

@@ -1,4 +1,4 @@
-"""Eq. (8) interactive graph-attention scores, plain PyTorch.
+"""Graph-attention scores, plain PyTorch: Eq. (8) and the vanilla GAT's.
 
     score[b, i, j] = a . relu(K1[b, j] + K2[b, i] + K3[b])
 
@@ -9,7 +9,11 @@ that intermediate under `_MAX_ELEMENTS` floats; the hand-written kernels
 formed as k1[j] + (k2[i] + k3), in the order the kernels form it, so the
 relu mask is the same bits in all of them: where k1 + k2 + k3 rounds to
 within an ulp of 0, another order can flip the mask and move a gradient
-entry by a whole g * a term."""
+entry by a whole g * a term.
+
+`vanilla_gat_scores` is the ablations' additive score, the counterpart of
+`digat_tpu.ops.gat.vanilla_gat_scores`, which the JAX package computes in
+XLA, outside any kernel."""
 
 from __future__ import annotations
 
@@ -30,3 +34,11 @@ def interactive_gat_scores(k1: torch.Tensor, k2: torch.Tensor, k3: torch.Tensor,
                                           + k3[s:s + step, None, None, :])
         out.append(torch.einsum("bijd,d->bij", torch.relu(t), a_vec))
     return torch.cat(out) if len(out) > 1 else out[0]
+
+
+def vanilla_gat_scores(h: torch.Tensor, a1_vec: torch.Tensor, a2_vec: torch.Tensor) -> torch.Tensor:
+    """Additive GAT logits score[b, i, j] = a1 . h[b, j] + a2 . h[b, i]. h [B,
+    G, D]; a1_vec, a2_vec [D] -> [B, G, G]."""
+    s1 = h @ a1_vec  # [B, G] (the j term)
+    s2 = h @ a2_vec  # [B, G] (the i term)
+    return s1[:, None, :] + s2[:, :, None]

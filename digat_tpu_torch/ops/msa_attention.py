@@ -36,8 +36,9 @@ MASK_FILL = -1e9  # layers.MASK_FILL; layers imports this module for `mha`
 # the device's own limit again
 MAX_SMEM_BYTES = 232_448
 # the kernels' compiled head widths: dk is padded up to the first that holds
-# it (as csrc/msa_attention.cu's kWidths)
-WIDTHS = (8, 16, 20, 24, 32, 48, 64)
+# it (as csrc/msa_attention.cu's kWidths, then its wide instance kWide)
+WIDTHS = (8, 16, 20, 24, 32, 48, 64, 128)
+WIDE = 128  # the wide instance: rows read from shared memory, a warp a block
 
 
 def head_width(dk: int) -> int:
@@ -73,10 +74,15 @@ def _smem_bytes(L: int, dk: int, backward: bool) -> int:
     apart in the backward and W apart in the forward, then L mask bytes
     rounded up to 16, for one (sequence, head): the forward's k and v rows;
     the backward's q, do, k and v rows and, at L <= SHORT_L, the [L][32]
-    score tiles P and S, beyond that three floats of statistics per row."""
+    score tiles P and S, beyond that three floats of statistics per row. The
+    wide instance (dk 65-128) holds two arrays of L rows `_row_stride(128)`
+    apart, the warp's 32 staged rows of one array (forward) or two
+    (backward), and the backward's statistics."""
     W = head_width(dk)
     KS = _row_stride(W)
-    if not backward:
+    if W == WIDE:
+        floats = 2 * L * KS + (64 * KS + 3 * L if backward else 32 * KS)
+    elif not backward:
         floats = 2 * L * W
     elif L <= SHORT_L:
         floats = 4 * L * KS + 64 * L
@@ -107,10 +113,13 @@ def warps_per_block(warp_bytes: int, sm_bytes: int, regs: int = 0,
 
 
 def block_shape(L: int, dk: int, backward: bool, sm_bytes: int, regs: int = 0) -> tuple:
-    """(warps, shared bytes) of the blocks the C entry points launch: beyond
-    SHORT_L min(8, ceil(L / 32)) warps on one (sequence, head); otherwise
-    `warps_per_block` independent warps, one each."""
+    """(warps, shared bytes) of the blocks the C entry points launch: the
+    wide instance one warp a (sequence, head); beyond SHORT_L min(8, ceil(L /
+    32)) warps on one; otherwise `warps_per_block` independent warps, one
+    each."""
     need = _smem_bytes(L, dk, backward)
+    if head_width(dk) == WIDE:
+        return 1, need
     if L > SHORT_L:
         return min(8, -(-L // 32)), need
     warps = warps_per_block(need, sm_bytes, regs)

@@ -7,8 +7,13 @@ restructured `_bwd_kernel_v2`, same gradients). Per title: word dropout,
 Q/K/V projections, multi-head UNMASKED softmax attention (pads attend),
 ReLU, and the masked tanh-MLP attention pool (-1e9 fill, fp32 softmax).
 Heads are not padded: the result is [N, H*dk]. The kernels take titles of
-any length L from 1 to 32 (one warp lane per position: a shorter title
-leaves the lanes past L idle) and heads of dk <= 64.
+any length L from 1 to 128 and heads of dk up to 128, the shapes at which
+the JAX package runs its kernel (`group_size(heads, L, dk) > 0`; the news
+encoder sends longer titles to the attention pair). Up to L 32 and dk 64 the
+attention runs as a unit of 4 warps with one lane per position (a shorter
+title leaves the lanes past L idle); beyond, as the long unit of
+`csrc/msa_title.cuh` (one thread per position, the head in chunks of 32
+columns).
 
 The word dropout of training is applied inside the kernels: each element of
 x is kept with probability 1 - rate and scaled by 1 / (1 - rate), from the
@@ -38,19 +43,34 @@ from digat_tpu_torch.ops import build
 from digat_tpu_torch.ops.dropout import keep_mask_plain, threshold
 from digat_tpu_torch.ops.msa_attention import MAX_SMEM_BYTES
 
-MAX_TITLE_LENGTH = 32  # the kernels keep one warp lane per title position
-MAX_HEAD_DIM = 64  # kernels A and A': 4 warps a (title, head), 4 float4 column groups each
+SHORT_TITLE_LENGTH, SHORT_HEAD_DIM = 32, 64  # the short unit: a warp lane per position
+MAX_TITLE_LENGTH = 128  # the long unit: a thread per position, 4 warps
+MAX_HEAD_DIM = 128  # the long unit: the head in chunks of 32 columns
 MAX_POOL_DIM = 512  # kernels A and A': the pool kernel's 4 float4 columns a lane
 
 
-def relu_fix_smem_bytes(Din: int, dk: int) -> int:
-    """Shared memory of kernel A''s ReLU-fix block (`relu_fix_floats` in
-    csrc/msa_encoder_bwd.cu): a title's x rows, padded to an odd number of
-    float4s, one head's dk rows of Wq, Wk or Wv, its q, k and v, and the
-    scores; 32 rows whatever the title length."""
-    L = MAX_TITLE_LENGTH
+def short_unit(L: int, dk: int) -> bool:
+    """Whether a (title, head) runs the short attention unit (L <= 32, dk <=
+    64, `short_unit` in csrc/msa_title.cuh) or the long one."""
+    return L <= SHORT_TITLE_LENGTH and dk <= SHORT_HEAD_DIM
+
+
+def relu_fix_smem_bytes(Din: int, dk: int, L: int = SHORT_TITLE_LENGTH) -> int:
+    """Shared memory of kernel A''s ReLU-fix block. The short unit's
+    (`relu_fix_floats` in csrc/msa_encoder_bwd.cu): a title's x rows, padded
+    to an odd number of float4s, one head's dk rows of Wq, Wk or Wv, its q,
+    k and v, and the scores; 32 rows whatever the title length. Where that
+    exceeds a block's MAX_SMEM_BYTES (Din 900 at dk 25), and for the long
+    unit, A' runs the long fix (`msa_attn_relu_fix_long_kernel`), whose
+    block holds only the scores [L][L | 1] (its q, k and v go to scratch in
+    device memory); this counts the fix that A' runs. q, k, v and the
+    scores are float64 (8 bytes), x and W rows fp32."""
+    R = SHORT_TITLE_LENGTH  # the short fix's rows, whatever the title's length
     x_stride = Din if (Din // 4) % 2 else Din + 4
-    return 4 * (L * x_stride + dk * Din + 3 * L * (dk + 1) + L * (L + 1))
+    short = 4 * (R * x_stride + dk * Din) + 8 * (3 * R * (dk + 1) + R * (R + 1))
+    if short_unit(L, dk) and short <= MAX_SMEM_BYTES:
+        return short
+    return 8 * L * (L | 1)
 
 
 def drop_titles_plain(x, rate: float, seed: int, site: int):
@@ -67,17 +87,23 @@ def msa_encoder_pooled_plain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads: int,
                              dropout_rate: float = 0.0, seed: int = 0, site: int = 0):
     """Plain PyTorch version. x [N, L, Din]; mask [N, L] bool; wq/wk/wv
     [Din, H*dk] ([in, out] layout); bq, bv [H*dk]; w1 [H*dk, A]; b1, v [A]
-    -> [N, H*dk]."""
+    -> [N, H*dk]. The projections and the attention up to the ReLU run in
+    float64 (at least), from the inputs' values: a pre-activation within
+    rounding of 0 takes the ReLU's side (and gradient) of its float64 value,
+    the side kernel A''s ReLU fix recomputes, whatever order a product
+    sums in. The result is then rounded to the inputs' type."""
     x = drop_titles_plain(x, dropout_rate, seed, site)
     N, L, _ = x.shape
     D = wq.shape[1]
     dk = D // heads
-    q = (x @ wq + bq).reshape(N, L, heads, dk)
-    k = (x @ wk).reshape(N, L, heads, dk)
-    val = (x @ wv + bv).reshape(N, L, heads, dk)
+    wide = torch.promote_types(x.dtype, torch.float64)
+    xw = x.to(wide)
+    q = (xw @ wq.to(wide) + bq.to(wide)).reshape(N, L, heads, dk)
+    k = (xw @ wk.to(wide)).reshape(N, L, heads, dk)
+    val = (xw @ wv.to(wide) + bv.to(wide)).reshape(N, L, heads, dk)
     a = torch.einsum("nqhd,nkhd->nhqk", q, k) / math.sqrt(float(dk))
     p = torch.softmax(a, dim=-1)
-    h = torch.relu(torch.einsum("nhqk,nkhd->nqhd", p, val).reshape(N, L, D))
+    h = torch.relu(torch.einsum("nhqk,nkhd->nqhd", p, val).reshape(N, L, D)).to(x.dtype)
     lg = torch.tanh(h @ w1 + b1) @ v
     lg = torch.where(mask.to(torch.bool), lg, torch.full_like(lg, MASK_FILL))
     alpha = torch.softmax(lg, dim=-1)
@@ -193,10 +219,6 @@ def msa_encoder_bwd(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
         raise ValueError(f"msa_encoder_bwd: dp must be float32 [{N}, {D}], got {dp.dtype} "
                          f"{tuple(dp.shape)}")
     _refuse_shapes(dk, A, "msa_encoder_bwd")
-    if relu_fix_smem_bytes(Din, dk) > MAX_SMEM_BYTES:
-        raise ValueError(f"msa_encoder_bwd: at Din={Din} dk={dk} the ReLU-fix block needs "
-                         f"{relu_fix_smem_bytes(Din, dk)} B of shared memory, more than the "
-                         f"{MAX_SMEM_BYTES} B a block has")
     if x.data_ptr() % 16:
         raise ValueError("msa_encoder_bwd: x must be 16-byte aligned")
     dev = x.device

@@ -3,8 +3,9 @@
 
     python3 scripts/attention_variants.py [--out DIR] [variant ...]
 
-Each variant is `digat_tpu_torch/csrc/msa_attention.cu` with a few text
-substitutions (`VARIANTS`): the file as it is, and the design choices its
+Each variant is `digat_tpu_torch/csrc/msa_attention.cu` (its header
+`msa_attention.cuh` inlined and its wide instance `msa_attention_wide.cu`
+appended: one file) with a few text substitutions (`VARIANTS`): the file as it is, and the design choices its
 header names, undone one at a time. Every variant is compiled alone (the
 build's nvcc flags, all started together) into a shared library under
 `--out`, and loaded with ctypes; ptxas's spills and the registers of the
@@ -39,6 +40,16 @@ from digat_tpu_torch.ops import build  # noqa: E402
 from digat_tpu_torch.ops import msa_attention as MA  # noqa: E402
 
 SOURCE = build.CSRC_DIR / "msa_attention.cu"
+HEADER, WIDE = build.CSRC_DIR / "msa_attention.cuh", build.CSRC_DIR / "msa_attention_wide.cu"
+INCLUDE = '#include "msa_attention.cuh"\n'
+
+
+def pair_source() -> str:
+    """The pair as one translation unit: the header inlined where the main
+    file includes it, the wide instance appended."""
+    header = HEADER.read_text().replace("#pragma once\n", "", 1)
+    return (SOURCE.read_text().replace(INCLUDE, header, 1)
+            + WIDE.read_text().replace(INCLUDE, "", 1))
 _BOUNDS = [("__launch_bounds__(kMaxGroup * 32, 1)", "__launch_bounds__(kMaxGroup * 32)"),
            ("__launch_bounds__(kMaxWarps * 32, 1)", "__launch_bounds__(kMaxWarps * 32)")]
 VARIANTS = {
@@ -53,8 +64,8 @@ VARIANTS = {
         ("(L <= kShortL ? warps : 1) * unit_bytes", "warps * unit_bytes")],
     # the recomputing backward (two parts, transposed dk/dv) at every L
     "long backward at every L": [
-        ("  if (L <= kShortL) {\n    const size_t warp_bytes = sizeof(float) * bwd_warp_floats",
-         "  if (false) {\n    const size_t warp_bytes = sizeof(float) * bwd_warp_floats")],
+        ("} else if (L <= kShortL) {\n    const size_t warp_bytes = sizeof(float) * bwd_warp_floats",
+         "} else if (false) {\n    const size_t warp_bytes = sizeof(float) * bwd_warp_floats")],
     # deeper unrolling of the short backward's pass 1
     "short backward unroll 8": [("#pragma unroll 4", "#pragma unroll 8")],
     # the online softmaxes over tiles of 32 keys
@@ -71,7 +82,7 @@ SHAPES = [  # (what, N, L, head stride), as chip_smoke.py's phase 10 at B 64, M 
 
 def build_variants(names, out):
     """Compile each variant; returns {name: ctypes library}."""
-    source = SOURCE.read_text()
+    source = pair_source()
     procs = {}
     for i, name in enumerate(names):
         text = source

@@ -3,6 +3,7 @@
 output, and why: the ReLU after the attention.
 
     python3 scripts/msa_bwd_precision.py [N ...] [--seeds S ...] [--geometry prod|matrix]
+        [--title-length L]
 
 Builds the setting of `chip_smoke.py`'s phase 7 (full-width MSA-DIGAT,
 random weights from a seed, the seeded 20,000-news corpus, word dropout
@@ -12,23 +13,26 @@ B 64), prints for each of A''s nine outputs the limit of the kernel gate
 fp64| and max |plain - fp64|, where fp64 is the plain version in float64.
 
 Then, at the largest N, the pre-activations o = P v of the attention (the
-values the ReLU cuts at 0): how many fall on the other side of 0 in the fp32
-plain than in float64, and in a 3xTF32 Q|K|V product (emulated: each
-operand split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), the three
-products summed in float64 and rounded to fp32) than in the fp32 plain;
-the largest gap of each from float64 relative to sum_j p_ij |v_jc|; and how
-many pre-activations and (title, head) units lie within a tolerance of 0
-relative to that sum, for the tolerances around the kernel's kReluTol
-(1e-5), and how many of the 3xTF32 product's flips lie outside kReluTol,
-which the kernel's ReLU fix would not catch.
+values the ReLU cuts at 0): how many fall on the other side of 0 in fp32
+than in float64 (the side that the plain version and the kernel's ReLU fix
+take), and in a 3xTF32 Q|K|V product (emulated: each operand split into
+hi = rna_tf32(x) and lo = rna_tf32(x - hi), the three products summed in
+float64 and rounded to fp32) than in float64; the largest gap of each from
+float64 relative to sum_j p_ij |v_jc|; and how many pre-activations and
+(title, head) units lie within a tolerance of 0 relative to that sum, for
+the tolerances around the kernel's kReluTol (1e-5), and how many of the
+3xTF32 product's flips lie outside kReluTol, which the kernel's ReLU fix
+would not catch.
 
 Each seed offset S (default 0, phase 7's setting) draws the weights, the
 corpus, dp and the dropout bits anew (seeds SEED + S, SEED + 5 + S and
 987 + S), and the last line of each seed gives the worst |kernel - plain|
 as a share of its limit. `--geometry matrix` runs the parity matrix's
 widths instead of the production ones: titles of L 16, 100-d words, 10 x 20
-heads, attention 64 (scripts/torch_parity_cells.py GEOMETRY). Needs a CUDA
-device; imports nothing of JAX.
+heads, attention 64 (scripts/torch_parity_cells.py GEOMETRY).
+`--title-length L` sets the titles' length (the corpus's titles are made at
+that length; L 33-128 runs the kernels' long unit). Needs a CUDA device;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -121,14 +125,14 @@ def one_seed(cfg, dev, sizes, offset):
                              x64 @ wv.double() + bv.double(), heads)
         o3, _ = attention((tf32x3(xd, wq) + bq.double()).float(), tf32x3(xd, wk).float(),
                           (tf32x3(xd, wv) + bv.double()).float(), heads)
-        flips = (o3 > 0) != (o32 > 0)
+        flips = (o3 > 0) != (o64 > 0)
         missed = flips & (o3.double().abs() > RELU_TOL * s64)
         rel_gap = lambda a, b: float(((a.double() - b.double()).abs() / s64).max())
         print(f"seed +{offset} N {n}: {o32.numel()} pre-activations; largest gap from fp64 "
               f"relative to sum_j p|v|: fp32 {rel_gap(o32, o64):.3e}, 3xTF32 "
               f"{rel_gap(o3, o64):.3e}, 3xTF32 from fp32 {rel_gap(o3, o32):.3e}; "
               f"sides of 0 that differ: fp32 vs fp64 {int(((o32 > 0) != (o64 > 0)).sum())}, "
-              f"3xTF32 vs fp32 {int(flips.sum())}, of these outside kReluTol "
+              f"3xTF32 vs fp64 {int(flips.sum())}, of these outside kReluTol "
               f"{int(missed.sum())}")
         rel = o64.abs() / s64
         dk = cfg.news_embedding_dim // heads
@@ -146,13 +150,16 @@ def main() -> int:
     ap.add_argument("sizes", nargs="*", type=int, default=[8960])
     ap.add_argument("--seeds", nargs="+", type=int, default=[0])
     ap.add_argument("--geometry", choices=("prod", "matrix"), default="prod")
+    ap.add_argument("--title-length", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("msa_bwd_precision: no CUDA device", file=sys.stderr)
         return 2
     exact_fp32()
     dev = torch.device("cuda", 0)
-    widths = MATRIX if args.geometry == "matrix" else {}
+    widths = dict(MATRIX) if args.geometry == "matrix" else {}
+    if args.title_length:
+        widths["max_title_length"] = args.title_length
     cfg = Config(dataset="synthetic", vocabulary_size=40_000, category_num=18, **widths)
     print(torch.cuda.get_device_name(0), torch.__version__, f"geometry {args.geometry}: L "
           f"{cfg.max_title_length}, Din {cfg.word_embedding_dim}, {cfg.MSA_head_num} x "

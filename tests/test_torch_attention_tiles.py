@@ -263,6 +263,8 @@ def test_row_stride_gives_conflict_free_float4_rows():
     ([4096, 8192, 12288, 16384], 128, 32, 25, (32, True)),
     ([4096, 8192, 12288, 16384], 128, 64, 64, (64, True)),  # the widest head
     ([4096, 8192, 12288, 16384], 96, 48, 33, (48, True)),
+    ([4096, 8192, 12288, 16384], 160, 80, 80, (128, True)),  # the wide instance
+    ([4096, 8192, 12288, 16384], 130, 65, 65, (128, False)),
 ])
 def test_launch_plan_picks_the_instantiation_the_c_side_runs(pointers, rs, hs, dk, plan):
     """The C entry points run the instantiation of width W = the first of
@@ -270,24 +272,25 @@ def test_launch_plan_picks_the_instantiation_the_c_side_runs(pointers, rs, hs, d
     16-byte aligned (rs % 4, hs % 4, pointer % 16 all 0) and scalar ones
     otherwise; `launch_plan` is that rule."""
     assert MA.launch_plan(pointers, rs, hs, dk) == plan
-    assert MA.WIDTHS == (8, 16, 20, 24, 32, 48, 64)
+    assert MA.WIDTHS == (8, 16, 20, 24, 32, 48, 64, 128)
 
 
 def test_heads_wider_than_the_widest_width_raise(monkeypatch):
     monkeypatch.setattr(build, "use_kernel", lambda where: True)
-    assert MA.head_width(64) == 64
-    x = torch.zeros(2, 4, 2 * 65)
-    with pytest.raises(ValueError, match=r"head width 65 is wider than the widest the kernels "
-                                         r"take \(64\)"):
-        MA.attention_fwd(x, x, x, None, 2, 65)
+    assert MA.head_width(64) == 64 and MA.head_width(65) == MA.head_width(128) == 128
+    x = torch.zeros(2, 4, 2 * 129)
+    with pytest.raises(ValueError, match=r"head width 129 is wider than the widest the kernels "
+                                         r"take \(128\)"):
+        MA.attention_fwd(x, x, x, None, 2, 129)
     with pytest.raises(ValueError, match="widest"):
-        MA.attention_bwd(x, x, x, None, x, 2, 65)
+        MA.attention_bwd(x, x, x, None, x, 2, 129)
 
 
 @pytest.mark.parametrize("L,dk,backward,regs,warps", [
     (32, 20, False, 128, 4), (32, 20, False, 0, 3), (32, 20, True, 103, 4),
     (32, 8, True, 66, 3), (50, 64, False, 255, 2), (150, 20, False, 110, 5),
-    (50, 20, True, 103, 2), (150, 20, True, 103, 5), (300, 20, True, 103, 8)])
+    (50, 20, True, 103, 2), (150, 20, True, 103, 5), (300, 20, True, 103, 8),
+    (32, 128, False, 0, 1), (160, 80, True, 0, 1)])
 def test_block_sizes_and_caps(L, dk, backward, regs, warps):
     """A block of independent warps takes as many as keep the most resident
     on an H100 SM (233,472 bytes, 65,536 registers); beyond L 32 a block

@@ -117,9 +117,13 @@ def test_jax_command_line_parses_and_tpu_only_values_raise():
                               ("coordinator_address", "10.0.0.1:1234", "multi-GPU")]:
         with pytest.raises(NotImplementedError, match=item):
             Config.from_args([f"--{flag}", value])
-    with pytest.raises(ValueError, match="length 1 to 32"):
-        Config.from_args(["--max_title_length", "40"])
+    # every title length runs on the card: kernels A and A' up to 128, the
+    # attention pair beyond, as the JAX package routes them
+    assert Config.from_args(["--max_title_length", "40"]).max_title_length == 40
+    assert Config.from_args(["--max_title_length", "160"]).max_title_length == 160
     assert Config.from_args(["--max_title_length", "40", "--device", "cpu"]).max_title_length == 40
+    for flags in (["--news_encoder", "CNN"], ["--graph_encoder", "wo_SA"]):
+        assert Config.from_args(flags).device == "cuda"
 
 
 def test_mind_small_without_data_raises_without_network(tmp_path, monkeypatch):
@@ -146,7 +150,11 @@ sys.meta_path.insert(0, Block())
 spec = importlib.util.spec_from_file_location("cells", "scripts/torch_parity_cells.py")
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
-assert sorted(mod.CELLS) == ["matrix-msa", "matrix-nrms", "matrix-nrms-sa", "prod", "refprot"]
+assert sorted(mod.CELLS) == ["matrix-cnn", "matrix-msa", "matrix-news_graph_wo_inter",
+                             "matrix-nrms", "matrix-nrms-sa", "matrix-seq_sa",
+                             "matrix-user_graph_wo_inter", "matrix-wo_interaction",
+                             "matrix-wo_sa", "prod", "refprot"]
+assert set(mod.TARGETS) <= set(mod.CELLS)
 print("ok")
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}

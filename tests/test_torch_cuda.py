@@ -78,9 +78,15 @@ _MSA_FWD_CASES = [(37, 300, 16, 25, 256, True, 32), (5, 24, 4, 8, 16, True, 32),
                   (4096, 100, 10, 20, 64, True, 16), (37, 300, 16, 25, 256, True, 7),
                   (38, 100, 10, 20, 64, True, 7), (39, 100, 10, 20, 64, False, 7),
                   (129, 24, 4, 8, 16, True, 20), (3, 24, 4, 8, 16, True, 1)]
+# the long unit: titles of 33 to 128 (N L 3 past a multiple of 4 at L 33 and
+# 127), and heads of dk 80 and 128 at L 32 and beyond
+_MSA_LONG_CASES = [(5, 300, 16, 25, 256, True, 33), (37, 300, 16, 25, 256, True, 48),
+                   (9, 100, 10, 20, 64, False, 64), (3, 300, 16, 25, 256, True, 128),
+                   (5, 24, 4, 8, 16, True, 127), (6, 64, 2, 80, 32, True, 32),
+                   (4, 64, 2, 128, 64, True, 50), (3, 32, 1, 128, 16, False, 128)]
 
 
-@pytest.mark.parametrize("N,Din,heads,dk,A,bias,L", _MSA_FWD_CASES)
+@pytest.mark.parametrize("N,Din,heads,dk,A,bias,L", _MSA_FWD_CASES + _MSA_LONG_CASES)
 def test_msa_encoder_kernel(cuda, N, Din, heads, dk, A, bias, L):
     """Kernel A against the plain encoder (title 0 all pad), and the same
     bits on a second run."""
@@ -95,8 +101,8 @@ def test_msa_encoder_kernel(cuda, N, Din, heads, dk, A, bias, L):
 
 
 @pytest.mark.parametrize("Din,heads,dk,A,L,match", [
-    (6, 1, 4, 16, 32, "multiples of 4"), (64, 1, 68, 16, 32, "dk <= 64"),
-    (64, 2, 8, 516, 32, "multiple of 4 up to 512"), (64, 2, 8, 16, 33, "length 1 to 32")])
+    (6, 1, 4, 16, 32, "multiples of 4"), (64, 1, 132, 16, 32, "dk <= 128"),
+    (64, 2, 8, 516, 32, "multiple of 4 up to 512"), (64, 2, 8, 16, 129, "length 1 to 128")])
 def test_msa_encoder_kernel_refuses_shapes(cuda, Din, heads, dk, A, L, match):
     """Kernel A raises a ValueError naming the limit for a shape it does not
     take, before any launch."""
@@ -238,7 +244,10 @@ def test_msa_encoder_dropout_kernel(cuda, N, Din, heads, dk, A, bias, L):
     (37, 100, 10, 20, 64, 0.2, True, 16), (300, 100, 10, 20, 64, 0.0, True, 16),
     (37, 300, 16, 25, 256, 0.2, True, 7), (38, 100, 10, 20, 64, 0.2, True, 7),
     (39, 100, 10, 20, 64, 0.0, False, 7), (700, 24, 4, 8, 16, 0.2, True, 7),
-    (129, 24, 4, 8, 16, 0.2, True, 20), (3, 24, 4, 8, 16, 0.2, True, 1)])
+    (129, 24, 4, 8, 16, 0.2, True, 20), (3, 24, 4, 8, 16, 0.2, True, 1),
+    (4, 600, 1, 64, 16, 0.2, True, 32)] + [
+    (N, Din, heads, dk, A, 0.2 if bias else 0.0, bias, L)
+    for N, Din, heads, dk, A, bias, L in _MSA_LONG_CASES])
 def test_msa_encoder_bwd_kernel(cuda, N, Din, heads, dk, A, rate, bias, L):
     """Kernel A' (dx and the eight weight and bias gradients) against
     autograd of the plain encoder, mask applied; title 0 is all pad. N runs
@@ -265,10 +274,9 @@ def test_msa_encoder_bwd_kernel(cuda, N, Din, heads, dk, A, rate, bias, L):
 
 
 @pytest.mark.parametrize("Din,heads,dk,A,L,match", [
-    (6, 1, 4, 16, 32, "multiples of 4"), (64, 1, 68, 16, 32, "dk <= 64"),
+    (6, 1, 4, 16, 32, "multiples of 4"), (64, 1, 132, 16, 32, "dk <= 128"),
     (64, 2, 8, 18, 32, "multiple of 4 up to 512"),
-    (64, 2, 8, 516, 32, "multiple of 4 up to 512"), (600, 1, 64, 16, 32, "shared memory"),
-    (64, 2, 8, 16, 33, "length 1 to 32")])
+    (64, 2, 8, 516, 32, "multiple of 4 up to 512"), (64, 2, 8, 16, 129, "length 1 to 128")])
 def test_msa_encoder_bwd_kernel_refuses_shapes(cuda, Din, heads, dk, A, L, match):
     """Kernel A' raises a ValueError naming the limit for a shape it does not
     take, before any launch."""
@@ -401,6 +409,9 @@ _PAIR_CASES = [
 ] + [(5, L, heads, dk, hs, "masked", 0) for L in (1, 31, 32, 33, 50, 64, 65, 150, 300)
      for heads, dk, hs in ((20, 20, 20), (20, 20, 32), (6, 20, 64), (3, 6, 6), (3, 7, 7))] + [
     (6, 40, 2, 64, 64, "masked", 0), (3, 33, 2, 65, 65, "masked", 0),
+    (4, 32, 2, 80, 80, "masked", 0), (3, 160, 2, 128, 128, "masked", 0),
+    (2, 150, 1, 128, 128, "none", 0), (5, 33, 3, 80, 128, "masked", 0),
+    (3, 185, 1, 128, 128, "masked", 0), (2, 50, 2, 100, 100, "masked", 1),
     (5, 50, 20, 20, 20, "masked", 1), (5, 65, 4, 20, 32, "masked", 1),
 ]
 

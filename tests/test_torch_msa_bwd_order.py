@@ -150,14 +150,17 @@ def test_order_of_work_matches_plain_short_titles(N, Din, heads, dk, A, L, rate)
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12, err_msg=name)
 
 
-@pytest.mark.parametrize("Din,dk,nbytes", [(300, 25, 82_608), (300, 64, 144_384),
-                                           (64, 64, 54_272), (900, 25, 219_408),
-                                           (600, 64, 260_096)])
+@pytest.mark.parametrize("Din,dk,nbytes", [(300, 25, 96_816), (300, 64, 173_568),
+                                           (64, 64, 83_456), (900, 25, 8_448),
+                                           (600, 64, 8_448)])
 def test_relu_fix_block_shared_memory(Din, dk, nbytes):
-    """The wrapper's count of the ReLU-fix block's shared memory, which it
-    checks before a launch (x rows padded to an odd number of float4s, dk W
-    rows, q|k|v and the scores, counted by hand here): the configuration's
-    Din 300 at dk 25 and the card tests' shapes fit in a block; Din 600 at
-    dk 64 does not."""
+    """The wrapper's count of the ReLU-fix block's shared memory (x rows
+    padded to an odd number of float4s and dk W rows in fp32, q|k|v and the
+    scores in float64, counted by hand here): the configuration's Din 300 at
+    dk 25 and the card tests' shapes fit the short fix's block; Din 900 at
+    dk 25 and Din 600 at dk 64 would not (233,616 and 289,280 bytes), so A'
+    runs the long fix there, whose block holds only the scores [32][33] in
+    float64. Every shape fits a block."""
     assert ME.relu_fix_smem_bytes(Din, dk) == nbytes
-    assert (nbytes <= ME.MAX_SMEM_BYTES) == ((Din, dk) != (600, 64))
+    assert nbytes <= ME.MAX_SMEM_BYTES
+    assert (nbytes == 8 * 32 * 33) == ((Din, dk) in ((900, 25), (600, 64)))

@@ -179,9 +179,11 @@ def test_config_fields_match_jax():
     for bad in (dict(model_family="bert"), dict(nrms_model="NRMS-XL")):
         with pytest.raises(ValueError, match="unknown"):
             Config(**{**NRMS_GEO, **bad}).validate()
-    for unported in (dict(news_encoder="CNN"), dict(graph_encoder="wo_SA")):
-        with pytest.raises(NotImplementedError):
-            Config(**{**NRMS_GEO, "model_family": "digat", **unported}).validate()
+    for ported in (dict(news_encoder="CNN"), dict(graph_encoder="wo_SA")):
+        Config(**{**NRMS_GEO, "model_family": "digat", **ported}).validate()
+    for bad in (dict(news_encoder="LSTM"), dict(graph_encoder="GCN")):
+        with pytest.raises(ValueError, match="unknown"):
+            Config(**{**NRMS_GEO, "model_family": "digat", **bad}).validate()
 
 
 def test_production_towers_take_e_geometry():

@@ -7,6 +7,8 @@ well under a minute: D 32, L 8, depth 2, Gn 6, H 6."""
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from digat_tpu.config import Config as JaxConfig
 from digat_tpu.models.model import Model as JaxModel
@@ -19,6 +21,18 @@ GEO = dict(
     MSA_head_num=4, MSA_head_dim=8, attention_dim=16, max_title_length=8,
     max_history_num=6, SAG_neighbors=3, SAG_hops=2, graph_depth=2,
 )
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for the test, restored after: the suite runs its
+    files in parallel processes, whose thread pools would otherwise
+    oversubscribe the cores (two CLI runs side by side took 4.5 min each
+    against 25 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # fp32 tolerances: one module against its JAX counterpart, and the whole
 # two-stage scorer, where depth-2/3 compounding of summation order adds up
@@ -158,3 +172,59 @@ def nrms_train_corpus(rng, cfg, news_num: int, rows: int, samples: int, dev_imps
     arrays = nrms_arrays(rng, news_num, cfg)
     corpus.nrms_tables = lambda: SimpleNamespace(**arrays)
     return corpus
+
+
+def fp64_trajectory(corpus, steps: int = 30, lr: float = 1e-3, **over):
+    """`steps` fp64, dropout-off training steps (clip 1.0, dedup batches) of
+    the port's plain path and of the JAX train step from the same weights,
+    for the model of `port_config(**over)` -> (max loss relative error, max
+    parameter absolute error after the last step, mean of the first five
+    losses, mean of the last five)."""
+    import jax.numpy as jnp
+
+    from digat_tpu.models.model import CorpusTables as JaxTables
+    from digat_tpu.models.model import DedupTrainBatch as JaxDedupBatch
+    from digat_tpu.train import optimizer as jax_optimizer
+    from digat_tpu.train.train_step import make_train_step
+    from digat_tpu_torch.data import batching, sampling
+    from digat_tpu_torch.interop import params_from_model
+    from digat_tpu_torch.models.model import CorpusTables
+    from digat_tpu_torch.train.optimizer import Adam
+    from digat_tpu_torch.train.train_step import train_step
+
+    jm, params, pm = models(seed=0, dropout_rate=0.0, **over)
+    pm = pm.double()
+    neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets, 4,
+                                    np.random.default_rng(1))
+    batches = [b for e in range(4) for b in batching.train_batches(
+        corpus.splits["train"].history_idx, corpus.splits["train"].cat_idx,
+        corpus.train_behavior_row, corpus.train_pos, neg, 8, epoch_seed=e,
+        news_node_id=corpus.news_node_id, dedup_titles=512)][:steps]
+    assert len(batches) == steps
+    assert all(type(b).__name__ == "DedupTrainBatch" for b in batches)
+    opt = Adam(pm.named_parameters(), 0.0, 1.0)
+    raw = corpus.tables()
+    tables = CorpusTables.from_arrays(raw, "cpu")
+    fields = ("news_title_text", "news_title_mask", "news_node_id", "news_graph",
+              "news_graph_mask")
+    with jax.enable_x64(True):
+        p64 = jax.tree.map(lambda x: np.asarray(x, np.float64), params)
+        tx = jax_optimizer.make_optimizer(0.0, 1.0, p64)
+        state = tx.init(p64)
+        step = make_train_step(jm, tx)
+        jt = JaxTables(*(jnp.asarray(getattr(raw, f)) for f in fields))
+        jax_loss, port_loss = [], []
+        for b in batches:
+            p64, state, loss = step(p64, state, jt, JaxDedupBatch(*map(jnp.asarray, b)),
+                                    jax.random.PRNGKey(0), lr)
+            jax_loss.append(float(loss))
+            port_loss.append(float(train_step(pm, opt, tables, batching.to_device(b, "cpu"),
+                                              1, lr)))
+        p64 = jax.tree.map(np.asarray, p64)
+    jax_loss, port_loss = np.array(jax_loss), np.array(port_loss)
+    rel = float((np.abs(port_loss - jax_loss) / np.abs(jax_loss)).max())
+    param_err = max(float(np.abs(a - b).max()) for a, b in
+                    zip(jax.tree.leaves(params_from_model(pm)), jax.tree.leaves(p64)))
+    print(f"fp64 trajectory {over}: max loss rel {rel:.3e}, max param abs {param_err:.3e}, "
+          f"loss {jax_loss[0]:.6f} -> {jax_loss[-1]:.6f}")
+    return rel, param_err, float(jax_loss[:5].mean()), float(jax_loss[-5:].mean())

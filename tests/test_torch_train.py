@@ -27,23 +27,17 @@ import jax
 import jax.numpy as jnp
 from digat_tpu.data import batching as jax_batching
 from digat_tpu.data import sampling as jax_sampling
-from digat_tpu.models.model import CorpusTables as JaxTables
-from digat_tpu.models.model import DedupTrainBatch as JaxDedupBatch
 from digat_tpu.train import optimizer as jax_optimizer
-from digat_tpu.train.train_step import make_train_step
 from digat_tpu_torch.data import batching, sampling
-from digat_tpu_torch.interop import params_from_model
-from digat_tpu_torch.models.model import CorpusTables, DedupTrainBatch, Model, TrainBatch
+from digat_tpu_torch.models.model import CorpusTables, Model, TrainBatch
 from digat_tpu_torch.ops import build
 from digat_tpu_torch.ops import gat_layer as GL
 from digat_tpu_torch.ops import msa_encoder as ME
 from digat_tpu_torch.train import optimizer
-from digat_tpu_torch.train.train_step import step_seed, train_step
+from digat_tpu_torch.train.train_step import step_seed
 from digat_tpu_torch.train.trainer import Trainer
-from tests.test_torch_support import jax_config, models, port_config, train_corpus
-
-TABLE_FIELDS = ("news_title_text", "news_title_mask", "news_node_id", "news_graph",
-                "news_graph_mask")
+from tests.test_torch_support import (fp64_trajectory, jax_config, models, port_config,
+                                      train_corpus)
 
 
 # ---------------------------------------------------------------------------
@@ -206,43 +200,12 @@ def test_dedup_batch_gives_the_plain_logits_and_gradients(corpus):
 
 def test_fp64_training_trajectory_matches_jax(corpus):
     """30 steps of the port's plain training path (fp64, dropout off,
-    clip 1.0, lr 1e-3) against the JAX train step on the same batches."""
-    jm, params, pm = models(seed=0, dropout_rate=0.0)
-    pm = pm.double()
-    neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets, 4,
-                                    np.random.default_rng(1))
-    batches = [b for e in range(4) for b in batching.train_batches(
-        corpus.splits["train"].history_idx, corpus.splits["train"].cat_idx,
-        corpus.train_behavior_row, corpus.train_pos, neg, 8, epoch_seed=e,
-        news_node_id=corpus.news_node_id, dedup_titles=512)][:30]
-    assert len(batches) == 30 and all(isinstance(b, DedupTrainBatch) for b in batches)
-    lr = 1e-3
-    opt = optimizer.Adam(pm.named_parameters(), 0.0, 1.0)
-    tables = _tables(corpus)
-    raw = corpus.tables()
-    with jax.enable_x64(True):
-        p64 = jax.tree.map(lambda x: np.asarray(x, np.float64), params)
-        tx = jax_optimizer.make_optimizer(0.0, 1.0, p64)
-        state = tx.init(p64)
-        step = make_train_step(jm, tx)
-        jt = JaxTables(*(jnp.asarray(getattr(raw, f)) for f in TABLE_FIELDS))
-        jax_loss, port_loss = [], []
-        for b in batches:
-            p64, state, loss = step(p64, state, jt, JaxDedupBatch(*map(jnp.asarray, b)),
-                                    jax.random.PRNGKey(0), lr)
-            jax_loss.append(float(loss))
-            port_loss.append(float(train_step(pm, opt, tables, batching.to_device(b, "cpu"),
-                                              1, lr)))
-        p64 = jax.tree.map(np.asarray, p64)
-    jax_loss, port_loss = np.array(jax_loss), np.array(port_loss)
-    rel = np.abs(port_loss - jax_loss) / np.abs(jax_loss)
-    param_err = max(float(np.abs(a - b).max()) for a, b in
-                    zip(jax.tree.leaves(params_from_model(pm)), jax.tree.leaves(p64)))
-    print(f"fp64 trajectory: max loss rel {rel.max():.3e}, max param abs {param_err:.3e}, "
-          f"loss {jax_loss[0]:.6f} -> {jax_loss[-1]:.6f}")
-    assert rel.max() <= 1e-9
+    clip 1.0, lr 1e-3, dedup batches) against the JAX train step on the same
+    batches (`test_torch_support.fp64_trajectory`)."""
+    rel, param_err, first, last = fp64_trajectory(corpus)
+    assert rel <= 1e-9
     assert param_err <= 1e-7
-    assert jax_loss[-5:].mean() < jax_loss[:5].mean()  # the trajectory went somewhere
+    assert last < first  # the trajectory went somewhere
 
 
 def test_train_step_is_seeded_and_finite_with_dropout(corpus):
