@@ -64,6 +64,21 @@ paths:
              against CPU; 8 untraced steps at B 64 (dedup, dropout 0.2) with
              the counters reset, their launches per step and dropout sites
              checked, and the median step time;
+  bf16     - phase 20, MSA-DIGAT at compute_dtype bfloat16 (bf16 compute
+             copies of the fp32 weights): the bf16 instances of A (N 1,024
+             serving; N of the dedup capacity with dropout 0.2), A' (that N,
+             dropout 0.2; its dx bf16, within one bf16 ulp of the plain
+             element plus the bound) and B (bf16 weights, B 1,024 at G 68
+             and 26) against their plain versions, each with its bound (the
+             bf16 x bf16 product at the dense bf16 rate) and the SASS check
+             that A's and A''s bf16 product issues HMMA.16816.F32.BF16; the
+             cached scorer over the corpus with the counters reset (stage 1
+             A's bf16 instance, stage 2 B's, no fp32 launch of either) and a
+             2,048-news corpus card against CPU; three B-8 steps card against
+             CPU (each step-1 gradient within max(1e-3 * max |cpu|, one bf16
+             ulp of the element)); one Trainer epoch at B 64 (dedup, dropout
+             0.2) with its launches per step checked, its median step beside
+             phase 8's;
   CLI      - `digat_tpu_torch.cli` from MIND-layout TSV files that the
              port's generator writes: the production cell of
              scripts/torch_parity_cells.py (word 300, L 32, 16 x 25 heads,
@@ -116,6 +131,11 @@ SLICE_RTOL = 1e-4
 # step-1 gradient max |card - cpu| <= 1e-3 * max |cpu| of that tensor, a
 # limit that a zeroed or lost gradient (which reads 1) cannot pass.
 TRAIN_RTOL = 1e-3
+# the parameters a DIGAT forward uses more than once (the news and user
+# contexts, at every depth), by state_dict prefix
+MULTI_USE = tuple(f"graph_encoder.{n}" for n in (
+    "candidate_attention.", "news_graph_W.", "user_news_K.", "user_news_Q.", "featureAffine.",
+    "userAttention."))
 TRAIN_STEPS = 20  # full-width training steps at B 64
 NRMS_TRAIN_STEPS = 10  # full-width NRMS-SA training steps at B 64
 
@@ -124,10 +144,19 @@ NRMS_TRAIN_STEPS = 10  # full-width NRMS-SA training steps at B 64
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
+PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bf16_ulp(torch, t):
+    """One bf16 ulp at each element's magnitude: 2^(e - 8) for |t| in
+    [2^(e-1), 2^e); an element of 0 takes that of the smallest normal."""
+    a = t.float().abs().clamp(min=2.0 ** -126)
+    _, e = torch.frexp(a)
+    return torch.ldexp(torch.ones_like(a), e - 8)
 
 
 def _watchdog(signum, frame):
@@ -389,12 +418,15 @@ def make_train_corpus(cfg, tables, samples: int, rows: int, dev_imps: int, seed:
     )
 
 
-def check_kernel(torch, name, kernel, plain, args, flops, nbytes, exact=False, library=None):
+def check_kernel(torch, name, kernel, plain, args, flops, nbytes, exact=False, library=None,
+                 bound_ms=None):
     """Kernel vs plain on the same inputs, timed; returns the kernels-line
     entry without launches (filled from the main-path run). A kernel with
-    several outputs is held to the limit output by output; `exact` asks
-    for the same bits; `library` is one PyTorch call computing the same
-    function, timed as a yardstick."""
+    several outputs is held to the limit output by output; a bf16 output
+    may also lie one bf16 ulp of the plain element apart (a rounding of
+    fp32 sums that differ within the limit); `exact` asks for the same
+    bits; `library` is one PyTorch call computing the same function, timed
+    as a yardstick; `bound_ms` replaces the fp32 bound with (ms, by)."""
     out = kernel(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
@@ -402,15 +434,19 @@ def check_kernel(torch, name, kernel, plain, args, flops, nbytes, exact=False, l
     outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
     err, ok, limits = 0.0, True, []
     for o, r in zip(outs, refs):
-        e = float((o.double() - r.double()).abs().max()) if o.numel() else 0.0
+        d = (o.double() - r.double()).abs()
+        e = float(d.max()) if o.numel() else 0.0
         limit = 0.0 if exact else KERNEL_RTOL * max(1.0, float(r.double().abs().max()))
-        ok = ok and bool(torch.isfinite(o.double()).all()) and e <= limit
+        if o.dtype == torch.bfloat16 and not exact and o.numel():
+            d = (d - bf16_ulp(torch, r).double()).clamp(min=0)
+        ok = ok and bool(torch.isfinite(o.double()).all()) and \
+            (float(d.max()) if o.numel() else 0.0) <= limit
         err = max(err, e)
         limits.append(limit)
     ms = time_ms(torch, lambda: kernel(*args))
     plain_ms = time_ms(torch, lambda: plain(*args))
     library_ms = time_ms(torch, lambda: library(*args)) if library is not None else None
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = bound(flops, nbytes) if bound_ms is None else bound_ms
     lim = f"limit {limits[0]:.3e}" if len(limits) == 1 else \
         f"limits {min(limits):.3e}-{max(limits):.3e}"
     say(f"  {name}: max_abs_err {err:.3e} ({'exact' if exact else f'{lim} per output'}) "
@@ -734,39 +770,46 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
 
 
 def counters():
-    """The launch counter of every kernel wrapper, by kernels-line name."""
+    """The launch counter of every kernel wrapper, by kernels-line name:
+    (wrapper, attribute). The bf16 instances of A, A' and B count on their
+    wrappers' `launches_bf16`."""
     from digat_tpu_torch.ops import (dropout, emb_grad, gat_layer, gat_scores, msa_attention,
                                      msa_encoder)
 
-    return {"msa_encoder_pooled": msa_encoder.msa_encoder_pooled,
-            "msa_encoder_bwd": msa_encoder.msa_encoder_bwd,
-            "dropout": dropout.dropout,
-            "keep_mask": dropout.keep_mask,
-            "interactive_gat_layer_fused": gat_layer.interactive_gat_layer_fused,
-            "gat_scores_fwd": gat_scores.gat_scores_fwd,
-            "gat_scores_bwd": gat_scores.gat_scores_bwd,
-            "embedding_grad": emb_grad.embedding_grad,
-            "msa_attention_fwd": msa_attention.attention_fwd,
-            "msa_attention_bwd": msa_attention.attention_bwd}
+    return {"msa_encoder_pooled": (msa_encoder.msa_encoder_pooled, "launches"),
+            "msa_encoder_bwd": (msa_encoder.msa_encoder_bwd, "launches"),
+            "dropout": (dropout.dropout, "launches"),
+            "keep_mask": (dropout.keep_mask, "launches"),
+            "interactive_gat_layer_fused": (gat_layer.interactive_gat_layer_fused, "launches"),
+            "gat_scores_fwd": (gat_scores.gat_scores_fwd, "launches"),
+            "gat_scores_bwd": (gat_scores.gat_scores_bwd, "launches"),
+            "embedding_grad": (emb_grad.embedding_grad, "launches"),
+            "msa_attention_fwd": (msa_attention.attention_fwd, "launches"),
+            "msa_attention_bwd": (msa_attention.attention_bwd, "launches"),
+            "msa_encoder_pooled_bf16": (msa_encoder.msa_encoder_pooled, "launches_bf16"),
+            "msa_encoder_bwd_bf16": (msa_encoder.msa_encoder_bwd, "launches_bf16"),
+            "interactive_gat_layer_fused_bf16": (gat_layer.interactive_gat_layer_fused,
+                                                 "launches_bf16")}
 
 
 def reset_counters():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters():
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
-def training_slice(torch, cfg, model, corpus, run_dir, failures):
-    """Phase 8: one epoch of the port's Trainer at B 64 with the launch
-    counters reset; returns (epoch record, launches of that run)."""
+def training_slice(torch, cfg, model, corpus, run_dir, failures, label="training"):
+    """Phase 8 (and phase 20 at bf16): one epoch of the port's Trainer at
+    B 64 with the launch counters reset; returns (epoch record, median step
+    ms, launches of that run). At compute_dtype bfloat16 A, A' and B must
+    run their bf16 instances and never their fp32 ones."""
     from digat_tpu_torch import layers
     from digat_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(model, cfg, corpus, run_dir, verbose=False)
-    wrappers = counters()
     # the shapes at which the dropout sites call kernel A'', to hold them
     # against those phase 7 checked
     drawn, apply_dropout = Counter(), layers.apply_dropout
@@ -776,13 +819,13 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures):
         return apply_dropout(x, rate, seed, site)
 
     layers.apply_dropout = recording
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counters()
     try:
         (rec,) = trainer.train()
     finally:
         layers.apply_dropout = apply_dropout
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_counters()
+    b16 = "_bf16" if cfg.compute_dtype == "bfloat16" else ""
     steps, over = len(rec["step_losses"]), rec["overflow_batches"]
     bs = cfg.effective_eval_batch_size()
     dev_chunks = -(-corpus.tables().news_title_text.shape[0] // bs)
@@ -792,32 +835,39 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures):
     checked = Counter()
     for _, rows, cols, rate, per_step in mask_sites(cfg):
         checked[(rows, cols, rate)] += per_step * steps
-    want = {"msa_encoder_pooled": steps + over + dev_chunks, "msa_encoder_bwd": steps + over,
+    want = {"msa_encoder_pooled" + b16: steps + over + dev_chunks,
+            "msa_encoder_bwd" + b16: steps + over,
             "embedding_grad": steps + over, "gat_scores_fwd": 2 * depth * steps,
             "gat_scores_bwd": 2 * depth * steps, "dropout": 2 * sites * steps, "keep_mask": 0,
-            "interactive_gat_layer_fused": 2 * depth * dev_batches}
+            "interactive_gat_layer_fused" + b16: 2 * depth * dev_batches}
+    # the other instance of A, A' and B launched no time
+    want.update({k.replace(b16, "") if b16 else k + "_bf16": 0
+                 for k in ("msa_encoder_pooled" + b16, "msa_encoder_bwd" + b16,
+                           "interactive_gat_layer_fused" + b16)})
     step_ms = rec["step_ms"]
     warm = float(np.median(step_ms[2:]))
     say(f"  {steps} steps at B {cfg.batch_size} (dedup overflow {over}); step ms median after "
         f"warm-up {warm:.3f} (first {step_ms[0]:.3f}); train samples/s "
         f"{cfg.batch_size * 1e3 / warm:.1f} (epoch wall {rec['samples_per_s']:.1f})")
     say(f"  step losses: {[round(v, 6) for v in rec['step_losses']]}")
-    per_step = {k: (launches[k] - (dev_chunks if k == "msa_encoder_pooled" else 0)) / steps
-                for k in launches if k != "interactive_gat_layer_fused"}
-    say(f"  launches per step: A {per_step['msa_encoder_pooled']:g}, "
-        f"A' {per_step['msa_encoder_bwd']:g}, C-fwd {per_step['gat_scores_fwd']:g}, "
+    a_key = "msa_encoder_pooled" + b16
+    per_step = {k: (launches[k] - (dev_chunks if k == a_key else 0)) / steps
+                for k in launches if not k.startswith("interactive_gat_layer_fused")}
+    say(f"  launches per step: A {per_step[a_key]:g}, "
+        f"A' {per_step['msa_encoder_bwd' + b16]:g}, C-fwd {per_step['gat_scores_fwd']:g}, "
         f"C-bwd {per_step['gat_scores_bwd']:g}, D {per_step['embedding_grad']:g}, "
         f"A'' {per_step['dropout']:g} (forward and backward at {sites} graph dropout sites); "
         f"dev scoring: "
-        f"A {dev_chunks}, B {launches['interactive_gat_layer_fused']}")
+        f"A {dev_chunks}, B {launches['interactive_gat_layer_fused' + b16]}"
+        + (" (the bf16 instances)" if b16 else ""))
     say(f"  dev on random weights: auc {rec['auc']:.4f} mrr {rec['mrr']:.4f}")
     if steps < TRAIN_STEPS or not np.isfinite(rec["step_losses"]).all():
-        failures.append("training: too few steps or a loss not finite")
+        failures.append(f"{label}: too few steps or a loss not finite")
     for k, n in want.items():
         if launches[k] != n:
-            failures.append(f"training: {k} launched {launches[k]} times, want {n}")
+            failures.append(f"{label}: {k} launched {launches[k]} times, want {n}")
     if drawn != checked:
-        failures.append(f"training: A'' drew masks at {dict(drawn)}, phase 7 checked "
+        failures.append(f"{label}: A'' drew masks at {dict(drawn)}, phase 7 checked "
                         f"{dict(checked)}")
     return rec, warm, launches
 
@@ -862,8 +912,24 @@ def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False, label
         out.append((losses, grads))
     (l_gpu, g_gpu), (l_cpu, g_cpu) = out
     # each tensor's error over its own largest |cpu| gradient (a zeroed or
-    # lost gradient reads 1)
-    rows = sorted(((float((g_gpu[n] - g).abs().max()) / max(float(g.abs().max()), 1e-12),
+    # lost gradient reads 1); at bf16, where all but the word table's
+    # gradient are bf16-rounded values, an element within one bf16 ulp of
+    # the cpu's passes whatever its size, and for a parameter that a
+    # forward uses more than once (the news and user contexts' weights, at
+    # every depth) within one bf16 ulp of its tensor's largest |cpu|: its
+    # uses' bf16 gradients are summed in bf16, as JAX sums them, and where
+    # they cancel a partial sum that rounds the other way moves an element
+    # by an ulp of the partial
+    b16 = cfg.compute_dtype == "bfloat16"
+
+    def diff(n, g):
+        d = (g_gpu[n] - g).abs()
+        if not b16:
+            return d
+        ulp = bf16_ulp(torch, g.abs().max() if n.startswith(MULTI_USE) else g)
+        return torch.where(d <= ulp, torch.zeros_like(d), d)
+
+    rows = sorted(((float(diff(n, g).max()) / max(float(g.abs().max()), 1e-12),
                     float((g_gpu[n] - g).abs().max()), float(g.abs().max()), n)
                    for n, g in g_cpu.items()), reverse=True)
     worst = rows[0][0]
@@ -871,8 +937,10 @@ def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False, label
     say(f"  {label + ': ' if label else ''}losses card {[round(v, 7) for v in l_gpu]} "
         f"cpu {[round(v, 7) for v in l_cpu]}; "
         f"max loss err {loss_err:.3e} (limit {TRAIN_RTOL:g} * max(1, |cpu|)); step-1 "
-        f"gradients of {len(g_cpu)} tensors, max |card - cpu| / max |cpu| per tensor: worst "
-        f"{worst:.3e}, limit {TRAIN_RTOL:g}; smallest max |cpu| "
+        f"gradients of {len(g_cpu)} tensors, max |card - cpu| "
+        + ("beyond one bf16 ulp of the element (of the tensor's max for the contexts' "
+           "weights) " if b16 else "")
+        + f"/ max |cpu| per tensor: worst {worst:.3e}, limit {TRAIN_RTOL:g}; smallest max |cpu| "
         f"{min(r[2] for r in rows):.3e} ({min(rows, key=lambda r: r[2])[3]})")
     for rel, err, top, n in rows[:6]:
         say(f"    {n}: max |cpu| {top:.3e} max |card - cpu| {err:.3e} ratio {rel:.3e}")
@@ -1101,12 +1169,15 @@ def ptxas_report(build, needle: str) -> dict:
 
 
 def sass_tensor_core_check(build) -> dict:
-    """TF32 tensor-core instructions (SASS `HMMA...TF32`) in each instantiation
-    of the 3xTF32 product kernel (tc_gemm.cuh) of the built library, read
-    with `cuobjdump -sass`: label -> count. Each source's code is its own
-    ELF section of the library; a product is labelled by its kernel (A, A'
-    or B: the section that holds that kernel's own pool, ReLU-fix or attend
-    kernel) and its template arguments."""
+    """Tensor-core instructions in each instantiation of the product kernels
+    of tc_gemm.cuh in the built library, read with `cuobjdump -sass`:
+    label -> (instruction the product must issue, count). Products with an
+    fp32 A and an fp32 or bf16 B (gemm_kernel: 3xTF32, 2xTF32) must issue
+    TF32 HMMA; bf16 x bf16 ones (gemm_bf16_kernel) HMMA.16816.F32.BF16.
+    Each source's code is its own ELF section of the library; a product is
+    labelled by its kernel (A, A' or B: the section that holds that
+    kernel's own pool, ReLU-fix or attend kernel) and its template
+    arguments."""
     import re
     import shutil
 
@@ -1118,6 +1189,8 @@ def sass_tensor_core_check(build) -> dict:
     owners = {"msa_pool_fwd_kernel": "A", "msa_attn_relu_fix_kernel": "A'",
               "gat_layer_attend_kernel": "B"}
     epilogues = ["store", "bias", "pool", "dh", "dropout", "logits"]
+    types = {"f": "fp32", "13__nv_bfloat16": "bf16", "S2_": "bf16"}
+    tf32, bf16 = r"HMMA\.\S*TF32", r"HMMA\.16816\.F32\.BF16"
     counts = {}
     for section in re.split(r"^Fatbin elf code", sass, flags=re.M):
         owner = next((o for marker, o in owners.items() if marker in section), "?")
@@ -1125,41 +1198,58 @@ def sass_tensor_core_check(build) -> dict:
         for line in section.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                k = re.search(r"2tc11gemm_kernelILb([01])ELb([01])ELi(\d+)ELi(\d)ELb([01])E",
+                name = None
+                k = re.search(r"2tc11gemm_kernelILb([01])ELb([01])ELi(\d+)ELi(\d)ELb([01])E"
+                              r"(f|13__nv_bfloat16)(f|S2_)E", m.group(1))
+                b = re.search(r"2tc16gemm_bf16_kernelILi(\d+)ELi(\d)ELb([01])E(f|13__nv_bfloat16)E",
                               m.group(1))
-                name = None if k is None else (
-                    f"{owner}: A {'K' if k.group(1) == '1' else 'M'}-major, B "
-                    f"{'K' if k.group(2) == '1' else 'N'}-major, BN {k.group(3)}, "
-                    f"{epilogues[int(k.group(4))]} epilogue"
-                    + (", k-tile sums rounded to nearest" if k.group(5) == "1" else ""))
-                if name:
-                    counts[name] = 0
+                if k:
+                    name = (f"{owner}: A fp32 {'K' if k.group(1) == '1' else 'M'}-major, B "
+                            f"{types[k.group(6)]} {'K' if k.group(2) == '1' else 'N'}-major "
+                            f"({'2' if k.group(6) != 'f' else '3'}xTF32), C "
+                            f"{types[k.group(7)]}, BN {k.group(3)}, "
+                            f"{epilogues[int(k.group(4))]} epilogue"
+                            + (", k-tile sums rounded to nearest" if k.group(5) == "1" else ""))
+                    counts[name] = [tf32, 0]
+                elif b:
+                    name = (f"{owner}: A bf16 K-major, B bf16 K-major, C {types[b.group(4)]}, "
+                            f"BN {b.group(1)}, {epilogues[int(b.group(2))]} epilogue"
+                            + (", k-tile sums rounded to nearest" if b.group(3) == "1" else ""))
+                    counts[name] = [bf16, 0]
                 continue
-            if name and re.search(r"HMMA\.\S*TF32", line):
-                counts[name] += 1
-    return counts
+            if name and re.search(counts[name][0], line):
+                counts[name][1] += 1
+    return {label: (("TF32" if pat == tf32 else "16816.F32.BF16"), n)
+            for label, (pat, n) in counts.items()}
 
 
 # the product instantiations of kernels A, A' and B (tc_gemm.cuh), as
-# sass_tensor_core_check labels them: A' six, A two, B one
-PRODUCT_KERNELS = 9
+# sass_tensor_core_check labels them: fp32 A' six, A two, B one; bf16 A'
+# six (one of them the bf16 x bf16 q|k|v product), A two (one bf16 x bf16),
+# B one
+PRODUCT_KERNELS = 18
 
 
 def redesign_report(build) -> bool:
     """Prints ptxas's registers and spills of the kernels of A, A', A'', B,
-    C and D and the SASS check that the products of A, A' and B issue TF32
-    tensor-core instructions; False if a product kernel issues none."""
+    C and D and the SASS check that the products of A, A' and B issue
+    tensor-core instructions (TF32, or bf16 for the bf16 x bf16 products);
+    False if a product kernel issues none of its kind."""
     ok = True
-    for needle in ("tc11gemm_kernel", "msa_attn_", "msa_pool", "gat_scores_", "gat_layer_",
-                   "dropout_", "emb_grad_"):
+    for needle in ("tc11gemm_kernel", "tc16gemm_bf16_kernel", "msa_attn_", "msa_pool",
+                   "gat_scores_", "gat_layer_", "dropout_", "emb_grad_"):
         for mangled, (n_regs, st, ld) in sorted(ptxas_report(build, needle).items()):
             say(f"  ptxas {mangled[:90]}: {n_regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
     counts = sass_tensor_core_check(build)
-    for label, n in counts.items():
-        say(f"  SASS {label}: {n} HMMA TF32 instructions")
-    if len(counts) < PRODUCT_KERNELS or not all(counts.values()):
-        say("  SASS check FAILED: a product kernel of A, A' or B issues no TF32 HMMA")
+    for label, (kind, n) in counts.items():
+        say(f"  SASS {label}: {n} HMMA {kind} instructions")
+    bf16 = [label for label, (kind, _) in counts.items() if kind != "TF32"]
+    if len(counts) < PRODUCT_KERNELS or not all(n for _, n in counts.values()) or \
+            not any(label.startswith("A:") for label in bf16) or \
+            not any(label.startswith("A':") for label in bf16):
+        say("  SASS check FAILED: a product kernel of A, A' or B issues no tensor-core "
+            "instruction of its kind, or A's or A''s bf16 product is missing")
         ok = False
     return ok
 
@@ -1663,6 +1753,255 @@ def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: compute_dtype bfloat16 (MSA-DIGAT; the bf16 instances of A, A'
+# and B). The work counts: the bf16 x bf16 q|k|v product at the dense bf16
+# rate, the rest as the fp32 kernels' (fp32 CUDA-core rate), the bytes as
+# each array's dtype gives them.
+# ---------------------------------------------------------------------------
+def bf16_bound(flops, bf16_flops, nbytes) -> tuple:
+    """(least ms, what bounds it): bf16_flops (bf16 x bf16 products) at the
+    dense bf16 rate plus the rest of `flops` at the fp32 rate, against the
+    bytes at the memory rate."""
+    t_ops = bf16_flops / PEAK_BF16_FLOPS + (flops - bf16_flops) / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_tensor_cores(flops, nbytes, bf16_products, tf32x2_products, tf32x3_products) -> float:
+    """A bf16 instance's second bound (printed): its products on the tensor
+    cores, bf16 x bf16 at the bf16 rate, 2xTF32 and 3xTF32 as two and three
+    TF32 passes, the rest at the fp32 rate, plus its bytes (ms)."""
+    products = bf16_products + tf32x2_products + tf32x3_products
+    return (bf16_products / PEAK_BF16_FLOPS
+            + (2 * tf32x2_products + 3 * tf32x3_products) / PEAK_TF32_FLOPS
+            + (flops - products) / PEAK_FP32_FLOPS + nbytes / PEAK_BYTES) * 1e3
+
+
+def msa_work_bf16(N, L, Din, D, A):
+    """Kernel A's bf16 instance: msa_work's FLOP; x and the weight matrices
+    read as bf16, the vectors and the output fp32."""
+    flops, _ = msa_work(N, L, Din, D, A)
+    nbytes = 2 * N * L * Din + N * L + 2 * (Din * 3 * D + D * A) + 4 * (3 * D + 2 * A) \
+        + 4 * N * D
+    return flops, nbytes
+
+
+def msa_bwd_work_bf16(N, L, Din, D, A):
+    """Kernel A''s bf16 instance: msa_bwd_work's FLOP; x read and dx written
+    as bf16, the weight matrices read as bf16, dp, the vectors and every
+    gradient of a weight fp32."""
+    flops, _ = msa_bwd_work(N, L, Din, D, A)
+    mats, vecs = Din * 3 * D + D * A, 3 * D + 2 * A
+    nbytes = 4 * N * L * Din + N * L + 4 * N * D + 2 * mats + 4 * vecs + 4 * (mats + vecs)
+    return flops, nbytes
+
+
+def gat_work_bf16(B, G, D):
+    """Kernel B with bf16 weights: gat_work's FLOP, the four D x D weights
+    read as bf16."""
+    flops, nbytes = gat_work(B, G, D)
+    return flops, nbytes - 2 * 4 * D * D
+
+
+def bf16_phase(torch, cfg, tables, hist, cat, imp_index, cand, cap, dev, failures,
+               fp32_step_ms):
+    """Phase 20: MSA-DIGAT at compute_dtype bfloat16. The bf16 instances of
+    A (N 1,024 serving, N `cap` with dropout 0.2), A' (N `cap`, dropout 0.2)
+    and B (B 1,024 at G 68 and 26) against their plain versions on the same
+    bf16 inputs; the cached scorer over the corpus with the counters reset
+    (stage 1 A's bf16 instance, stage 2 B's, no fp32 launch of either) and a
+    smaller corpus card against CPU; three B-8 steps card against CPU; one
+    Trainer epoch at B 64 (dedup, dropout 0.2) with its launches per step
+    checked, its median step beside phase 8's. -> (kernels-line entries by
+    name, launches by path)."""
+    from digat_tpu_torch.eval import metrics as M
+    from digat_tpu_torch.eval.scorer import CachedScorer
+    from digat_tpu_torch.models.model import Model
+    from digat_tpu_torch.ops import gat_layer as GL
+    from digat_tpu_torch.ops import msa_encoder as ME
+
+    bcfg = replace(cfg, compute_dtype="bfloat16")
+    model = Model(bcfg, device=dev, generator=torch.Generator().manual_seed(SEED + 20))
+    L, Din, D, A = cfg.max_title_length, cfg.word_embedding_dim, cfg.news_embedding_dim, \
+        cfg.attention_dim
+    heads, p, bs = cfg.MSA_head_num, cfg.dropout_rate, cfg.effective_eval_batch_size()
+    params = model.compute_params()
+    enc = "news_encoder.multiheadSelfattention."
+    pool = "news_encoder.attention."
+    w = (params[enc + "W_Q.weight"].t(), params[enc + "W_Q.bias"], params[enc + "W_K.weight"].t(),
+         params[enc + "W_V.weight"].t(), params[enc + "W_V.bias"],
+         params[pool + "affine1.weight"].t(), params[pool + "affine1.bias"],
+         params[pool + "affine2.weight"][0])
+    w = tuple(t.detach() for t in w)
+    table = model.news_encoder.word_embedding.weight.detach()
+    entries = {"msa_encoder_pooled_bf16": {}, "msa_encoder_bwd_bf16": {},
+               "interactive_gat_layer_fused_bf16": {}}
+
+    def guarded(name, tag, fn):
+        try:
+            entries[name][tag] = fn()
+        except Exception:
+            traceback.print_exc()
+            entries[name][tag] = dict(ok=False)
+
+    # ---- the kernels at full width ----
+    def encoder(N, rate):
+        x = table[tables.news_title_text[:N]].to(torch.bfloat16).contiguous()
+        mask = tables.news_title_mask[:N].contiguous()
+        fwd = lambda: ME.msa_encoder_pooled(x, mask, *w, heads, rate, 987, 0)
+        flops, nbytes = msa_work_bf16(N, L, Din, D, A)
+        qkv = 2 * N * L * Din * 3 * D
+        e = check_kernel(torch, f"msa_encoder_pooled bf16 [{N},{L},{Din}] dropout {rate:g}", fwd,
+                         lambda: ME.msa_encoder_pooled_plain(x, mask, *w, heads, rate, 987, 0),
+                         (), flops, nbytes, bound_ms=bf16_bound(flops, qkv, nbytes))
+        say(f"    bound with the products on the tensor cores (q|k|v bf16, pool 2xTF32): "
+            f"{bound_tensor_cores(flops, nbytes, qkv, 2 * N * L * D * A, 0):.4f} ms")
+        again = torch.equal(fwd(), fwd())
+        say(f"    same bits twice: {again}")
+        e["ok"] = e["ok"] and again
+        if rate > 0:
+            stages = stage_split(torch, fwd)
+            say_stages("msa_encoder_pooled bf16", stages)
+            e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
+        return e
+
+    guarded("msa_encoder_pooled_bf16", f"serving N{bs}", lambda: encoder(bs, 0.0))
+    guarded("msa_encoder_pooled_bf16", f"training N{cap} dropout {p:g}", lambda: encoder(cap, p))
+
+    def encoder_bwd():
+        x = table[tables.news_title_text[:cap]].to(torch.bfloat16).contiguous()
+        mask = tables.news_title_mask[:cap].contiguous()
+        dp = torch.randn((cap, D), generator=torch.Generator(device=dev).manual_seed(SEED + 21),
+                         device=dev)
+        args = (x, mask, *w, dp, heads, p, 987, 0)
+        flops, nbytes = msa_bwd_work_bf16(cap, L, Din, D, A)
+        qkv = 2 * cap * L * Din * 3 * D
+        e = check_kernel(torch, f"msa_encoder_bwd bf16 [{cap},{L},{Din}] dropout {p:g} (dx bf16 "
+                         f"+ 8 fp32 weight grads)", ME.msa_encoder_bwd, ME.msa_encoder_bwd_plain,
+                         args, flops, nbytes, bound_ms=bf16_bound(flops, qkv, nbytes))
+        pool_p = 2 * cap * L * D * A
+        say(f"    bound with the products on the tensor cores (q|k|v bf16; pool, dh, dx and "
+            f"dWqkv 2xTF32; dW1 3xTF32): "
+            f"{bound_tensor_cores(flops, nbytes, qkv, 2 * pool_p + 2 * qkv, pool_p):.4f} ms")
+        again = all(torch.equal(a, b) for a, b in zip(ME.msa_encoder_bwd(*args),
+                                                      ME.msa_encoder_bwd(*args)))
+        say(f"    same bits twice, every output: {again}")
+        stages = stage_split(torch, lambda: ME.msa_encoder_bwd(*args))
+        say_stages("msa_encoder_bwd bf16", stages)
+        e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
+        e["ok"] = e["ok"] and again
+        return e
+
+    guarded("msa_encoder_bwd_bf16", f"training N{cap} dropout {p:g}", encoder_bwd)
+
+    def gat(G):
+        prefix = "news_graph_attention" if G <= cfg.news_graph_size else "user_graph_attention"
+        wt = tuple(params[f"graph_encoder.{prefix}_{n}.0.weight"].t().detach()
+                   for n in ("W", "ffn1", "ffn2", "ffn3"))
+        gargs = (wt[0], params[f"graph_encoder.{prefix}_W.0.bias"].detach(), wt[1], wt[2], wt[3],
+                 params[f"graph_encoder.{prefix}_ffn3.0.bias"].detach(),
+                 params[f"graph_encoder.{prefix}_a.0.weight"][0].detach())
+        g = torch.Generator(device=dev).manual_seed(SEED + 22 + G)
+        xb = torch.randn((bs, G, D), generator=g, device=dev) * 0.5
+        q = torch.randn((bs, D), generator=g, device=dev) * 0.5
+        adj = (torch.rand((bs, G, G), generator=g, device=dev) < 0.25) \
+            | torch.eye(G, dtype=torch.bool, device=dev)
+        adj[0, 1] = False
+        args = (xb, adj, q, *gargs)
+        flops, nbytes = gat_work_bf16(bs, G, D)
+        e = check_kernel(torch, f"interactive_gat_layer_fused bf16 weights B={bs} G={G} D={D}",
+                         GL.interactive_gat_layer_fused, GL.interactive_gat_layer_plain, args,
+                         flops, nbytes)
+        say(f"    bound with the projections at 2xTF32: "
+            f"{bound_tensor_cores(flops, nbytes, 0, gat_products(bs, G, D), 0):.4f} ms")
+        again = torch.equal(GL.interactive_gat_layer_fused(*args),
+                            GL.interactive_gat_layer_fused(*args))
+        say(f"    same bits twice: {again}")
+        stages = stage_split(torch, lambda: GL.interactive_gat_layer_fused(*args))
+        say_stages(f"interactive_gat_layer_fused bf16 G {G}", stages)
+        e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
+        e["ok"] = e["ok"] and again
+        return e
+
+    for G in (cfg.user_graph_size, cfg.news_graph_size):
+        guarded("interactive_gat_layer_fused_bf16", f"G{G} D{D}", lambda G=G: gat(G))
+    for name, shapes in entries.items():
+        if not all(v.get("ok") for v in shapes.values()):
+            failures.append(f"kernel {name}")
+
+    # ---- serving: the main path over the corpus, then card against CPU ----
+    launches = {}
+    try:
+        news_num = tables.news_title_text.shape[0]
+        scorer = CachedScorer(model, bs)
+        reset_counters()
+        scores = scorer.score_items(tables, hist, cat, imp_index, cand)
+        serve = read_counters()
+        tm = dict(scorer.timings)
+        scorer.score_items(tables, hist, cat, imp_index, cand)  # warm pass, timing only
+        warm = scorer.timings
+        want = {"msa_encoder_pooled_bf16": -(-news_num // bs),
+                "interactive_gat_layer_fused_bf16": 2 * cfg.graph_depth * tm["stage2_batches"],
+                "msa_encoder_pooled": 0, "interactive_gat_layer_fused": 0}
+        say(f"  bf16 stage 1: {tm['stage1_s']:.3f}s ({news_num} news, warm "
+            f"{warm['stage1_s']:.3f}s); stage 2: {tm['items'] / tm['stage2_s']:.1f} items/s "
+            f"(warm {warm['items'] / warm['stage2_s']:.1f} items/s); launches "
+            f"{({k: serve[k] for k in want})} (want {want})")
+        launches["serving"] = serve
+        if not np.isfinite(scores).all() or any(serve[k] != n for k, n in want.items()):
+            failures.append("bf16 serving: scores not finite or launches not the bf16 instances'")
+        small_news, small_bs = 2048, 256
+        small = make_tables(torch, cfg, small_news, dev, SEED + 23)
+        imps = make_impressions(cfg, small_news, 32, 8, SEED + 24)
+        out = {}
+        for tag, d, t in (("gpu", dev, small), ("cpu", "cpu", type(small)(*(x.cpu() for x in small)))):
+            m = Model(bcfg, device=d, generator=torch.Generator().manual_seed(SEED + 20))
+            out[tag] = CachedScorer(m, small_bs).score_items(t, *imps[:4])
+        s_gpu, s_cpu = out["gpu"], out["cpu"]
+        err = float(np.abs(s_gpu - s_cpu).max())
+        limit = SLICE_RTOL * max(1.0, float(np.abs(s_cpu).max()))
+        flips = 0
+        for sg, sc in zip(M.group_by_impression(imps[2], s_gpu),
+                          M.group_by_impression(imps[2], s_cpu)):
+            og, oc = np.argsort(-sg, kind="stable"), np.argsort(-sc, kind="stable")
+            flips += sum(a != b and abs(float(sc[a]) - float(sc[b])) > 2 * limit
+                         for a, b in zip(og, oc))
+        say(f"  bf16 serving, {small_news} news, {len(imps[3])} items: max |gpu - cpu| {err:.3e} "
+            f"(limit {limit:.3e}); rank flips beyond ties {flips}")
+        if not (err <= limit and flips == 0 and np.isfinite(s_gpu).all()):
+            failures.append("bf16 serving parity card vs cpu")
+    except Exception:
+        traceback.print_exc()
+        failures.append("bf16 serving")
+
+    # ---- training: three B-8 steps card against CPU, then an epoch at B 64 ----
+    corpus = make_train_corpus(bcfg, tables, (TRAIN_STEPS + 2) * cfg.batch_size, 2000, 32,
+                               SEED + 25)
+    try:
+        training_parity(torch, bcfg, corpus, dev, failures, label="MSA-DIGAT bf16")
+    except Exception:
+        traceback.print_exc()
+        failures.append("bf16 training parity")
+    step_ms = None
+    try:
+        with tempfile.TemporaryDirectory() as run_dir:
+            _, step_ms, launches["training"] = training_slice(
+                torch, replace(bcfg, epoch_override=1, dedup_titles=-1), model, corpus, run_dir,
+                failures, label="bf16 training")
+        say(f"  bf16 median step {step_ms:.3f} ms ({cfg.batch_size * 1e3 / step_ms:.1f} samples/s)"
+            f"; fp32 (phase 8) {fp32_step_ms if fp32_step_ms is None else round(fp32_step_ms, 3)}"
+            f" ms")
+    except Exception:
+        traceback.print_exc()
+        failures.append("bf16 training slice")
+    for name, shapes in entries.items():
+        main = next(iter(shapes.values()), {})
+        entries[name] = dict(main, by_shape=shapes,
+                             ok=all(v.get("ok") for v in shapes.values()))
+    return entries, launches, step_ms
+
+
 def head_tables(torch, tables, news_num: int):
     """The first `news_num` news of a corpus's tables, its graph ids folded
     into that range."""
@@ -2000,6 +2339,18 @@ def main() -> int:
             failures.append(f"variant {name}")
         say(f"[18 {name}] {time.perf_counter() - t0:.2f}s")
 
+    # ---- 20. compute_dtype bfloat16: the bf16 instances of A, A' and B ----
+    t0 = time.perf_counter()
+    bf16_launches, bf16_entries = {}, {}
+    try:
+        bf16_entries, bf16_launches, _ = bf16_phase(torch, cfg, tables, hist, cat, imp_index,
+                                                    cand, cap, dev, failures, step_ms)
+        entries.update(bf16_entries)
+    except Exception:
+        traceback.print_exc()
+        failures.append("bf16 phase")
+    say(f"[20 bf16] {time.perf_counter() - t0:.2f}s")
+
     # ---- 14. the CLI at the production cell, from TSV files ----
     cells = parity_cells()
     cli_launches = {}
@@ -2082,6 +2433,16 @@ def main() -> int:
             if counts.get("gat_scores_fwd"):
                 by_path["interactive_gat_scores"][f"{vname} {stage}"] = {
                     k: counts.get(k, 0) for k in ("gat_scores_fwd", "gat_scores_bwd")}
+    for stage, counts in bf16_launches.items():
+        for name in ("msa_encoder_pooled_bf16", "msa_encoder_bwd_bf16",
+                     "interactive_gat_layer_fused_bf16", "gat_scores_fwd", "gat_scores_bwd",
+                     "embedding_grad", "dropout"):
+            if counts.get(name):
+                target = "interactive_gat_scores" if name.startswith("gat_scores") else name
+                if target == name:
+                    by_path[name][f"bf16 {stage}"] = counts[name]
+                else:
+                    by_path[target].setdefault(f"bf16 {stage}", {})[name] = counts[name]
     for path, counts in cli_launches.items():
         for name in counters():
             by_path[name][path] = counts.get(name, 0)
@@ -2105,6 +2466,13 @@ def main() -> int:
                           "digat_tpu/ops/pallas/msa_attention_grouped.py:292; "
                           "digat_tpu/ops/pallas/msa_attention.py:141; "
                           "digat_tpu/ops/pallas/msa_attention.py:177"),
+        # the bf16 instances (compute_dtype bfloat16, phase 20)
+        "msa_encoder_pooled_bf16": ("digat_tpu_torch/csrc/msa_encoder.cu",
+                                    "digat_tpu/ops/pallas/msa_encoder.py:533"),
+        "msa_encoder_bwd_bf16": ("digat_tpu_torch/csrc/msa_encoder_bwd.cu",
+                                 "digat_tpu/ops/pallas/msa_encoder.py:533"),
+        "interactive_gat_layer_fused_bf16": ("digat_tpu_torch/csrc/gat_layer.cu",
+                                             "digat_tpu/ops/pallas/gat_layer.py:135"),
     }
     kernels = []
     for name, (src, replaces) in source.items():

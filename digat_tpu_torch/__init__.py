@@ -25,6 +25,10 @@ attention as a hand-written kernel pair forward and backward,
     `data.sag`, `data.corpus`), with the JAX package's flags, cache names
     and run layout.
 
+`Config.compute_dtype="bfloat16"` runs MSA-DIGAT and its ablations on
+bf16 compute copies of the fp32 weights (`models.model.Model.
+compute_params`), with bf16 instances of kernels A, A' and B.
+
 The package imports torch and numpy only, never jax or digat_tpu. Entry
 points (`models.model.Model`, `models.nrms.NRMSModel`, the trainer, the
 scorers) run on CUDA unless the caller passes `device="cpu"`; with no

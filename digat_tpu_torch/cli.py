@@ -12,7 +12,10 @@ Layout, as the JAX package writes it:
     <run_root>/{dev,test}/<dataset>/ref/truth.txt   the official scorer's truth
     <run_root>/prediction/<dataset>/<model>/#N/prediction.zip   MIND-large test
 
-One process on one device: CUDA unless `--device cpu`.
+One process on one device: CUDA unless `--device cpu`. `--compute_dtype
+bfloat16` trains and scores MSA-DIGAT and its ablations on bf16 compute
+copies of the fp32 weights (`models.model.Model.compute_params`); the
+checkpoints hold the fp32 masters.
 
     python -m digat_tpu_torch.cli --dataset synthetic --device cpu --epoch 2
 """

@@ -7,11 +7,15 @@ with the same names, defaults and per-dataset protocol overrides, plus
 `device` (cuda | cpu). Kept as its own copy so the
 port never imports the JAX package.
 
+`compute_dtype` bfloat16 runs MSA-DIGAT and its five ablations with bf16
+compute copies of the fp32 weights (`models.model.Model.compute_params`);
+the other models at bf16 raise naming their ROADMAP item.
+
 `from_args` also takes the JAX package's TPU-only flags, so that a JAX
 command line parses. Each is checked and dropped: a value the port runs
-(float32, one device, no profile directory, the sorted embedding gradient,
-any PRNG or Pallas setting, which read nothing on the card) passes, any
-other raises naming the ROADMAP item that would bring it."""
+(one device, no profile directory, the sorted embedding gradient, any PRNG
+or Pallas setting, which read nothing on the card) passes, any other
+raises naming the ROADMAP item that would bring it."""
 
 from __future__ import annotations
 
@@ -33,13 +37,11 @@ def news_graph_size(sag_neighbors: int, sag_hops: int) -> int:
 
 # The JAX package's TPU-only flags: name -> (default, is the value one the
 # port runs, the ROADMAP item that would bring the others)
-_ROADMAP_BF16 = "ROADMAP.md section 1, item 3 (compute_dtype=bfloat16)"
 _ROADMAP_MULTI = "ROADMAP.md section 1, item 3 (multi-GPU)"
 JAX_ONLY_FLAGS = {
     "use_pallas": (True, lambda v: True, ""),
     "rng_impl": ("rbg", lambda v: True, ""),
     "compilation_cache_dir": ("", lambda v: True, ""),
-    "compute_dtype": ("float32", lambda v: v == "float32", _ROADMAP_BF16),
     "mesh_data": (0, lambda v: v <= 1, _ROADMAP_MULTI),
     "mesh_model": (1, lambda v: v <= 1, _ROADMAP_MULTI),
     "coordinator_address": ("", lambda v: v == "", _ROADMAP_MULTI),
@@ -56,6 +58,12 @@ NEWS_ENCODERS = ("MSA", "CNN")
 GRAPH_ENCODERS = ("DIGAT", "wo_SA", "Seq_SA", "wo_interaction", "news_graph_wo_inter",
                   "user_graph_wo_inter")
 CNN_METHODS = ("naive", "group3", "group5")
+COMPUTE_DTYPES = ("float32", "bfloat16")
+# the models that do not run at bfloat16 yet: the ROADMAP item of each
+_ROADMAP_BF16_NRMS = "ROADMAP.md section 1, item 3 (NRMS and NRMS-SA at bfloat16)"
+_ROADMAP_BF16_CNN = "ROADMAP.md section 1, item 3 (CNN at bfloat16)"
+_ROADMAP_BF16_PAIR = ("ROADMAP.md section 1, item 3 (NRMS and NRMS-SA at bfloat16: the "
+                      "attention pair, which also takes MSA titles past 128 positions)")
 
 
 def _parse_bool(s: str) -> bool:
@@ -118,6 +126,9 @@ class Config:
     dedup_titles: int = -1
     resume: str = ""  # checkpoint to resume training from
     device: str = "cuda"  # cuda | cpu: where the CLI runs the model and the SAG
+    # float32 | bfloat16: the dtype of the weights' compute copies (masters,
+    # optimizer and checkpoints stay float32)
+    compute_dtype: str = "float32"
 
     def __post_init__(self) -> None:
         # per-dataset protocol overrides, as the JAX package forces them
@@ -180,7 +191,30 @@ class Config:
                                  f"got {self.cnn_kernel_num}")
         if self.dev_criterion not in ("auc", "mrr", "ndcg5", "ndcg10", "avg"):
             raise ValueError(f"unknown dev_criterion {self.dev_criterion}")
+        self.check_compute_dtype()
         return self
+
+    def check_compute_dtype(self) -> None:
+        """bfloat16 runs the DIGAT family with the MSA encoder where its titles
+        take kernel A (every graph encoder); the NRMS family, the CNN encoder
+        and MSA titles routed through the attention pair raise."""
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype}")
+        if self.compute_dtype == "float32":
+            return
+        from digat_tpu_torch.ops.msa_attention_grouped import group_size
+
+        what = f"--compute_dtype {self.compute_dtype}"
+        if self.model_family == "nrms":
+            raise NotImplementedError(f"{what} for {self.nrms_model} is not ported: "
+                                      f"{_ROADMAP_BF16_NRMS}")
+        if self.news_encoder == "CNN":
+            raise NotImplementedError(f"{what} for the CNN news encoder is not ported: "
+                                      f"{_ROADMAP_BF16_CNN}")
+        if group_size(self.MSA_head_num, self.max_title_length, self.MSA_head_dim) <= 0:
+            raise NotImplementedError(
+                f"{what} at titles of {self.max_title_length} positions and heads of "
+                f"{self.MSA_head_dim} is not ported: {_ROADMAP_BF16_PAIR}")
 
     def validate(self) -> "Config":
         """`check_options` and the sizes the corpus sets."""

@@ -1,4 +1,5 @@
-// Fused interactive GAT layer, eval forward, fp32, for sm_90a (kernel B).
+// Fused interactive GAT layer, eval forward, fp32 (and with bf16 weights),
+// for sm_90a (kernel B).
 //
 // Replaces the TPU kernel digat_tpu/ops/pallas/gat_layer.py
 // (interactive_gat_layer_fused -> _layer_kernel). For each graph b:
@@ -47,9 +48,17 @@
 //      three row tiles of 24, three slices of 136 features), so several
 //      blocks run per SM; the one-block-per-graph kernel this replaces held
 //      142 KB and read two shared words per multiply-add.
+// bf16 weights (gat_layer_project_bf16, compute_dtype bfloat16): x, q, y,
+// k3 and the vectors stay fp32; W|W1|W2 and W3 are read as bf16 (half the
+// bytes: 0.96 MB of stacked weights at D 400) and step 1 runs at 2xTF32, x
+// split into two TF32 parts and each bf16 weight exact in one: each
+// product as accurate as the fp32 instance's, two passes in place of three.
+// Steps 2 and 3 are the fp32 ones.
+//
 // Every reduction runs in a fixed order with no atomics: the same bits on
 // every run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -183,6 +192,7 @@ extern "C" int gat_layer_init() {
     e = cudaDeviceGetAttribute(&g_max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (e == cudaSuccess) e = tc::init<true, true, kBN, tc::kBias, true>();
+  if (e == cudaSuccess) e = tc::init<true, true, kBN, tc::kBias, true, __nv_bfloat16>();
   if (e == cudaSuccess) {
     e = cudaFuncSetAttribute(gat_layer_attend_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
@@ -194,19 +204,18 @@ extern "C" int gat_layer_init() {
   return static_cast<int>(e);
 }
 
-// Step 1: y = x wy^T + by and k3 = q w3^T + b3. x [M, Dp] (M = B G rows),
-// q [B, Dp], wy [3Dp, Dp] (W, W1, W2 stacked, nn.Linear layout), by [3Dp]
-// ([bW | 0 | 0]), w3 [Dp, Dp], b3 [Dp]; y [M, 3Dp], k3 [B, Dp]. Dp a
-// multiple of 4 and every array 16-byte aligned.
-extern "C" int gat_layer_project_f32(const void* x, const void* q, const void* wy,
-                                     const void* by, const void* w3, const void* b3, void* y,
-                                     void* k3, int M, int B, int Dp, void* stream) {
-  if (M <= 0 || B <= 0 || Dp <= 0 || Dp % 4) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+// Step 1 with the weights of type TW (float: 3xTF32; bf16: 2xTF32).
+template <typename TW>
+cudaError_t project(const void* x, const void* q, const void* wy, const void* by,
+                    const void* w3, const void* b3, void* y, void* k3, int M, int B, int Dp,
+                    cudaStream_t st) {
+  if (M <= 0 || B <= 0 || Dp <= 0 || Dp % 4) return cudaErrorInvalidValue;
   tc::Args a{};
-  a.A = static_cast<const float*>(x);
-  a.B = static_cast<const float*>(wy);
-  a.C = static_cast<float*>(y);
+  a.A = x;
+  a.B = wy;
+  a.C = y;
   a.M = M;
   a.N = 3 * Dp;
   a.K = Dp;
@@ -215,16 +224,37 @@ extern "C" int gat_layer_project_f32(const void* x, const void* q, const void* w
   a.ldc = 3 * Dp;
   a.k_per_split = Dp;
   a.bias = static_cast<const float*>(by);
-  cudaError_t e = tc::gemm<true, true, kBN, tc::kBias, true>(st, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  a.A = static_cast<const float*>(q);
-  a.B = static_cast<const float*>(w3);
-  a.C = static_cast<float*>(k3);
+  cudaError_t e = tc::gemm<true, true, kBN, tc::kBias, true, TW>(st, a);
+  if (e != cudaSuccess) return e;
+  a.A = q;
+  a.B = w3;
+  a.C = k3;
   a.M = B;
   a.N = Dp;
   a.ldc = Dp;
   a.bias = static_cast<const float*>(b3);
-  return static_cast<int>(tc::gemm<true, true, kBN, tc::kBias, true>(st, a));
+  return tc::gemm<true, true, kBN, tc::kBias, true, TW>(st, a);
+}
+
+}  // namespace
+
+// Step 1: y = x wy^T + by and k3 = q w3^T + b3. x [M, Dp] (M = B G rows),
+// q [B, Dp], wy [3Dp, Dp] (W, W1, W2 stacked, nn.Linear layout), by [3Dp]
+// ([bW | 0 | 0]), w3 [Dp, Dp], b3 [Dp]; y [M, 3Dp], k3 [B, Dp]. Dp a
+// multiple of 4 and every array 16-byte aligned. fp32 throughout.
+extern "C" int gat_layer_project_f32(const void* x, const void* q, const void* wy,
+                                     const void* by, const void* w3, const void* b3, void* y,
+                                     void* k3, int M, int B, int Dp, void* stream) {
+  return static_cast<int>(project<float>(x, q, wy, by, w3, b3, y, k3, M, B, Dp,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+// The same with wy and w3 bf16 (x, q, the biases, y and k3 fp32).
+extern "C" int gat_layer_project_bf16(const void* x, const void* q, const void* wy,
+                                      const void* by, const void* w3, const void* b3, void* y,
+                                      void* k3, int M, int B, int Dp, void* stream) {
+  return static_cast<int>(project<__nv_bfloat16>(x, q, wy, by, w3, b3, y, k3, M, B, Dp,
+                                                 static_cast<cudaStream_t>(stream)));
 }
 
 // Step 3: out [B, G, D] from x [B, G, D], adj [B, G, G] (bytes), the

@@ -1,4 +1,4 @@
-// Fused MSA news encoder, forward, fp32, for sm_90a (kernel A).
+// Fused MSA news encoder, forward, fp32 and bf16, for sm_90a (kernel A).
 //
 // Replaces the TPU kernel digat_tpu/ops/pallas/msa_encoder.py
 // (msa_encoder_pooled -> _call -> _fwd_kernel). Per title: word dropout of
@@ -55,6 +55,16 @@
 // pre-activation within 1e-6 of 0 that rounds to the other side moves h by
 // no more than that, inside the gate.
 //
+// bf16 (msa_encoder_pooled_bf16: x and the weight matrices bf16, the
+// vectors and the output fp32, as the JAX kernel takes them at
+// compute_dtype bfloat16): step 1 rounds each kept x / (1 - rate) to bf16
+// once (round to nearest even), step 2 runs on the bf16 tensor cores
+// (tc_gemm.cuh gemm_bf16_kernel: exact products, fp32 sums, kRN) and step 4
+// at 2xTF32 (h fp32 split into two TF32 parts, W1 exact in one); q|k|v, h,
+// the attention and the pool's softmax stay fp32. Against fp32 the products
+// read half the weight bytes and the q|k|v product one pass in place of
+// three. Its SASS issues HMMA.16816.F32.BF16 for step 2.
+//
 // Every reduction runs in a fixed order with no atomics: the same bits on
 // every run. Limits, as kernel A''s: L 1 to 128, Din and D multiples of 4,
 // dk <= 128, A a multiple of 4 up to 512: where the JAX package runs its
@@ -65,9 +75,12 @@
 // (msa_attn_fwd_long_kernel<false>) and, past L 32, step 5 as
 // msa_pool_fwd_long_kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "msa_title.cuh"
 #include "tc_gemm.cuh"
@@ -165,6 +178,8 @@ bool shapes_taken(int N, int L, int Din, int D, int dk, int A) {
 extern "C" int msa_encoder_init() {
   cudaError_t e = tc::init<true, true, kBNq, tc::kBias, true>();
   if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kLogits, true>();
+  if (e == cudaSuccess) e = tc::init_bf16<kBNq, tc::kBias, true>();
+  if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kLogits, true, __nv_bfloat16>();
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(msa_attn_fwd_long_kernel<false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -180,39 +195,36 @@ extern "C" long long msa_encoder_fwd_scratch_floats(int N, int L, int Din, int h
   return (long long)fwd_scratch_of(N, L, Din, heads * dk, A, drop != 0).total();
 }
 
-// x [N, L, Din]; mask [N, L] (bytes); wqkv [3D, Din] (Wq, Wk, Wv stacked,
-// nn.Linear layout); bqkv [3D] ([bq | 0 | bv]); w1 [A, D]; b1, v [A];
-// out [N, D].
-extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const void* wqkv,
-                                      const void* bqkv, const void* w1, const void* b1,
-                                      const void* v, void* out, void* scratch, int N, int L,
-                                      int Din, int heads, int dk, int A, float scale,
-                                      unsigned thresh, float drop_scale, unsigned seed,
-                                      unsigned site, void* stream) {
+namespace {
+
+// The forward for x and the weight matrices of type T (float or bf16).
+template <typename T>
+cudaError_t pooled(const T* x, const void* mask, const T* wqkv, const float* bqkv, const T* w1,
+                   const float* b1, const float* v, float* out, float* scratch, int N, int L,
+                   int Din, int heads, int dk, int A, float scale, unsigned thresh,
+                   float drop_scale, unsigned seed, unsigned site, cudaStream_t st) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int D = heads * dk;
-  if (heads <= 0 || !shapes_taken(N, L, Din, D, dk, A)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (heads <= 0 || !shapes_taken(N, L, Din, D, dk, A)) return cudaErrorInvalidValue;
   const FwdScratch sz = fwd_scratch_of(N, L, Din, D, A, thresh != 0);
-  float* xd = static_cast<float*>(scratch);
-  float* qkv = xd + sz.xd;
+  T* xd = reinterpret_cast<T*>(scratch);
+  float* qkv = scratch + sz.xd;
   float* lgpart = qkv + sz.qkv;
   const int M = N * L;
   cudaError_t e;
 
   // 1. xd = dropout(x); without dropout xd is x itself
-  const float* xin = static_cast<const float*>(x);
+  const T* xin = x;
   if (thresh) {
-    dropout_apply_kernel<<<grid_1d((long long)M * Din / 4), kThreads, 0, st>>>(
+    dropout_apply_kernel<T><<<grid_1d((long long)M * Din / 4), kThreads, 0, st>>>(
         xin, xd, N, L * Din, thresh, drop_scale, seed, site);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
     xin = xd;
   }
   // 2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv]
   tc::Args a{};
   a.A = xin;
-  a.B = static_cast<const float*>(wqkv);
+  a.B = wqkv;
   a.C = qkv;
   a.M = M;
   a.N = 3 * D;
@@ -221,8 +233,10 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
   a.ldb = Din;
   a.ldc = 3 * D;
   a.k_per_split = Din;
-  a.bias = static_cast<const float*>(bqkv);
-  if ((e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a)) != cudaSuccess) return int(e);
+  a.bias = bqkv;
+  if (kBf16) e = tc::gemm_bf16<kBNq, tc::kBias, true>(st, a);
+  else e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a);
+  if (e != cudaSuccess) return e;
   // 3. h = relu(P v) per unit, over q
   if (short_unit(L, dk)) {
     e = with_title_length(L, [&](auto fixed) {
@@ -237,11 +251,11 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
             qkv, nullptr, qkv, 3 * D, nullptr, nullptr, nullptr, L, heads, dk, scale);
     e = cudaGetLastError();
   }
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return e;
   // 4. lgpart = the v-product of tanh(h W1^T + b1), per warp column
   a = tc::Args{};
   a.A = qkv;  // h, over q: rows 3D apart
-  a.B = static_cast<const float*>(w1);
+  a.B = w1;
   a.C = nullptr;
   a.M = M;
   a.N = A;
@@ -250,24 +264,58 @@ extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const voi
   a.ldb = D;
   a.ldc = A;
   a.k_per_split = D;
-  a.bias = static_cast<const float*>(b1);
-  a.v = static_cast<const float*>(v);
+  a.bias = b1;
+  a.v = v;
   a.lgpart = lgpart;
-  if ((e = tc::gemm<true, true, kBNp, tc::kLogits, true>(st, a)) != cudaSuccess) return int(e);
+  if ((e = tc::gemm<true, true, kBNp, tc::kLogits, true, T>(st, a)) != cudaSuccess) return e;
   // 5. the pool's softmax and the pooled vector
   if (L > kL) {
     msa_pool_fwd_long_kernel<<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
         lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), qkv, 3 * D,
-        static_cast<float*>(out), N, L, D);
-    return static_cast<int>(cudaGetLastError());
+        out, N, L, D);
+    return cudaGetLastError();
   }
-  return static_cast<int>(with_title_length(L, [&](auto fixed) {
+  return with_title_length(L, [&](auto fixed) {
     msa_pool_fwd_kernel<decltype(fixed)::value>
         <<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
             lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), qkv,
-            3 * D, static_cast<float*>(out), N, L, D);
+            3 * D, out, N, L, D);
     return cudaGetLastError();
-  }));
+  });
+}
+
+}  // namespace
+
+// x [N, L, Din]; mask [N, L] (bytes); wqkv [3D, Din] (Wq, Wk, Wv stacked,
+// nn.Linear layout); bqkv [3D] ([bq | 0 | bv]); w1 [A, D]; b1, v [A];
+// out [N, D]. fp32 throughout.
+extern "C" int msa_encoder_pooled_f32(const void* x, const void* mask, const void* wqkv,
+                                      const void* bqkv, const void* w1, const void* b1,
+                                      const void* v, void* out, void* scratch, int N, int L,
+                                      int Din, int heads, int dk, int A, float scale,
+                                      unsigned thresh, float drop_scale, unsigned seed,
+                                      unsigned site, void* stream) {
+  return static_cast<int>(pooled<float>(
+      static_cast<const float*>(x), mask, static_cast<const float*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(scratch), N, L, Din, heads, dk, A, scale, thresh, drop_scale, seed,
+      site, static_cast<cudaStream_t>(stream)));
+}
+
+// The same with x, wqkv and w1 bf16 (bqkv, b1, v, out and scratch fp32).
+extern "C" int msa_encoder_pooled_bf16(const void* x, const void* mask, const void* wqkv,
+                                       const void* bqkv, const void* w1, const void* b1,
+                                       const void* v, void* out, void* scratch, int N, int L,
+                                       int Din, int heads, int dk, int A, float scale,
+                                       unsigned thresh, float drop_scale, unsigned seed,
+                                       unsigned site, void* stream) {
+  return static_cast<int>(pooled<__nv_bfloat16>(
+      static_cast<const __nv_bfloat16*>(x), mask, static_cast<const __nv_bfloat16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const __nv_bfloat16*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(scratch), N, L, Din, heads, dk, A, scale, thresh, drop_scale, seed,
+      site, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* digat_error_string(int err) {

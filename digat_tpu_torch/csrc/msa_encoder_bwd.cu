@@ -1,4 +1,5 @@
-// Fused MSA news encoder, recompute backward, fp32, for sm_90a (kernel A').
+// Fused MSA news encoder, recompute backward, fp32 and bf16, for sm_90a
+// (kernel A').
 //
 // Replaces the TPU kernel digat_tpu/ops/pallas/msa_encoder.py
 // (_encoder_bwd -> _call(is_bwd) -> _bwd_kernel, and _bwd_kernel_v2, which
@@ -68,6 +69,16 @@
 // in a fixed order, with no atomics, so the result is the same bits on
 // every run.
 //
+// bf16 (msa_encoder_bwd_bf16: x and the weight matrices bf16, as at
+// compute_dtype bfloat16): step 1 rounds each kept x / (1 - rate) to bf16
+// once, as kernel A's bf16 instance does; step 2 is A's bf16 product (the
+// bf16 tensor cores, exact products, kRN); steps 4, 7, 9 and 10, whose
+// other operand is fp32, run at 2xTF32 with the bf16 side exact; step 6
+// (dpre^T h, both fp32) stays at 3xTF32. Step 9 stores dx in bf16, rounded
+// once to nearest even after the dropout mask. The weight gradients come
+// out fp32. The ReLU fix reads the bf16 x and W and recomputes in float64
+// as before.
+//
 // The attention kernels: a block of 4 warps per (title, head), a unit. The
 // forward (msa_attn_fwd_kernel<true>), the word dropout and the pool's
 // softmax live in msa_title.cuh, shared with kernel A. The backward keeps
@@ -93,11 +104,13 @@
 // M-major operand (the weight gradients, steps 6 and 10) sum over M,
 // as their K, row by row, which tc::gemm takes at any K.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 #include "msa_title.cuh"
@@ -179,10 +192,10 @@ __device__ __forceinline__ double warp_sum_d(double v) {
 // the dk rows of Wq, Wk and Wv of the unit's head sit in shared memory; lane
 // i owns position i and warp w the columns c = w, w + 8, ..., each summed
 // in one pass over Din (the x row and the W row as float4) in float64.
-template <int kFixedL>
+template <int kFixedL, typename T>
 __global__ void __launch_bounds__(kFixThreads)
-msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
-                         const float* __restrict__ wqkv,   // [3D, Din]
+msa_attn_relu_fix_kernel(const T* __restrict__ xin,        // [N*L, Din]
+                         const T* __restrict__ wqkv,       // [3D, Din]
                          const float* __restrict__ bqkv,   // [3D]
                          const int* __restrict__ unsure,   // count, then units
                          float* __restrict__ h,            // [N*L, D]: the unit's rows again
@@ -202,18 +215,17 @@ msa_attn_relu_fix_kernel(const float* __restrict__ xin,    // [N*L, Din]
   for (int u = blockIdx.x; u < count; u += gridDim.x) {
     const int unit = unsure[1 + u];
     const int n = unit / heads, hd = unit - n * heads;
-    const float4* xrows = reinterpret_cast<const float4*>(xin + (size_t)n * L * Din);
+    const T* xrows = xin + (size_t)n * L * Din;
     for (int e = threadIdx.x; e < kL * D4; e += kFixThreads) {
       const int i = e / D4;
       reinterpret_cast<float4*>(xs + i * XS)[e - i * D4] =
-          kFull || i < L ? xrows[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+          kFull || i < L ? digat::load4(xrows + 4 * e) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     const float4* x4 = reinterpret_cast<const float4*>(xs + lane * XS);
     for (int which = 0; which < 3; ++which) {  // the head's q, k, v columns
-      const float4* wb =
-          reinterpret_cast<const float4*>(wqkv + ((size_t)which * D + hd * dk) * Din);
+      const T* wb = wqkv + ((size_t)which * D + hd * dk) * Din;
       for (int e = threadIdx.x; e < dk * D4; e += kFixThreads)
-        reinterpret_cast<float4*>(ws)[e] = __ldg(wb + e);
+        reinterpret_cast<float4*>(ws)[e] = digat::load4(wb + 4 * e);
       __syncthreads();
       double acc[kFixRows];
 #pragma unroll
@@ -478,9 +490,10 @@ __host__ __device__ inline size_t relu_fix_long_unit_floats(int L, int dk) {
 // element summed over Din and then its bias, written to the block's own
 // [3][L][dk] of `fixbuf`; its scores into S [L][long_ls(L)] (shared memory,
 // float64); a warp per row for the softmax; P v over the keys.
+template <typename T>
 __global__ void __launch_bounds__(kFixThreads)
-msa_attn_relu_fix_long_kernel(const float* __restrict__ xin,    // [N*L, Din]
-                              const float* __restrict__ wqkv,   // [3D, Din]
+msa_attn_relu_fix_long_kernel(const T* __restrict__ xin,        // [N*L, Din]
+                              const T* __restrict__ wqkv,       // [3D, Din]
                               const float* __restrict__ bqkv,   // [3D]
                               const int* __restrict__ unsure,   // count, then units
                               float* __restrict__ h,            // [N*L, D]
@@ -499,12 +512,11 @@ msa_attn_relu_fix_long_kernel(const float* __restrict__ xin,    // [N*L, Din]
     const int n = unit / heads, hd = unit - n * heads;
     for (int e = threadIdx.x; e < 3 * LD; e += kFixThreads) {
       const int which = e / LD, r = e - which * LD, i = r / dk, c = r - i * dk;
-      const float4* x4 = reinterpret_cast<const float4*>(xin + ((size_t)n * L + i) * Din);
-      const float4* w4 =
-          reinterpret_cast<const float4*>(wqkv + ((size_t)which * D + hd * dk + c) * Din);
+      const T* x4 = xin + ((size_t)n * L + i) * Din;
+      const T* w4 = wqkv + ((size_t)which * D + hd * dk + c) * Din;
       double a = 0.0;
       for (int k4 = 0; k4 < Din / 4; ++k4) {
-        const float4 x = __ldg(x4 + k4), wv = __ldg(w4 + k4);
+        const float4 x = digat::load4(x4 + 4 * k4), wv = digat::load4(w4 + 4 * k4);
         a = fma(double(x.x), double(wv.x), a);
         a = fma(double(x.y), double(wv.y), a);
         a = fma(double(x.z), double(wv.z), a);
@@ -802,11 +814,19 @@ extern "C" int msa_encoder_bwd_init() {
   for (int L : {32, 16, 0})
     if (e == cudaSuccess)
       e = with_title_length(L, [](auto fixed) {
-        return cudaFuncSetAttribute(msa_attn_relu_fix_kernel<decltype(fixed)::value>,
+        constexpr int kF = decltype(fixed)::value;
+        cudaError_t err = cudaFuncSetAttribute(msa_attn_relu_fix_kernel<kF, float>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               g_max_smem);
+        if (err != cudaSuccess) return err;
+        return cudaFuncSetAttribute(msa_attn_relu_fix_kernel<kF, __nv_bfloat16>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
       });
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(msa_attn_relu_fix_long_kernel,
+    e = cudaFuncSetAttribute(msa_attn_relu_fix_long_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(msa_attn_relu_fix_long_kernel<__nv_bfloat16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(msa_attn_fwd_long_kernel<true>,
@@ -820,6 +840,15 @@ extern "C" int msa_encoder_bwd_init() {
   if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDh, true>();
   if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDrop, true>();
   if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kStore, true>();
+  // the bf16 instance's products: q|k|v on the bf16 tensor cores, the rest
+  // at 2xTF32 with the bf16 operand exact, dx stored bf16
+  using bf16 = __nv_bfloat16;
+  if (e == cudaSuccess) e = tc::init_bf16<kBNq, tc::kBias, true>();
+  if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kPool, true, bf16>();
+  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDh, true, bf16>();
+  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDrop, true, bf16, bf16>();
+  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kStore, true, bf16, bf16>();
+  if (e == cudaSuccess) e = tc::init<false, false, kBN, tc::kStore, true, bf16>();
   return static_cast<int>(e);
 }
 
@@ -833,27 +862,27 @@ extern "C" long long msa_encoder_bwd_scratch_floats(int N, int L, int Din, int h
   return (long long)scratch_of(N, L, Din, heads, heads * dk, A).total();
 }
 
-// x [N, L, Din]; wqkv [3D, Din] (Wq, Wk, Wv stacked, nn.Linear layout);
-// bqkv [3D] ([bq | 0 | bv]); w1 [A, D]; outputs dx [N, L, Din], dwqkv
-// [3D, Din], dbqkv [3D], dw1 [A, D], db1 [A], dv [A].
-extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* wqkv,
-                                   const void* bqkv, const void* w1, const void* b1,
-                                   const void* v, const void* dp, void* dx, void* dwqkv,
-                                   void* dbqkv, void* dw1, void* db1, void* dv, void* scratch,
-                                   int N, int L, int Din, int heads, int dk, int A, float scale,
-                                   unsigned thresh, float drop_scale, unsigned seed,
-                                   unsigned site, void* stream) {
+namespace {
+
+// The backward for x, dx and the weight matrices of type T (float or bf16).
+template <typename T>
+cudaError_t backward(const T* fx, const void* mask, const T* fw, const float* bqkv,
+                     const T* fw1, const float* b1, const float* v, const float* fdp, T* fdx,
+                     float* dwqkv, float* dbqkv, float* dw1, float* db1, float* dv,
+                     float* scratch, int N, int L, int Din, int heads, int dk, int A,
+                     float scale, unsigned thresh, float drop_scale, unsigned seed,
+                     unsigned site, cudaStream_t st) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int D = heads * dk;
   const bool short_path = short_unit(L, dk);
   if (N <= 0 || L <= 0 || L > kLongL || Din <= 0 || Din % 4 != 0 || D % 4 != 0 ||
       dk > kLongMaxDk || A <= 0 || A % 4 != 0 || A > 128 * kMaxA4 ||
       sizeof(float) * attn_bwd_long_floats(kLongL) > size_t(g_max_smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Scratch sz = scratch_of(N, L, Din, heads, D, A);
-  float* xd = static_cast<float*>(scratch);
-  float* qkv = xd + sz.xd;
+  T* xd = reinterpret_cast<T*>(scratch);
+  float* qkv = scratch + sz.xd;
   float* h = qkv + sz.qkv;
   float* dO = h + sz.h;
   float* u = dO + sz.dO;
@@ -870,13 +899,8 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   float* fixbuf = cpart + sz.cpart;
   const int M = N * L;
   const int S = splits_of(M, kRowsPerSplit);
-  const float* fx = static_cast<const float*>(x);
-  const float* fw = static_cast<const float*>(wqkv);
-  const float* fw1 = static_cast<const float*>(w1);
-  const float* fdp = static_cast<const float*>(dp);
-  float* fdx = static_cast<float*>(dx);
   cudaError_t e;
-  auto args = [](const float* A_, const float* B_, float* C_, int M_, int N_, int K_, int lda,
+  auto args = [](const void* A_, const void* B_, void* C_, int M_, int N_, int K_, int lda,
                  int ldb, int ldc, int kps) {
     tc::Args a{};
     a.A = A_;
@@ -893,20 +917,22 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
   };
 
   // 1. xd = dropout(x); without dropout xd is x itself
-  const float* xin = fx;
+  const T* xin = fx;
   if (thresh) {
-    dropout_apply_kernel<<<grid_1d((long long)M * Din / 4), kThreads, 0, st>>>(
+    dropout_apply_kernel<T><<<grid_1d((long long)M * Din / 4), kThreads, 0, st>>>(
         fx, xd, N, L * Din, thresh, drop_scale, seed, site);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
     xin = xd;
   }
   // 2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv]
   tc::Args a = args(xin, fw, qkv, M, 3 * D, Din, Din, Din, 3 * D, Din);
-  a.bias = static_cast<const float*>(bqkv);
-  if ((e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a)) != cudaSuccess) return int(e);
+  a.bias = bqkv;
+  if (kBf16) e = tc::gemm_bf16<kBNq, tc::kBias, true>(st, a);
+  else e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a);
+  if (e != cudaSuccess) return e;
   // 3. attention forward per unit, with the list of units to fix; 3b. the
   // marked units' ReLU again in float64
-  if ((e = cudaMemsetAsync(unsure, 0, sizeof(int), st)) != cudaSuccess) return int(e);
+  if ((e = cudaMemsetAsync(unsure, 0, sizeof(int), st)) != cudaSuccess) return e;
   const bool fix_long = long_fix(L, Din, dk);
   if (!short_path) {
     msa_attn_fwd_long_kernel<true>
@@ -920,43 +946,42 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
             qkv, fdp, h, D, lse, dap, unsure, L, heads, dk, scale);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || fix_long) return err;
-    msa_attn_relu_fix_kernel<kF>
+    msa_attn_relu_fix_kernel<kF, T>
         <<<kFixBlocks, kFixThreads, sizeof(float) * relu_fix_floats(Din, dk), st>>>(
-            xin, fw, static_cast<const float*>(bqkv), unsure, h, L, Din, heads, dk);
+            xin, fw, bqkv, unsure, h, L, Din, heads, dk);
     return cudaGetLastError();
   });
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return e;
   if (fix_long) {
-    msa_attn_relu_fix_long_kernel<<<kFixLongBlocks, kFixThreads,
-                                    sizeof(double) * L * long_ls(L), st>>>(
-        xin, fw, static_cast<const float*>(bqkv), unsure, h, fixbuf, L, Din, heads, dk);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    msa_attn_relu_fix_long_kernel<T><<<kFixLongBlocks, kFixThreads,
+                                       sizeof(double) * L * long_ls(L), st>>>(
+        xin, fw, bqkv, unsure, h, fixbuf, L, Din, heads, dk);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   // 4. u = tanh(h W1^T + b1), lgpart = its v-product per warp column
   a = args(h, fw1, u, M, A, D, D, D, A, D);
-  a.bias = static_cast<const float*>(b1);
-  a.v = static_cast<const float*>(v);
+  a.bias = b1;
+  a.v = v;
   a.lgpart = lgpart;
-  if ((e = tc::gemm<true, true, kBNp, tc::kPool, true>(st, a)) != cudaSuccess) return int(e);
+  if ((e = tc::gemm<true, true, kBNp, tc::kPool, true, T>(st, a)) != cudaSuccess) return e;
   // 5. the pool's softmax and its backward; dpre over u
   (L > kL ? msa_pool_long_kernel : msa_pool_kernel)
       <<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
-          lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), dap,
-          static_cast<const float*>(v), u, alpha, dvp, db1p, N, L, heads, A);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+          lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), dap, v, u,
+          alpha, dvp, db1p, N, L, heads, A);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   float* dpre = u;
   // 6. dW1 = dpre^T h, split over rows
   a = args(dpre, h, part, A, D, M, A, D, D, kRowsPerSplit);
-  if ((e = tc::gemm<false, false, kBN, tc::kStore, true>(st, a)) != cudaSuccess) return int(e);
-  if ((e = sum_splits(st, part, static_cast<float*>(dw1), (long long)A * D, S)) != cudaSuccess)
-    return static_cast<int>(e);
+  if ((e = tc::gemm<false, false, kBN, tc::kStore, true>(st, a)) != cudaSuccess) return e;
+  if ((e = sum_splits(st, part, dw1, (long long)A * D, S)) != cudaSuccess) return e;
   // 7. dO = (alpha dp + dpre W1) * (h > 0)
   a = args(dpre, fw1, dO, M, D, A, A, D, D, A);
   a.alpha = alpha;
   a.dp = fdp;
   a.h = h;
   a.title = L;
-  if ((e = tc::gemm<true, false, kBN, tc::kDh, true>(st, a)) != cudaSuccess) return int(e);
+  if ((e = tc::gemm<true, false, kBN, tc::kDh, true, T>(st, a)) != cudaSuccess) return e;
   // 8. attention backward per unit; dq|dk|dv over q|k|v
   if (!short_path) {
     msa_attn_bwd_long_kernel<<<N * heads, long_threads(L),
@@ -969,8 +994,9 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
             qkv, dO, lse, dbp, L, heads, dk, scale);
     return cudaGetLastError();
   });
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // 9. dx = dqkv [Wq;Wk;Wv], with the dropout mask
+  if (e != cudaSuccess) return e;
+  // 9. dx = dqkv [Wq;Wk;Wv], with the dropout mask (stored as T: bf16
+  // rounded once, after the mask)
   a = args(qkv, fw, fdx, M, Din, 3 * D, 3 * D, Din, Din, 3 * D);
   if (thresh) {
     a.thresh = thresh;
@@ -978,20 +1004,59 @@ extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* 
     a.seed = seed;
     a.site = site;
     a.title = L;
-    e = tc::gemm<true, false, kBN, tc::kDrop, true>(st, a);
+    e = tc::gemm<true, false, kBN, tc::kDrop, true, T, T>(st, a);
   } else {
-    e = tc::gemm<true, false, kBN, tc::kStore, true>(st, a);
+    e = tc::gemm<true, false, kBN, tc::kStore, true, T, T>(st, a);
   }
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return e;
   // 10. dWqkv = dqkv^T xd, split over rows
   a = args(qkv, xin, part, 3 * D, Din, M, 3 * D, Din, Din, kRowsPerSplit);
-  if ((e = tc::gemm<false, false, kBN, tc::kStore, true>(st, a)) != cudaSuccess) return int(e);
-  if ((e = sum_splits(st, part, static_cast<float*>(dwqkv), 3LL * D * Din, S)) != cudaSuccess)
-    return static_cast<int>(e);
+  if ((e = tc::gemm<false, false, kBN, tc::kStore, true, T>(st, a)) != cudaSuccess) return e;
+  if ((e = sum_splits(st, part, dwqkv, 3LL * D * Din, S)) != cudaSuccess) return e;
   // 11. the bias and v gradients from the per-title parts
-  if ((e = colsum(st, dbp, N, 3 * D, cpart, static_cast<float*>(dbqkv))) != cudaSuccess)
-    return static_cast<int>(e);
-  if ((e = colsum(st, db1p, N, A, cpart, static_cast<float*>(db1))) != cudaSuccess)
-    return static_cast<int>(e);
-  return static_cast<int>(colsum(st, dvp, N, A, cpart, static_cast<float*>(dv)));
+  if ((e = colsum(st, dbp, N, 3 * D, cpart, dbqkv)) != cudaSuccess) return e;
+  if ((e = colsum(st, db1p, N, A, cpart, db1)) != cudaSuccess) return e;
+  return colsum(st, dvp, N, A, cpart, dv);
+}
+
+}  // namespace
+
+// x [N, L, Din]; wqkv [3D, Din] (Wq, Wk, Wv stacked, nn.Linear layout);
+// bqkv [3D] ([bq | 0 | bv]); w1 [A, D]; outputs dx [N, L, Din], dwqkv
+// [3D, Din], dbqkv [3D], dw1 [A, D], db1 [A], dv [A]. fp32 throughout.
+extern "C" int msa_encoder_bwd_f32(const void* x, const void* mask, const void* wqkv,
+                                   const void* bqkv, const void* w1, const void* b1,
+                                   const void* v, const void* dp, void* dx, void* dwqkv,
+                                   void* dbqkv, void* dw1, void* db1, void* dv, void* scratch,
+                                   int N, int L, int Din, int heads, int dk, int A, float scale,
+                                   unsigned thresh, float drop_scale, unsigned seed,
+                                   unsigned site, void* stream) {
+  return static_cast<int>(backward<float>(
+      static_cast<const float*>(x), mask, static_cast<const float*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(v),
+      static_cast<const float*>(dp), static_cast<float*>(dx), static_cast<float*>(dwqkv),
+      static_cast<float*>(dbqkv), static_cast<float*>(dw1), static_cast<float*>(db1),
+      static_cast<float*>(dv), static_cast<float*>(scratch), N, L, Din, heads, dk, A, scale,
+      thresh, drop_scale, seed, site, static_cast<cudaStream_t>(stream)));
+}
+
+// The same with x, wqkv, w1 and dx bf16 (the vectors, dp, the weight
+// gradients and the scratch fp32).
+extern "C" int msa_encoder_bwd_bf16(const void* x, const void* mask, const void* wqkv,
+                                    const void* bqkv, const void* w1, const void* b1,
+                                    const void* v, const void* dp, void* dx, void* dwqkv,
+                                    void* dbqkv, void* dw1, void* db1, void* dv, void* scratch,
+                                    int N, int L, int Din, int heads, int dk, int A, float scale,
+                                    unsigned thresh, float drop_scale, unsigned seed,
+                                    unsigned site, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return static_cast<int>(backward<bf16>(
+      static_cast<const bf16*>(x), mask, static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(v),
+      static_cast<const float*>(dp), static_cast<bf16*>(dx), static_cast<float*>(dwqkv),
+      static_cast<float*>(dbqkv), static_cast<float*>(dw1), static_cast<float*>(db1),
+      static_cast<float*>(dv), static_cast<float*>(scratch), N, L, Din, heads, dk, A, scale,
+      thresh, drop_scale, seed, site, static_cast<cudaStream_t>(stream)));
 }

@@ -133,21 +133,23 @@ inline int grid_1d(long long work) {
 // ---------------------------------------------------------------------------
 // Word dropout on [n, per_title] rows, in place allowed: element (title r,
 // flat f) takes word f % 4 of the Philox block at counter (f / 4, r) under
-// (seed, site) (philox.cuh); kept ones are scaled by drop_scale
+// (seed, site) (philox.cuh); kept ones are scaled by drop_scale. T is float
+// or bf16: a bf16 element is scaled in fp32 and rounded back once, to
+// nearest even (the q|k|v product then reads it whole).
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dropout_apply_kernel(const float* in, float* out, long long n, int per_title, uint32_t thresh,
+dropout_apply_kernel(const T* in, T* out, long long n, int per_title, uint32_t thresh,
                      float drop_scale, uint32_t seed, uint32_t site) {
   const int groups = per_title / 4;
   const long long total = n * groups;
-  const float4* in4 = reinterpret_cast<const float4*>(in);
-  float4* out4 = reinterpret_cast<float4*>(out);
   for (long long t = blockIdx.x * (long long)kThreads + threadIdx.x; t < total;
        t += (long long)gridDim.x * kThreads) {
     const long long r = t / groups;
     const digat::Philox4 d =
         digat::dropout_draws(uint32_t(r), uint32_t(t - r * groups), seed, site);
-    out4[t] = digat::dropout_value4(in4[t], d, thresh, drop_scale);
+    digat::store4(out + 4 * t, digat::dropout_value4(digat::load4(in + 4 * t), d, thresh,
+                                                     drop_scale));
   }
 }
 

@@ -11,6 +11,11 @@ Counterpart of `digat_tpu.eval.scorer` (`CachedScorer.cache_news`,
            user graph and run the graph encoder (kernel B, 2 * depth
            launches per batch); the score is a dot product.
 
+At `compute_dtype` bfloat16 both stages run on one compute copy of the
+weights (`Model.compute_params`), made once a pass, as the JAX scorer casts
+its parameters once, and each stage swaps it in once for all its chunks or
+batches (`Model.computing`).
+
 For the NRMS family, the dual cache of the reference's Appendix-B eval:
 
   stage 1: encode every news title once (the attention kernel, one forward
@@ -53,21 +58,27 @@ class CachedScorer:
         self.timings: dict = {}
 
     @torch.inference_mode()
-    def cache_news(self, tables) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Stage 1 -> (news_reps [N, D], c_n0 [N, D]) on the model's device.
-        The last chunk may be short; no padding is needed."""
+    def cache_news(self, tables, params: Optional[dict] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stage 1 -> (news_reps [N, D], c_n0 [N, D]) on the model's device,
+        on the compute copy `params` (a fresh one if None). The last chunk
+        may be short; no padding is needed."""
         t = CorpusTables.from_arrays(tables, self.device)
         n, bs = t.news_title_text.shape[0], self.batch_size
-        reps = torch.cat([
-            self.model.encode_news(t.news_title_text[s:s + bs], t.news_title_mask[s:s + bs])
-            for s in range(0, n, bs)
-        ])
-        c_n0 = torch.cat([
-            self.model.initial_news_context(reps[t.news_node_id[s:s + bs]],
-                                            t.news_graph_mask[s:s + bs])
-            for s in range(0, n, bs)
-        ])
-        return reps, c_n0
+
+        def stage1():
+            reps = torch.cat([
+                self.model.encode_news(t.news_title_text[s:s + bs], t.news_title_mask[s:s + bs])
+                for s in range(0, n, bs)
+            ])
+            c_n0 = torch.cat([
+                self.model.initial_news_context(reps[t.news_node_id[s:s + bs]],
+                                                t.news_graph_mask[s:s + bs])
+                for s in range(0, n, bs)
+            ])
+            return reps, c_n0
+
+        return self.model.computing(stage1, params=params)
 
     @torch.inference_mode()
     def _score_batch(self, tables: CorpusTables, news_reps, c_n0, batch: EvalBatch):
@@ -88,14 +99,15 @@ class CachedScorer:
         [items] float32 (host)."""
         t = CorpusTables.from_arrays(tables, self.device)
         t0 = time.perf_counter()
-        news_reps, c_n0 = self.cache_news(t)
+        params = self.model.compute_params()
+        news_reps, c_n0 = self.cache_news(t, params)
         _sync(self.device)
         t1 = time.perf_counter()
-        pending = [
+        pending = self.model.computing(lambda: [
             (self._score_batch(t, news_reps, c_n0, batch), valid)
             for batch, valid in eval_batches(history_idx, cat_idx, imp_index, cand,
                                              self.batch_size, self.device)
-        ]
+        ], params=params)
         scores = np.zeros(len(cand), np.float32)
         if pending:
             scores[:] = torch.cat([s[:v] for s, v in pending]).float().cpu().numpy()

@@ -9,10 +9,16 @@ training. Modules keep the reference PyTorch `state_dict` names
 
 Weights live in `nn.Linear` layout `[out, in]` (apply `x @ W.T + b`), where
 the JAX package stores `[in, out]`; `interop.load_jax_params` transposes.
+
+At `compute_dtype` bfloat16 the weights are bf16 copies and the activations
+stay fp32, as in the JAX package, whose type promotion forms an fp32
+activation times a bf16 weight in fp32. PyTorch's products refuse mixed
+dtypes, so every such site goes through `promoted` (`linear` does).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -61,8 +67,19 @@ def make_linear(
     return lin
 
 
+def promoted(*ts):
+    """The tensors in their common dtype (`torch.promote_types` over them, as
+    `jnp.result_type` promotes: bf16 with fp32 is fp32); None stays None. A
+    tensor already of that dtype is returned as it is. The cast of a bf16
+    weight is differentiable: its gradient comes back rounded to bf16, as
+    the transpose of JAX's `convert_element_type` rounds it."""
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in ts if t is not None))
+    return tuple(None if t is None else t.to(dtype) for t in ts)
+
+
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    return F.linear(x, lin.weight, lin.bias)
+    """x W^T + b in the dtype that x and the weights promote to."""
+    return F.linear(*promoted(x, lin.weight, lin.bias))
 
 
 def dropout(x: torch.Tensor, rate: float, seed: Optional[int], site: int) -> torch.Tensor:
@@ -131,12 +148,13 @@ def attn_pool(pool: AttentionPool, feature: torch.Tensor, mask: Optional[torch.T
     a = linear(torch.tanh(linear(feature, pool.affine1)), pool.affine2).squeeze(-1)
     if mask is not None:
         a = torch.where(mask.to(torch.bool), a, torch.full_like(a, MASK_FILL))
-    return SoftmaxPool.apply(a, feature)
+    return SoftmaxPool.apply(*promoted(a, feature))
 
 
 class SoftmaxPool(torch.autograd.Function):
-    """out = sum_l softmax(scores)_l feature_l (softmax in at least fp32),
-    with its backward written for accuracy. Autograd would form the score
+    """out = sum_l softmax(scores)_l feature_l (softmax in at least fp32;
+    scores and feature of one dtype), with its backward written for
+    accuracy. Autograd would form the score
     gradient as ds_l = a_l (g.f_l - sum_m a_m g.f_m), the difference of two
     nearly equal dot products where the rows f_l are alike (the many pad
     slots of a history), and the rounding of that difference leaks into

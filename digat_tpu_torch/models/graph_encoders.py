@@ -28,7 +28,14 @@ with the interactive layer's dropout sites: p/2 on x, p on alpha.
 
 The depth loop alternates a news-graph and a user-graph layer and adds both
 contexts up. Given a cached initial news context `c_n0`, the first news
-context is not recomputed (the two-stage scorer's stage 2)."""
+context is not recomputed (the two-stage scorer's stage 2).
+
+At `compute_dtype` bfloat16 the weights are bf16 copies and every
+activation stays fp32: each product of an activation and a weight is
+formed in fp32 (`layers.promoted`), as JAX's type promotion forms it. The
+topic-node embeddings are the one activation taken from a weight: dropped
+in fp32 and rounded back to bf16, as the JAX package drops them in their
+own dtype, then promoted where they join the history nodes."""
 
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from digat_tpu_torch.layers import (
     linear,
     make_linear,
     masked_softmax,
+    promoted,
     sdp_attn,
 )
 from digat_tpu_torch.ops.gat import vanilla_gat_scores
@@ -160,8 +168,9 @@ class GraphEncoder(nn.Module):
         """History-news nodes followed by the topic nodes: [B, H+C, D]."""
         B = user_news_embedding.shape[0]
         topic = self.topic_node_embedding[None].expand(B, self.category_num, self.dim)
-        topic = drop(topic, self.dropout_rate / 2)
-        return torch.cat([user_news_embedding, topic], dim=1)
+        acc = torch.promote_types(topic.dtype, torch.float32)
+        topic = drop(topic.to(acc), self.dropout_rate / 2).to(topic.dtype)
+        return torch.cat(promoted(user_news_embedding, topic), dim=1)
 
     def gat_layer(self, prefix: str, i: int, x, adj, query,
                   drop: DropoutSites = EVAL) -> torch.Tensor:
@@ -178,8 +187,8 @@ class GraphEncoder(nn.Module):
         p = self.dropout_rate
         x = drop(x, p / 2)
         h = linear(x, getattr(self, f"{prefix}_W")[i])
-        scores = vanilla_gat_scores(h, getattr(self, f"{prefix}_a1")[i].weight[0],
-                                    getattr(self, f"{prefix}_a2")[i].weight[0])
+        scores = vanilla_gat_scores(*promoted(h, getattr(self, f"{prefix}_a1")[i].weight[0],
+                                              getattr(self, f"{prefix}_a2")[i].weight[0]))
         alpha = masked_softmax(F.leaky_relu(scores, 0.2), adj, dim=2)
         alpha = drop(alpha, p)
         return torch.relu(torch.einsum("bij,bjd->bid", alpha, h)) + x
@@ -202,8 +211,9 @@ class GraphEncoder(nn.Module):
         x = drop(x, p / 2)
         D = x.shape[-1]
         # one [D, 3D] product for the three per-node projections
-        y = x @ torch.cat([W.weight, W1.weight, W2.weight]).t()
-        h = y[..., :D] + W.bias
+        xw, wy, bW = promoted(x, torch.cat([W.weight, W1.weight, W2.weight]), W.bias)
+        y = xw @ wy.t()
+        h = y[..., :D] + bW
         scores = interactive_gat_scores_fused_y(y, linear(query, W3), a_vec)
         alpha = masked_softmax(F.leaky_relu(scores, 0.2), adj, dim=2)
         alpha = drop(alpha, p)

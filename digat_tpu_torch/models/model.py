@@ -12,7 +12,16 @@ weights on every device.
 Where the JAX package passes `train` and a PRNG key, the port passes a
 32-bit `seed`: with a seed the forward is the training forward (dropout
 under that seed, one site number per dropout call, kernel C in the GAT
-layers); without one it is eval (kernel B)."""
+layers); without one it is eval (kernel B).
+
+Mixed precision (`config.compute_dtype` bfloat16, `Model.cast_params` in
+the JAX package): the parameters stay fp32 masters, which the optimizer
+updates and checkpoints hold. The loss and both stages of the cached
+scorer run with `compute_params()`, differentiable bf16 copies of them,
+swapped in by `computing` (`torch.func.functional_call`), so each
+gradient comes back to its master fp32, rounded once to bf16 as JAX's
+cast rounds it. The word table is the exception: its rows are cast after
+the gather (`models.news_encoders`)."""
 
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ from digat_tpu_torch.layers import DropoutSites
 from digat_tpu_torch.models.graph_encoders import GraphEncoder
 from digat_tpu_torch.models.news_encoders import NewsEncoder
 from digat_tpu_torch.runtime import exact_fp32, resolve_device
+
+WORD_TABLE = "news_encoder.word_embedding.weight"  # stays fp32 in the compute copy
 
 
 def as_device_tensor(x, device, dtype) -> torch.Tensor:
@@ -108,6 +119,19 @@ def set_word_embedding(encoder: nn.Module, word_embedding) -> None:
                 word_embedding, encoder.word_embedding.weight.device, torch.float32))
 
 
+class _Call(nn.Module):
+    """Holds a model as its one child; its forward calls fn(*args, **kwargs),
+    so that `torch.func.functional_call` can run any method of the model
+    with the parameters it is given."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, args, kwargs):
+        return fn(*args, **kwargs)
+
+
 class Model(nn.Module):
     """The DIGAT family: `config.news_encoder` (MSA, CNN) and
     `config.graph_encoder` (DIGAT, wo_SA, Seq_SA, wo_interaction,
@@ -138,6 +162,37 @@ class Model(nn.Module):
         set_word_embedding(self.news_encoder, word_embedding)
         self.to(device)
         self.device = device
+        self.compute_dtype = getattr(torch, config.compute_dtype)
+        self._computing = False  # inside `computing`: the compute copy is in place
+
+    # ------------------------------------------------------------------
+    def compute_params(self) -> Optional[dict]:
+        """The bf16 compute copy at `compute_dtype` bfloat16: every fp32
+        parameter cast (differentiably) but the word table -> {name:
+        tensor}; None at float32, where the model computes with its
+        parameters themselves."""
+        if self.compute_dtype == torch.float32:
+            return None
+        return {name: p if name == WORD_TABLE or p.dtype != torch.float32
+                else p.to(self.compute_dtype) for name, p in self.named_parameters()}
+
+    def computing(self, fn, *args, params: Optional[dict] = None, **kwargs):
+        """fn(*args, **kwargs) with the model's parameters replaced by the
+        compute copy (`params`, or a fresh `compute_params()`); at float32,
+        and inside another `computing` call (the copy already in place), fn
+        runs as it is. fn may be any callable that reaches the parameters
+        through this model's modules. The swap costs host time for each
+        parameter, so a caller of many calls (the scorer's stages) wraps
+        them in one."""
+        if self.compute_dtype == torch.float32 or self._computing:
+            return fn(*args, **kwargs)
+        params = self.compute_params() if params is None else params
+        self._computing = True
+        try:
+            return torch.func.functional_call(
+                _Call(self), {f"model.{k}": v for k, v in params.items()}, (fn, args, kwargs))
+        finally:
+            self._computing = False
 
     # ------------------------------------------------------------------
     def forward(self, user_title_text, user_title_mask, user_graph, user_category_mask,
@@ -193,8 +248,8 @@ class Model(nn.Module):
 
     def loss_parts(self, tables: CorpusTables, batch, seed: int):
         """(weighted NLL sum, weight sum) of the listwise loss; the positive
-        is candidate 0."""
-        logits = self.forward_indexed(tables, batch, seed)
+        is candidate 0. The forward runs on the compute copy."""
+        logits = self.computing(self.forward_indexed, tables, batch, seed)
         nll = -torch.log_softmax(logits, dim=1)[:, 0]
         w = batch.weight.to(logits.dtype)
         return (nll * w).sum(), w.sum()
@@ -208,22 +263,23 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def encode_news(self, title_text: torch.Tensor, title_mask: torch.Tensor) -> torch.Tensor:
-        """Stage-1: encode news titles -> [..., D] (eval)."""
-        return self.news_encoder(title_text, title_mask)
+        """Stage-1: encode news titles -> [..., D] (eval), on the compute copy."""
+        return self.computing(self.news_encoder, title_text, title_mask)
 
     @torch.inference_mode()
     def initial_news_context(self, sag_embeddings: torch.Tensor, news_graph_mask: torch.Tensor):
         """Stage-1: c_n0 from the SAG node representations [B, Gn, D] (node 0
-        itself for wo_SA)."""
-        return self.graph_encoder.initial_news_context(sag_embeddings, news_graph_mask)
+        itself for wo_SA), on the compute copy."""
+        return self.computing(self.graph_encoder.initial_news_context, sag_embeddings,
+                              news_graph_mask)
 
     @torch.inference_mode()
     def inference(self, user_news_embedding, user_graph, user_category_mask,
                   user_category_indices, candidate_news_embedding, news_graph,
                   news_graph_mask, c_n0) -> torch.Tensor:
-        """Two-stage cached scoring -> logits [B] (eval)."""
-        news_rep, user_rep = self.graph_encoder(
-            candidate_news_embedding, news_graph, news_graph_mask, user_news_embedding,
-            user_graph, user_category_mask, user_category_indices, c_n0=c_n0,
-        )
+        """Two-stage cached scoring -> logits [B] (eval), on the compute copy."""
+        news_rep, user_rep = self.computing(
+            self.graph_encoder, candidate_news_embedding, news_graph, news_graph_mask,
+            user_news_embedding, user_graph, user_category_mask, user_category_indices,
+            c_n0=c_n0)
         return (news_rep * user_rep).sum(dim=-1)

@@ -17,7 +17,15 @@ word dropout (kernel A''), the projections and the attention pair
 CNN. Word dropout (A''), the convolution bank with its ReLU
 (`layers.ConvBank`), dropout (A'') on its output, and the pool. The second
 dropout draws under site + CONV_SITE, clear of every other site of a
-training step. In eval there is no dropout."""
+training step. In eval there is no dropout.
+
+At `compute_dtype` bfloat16 (MSA through kernel A only) the weights are
+bf16 copies, but the word table stays the fp32 master: the rows are
+gathered from it and then cast to bf16. The forward is the same as a
+lookup in a bf16 table, and the table's gradient is the sum of the rows'
+gradients upcast, unrounded, as the JAX package's sorted embedding
+gradient (kernel D) returns it. Kernel A takes the bf16 rows and weights
+and returns fp32."""
 
 from __future__ import annotations
 
@@ -81,6 +89,7 @@ class NewsEncoder(nn.Module):
         rate = self.dropout_rate
         if self.fused:
             mha_, pool = self.multiheadSelfattention, self.attention
+            w = w.to(mha_.W_Q.weight.dtype)
             pooled = msa_encoder_pooled(
                 w, mask, mha_.W_Q.weight.t(), mha_.W_Q.bias, mha_.W_K.weight.t(),
                 mha_.W_V.weight.t(), mha_.W_V.bias, pool.affine1.weight.t(), pool.affine1.bias,

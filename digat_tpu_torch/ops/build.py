@@ -48,17 +48,23 @@ SIGNATURES = {
     # x, mask, wqkv, bqkv, w1, b1, v, out, scratch, N, L, Din, heads, dk, A, scale,
     # thresh, drop_scale, seed, site, stream
     "msa_encoder_pooled_f32": ([_P] * 9 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
+    # the same, x, wqkv and w1 bf16
+    "msa_encoder_pooled_bf16": ([_P] * 9 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
     # N, L, Din, heads, dk, A -> floats of scratch
     "msa_encoder_bwd_scratch_floats": ([_I] * 6, _LL),
     # x, mask, wqkv, bqkv, w1, b1, v, dp, dx, dwqkv, dbqkv, dw1, db1, dv, scratch,
     # N, L, Din, heads, dk, A, scale, thresh, drop_scale, seed, site, stream
     "msa_encoder_bwd_f32": ([_P] * 15 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
+    # the same, x, wqkv, w1 and dx bf16
+    "msa_encoder_bwd_bf16": ([_P] * 15 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
     # out, rows, cols, row_offset, seed, site, thresh, stream
     "dropout_keep_mask_u8": ([_P, _LL, _I, _LL, _U, _U, _U, _P], _I),
     # x, out, rows, cols, row_offset, seed, site, thresh, scale, stream
     "dropout_apply_f32": ([_P, _P, _LL, _I, _LL, _U, _U, _U, _F, _P], _I),
     # x, q, wy, by, w3, b3, y, k3, M, B, Dp, stream
     "gat_layer_project_f32": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    # the same, wy and w3 bf16
+    "gat_layer_project_bf16": ([_P] * 8 + [_I] * 3 + [_P], _I),
     # x, adj, s, h, ldh, out, B, G, D, TI, CG, slope, stream
     "gat_layer_attend_f32": ([_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _P], _I),
     # k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream

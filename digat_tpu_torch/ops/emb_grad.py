@@ -15,6 +15,11 @@ pieces of runs that cross a chunk boundary (the pad token's run above all)
 go to scratch and are summed in a fixed order by a second pass. The JAX
 package built its work list on the host for the TPU's scalar prefetch; here
 nothing leaves the device. The sum is deterministic (no atomics).
+
+At `compute_dtype` bfloat16 the news encoder gathers fp32 rows and casts
+them, so the rows' gradient arrives here upcast from kernel A''s bf16 dx;
+a bf16 gradient (a lookup in a bf16 table) is upcast here, exactly, as the
+JAX package upcasts its cotangent before its kernel. The sum is fp32.
 """
 
 from __future__ import annotations
@@ -47,7 +52,10 @@ def partial_rows(ntok: int, chunk: int = CHUNK) -> int:
 
 
 def embedding_grad(tok, g, vocab_size: int):
-    """Kernel D. Same arguments and result as `embedding_grad_plain`."""
+    """Kernel D. Same arguments and result as `embedding_grad_plain`; a bf16
+    g is upcast first (the result is fp32)."""
+    if g.dtype == torch.bfloat16:
+        g = g.float()
     if not build.use_kernel(g):
         return embedding_grad_plain(tok, g, vocab_size)
     if tok.device != g.device:

@@ -18,7 +18,16 @@ the card. On a CPU tensor the wrapper runs `interactive_gat_layer_plain`;
 on a CUDA tensor it launches the kernels or raises. The kernel's output
 carries no gradient, so under grad mode with an input that requires grad
 the wrapper raises: training runs its own layer (`models.graph_encoders`,
-kernel C). fp32 only: bf16 input belongs to a later slice.
+kernel C).
+
+bf16 weights (`compute_dtype` bfloat16): x, query and the result stay fp32,
+as the JAX kernel takes them. The wrapper stacks W|W1|W2 as bf16 (half the
+bytes) and upcasts bW, b3 and a (exact); `gat_layer_project_bf16` forms
+the projections at 2xTF32 (x split into two TF32 parts, the bf16 weights
+exact in one), with its own launch counter `launches_bf16`. C's score
+tiles and the attend step are the fp32 ones. The plain version forms
+every product in fp32 from the bf16 values. bf16 x or query belongs to a
+later slice (NRMS at bf16).
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from digat_tpu_torch.layers import MASK_FILL
+from digat_tpu_torch.layers import MASK_FILL, promoted
 from digat_tpu_torch.ops import build
 from digat_tpu_torch.ops.gat import interactive_gat_scores
 from digat_tpu_torch.ops.gat_scores import fwd_plan
@@ -82,7 +91,10 @@ def attend_plan(G: int, D: int) -> AttendPlan:
 def interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
                                 negative_slope: float = 0.2):
     """Plain PyTorch version. x [B, G, D]; adj [B, G, G] bool; query [B, D];
-    W, W1, W2, W3 [D, D] ([in, out] layout); bW, b3, a_vec [D]."""
+    W, W1, W2, W3 [D, D] ([in, out] layout); bW, b3, a_vec [D]. Weights of
+    another dtype than x (bf16) are promoted with it: every product in
+    fp32."""
+    x, query, W, bW, W1, W2, W3, b3, a_vec = promoted(x, query, W, bW, W1, W2, W3, b3, a_vec)
     h = x @ W + bW
     k1 = x @ W1
     k2 = x @ W2
@@ -96,10 +108,12 @@ def interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
 
 def stacked_weights(W, bW, W1, W2, W3, b3, a_vec):
     """The weights as the kernels read them, each D padded with zeros to Dp
-    (`padded_width`): wy [3Dp, Dp] (W, W1, W2 stacked in nn.Linear layout),
-    by [3Dp] ([bW | 0 | 0]), w3 [Dp, Dp], b3 [Dp] and a [Dp]. W..W3 are
-    given [in, out]."""
+    (`padded_width`): wy [3Dp, Dp] (W, W1, W2 stacked in nn.Linear layout,
+    in their dtype), by [3Dp] ([bW | 0 | 0]), w3 [Dp, Dp], b3 [Dp] and a
+    [Dp], the vectors in fp32 at least (bf16 ones upcast). W..W3 are given
+    [in, out]."""
     D = W.shape[0]
+    bW, b3, a_vec = (v.to(torch.promote_types(v.dtype, torch.float32)) for v in (bW, b3, a_vec))
     p = padded_width(D) - D
     lin = (lambda w: w.t()) if p == 0 else (lambda w: F.pad(w.t(), (0, p, 0, p)))
     vec = (lambda v: v) if p == 0 else (lambda v: F.pad(v, (0, p)))
@@ -129,13 +143,18 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     if adj.dtype != torch.bool or tuple(adj.shape) != (B, G, G):
         raise TypeError(f"interactive_gat_layer_fused: adj must be bool [B, G, G], "
                         f"got {adj.dtype} {tuple(adj.shape)}")
+    wdt = W.dtype  # float32, or bfloat16 (the bf16-weight instance)
     shapes = {"query": (query, (B, D)), "W": (W, (D, D)), "W1": (W1, (D, D)),
               "W2": (W2, (D, D)), "W3": (W3, (D, D)), "bW": (bW, (D,)), "b3": (b3, (D,)),
               "a_vec": (a_vec, (D,))}
     for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"interactive_gat_layer_fused: {name} must be float32 {shape} on "
-                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        dtypes = (torch.float32,) if name == "query" or wdt == torch.float32 else \
+            ((wdt,) if t.dim() == 2 else (wdt, torch.float32))
+        if tuple(t.shape) != shape or t.dtype not in dtypes or t.device != x.device or \
+                wdt not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"interactive_gat_layer_fused: {name} must be "
+                             f"{' or '.join(map(str, dtypes))} {shape} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not (x.is_contiguous() and adj.is_contiguous() and query.is_contiguous()):
         raise ValueError("interactive_gat_layer_fused: x, adj and query must be contiguous")
     if B == 0:
@@ -153,7 +172,9 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     out = torch.empty_like(x)
     what = "interactive_gat_layer_fused"
     with build.launch_on(dev) as (lib, stream):
-        build.check(lib, lib.gat_layer_project_f32(
+        project = lib.gat_layer_project_bf16 if wdt == torch.bfloat16 else \
+            lib.gat_layer_project_f32
+        build.check(lib, project(
             xk.data_ptr(), qk.data_ptr(), wy.data_ptr(), by.data_ptr(), w3.data_ptr(),
             b3p.data_ptr(), y.data_ptr(), k3.data_ptr(), B * G, B, Dp, stream), what)
         build.check(lib, lib.gat_scores_fwd_f32(
@@ -162,8 +183,12 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
         build.check(lib, lib.gat_layer_attend_f32(
             x.data_ptr(), adj.data_ptr(), s.data_ptr(), y.data_ptr(), 3 * Dp, out.data_ptr(), B,
             G, D, plan.TI, plan.CG, float(negative_slope), stream), what)
-    interactive_gat_layer_fused.launches += 1
+    if wdt == torch.bfloat16:
+        interactive_gat_layer_fused.launches_bf16 += 1
+    else:
+        interactive_gat_layer_fused.launches += 1
     return out
 
 
 interactive_gat_layer_fused.launches = 0
+interactive_gat_layer_fused.launches_bf16 = 0

@@ -247,8 +247,10 @@ def interactive_gat_scores_fused_y(y, k3, a_vec):
     """Replaces `interactive_gat_scores_fused_y_pallas` (C'). y [B, G, 3D] =
     x [W|W1|W2], so k1 is its middle column block and k2 its last; k3
     [B, D]; a_vec [D] -> [B, G, G]. Its gradient into y is [0 | gk1 | gk2].
-    On the CPU the plain versions run on the slices of y."""
-    return InteractiveGATScoresFusedY.apply(y, k3, a_vec)
+    On the CPU the plain versions run on the slices of y. A bf16 a_vec (the
+    compute copy at `compute_dtype` bfloat16) is upcast to y's dtype, which
+    is exact; its gradient comes back rounded to bf16."""
+    return InteractiveGATScoresFusedY.apply(y, k3, a_vec.to(y.dtype))
 
 
 gat_scores_fwd.launches = 0

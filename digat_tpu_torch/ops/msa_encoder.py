@@ -30,6 +30,18 @@ way); the attention forward, the word dropout and the pool's softmax are
 one text in `csrc/msa_title.cuh`, which both include. Each header says what
 bounds it on the card and how the design answers that. There is no
 fallback: a CUDA tensor launches the kernels or raises.
+
+bf16 (`compute_dtype` bfloat16): x and the weights bf16, the result fp32,
+as the JAX kernel takes them. The bf16 instances (`*_bf16` entry points,
+their own launch counters `launches_bf16`) run the q|k|v product on the
+bf16 tensor cores with exact products and fp32 sums, and the products of
+an fp32 operand with a bf16 weight at 2xTF32; attention and the pool's
+softmax stay fp32. The word dropout rounds each kept x / (1 - rate) to
+bf16 once (round to nearest even), as the TPU kernel's product rounds its
+fp32 operand. A' stores dx in bf16, rounded once after the mask, and
+returns fp32 weight gradients; autograd rounds those to the bf16 copies'
+dtype, as the transpose of JAX's cast does. A bias or pool vector in bf16
+is upcast by the wrapper (exact).
 """
 
 from __future__ import annotations
@@ -73,14 +85,32 @@ def relu_fix_smem_bytes(Din: int, dk: int, L: int = SHORT_TITLE_LENGTH) -> int:
     return 8 * L * (L | 1)
 
 
+class _RoundTo(torch.autograd.Function):
+    """x rounded to `dtype` (round to nearest even) and kept in x's dtype;
+    the gradient passes unchanged, as the transpose of JAX's cast does."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def drop_titles_plain(x, rate: float, seed: int, site: int):
-    """x [N, L, Din] with the kernels' word dropout applied."""
+    """x [N, L, Din] with the kernels' word dropout applied: x / (1 - rate)
+    where kept, else 0. A bf16 x is dropped in fp32 and each value rounded
+    once to bf16, returned as an fp32 tensor of bf16 values (its gradient
+    unrounded)."""
     if rate <= 0.0:
         return x
     N, L, Din = x.shape
     keep = keep_mask_plain(N, L * Din, rate, seed, site, device=x.device).reshape(N, L, Din)
-    return torch.where(keep, x * (1.0 / (1.0 - rate)), torch.zeros((), dtype=x.dtype,
-                                                                    device=x.device))
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xd = torch.where(keep, x.to(acc) * (1.0 / (1.0 - rate)),
+                     torch.zeros((), dtype=acc, device=x.device))
+    return xd if acc == x.dtype else _RoundTo.apply(xd, x.dtype)
 
 
 def msa_encoder_pooled_plain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads: int,
@@ -91,7 +121,10 @@ def msa_encoder_pooled_plain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads: int,
     float64 (at least), from the inputs' values: a pre-activation within
     rounding of 0 takes the ReLU's side (and gradient) of its float64 value,
     the side kernel A''s ReLU fix recomputes, whatever order a product
-    sums in. The result is then rounded to the inputs' type."""
+    sums in. The result is then rounded to the inputs' type, fp32 at least
+    (bf16 inputs give fp32, as the JAX kernel returns), and the pool runs
+    in that type."""
+    out_t = torch.promote_types(x.dtype, torch.float32)
     x = drop_titles_plain(x, dropout_rate, seed, site)
     N, L, _ = x.shape
     D = wq.shape[1]
@@ -103,7 +136,8 @@ def msa_encoder_pooled_plain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads: int,
     val = (xw @ wv.to(wide) + bv.to(wide)).reshape(N, L, heads, dk)
     a = torch.einsum("nqhd,nkhd->nhqk", q, k) / math.sqrt(float(dk))
     p = torch.softmax(a, dim=-1)
-    h = torch.relu(torch.einsum("nhqk,nkhd->nqhd", p, val).reshape(N, L, D)).to(x.dtype)
+    h = torch.relu(torch.einsum("nhqk,nkhd->nqhd", p, val).reshape(N, L, D)).to(out_t)
+    w1, b1, v = (t.to(out_t) for t in (w1, b1, v))
     lg = torch.tanh(h @ w1 + b1) @ v
     lg = torch.where(mask.to(torch.bool), lg, torch.full_like(lg, MASK_FILL))
     alpha = torch.softmax(lg, dim=-1)
@@ -112,25 +146,33 @@ def msa_encoder_pooled_plain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads: int,
 
 def msa_encoder_bwd_plain(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
                           dropout_rate: float = 0.0, seed: int = 0, site: int = 0):
-    """Plain PyTorch version of kernel A': autograd through the plain
-    forward. Returns (dx, dwq, dbq, dwk, dwv, dbv, dw1, db1, dv) in the
-    layouts of the arguments."""
+    """Plain PyTorch version of kernel A': autograd through the plain forward
+    on the dropped titles, then the dropout mask on their gradient. Returns
+    (dx, dwq, dbq, dwk, dwv, dbv, dw1, db1, dv) in the layouts of the
+    arguments: dx in x's dtype (bf16 rounded once, after the mask), the
+    weight gradients in fp32 at least (bf16 weights give fp32 gradients, as
+    kernel A' returns them)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xd = drop_titles_plain(x, dropout_rate, seed, site)
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in (x, wq, bq, wk, wv, bv, w1, b1, v)]
-        out = msa_encoder_pooled_plain(leaves[0], mask, *leaves[1:], heads, dropout_rate, seed,
-                                       site)
-        return torch.autograd.grad(out, leaves, dp)
+        leaves = [t.detach().to(acc).requires_grad_(True)
+                  for t in (xd, wq, bq, wk, wv, bv, w1, b1, v)]
+        out = msa_encoder_pooled_plain(leaves[0], mask, *leaves[1:], heads)
+        grads = torch.autograd.grad(out, leaves, dp.to(out.dtype))
+    return (drop_titles_plain(grads[0], dropout_rate, seed, site).to(x.dtype), *grads[1:])
 
 
 def _check(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, what):
-    """Shapes, types and layouts the CUDA kernels take -> (N, L, Din, D, dk, A)."""
+    """Shapes, types and layouts the CUDA kernels take -> (N, L, Din, D, dk, A).
+    x and every weight float32, or x and the matrices bfloat16 with the
+    vectors bfloat16 or float32 (the bf16 instance)."""
     N, L, Din = x.shape
     D = wq.shape[1]
     A = w1.shape[1]
     if D % heads:
         raise ValueError(f"{what}: D={D} not divisible by heads={heads}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{what}: x must be float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: x must be float32 or bfloat16, got {x.dtype}")
     if mask.dtype != torch.bool or tuple(mask.shape) != (N, L):
         raise TypeError(f"{what}: mask must be bool [N, L], got {mask.dtype} {tuple(mask.shape)}")
     if not 1 <= L <= MAX_TITLE_LENGTH:
@@ -142,9 +184,11 @@ def _check(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, what):
               "bq": (bq, (D,)), "bv": (bv, (D,)), "w1": (w1, (D, A)), "b1": (b1, (A,)),
               "v": (v, (A,))}
     for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"{what}: {name} must be float32 {shape} on {x.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        dtypes = (x.dtype,) if t.dim() == 2 or x.dtype == torch.float32 else \
+            (torch.bfloat16, torch.float32)
+        if tuple(t.shape) != shape or t.dtype not in dtypes or t.device != x.device:
+            raise ValueError(f"{what}: {name} must be {' or '.join(map(str, dtypes))} {shape} "
+                             f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not (x.is_contiguous() and mask.is_contiguous()):
         raise ValueError(f"{what}: x and mask must be contiguous")
     return N, L, Din, D, D // heads, A
@@ -159,10 +203,30 @@ def _refuse_shapes(dk: int, A: int, what: str) -> None:
 
 
 def _stacked_qkv(wq, bq, wk, wv, bv):
-    """The Q|K|V weights stacked [3D, Din] (nn.Linear layout) and their bias
-    [bq | 0 | bv], as the kernels' products read them."""
+    """The Q|K|V weights stacked [3D, Din] (nn.Linear layout, their dtype)
+    and their bias [bq | 0 | bv] in fp32 at least, as the kernels' products
+    read them."""
     wqkv = torch.cat([wq.t(), wk.t(), wv.t()]).contiguous()
+    bq, bv = _upcast(bq), _upcast(bv)
     return wqkv, torch.cat([bq, torch.zeros_like(bq), bv]).contiguous()
+
+
+def _upcast(v):
+    """A bf16 vector in fp32 (exact); fp32 and fp64 as they are."""
+    return v.to(torch.promote_types(v.dtype, torch.float32))
+
+
+def _suffix(x) -> str:
+    """The C entry points' suffix of an input dtype: f32 or bf16."""
+    return "bf16" if x.dtype == torch.bfloat16 else "f32"
+
+
+def _count(fn, x) -> None:
+    """One launch more on fn's counter of x's instance."""
+    if x.dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def _dropout_args(rate: float, seed: int, site: int):
@@ -191,18 +255,18 @@ def _forward_kernel(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, rate, seed, s
         return out
     wqkv, bqkv = _stacked_qkv(wq, bq, wk, wv, bv)
     (w1_r,) = _linear_layout(w1)
-    b1, v = b1.contiguous(), v.contiguous()
+    b1, v = _upcast(b1).contiguous(), _upcast(v).contiguous()
     with build.launch_on(x.device) as (lib, stream):
         scratch = torch.empty(lib.msa_encoder_fwd_scratch_floats(N, L, Din, heads, dk, A,
                                                                  int(rate > 0)),
                               dtype=torch.float32, device=x.device)
-        err = lib.msa_encoder_pooled_f32(
+        err = getattr(lib, f"msa_encoder_pooled_{_suffix(x)}")(
             x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), w1_r.data_ptr(),
             b1.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, L, Din, heads,
             dk, A, 1.0 / math.sqrt(float(dk)), *_dropout_args(rate, seed, site), stream,
         )
     build.check(lib, err, "msa_encoder_pooled")
-    msa_encoder_pooled.launches += 1
+    _count(msa_encoder_pooled, x)
     return out
 
 
@@ -224,19 +288,20 @@ def msa_encoder_bwd(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
     dev = x.device
     wqkv, bqkv = _stacked_qkv(wq, bq, wk, wv, bv)
     (w1_r,) = _linear_layout(w1)
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x)  # bf16 for a bf16 x: rounded once, after the mask
     dwqkv = torch.empty((3 * D, Din), dtype=torch.float32, device=dev)
     dbqkv = torch.empty(3 * D, dtype=torch.float32, device=dev)
     dw1 = torch.empty((A, D), dtype=torch.float32, device=dev)
     db1 = torch.empty(A, dtype=torch.float32, device=dev)
     dv = torch.empty(A, dtype=torch.float32, device=dev)
     if N == 0:
-        return (dx, *(torch.zeros_like(t) for t in (wq, bq, wk, wv, bv, w1, b1, v)))
-    dp, b1, v = (t.contiguous() for t in (dp, b1, v))
+        return (dx, *(torch.zeros_like(t, dtype=torch.float32)
+                      for t in (wq, bq, wk, wv, bv, w1, b1, v)))
+    dp, b1, v = (_upcast(t).contiguous() for t in (dp, b1, v))
     with build.launch_on(dev) as (lib, stream):
         scratch = torch.empty(lib.msa_encoder_bwd_scratch_floats(N, L, Din, heads, dk, A),
                               dtype=torch.float32, device=dev)
-        err = lib.msa_encoder_bwd_f32(
+        err = getattr(lib, f"msa_encoder_bwd_{_suffix(x)}")(
             x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), w1_r.data_ptr(),
             b1.data_ptr(), v.data_ptr(), dp.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(),
             dbqkv.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
@@ -244,7 +309,7 @@ def msa_encoder_bwd(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
             *_dropout_args(dropout_rate, seed, site), stream,
         )
     build.check(lib, err, "msa_encoder_bwd")
-    msa_encoder_bwd.launches += 1
+    _count(msa_encoder_bwd, x)
     dwq, dwk, dwv = dwqkv[:D].t(), dwqkv[D:2 * D].t(), dwqkv[2 * D:].t()
     return dx, dwq, dbqkv[:D], dwk, dwv, dbqkv[2 * D:], dw1.t(), db1, dv
 
@@ -282,4 +347,6 @@ def msa_encoder_pooled(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads: int,
 
 
 msa_encoder_pooled.launches = 0
+msa_encoder_pooled.launches_bf16 = 0
 msa_encoder_bwd.launches = 0
+msa_encoder_bwd.launches_bf16 = 0

@@ -4,7 +4,9 @@ Counterpart of `digat_tpu.train.train_step.make_train_step` on one device.
 PyTorch runs eagerly, so there is nothing to compile: the step is a
 function. The learning rate is an argument, so the lr/10 decay needs no
 second step. Each step's dropout seed is derived from (seed, epoch, step)
-as the JAX trainer folds `epoch * 1_000_000 + step` into its key."""
+as the JAX trainer folds `epoch * 1_000_000 + step` into its key. At
+`compute_dtype` bfloat16 the loss runs on the model's bf16 compute copy and
+the gradients, clip and Adam act on the fp32 masters."""
 
 from __future__ import annotations
 

@@ -3,9 +3,12 @@
 
     python3 scripts/torch_parity_cells.py --cell prod --seeds 0 1 2 3 4
         [--device cuda|cpu] [--workdir DIR] [--out DIR] [--epochs N]
+        [--compute_dtype float32|bfloat16]
 
 `--cell` takes several cells, which share their corpus; `--seeds` then
-applies to each.
+applies to each. `--compute_dtype bfloat16` trains the cell on bf16
+compute copies of the weights (the MSA-DIGAT cells and their ablations;
+the JAX study has no bf16 target, so its fp32 target is the yardstick).
 
 Cells (each names its JAX target in docs/PARITY.md):
 
@@ -182,7 +185,8 @@ def gen_glove(data_root: str, path: str, dim: int, seed: int = 123) -> None:
             f.write(w + " " + " ".join(f"{x:.5f}" for x in vec) + "\n")
 
 
-def cell_flags(cell: str, corpus_dir: str, seed: int, device: str, epochs: int = 0) -> list:
+def cell_flags(cell: str, corpus_dir: str, seed: int, device: str, epochs: int = 0,
+               compute_dtype: str = "float32") -> list:
     """The CLI's command line for one seed of a cell."""
     _, geometry, _, options = CELLS[cell]
     kw = {k: v for k, v in geometry.items() if k != "epoch"}
@@ -190,7 +194,7 @@ def cell_flags(cell: str, corpus_dir: str, seed: int, device: str, epochs: int =
     kw.update(dataset="MIND-small", data_root=os.path.join(corpus_dir, "data"),
               run_root=os.path.join(corpus_dir, f"runs-{cell}"),
               glove_path=os.path.join(corpus_dir, "glove.txt"), seed=seed, device=device,
-              epoch_override=epochs or geometry["epoch"])
+              epoch_override=epochs or geometry["epoch"], compute_dtype=compute_dtype)
     return [a for k, v in kw.items() for a in (f"--{k}", str(v))]
 
 
@@ -217,9 +221,10 @@ def card() -> str:
         return "not measured"
 
 
-def run_seed(cell: str, corpus_dir: str, seed: int, device: str, epochs: int) -> dict:
+def run_seed(cell: str, corpus_dir: str, seed: int, device: str, epochs: int,
+             compute_dtype: str = "float32") -> dict:
     t0 = time.perf_counter()
-    rec = cli.main(cell_flags(cell, corpus_dir, seed, device, epochs))
+    rec = cli.main(cell_flags(cell, corpus_dir, seed, device, epochs, compute_dtype))
     wall = time.perf_counter() - t0
     keys = ("auc", "mrr", "ndcg5", "ndcg10")
     per_epoch = [{"epoch": h["epoch"], "loss": h["loss"], **{k: h[k] for k in keys},
@@ -230,6 +235,7 @@ def run_seed(cell: str, corpus_dir: str, seed: int, device: str, epochs: int) ->
     all_steps = [t for h in rec["history"] for t in h["step_ms"][2:]]  # past 2 warm-up steps
     return {
         "framework": "digat_tpu_torch", "cell": cell, "seed": seed, "device": device,
+        "compute_dtype": compute_dtype,
         "card": card() if device == "cuda" else "cpu", "run_index": rec["run_index"],
         "best_dev_epoch": rec["best_epoch"], "dev": {k: best[k] for k in keys},
         "test": dict(zip(keys, rec["test"])) if rec["test"] else {},
@@ -246,18 +252,21 @@ def main(argv=None) -> int:
     ap.add_argument("--workdir", default="", help="corpora and runs (default: a temp dir)")
     ap.add_argument("--out", default="torch_parity_cells_out", help="one JSON a seed")
     ap.add_argument("--epochs", type=int, default=0, help="0: the cell's own count")
+    ap.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args(argv)
     workdir = args.workdir or tempfile.mkdtemp(prefix="torch_parity_cells_")
     os.makedirs(args.out, exist_ok=True)
     for cell in args.cell:
         corpus_dir = prepare_cell(cell, workdir, args.device)
         for seed in args.seeds:
-            res = run_seed(cell, corpus_dir, seed, args.device, args.epochs)
-            path = os.path.join(args.out, f"{cell}-seed{seed}.json")
+            res = run_seed(cell, corpus_dir, seed, args.device, args.epochs, args.compute_dtype)
+            tag = "" if args.compute_dtype == "float32" else f"-{args.compute_dtype}"
+            path = os.path.join(args.out, f"{cell}{tag}-seed{seed}.json")
             with open(path, "w") as f:
                 json.dump(res, f, indent=2)
-            print(json.dumps({k: res[k] for k in ("cell", "seed", "best_dev_epoch", "dev",
-                                                  "test", "step_ms_median", "wall_s")}),
+            print(json.dumps({k: res[k] for k in ("cell", "seed", "compute_dtype",
+                                                  "best_dev_epoch", "dev", "test",
+                                                  "step_ms_median", "wall_s")}),
                   flush=True)
     return 0
 

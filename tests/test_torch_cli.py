@@ -110,13 +110,14 @@ def test_jax_command_line_parses_and_tpu_only_values_raise():
     flags = [a for k, v in vars(jcfg).items() for a in (f"--{k}", str(v))]
     cfg = Config.from_args(flags)
     assert (cfg.max_title_length, cfg.epoch, cfg.dedup_titles, cfg.device) == (16, 8, 0, "cuda")
-    for flag, value, item in [("compute_dtype", "bfloat16", "section 1, item 3"),
-                              ("mesh_data", "4", "multi-GPU"),
-                              ("profile_dir", "/tmp/trace", "StepTimer"),
-                              ("sorted_emb_grad", "false", "kernel D"),
-                              ("coordinator_address", "10.0.0.1:1234", "multi-GPU")]:
+    for flags, item in [(["--compute_dtype", "bfloat16", "--model_family", "nrms"],
+                         "section 1, item 3"),
+                        (["--mesh_data", "4"], "multi-GPU"),
+                        (["--profile_dir", "/tmp/trace"], "StepTimer"),
+                        (["--sorted_emb_grad", "false"], "kernel D"),
+                        (["--coordinator_address", "10.0.0.1:1234"], "multi-GPU")]:
         with pytest.raises(NotImplementedError, match=item):
-            Config.from_args([f"--{flag}", value])
+            Config.from_args(flags)
     # every title length runs on the card: kernels A and A' up to 128, the
     # attention pair beyond, as the JAX package routes them
     assert Config.from_args(["--max_title_length", "40"]).max_title_length == 40

@@ -215,12 +215,15 @@ def test_every_wrapper_launches_under_its_tensors_device(monkeypatch):
     r = lambda *s: torch.randn(*s)
     x, mask = r(3, 32, 8), torch.rand(3, 32) < 0.7
     w = (r(8, 8), r(8), r(8, 8), r(8, 8), r(8), r(8, 4), r(4), r(4))
-    ME._forward_kernel(x, mask, *w, 2, 0.0, 0, 0)
-    ME.msa_encoder_bwd(x, mask, *w, r(3, 8), 2)
+    bf = lambda t: t.to(torch.bfloat16)
+    for cast in (lambda t: t, bf):  # the fp32 instances, then the bf16 ones
+        ME._forward_kernel(cast(x), mask, *map(cast, w), 2, 0.0, 0, 0)
+        ME.msa_encoder_bwd(cast(x), mask, *map(cast, w), r(3, 8), 2)
     B, G, D = 2, 5, 8
-    GL.interactive_gat_layer_fused(r(B, G, D), torch.ones(B, G, G, dtype=torch.bool),
-                                   r(B, D), r(D, D), r(D), r(D, D), r(D, D), r(D, D), r(D),
-                                   r(D))
+    for cast in (lambda t: t, bf):  # fp32 weights, then bf16 ones
+        GL.interactive_gat_layer_fused(r(B, G, D), torch.ones(B, G, G, dtype=torch.bool),
+                                       r(B, D), *map(cast, (r(D, D), r(D), r(D, D), r(D, D),
+                                                            r(D, D), r(D), r(D))))
     GS.gat_scores_fwd(r(B, G, D), r(B, G, D), r(B, D), r(D))
     GS.gat_scores_bwd(r(B, G, D), r(B, G, D), r(B, D), r(D), r(B, G, G))
     DR.keep_mask(4, 6, 0.2, 1, 2, device="cpu")

@@ -5,6 +5,9 @@ parameters from a seed, and the port model carrying those parameters via
 `digat_tpu_torch.interop.load_jax_params`. Small widths keep every test
 well under a minute: D 32, L 8, depth 2, Gn 6, H 6."""
 
+import contextlib
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -34,6 +37,15 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element's magnitude: 2^(e - 8) for |t| in
+    [2^(e-1), 2^e) (8 significant bits); an element of 0 takes that of the
+    smallest normal."""
+    a = t.float().abs().clamp(min=2.0 ** -126)
+    _, e = torch.frexp(a)
+    return torch.ldexp(torch.ones_like(a), e - 8)
+
+
 # fp32 tolerances: one module against its JAX counterpart, and the whole
 # two-stage scorer, where depth-2/3 compounding of summation order adds up
 MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -41,7 +53,7 @@ SLICE_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def jax_config(**over):
-    return JaxConfig(use_pallas=False, **{**GEO, **over}).validate()
+    return JaxConfig(**{"use_pallas": False, **GEO, **over}).validate()
 
 
 def port_config(**over):
@@ -53,8 +65,10 @@ def to_numpy(tree):
 
 
 def models(seed: int = 0, **over):
-    """(jax_model, jax_params, port_model on the CPU with the same params)."""
+    """(jax_model, jax_params, port_model on the CPU with the same params);
+    `use_pallas` in `over` reaches the JAX model only."""
     jm = JaxModel(jax_config(**over))
+    over.pop("use_pallas", None)
     params = jm.init(jax.random.PRNGKey(seed))
     # O(1)-scale embeddings like GloVe rows; topic embeddings nonzero so
     # the topic nodes take part in the user graph
@@ -64,6 +78,31 @@ def models(seed: int = 0, **over):
     params = to_numpy(params)
     pm = load_jax_params(Model(port_config(**over), device="cpu"), params)
     return jm, params, pm
+
+
+# ---------------------------------------------------------------------------
+# compute_dtype bfloat16: the JAX package's kernel path (its Pallas kernels in
+# interpret mode, as the TPU runs the kernels) against the port
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def jax_interpret():
+    """The JAX package's Pallas kernels in interpret mode for the block, the
+    flag restored after."""
+    from digat_tpu.ops.pallas import runtime
+
+    before = runtime.INTERPRET
+    runtime.set_interpret(True)
+    try:
+        yield
+    finally:
+        runtime.set_interpret(before)
+
+
+def bf16_models(seed: int = 0, **over):
+    """`models` at compute_dtype bfloat16 with the JAX model on its kernel
+    path (use_pallas; call it under `jax_interpret`): (jax_model, its fp32
+    params as numpy, the port model with the same params)."""
+    return models(seed, **{"compute_dtype": "bfloat16", "use_pallas": True, **over})
 
 
 def corpus_arrays(rng, news_num: int, cfg):
@@ -228,3 +267,76 @@ def fp64_trajectory(corpus, steps: int = 30, lr: float = 1e-3, **over):
     print(f"fp64 trajectory {over}: max loss rel {rel:.3e}, max param abs {param_err:.3e}, "
           f"loss {jax_loss[0]:.6f} -> {jax_loss[-1]:.6f}")
     return rel, param_err, float(jax_loss[:5].mean()), float(jax_loss[-5:].mean())
+
+
+def bf16_eval_logits(seed: int = 0, xla: bool = False, **over):
+    """Eval logits [B, 1 + K] of one seeded batch at compute_dtype bfloat16:
+    (port, JAX kernel path, JAX XLA path or None). The JAX models compute on
+    `cast_params`, the port on its compute copy."""
+    import jax.numpy as jnp
+
+    from digat_tpu.models.model import CorpusTables as JaxTables
+    from digat_tpu.models.model import Model as JaxModel
+    from digat_tpu.models.model import TrainBatch as JaxBatch
+    from digat_tpu_torch.models.model import CorpusTables, TrainBatch
+
+    jm, params, pm = bf16_models(seed, **over)
+    cfg = jm.config
+    rng = np.random.default_rng(seed + 5)
+    arrays = corpus_arrays(rng, 30, cfg)
+    B, H, C = 5, cfg.max_history_num, cfg.category_num
+    hist = rng.integers(1, 30, (B, H)).astype(np.int32)
+    cat = rng.integers(0, C, (B, H)).astype(np.int32)
+    hist[0, 2:], cat[0, 2:] = 0, C
+    sample = rng.integers(0, 30, (B, 1 + cfg.negative_sample_num)).astype(np.int32)
+    weight = np.ones(B, np.float32)
+    jt = JaxTables(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    jb = JaxBatch(*map(jnp.asarray, (hist, cat, sample, weight)))
+    key = jax.random.PRNGKey(0)
+    with jax_interpret():
+        want = np.asarray(jm.forward_indexed(jm.cast_params(params), jt, jb, key, train=False))
+    xla_logits = None
+    if xla:
+        jx = JaxModel(jax_config(compute_dtype="bfloat16", **over))
+        xla_logits = np.asarray(jx.forward_indexed(jx.cast_params(params), jt, jb, key,
+                                                   train=False))
+    pt = CorpusTables.from_arrays(SimpleNamespace(**arrays), "cpu")
+    pb = TrainBatch(*(torch.from_numpy(a).long() for a in (hist, cat, sample)),
+                    torch.from_numpy(weight))
+    with torch.no_grad():
+        got = pm.computing(pm.forward_indexed, pt, pb).numpy()
+    return got, want, xla_logits
+
+
+BATCH_FIELDS = ("news_title_text", "news_title_mask", "news_node_id", "news_graph",
+                "news_graph_mask")
+
+
+def bf16_step_case(seed: int = 0, **over):
+    """One training step's inputs at compute_dtype bfloat16 and dropout 0:
+    (jax model, its fp32 params, port model, JAX tables, JAX dedup batch
+    with the sorted embedding-gradient metadata, port tables, port batch)."""
+    import jax.numpy as jnp
+
+    from digat_tpu.models.model import CorpusTables as JaxTables
+    from digat_tpu.models.model import DedupTrainBatch as JaxDedupBatch
+    from digat_tpu.ops.pallas.emb_grad import build_sorted_emb_meta
+    from digat_tpu_torch.data import batching, sampling
+    from digat_tpu_torch.models.model import CorpusTables
+
+    jm, params, pm = bf16_models(seed, dropout_rate=0.0, **over)
+    cfg = jm.config
+    corpus = train_corpus(np.random.default_rng(seed + 1), cfg, 40, 30, 40)
+    neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets, 4,
+                                    np.random.default_rng(seed + 1))
+    split = corpus.splits["train"]
+    b = next(batching.train_batches(split.history_idx, split.cat_idx, corpus.train_behavior_row,
+                                    corpus.train_pos, neg, 8, epoch_seed=0,
+                                    news_node_id=corpus.news_node_id, dedup_titles=512))
+    raw = corpus.tables()
+    jt = JaxTables(*(jnp.asarray(getattr(raw, f)) for f in BATCH_FIELDS))
+    emb = build_sorted_emb_meta(np.asarray(raw.news_title_text)[np.asarray(b.uniq_ids)],
+                                cfg.vocabulary_size, ship_sort_arrays=False)
+    jb = JaxDedupBatch(*map(jnp.asarray, b), emb=emb)
+    return jm, params, pm, jt, jb, CorpusTables.from_arrays(raw, "cpu"), \
+        batching.to_device(b, "cpu")
