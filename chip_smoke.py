@@ -32,7 +32,8 @@ paths:
              epoch of `Trainer` (>= 20 steps at B 64, unique-title dedup,
              dropout 0.2) with the launch counters reset, whose launches per
              step are checked; and three steps at B 8 on the card against
-             the CPU;
+             the CPU (the CPU taking the card's side at each ReLU kink of
+             Eq. 8, the kinks counted);
   NRMS-SA  - the masked attention pair (forward and backward, standing in
              for TPU kernels E and F) against its plain version at the
              serving and training shapes, packed and head-padded, timed
@@ -60,8 +61,9 @@ paths:
              (cnn_kernel_num 400, naive, window 3) at full width (phase
              18), each: serving over 1,024 news on the card with the
              counters reset (A per chunk for MSA, B per interactive layer
-             and batch) and against the CPU; three B-8 training steps card
-             against CPU; 8 untraced steps at B 64 (dedup, dropout 0.2) with
+             and batch) and against the CPU and two B-8 training steps
+             card against CPU, both at graph depth 2; 5 untraced steps at
+             B 64 (depth 3, dedup, dropout 0.2) with
              the counters reset, their launches per step and dropout sites
              checked, and the median step time;
   bf16     - phase 20, MSA-DIGAT at compute_dtype bfloat16 (bf16 compute
@@ -79,14 +81,34 @@ paths:
              ulp of the element)); one Trainer epoch at B 64 (dedup, dropout
              0.2) with its launches per step checked, its median step beside
              phase 8's;
+  bf16 more- phase 21, the other models at compute_dtype bfloat16: the bf16
+             instances of the attention pair (the NRMS title shapes, the
+             serving chunk and the user batch, [256, 160, 16 x 25] and the
+             wide instance at dk 80 and 128, forward and backward, SDPA on
+             the same bf16 inputs beside it), A'' (bit for bit at the NRMS
+             and CNN word sites and the CNN bank's, forward and backward,
+             F.dropout beside it), B with bf16 activations (B 1,024 at G 68
+             and 26) and C's forward (B 320 at G 68 and 26) against their
+             plain versions; then NRMS-SA, NRMS, CNN-DIGAT and MSA-DIGAT at
+             titles of L 160 (the DIGAT models at graph depth 2, CNN-DIGAT
+             with a GloVe-scale word table, L 160 on a SAG of 10 nodes),
+             each: the cached scorer over 1,024 news with the counters reset
+             (only the bf16 instances where the JAX package runs bf16, the
+             fp32 pair for the NRMS user tower) and card against CPU
+             (within one bf16 ulp of the score scale); three B-8 steps card
+             against CPU (phase 20's gates, every tensor at one bf16 ulp of
+             its largest element; for the DIGAT models also a control run
+             with k3 left out of C's backward, which must fail that gate);
+             5 untraced steps at B 64 with their
+             launches per step and the shapes of A''s sites checked;
   CLI      - `digat_tpu_torch.cli` from MIND-layout TSV files that the
              port's generator writes: the production cell of
              scripts/torch_parity_cells.py (word 300, L 32, 16 x 25 heads,
              B 32, lr 1e-3, 5 of its 6 epochs, dedup; its news graph mined on the
              card against the CPU) with a best dev AUC of at least 0.55, and
              the matrix cell at L 16 (B 32, lr 1e-3, 4 of its 8 epochs) with at
-             least 0.66, and the matrix cell of wo_interaction (phase 19)
-             with at least 0.6675 (the JAX mean 0.6951 less 3 sigma); each
+             least 0.66, and the matrix cell of wo_interaction (phase 19, 5
+             of its 8 epochs) with at least 0.6675 (the JAX mean 0.6951 less 3 sigma); each
              epoch's rank file through the official scorer, and best.ckpt
              scored again by `--mode test`.
 
@@ -260,7 +282,8 @@ def mask_sites(cfg, cap: int = 0):
     calls (wo_SA: no news context and no news graph; Seq_SA: the news
     context once and no news graph). The CNN news encoder's two, over the
     `cap` unique titles of a dedup batch: its words and its bank's output
-    (the MSA encoder draws its word dropout inside kernel A)."""
+    (the MSA encoder draws its word dropout inside kernel A up to titles of
+    128; past them, before the attention pair, it is one more site)."""
     B = cfg.batch_size * (1 + cfg.negative_sample_num)
     D, C, depth, p = cfg.news_embedding_dim, cfg.category_num, cfg.graph_depth, cfg.dropout_rate
     Gn, Gu, v = cfg.news_graph_size, cfg.user_graph_size, cfg.graph_encoder
@@ -274,11 +297,33 @@ def mask_sites(cfg, cap: int = 0):
              ("GAT alpha news", B * Gn, Gn, p, news_layers),
              ("GAT x user", B * Gu, D, p / 2, depth),
              ("GAT alpha user", B * Gu, Gu, p, depth)]
+    L = cfg.max_title_length
     if cfg.news_encoder == "CNN":
-        L = cfg.max_title_length
         sites += [("CNN words", cap * L, cfg.word_embedding_dim, p, 1),
                   ("CNN bank", cap * L, D, p, 1)]
+    else:
+        from digat_tpu_torch.ops.msa_attention_grouped import group_size
+
+        if group_size(cfg.MSA_head_num, L, cfg.MSA_head_dim) <= 0:
+            # past kernel A's titles: the word dropout before the attention pair
+            sites += [("MSA words", cap * L, cfg.word_embedding_dim, p, 1)]
     return [site for site in sites if site[4]]
+
+
+def site_launches(cfg, cap: int = 0) -> tuple:
+    """(fp32, bf16) launches of kernel A'' per training step, forward and
+    backward at each of `mask_sites`: at compute_dtype bfloat16 a site drops
+    a bf16 tensor (A''s bf16 instance) where its activations are bf16 (the
+    topic nodes, a bf16 weight; behind the CNN every site; the word
+    dropout before the pair)."""
+    fp32 = bf16 = 0
+    for what, _, _, _, per_step in mask_sites(cfg, cap):
+        if cfg.compute_dtype == "bfloat16" and (
+                cfg.news_encoder == "CNN" or what in ("topic nodes", "MSA words")):
+            bf16 += 2 * per_step
+        else:
+            fp32 += 2 * per_step
+    return fp32, bf16
 
 
 def time_ms(torch, fn, warmup: int = 3, iters: int = 10) -> float:
@@ -771,8 +816,9 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
 
 def counters():
     """The launch counter of every kernel wrapper, by kernels-line name:
-    (wrapper, attribute). The bf16 instances of A, A' and B count on their
-    wrappers' `launches_bf16`."""
+    (wrapper, attribute). The bf16 instances of A, A', B (bf16 weights), C's
+    forward, the pair and A'' count on their wrappers' `launches_bf16`, B's
+    bf16-activation instance on `launches_bf16_act`."""
     from digat_tpu_torch.ops import (dropout, emb_grad, gat_layer, gat_scores, msa_attention,
                                      msa_encoder)
 
@@ -789,7 +835,13 @@ def counters():
             "msa_encoder_pooled_bf16": (msa_encoder.msa_encoder_pooled, "launches_bf16"),
             "msa_encoder_bwd_bf16": (msa_encoder.msa_encoder_bwd, "launches_bf16"),
             "interactive_gat_layer_fused_bf16": (gat_layer.interactive_gat_layer_fused,
-                                                 "launches_bf16")}
+                                                 "launches_bf16"),
+            "interactive_gat_layer_fused_bf16_act": (gat_layer.interactive_gat_layer_fused,
+                                                     "launches_bf16_act"),
+            "gat_scores_fwd_bf16": (gat_scores.gat_scores_fwd, "launches_bf16"),
+            "msa_attention_fwd_bf16": (msa_attention.attention_fwd, "launches_bf16"),
+            "msa_attention_bwd_bf16": (msa_attention.attention_bwd, "launches_bf16"),
+            "dropout_bf16": (dropout.dropout, "launches_bf16")}
 
 
 def reset_counters():
@@ -835,10 +887,12 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures, label="training
     checked = Counter()
     for _, rows, cols, rate, per_step in mask_sites(cfg):
         checked[(rows, cols, rate)] += per_step * steps
+    fp32_drops, bf16_drops = site_launches(cfg)
     want = {"msa_encoder_pooled" + b16: steps + over + dev_chunks,
             "msa_encoder_bwd" + b16: steps + over,
             "embedding_grad": steps + over, "gat_scores_fwd": 2 * depth * steps,
-            "gat_scores_bwd": 2 * depth * steps, "dropout": 2 * sites * steps, "keep_mask": 0,
+            "gat_scores_bwd": 2 * depth * steps, "dropout": fp32_drops * steps,
+            "dropout_bf16": bf16_drops * steps, "keep_mask": 0,
             "interactive_gat_layer_fused" + b16: 2 * depth * dev_batches}
     # the other instance of A, A' and B launched no time
     want.update({k.replace(b16, "") if b16 else k + "_bf16": 0
@@ -856,7 +910,8 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures, label="training
     say(f"  launches per step: A {per_step[a_key]:g}, "
         f"A' {per_step['msa_encoder_bwd' + b16]:g}, C-fwd {per_step['gat_scores_fwd']:g}, "
         f"C-bwd {per_step['gat_scores_bwd']:g}, D {per_step['embedding_grad']:g}, "
-        f"A'' {per_step['dropout']:g} (forward and backward at {sites} graph dropout sites); "
+        f"A'' {per_step['dropout']:g} + bf16 {per_step['dropout_bf16']:g} (forward and backward "
+        f"at {sites} graph dropout sites); "
         f"dev scoring: "
         f"A {dev_chunks}, B {launches['interactive_gat_layer_fused' + b16]}"
         + (" (the bf16 instances)" if b16 else ""))
@@ -872,11 +927,220 @@ def training_slice(torch, cfg, model, corpus, run_dir, failures, label="training
     return rec, warm, launches
 
 
-def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False, label: str = ""):
-    """Phase 9 (MSA-DIGAT, dedup batches), phase 13 (NRMS-SA, plain batches)
-    and phase 18 (each variant, `label`): three steps at B 8, full width,
-    dropout on, from the same weights, batches and seeds on the card and on
-    the CPU plain path."""
+def grad_rel(torch, name, got, want, b16: bool, act_bf16: bool) -> float:
+    """A step-1 gradient's error on the card, max |got - want| / max |want|
+    (a zeroed or lost gradient reads 1). At bf16, where all but the word
+    table's gradient are bf16-rounded values, an element within one bf16
+    ulp of the CPU's passes whatever its size, and for a parameter that a
+    forward uses more than once (the news and user contexts' weights, at
+    every depth) within one bf16 ulp of its tensor's largest |want|: its
+    uses' bf16 gradients are summed in bf16, as JAX sums them, and where
+    they cancel a partial sum that rounds the other way moves an element by
+    an ulp of the partial. Where the activations are bf16 (`act_bf16`)
+    every gradient sums bf16 terms that the card's products may round to
+    the neighbouring value (fp32 sums of another order): each tensor takes
+    that rule."""
+    d = (got - want).abs()
+    if b16:
+        ulp = bf16_ulp(torch, want.abs().max() if act_bf16 or name.startswith(MULTI_USE)
+                       else want)
+        d = torch.where(d <= ulp, torch.zeros_like(d), d)
+    return float(d.max()) / max(float(want.abs().max()), 1e-12)
+
+
+class KinkReplay:
+    """The kinks in a card-against-CPU training check. Where the input of a
+    ReLU lies within rounding of 0, the card and the CPU, whose inputs come
+    from sums of other orders (and, at bf16 activations, may round to
+    neighbouring bf16 values), can take opposite sides: a step-1 gradient
+    then moves by a whole term, rounding and not a fault. The kinks are the
+    Eq. (8) sums of C's backward (t = k1 + k2 + k3, a whole a g term each),
+    the leaky ReLU of the GAT scores and the model's ReLUs (the CNN bank,
+    MSA titles past 128, the topic nodes' feature affine, each GAT layer's
+    output). `record` (around the card's run) keeps, call by call, the side
+    each input takes on the card by the port's own rule (`relu_mask` on the
+    card's k1, k2, k3 for C; t > 0, or t >= 0 for a bf16 leaky ReLU, for
+    the rest); `replay` (around the CPU's run) makes the CPU take those
+    sides, in the same order, and counts by kind the terms where its own
+    input lies on the other side (`flips` of `terms`). The values still
+    come from each side's own inputs, so everything but the side taken at
+    a kink shows in the comparison; C's own mask is held to the plain rule
+    by the kernel checks and the card tests."""
+
+    KINDS = ("C", "relu", "leaky_relu")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.masks = {k: [] for k in self.KINDS}
+        self.flips, self.terms = Counter(), Counter()
+
+    @staticmethod
+    def _leaky_side(torch, t):
+        return t >= 0 if t.dtype == torch.bfloat16 else t > 0
+
+    def _patches(self, relu, leaky_relu, bwd_any=None):
+        from digat_tpu_torch import layers
+        from digat_tpu_torch.models import graph_encoders, news_encoders
+
+        proxy = _TorchWith(self.torch, relu=relu)
+        patches = [_Patched(m, torch=proxy) for m in (layers, news_encoders, graph_encoders)]
+        patches.append(_Patched(graph_encoders, leaky_relu=leaky_relu))
+        if bwd_any is not None:
+            from digat_tpu_torch.ops import gat_scores as GS
+
+            # the wrapper of every dtype's backward, so that the kernel's
+            # own wrapper (and its launch counter) stays as it is
+            patches.append(_Patched(GS, gat_scores_bwd_any=bwd_any))
+        return _Stack(patches)
+
+    def record(self):
+        from digat_tpu_torch import layers
+        from digat_tpu_torch.ops import gat, gat_scores as GS
+
+        torch, masks = self.torch, self.masks
+        bwd = GS.gat_scores_bwd_any
+
+        def relu(t):
+            masks["relu"].append((t > 0).cpu())
+            return torch.relu(t)
+
+        def leaky_relu(t, negative_slope=0.2):
+            masks["leaky_relu"].append(self._leaky_side(torch, t).cpu())
+            return layers.leaky_relu(t, negative_slope)
+
+        def bwd_any(k1, k2, k3, a_vec, g):
+            B, G, D = k1.shape
+            step = max(1, gat._MAX_ELEMENTS // (G * G * D))
+            parts = []
+            for s in range(0, B, step):
+                c1, c2, c3 = (k[s:s + step].float() for k in (k1, k2, k3))
+                t = c1[:, None, :, :] + (c2[:, :, None, :] + c3[:, None, None, :])
+                parts.append(GS.relu_mask(c1, c2, c3, t).cpu())
+            masks["C"].append(torch.cat(parts))
+            return bwd(k1, k2, k3, a_vec, g)
+
+        return self._patches(relu, leaky_relu, bwd_any)
+
+    def _next(self, kind, own):
+        """The card's side for the CPU's next call of this kind, its flips
+        against the CPU's own side `own` counted."""
+        if not self.pending[kind]:
+            raise RuntimeError(f"kink replay: the CPU ran more {kind} calls than the card")
+        m = self.pending[kind].pop(0)
+        if m.shape != own.shape:
+            raise RuntimeError(f"kink replay: the CPU's {kind} calls are not the card's")
+        self.flips[kind] += int((m != own).sum())
+        self.terms[kind] += m.numel()
+        return m
+
+    def replay(self):
+        from digat_tpu_torch import layers
+        from digat_tpu_torch.ops import gat_scores as GS
+
+        torch = self.torch
+        self.pending = {k: list(v) for k, v in self.masks.items()}
+        bwd_plain, own_mask, state = GS.interactive_gat_scores_bwd_plain, GS.relu_mask, {}
+
+        def relu(t):
+            m = self._next("relu", t > 0)
+            return torch.where(m, t, torch.zeros((), dtype=t.dtype))
+
+        def leaky_relu(t, negative_slope=0.2):
+            m = self._next("leaky_relu", self._leaky_side(torch, t))
+            return torch.where(m, t, t * layers._weak(negative_slope, t))
+
+        def replaying_bwd(k1, *rest):
+            if not self.pending["C"]:
+                raise RuntimeError("kink replay: the CPU ran more C calls than the card")
+            state.update(mask=self.pending["C"].pop(0), at=0)
+            if state["mask"].shape[0] != k1.shape[0]:
+                raise RuntimeError("kink replay: the CPU's C calls are not the card's")
+            return bwd_plain(k1, *rest)
+
+        def replayed_mask(k1, k2, k3, t):
+            own = own_mask(k1, k2, k3, t)
+            m = state["mask"][state["at"]:state["at"] + k1.shape[0]]
+            if m.shape != own.shape:
+                raise RuntimeError("kink replay: the CPU's C calls are not the card's")
+            state["at"] += k1.shape[0]
+            self.flips["C"] += int((m != own).sum())
+            self.terms["C"] += m.numel()
+            return m
+
+        stack = self._patches(relu, leaky_relu)
+        stack.patches.append(_Patched(GS, interactive_gat_scores_bwd_plain=replaying_bwd,
+                                      relu_mask=replayed_mask))
+        return stack
+
+    def summary(self) -> str:
+        return "; ".join(f"{k} {self.flips[k]} of {self.terms[k]}" for k in self.KINDS)
+
+
+class _TorchWith:
+    """The torch module with some of its functions replaced."""
+
+    def __init__(self, torch, **over):
+        self._torch, self._over = torch, over
+
+    def __getattr__(self, name):
+        return self._over[name] if name in self._over else getattr(self._torch, name)
+
+
+class _Stack:
+    """Several `_Patched` as one context."""
+
+    def __init__(self, patches):
+        self.patches = patches
+
+    def __enter__(self):
+        for p in self.patches:
+            p.__enter__()
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.__exit__(*exc)
+
+
+class _Patched:
+    """Sets a module's attributes for the span of a `with` and restores
+    them."""
+
+    def __init__(self, module, **attrs):
+        self.module, self.attrs, self.saved = module, attrs, {}
+
+    def __enter__(self):
+        for k, v in self.attrs.items():
+            self.saved[k] = getattr(self.module, k)
+            setattr(self.module, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.module, k, v)
+
+
+def k3_left_out():
+    """The control of phase 21's training gate: C's backward on the card
+    with k3 left out of its sums t (as a graph-encoder backward that drops
+    a term would be); the gate must fail it."""
+    from digat_tpu_torch.ops import gat_scores as GS
+
+    bwd = GS.gat_scores_bwd_any
+    return _Patched(GS, gat_scores_bwd_any=lambda k1, k2, k3, a, g: bwd(k1, k2, k3 * 0, a, g))
+
+
+def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False, label: str = "",
+                    word_embedding=None, act_bf16: bool = False, steps: int = 3):
+    """Phase 9 (MSA-DIGAT, dedup batches), phase 13 (NRMS-SA, plain batches),
+    phase 18 (each variant, `label`; two steps) and phases 20-21 (bf16):
+    `steps` steps at B 8, full width, dropout on, from the same weights
+    (`word_embedding` the word table where given), batches and seeds on the
+    card and on the CPU
+    plain path; for DIGAT the CPU takes the card's side at each ReLU kink of
+    Eq. (8) (`KinkReplay`; the kinks are counted). `act_bf16`: the model's
+    activations are bf16 (phase 21), so every tensor takes the
+    one-bf16-ulp-of-its-largest-element rule that the contexts' weights take
+    at bf16; for DIGAT the card runs once more with k3 left out of C's
+    backward (`k3_left_out`), a control that the same gate must fail."""
     from digat_tpu_torch.data import batching, sampling
     from digat_tpu_torch.models.model import CorpusTables, Model
     from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
@@ -892,15 +1156,16 @@ def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False, label
     batches = list(batching.train_batches(
         split.history_idx, split.cat_idx, corpus.train_behavior_row, corpus.train_pos, neg, B,
         epoch_seed=SEED + 1, news_node_id=None if nrms else corpus.news_node_id,
-        dedup_titles=cap))[:3]
-    out = []
-    for device in (dev, torch.device("cpu")):
+        dedup_titles=cap))[:steps]
+
+    def run(device):
         generator = torch.Generator().manual_seed(SEED + 7)
         if nrms:
             model = NRMSModel(cfg, device=device, generator=generator)
             tables = NRMSTables.from_arrays(corpus.nrms_tables(), device)
         else:
-            model = Model(cfg, device=device, generator=generator)
+            model = Model(cfg, device=device, generator=generator,
+                          word_embedding=word_embedding)
             tables = CorpusTables.from_arrays(corpus.tables(), device)
         opt = Adam(model.named_parameters(), cfg.weight_decay, cfg.gradient_clip_norm)
         losses, grads = [], None
@@ -909,44 +1174,76 @@ def training_parity(torch, cfg, corpus, dev, failures, nrms: bool = False, label
                                            step_seed(SEED, 1, k), cfg.lr)))
             if k == 0:
                 grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
-        out.append((losses, grads))
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
-    # each tensor's error over its own largest |cpu| gradient (a zeroed or
-    # lost gradient reads 1); at bf16, where all but the word table's
-    # gradient are bf16-rounded values, an element within one bf16 ulp of
-    # the cpu's passes whatever its size, and for a parameter that a
-    # forward uses more than once (the news and user contexts' weights, at
-    # every depth) within one bf16 ulp of its tensor's largest |cpu|: its
-    # uses' bf16 gradients are summed in bf16, as JAX sums them, and where
-    # they cancel a partial sum that rounds the other way moves an element
-    # by an ulp of the partial
+        return losses, grads
+
+    kinks = KinkReplay(torch)
+    control, secs = None, {}
+
+    def timed(what, device):
+        t0 = time.perf_counter()
+        out = run(device)
+        secs[what] = time.perf_counter() - t0
+        return out
+
+    if nrms:
+        l_gpu, g_gpu = timed("card", dev)
+        l_cpu, g_cpu = timed("cpu", torch.device("cpu"))
+    else:
+        with kinks.record():
+            l_gpu, g_gpu = timed("card", dev)
+        if act_bf16:
+            with k3_left_out():
+                control = timed("control", dev)
+        with kinks.replay():
+            l_cpu, g_cpu = timed("cpu", torch.device("cpu"))
     b16 = cfg.compute_dtype == "bfloat16"
+    rel = lambda g_a, n, g: grad_rel(torch, n, g_a[n], g, b16, act_bf16)
+    # the DIGAT graph encoder on bf16 activations (phase 21): the losses
+    # within one bf16 ulp of their scale, the gradients within
+    # BF16_ACT_GRAD_RTOL; elsewhere TRAIN_RTOL
+    bf16_graph = act_bf16 and not nrms
+    loss_limit = BF16_SLICE_RTOL if bf16_graph else TRAIN_RTOL
+    grad_limit = BF16_ACT_GRAD_RTOL if bf16_graph else TRAIN_RTOL
 
-    def diff(n, g):
-        d = (g_gpu[n] - g).abs()
-        if not b16:
-            return d
-        ulp = bf16_ulp(torch, g.abs().max() if n.startswith(MULTI_USE) else g)
-        return torch.where(d <= ulp, torch.zeros_like(d), d)
+    def loss_err(la):
+        return max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(la, l_cpu))
 
-    rows = sorted(((float(diff(n, g).max()) / max(float(g.abs().max()), 1e-12),
-                    float((g_gpu[n] - g).abs().max()), float(g.abs().max()), n)
+    def worst(g_a):
+        return max(rel(g_a, n, g) for n, g in g_cpu.items()) / grad_limit
+
+    def norm_rel(g_a):
+        return max(float((g_a[n] - g).norm()) / max(float(g.norm()), 1e-30)
+                   for n, g in g_cpu.items())
+
+    rows = sorted(((rel(g_gpu, n, g), float((g_gpu[n] - g).abs().max()), float(g.abs().max()), n)
                    for n, g in g_cpu.items()), reverse=True)
-    worst = rows[0][0]
-    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(l_gpu, l_cpu))
+    err = loss_err(l_gpu)
+    name = label or ('NRMS-SA' if nrms else 'MSA-DIGAT')
     say(f"  {label + ': ' if label else ''}losses card {[round(v, 7) for v in l_gpu]} "
         f"cpu {[round(v, 7) for v in l_cpu]}; "
-        f"max loss err {loss_err:.3e} (limit {TRAIN_RTOL:g} * max(1, |cpu|)); step-1 "
+        f"max loss err {err:.3e} (limit {loss_limit:g} * max(1, |cpu|)); step-1 "
         f"gradients of {len(g_cpu)} tensors, max |card - cpu| "
-        + ("beyond one bf16 ulp of the element (of the tensor's max for the contexts' "
-           "weights) " if b16 else "")
-        + f"/ max |cpu| per tensor: worst {worst:.3e}, limit {TRAIN_RTOL:g}; smallest max |cpu| "
-        f"{min(r[2] for r in rows):.3e} ({min(rows, key=lambda r: r[2])[3]})")
-    for rel, err, top, n in rows[:6]:
-        say(f"    {n}: max |cpu| {top:.3e} max |card - cpu| {err:.3e} ratio {rel:.3e}")
-    if not (loss_err <= TRAIN_RTOL and worst <= TRAIN_RTOL and np.isfinite(l_gpu).all()):
-        failures.append(f"{label or ('NRMS-SA' if nrms else 'MSA-DIGAT')} training parity card "
-                        f"vs cpu")
+        + (("beyond one bf16 ulp of the tensor's max " if act_bf16 else
+            "beyond one bf16 ulp of the element (of the tensor's max for the contexts' "
+            "weights) ") if b16 else "")
+        + f"/ max |cpu| per tensor: worst {rows[0][0]:.3e} (limit {grad_limit:g}); smallest "
+        f"max |cpu| {min(r[2] for r in rows):.3e} ({min(rows, key=lambda r: r[2])[3]}); "
+        f"largest |card - cpu| / |cpu| in norm {norm_rel(g_gpu):.3e}"
+        + ("" if nrms else f"; kinks where the CPU took the card's side against its own: "
+           f"{kinks.summary()}")
+        + "; seconds " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    for err_rel, e, top, n in rows[:4]:
+        say(f"    {n}: max |cpu| {top:.3e} max |card - cpu| {e:.3e} relative {err_rel:.3e}")
+    if not (err <= loss_limit and rows[0][0] <= grad_limit and np.isfinite(l_gpu).all()):
+        failures.append(f"{name} training parity card vs cpu")
+    if control is not None:
+        c_err, c_worst = loss_err(control[0]), worst(control[1])
+        caught = c_err > loss_limit or c_worst > 1.0
+        say(f"    control, k3 left out of C's backward on the card: max loss err {c_err:.3e}, "
+            f"worst gradient {c_worst * grad_limit:.3e}, in norm {norm_rel(control[1]):.3e}: "
+            + ("fails the gate, as it must" if caught else "PASSES the gate"))
+        if not caught:
+            failures.append(f"{name} training parity: the control passed the gate")
 
 
 # Kernels A and A' at titles shorter than 32 (the lanes past L idle): the
@@ -1615,7 +1912,12 @@ VARIANTS = [("wo_SA", dict(graph_encoder="wo_SA")), ("Seq_SA", dict(graph_encode
             ("user_graph_wo_inter", dict(graph_encoder="user_graph_wo_inter")),
             ("CNN-DIGAT", dict(news_encoder="CNN", cnn_kernel_num=400, cnn_method="naive",
                                cnn_window_size=3))]
-VARIANT_STEPS = 8  # the median untraced step at B 64 is taken over steps 3-8
+VARIANT_STEPS = 5  # the median untraced step at B 64 is taken over steps 3-5
+# Phase 21 runs its DIGAT models at graph depth 2 (production 3), and phase
+# 18 its card-against-CPU checks (serving and the B-8 steps; its B-64 steps
+# stay at 3): the depth loop's later layers and contexts still run, and the
+# CPU sides of those checks, which set the smoke's time, shrink by a third.
+CUT_DEPTH = 2
 
 
 def interactive_layers(cfg) -> int:
@@ -1630,9 +1932,10 @@ def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
     """Phase 18 for one variant: serving over 1,024 news and 64 impressions of
     8 on the card with the counters reset (stage 1 A once per chunk for MSA,
     none for CNN; stage 2 B once per interactive layer and batch) and
-    against the CPU plain path (phase 6's gates); three B-8 training steps
-    card against CPU (phase 9's gates); then VARIANT_STEPS untraced steps at
-    B 64 with dedup and dropout, the counters reset: per step A and A' once
+    against the CPU plain path (phase 6's gates); two B-8 training steps
+    card against CPU (phase 9's gates); both at CUT_DEPTH; then
+    VARIANT_STEPS untraced steps at B 64 (production depth) with dedup and
+    dropout, the counters reset: per step A and A' once
     (MSA), C forward and backward once per interactive layer, D once, A''
     twice per dropout site (whose shapes must be `mask_sites`'s), no B and
     no keep mask; -> launches by path, timings."""
@@ -1646,11 +1949,12 @@ def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
 
     msa = cfg.news_encoder == "MSA"
     result = {}
+    cut = replace(cfg, graph_depth=CUT_DEPTH)  # the card-against-CPU checks
     # serving: main path on the card, then card against the CPU
     news_num, bs = 1024, 256
     small = head_tables(torch, tables, news_num)
     imps = make_impressions(cfg, news_num, 64, 8, SEED + 12)
-    models = {d: Model(cfg, device=d, generator=torch.Generator().manual_seed(SEED + 13))
+    models = {d: Model(cut, device=d, generator=torch.Generator().manual_seed(SEED + 13))
               for d in (dev, "cpu")}
     scores = {}
     for d, m in models.items():
@@ -1662,7 +1966,7 @@ def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
             serve = read_counters()
             batches = scorer.timings["stage2_batches"]
             want_a = -(-news_num // bs) if msa else 0
-            want_b = interactive_layers(cfg) * batches
+            want_b = interactive_layers(cut) * batches
             result["serving"] = {k: serve[k] for k in ("msa_encoder_pooled",
                                                        "interactive_gat_layer_fused")}
             if serve["msa_encoder_pooled"] != want_a or \
@@ -1687,7 +1991,7 @@ def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
     # three B-8 steps, card against the CPU
     corpus = make_train_corpus(cfg, tables, (VARIANT_STEPS + 2) * cfg.batch_size, 2000, 32,
                                SEED + 14)
-    training_parity(torch, cfg, corpus, dev, failures, label=name)
+    training_parity(torch, cut, corpus, dev, failures, label=name, steps=2)
     # untraced steps at B 64, dedup and dropout on
     model = Model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED + 15))
     neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets,
@@ -2002,6 +2306,429 @@ def bf16_phase(torch, cfg, tables, hist, cat, imp_index, cand, cap, dev, failure
     return entries, launches, step_ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: compute_dtype bfloat16 for NRMS-SA, NRMS, CNN-DIGAT and MSA at
+# titles of L 160 (the bf16 instances of the attention pair, A'', B with bf16
+# activations and C's forward). Bytes as each array's dtype gives them; the
+# bf16 instances do their arithmetic in fp32 (the pair, A'', C) but for B's
+# bf16 x bf16 projections, counted at the dense bf16 rate.
+# ---------------------------------------------------------------------------
+BF16_STEPS = 5  # untraced steps at B 64 per model; the median over steps 3-5
+# Serving, card against CPU, where the representations are rounded to bf16
+# (every phase-21 model): a score sums bf16 elements that the card's
+# products may round to the neighbouring value, so one bf16 ulp of the
+# score scale, 2^-8 * max(1, max |cpu score|), and the ranks must agree
+# except between scores closer than twice that.
+BF16_SLICE_RTOL = 2.0 ** -8
+# Training, card against CPU, where the DIGAT graph encoder runs on bf16
+# activations (phase 21's CNN-DIGAT and MSA at L 160), each side taking the
+# card's side at every kink (`KinkReplay`): the losses within one bf16 ulp
+# of their scale (BF16_SLICE_RTOL), each step-1 gradient beyond one bf16
+# ulp of its tensor's largest element within BF16_ACT_GRAD_RTOL of it. Set
+# from sound runs (scripts/variant_gradient_precision.py --bf16) and a
+# control that must fail it (`k3_left_out`); PERF.md section 6 has both.
+BF16_ACT_GRAD_RTOL = 2.0 ** -4
+# CNN-DIGAT at bf16 draws a GloVe-scale word table (N(0, 0.3^2), the scale of
+# the port's pseudo-GloVe rows, `data.tokenize._hash_vector`): with the
+# N(0, 1) table of the bare init its random logits reach 1,500 (one bf16 ulp
+# 8), the listwise softmax is decided by rounding, and card and CPU, each
+# rounding sums of another order, pick different near-tied candidates.
+GLOVE_SCALE = 0.3
+
+
+def glove_table(cfg, seed: int):
+    """A seeded [V, word dim] table at GLOVE_SCALE."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((cfg.vocabulary_size, cfg.word_embedding_dim))
+            * GLOVE_SCALE).astype(np.float32)
+
+
+def bf16_pair_kernels(torch, ncfg, dev):
+    """The pair's bf16 instance, forward and backward, against its plain
+    version (which upcasts, computes in fp32 and rounds once) at the NRMS
+    title shapes (a training step's 6,720 titles, a serving chunk), the
+    user tower's serving batch, titles of L 160 at 16 x 25 heads and the
+    wide instance at dk 80 and 128, each masked with an all-masked sequence;
+    SDPA on the same bf16 inputs as `library_ms`."""
+    import torch.nn.functional as F
+
+    from digat_tpu_torch.ops import msa_attention as MA
+
+    B, bs = ncfg.batch_size, ncfg.effective_eval_batch_size()
+    n_titles = B * (1 + ncfg.negative_sample_num) * (1 + ncfg.augmented_news_num) \
+        + B * ncfg.max_history_num
+    heads, dk, L_t, L_u = ncfg.nrms_head_num, ncfg.nrms_head_dim, ncfg.max_title_length, \
+        ncfg.max_history_num
+    shapes = [("titles, training step", n_titles, L_t, heads, dk),
+              ("titles, serving chunk", bs, L_t, heads, dk),
+              ("user, serving batch", bs, L_u, heads, dk),
+              ("MSA titles L 160", 256, 160, 16, 25),
+              ("wide heads dk 80", 512, 64, 4, 80),
+              ("wide heads dk 128", 2048, 32, 4, 128)]
+    by_shape = {}
+    for what, N, L, H, d in shapes:
+        name = f"{what} [{N},{L},{H}x{d}]"
+        try:
+            g = torch.Generator(device=dev).manual_seed(SEED + 50 + N + L)
+            rs = H * d
+            q, k, v, do = (torch.randn((N, L, rs), generator=g, device=dev).to(torch.bfloat16)
+                           for _ in range(4))
+            mask = torch.rand((N, L), generator=g, device=dev) < 0.8
+            mask[:, 0] = True
+            mask[0] = False
+            bias = torch.zeros((N, 1, 1, L), device=dev, dtype=torch.bfloat16).masked_fill(
+                ~mask[:, None, None, :], -1e9)
+            view = lambda t: t.view(N, L, H, d).transpose(1, 2)
+            sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+                view(a), view(b), view(c), attn_mask=bias, scale=1.0 / math.sqrt(d))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            entry = {}
+            for backward in (False, True):
+                flops, nbytes = attention_work(N, L, H, d, rs, backward)
+                nbytes = (nbytes - N * L) // 2 + N * L  # the rows bf16, the mask bytes
+                if backward:
+                    e = check_kernel(
+                        torch, f"msa_attention bf16 bwd {name}",
+                        lambda *a: MA.attention_bwd(*a, H, d),
+                        lambda *a: MA.attention_bwd_plain(*a, H, d), (q, k, v, mask, do),
+                        flops, nbytes,
+                        library=lambda *a: torch.autograd.grad(sdpa(*leaves), leaves, view(do)))
+                else:
+                    e = check_kernel(
+                        torch, f"msa_attention bf16 fwd {name}",
+                        lambda *a: MA.attention_fwd(*a, H, d),
+                        lambda a, b, c, m: MA.attention_plain_strided(a, b, c, H, d, m),
+                        (q, k, v, mask), flops, nbytes, library=lambda a, b, c, m: sdpa(a, b, c))
+                entry["bwd" if backward else "fwd"] = e
+            again = torch.equal(MA.attention_fwd(q, k, v, mask, H, d),
+                                MA.attention_fwd(q, k, v, mask, H, d))
+            say(f"    same forward bits twice: {again}")
+            by_shape[name] = dict(entry, ok=entry["fwd"]["ok"] and entry["bwd"]["ok"] and again)
+        except Exception:
+            traceback.print_exc()
+            by_shape[name] = dict(ok=False)
+    main = by_shape.get(f"titles, training step [{n_titles},{L_t},{heads}x{dk}]", {})
+    pair = lambda key: main["fwd"][key] + main["bwd"][key] if main.get("ok") else None
+    return dict(ok=all(v.get("ok") for v in by_shape.values()),
+                max_abs_err=max((max(v["fwd"]["max_abs_err"], v["bwd"]["max_abs_err"])
+                                 for v in by_shape.values() if v.get("ok")), default=math.inf),
+                ms=pair("ms"), plain_ms=pair("plain_ms"), bound_ms=pair("bound_ms"),
+                bound_by=main["fwd"]["bound_by"] if main.get("ok") else None,
+                library_ms=main["bwd"]["library_ms"] if main.get("ok") else None,
+                by_shape=by_shape)
+
+
+def bf16_dropout_kernels(torch, ncfg, cap: int, dev):
+    """A''s bf16 instance, forward and forward + backward, bit for bit against
+    its plain version (x / bf16(keep), rounded once) at the NRMS title
+    tower's word site (a training step's 6,720 titles of L 32 x 300) and the
+    CNN's two sites over `cap` unique titles (words 300 wide, the bank's
+    output 400); `F.dropout` on the same bf16 tensor as `library_ms`."""
+    import torch.nn.functional as F
+
+    from digat_tpu_torch.ops import dropout as DR
+
+    B, L, p = ncfg.batch_size, ncfg.max_title_length, ncfg.dropout_rate
+    n_titles = B * (1 + ncfg.negative_sample_num) * (1 + ncfg.augmented_news_num) \
+        + B * ncfg.max_history_num
+    sites = [("NRMS words", n_titles * L, ncfg.word_embedding_dim),
+             ("CNN words", cap * L, ncfg.word_embedding_dim), ("CNN bank", cap * L, 400)]
+    by_shape = {}
+    for what, rows, cols in sites:
+        try:
+            g = torch.Generator(device=dev).manual_seed(SEED + rows)
+            x = torch.randn((rows, cols), generator=g, device=dev).to(torch.bfloat16)
+            gout = torch.randn((rows, cols), generator=g, device=dev).to(torch.bfloat16)
+            flops, nbytes = dropout_work(rows, cols)
+            e = check_kernel(torch, f"dropout bf16 {what} [{rows},{cols}] rate {p:g}",
+                             lambda t: DR.dropout(t, p, 77, 5),
+                             lambda t: DR.dropout_plain(t, p, 77, 5), (x,), flops, nbytes // 2,
+                             exact=True, library=lambda t: F.dropout(t, p))
+            leaf, ref = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+            DR.dropout(leaf, p, 77, 5).backward(gout)
+            DR.dropout_plain(ref, p, 77, 5).backward(gout)
+            same = torch.equal(leaf.grad, ref.grad)
+            say(f"    backward the plain version's bits: {same}")
+            by_shape[f"{what} [{rows},{cols}]"] = dict(e, ok=e["ok"] and same)
+        except Exception:
+            traceback.print_exc()
+            by_shape[f"{what} [{rows},{cols}]"] = dict(ok=False)
+    main = next(iter(by_shape.values()))
+    return dict(main, ok=all(v.get("ok") for v in by_shape.values()), by_shape=by_shape)
+
+
+def bf16_graph_kernels(torch, cfg, dev):
+    """B with bf16 activations (x, query, weights and out bf16) at B 1,024, G
+    68 and 26, and C's bf16 forward at B 320, G 68 and 26 (k1 and k2 column
+    blocks of a bf16 y), against their plain versions (fp32 arithmetic from
+    the bf16 values, one rounding); -> (B's entry, C's entry)."""
+    from digat_tpu_torch.ops import gat_layer as GL
+    from digat_tpu_torch.ops import gat_scores as GS
+
+    D, bs = cfg.news_embedding_dim, cfg.effective_eval_batch_size()
+    gat, scores = {}, {}
+    for G in (cfg.user_graph_size, cfg.news_graph_size):
+        try:
+            g = torch.Generator(device=dev).manual_seed(SEED + 60 + G)
+            r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=dev) * sc).to(
+                torch.bfloat16)
+            adj = (torch.rand((bs, G, G), generator=g, device=dev) < 0.25) \
+                | torch.eye(G, dtype=torch.bool, device=dev)
+            adj[0, 1] = False
+            sc = D ** -0.5
+            args = (r(bs, G, D, sc=0.5), adj, r(bs, D, sc=0.5), r(D, D, sc=sc), r(D, sc=0.05),
+                    r(D, D, sc=sc), r(D, D, sc=sc), r(D, D, sc=sc), r(D, sc=0.05), r(D, sc=sc))
+            flops, nbytes = gat_work(bs, G, D)
+            # x, query, out and the four weights bf16; the vectors read as bf16
+            nbytes = 2 * bs * G * D + bs * G * G + 2 * bs * D + 2 * (4 * D * D + 3 * D) \
+                + 2 * bs * G * D
+            e = check_kernel(torch, f"interactive_gat_layer_fused bf16 activations B={bs} G={G} "
+                             f"D={D}", GL.interactive_gat_layer_fused,
+                             GL.interactive_gat_layer_plain, args, flops, nbytes,
+                             bound_ms=bf16_bound(flops, gat_products(bs, G, D), nbytes))
+            again = torch.equal(GL.interactive_gat_layer_fused(*args),
+                                GL.interactive_gat_layer_fused(*args))
+            say(f"    same bits twice: {again}")
+            gat[f"G{G} D{D}"] = dict(e, ok=e["ok"] and again)
+        except Exception:
+            traceback.print_exc()
+            gat[f"G{G} D{D}"] = dict(ok=False)
+        try:
+            B = cfg.batch_size * (1 + cfg.negative_sample_num)
+            g = torch.Generator(device=dev).manual_seed(SEED + 70 + G)
+            y = (torch.randn((B, G, 3 * D), generator=g, device=dev) * 0.3).to(torch.bfloat16)
+            k3 = (torch.randn((B, D), generator=g, device=dev) * 0.3).to(torch.bfloat16)
+            a = (torch.randn(D, generator=g, device=dev) * D ** -0.5).to(torch.bfloat16)
+            k1, k2 = y[..., D:2 * D], y[..., 2 * D:]
+            flops, nbytes = scores_work(B, G, D, False)
+            e = check_kernel(torch, f"gat_scores_fwd bf16 B={B} G={G} D={D}", GS.gat_scores_fwd,
+                             GS.gat_scores_fwd_plain, (k1, k2, k3, a), flops, nbytes // 2)
+            scores[f"B{B} G{G}"] = e
+        except Exception:
+            traceback.print_exc()
+            scores[f"B{B} G{G}"] = dict(ok=False)
+    pick = lambda d: dict(next(iter(d.values())), ok=all(v.get("ok") for v in d.values()),
+                          by_shape=d)
+    return pick(gat), pick(scores)
+
+
+def bf16_model_configs(cfg):
+    """The four models of phase 21 at full width: (name, config). The DIGAT
+    ones at CUT_DEPTH; MSA at L 160 also with a SAG of 3 neighbours over 2
+    hops (10 nodes, production 26), which takes its B-8 batches from about
+    1,440 unique titles of 160 positions to 800 for the CPU side."""
+    ncfg = replace(cfg, model_family="nrms", compute_dtype="bfloat16")
+    dcfg = replace(cfg, compute_dtype="bfloat16", graph_depth=CUT_DEPTH)
+    return [("NRMS-SA", ncfg), ("NRMS", replace(ncfg, nrms_model="NRMS")),
+            ("CNN-DIGAT", replace(dcfg, news_encoder="CNN", cnn_kernel_num=400,
+                                  cnn_method="naive", cnn_window_size=3)),
+            ("MSA L160", replace(dcfg, max_title_length=160, SAG_neighbors=3))]
+
+
+def bf16_serving_want(name, cfg, news_num, bs, batches) -> dict:
+    """Launches of one scorer pass at bf16: only the bf16 instances where the
+    JAX package runs bf16 (the title tower, the CNN graph's B), the fp32
+    pair for the NRMS user tower, B's bf16-weight instance behind the MSA
+    encoder (fp32 activations)."""
+    chunks = -(-news_num // bs)
+    zero = {k: 0 for k in counters()}
+    if cfg.model_family == "nrms":
+        return dict(zero, msa_attention_fwd_bf16=chunks, msa_attention_fwd=batches)
+    layers = interactive_layers(cfg) * batches
+    if cfg.news_encoder == "CNN":
+        return dict(zero, interactive_gat_layer_fused_bf16_act=layers)
+    return dict(zero, msa_attention_fwd_bf16=chunks, interactive_gat_layer_fused_bf16=layers)
+
+
+def bf16_step_want(cfg, cap) -> dict:
+    """Launches per training step at bf16 (dropout on): the NRMS family's
+    title-tower calls (3 for NRMS-SA, 2 for NRMS) on the bf16 pair and the
+    user tower on the fp32 one, its word dropouts bf16 and the rest fp32;
+    DIGAT's C forward (bf16 behind the CNN) and backward per interactive
+    layer, D once, the pair once behind MSA at L 160, A'' per site in its
+    dtype (`site_launches`)."""
+    zero = {k: 0 for k in counters()}
+    if cfg.model_family == "nrms":
+        calls = 3 if cfg.nrms_model == "NRMS-SA" else 2
+        return dict(zero, msa_attention_fwd_bf16=calls, msa_attention_bwd_bf16=calls,
+                    msa_attention_fwd=1, msa_attention_bwd=1, dropout_bf16=2 * calls,
+                    dropout=2 * (calls + (1 if calls == 3 else 0)))
+    fp32, bf16 = site_launches(cfg, cap)
+    n = interactive_layers(cfg)
+    cnn = cfg.news_encoder == "CNN"
+    return dict(zero, embedding_grad=1, gat_scores_bwd=n, dropout=fp32, dropout_bf16=bf16,
+                **({"gat_scores_fwd_bf16": n} if cnn else
+                   {"gat_scores_fwd": n, "msa_attention_fwd_bf16": 1,
+                    "msa_attention_bwd_bf16": 1}))
+
+
+def bf16_model_phase(torch, name, cfg, tables, dev, failures) -> dict:
+    """Phase 21 for one model at compute_dtype bfloat16, full width (CNN-DIGAT
+    with a GloVe-scale table): the cached scorer over 1,024 news (64
+    impressions of 8) on the card with the counters reset
+    (`bf16_serving_want`) and against the CPU plain path (BF16_SLICE_RTOL);
+    three B-8 steps card against CPU (phase 20's gates, each tensor at one
+    bf16 ulp of its largest element);
+    BF16_STEPS untraced steps at B 64 (dropout 0.2; dedup for DIGAT) with
+    the counters reset, their launches per step (`bf16_step_want`) and A''s
+    shapes checked; -> launches by path and timings."""
+    from digat_tpu_torch import layers
+    from digat_tpu_torch.data import batching, sampling
+    from digat_tpu_torch.eval import metrics as M
+    from digat_tpu_torch.eval.scorer import CachedScorer, NRMSCachedScorer
+    from digat_tpu_torch.models.model import CorpusTables, Model
+    from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
+    from digat_tpu_torch.train.optimizer import Adam
+    from digat_tpu_torch.train.train_step import step_seed, train_step
+
+    nrms = cfg.model_family == "nrms"
+    table = glove_table(cfg, SEED + 87) if cfg.news_encoder == "CNN" and not nrms else None
+    result = {}
+    news_num, bs = 1024, 256
+    small = head_tables(torch, tables, news_num)
+    if nrms:
+        small = nrms_tables_for(torch, cfg, small, SEED + 80)
+    imps = make_impressions(cfg, news_num, 64, 8, SEED + 81)
+    scores = {}
+    for d in (dev, "cpu"):
+        gen = torch.Generator().manual_seed(SEED + 82)
+        model = NRMSModel(cfg, device=d, generator=gen) if nrms else \
+            Model(cfg, device=d, generator=gen, word_embedding=table)
+        t = small if d != "cpu" else type(small)(**{k: x.cpu() for k, x in vars(small).items()}) \
+            if nrms else type(small)(*(x.cpu() for x in small))
+        scorer = (NRMSCachedScorer if nrms else CachedScorer)(model, bs)
+        reset_counters()
+        scores[d] = scorer.score_items(t, *imps[:4])
+        if d != "cpu":
+            serve = read_counters()
+            want = bf16_serving_want(name, cfg, news_num, bs, scorer.timings["stage2_batches"])
+            result["serving"] = {k: v for k, v in serve.items() if v}
+            if serve != want:
+                failures.append(f"{name} bf16 serving launches {result['serving']}, want "
+                                f"{ {k: v for k, v in want.items() if v} }")
+    s_gpu, s_cpu = scores[dev], scores["cpu"]
+    err = float(np.abs(s_gpu - s_cpu).max())
+    limit = BF16_SLICE_RTOL * max(1.0, float(np.abs(s_cpu).max()))
+    flips = 0
+    for sg, sc in zip(M.group_by_impression(imps[2], s_gpu),
+                      M.group_by_impression(imps[2], s_cpu)):
+        og, oc = np.argsort(-sg, kind="stable"), np.argsort(-sc, kind="stable")
+        flips += sum(a != b and abs(float(sc[a]) - float(sc[b])) > 2 * limit
+                     for a, b in zip(og, oc))
+    say(f"  {name} bf16 serving ({'glove-scale table' if table is not None else 'N(0, 1) table'}): {len(imps[3])} items, max |card - cpu| {err:.3e} (limit "
+        f"{limit:.3e}), rank flips beyond ties {flips}; launches {result.get('serving')}")
+    if not (err <= limit and flips == 0 and np.isfinite(s_gpu).all()):
+        failures.append(f"{name} bf16 serving card vs cpu")
+    # three B-8 steps, card against the CPU
+    corpus = make_train_corpus(cfg, tables, (BF16_STEPS + 2) * cfg.batch_size, 2000, 32,
+                               SEED + 83)
+    if nrms:
+        ntables = nrms_tables_for(torch, cfg, tables, SEED + 84)
+        corpus.nrms_tables = lambda: ntables
+    training_parity(torch, cfg, corpus, dev, failures, nrms=nrms, label=f"{name} bf16",
+                    word_embedding=table, act_bf16=True)
+    # untraced steps at B 64, dropout on
+    gen = torch.Generator().manual_seed(SEED + 85)
+    model = NRMSModel(cfg, device=dev, generator=gen) if nrms else \
+        Model(cfg, device=dev, generator=gen, word_embedding=table)
+    neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets,
+                                    cfg.negative_sample_num, np.random.default_rng(SEED))
+    split = corpus.splits["train"]
+    cap = 0
+    if not nrms:
+        cap = batching.estimate_dedup_capacity(split.history_idx, corpus.train_behavior_row,
+                                               corpus.train_pos, neg, corpus.news_node_id,
+                                               cfg.batch_size, seed=cfg.seed)
+    batches = [b for b in batching.train_batches(
+        split.history_idx, split.cat_idx, corpus.train_behavior_row, corpus.train_pos, neg,
+        cfg.batch_size, epoch_seed=SEED, news_node_id=None if nrms else corpus.news_node_id,
+        dedup_titles=cap) if nrms or isinstance(b, batching.DedupTrainBatch)][:BF16_STEPS]
+    t = NRMSTables.from_arrays(corpus.nrms_tables(), dev) if nrms else \
+        CorpusTables.from_arrays(tables, dev)
+    opt = Adam(model.named_parameters(), cfg.weight_decay, cfg.gradient_clip_norm)
+    drawn, apply_dropout = Counter(), layers.apply_dropout
+
+    def recording(x, rate, seed, site):
+        drawn[(x.numel() // x.shape[-1], x.shape[-1], rate)] += 1
+        return apply_dropout(x, rate, seed, site)
+
+    layers.apply_dropout = recording
+    reset_counters()
+    step_ms, losses = [], []
+    try:
+        for k, b in enumerate(batches):
+            b = batching.to_device(b, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(train_step(model, opt, t, b, step_seed(SEED, 1, k), cfg.lr)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        layers.apply_dropout = apply_dropout
+    launches = read_counters()
+    steps = len(batches)
+    want = {k: v * steps for k, v in bf16_step_want(cfg, cap).items()}
+    median = float(np.median(step_ms[2:]))
+    say(f"  {name} bf16 training: {steps} steps at B {cfg.batch_size}"
+        + ("" if nrms else f" (dedup capacity {cap})")
+        + f", median step {median:.3f} ms after 2 (first {step_ms[0]:.3f}); train samples/s "
+        f"{cfg.batch_size * 1e3 / median:.1f}; losses {[round(v, 5) for v in losses]}; "
+        f"launches per step {({k: v / steps for k, v in launches.items() if v})}")
+    if steps < BF16_STEPS or not np.isfinite(losses).all():
+        failures.append(f"{name} bf16 training: too few steps or a loss not finite")
+    for k, n in want.items():
+        if launches[k] != n:
+            failures.append(f"{name} bf16 training: {k} launched {launches[k]} times, want {n}")
+    if not nrms:
+        checked = Counter()
+        for _, rows, cols, rate, per_step in mask_sites(cfg, cap):
+            checked[(rows, cols, rate)] += per_step * steps
+        if drawn != checked:
+            failures.append(f"{name} bf16 training: A'' drew masks at {dict(drawn)}, want "
+                            f"{dict(checked)}")
+    result.update(training={k: v for k, v in launches.items() if v}, steps=steps,
+                  step_ms_median=median, samples_per_s=cfg.batch_size * 1e3 / median, cap=cap)
+    return result
+
+
+def bf16_more_phase(torch, cfg, tables, cap, dev, failures):
+    """Phase 21: the bf16 instances of the pair, A'', B (bf16 activations) and
+    C against their plain versions, then NRMS-SA, NRMS, CNN-DIGAT and MSA at
+    L 160 at bfloat16 (`bf16_model_phase`) -> (kernels-line entries by name,
+    runs by model)."""
+    ncfg = replace(cfg, model_family="nrms", compute_dtype="bfloat16")
+    entries = {}
+    for name, fn in (("msa_attention_bf16", lambda: bf16_pair_kernels(torch, ncfg, dev)),
+                     ("dropout_bf16", lambda: bf16_dropout_kernels(torch, ncfg, cap, dev))):
+        try:
+            entries[name] = fn()
+        except Exception:
+            traceback.print_exc()
+            entries[name] = dict(ok=False)
+    try:
+        entries["interactive_gat_layer_fused_bf16_act"], entries["gat_scores_fwd_bf16"] = \
+            bf16_graph_kernels(torch, cfg, dev)
+    except Exception:
+        traceback.print_exc()
+        entries.update(interactive_gat_layer_fused_bf16_act=dict(ok=False),
+                       gat_scores_fwd_bf16=dict(ok=False))
+    for name, e in entries.items():
+        if not e.get("ok"):
+            failures.append(f"kernel {name}")
+    runs = {}
+    for name, mcfg in bf16_model_configs(cfg):
+        t0 = time.perf_counter()
+        try:
+            t = tables if mcfg.max_title_length == cfg.max_title_length else \
+                make_tables(torch, mcfg, 4096, dev, SEED + 86)
+            runs[name] = bf16_model_phase(torch, name, mcfg, t, dev, failures)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"bf16 {name}")
+        say(f"[21 {name} bf16] {time.perf_counter() - t0:.2f}s")
+    return entries, runs
+
+
 def head_tables(torch, tables, news_num: int):
     """The first `news_num` news of a corpus's tables, its graph ids folded
     into that range."""
@@ -2049,8 +2776,13 @@ def main() -> int:
     except (OSError, subprocess.TimeoutExpired) as e:
         card = f"nvidia-smi failed: {e}"
     device_kind, device_count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    cores = len(os.sched_getaffinity(0))
+    threads = torch.get_num_threads()
+    if threads > cores:  # the CPU sides' threads no more than the cores they may run on
+        torch.set_num_threads(cores)
     say(f"[1 device] {time.perf_counter() - t0:.2f}s torch {torch.__version__} "
-        f"cuda {torch.version.cuda} device_count {device_count}")
+        f"cuda {torch.version.cuda} device_count {device_count}; CPU threads "
+        f"{torch.get_num_threads()} (of {threads}) on {cores} cores")
     say(card)
 
     # ---- 2. build ----
@@ -2351,6 +3083,17 @@ def main() -> int:
         failures.append("bf16 phase")
     say(f"[20 bf16] {time.perf_counter() - t0:.2f}s")
 
+    # ---- 21. bfloat16 for NRMS-SA, NRMS, CNN-DIGAT and MSA at L 160 ----
+    t0 = time.perf_counter()
+    bf16_runs = {}
+    try:
+        more_entries, bf16_runs = bf16_more_phase(torch, cfg, tables, cap, dev, failures)
+        entries.update(more_entries)
+    except Exception:
+        traceback.print_exc()
+        failures.append("bf16 phase 21")
+    say(f"[21 bf16 models] {time.perf_counter() - t0:.2f}s")
+
     # ---- 14. the CLI at the production cell, from TSV files ----
     cells = parity_cells()
     cli_launches = {}
@@ -2383,7 +3126,7 @@ def main() -> int:
             mean, sigma, _ = cells.TARGETS["matrix-wo_interaction"]
             cli_launches["cli matrix wo_interaction"] = cli_cell(
                 torch, cells, "matrix-wo_interaction", workdir, round(mean - 3 * sigma, 4),
-                failures)
+                failures, epochs=5)
         except Exception:
             traceback.print_exc()
             failures.append("CLI, matrix cell of wo_interaction")
@@ -2436,13 +3179,36 @@ def main() -> int:
     for stage, counts in bf16_launches.items():
         for name in ("msa_encoder_pooled_bf16", "msa_encoder_bwd_bf16",
                      "interactive_gat_layer_fused_bf16", "gat_scores_fwd", "gat_scores_bwd",
-                     "embedding_grad", "dropout"):
+                     "embedding_grad", "dropout", "dropout_bf16"):
             if counts.get(name):
                 target = "interactive_gat_scores" if name.startswith("gat_scores") else name
                 if target == name:
                     by_path[name][f"bf16 {stage}"] = counts[name]
                 else:
                     by_path[target].setdefault(f"bf16 {stage}", {})[name] = counts[name]
+    # phase 21: the bf16 instances of the pair, A'', B and C by model and path
+    by_path["msa_attention_bf16"] = {}
+    for model, run in bf16_runs.items():
+        for stage in ("serving", "training"):
+            counts = run.get(stage, {})
+            path = f"{model} bf16 {stage}"
+            if counts.get("msa_attention_fwd_bf16") or counts.get("msa_attention_bwd_bf16"):
+                by_path["msa_attention_bf16"][path] = {
+                    "fwd": counts.get("msa_attention_fwd_bf16", 0),
+                    "bwd": counts.get("msa_attention_bwd_bf16", 0)}
+            for name in ("dropout_bf16", "interactive_gat_layer_fused_bf16_act",
+                         "gat_scores_fwd_bf16"):
+                if counts.get(name):
+                    by_path[name][path] = counts[name]
+            for name in ("interactive_gat_layer_fused_bf16", "embedding_grad", "dropout"):
+                if counts.get(name):
+                    by_path[name][path] = counts[name]
+            if counts.get("msa_attention_fwd"):
+                by_path["msa_attention"][path] = {"fwd": counts["msa_attention_fwd"],
+                                                  "bwd": counts.get("msa_attention_bwd", 0)}
+            if counts.get("gat_scores_fwd") or counts.get("gat_scores_bwd"):
+                by_path["interactive_gat_scores"][path] = {
+                    k: counts.get(k, 0) for k in ("gat_scores_fwd", "gat_scores_bwd")}
     for path, counts in cli_launches.items():
         for name in counters():
             by_path[name][path] = counts.get(name, 0)
@@ -2473,6 +3239,17 @@ def main() -> int:
                                  "digat_tpu/ops/pallas/msa_encoder.py:533"),
         "interactive_gat_layer_fused_bf16": ("digat_tpu_torch/csrc/gat_layer.cu",
                                              "digat_tpu/ops/pallas/gat_layer.py:135"),
+        # the bf16 instances of phase 21
+        "msa_attention_bf16": ("digat_tpu_torch/csrc/msa_attention_bf16.cu",
+                               "digat_tpu/ops/pallas/msa_attention_grouped.py:292; "
+                               "digat_tpu/ops/pallas/msa_attention.py:141; "
+                               "digat_tpu/ops/pallas/msa_attention.py:177"),
+        "dropout_bf16": ("digat_tpu_torch/csrc/dropout.cu",
+                         "digat_tpu/ops/pallas/msa_encoder.py:96"),
+        "interactive_gat_layer_fused_bf16_act": ("digat_tpu_torch/csrc/gat_layer.cu",
+                                                 "digat_tpu/ops/pallas/gat_layer.py:135"),
+        "gat_scores_fwd_bf16": ("digat_tpu_torch/csrc/gat_scores.cu",
+                                "digat_tpu/ops/pallas/gat_scores.py:77"),
     }
     kernels = []
     for name, (src, replaces) in source.items():

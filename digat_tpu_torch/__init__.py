@@ -25,9 +25,9 @@ attention as a hand-written kernel pair forward and backward,
     `data.sag`, `data.corpus`), with the JAX package's flags, cache names
     and run layout.
 
-`Config.compute_dtype="bfloat16"` runs MSA-DIGAT and its ablations on
-bf16 compute copies of the fp32 weights (`models.model.Model.
-compute_params`), with bf16 instances of kernels A, A' and B.
+`Config.compute_dtype="bfloat16"` runs every model on bf16 compute copies
+of the fp32 weights (`models.model.ComputeCopy`), with bf16 instances of
+kernels A, A', B, C's forward, A'' and the attention pair.
 
 The package imports torch and numpy only, never jax or digat_tpu. Entry
 points (`models.model.Model`, `models.nrms.NRMSModel`, the trainer, the

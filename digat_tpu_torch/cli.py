@@ -13,9 +13,9 @@ Layout, as the JAX package writes it:
     <run_root>/prediction/<dataset>/<model>/#N/prediction.zip   MIND-large test
 
 One process on one device: CUDA unless `--device cpu`. `--compute_dtype
-bfloat16` trains and scores MSA-DIGAT and its ablations on bf16 compute
-copies of the fp32 weights (`models.model.Model.compute_params`); the
-checkpoints hold the fp32 masters.
+bfloat16` trains and scores every model (MSA or CNN DIGAT and its
+ablations, NRMS, NRMS-SA) on bf16 compute copies of the fp32 weights
+(`models.model.ComputeCopy`); the checkpoints hold the fp32 masters.
 
     python -m digat_tpu_torch.cli --dataset synthetic --device cpu --epoch 2
 """

@@ -7,9 +7,8 @@ with the same names, defaults and per-dataset protocol overrides, plus
 `device` (cuda | cpu). Kept as its own copy so the
 port never imports the JAX package.
 
-`compute_dtype` bfloat16 runs MSA-DIGAT and its five ablations with bf16
-compute copies of the fp32 weights (`models.model.Model.compute_params`);
-the other models at bf16 raise naming their ROADMAP item.
+`compute_dtype` bfloat16 runs every model with bf16 compute copies of the
+fp32 weights (`models.model.ComputeCopy`), as the JAX package does.
 
 `from_args` also takes the JAX package's TPU-only flags, so that a JAX
 command line parses. Each is checked and dropped: a value the port runs
@@ -59,11 +58,6 @@ GRAPH_ENCODERS = ("DIGAT", "wo_SA", "Seq_SA", "wo_interaction", "news_graph_wo_i
                   "user_graph_wo_inter")
 CNN_METHODS = ("naive", "group3", "group5")
 COMPUTE_DTYPES = ("float32", "bfloat16")
-# the models that do not run at bfloat16 yet: the ROADMAP item of each
-_ROADMAP_BF16_NRMS = "ROADMAP.md section 1, item 3 (NRMS and NRMS-SA at bfloat16)"
-_ROADMAP_BF16_CNN = "ROADMAP.md section 1, item 3 (CNN at bfloat16)"
-_ROADMAP_BF16_PAIR = ("ROADMAP.md section 1, item 3 (NRMS and NRMS-SA at bfloat16: the "
-                      "attention pair, which also takes MSA titles past 128 positions)")
 
 
 def _parse_bool(s: str) -> bool:
@@ -195,26 +189,12 @@ class Config:
         return self
 
     def check_compute_dtype(self) -> None:
-        """bfloat16 runs the DIGAT family with the MSA encoder where its titles
-        take kernel A (every graph encoder); the NRMS family, the CNN encoder
-        and MSA titles routed through the attention pair raise."""
+        """bfloat16 runs every model the JAX package runs at bfloat16: the
+        DIGAT family with either news encoder and every graph encoder, and
+        the NRMS family. A head too wide for the attention pair raises on
+        the card at bfloat16 as at float32."""
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {self.compute_dtype}")
-        if self.compute_dtype == "float32":
-            return
-        from digat_tpu_torch.ops.msa_attention_grouped import group_size
-
-        what = f"--compute_dtype {self.compute_dtype}"
-        if self.model_family == "nrms":
-            raise NotImplementedError(f"{what} for {self.nrms_model} is not ported: "
-                                      f"{_ROADMAP_BF16_NRMS}")
-        if self.news_encoder == "CNN":
-            raise NotImplementedError(f"{what} for the CNN news encoder is not ported: "
-                                      f"{_ROADMAP_BF16_CNN}")
-        if group_size(self.MSA_head_num, self.max_title_length, self.MSA_head_dim) <= 0:
-            raise NotImplementedError(
-                f"{what} at titles of {self.max_title_length} positions and heads of "
-                f"{self.MSA_head_dim} is not ported: {_ROADMAP_BF16_PAIR}")
 
     def validate(self) -> "Config":
         """`check_options` and the sizes the corpus sets."""

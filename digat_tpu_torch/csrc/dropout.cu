@@ -18,6 +18,16 @@
 // dropout_keep_mask_u8 writes the mask itself, for the tests and the check
 // that the card draws the CPU's bits.
 //
+// dropout_apply_bf16 is the same fused pass on a bf16 tensor (compute_dtype
+// bfloat16: the NRMS title tower's and MSA long titles' word dropout, the
+// CNN encoder's two sites and the graph encoder's sites on bf16
+// activations). There the JAX package runs XLA's jnp.where(mask, x / keep,
+// 0).astype(bf16), which divides by keep rounded to bf16 (0.80078125 at
+// rate 0.2) in fp32 and rounds the quotient to bf16; so does this kernel
+// (philox.cuh's dropout_divide), with the same Philox mask, bit for bit
+// with ops/dropout.py's dropout_plain. Its backward is the same pass on the
+// bf16 gradient: the VJP of x / keep is g / keep, rounded to bf16.
+//
 // What bounds it on an H100. Per four elements one Philox block: 10 rounds
 // of two 32x32->64 multiplies, xors and key adds, about 104 integer
 // operations, against 32 bytes moved by the fused pass (about 3 operations a
@@ -31,9 +41,13 @@
 // each, float4 loads and stores when the row length is a multiple of 4; one
 // launch a direction.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "common.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -63,13 +77,21 @@ dropout_keep_mask_kernel(unsigned char* __restrict__ out, int64_t rows, int cols
   }
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // one thread a group of four elements of a row; the arithmetic is
-// philox.cuh's dropout_value, as in the MSA encoder's word-dropout pass
-template <bool V4>
+// philox.cuh's dropout_value (fp32: x * scale, as in the MSA encoder's
+// word-dropout pass) or dropout_divide (bf16: x / keep, rounded to bf16),
+// `factor` being scale or keep
+template <bool V4, typename T>
 __global__ void __launch_bounds__(kThreads)
-dropout_site_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t rows,
-                     int cols, int64_t row_offset, uint32_t seed, uint32_t site,
-                     uint32_t thresh, float scale) {
+dropout_site_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t rows, int cols,
+                     int64_t row_offset, uint32_t seed, uint32_t site, uint32_t thresh,
+                     float factor) {
+  constexpr bool kDivide = std::is_same<T, __nv_bfloat16>::value;
   const int groups = (cols + 3) / 4;
   const int64_t t = blockIdx.x * int64_t(kThreads) + threadIdx.x;
   if (t >= rows * groups) return;
@@ -79,13 +101,40 @@ dropout_site_kernel(const float* __restrict__ x, float* __restrict__ out, int64_
       digat::dropout_draws(uint32_t(row_offset + r), uint32_t(g), seed, site);
   const size_t at = size_t(r) * cols + 4 * g;
   if (V4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(x + at));
-    *reinterpret_cast<float4*>(out + at) = digat::dropout_value4(v, d, thresh, scale);
+    const float4 v = digat::load4(x + at);
+    digat::store4(out + at, kDivide ? digat::dropout_divide4(v, d, thresh, factor)
+                                    : digat::dropout_value4(v, d, thresh, factor));
   } else {
     const uint32_t k[4] = {d.x, d.y, d.z, d.w};
-    for (int e = 0; e < 4 && 4 * g + e < cols; ++e)
-      out[at + e] = digat::dropout_value(x[at + e], k[e], thresh, scale);
+    for (int e = 0; e < 4 && 4 * g + e < cols; ++e) {
+      const float v = to_float(x[at + e]);
+      store(out + at + e, kDivide ? digat::dropout_divide(v, k[e], thresh, factor)
+                                  : digat::dropout_value(v, k[e], thresh, factor));
+    }
   }
+}
+
+// one launch of dropout_site_kernel over [rows, cols]: groups of four when
+// cols is a multiple of 4 and both arrays are aligned to four elements
+template <typename T>
+int apply(const void* x, void* out, long long rows, int cols, long long row_offset,
+          unsigned seed, unsigned site, unsigned thresh, float factor, void* stream) {
+  if (rows < 0 || cols <= 0 || row_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  const long long blocks = (rows * ((cols + 3) / 4) + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* px = static_cast<const T*>(x);
+  T* po = static_cast<T*>(out);
+  if (cols % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % (4 * sizeof(T)) == 0) {
+    dropout_site_kernel<true, T><<<unsigned(blocks), kThreads, 0, st>>>(
+        px, po, rows, cols, row_offset, seed, site, thresh, factor);
+  } else {
+    dropout_site_kernel<false, T><<<unsigned(blocks), kThreads, 0, st>>>(
+        px, po, rows, cols, row_offset, seed, site, thresh, factor);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -103,26 +152,22 @@ extern "C" int dropout_keep_mask_u8(void* out, long long rows, int cols, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
-// out = keep ? x * scale : 0 over x [rows, cols] (row-major, contiguous):
-// float4 loads and stores when cols is a multiple of 4 and both arrays are
-// 16-byte aligned.
+// out = keep ? x * scale : 0 over x [rows, cols] (row-major, contiguous,
+// fp32): float4 loads and stores when cols is a multiple of 4 and both
+// arrays are 16-byte aligned.
 extern "C" int dropout_apply_f32(const void* x, void* out, long long rows, int cols,
                                  long long row_offset, unsigned seed, unsigned site,
                                  unsigned thresh, float scale, void* stream) {
-  if (rows < 0 || cols <= 0 || row_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return 0;
-  const long long blocks = (rows * ((cols + 3) / 4) + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* px = static_cast<const float*>(x);
-  float* po = static_cast<float*>(out);
-  if (cols % 4 == 0 &&
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 == 0) {
-    dropout_site_kernel<true><<<unsigned(blocks), kThreads, 0, st>>>(
-        px, po, rows, cols, row_offset, seed, site, thresh, scale);
-  } else {
-    dropout_site_kernel<false><<<unsigned(blocks), kThreads, 0, st>>>(
-        px, po, rows, cols, row_offset, seed, site, thresh, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return apply<float>(x, out, rows, cols, row_offset, seed, site, thresh, scale, stream);
+}
+
+// out = keep ? bf16(x / keep_value) : 0 over a bf16 x [rows, cols]
+// (row-major, contiguous), keep_value the fp32 value of bf16(1 - rate):
+// groups of four when cols is a multiple of 4 and both arrays are 8-byte
+// aligned.
+extern "C" int dropout_apply_bf16(const void* x, void* out, long long rows, int cols,
+                                  long long row_offset, unsigned seed, unsigned site,
+                                  unsigned thresh, float keep_value, void* stream) {
+  return apply<__nv_bfloat16>(x, out, rows, cols, row_offset, seed, site, thresh, keep_value,
+                              stream);
 }

@@ -1,5 +1,5 @@
-// Fused interactive GAT layer, eval forward, fp32 (and with bf16 weights),
-// for sm_90a (kernel B).
+// Fused interactive GAT layer, eval forward, fp32 (with bf16 weights, and
+// with bf16 activations), for sm_90a (kernel B).
 //
 // Replaces the TPU kernel digat_tpu/ops/pallas/gat_layer.py
 // (interactive_gat_layer_fused -> _layer_kernel). For each graph b:
@@ -54,6 +54,14 @@
 // split into two TF32 parts and each bf16 weight exact in one: each
 // product as accurate as the fp32 instance's, two passes in place of three.
 // Steps 2 and 3 are the fp32 ones.
+// bf16 activations (gat_layer_project_bf16_act and gat_layer_attend_bf16,
+// compute_dtype bfloat16 where the news vectors are bf16: CNN-DIGAT): x, q
+// and the weights bf16, out bf16, as the TPU kernel reads x and writes out in
+// x's dtype with its math in fp32 (gat_layer.py:51,95). Both operands of the
+// projections are then exact bf16, so step 1 runs tc_gemm.cuh's bf16 x bf16
+// kernel (one mma.sync m16n8k16 pass, every product exact in fp32, kRN); y,
+// k3 and step 2 stay fp32; step 3 reads x as bf16 for the residual and
+// rounds each output once to bf16.
 //
 // Every reduction runs in a fixed order with no atomics: the same bits on
 // every run.
@@ -85,14 +93,20 @@ __host__ __device__ inline size_t attend_smem_floats(int G, int TI, int CG) {
   return size_t(G) * (4 * CG + TI);
 }
 
-// grid (slices of D, tiles of rows, B); block round32(TI / 4 * CG) threads
-template <bool V4>
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// grid (slices of D, tiles of rows, B); block round32(TI / 4 * CG) threads;
+// T the type of x and out (fp32, or bf16 rounded once at the store)
+template <bool V4, typename T>
 __global__ void __launch_bounds__(kMaxAttendThreads)
-gat_layer_attend_kernel(const float* __restrict__ x,            // [B, G, D]
+gat_layer_attend_kernel(const T* __restrict__ x,                // [B, G, D]
                         const unsigned char* __restrict__ adj,  // [B, G, G]
                         const float* __restrict__ s,            // [B, G, G] scores
                         const float* __restrict__ h, int ldh,   // [B G, ldh]: h in 0..D
-                        float* __restrict__ out,                // [B, G, D]
+                        T* __restrict__ out,                    // [B, G, D]
                         int G, int D, int TI, int CG, float slope) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -169,14 +183,14 @@ gat_layer_attend_kernel(const float* __restrict__ x,            // [B, G, D]
     if (i >= rows) break;
     const size_t row = (b * G + i0 + i) * (size_t)D;
     if (V4) {
-      const float4 xv = __ldg(reinterpret_cast<const float4*>(x + row + d));
-      *reinterpret_cast<float4*>(out + row + d) =
-          make_float4(fmaxf(acc[r][0], 0.f) + xv.x, fmaxf(acc[r][1], 0.f) + xv.y,
-                      fmaxf(acc[r][2], 0.f) + xv.z, fmaxf(acc[r][3], 0.f) + xv.w);
+      const float4 xv = digat::load4(x + row + d);
+      digat::store4(out + row + d,
+                    make_float4(fmaxf(acc[r][0], 0.f) + xv.x, fmaxf(acc[r][1], 0.f) + xv.y,
+                                fmaxf(acc[r][2], 0.f) + xv.z, fmaxf(acc[r][3], 0.f) + xv.w));
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        if (d + q < D) out[row + d + q] = fmaxf(acc[r][q], 0.f) + x[row + d + q];
+        if (d + q < D) store1(out + row + d + q, fmaxf(acc[r][q], 0.f) + to_float(x[row + d + q]));
     }
   }
 }
@@ -193,21 +207,24 @@ extern "C" int gat_layer_init() {
   }
   if (e == cudaSuccess) e = tc::init<true, true, kBN, tc::kBias, true>();
   if (e == cudaSuccess) e = tc::init<true, true, kBN, tc::kBias, true, __nv_bfloat16>();
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(gat_layer_attend_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
-  }
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(gat_layer_attend_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+  if (e == cudaSuccess) e = tc::init_bf16<kBN, tc::kBias, true>();
+  const void* attend[] = {reinterpret_cast<const void*>(gat_layer_attend_kernel<true, float>),
+                          reinterpret_cast<const void*>(gat_layer_attend_kernel<false, float>),
+                          reinterpret_cast<const void*>(gat_layer_attend_kernel<true, __nv_bfloat16>),
+                          reinterpret_cast<const void*>(gat_layer_attend_kernel<false, __nv_bfloat16>)};
+  for (const void* kern : attend) {
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+    }
   }
   return static_cast<int>(e);
 }
 
 namespace {
 
-// Step 1 with the weights of type TW (float: 3xTF32; bf16: 2xTF32).
-template <typename TW>
+// Step 1 with the weights of type TW (float: 3xTF32; bf16: 2xTF32) and x
+// and q fp32, or (kBoth) x, q and the weights bf16 (one bf16 pass).
+template <typename TW, bool kBoth = false>
 cudaError_t project(const void* x, const void* q, const void* wy, const void* by,
                     const void* w3, const void* b3, void* y, void* k3, int M, int B, int Dp,
                     cudaStream_t st) {
@@ -224,7 +241,10 @@ cudaError_t project(const void* x, const void* q, const void* wy, const void* by
   a.ldc = 3 * Dp;
   a.k_per_split = Dp;
   a.bias = static_cast<const float*>(by);
-  cudaError_t e = tc::gemm<true, true, kBN, tc::kBias, true, TW>(st, a);
+  cudaError_t (*const gemm)(cudaStream_t, const tc::Args&) =
+      kBoth ? &tc::gemm_bf16<kBN, tc::kBias, true>
+            : &tc::gemm<true, true, kBN, tc::kBias, true, TW>;
+  cudaError_t e = gemm(st, a);
   if (e != cudaSuccess) return e;
   a.A = q;
   a.B = w3;
@@ -233,7 +253,38 @@ cudaError_t project(const void* x, const void* q, const void* wy, const void* by
   a.N = Dp;
   a.ldc = Dp;
   a.bias = static_cast<const float*>(b3);
-  return tc::gemm<true, true, kBN, tc::kBias, true, TW>(st, a);
+  return gemm(st, a);
+}
+
+// Step 3 for x and out of type T.
+template <typename T>
+int attend(const void* x, const void* adj, const void* s, const void* h, int ldh, void* out,
+           int B, int G, int D, int TI, int CG, float slope, void* stream) {
+  if (B <= 0 || G <= 0 || D <= 0 || ldh < D || ldh % 4 || TI <= 0 || TI % kRI ||
+      TI > kMaxRows || CG <= 0 || TI / kRI * CG > kMaxAttendThreads ||
+      reinterpret_cast<uintptr_t>(h) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(float) * attend_smem_floats(G, TI, CG);
+  if (smem > size_t(g_max_smem)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((D + 4 * CG - 1) / (4 * CG), (G + TI - 1) / TI, B);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = (TI / kRI * CG + 31) / 32 * 32;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool v4 = D % 4 == 0 && (reinterpret_cast<uintptr_t>(x) |
+                                 reinterpret_cast<uintptr_t>(out)) % (4 * sizeof(T)) == 0;
+  const T* px = static_cast<const T*>(x);
+  const unsigned char* pa = static_cast<const unsigned char*>(adj);
+  const float *ps = static_cast<const float*>(s), *ph = static_cast<const float*>(h);
+  T* po = static_cast<T*>(out);
+  if (v4) {
+    gat_layer_attend_kernel<true, T><<<grid, threads, smem, st>>>(px, pa, ps, ph, ldh, po, G, D,
+                                                                  TI, CG, slope);
+  } else {
+    gat_layer_attend_kernel<false, T><<<grid, threads, smem, st>>>(px, pa, ps, ph, ldh, po, G,
+                                                                   D, TI, CG, slope);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -257,6 +308,16 @@ extern "C" int gat_layer_project_bf16(const void* x, const void* q, const void* 
                                                  static_cast<cudaStream_t>(stream)));
 }
 
+// The same with x, q, wy and w3 bf16 (the biases, y and k3 fp32): one bf16
+// x bf16 pass.
+extern "C" int gat_layer_project_bf16_act(const void* x, const void* q, const void* wy,
+                                          const void* by, const void* w3, const void* b3,
+                                          void* y, void* k3, int M, int B, int Dp,
+                                          void* stream) {
+  return static_cast<int>(project<__nv_bfloat16, true>(x, q, wy, by, w3, b3, y, k3, M, B, Dp,
+                                                       static_cast<cudaStream_t>(stream)));
+}
+
 // Step 3: out [B, G, D] from x [B, G, D], adj [B, G, G] (bytes), the
 // scores s [B, G, G] and h, the first D columns of rows of ldh floats (ldh a
 // multiple of 4, 16-byte aligned, columns up to D rounded to 4 readable).
@@ -265,29 +326,12 @@ extern "C" int gat_layer_project_bf16(const void* x, const void* q, const void* 
 extern "C" int gat_layer_attend_f32(const void* x, const void* adj, const void* s,
                                     const void* h, int ldh, void* out, int B, int G, int D,
                                     int TI, int CG, float slope, void* stream) {
-  if (B <= 0 || G <= 0 || D <= 0 || ldh < D || ldh % 4 || TI <= 0 || TI % kRI ||
-      TI > kMaxRows || CG <= 0 || TI / kRI * CG > kMaxAttendThreads ||
-      reinterpret_cast<uintptr_t>(h) % 16) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = sizeof(float) * attend_smem_floats(G, TI, CG);
-  if (smem > size_t(g_max_smem)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((D + 4 * CG - 1) / (4 * CG), (G + TI - 1) / TI, B);
-  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (TI / kRI * CG + 31) / 32 * 32;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool v4 = D % 4 == 0 &&
-                  (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  const float* px = static_cast<const float*>(x);
-  const unsigned char* pa = static_cast<const unsigned char*>(adj);
-  const float *ps = static_cast<const float*>(s), *ph = static_cast<const float*>(h);
-  float* po = static_cast<float*>(out);
-  if (v4) {
-    gat_layer_attend_kernel<true><<<grid, threads, smem, st>>>(px, pa, ps, ph, ldh, po, G, D,
-                                                               TI, CG, slope);
-  } else {
-    gat_layer_attend_kernel<false><<<grid, threads, smem, st>>>(px, pa, ps, ph, ldh, po, G, D,
-                                                                TI, CG, slope);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return attend<float>(x, adj, s, h, ldh, out, B, G, D, TI, CG, slope, stream);
+}
+
+// The same with x and out bf16.
+extern "C" int gat_layer_attend_bf16(const void* x, const void* adj, const void* s,
+                                     const void* h, int ldh, void* out, int B, int G, int D,
+                                     int TI, int CG, float slope, void* stream) {
+  return attend<__nv_bfloat16>(x, adj, s, h, ldh, out, B, G, D, TI, CG, slope, stream);
 }

@@ -1,5 +1,5 @@
-// Eq. (8) interactive graph-attention scores, forward and backward, fp32,
-// for sm_90a (kernel C).
+// Eq. (8) interactive graph-attention scores, forward and backward, for
+// sm_90a (kernel C): the forward on fp32 or bf16 inputs, the backward fp32.
 //
 // Replaces the TPU kernels digat_tpu/ops/pallas/gat_scores.py
 // (interactive_gat_scores_pallas -> _scores_kernel, and its custom-VJP
@@ -48,9 +48,40 @@
 //
 // k1 and k2 may be column blocks of a wider row-major array (the fused
 // projection y = x [W|W1|W2]): rows are read with their own row stride.
+//
+// The ReLU kink. Where k1 + k2 + k3 lies within rounding of 0, the side of
+// the ReLU, and so a whole a g term of gk1, gk2 and gk3, depends on the
+// order of the sums: the card and the CPU (or the TPU, which sums
+// (k1 + k3) + k2) could take opposite branches. ops/gat_scores.py's plain
+// version decides the mask of any t with |t| <= KINK_TOL (|k1| + |k2| +
+// |k3|) by the float64 sum k1 + (k2 + k3), exact unless k2 and k3 lie more
+// than 2^29 apart, and outside that band by the fp32 t, whose sign is then
+// the exact sum's: both give the sign of the exact sum. The kernel gives the
+// same sign at no cost a term. Its t = k1 + c with c = fl(k2 + k3) has the
+// sign of the exact k1 + c (round to nearest keeps a sign; the adds are
+// never contracted); the exact sum is k1 + c + e, with e the rounding
+// error of c, formed exactly once a row (TwoSum) and at most half an ulp of
+// c. A nonzero k1 + c is a multiple of the finer of the two operands'
+// ulps, which is more than |e| wherever k1 + c lies that close to 0, so
+// only t == +0 can take the wrong side, and there the exact sum has e's
+// sign. So the sweep's mask is t > 0, and t == +0 where e > 0: one integer
+// compare of t's bits against a threshold set once a row (-1 where e > 0,
+// else 0), in place of the float compare. The forward needs no such rule:
+// relu is continuous at the kink.
+//
+// bf16 (compute_dtype bfloat16, gat_scores_fwd_bf16): k1, k2, k3 and a are
+// read as bf16 into fp32, the sums run in fp32 and each score is rounded
+// once to bf16, as the TPU kernel upcasts at its reads and writes its output
+// in the inputs' dtype (gat_scores.py:42-57,87). The JAX package's backward
+// upcasts its inputs to fp32 outside its kernel and casts the gradients back
+// (gat_scores.py:219-229); ops/gat_scores.py does the same around the fp32
+// backward here.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -75,6 +106,18 @@ __host__ __device__ inline size_t bwd_smem_floats(int G, int JT, int DT, int nti
   return size_t(G) * JT + (ntiles > 1 ? size_t(G) * DT : 0);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
 template <int R>
 __device__ __forceinline__ void load_r(const float* p, float (&v)[R]) {
   if constexpr (R == 4) {
@@ -90,12 +133,13 @@ __device__ __forceinline__ void load_r(const float* p, float (&v)[R]) {
   }
 }
 
-// grid (row tiles, column tiles, B); block round32(TIb * TJb) threads
-template <int R>
+// grid (row tiles, column tiles, B); block round32(TIb * TJb) threads; T
+// the inputs' and the scores' type (the staging converts to fp32)
+template <int R, typename T>
 __global__ void __launch_bounds__(kMaxFwdThreads)
-gat_scores_fwd_kernel(const float* __restrict__ k1, int ld1, const float* __restrict__ k2,
-                      int ld2, const float* __restrict__ k3, const float* __restrict__ a,
-                      float* __restrict__ out, int G, int D, int TIb, int TJb) {
+gat_scores_fwd_kernel(const T* __restrict__ k1, int ld1, const T* __restrict__ k2, int ld2,
+                      const T* __restrict__ k3, const T* __restrict__ a, T* __restrict__ out,
+                      int G, int D, int TIb, int TJb) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int BI = TIb * R, BJ = TJb * R;
@@ -107,9 +151,9 @@ gat_scores_fwd_kernel(const float* __restrict__ k1, int ld1, const float* __rest
   const int i0 = blockIdx.x * BI, j0 = blockIdx.y * BJ;
   const int t = threadIdx.x, ti = t / TJb, tj = t - ti * TJb;
   const bool active = ti < TIb;
-  const float* k1b = k1 + b * G * ld1;
-  const float* k2b = k2 + b * G * ld2;
-  const float* k3b = k3 + b * D;
+  const T* k1b = k1 + b * G * ld1;
+  const T* k2b = k2 + b * G * ld2;
+  const T* k3b = k3 + b * D;
 
   float acc[R][R];
 #pragma unroll
@@ -124,13 +168,14 @@ gat_scores_fwd_kernel(const float* __restrict__ k1, int ld1, const float* __rest
       const int r = e / kDS, dd = e - r * kDS, d = d0 + dd;
       if (r < BI) {
         const int i = i0 + r;
-        K2T[dd * SI + r] = i < G && dd < nd ? k2b[(size_t)i * ld2 + d] + k3b[d] : 0.f;
+        K2T[dd * SI + r] =
+            i < G && dd < nd ? to_float(k2b[(size_t)i * ld2 + d]) + to_float(k3b[d]) : 0.f;
       } else {
         const int j = j0 + r - BI;
-        K1T[dd * SJ + r - BI] = j < G && dd < nd ? k1b[(size_t)j * ld1 + d] : 0.f;
+        K1T[dd * SJ + r - BI] = j < G && dd < nd ? to_float(k1b[(size_t)j * ld1 + d]) : 0.f;
       }
     }
-    if (t < kDS) As[t] = t < nd ? a[d0 + t] : 0.f;
+    if (t < kDS) As[t] = t < nd ? to_float(a[d0 + t]) : 0.f;
     __syncthreads();
     if (active) {
 #pragma unroll 4
@@ -148,16 +193,27 @@ gat_scores_fwd_kernel(const float* __restrict__ k1, int ld1, const float* __rest
     __syncthreads();
   }
   if (!active) return;
-  float* ob = out + b * G * G;
+  T* ob = out + b * G * G;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = i0 + ti * R + r;
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const int j = j0 + tj * R + q;
-      if (i < G && j < G) ob[(size_t)i * G + j] = acc[r][q];
+      if (i < G && j < G) ob[(size_t)i * G + j] = from_float<T>(acc[r][q]);
     }
   }
+}
+
+// c = fl(k2 + k3), and thr = -1 where its rounding error e (TwoSum: c + e
+// == k2 + k3 exactly) is positive, else 0: the mask of t = k1 + c is then
+// int(t) > thr, which takes t == +0 to the exact sum's side (the kink above)
+__device__ __forceinline__ float row_sum(float k2, float k3, int& thr) {
+  const float c = k2 + k3;
+  const float cb = c - k2;
+  const float e = (k2 - (c - cb)) + (k3 - cb);
+  thr = e > 0.f ? -1 : 0;
+  return c;
 }
 
 // grid (slices of D, B); block DT threads, thread = feature d
@@ -197,10 +253,13 @@ gat_scores_bwd_kernel(const float* __restrict__ k1, int ld1, const float* __rest
       kj[jj] = j0 + jj < G ? k1b[(size_t)(j0 + jj) * ld1 + d] : 0.f;
       acc[jj] = 0.f;
     }
-    float cn = k2b[d] + k3d;
+    // row i's c = k2[i] + k3 and the mask's threshold, formed a row ahead
+    int thrn;
+    float cn = row_sum(k2b[d], k3d, thrn);
     for (int i = 0; i < G; ++i) {
       const float c = cn;
-      if (i + 1 < G) cn = k2b[(size_t)(i + 1) * ld2 + d] + k3d;
+      const int thr = thrn;
+      if (i + 1 < G) cn = row_sum(k2b[(size_t)(i + 1) * ld2 + d], k3d, thrn);
       const float4* g4 = reinterpret_cast<const float4*>(gs + i * JT);
       float rs = 0.f, gai = 0.f;
 #pragma unroll
@@ -211,7 +270,7 @@ gat_scores_bwd_kernel(const float* __restrict__ k1, int ld1, const float* __rest
         for (int u = 0; u < 4; ++u) {
           const int jj = 4 * q + u;
           const float t = kj[jj] + c;
-          const float w = t > 0.f ? gq[u] : 0.f;
+          const float w = __float_as_int(t) > thr ? gq[u] : 0.f;
           rs += w;
           acc[jj] += w;
           gai = fmaf(w, t, gai);
@@ -285,12 +344,12 @@ extern "C" int gat_scores_init() {
   return 0;
 }
 
-// s [B, G, G] from k1, k2 (rows of ld1 / ld2 floats, graph b's rows at
-// b * G), k3 [B, D], a [D]. The plan (gat_scores.py::fwd_plan): R x R
-// scores a thread, TIb x TJb threads' tiles a block.
-extern "C" int gat_scores_fwd_f32(const void* k1, int ld1, const void* k2, int ld2,
-                                  const void* k3, const void* a, void* out, int B, int G, int D,
-                                  int R, int TIb, int TJb, void* stream) {
+namespace {
+
+// The forward for element type T: the checks, the grid and the launch.
+template <typename T>
+int fwd(const void* k1, int ld1, const void* k2, int ld2, const void* k3, const void* a,
+        void* out, int B, int G, int D, int R, int TIb, int TJb, void* stream) {
   if (B <= 0 || G <= 0 || D <= 0 || ld1 < D || ld2 < D || (R != 2 && R != 4) || TIb <= 0 ||
       TJb <= 0 || round32(TIb * TJb) > kMaxFwdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -301,17 +360,35 @@ extern "C" int gat_scores_fwd_f32(const void* k1, int ld1, const void* k2, int l
   const size_t smem = sizeof(float) * fwd_smem_floats(TIb * R, TJb * R);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *p1 = static_cast<const float*>(k1), *p2 = static_cast<const float*>(k2),
-              *p3 = static_cast<const float*>(k3), *pa = static_cast<const float*>(a);
-  float* po = static_cast<float*>(out);
+  const T *p1 = static_cast<const T*>(k1), *p2 = static_cast<const T*>(k2),
+          *p3 = static_cast<const T*>(k3), *pa = static_cast<const T*>(a);
+  T* po = static_cast<T*>(out);
   if (R == 4) {
-    gat_scores_fwd_kernel<4><<<grid, round32(TIb * TJb), smem, st>>>(p1, ld1, p2, ld2, p3, pa,
-                                                                      po, G, D, TIb, TJb);
+    gat_scores_fwd_kernel<4, T><<<grid, round32(TIb * TJb), smem, st>>>(p1, ld1, p2, ld2, p3, pa,
+                                                                         po, G, D, TIb, TJb);
   } else {
-    gat_scores_fwd_kernel<2><<<grid, round32(TIb * TJb), smem, st>>>(p1, ld1, p2, ld2, p3, pa,
-                                                                      po, G, D, TIb, TJb);
+    gat_scores_fwd_kernel<2, T><<<grid, round32(TIb * TJb), smem, st>>>(p1, ld1, p2, ld2, p3, pa,
+                                                                         po, G, D, TIb, TJb);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// s [B, G, G] from k1, k2 (rows of ld1 / ld2 floats, graph b's rows at
+// b * G), k3 [B, D], a [D]. The plan (gat_scores.py::fwd_plan): R x R
+// scores a thread, TIb x TJb threads' tiles a block.
+extern "C" int gat_scores_fwd_f32(const void* k1, int ld1, const void* k2, int ld2,
+                                  const void* k3, const void* a, void* out, int B, int G, int D,
+                                  int R, int TIb, int TJb, void* stream) {
+  return fwd<float>(k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream);
+}
+
+// The same with k1, k2, k3, a and s bf16 (rows of ld1 / ld2 elements).
+extern "C" int gat_scores_fwd_bf16(const void* k1, int ld1, const void* k2, int ld2,
+                                   const void* k3, const void* a, void* out, int B, int G, int D,
+                                   int R, int TIb, int TJb, void* stream) {
+  return fwd<__nv_bfloat16>(k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream);
 }
 
 // gk1, gk2 [B, G, D], gk3 [B, D], ga [D] from the score gradient g [B, G, G];

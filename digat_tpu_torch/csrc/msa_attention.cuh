@@ -1,16 +1,29 @@
-// Pieces of the masked attention pair (msa_attention.cu) that its wide
-// instance (msa_attention_wide.cu) shares: constants, the shared-memory
-// layout, and the row loads and products. Each file that includes this
-// header gets its own copy (an unnamed namespace); the two kernel files
-// are compiled apart, in parallel, and the wide kernels reach the entry
-// points of msa_attention.cu through `digat::attention_fwd_wide` and
-// `digat::attention_bwd_wide`.
+// Pieces of the masked attention pair that its kernels
+// (msa_attention_kernels.cuh, instantiated for fp32 by msa_attention.cu and
+// for bf16 by msa_attention_bf16.cu) and its wide instance
+// (msa_attention_wide.cu) share: constants, the shared-memory layout, and
+// the row loads, stores and products. Each file that includes this header
+// gets its own copy (an unnamed namespace); the kernel files are compiled
+// apart, in parallel, and the wide kernels reach the entry points through
+// `digat::attention_fwd_wide<T>` and `digat::attention_bwd_wide<T>`.
+//
+// Element types. q, k, v, do and the outputs are T, fp32 or bf16. Rows are
+// held in fp32 whatever T is (in shared memory and in registers: a bf16
+// value is exact in fp32), so the shared-memory layout and its byte counts
+// are the same for both; every sum runs in fp32 and an output is rounded
+// once to T (to nearest even for bf16), as the TPU kernels load bf16 q, k
+// and v into fp32, compute in fp32 and round their outputs.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
@@ -65,22 +78,62 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// four consecutive elements as a float4 (16-byte aligned fp32, 8-byte
+// aligned bf16), and a float4 stored as four elements of T
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) { return digat::load4(p); }
+__device__ __forceinline__ void st4(float* p, const float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float4 v) { digat::store4(p, v); }
+
 // rows [L][dk] at src (row stride rs) -> shared rows KS floats apart, zero
-// in [dk, W); thread t of `threads`
-template <int W, int KS, bool VEC>
-__device__ __forceinline__ void load_rows(float* __restrict__ dst, const float* __restrict__ src,
+// in [dk, W); thread t of `threads`. fp32 rows move by cp.async (float4
+// rows) or as floats; bf16 rows through registers, four elements at a time
+// (VEC: 8-byte aligned rows) or one, converted to fp32.
+template <int W, int KS, bool VEC, typename T>
+__device__ __forceinline__ void load_rows(float* __restrict__ dst, const T* __restrict__ src,
                                           int L, int dk, int rs, int t, int threads) {
-  if constexpr (VEC) {
+  if constexpr (VEC && std::is_same<T, float>::value) {
     constexpr int W4 = W / 4;
     for (int e = t; e < L * W4; e += threads) {
       const int l = e / W4, c = (e - l * W4) * 4;
       const int bytes = 4 * max(0, min(4, dk - c));
       cp_async16(dst + l * KS + c, src + size_t(l) * rs + (bytes ? c : 0), bytes);
     }
+  } else if constexpr (VEC) {
+    constexpr int W4 = W / 4;
+    for (int e = t; e < L * W4; e += threads) {
+      const int l = e / W4, c = (e - l * W4) * 4;
+      const T* row = src + size_t(l) * rs;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c + 4 <= dk) {
+        x = ld4(row + c);
+      } else if (c < dk) {
+        x.x = to_float(row[c]);
+        x.y = c + 1 < dk ? to_float(row[c + 1]) : 0.f;
+        x.z = c + 2 < dk ? to_float(row[c + 2]) : 0.f;
+      }
+      *reinterpret_cast<float4*>(dst + l * KS + c) = x;
+    }
   } else {
     for (int e = t; e < L * W; e += threads) {
       const int l = e / W, c = e - l * W;
-      dst[l * KS + c] = c < dk ? src[size_t(l) * rs + c] : 0.f;
+      dst[l * KS + c] = c < dk ? to_float(src[size_t(l) * rs + c]) : 0.f;
     }
   }
 }
@@ -103,14 +156,14 @@ __device__ __forceinline__ void row_from_smem(float (&r)[W], const float* __rest
   }
 }
 
-// the first dk floats of a row at src (global memory) -> r, zero in [dk, W)
-template <int W, bool VEC>
-__device__ __forceinline__ void row_from_global(float (&r)[W], const float* src, int dk) {
+// the first dk elements of a row at src (global memory) -> r, zero in [dk, W)
+template <int W, bool VEC, typename T>
+__device__ __forceinline__ void row_from_global(float (&r)[W], const T* src, int dk) {
   if constexpr (VEC) {
 #pragma unroll
     for (int c4 = 0; c4 < W / 4; ++c4) {
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (4 * c4 < dk) x = *reinterpret_cast<const float4*>(src + 4 * c4);
+      if (4 * c4 < dk) x = ld4(src + 4 * c4);
       r[4 * c4] = x.x;
       r[4 * c4 + 1] = 4 * c4 + 1 < dk ? x.y : 0.f;
       r[4 * c4 + 2] = 4 * c4 + 2 < dk ? x.z : 0.f;
@@ -118,13 +171,13 @@ __device__ __forceinline__ void row_from_global(float (&r)[W], const float* src,
     }
   } else {
 #pragma unroll
-    for (int c = 0; c < W; ++c) r[c] = c < dk ? src[c] : 0.f;
+    for (int c = 0; c < W; ++c) r[c] = c < dk ? to_float(src[c]) : 0.f;
   }
 }
 
-// r[c] for c < dk and 0 for c in [dk, hs) -> the row at dst
-template <int W, bool VEC>
-__device__ __forceinline__ void store_row(float* dst, const float (&r)[W], int dk, int hs) {
+// r[c] for c < dk and 0 for c in [dk, hs) -> the row at dst, rounded to T
+template <int W, bool VEC, typename T>
+__device__ __forceinline__ void store_row(T* dst, const float (&r)[W], int dk, int hs) {
   if constexpr (VEC) {
 #pragma unroll
     for (int c4 = 0; c4 < W / 4; ++c4) {
@@ -134,16 +187,16 @@ __device__ __forceinline__ void store_row(float* dst, const float (&r)[W], int d
         x.y = 4 * c4 + 1 < dk ? r[4 * c4 + 1] : 0.f;
         x.z = 4 * c4 + 2 < dk ? r[4 * c4 + 2] : 0.f;
         x.w = 4 * c4 + 3 < dk ? r[4 * c4 + 3] : 0.f;
-        *reinterpret_cast<float4*>(dst + 4 * c4) = x;
+        st4(dst + 4 * c4, x);
       }
     }
-    for (int c = W; c < hs; c += 4) *reinterpret_cast<float4*>(dst + c) = make_float4(0, 0, 0, 0);
+    for (int c = W; c < hs; c += 4) st4(dst + c, make_float4(0.f, 0.f, 0.f, 0.f));
   } else {
 #pragma unroll
     for (int c = 0; c < W; ++c) {
-      if (c < hs) dst[c] = c < dk ? r[c] : 0.f;
+      if (c < hs) dst[c] = from_float<T>(c < dk ? r[c] : 0.f);
     }
-    for (int c = W; c < hs; ++c) dst[c] = 0.f;
+    for (int c = W; c < hs; ++c) dst[c] = from_float<T>(0.f);
   }
 }
 
@@ -198,18 +251,21 @@ __device__ __forceinline__ void zero(float (&r)[W]) {
   for (int c = 0; c < W; ++c) r[c] = 0.f;
 }
 
-using FwdKernel = void (*)(const float*, const float*, const float*, const unsigned char*, float*,
-                           int, int, int, int, int, int, float);
-using BwdKernel = void (*)(const float*, const float*, const float*, const unsigned char*,
-                           const float*, float*, float*, float*, int, int, int, int, int, int,
-                           float);
+template <typename T>
+using FwdKernel = void (*)(const T*, const T*, const T*, const unsigned char*, T*, int, int, int,
+                           int, int, int, float);
+template <typename T>
+using BwdKernel = void (*)(const T*, const T*, const T*, const unsigned char*, const T*, T*, T*,
+                           T*, int, int, int, int, int, int, float);
 
 }  // namespace
 
 namespace digat {
 
 // the wide instance (msa_attention_wide.cu), float4 loads or scalar ones
-FwdKernel attention_fwd_wide(bool vec);
-BwdKernel attention_bwd_wide(bool vec);
+template <typename T>
+FwdKernel<T> attention_fwd_wide(bool vec);
+template <typename T>
+BwdKernel<T> attention_bwd_wide(bool vec);
 
 }  // namespace digat

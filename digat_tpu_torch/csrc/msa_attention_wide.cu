@@ -1,6 +1,8 @@
-// The masked attention pair's wide instance (msa_attention.cu): heads of
-// dk 65 to 128, in a file of its own so that nvcc compiles it beside the
-// register-row instances, in parallel.
+// The masked attention pair's wide instance (msa_attention_kernels.cuh):
+// heads of dk 65 to 128, fp32 and bf16 (q, k, v, do and the outputs of
+// element type T, the rows held and the sums run in fp32, each output
+// rounded once to T), in a file of its own so that nvcc compiles it beside
+// the register-row instances, in parallel.
 
 #include "msa_attention.cuh"
 
@@ -27,23 +29,24 @@ namespace {
 // wide_bwd_floats; ops/msa_attention.py's `max_length`).
 // ---------------------------------------------------------------------------
 // columns [c0, c0 + n) of an output row: r[c] where c0 + c < dk, zero in
-// [dk, hs); with `tail` also the zeros of [kWide, hs) (scalar stores)
-template <int n>
-__device__ __forceinline__ void store_cols(float* dst, const float (&r)[n], int c0, int dk,
-                                           int hs, bool tail) {
+// [dk, hs); with `tail` also the zeros of [kWide, hs) (scalar stores,
+// rounded to T)
+template <int n, typename T>
+__device__ __forceinline__ void store_cols(T* dst, const float (&r)[n], int c0, int dk, int hs,
+                                           bool tail) {
 #pragma unroll
   for (int c = 0; c < n; ++c) {
-    if (c0 + c < hs) dst[c0 + c] = c0 + c < dk ? r[c] : 0.f;
+    if (c0 + c < hs) dst[c0 + c] = from_float<T>(c0 + c < dk ? r[c] : 0.f);
   }
   if (tail)
-    for (int c = kWide; c < hs; ++c) dst[c] = 0.f;
+    for (int c = kWide; c < hs; ++c) dst[c] = from_float<T>(0.f);
 }
 
-template <bool VEC>
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(32)
-msa_attention_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                              float* __restrict__ out, int units, int H, int L, int dk, int rs,
+msa_attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const unsigned char* __restrict__ mask,
+                              T* __restrict__ out, int units, int H, int L, int dk, int rs,
                               int hs, float scale) {
   constexpr int KS = kv_stride(kWide);
   extern __shared__ float4 smem4[];
@@ -109,12 +112,12 @@ msa_attention_fwd_wide_kernel(const float* __restrict__ q, const float* __restri
   }
 }
 
-template <bool VEC>
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(32)
-msa_attention_bwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                              const float* __restrict__ dout, float* __restrict__ dq,
-                              float* __restrict__ dk_out, float* __restrict__ dv_out, int units,
+msa_attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const unsigned char* __restrict__ mask,
+                              const T* __restrict__ dout, T* __restrict__ dq,
+                              T* __restrict__ dk_out, T* __restrict__ dv_out, int units,
                               int H, int L, int dk, int rs, int hs, float scale) {
   constexpr int KS = kv_stride(kWide);
   extern __shared__ float4 smem4[];
@@ -125,8 +128,8 @@ msa_attention_bwd_wide_kernel(const float* __restrict__ q, const float* __restri
   float* Bw = Aw + 32 * KS;                    // [32][KS]: the chunk's do rows, then v rows
   float* M = Bw + 32 * KS;                     // [L]: each row's max,
   float* R = M + L;                            // 1 / sum of exp(s - max)
-  float* T = R + L;                            // and t
-  unsigned char* keep = reinterpret_cast<unsigned char*>(T + L);  // [L]
+  float* Ts = R + L;                           // and t
+  unsigned char* keep = reinterpret_cast<unsigned char*>(Ts + L);  // [L]
   const int unit = blockIdx.x;
   if (unit >= units) return;
   const int n = unit / H, h = unit - n * H;
@@ -194,7 +197,7 @@ msa_attention_bwd_wide_kernel(const float* __restrict__ q, const float* __restri
     if (i < L) {
       M[i] = m;
       R[i] = inv;
-      T[i] = t;
+      Ts[i] = t;
     }
   }
   // ---- part 2, lane per key: q and do in the place of k and v ----
@@ -219,7 +222,7 @@ msa_attention_bwd_wide_kernel(const float* __restrict__ q, const float* __restri
       for (int r = 0; r < L; ++r) {
         const float x = kept ? dot_ss<kWide>(kj, X + r * KS) * scale : kMaskFill;
         const float p = expf(x - M[r]) * R[r];
-        const float ds = kept ? p * (dot_ss<kWide>(vj, Y + r * KS) - T[r]) * scale : 0.f;
+        const float ds = kept ? p * (dot_ss<kWide>(vj, Y + r * KS) - Ts[r]) * scale : 0.f;
         axpy<kWideQuarter>(gk, ds, X + r * KS + c0);
         axpy<kWideQuarter>(gv, p, Y + r * KS + c0);
       }
@@ -236,12 +239,19 @@ msa_attention_bwd_wide_kernel(const float* __restrict__ q, const float* __restri
 
 namespace digat {
 
-FwdKernel attention_fwd_wide(bool vec) {
-  return vec ? msa_attention_fwd_wide_kernel<true> : msa_attention_fwd_wide_kernel<false>;
+template <typename T>
+FwdKernel<T> attention_fwd_wide(bool vec) {
+  return vec ? msa_attention_fwd_wide_kernel<true, T> : msa_attention_fwd_wide_kernel<false, T>;
 }
 
-BwdKernel attention_bwd_wide(bool vec) {
-  return vec ? msa_attention_bwd_wide_kernel<true> : msa_attention_bwd_wide_kernel<false>;
+template <typename T>
+BwdKernel<T> attention_bwd_wide(bool vec) {
+  return vec ? msa_attention_bwd_wide_kernel<true, T> : msa_attention_bwd_wide_kernel<false, T>;
 }
+
+template FwdKernel<float> attention_fwd_wide<float>(bool);
+template FwdKernel<__nv_bfloat16> attention_fwd_wide<__nv_bfloat16>(bool);
+template BwdKernel<float> attention_bwd_wide<float>(bool);
+template BwdKernel<__nv_bfloat16> attention_bwd_wide<__nv_bfloat16>(bool);
 
 }  // namespace digat

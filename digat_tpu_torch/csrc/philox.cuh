@@ -58,4 +58,19 @@ __device__ __forceinline__ float4 dropout_value4(float4 v, const Philox4& d, uin
                      dropout_value(v.z, d.z, thresh, scale), dropout_value(v.w, d.w, thresh, scale));
 }
 
+// The same on a bf16 tensor, as XLA computes jnp.where(mask, x / keep,
+// 0).astype(bf16) for a bf16 x: `keep` is the fp32 value of 1 - rate rounded
+// to bf16 (a weak-typed Python scalar takes x's dtype), the quotient is an
+// fp32 division rounded to nearest, and the caller rounds it to bf16.
+__device__ __forceinline__ float dropout_divide(float v, uint32_t draw, uint32_t thresh,
+                                                float keep) {
+  return draw >= thresh ? __fdiv_rn(v, keep) : 0.f;
+}
+
+__device__ __forceinline__ float4 dropout_divide4(float4 v, const Philox4& d, uint32_t thresh,
+                                                  float keep) {
+  return make_float4(dropout_divide(v.x, d.x, thresh, keep), dropout_divide(v.y, d.y, thresh, keep),
+                     dropout_divide(v.z, d.z, thresh, keep), dropout_divide(v.w, d.w, thresh, keep));
+}
+
 }  // namespace digat

@@ -24,6 +24,8 @@ For the NRMS family, the dual cache of the reference's Appendix-B eval:
            neighbours, never by encoding their titles again;
   stage 2: per batch, the user tower on the plain reps of the history (one
            forward launch), scored against the fused rep of the candidate.
+
+At `compute_dtype` bfloat16 its stages run on one compute copy too.
 """
 
 from __future__ import annotations
@@ -129,21 +131,28 @@ class NRMSCachedScorer:
         self.timings: dict = {}
 
     @torch.inference_mode()
-    def cache_news(self, tables) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Stage 1 -> (plain [N, D], fused [N, D]) on the model's device."""
+    def cache_news(self, tables, params: Optional[dict] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stage 1 -> (plain [N, D], fused [N, D]) on the model's device, on
+        the compute copy `params` (a fresh one if None)."""
         t = NRMSTables.from_arrays(tables, self.device)
         n, bs = t.news_title_text.shape[0], self.batch_size
-        plain = torch.cat([
-            self.model.encode_titles(t.news_title_text[s:s + bs], t.news_title_mask[s:s + bs])
-            for s in range(0, n, bs)
-        ])
-        if not self.model.sa:
-            return plain, plain
-        fused = torch.cat([
-            self.model.fuse_sa(plain[s:s + bs], plain[t.augmented_news[s:s + bs]])
-            for s in range(0, n, bs)
-        ])
-        return plain, fused
+
+        def stage1():
+            plain = torch.cat([
+                self.model.encode_titles(t.news_title_text[s:s + bs],
+                                         t.news_title_mask[s:s + bs])
+                for s in range(0, n, bs)
+            ])
+            if not self.model.sa:
+                return plain, plain
+            fused = torch.cat([
+                self.model.fuse_sa(plain[s:s + bs], plain[t.augmented_news[s:s + bs]])
+                for s in range(0, n, bs)
+            ])
+            return plain, fused
+
+        return self.model.computing(stage1, params=params)
 
     @torch.inference_mode()
     def score_items(self, tables, history_idx: np.ndarray, cat_idx: np.ndarray,
@@ -151,14 +160,20 @@ class NRMSCachedScorer:
         """Stage 1, then stage 2 over every impression item -> scores
         [items] float32 (host). `cat_idx` is unused by this family."""
         t0 = time.perf_counter()
-        plain, fused = self.cache_news(tables)
+        params = self.model.compute_params()
+        plain, fused = self.cache_news(tables, params)
         _sync(self.device)
         t1 = time.perf_counter()
-        pending = []
-        for batch, valid in eval_batches(history_idx, cat_idx, imp_index, cand,
-                                         self.batch_size, self.device):
-            user = self.model.encode_user(plain[batch.history_idx], batch.history_idx != 0)
-            pending.append(((fused[batch.cand_idx] * user).sum(dim=-1), valid))
+
+        def stage2():
+            pending = []
+            for batch, valid in eval_batches(history_idx, cat_idx, imp_index, cand,
+                                             self.batch_size, self.device):
+                user = self.model.encode_user(plain[batch.history_idx], batch.history_idx != 0)
+                pending.append(((fused[batch.cand_idx] * user).sum(dim=-1), valid))
+            return pending
+
+        pending = self.model.computing(stage2, params=params)
         scores = np.zeros(len(cand), np.float32)
         if pending:
             scores[:] = torch.cat([s[:v] for s, v in pending]).float().cpu().numpy()

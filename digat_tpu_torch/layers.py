@@ -10,10 +10,18 @@ training. Modules keep the reference PyTorch `state_dict` names
 Weights live in `nn.Linear` layout `[out, in]` (apply `x @ W.T + b`), where
 the JAX package stores `[in, out]`; `interop.load_jax_params` transposes.
 
-At `compute_dtype` bfloat16 the weights are bf16 copies and the activations
-stay fp32, as in the JAX package, whose type promotion forms an fp32
-activation times a bf16 weight in fp32. PyTorch's products refuse mixed
-dtypes, so every such site goes through `promoted` (`linear` does).
+At `compute_dtype` bfloat16 the weights are bf16 copies. Where the
+activations stay fp32 (MSA through kernel A, the NRMS user tower), JAX's
+type promotion forms an fp32 activation times a bf16 weight in fp32;
+PyTorch's products refuse mixed dtypes, so every such site goes through
+`promoted` (`linear` does). Where they are bf16 (the NRMS title tower's
+projections, MSA titles past 128 positions, the CNN encoder and the graph
+encoder behind it), each op rounds its result to bf16 as XLA does on the
+JAX package's CPU backend (measured there): `x @ w + b` rounds the product
+and then the sum (`linear`), a weak-typed Python scalar takes the bf16
+dtype before it is used (`scale_down`, `leaky_relu`), `sigmoid` is
+XLA's expansion, and the attention
+pair returns its bf16 output cast to fp32 (`mha`).
 """
 
 from __future__ import annotations
@@ -78,8 +86,44 @@ def promoted(*ts):
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """x W^T + b in the dtype that x and the weights promote to."""
-    return F.linear(*promoted(x, lin.weight, lin.bias))
+    """x W^T + b in the dtype that x and the weights promote to; in bf16 the
+    product is rounded to bf16 before the bias is added, as XLA rounds
+    `x @ w + b`."""
+    x, w, b = promoted(x, lin.weight, lin.bias)
+    if x.dtype != torch.bfloat16 or b is None:
+        return F.linear(x, w, b)
+    return F.linear(x, w) + b
+
+
+def _weak(x: float, t: torch.Tensor) -> float:
+    """The Python scalar x as a weak-typed JAX scalar meets t: rounded to
+    bf16 where t is bf16 (torch then computes with it in fp32 and rounds
+    the result once, as XLA does), as it is otherwise."""
+    return float(torch.tensor(x, dtype=torch.bfloat16)) if t.dtype == torch.bfloat16 else x
+
+
+def scale_down(t: torch.Tensor, divisor: float) -> torch.Tensor:
+    """t / divisor, the divisor a weak-typed scalar (sqrt(32) -> 5.65625 in
+    bf16)."""
+    return t / _weak(divisor, t)
+
+
+def sigmoid(t: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid: 1 / (1 + exp(-t)), which XLA rounds op by op in bf16
+    (measured on the JAX package's CPU backend; torch's bf16 sigmoid rounds
+    once and differs in about a third of the elements)."""
+    if t.dtype != torch.bfloat16:
+        return torch.sigmoid(t)
+    return 1.0 / (1.0 + torch.exp(-t))
+
+
+def leaky_relu(t: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """jax.nn.leaky_relu: where(t >= 0, t, slope * t), the slope a weak-typed
+    scalar (0.2001953125 in bf16, where F.leaky_relu would multiply by
+    0.2)."""
+    if t.dtype != torch.bfloat16:
+        return F.leaky_relu(t, negative_slope)
+    return torch.where(t >= 0, t, t * _weak(negative_slope, t))
 
 
 def dropout(x: torch.Tensor, rate: float, seed: Optional[int], site: int) -> torch.Tensor:
@@ -200,7 +244,7 @@ def sdp_attn(attn: ScaledDotProductAttention, feature: torch.Tensor, query: torc
     """feature [..., L, Df], query [..., Dq], mask [..., L] -> [..., Df]."""
     k = linear(feature, attn.K)
     q = linear(query, attn.Q)
-    a = torch.einsum("...ld,...d->...l", k, q) / math.sqrt(float(attn.K.out_features))
+    a = scale_down(torch.einsum("...ld,...d->...l", k, q), math.sqrt(float(attn.K.out_features)))
     alpha = masked_softmax(a, mask, dim=-1)
     return torch.einsum("...l,...ld->...d", alpha, feature)
 
@@ -227,6 +271,9 @@ def mha(module: MultiHeadAttention, x: torch.Tensor, heads: int,
     """Self-attention, the counterpart of `digat_tpu.layers.mha`. x [..., L,
     d_model] -> [..., L, heads * d_v]; `key_mask` [..., L] masks keys with
     the -1e9 fill (the Appendix-B masked variant), None leaves every key in.
+    The result is fp32 (fp64 for an fp64 model) whatever the projections'
+    dtype, as the JAX package casts it: bf16 projections (a bf16 x and bf16
+    weights) take the pair's bf16 instance.
 
     The projections are plain products, as the JAX package forms them
     outside any kernel. The attention core is the kernel pair of
@@ -240,7 +287,8 @@ def mha(module: MultiHeadAttention, x: torch.Tensor, heads: int,
     q, k, v = (linear(x, lin).reshape(-1, L, D) for lin in (module.W_Q, module.W_K,
                                                             module.W_V))
     mask = None if key_mask is None else key_mask.reshape(-1, L).to(torch.bool)
-    return msa_attention(q, k, v, heads, mask).reshape(*x.shape[:-1], D)
+    out = msa_attention(q, k, v, heads, mask).reshape(*x.shape[:-1], D)
+    return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +326,10 @@ class ConvBank(nn.Module):
     state_dict names follow the reference: `conv` (naive), `conv1` ...
     (group3, group5). Odd widths pad (w - 1) / 2 zero frames on each side
     (the same length out); even widths one more on the right, as
-    `digat_tpu.layers._conv1d_same`."""
+    `digat_tpu.layers._conv1d_same`. At bf16 the bias is its own add after
+    the convolution's rounded result, as `_conv1d_same` adds it (XLA's CPU
+    backend rounds twice, jitted or not); at fp32 it stays in the
+    convolution."""
 
     def __init__(self, method: str, in_ch: int, kernel_num: int, window: int,
                  generator: torch.Generator):
@@ -298,6 +349,9 @@ class ConvBank(nn.Module):
             conv = getattr(self, name)
             pad = (w - 1) // 2
             xp = F.pad(xt, (pad, pad if w % 2 else pad + 1))
-            outs.append(F.conv1d(xp, conv.weight, conv.bias))
+            if xp.dtype == torch.bfloat16:
+                outs.append(F.conv1d(xp, conv.weight) + conv.bias[:, None])
+            else:
+                outs.append(F.conv1d(xp, conv.weight, conv.bias))
         h = torch.relu(torch.cat(outs, dim=1)).transpose(1, 2)  # [N, L, kernel_num]
         return h.reshape(*lead, L, h.shape[-1])

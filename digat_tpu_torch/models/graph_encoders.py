@@ -30,12 +30,16 @@ The depth loop alternates a news-graph and a user-graph layer and adds both
 contexts up. Given a cached initial news context `c_n0`, the first news
 context is not recomputed (the two-stage scorer's stage 2).
 
-At `compute_dtype` bfloat16 the weights are bf16 copies and every
-activation stays fp32: each product of an activation and a weight is
-formed in fp32 (`layers.promoted`), as JAX's type promotion forms it. The
+At `compute_dtype` bfloat16 the weights are bf16 copies. Behind the MSA
+encoder every activation stays fp32: each product of an activation and a
+weight is formed in fp32 (`layers.promoted`), as JAX's type promotion forms
+it. Behind the CNN encoder the news vectors are bf16, and so is every
+activation here: each op rounds to bf16 as XLA does (`layers.linear`,
+`scale_down`, `leaky_relu`, `sigmoid`), kernel B takes bf16 x and query and returns
+bf16, and kernel C reads bf16 k1, k2 and k3 and returns bf16 scores. The
 topic-node embeddings are the one activation taken from a weight: dropped
-in fp32 and rounded back to bf16, as the JAX package drops them in their
-own dtype, then promoted where they join the history nodes."""
+in their own dtype (bf16, by A''s bf16 instance, as XLA drops them), then
+promoted where they join the history nodes."""
 
 from __future__ import annotations
 
@@ -43,7 +47,6 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from digat_tpu_torch.layers import (
@@ -52,11 +55,14 @@ from digat_tpu_torch.layers import (
     DropoutSites,
     ScaledDotProductAttention,
     gain_leaky_relu,
+    leaky_relu,
     linear,
     make_linear,
     masked_softmax,
     promoted,
+    scale_down,
     sdp_attn,
+    sigmoid,
 )
 from digat_tpu_torch.ops.gat import vanilla_gat_scores
 from digat_tpu_torch.ops.gat_layer import interactive_gat_layer_fused
@@ -147,7 +153,7 @@ class GraphEncoder(nn.Module):
         local = x[:, 0, :]
         global_ = sdp_attn(self.candidate_attention, x, local, node_mask)
         gate_logits = linear(torch.cat([local, global_], dim=-1), self.news_graph_W)
-        gate = torch.sigmoid(drop(gate_logits, self.dropout_rate / 2))
+        gate = sigmoid(drop(gate_logits, self.dropout_rate / 2))
         return gate * local + (1.0 - gate) * global_
 
     def user_graph_context(self, user_x, cat_mask, cat_idx, query,
@@ -157,7 +163,7 @@ class GraphEncoder(nn.Module):
         hist = user_x[:, : self.max_history_num, :]
         k = linear(hist, self.user_news_K)
         q = linear(query, self.user_news_Q)
-        a = torch.einsum("bhd,bd->bh", k, q) / math.sqrt(float(self.dim))
+        a = scale_down(torch.einsum("bhd,bd->bh", k, q), math.sqrt(float(self.dim)))
         _, topic = segment_softmax_sum(a, hist, cat_idx, self.category_num + 1)
         topic = torch.relu(linear(topic, self.featureAffine)) + topic
         topic = drop(topic, self.dropout_rate)
@@ -168,8 +174,7 @@ class GraphEncoder(nn.Module):
         """History-news nodes followed by the topic nodes: [B, H+C, D]."""
         B = user_news_embedding.shape[0]
         topic = self.topic_node_embedding[None].expand(B, self.category_num, self.dim)
-        acc = torch.promote_types(topic.dtype, torch.float32)
-        topic = drop(topic.to(acc), self.dropout_rate / 2).to(topic.dtype)
+        topic = drop(topic, self.dropout_rate / 2)
         return torch.cat(promoted(user_news_embedding, topic), dim=1)
 
     def gat_layer(self, prefix: str, i: int, x, adj, query,
@@ -189,7 +194,7 @@ class GraphEncoder(nn.Module):
         h = linear(x, getattr(self, f"{prefix}_W")[i])
         scores = vanilla_gat_scores(*promoted(h, getattr(self, f"{prefix}_a1")[i].weight[0],
                                               getattr(self, f"{prefix}_a2")[i].weight[0]))
-        alpha = masked_softmax(F.leaky_relu(scores, 0.2), adj, dim=2)
+        alpha = masked_softmax(leaky_relu(scores, 0.2), adj, dim=2)
         alpha = drop(alpha, p)
         return torch.relu(torch.einsum("bij,bjd->bid", alpha, h)) + x
 
@@ -215,7 +220,7 @@ class GraphEncoder(nn.Module):
         y = xw @ wy.t()
         h = y[..., :D] + bW
         scores = interactive_gat_scores_fused_y(y, linear(query, W3), a_vec)
-        alpha = masked_softmax(F.leaky_relu(scores, 0.2), adj, dim=2)
+        alpha = masked_softmax(leaky_relu(scores, 0.2), adj, dim=2)
         alpha = drop(alpha, p)
         return torch.relu(torch.einsum("bij,bjd->bid", alpha, h)) + x
 

@@ -109,6 +109,14 @@ class EvalBatch(NamedTuple):
 SITE_NEWS, SITE_HISTORY, FIRST_GRAPH_SITE = 0, 1, 2
 
 
+def dot_logits(news_rep: torch.Tensor, user_rep: torch.Tensor) -> torch.Tensor:
+    """sum(news_rep * user_rep) over the last axis in fp32 at least: bf16
+    representations (CNN-DIGAT at bfloat16) are upcast first, as the JAX
+    package forms its logits."""
+    acc = torch.promote_types(news_rep.dtype, torch.float32)
+    return (news_rep.to(acc) * user_rep.to(acc)).sum(dim=-1)
+
+
 def set_word_embedding(encoder: nn.Module, word_embedding) -> None:
     """The corpus's [V, word_dim] table (GloVe rows or pseudo-GloVe) as the
     encoder's initial word embedding, as the JAX package's
@@ -117,6 +125,39 @@ def set_word_embedding(encoder: nn.Module, word_embedding) -> None:
         with torch.no_grad():
             encoder.word_embedding.weight.copy_(as_device_tensor(
                 word_embedding, encoder.word_embedding.weight.device, torch.float32))
+
+
+class ComputeCopy:
+    """Mixed precision for a model with `compute_dtype` and `_computing` set
+    (the DIGAT family's `Model`, the NRMS family's `NRMSModel`)."""
+
+    def compute_params(self) -> Optional[dict]:
+        """The bf16 compute copy at `compute_dtype` bfloat16: every fp32
+        parameter cast (differentiably) but the word table -> {name:
+        tensor}; None at float32, where the model computes with its
+        parameters themselves."""
+        if self.compute_dtype == torch.float32:
+            return None
+        return {name: p if name == WORD_TABLE or p.dtype != torch.float32
+                else p.to(self.compute_dtype) for name, p in self.named_parameters()}
+
+    def computing(self, fn, *args, params: Optional[dict] = None, **kwargs):
+        """fn(*args, **kwargs) with the model's parameters replaced by the
+        compute copy (`params`, or a fresh `compute_params()`); at float32,
+        and inside another `computing` call (the copy already in place), fn
+        runs as it is. fn may be any callable that reaches the parameters
+        through this model's modules. The swap costs host time for each
+        parameter, so a caller of many calls (the scorer's stages) wraps
+        them in one."""
+        if self.compute_dtype == torch.float32 or self._computing:
+            return fn(*args, **kwargs)
+        params = self.compute_params() if params is None else params
+        self._computing = True
+        try:
+            return torch.func.functional_call(
+                _Call(self), {f"model.{k}": v for k, v in params.items()}, (fn, args, kwargs))
+        finally:
+            self._computing = False
 
 
 class _Call(nn.Module):
@@ -132,7 +173,7 @@ class _Call(nn.Module):
         return fn(*args, **kwargs)
 
 
-class Model(nn.Module):
+class Model(ComputeCopy, nn.Module):
     """The DIGAT family: `config.news_encoder` (MSA, CNN) and
     `config.graph_encoder` (DIGAT, wo_SA, Seq_SA, wo_interaction,
     news_graph_wo_inter, user_graph_wo_inter). Runs on CUDA unless `device`
@@ -166,35 +207,6 @@ class Model(nn.Module):
         self._computing = False  # inside `computing`: the compute copy is in place
 
     # ------------------------------------------------------------------
-    def compute_params(self) -> Optional[dict]:
-        """The bf16 compute copy at `compute_dtype` bfloat16: every fp32
-        parameter cast (differentiably) but the word table -> {name:
-        tensor}; None at float32, where the model computes with its
-        parameters themselves."""
-        if self.compute_dtype == torch.float32:
-            return None
-        return {name: p if name == WORD_TABLE or p.dtype != torch.float32
-                else p.to(self.compute_dtype) for name, p in self.named_parameters()}
-
-    def computing(self, fn, *args, params: Optional[dict] = None, **kwargs):
-        """fn(*args, **kwargs) with the model's parameters replaced by the
-        compute copy (`params`, or a fresh `compute_params()`); at float32,
-        and inside another `computing` call (the copy already in place), fn
-        runs as it is. fn may be any callable that reaches the parameters
-        through this model's modules. The swap costs host time for each
-        parameter, so a caller of many calls (the scorer's stages) wraps
-        them in one."""
-        if self.compute_dtype == torch.float32 or self._computing:
-            return fn(*args, **kwargs)
-        params = self.compute_params() if params is None else params
-        self._computing = True
-        try:
-            return torch.func.functional_call(
-                _Call(self), {f"model.{k}": v for k, v in params.items()}, (fn, args, kwargs))
-        finally:
-            self._computing = False
-
-    # ------------------------------------------------------------------
     def forward(self, user_title_text, user_title_mask, user_graph, user_category_mask,
                 user_category_indices, news_title_text, news_title_mask, news_graph,
                 news_graph_mask, seed: Optional[int] = None) -> torch.Tensor:
@@ -218,7 +230,7 @@ class Model(nn.Module):
             rep(user_category_mask), rep(user_category_indices),
             drop=DropoutSites(seed, FIRST_GRAPH_SITE),
         )
-        return (news_rep * user_rep).sum(dim=-1).reshape(B, Nn)
+        return dot_logits(news_rep, user_rep).reshape(B, Nn)
 
     def forward_indexed(self, tables: CorpusTables, batch, seed: Optional[int] = None):
         """Index-batch forward: gathers titles and graphs on the device,
@@ -282,4 +294,4 @@ class Model(nn.Module):
             self.graph_encoder, candidate_news_embedding, news_graph, news_graph_mask,
             user_news_embedding, user_graph, user_category_mask, user_category_indices,
             c_n0=c_n0)
-        return (news_rep * user_rep).sum(dim=-1)
+        return dot_logits(news_rep, user_rep)

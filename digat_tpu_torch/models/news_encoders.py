@@ -19,13 +19,17 @@ CNN. Word dropout (A''), the convolution bank with its ReLU
 dropout draws under site + CONV_SITE, clear of every other site of a
 training step. In eval there is no dropout.
 
-At `compute_dtype` bfloat16 (MSA through kernel A only) the weights are
-bf16 copies, but the word table stays the fp32 master: the rows are
-gathered from it and then cast to bf16. The forward is the same as a
-lookup in a bf16 table, and the table's gradient is the sum of the rows'
-gradients upcast, unrounded, as the JAX package's sorted embedding
-gradient (kernel D) returns it. Kernel A takes the bf16 rows and weights
-and returns fp32."""
+At `compute_dtype` bfloat16 the weights are bf16 copies, but the word
+table stays the fp32 master: the rows are gathered from it and then cast
+to bf16. The forward is the same as a lookup in a bf16 table, and the
+table's gradient is the sum of the rows' gradients upcast, unrounded, as
+the JAX package's sorted embedding gradient (kernel D) returns it. Kernel
+A takes the bf16 rows and weights and returns fp32. Past kernel A's titles
+the bf16 rows take the bf16 word dropout (A''s bf16 instance), bf16
+projections and the attention pair's bf16 instance, whose output `mha`
+casts to fp32 for the ReLU and the pool. The CNN runs in bf16 throughout:
+word dropout, the bank (its bias a bf16 add), ReLU, dropout and the pool,
+so its news vectors are bf16, as the JAX package's are."""
 
 from __future__ import annotations
 
@@ -97,7 +101,7 @@ class NewsEncoder(nn.Module):
                 dropout_rate=rate if seed is not None else 0.0, seed=seed or 0, site=site,
             )
             return pooled.reshape(*lead, self.dim)
-        w = dropout(w, rate, seed, site)
+        w = dropout(w.to(self.attention.affine1.weight.dtype), rate, seed, site)
         if self.encoder == "CNN":
             h = dropout(self.conv(w), rate, seed, site + CONV_SITE)
         else:

@@ -24,7 +24,17 @@ word_embedding`, `news_encoder.multiheadAttention.W_{Q,K,V}`,
 torch_to_nrms_params` reads a port model directly. With a `seed` the
 forward is the training forward: dropout at 7 sites for NRMS-SA (word
 embedding and attention output of each of the three title-tower calls, and
-the gate logits) and 4 for NRMS, each under its own site number."""
+the gate logits) and 4 for NRMS, each under its own site number.
+
+At `compute_dtype` bfloat16 the loss and both scorer stages run on a bf16
+compute copy of the weights (`ComputeCopy`, as the DIGAT family's `Model`),
+the word table kept fp32 and its gathered rows cast to bf16, as the JAX
+model's cast table gives them. The title tower then runs in bf16 up to the
+attention pair: the word dropout (A''s bf16 instance), the projections
+(`layers.linear`) and the pair's bf16 instance, whose output is cast to
+fp32 (`layers.mha`) for the second dropout and the pool. The fusion and the
+user tower take fp32 representations times bf16 weights, promoted to fp32,
+so the user tower runs the fp32 pair, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -46,7 +56,7 @@ from digat_tpu_torch.layers import (
     make_linear,
     sdp_attn,
 )
-from digat_tpu_torch.models.model import as_device_tensor, set_word_embedding
+from digat_tpu_torch.models.model import ComputeCopy, as_device_tensor, set_word_embedding
 from digat_tpu_torch.runtime import exact_fp32, resolve_device
 
 
@@ -98,7 +108,7 @@ class NRMSUserEncoder(nn.Module):
         self.attention = AttentionPool(dim, attention_dim, generator)
 
 
-class NRMSModel(nn.Module):
+class NRMSModel(ComputeCopy, nn.Module):
     """NRMS or NRMS-SA (`config.nrms_model`). Runs on CUDA unless `device`
     names another device; with no device and no CUDA it raises.
     `word_embedding` (numpy [V, word_dim]), if given, replaces the drawn
@@ -127,6 +137,8 @@ class NRMSModel(nn.Module):
         set_word_embedding(self.news_encoder, word_embedding)
         self.to(device)
         self.device = device
+        self.compute_dtype = getattr(torch, config.compute_dtype)
+        self._computing = False  # inside `computing`: the compute copy is in place
 
     # ------------------------------------------------------------------
     def encode_titles(self, title_text: torch.Tensor, title_mask: torch.Tensor,
@@ -134,7 +146,8 @@ class NRMSModel(nn.Module):
         """The shared title tower: [..., L] -> [..., D]."""
         ne, p = self.news_encoder, self.dropout_rate
         lead, L = title_text.shape[:-1], title_text.shape[-1]
-        w = drop(F.embedding(title_text.reshape(-1, L), ne.word_embedding.weight), p)
+        w = F.embedding(title_text.reshape(-1, L), ne.word_embedding.weight)
+        w = drop(w.to(ne.multiheadAttention.W_Q.weight.dtype), p)
         mask = title_mask.reshape(-1, L).to(torch.bool)
         c = drop(ne.multiheadAttention(w, mask), p)
         return attn_pool(ne.attention, c, mask).reshape(*lead, self.dim)
@@ -183,8 +196,8 @@ class NRMSModel(nn.Module):
 
     def loss_parts(self, tables: NRMSTables, batch, seed: int):
         """(weighted NLL sum, weight sum) of the listwise loss; the positive
-        is candidate 0."""
-        logits = self.forward_indexed(tables, batch, seed)
+        is candidate 0. The forward runs on the compute copy."""
+        logits = self.computing(self.forward_indexed, tables, batch, seed)
         nll = -torch.log_softmax(logits, dim=1)[:, 0]
         w = batch.weight.to(logits.dtype)
         return (nll * w).sum(), w.sum()

@@ -61,14 +61,22 @@ SIGNATURES = {
     "dropout_keep_mask_u8": ([_P, _LL, _I, _LL, _U, _U, _U, _P], _I),
     # x, out, rows, cols, row_offset, seed, site, thresh, scale, stream
     "dropout_apply_f32": ([_P, _P, _LL, _I, _LL, _U, _U, _U, _F, _P], _I),
+    # the same on bf16 x and out, keep_value in the place of scale
+    "dropout_apply_bf16": ([_P, _P, _LL, _I, _LL, _U, _U, _U, _F, _P], _I),
     # x, q, wy, by, w3, b3, y, k3, M, B, Dp, stream
     "gat_layer_project_f32": ([_P] * 8 + [_I] * 3 + [_P], _I),
     # the same, wy and w3 bf16
     "gat_layer_project_bf16": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    # the same, x, q, wy and w3 bf16
+    "gat_layer_project_bf16_act": ([_P] * 8 + [_I] * 3 + [_P], _I),
     # x, adj, s, h, ldh, out, B, G, D, TI, CG, slope, stream
     "gat_layer_attend_f32": ([_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _P], _I),
+    # the same, x and out bf16
+    "gat_layer_attend_bf16": ([_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _P], _I),
     # k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream
     "gat_scores_fwd_f32": ([_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P], _I),
+    # the same, k1, k2, k3, a and s bf16
+    "gat_scores_fwd_bf16": ([_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P], _I),
     # k1, ld1, k2, ld2, k3, a, g, gk1, gk2, gk3, ga, ga_part, B, G, D, ntiles, JT, DT,
     # stream
     "gat_scores_bwd_f32": ([_P, _I, _P, _I] + [_P] * 8 + [_I] * 6 + [_P], _I),
@@ -78,12 +86,15 @@ SIGNATURES = {
     "msa_attention_fwd_f32": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
     # q, k, v, mask, do, dq, dk, dv, N, H, L, dk, rs, hs, scale, stream
     "msa_attention_bwd_f32": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
+    # the same two, q, k, v, do and the outputs bf16
+    "msa_attention_fwd_bf16": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
+    "msa_attention_bwd_bf16": ([_P] * 8 + [_I] * 6 + [_F, _P], _I),
 }
 
 # Run once per device, with that device current: each reads the card's
 # opt-in shared-memory limit and grants it to its kernels there.
 INITS = ("msa_encoder_init", "msa_encoder_bwd_init", "gat_layer_init", "gat_scores_init",
-         "msa_attention_init")
+         "msa_attention_init", "msa_attention_bf16_init")
 
 
 def _sources():

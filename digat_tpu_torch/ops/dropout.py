@@ -26,6 +26,16 @@ plain version bit for bit, forward and backward. `keep_mask` materialises a
 mask (the kernel `dropout_keep_mask_u8` on a CUDA device, `keep_mask_plain`
 on the CPU), for the tests and the check that card and CPU draw the same
 bits.
+
+On a bf16 tensor (`compute_dtype` bfloat16) the JAX package runs XLA's
+`jnp.where(mask, x / keep, 0).astype(x.dtype)`, whose weak-typed `keep`
+takes x's dtype: it divides by `bf16_keep(rate)` (0.80078125 at rate 0.2)
+in fp32 and rounds the quotient to bf16 (measured on JAX's CPU backend:
+the fp32 division rounded once gives its bits). `dropout_plain` does the
+same, and the card's bf16 instance (`dropout_apply_bf16`, counted on
+`dropout.launches_bf16`) gives the same bits, forward and on the gradient
+(the VJP of x / keep is g / keep, rounded to bf16). Kernel A's in-kernel
+word dropout keeps its own rule (`ops.msa_encoder.drop_titles_plain`).
 """
 
 from __future__ import annotations
@@ -99,24 +109,37 @@ def keep_mask(rows: int, cols: int, rate: float, seed: int, site: int,
     return out
 
 
+def bf16_keep(rate: float) -> float:
+    """1 - rate rounded to bf16, as a weak-typed scalar meets a bf16 x."""
+    return float(torch.tensor(1.0 - rate, dtype=torch.bfloat16))
+
+
 def dropout_plain(x: torch.Tensor, rate: float, seed: int, site: int) -> torch.Tensor:
     """Plain PyTorch version of `dropout`: the keep mask of x seen as
-    [rows, last dim], then where(keep, x * (1 / (1 - rate)), 0)."""
+    [rows, last dim], then where(keep, x * (1 / (1 - rate)), 0); for a bf16
+    x where(keep, bf16(x / bf16_keep(rate)), 0), the division in fp32."""
     cols = x.shape[-1]
-    keep = keep_mask_plain(x.numel() // cols, cols, rate, seed, site, device=x.device)
-    return torch.where(keep.reshape(x.shape), x * (1.0 / (1.0 - rate)),
-                       torch.zeros((), dtype=x.dtype, device=x.device))
+    keep = keep_mask_plain(x.numel() // cols, cols, rate, seed, site,
+                           device=x.device).reshape(x.shape)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        return torch.where(keep, (x.float() / bf16_keep(rate)).to(x.dtype), zero)
+    return torch.where(keep, x * (1.0 / (1.0 - rate)), zero)
 
 
 def _apply(x: torch.Tensor, args) -> torch.Tensor:
-    """One launch of `dropout_apply_f32` on the contiguous float32 x."""
+    """One launch of `dropout_apply_f32` (or `_bf16`) on the contiguous x."""
     out = torch.empty_like(x)
     cols = x.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
     with build.launch_on(x.device) as (lib, stream):
-        err = lib.dropout_apply_f32(x.data_ptr(), out.data_ptr(), x.numel() // cols, cols, 0,
-                                    *args, stream)
+        fn = lib.dropout_apply_bf16 if bf16 else lib.dropout_apply_f32
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel() // cols, cols, 0, *args, stream)
     build.check(lib, err, "dropout")
-    dropout.launches += 1
+    if bf16:
+        dropout.launches_bf16 += 1
+    else:
+        dropout.launches += 1
     return out
 
 
@@ -136,15 +159,17 @@ class DropoutFunction(torch.autograd.Function):
 
 def dropout(x: torch.Tensor, rate: float, seed: int, site: int) -> torch.Tensor:
     """Inverted dropout of x under (seed, site): `dropout_plain` on the CPU,
-    kernel A'' forward and backward on a CUDA tensor (float32; `x` may be a
-    view, as the expanded topic nodes are)."""
+    kernel A'' forward and backward on a CUDA tensor (float32, or bfloat16
+    by its bf16 instance; `x` may be a view, as the expanded topic nodes
+    are)."""
     if not build.use_kernel(x):
         return dropout_plain(x, rate, seed, site)
-    if x.dtype != torch.float32:
-        raise TypeError(f"dropout: the kernel takes float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dropout: the kernel takes float32 or bfloat16, got {x.dtype}")
     if x.numel() == 0:
         return x.clone()
-    args = (seed & _MASK32, site & _MASK32, threshold(rate), 1.0 / (1.0 - rate))
+    factor = bf16_keep(rate) if x.dtype == torch.bfloat16 else 1.0 / (1.0 - rate)
+    args = (seed & _MASK32, site & _MASK32, threshold(rate), factor)
     if torch.is_grad_enabled() and x.requires_grad:
         return DropoutFunction.apply(x, args)
     return _apply(x.contiguous(), args)
@@ -152,3 +177,4 @@ def dropout(x: torch.Tensor, rate: float, seed: int, site: int) -> torch.Tensor:
 
 keep_mask.launches = 0
 dropout.launches = 0  # forward and backward launches
+dropout.launches_bf16 = 0  # those of the bf16 instance

@@ -25,20 +25,28 @@ as the JAX kernel takes them. The wrapper stacks W|W1|W2 as bf16 (half the
 bytes) and upcasts bW, b3 and a (exact); `gat_layer_project_bf16` forms
 the projections at 2xTF32 (x split into two TF32 parts, the bf16 weights
 exact in one), with its own launch counter `launches_bf16`. C's score
-tiles and the attend step are the fp32 ones. The plain version forms
-every product in fp32 from the bf16 values. bf16 x or query belongs to a
-later slice (NRMS at bf16).
+tiles and the attend step are the fp32 ones.
+
+bf16 activations (CNN-DIGAT at bfloat16, whose news vectors are bf16): x,
+query and the weights bf16, the result bf16, as the JAX kernel reads x in
+its dtype, computes in fp32 and writes out in x's dtype
+(`gat_layer.py:51,95`). `gat_layer_project_bf16_act` forms the projections
+in one bf16 x bf16 pass (every product exact in fp32), C's fp32 forward
+runs on the fp32 y, and `gat_layer_attend_bf16` reads x as bf16 and rounds
+each output once; counted on `launches_bf16_act`. The plain version forms
+everything in fp32 from the bf16 values and rounds the result once.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from digat_tpu_torch.layers import MASK_FILL, promoted
+from digat_tpu_torch.layers import MASK_FILL
 from digat_tpu_torch.ops import build
 from digat_tpu_torch.ops.gat import interactive_gat_scores
 from digat_tpu_torch.ops.gat_scores import fwd_plan
@@ -91,10 +99,14 @@ def attend_plan(G: int, D: int) -> AttendPlan:
 def interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
                                 negative_slope: float = 0.2):
     """Plain PyTorch version. x [B, G, D]; adj [B, G, G] bool; query [B, D];
-    W, W1, W2, W3 [D, D] ([in, out] layout); bW, b3, a_vec [D]. Weights of
-    another dtype than x (bf16) are promoted with it: every product in
-    fp32."""
-    x, query, W, bW, W1, W2, W3, b3, a_vec = promoted(x, query, W, bW, W1, W2, W3, b3, a_vec)
+    W, W1, W2, W3 [D, D] ([in, out] layout); bW, b3, a_vec [D]. Every
+    product in fp32 at least (bf16 operands upcast), the result in x's
+    dtype (a bf16 x: rounded once)."""
+    out_dtype = x.dtype
+    acc = torch.promote_types(functools.reduce(torch.promote_types, (
+        t.dtype for t in (x, query, W, bW, W1, W2, W3, b3, a_vec))), torch.float32)
+    x, query, W, bW, W1, W2, W3, b3, a_vec = (t.to(acc) for t in (
+        x, query, W, bW, W1, W2, W3, b3, a_vec))
     h = x @ W + bW
     k1 = x @ W1
     k2 = x @ W2
@@ -103,7 +115,7 @@ def interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     e = torch.where(s > 0, s, negative_slope * s)
     e = torch.where(adj.to(torch.bool), e, torch.full_like(e, MASK_FILL))
     alpha = torch.softmax(e, dim=2)
-    return torch.relu(torch.einsum("bij,bjd->bid", alpha, h)) + x
+    return (torch.relu(torch.einsum("bij,bjd->bid", alpha, h)) + x).to(out_dtype)
 
 
 def stacked_weights(W, bW, W1, W2, W3, b3, a_vec):
@@ -128,7 +140,9 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     The kernels read W, W1 and W2 stacked [3D, D] in nn.Linear layout: the
     wrapper stacks them each call (1.92 MB at D 400, one copy on the
     device). Where D is not a multiple of 4, x, query and the weights are
-    padded with zeros to the next one (zero terms change no sum)."""
+    padded with zeros to the next one (zero terms change no sum). Three
+    instances: all fp32; fp32 x and query with bf16 weights; bf16 x, query
+    and weights (bf16 activations, a bf16 result)."""
     if not build.use_kernel(x):
         return interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
                                            negative_slope)
@@ -138,20 +152,21 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
                            "gradient; the training layer runs Eq. (8) through "
                            "ops.gat_scores.interactive_gat_scores")
     B, G, D = x.shape
-    if x.dtype != torch.float32:
-        raise TypeError(f"interactive_gat_layer_fused: x must be float32, got {x.dtype}")
+    xdt, wdt = x.dtype, W.dtype  # (fp32, fp32), (fp32, bf16) or (bf16, bf16)
+    if (xdt, wdt) not in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                          (torch.bfloat16, torch.bfloat16)):
+        raise TypeError(f"interactive_gat_layer_fused: x and the weights must be float32 and "
+                        f"float32 or bfloat16, or both bfloat16, got {xdt} and {wdt}")
     if adj.dtype != torch.bool or tuple(adj.shape) != (B, G, G):
         raise TypeError(f"interactive_gat_layer_fused: adj must be bool [B, G, G], "
                         f"got {adj.dtype} {tuple(adj.shape)}")
-    wdt = W.dtype  # float32, or bfloat16 (the bf16-weight instance)
     shapes = {"query": (query, (B, D)), "W": (W, (D, D)), "W1": (W1, (D, D)),
               "W2": (W2, (D, D)), "W3": (W3, (D, D)), "bW": (bW, (D,)), "b3": (b3, (D,)),
               "a_vec": (a_vec, (D,))}
     for name, (t, shape) in shapes.items():
-        dtypes = (torch.float32,) if name == "query" or wdt == torch.float32 else \
+        dtypes = (xdt,) if name == "query" or wdt == torch.float32 else \
             ((wdt,) if t.dim() == 2 else (wdt, torch.float32))
-        if tuple(t.shape) != shape or t.dtype not in dtypes or t.device != x.device or \
-                wdt not in (torch.float32, torch.bfloat16):
+        if tuple(t.shape) != shape or t.dtype not in dtypes or t.device != x.device:
             raise ValueError(f"interactive_gat_layer_fused: {name} must be "
                              f"{' or '.join(map(str, dtypes))} {shape} on {x.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
@@ -161,6 +176,7 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
         return torch.empty_like(x)
     plan, splan = attend_plan(G, D), fwd_plan(G)
     Dp = padded_width(D)
+    act = xdt == torch.bfloat16  # the bf16-activation instance
     xk, qk = x.reshape(B * G, D), query
     if Dp != D or xk.data_ptr() % 16 or qk.data_ptr() % 16:
         xk, qk = F.pad(xk, (0, Dp - D)), F.pad(qk, (0, Dp - D))
@@ -172,18 +188,21 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     out = torch.empty_like(x)
     what = "interactive_gat_layer_fused"
     with build.launch_on(dev) as (lib, stream):
-        project = lib.gat_layer_project_bf16 if wdt == torch.bfloat16 else \
-            lib.gat_layer_project_f32
+        project = lib.gat_layer_project_bf16_act if act else \
+            lib.gat_layer_project_bf16 if wdt == torch.bfloat16 else lib.gat_layer_project_f32
         build.check(lib, project(
             xk.data_ptr(), qk.data_ptr(), wy.data_ptr(), by.data_ptr(), w3.data_ptr(),
             b3p.data_ptr(), y.data_ptr(), k3.data_ptr(), B * G, B, Dp, stream), what)
         build.check(lib, lib.gat_scores_fwd_f32(
             y.data_ptr() + 4 * Dp, 3 * Dp, y.data_ptr() + 8 * Dp, 3 * Dp, k3.data_ptr(),
             ap.data_ptr(), s.data_ptr(), B, G, Dp, splan.R, splan.TIb, splan.TJb, stream), what)
-        build.check(lib, lib.gat_layer_attend_f32(
+        attend = lib.gat_layer_attend_bf16 if act else lib.gat_layer_attend_f32
+        build.check(lib, attend(
             x.data_ptr(), adj.data_ptr(), s.data_ptr(), y.data_ptr(), 3 * Dp, out.data_ptr(), B,
             G, D, plan.TI, plan.CG, float(negative_slope), stream), what)
-    if wdt == torch.bfloat16:
+    if act:
+        interactive_gat_layer_fused.launches_bf16_act += 1
+    elif wdt == torch.bfloat16:
         interactive_gat_layer_fused.launches_bf16 += 1
     else:
         interactive_gat_layer_fused.launches += 1
@@ -192,3 +211,4 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
 
 interactive_gat_layer_fused.launches = 0
 interactive_gat_layer_fused.launches_bf16 = 0
+interactive_gat_layer_fused.launches_bf16_act = 0

@@ -22,6 +22,25 @@ projection y [B, G, 3D]; the kernel reads them in place. The training GAT
 layer passes y itself to `interactive_gat_scores_fused_y`, the counterpart
 of `interactive_gat_scores_fused_y_pallas` (C', whose backward reuses C's).
 
+The ReLU kink. Where k1 + k2 + k3 lies within rounding of 0 the mask m,
+and with it a whole a g term of the gradients, would depend on the order
+of the sums (the TPU kernel sums (k1 + k3) + k2, the XLA path (k1 + k2) +
+k3). The plain backward decides the mask of any t with |t| <= KINK_TOL
+(|k1| + |k2| + |k3|), a band it bounds by the chunk's largest magnitudes,
+by the float64 sum k1 + (k2 + k3) of its inputs (`relu_mask`); outside
+that band the fp32 sum has the exact sum's sign in any order. The kernel takes the same side at no cost a term: its fp32 t =
+k1 + fl(k2 + k3) can miss the exact sign only where t == +0, and there it
+takes the sign of fl(k2 + k3)'s rounding error, formed once a row
+(csrc/gat_scores.cu; `tests/test_torch_bf16_pair.py` replays its rule).
+
+bf16 (`compute_dtype` bfloat16, bf16 activations: CNN-DIGAT). The forward
+takes bf16 k1, k2, k3 and a and returns bf16 scores, its math in fp32 (the
+kernel's bf16 instance `gat_scores_fwd_bf16`, counted on
+`gat_scores_fwd.launches_bf16`; the plain version upcasts and rounds once),
+as the TPU kernel does. The backward upcasts its inputs to fp32, runs the
+fp32 backward and casts the gradients back to the inputs' dtypes, as the
+JAX package's custom VJP does around its kernel.
+
 The kernels' launch plans are made here and passed to the C side, which
 checks them: `fwd_plan` (register tiles of R x R scores a thread, the
 threads' tiles of a block) and `bwd_plan` (tiles of JT columns held in
@@ -44,6 +63,10 @@ SLICE = 32  # features of one forward slice (kDS in csrc/gat_scores.cu)
 MAX_FWD_THREADS = 512  # a forward block
 MAX_BWD_THREADS = 256  # a backward block: one slice of D
 MAX_JT = 40  # backward columns j a thread holds in registers
+# the relative band around the ReLU's kink where the plain backward's mask
+# is the float64 sum's: 8 times the largest fp32 error of a sum of three,
+# 2^-23 (|k1| + |k2| + |k3|), in any order
+KINK_TOL = 1e-6
 
 
 class FwdPlan(NamedTuple):
@@ -115,10 +138,28 @@ def bwd_plan(G: int, D: int) -> BwdPlan:
         slices += 1
 
 
+def relu_mask(k1, k2, k3, t):
+    """t > 0 for t = k1 + (k2 + k3) ([chunk, G, G, D], k1 indexed by j, k2 by
+    i; k1 [chunk, G, D], k2 [chunk, G, D], k3 [chunk, D]), except where |t|
+    <= KINK_TOL (max |k1| + max |k2| + max |k3|) over the chunk, a band at
+    least as wide as each term's own: there the sign of the float64 sum
+    k1 + (k2 + k3), the side the kernel takes."""
+    m = t > 0
+    band = KINK_TOL * sum(float(k.abs().max()) if k.numel() else 0.0 for k in (k1, k2, k3))
+    near = t.abs() <= band
+    if bool(near.any()):
+        b, i, j, d = near.nonzero(as_tuple=True)
+        wide = torch.promote_types(t.dtype, torch.float64)
+        exact = k1[b, j, d].to(wide) + (k2[b, i, d].to(wide) + k3[b, d].to(wide))
+        m[b, i, j, d] = exact > 0
+    return m
+
+
 def interactive_gat_scores_bwd_plain(k1, k2, k3, a_vec, g):
     """Plain PyTorch backward of Eq. (8): (gk1, gk2, gk3, ga), over batch
     chunks that keep [chunk, G, G, D] under `ops.gat._MAX_ELEMENTS`, with
-    the sum formed in the order of `ops.gat` and the kernels."""
+    the sum formed in the order of `ops.gat` and the kernels and the mask at
+    the kink taken from `relu_mask`."""
     B, G, D = k1.shape
     step = max(1, gat._MAX_ELEMENTS // (G * G * D))
     gk1, gk2 = [], []
@@ -127,7 +168,8 @@ def interactive_gat_scores_bwd_plain(k1, k2, k3, a_vec, g):
         t = k1[s:s + step, None, :, :] + (k2[s:s + step, :, None, :]
                                           + k3[s:s + step, None, None, :])
         gs = g[s:s + step, :, :, None]
-        w = torch.where(t > 0, gs, torch.zeros((), dtype=t.dtype, device=t.device))
+        m = relu_mask(k1[s:s + step], k2[s:s + step], k3[s:s + step], t)
+        w = torch.where(m, gs, torch.zeros((), dtype=t.dtype, device=t.device))
         gk1.append(w.sum(dim=1) * a_vec)
         gk2.append(w.sum(dim=2) * a_vec)
         ga = ga + (gs * torch.relu(t)).sum(dim=(0, 1, 2))
@@ -143,34 +185,50 @@ def _rows(k, G):
     return k, k.stride(1)
 
 
-def _check(k1, k2, k3, a_vec, what):
+def _check(k1, k2, k3, a_vec, what, dtypes=(torch.float32,)):
     B, G, D = k1.shape
     shapes = {"k1": (k1, (B, G, D)), "k2": (k2, (B, G, D)), "k3": (k3, (B, D)),
               "a_vec": (a_vec, (D,))}
     for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != k1.device:
-            raise ValueError(f"{what}: {name} must be float32 {shape} on {k1.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if tuple(t.shape) != shape or t.dtype != k1.dtype or t.dtype not in dtypes or \
+                t.device != k1.device:
+            raise ValueError(f"{what}: {name} must be {' or '.join(map(str, dtypes))} {shape} "
+                             f"(all one dtype) on {k1.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
     return B, G, D
 
 
+def gat_scores_fwd_plain(k1, k2, k3, a_vec):
+    """Plain PyTorch version of the forward: the chunked expression of
+    `ops.gat`; bf16 inputs upcast to fp32 and the scores rounded once."""
+    if k1.dtype == torch.bfloat16:
+        return interactive_gat_scores_plain(k1.float(), k2.float(), k3.float(),
+                                            a_vec.float()).to(k1.dtype)
+    return interactive_gat_scores_plain(k1, k2, k3, a_vec)
+
+
 def gat_scores_fwd(k1, k2, k3, a_vec):
-    """Kernel C, forward -> [B, G, G]."""
+    """Kernel C, forward -> [B, G, G] in the inputs' dtype (fp32, or bf16 by
+    its bf16 instance)."""
     if not build.use_kernel(k1):
-        return interactive_gat_scores_plain(k1, k2, k3, a_vec)
-    B, G, D = _check(k1, k2, k3, a_vec, "gat_scores_fwd")
-    out = torch.empty((B, G, G), dtype=torch.float32, device=k1.device)
+        return gat_scores_fwd_plain(k1, k2, k3, a_vec)
+    B, G, D = _check(k1, k2, k3, a_vec, "gat_scores_fwd", (torch.float32, torch.bfloat16))
+    out = torch.empty((B, G, G), dtype=k1.dtype, device=k1.device)
     if B == 0:
         return out
     (k1, ld1), (k2, ld2) = _rows(k1, G), _rows(k2, G)
     k3, a_vec = k3.contiguous(), a_vec.contiguous()
     plan = fwd_plan(G)
+    bf16 = k1.dtype == torch.bfloat16
     with build.launch_on(k1.device) as (lib, stream):
-        err = lib.gat_scores_fwd_f32(k1.data_ptr(), ld1, k2.data_ptr(), ld2, k3.data_ptr(),
-                                     a_vec.data_ptr(), out.data_ptr(), B, G, D, plan.R,
-                                     plan.TIb, plan.TJb, stream)
+        fn = lib.gat_scores_fwd_bf16 if bf16 else lib.gat_scores_fwd_f32
+        err = fn(k1.data_ptr(), ld1, k2.data_ptr(), ld2, k3.data_ptr(), a_vec.data_ptr(),
+                 out.data_ptr(), B, G, D, plan.R, plan.TIb, plan.TJb, stream)
     build.check(lib, err, "gat_scores_fwd")
-    gat_scores_fwd.launches += 1
+    if bf16:
+        gat_scores_fwd.launches_bf16 += 1
+    else:
+        gat_scores_fwd.launches += 1
     return out
 
 
@@ -204,6 +262,17 @@ def gat_scores_bwd(k1, k2, k3, a_vec, g):
     return gk1, gk2, gk3, ga
 
 
+def gat_scores_bwd_any(k1, k2, k3, a_vec, g):
+    """The backward for inputs of any dtype the forward takes: bf16 ones
+    upcast to fp32 for `gat_scores_bwd` and its gradients cast back to each
+    input's dtype, as the JAX package's custom VJP does."""
+    if k1.dtype != torch.bfloat16:
+        return gat_scores_bwd(k1, k2, k3, a_vec, g.contiguous())
+    gk1, gk2, gk3, ga = gat_scores_bwd(k1.float(), k2.float(), k3.float(), a_vec.float(),
+                                       g.float().contiguous())
+    return gk1.to(k1.dtype), gk2.to(k2.dtype), gk3.to(k3.dtype), ga.to(a_vec.dtype)
+
+
 class InteractiveGATScores(torch.autograd.Function):
     """Eq. (8) scores: kernel C forward and backward (plain versions on the
     CPU)."""
@@ -215,7 +284,7 @@ class InteractiveGATScores(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return gat_scores_bwd(*ctx.saved_tensors, g.contiguous())
+        return gat_scores_bwd_any(*ctx.saved_tensors, g)
 
 
 def interactive_gat_scores(k1, k2, k3, a_vec):
@@ -238,8 +307,7 @@ class InteractiveGATScoresFusedY(torch.autograd.Function):
     def backward(ctx, g):
         y, k3, a_vec = ctx.saved_tensors
         D = y.shape[-1] // 3
-        gk1, gk2, gk3, ga = gat_scores_bwd(y[..., D:2 * D], y[..., 2 * D:], k3, a_vec,
-                                           g.contiguous())
+        gk1, gk2, gk3, ga = gat_scores_bwd_any(y[..., D:2 * D], y[..., 2 * D:], k3, a_vec, g)
         return torch.cat([torch.zeros_like(gk1), gk1, gk2], dim=-1), gk3, ga
 
 
@@ -254,4 +322,5 @@ def interactive_gat_scores_fused_y(y, k3, a_vec):
 
 
 gat_scores_fwd.launches = 0
+gat_scores_fwd.launches_bf16 = 0  # the bf16 instance
 gat_scores_bwd.launches = 0

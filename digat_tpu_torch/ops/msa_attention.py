@@ -16,8 +16,15 @@ the sum rounds to -1e9 for every key and E and F pass a gradient to q and k.)
 On a CPU tensor `msa_attention` runs `_attention_plain`, whose gradients
 are autograd's. On a CUDA tensor it goes through `MSAAttentionFunction`:
 forward `attention_fwd`, backward `attention_bwd`, both launching
-`csrc/msa_attention.cu` (whose header says what bounds it on the card and
-how the kernels are laid out) or raising. The kernels keep one head of one
+`csrc/msa_attention.cu` (whose kernels' header, `msa_attention_kernels.cuh`,
+says what bounds them on the card and how they are laid out) or raising.
+
+bf16 (`compute_dtype` bfloat16): q, k, v and do may be bf16, as the TPU
+kernels take them; the outputs are then bf16 too. The kernels' bf16
+instances (`csrc/msa_attention_bf16.cu`, launch counters `launches_bf16`)
+and the plain version both compute in fp32 from the bf16 values and round
+each output once, as the TPU kernels do (the JAX package's XLA path,
+`_attention_xla`, rounds the scores and the probabilities to bf16 instead). The kernels keep one head of one
 sequence in the shared memory of a warp (L <= SHORT_L) or of a block, so a
 sequence longer than `max_length(dk)` raises, as does a head wider than the
 widest of `WIDTHS`; there is no fallback.
@@ -50,13 +57,14 @@ def head_width(dk: int) -> int:
                      f"take ({WIDTHS[-1]})")
 
 
-def launch_plan(pointers, rs: int, hs: int, dk: int) -> tuple:
+def launch_plan(pointers, rs: int, hs: int, dk: int, itemsize: int = 4) -> tuple:
     """(W, vector) of the kernel instantiation that the C entry points pick
     for these operands, by the same rule: the width `head_width(dk)`, and
-    float4 loads and stores where the row stride rs, the head stride hs (in
-    floats) and every pointer (`data_ptr()`) are 16-byte aligned, scalar
+    loads and stores of four elements where the row stride rs and the head
+    stride hs (in elements) are multiples of 4 and every pointer
+    (`data_ptr()`) is aligned to four elements of `itemsize` bytes, scalar
     ones otherwise."""
-    vector = rs % 4 == 0 and hs % 4 == 0 and all(p % 16 == 0 for p in pointers)
+    vector = rs % 4 == 0 and hs % 4 == 0 and all(p % (4 * itemsize) == 0 for p in pointers)
     return head_width(dk), vector
 
 
@@ -70,7 +78,8 @@ def _row_stride(W: int) -> int:
 
 def _smem_bytes(L: int, dk: int, backward: bool) -> int:
     """Shared memory that one launch needs at the least (as
-    csrc/msa_attention.cu counts it), with rows `_row_stride(W)` floats
+    csrc/msa_attention.cuh counts it; rows are fp32 there for bf16 operands
+    too, so the count does not depend on the dtype), with rows `_row_stride(W)` floats
     apart in the backward and W apart in the forward, then L mask bytes
     rounded up to 16, for one (sequence, head): the forward's k and v rows;
     the backward's q, do, k and v rows and, at L <= SHORT_L, the [L][32]
@@ -136,7 +145,11 @@ def max_length(dk: int, backward: bool = True) -> int:
 
 def _attention_plain(q, k, v, heads: int, mask=None):
     """Plain PyTorch version, the counterpart of `_attention_xla`. q, k, v
-    [N, L, H * dk]; mask [N, L] bool or None -> [N, L, H * dk]."""
+    [N, L, H * dk]; mask [N, L] bool or None -> [N, L, H * dk]. bf16
+    operands are upcast to fp32 and the result rounded once to bf16, as the
+    kernels compute (autograd then rounds each gradient once too)."""
+    if q.dtype == torch.bfloat16:
+        return _attention_plain(q.float(), k.float(), v.float(), heads, mask).to(q.dtype)
     N, L, D = q.shape
     dk = D // heads
     qh, kh, vh = (t.reshape(N, L, heads, dk) for t in (q, k, v))
@@ -178,9 +191,11 @@ def _check(q, k, v, mask, heads, dk, backward, what):
     N, L, rs = q.shape
     if rs % heads or rs // heads < dk:
         raise ValueError(f"{what}: width {rs} is not {heads} heads of at least {dk} lanes")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (N, L, rs) or t.device != q.device:
-            raise ValueError(f"{what}: {name} must be float32 {(N, L, rs)} on {q.device}, "
+        if t.dtype != q.dtype or tuple(t.shape) != (N, L, rs) or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be {q.dtype} {(N, L, rs)} on {q.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if mask is not None and (mask.dtype != torch.bool or tuple(mask.shape) != (N, L)
                              or mask.device != q.device):
@@ -199,49 +214,59 @@ def _ptr(mask):
     return 0 if mask is None else mask.data_ptr()
 
 
+def _bf16(t) -> bool:
+    return t.dtype == torch.bfloat16
+
+
 def attention_fwd(q, k, v, mask, heads: int, dk: int):
     """The forward kernel on either layout (heads width / heads lanes apart,
-    the first dk read) -> out in the layout of q."""
+    the first dk read) -> out in the layout and dtype of q (the fp32 or the
+    bf16 instance)."""
     N, L, rs, hs = _check(q, k, v, mask, heads, dk, False, "msa_attention")
-    out = torch.empty((N, L, rs), dtype=torch.float32, device=q.device)
+    out = torch.empty((N, L, rs), dtype=q.dtype, device=q.device)
     if N == 0:
         return out
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = None if mask is None else mask.contiguous()
     with build.launch_on(q.device) as (lib, stream):
-        err = lib.msa_attention_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-                                        out.data_ptr(), N, heads, L, dk, rs, hs,
-                                        1.0 / math.sqrt(float(dk)), stream)
+        fn = lib.msa_attention_fwd_bf16 if _bf16(q) else lib.msa_attention_fwd_f32
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), out.data_ptr(), N, heads,
+                 L, dk, rs, hs, 1.0 / math.sqrt(float(dk)), stream)
     build.check(lib, err, "msa_attention")
-    attention_fwd.launches += 1
+    if _bf16(q):
+        attention_fwd.launches_bf16 += 1
+    else:
+        attention_fwd.launches += 1
     return out
 
 
 def attention_bwd(q, k, v, mask, do, heads: int, dk: int):
-    """The backward kernel -> (dq, dk, dv) in the layout of q."""
+    """The backward kernel -> (dq, dk, dv) in the layout and dtype of q."""
     N, L, rs, hs = _check(q, k, v, mask, heads, dk, True, "msa_attention backward")
-    if do.dtype != torch.float32 or do.shape != q.shape:
-        raise ValueError(f"msa_attention backward: do must be float32 {tuple(q.shape)}, got "
-                         f"{do.dtype} {tuple(do.shape)}")
-    dq, dkk, dv = (torch.empty((N, L, rs), dtype=torch.float32, device=q.device)
-                   for _ in range(3))
+    if do.dtype != q.dtype or do.shape != q.shape or do.device != q.device:
+        raise ValueError(f"msa_attention backward: do must be {q.dtype} {tuple(q.shape)} on "
+                         f"{q.device}, got {do.dtype} {tuple(do.shape)} on {do.device}")
+    dq, dkk, dv = (torch.empty((N, L, rs), dtype=q.dtype, device=q.device) for _ in range(3))
     if N == 0:
         return dq, dkk, dv
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     mask = None if mask is None else mask.contiguous()
     with build.launch_on(q.device) as (lib, stream):
-        err = lib.msa_attention_bwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-                                        do.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
-                                        dv.data_ptr(), N, heads, L, dk, rs, hs,
-                                        1.0 / math.sqrt(float(dk)), stream)
+        fn = lib.msa_attention_bwd_bf16 if _bf16(q) else lib.msa_attention_bwd_f32
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(),
+                 dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(), N, heads, L, dk, rs, hs,
+                 1.0 / math.sqrt(float(dk)), stream)
     build.check(lib, err, "msa_attention backward")
-    attention_bwd.launches += 1
+    if _bf16(q):
+        attention_bwd.launches_bf16 += 1
+    else:
+        attention_bwd.launches += 1
     return dq, dkk, dv
 
 
 class MSAAttentionFunction(torch.autograd.Function):
     """The kernel pair as an autograd Function (CUDA tensors), on either
-    layout."""
+    layout; bf16 operands take the bf16 instances and get bf16 gradients."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, heads, dk):
@@ -257,8 +282,8 @@ class MSAAttentionFunction(torch.autograd.Function):
 
 def msa_attention(q, k, v, heads: int, mask=None):
     """softmax(q k^T / sqrt(dk), key-masked) v per head over packed [N, L,
-    heads * dk] projections; mask [N, L] bool or None. Differentiable in q,
-    k and v."""
+    heads * dk] projections (fp32, or bf16 with a bf16 result); mask [N, L]
+    bool or None. Differentiable in q, k and v."""
     if not build.use_kernel(q):
         return _attention_plain(q, k, v, heads, mask)
     mask = None if mask is None else mask.to(torch.bool)
@@ -267,3 +292,5 @@ def msa_attention(q, k, v, heads: int, mask=None):
 
 attention_fwd.launches = 0
 attention_bwd.launches = 0
+attention_fwd.launches_bf16 = 0  # the bf16 instances
+attention_bwd.launches_bf16 = 0

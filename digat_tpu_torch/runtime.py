@@ -29,6 +29,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 def exact_fp32() -> None:
     """Keep fp32 products in full fp32 (no TF32) for matmul and cuDNN, so the
     plain path is held against the kernels and the JAX CPU reference at fp32
-    accuracy."""
+    accuracy; and bf16 products summed in fp32 (cuBLAS may otherwise reduce
+    split sums in bf16), as XLA sums them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels A, A' and the attention pair timed in turns: one tree of the
+"""Kernels A, A', C and the attention pair timed in turns: one tree of the
 package against another on the same card.
 
     python3 scripts/kernel_turns.py --other OTHER_TREE [--rounds 2]
@@ -17,6 +17,8 @@ shapes:
   A' L 32, N 8,960, word dropout 0.2
   the attention pair forward and backward at the NRMS-SA training titles
      [6,720, 32, 20 x 20] and user histories [64, 50, 20 x 20]
+  C  forward and backward at B 320, G 68 and 26, D 400 (k1 and k2 column
+     blocks of a fused projection, as the training GAT layer passes them)
 
 on inputs drawn from one seed in every process. The turns run this tree,
 the other, the other, this tree (`--rounds` times), and the script prints
@@ -42,6 +44,7 @@ def worker(tree: str) -> dict:
     import numpy as np
     import torch
 
+    from digat_tpu_torch.ops import gat_scores as GS
     from digat_tpu_torch.ops import msa_attention as MA
     from digat_tpu_torch.ops import msa_encoder as ME
     from digat_tpu_torch.runtime import exact_fp32
@@ -96,6 +99,15 @@ def worker(tree: str) -> dict:
                                                                              20, 20))
         out[f"pair bwd {what} [{N},{L}]"] = time_ms(lambda: MA.attention_bwd(q, k, v, mask, do,
                                                                              20, 20))
+    for G in (68, 26):
+        g = torch.Generator(device=dev).manual_seed(G)
+        y = torch.randn((320, G, 1200), generator=g, device=dev) * 0.3
+        k3 = torch.randn((320, 400), generator=g, device=dev) * 0.3
+        a = torch.randn(400, generator=g, device=dev) * 0.05
+        gs = torch.randn((320, G, G), generator=g, device=dev)
+        k1, k2 = y[..., 400:800], y[..., 800:]
+        out[f"C fwd B320 G{G}"] = time_ms(lambda: GS.gat_scores_fwd(k1, k2, k3, a))
+        out[f"C bwd B320 G{G}"] = time_ms(lambda: GS.gat_scores_bwd(k1, k2, k3, a, gs))
     return out
 
 

@@ -2,12 +2,15 @@
 interop (CPU).
 
   * The configuration takes it for MSA-DIGAT and each of the five
-    ablations, and refuses NRMS, NRMS-SA, the CNN encoder and MSA titles
-    routed through the attention pair (L > 128), each naming its ROADMAP
-    item.
+    ablations, and for every other model the JAX package runs at bf16:
+    NRMS, NRMS-SA, the CNN encoder, MSA titles routed through the attention
+    pair (L > 128) and heads wider than 128 (which the pair refuses on the
+    card at either dtype); another dtype raises.
   * The CLI trains one epoch at bf16 at narrow widths, writes its run
     layout, and `--mode test` on `best.ckpt` gives the auto-test's metrics
-    again; the checkpoint holds fp32 masters.
+    again; the checkpoint holds fp32 masters. NRMS-SA, NRMS, CNN-DIGAT and
+    MSA-DIGAT at titles of 160 train, test and re-score one epoch at bf16
+    through the CLI too.
   * Interop: the fp32 masters of a bf16 model go back to the JAX tree
     exactly, through the port's `params_from_model` and through
     `digat_tpu.interop.torch_to_params`, and load back."""
@@ -36,19 +39,29 @@ def test_config_takes_bf16_for_msa_digat_and_its_ablations(variant):
     assert (cfg.compute_dtype, cfg.graph_encoder) == ("bfloat16", variant)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--model_family", "nrms"], "NRMS and NRMS-SA at bfloat16"),
-    (["--model_family", "nrms", "--nrms_model", "NRMS"], "NRMS and NRMS-SA at bfloat16"),
-    (["--news_encoder", "CNN"], "CNN at bfloat16"),
-    (["--max_title_length", "160"], "the attention pair"),
-    (["--MSA_head_num", "1", "--MSA_head_dim", "200"], "the attention pair"),
+@pytest.mark.parametrize("variant", GRAPH_ENCODERS)
+def test_config_takes_bf16_for_cnn_with_every_graph_encoder(variant):
+    cfg = Config.from_args(["--compute_dtype", "bfloat16", "--news_encoder", "CNN",
+                            "--graph_encoder", variant])
+    assert (cfg.compute_dtype, cfg.news_encoder, cfg.graph_encoder) == ("bfloat16", "CNN",
+                                                                        variant)
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["--model_family", "nrms"], "nrms_model", "NRMS-SA"),
+    (["--model_family", "nrms", "--nrms_model", "NRMS"], "nrms_model", "NRMS"),
+    (["--news_encoder", "CNN"], "news_encoder", "CNN"),
+    (["--max_title_length", "160"], "max_title_length", 160),
+    (["--MSA_head_num", "1", "--MSA_head_dim", "200"], "MSA_head_dim", 200),
 ], ids=["nrms-sa", "nrms", "cnn", "L160", "dk200"])
-def test_config_refuses_bf16_elsewhere_naming_its_roadmap_item(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1, item 3.*{item}"):
-        Config.from_args(["--compute_dtype", "bfloat16", *flags])
+def test_config_refuses_bf16_elsewhere_naming_its_roadmap_item(flags, field, value):
+    """Once refused, naming ROADMAP items; since the NRMS family, the CNN and
+    the attention pair's bf16 instances, taken as at float32."""
+    cfg = Config.from_args(["--compute_dtype", "bfloat16", *flags])
+    assert (cfg.compute_dtype, getattr(cfg, field)) == ("bfloat16", value)
     assert Config.from_args(flags).compute_dtype == "float32"
     with pytest.raises(ValueError, match="compute_dtype"):
-        Config.from_args(["--compute_dtype", "float16"])
+        Config.from_args(["--compute_dtype", "float16", *flags])
 
 
 def test_cli_trains_and_rescores_at_bf16(tmp_path):
@@ -65,6 +78,24 @@ def test_cli_trains_and_rescores_at_bf16(tmp_path):
     state = torch.load(ckpt, map_location="cpu", weights_only=False)
     tensors = [v for v in _tensors(state)]
     assert tensors and all(t.dtype == torch.float32 for t in tensors if t.is_floating_point())
+
+
+@pytest.mark.parametrize("extra,name", [
+    (["--model_family", "nrms"], "NRMS-SA"),
+    (["--model_family", "nrms", "--nrms_model", "NRMS"], "NRMS"),
+    (["--news_encoder", "CNN", "--cnn_kernel_num", "32"], "CNN-DIGAT"),
+    (["--max_title_length", "160"], "MSA-DIGAT"),
+], ids=["nrms-sa", "nrms", "cnn", "msa-L160"])
+def test_cli_trains_and_rescores_other_models_at_bf16(tmp_path, extra, name):
+    tmp = str(tmp_path)
+    rec = cli.main(_flags(tmp, "--epoch", "1", "--compute_dtype", "bfloat16", *extra))
+    assert len(rec["history"]) == 1 and np.isfinite(rec["history"][0]["loss"])
+    assert all(np.isfinite(rec["test"]))
+    assert os.path.exists(os.path.join(tmp, "runs", "results", "synthetic", name, "#1-test"))
+    test = cli.main(_flags(tmp, "--compute_dtype", "bfloat16", "--mode", "test",
+                           "--test_model_path", os.path.join(rec["run_dir"], "best.ckpt"),
+                           *extra))
+    assert test == rec["test"]
 
 
 def _tensors(obj):

@@ -110,9 +110,7 @@ def test_jax_command_line_parses_and_tpu_only_values_raise():
     flags = [a for k, v in vars(jcfg).items() for a in (f"--{k}", str(v))]
     cfg = Config.from_args(flags)
     assert (cfg.max_title_length, cfg.epoch, cfg.dedup_titles, cfg.device) == (16, 8, 0, "cuda")
-    for flags, item in [(["--compute_dtype", "bfloat16", "--model_family", "nrms"],
-                         "section 1, item 3"),
-                        (["--mesh_data", "4"], "multi-GPU"),
+    for flags, item in [(["--mesh_data", "4"], "multi-GPU"),
                         (["--profile_dir", "/tmp/trace"], "StepTimer"),
                         (["--sorted_emb_grad", "false"], "kernel D"),
                         (["--coordinator_address", "10.0.0.1:1234"], "multi-GPU")]:
@@ -125,6 +123,9 @@ def test_jax_command_line_parses_and_tpu_only_values_raise():
     assert Config.from_args(["--max_title_length", "40", "--device", "cpu"]).max_title_length == 40
     for flags in (["--news_encoder", "CNN"], ["--graph_encoder", "wo_SA"]):
         assert Config.from_args(flags).device == "cuda"
+    # every model runs at bfloat16, as in the JAX package
+    assert Config.from_args(["--compute_dtype", "bfloat16", "--model_family",
+                             "nrms"]).compute_dtype == "bfloat16"
 
 
 def test_mind_small_without_data_raises_without_network(tmp_path, monkeypatch):

@@ -1,5 +1,7 @@
-"""The bf16 instances of kernels A, A' and B against their plain versions on
-the card (`compute_dtype` bfloat16), and a bf16 model card against CPU.
+"""The bf16 instances of kernels A, A', B (bf16 weights, and bf16
+activations), C's forward, A'' and the attention pair against their plain
+versions on the card (`compute_dtype` bfloat16), C's backward at the ReLU
+kink, and bf16 models card against CPU (MSA-DIGAT, CNN-DIGAT, NRMS-SA).
 
 Needs a CUDA device and nvcc; every test here is marked `cuda` and skips
 without a card. Run as `tests/test_torch_cuda.py`:
@@ -7,7 +9,9 @@ without a card. Run as `tests/test_torch_cuda.py`:
     python -m pytest tests/test_torch_cuda_bf16.py -q --noconftest -p no:cacheprovider
 
 Tolerances: fp32 outputs max |kernel - plain| <= 1e-4 * max(1, max |plain|);
-A''s bf16 dx within one bf16 ulp of each plain element plus that bound."""
+a bf16 output (A''s dx, the pair's, B's with bf16 activations, C's scores)
+within one bf16 ulp of each plain element plus that bound (both round fp32
+sums that differ in their order); A'' bf16 bit for bit."""
 
 import numpy as np
 import pytest
@@ -17,7 +21,11 @@ from digat_tpu_torch.config import Config
 from digat_tpu_torch.data import batching, sampling
 from digat_tpu_torch.eval.scorer import CachedScorer
 from digat_tpu_torch.models.model import CorpusTables, Model
+from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
+from digat_tpu_torch.ops import dropout as DR
 from digat_tpu_torch.ops import gat_layer as GL
+from digat_tpu_torch.ops import gat_scores as GS
+from digat_tpu_torch.ops import msa_attention as MA
 from digat_tpu_torch.ops import msa_encoder as ME
 from digat_tpu_torch.train.optimizer import Adam
 from digat_tpu_torch.train.train_step import train_step
@@ -192,3 +200,228 @@ def test_bf16_train_step_card_matches_cpu(cuda):
                                 "userAttention")) else g)
         limit = torch.maximum(ulp, torch.full_like(g, 1e-3 * float(g.abs().max())))
         assert ((g_gpu[name] - g).abs() <= limit).all(), name
+
+
+def _close_bf16(out, ref):
+    """out (bf16) within one bf16 ulp of each element of ref plus 1e-4 *
+    max(1, max |ref|)."""
+    torch.cuda.synchronize()
+    assert out.dtype == BF16 and torch.isfinite(out.float()).all()
+    d = ((out.double() - ref.double()).abs() - _ulp(ref).double()).clamp(min=0)
+    assert float(d.max()) <= 1e-4 * max(1.0, float(ref.double().abs().max())), float(d.max())
+
+
+# (N, L, heads, hs, dk): the NRMS title and user shapes, L 160, an odd L and
+# odd head widths (scalar loads), the E layout (hs > dk), the wide instance
+_PAIR = [(37, 32, 20, 20, 20), (9, 50, 20, 20, 20), (5, 160, 16, 25, 25), (7, 13, 3, 7, 7),
+         (6, 12, 4, 8, 6), (4, 33, 2, 80, 80), (3, 64, 2, 128, 128), (2, 150, 4, 25, 25)]
+
+
+@pytest.mark.parametrize("N,L,heads,hs,dk", _PAIR)
+def test_attention_pair_bf16_kernel(cuda, N, L, heads, hs, dk):
+    """The pair's bf16 instance, forward and backward (bf16 q, k, v, do and
+    outputs, its own counters; the fp32 instance not launched), against the
+    plain version, with an all-masked sequence; pad lanes zero; the same
+    bits twice."""
+    g = torch.Generator().manual_seed(N + L + hs)
+    pad = lambda t: torch.nn.functional.pad(t, (0, hs - dk))
+    q, k, v, do = (pad(torch.randn(N, L, heads, dk, generator=g)).reshape(N, L, heads * hs)
+                   .to(BF16).to(cuda) for _ in range(4))
+    mask = torch.rand(N, L, generator=g) < 0.7
+    mask[:, 0] = True
+    mask[0] = False
+    mask = mask.to(cuda)
+    counts = lambda: (MA.attention_fwd.launches, MA.attention_bwd.launches,
+                      MA.attention_fwd.launches_bf16, MA.attention_bwd.launches_bf16)
+    before = counts()
+    out = MA.attention_fwd(q, k, v, mask, heads, dk)
+    grads = MA.attention_bwd(q, k, v, mask, do, heads, dk)
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    _close_bf16(out, MA.attention_plain_strided(q, k, v, heads, dk, mask))
+    for got, want in zip(grads, MA.attention_bwd_plain(q, k, v, mask, do, heads, dk)):
+        _close_bf16(got, want)
+    for t in (out, *grads):
+        assert not t.reshape(N, L, heads, hs)[..., dk:].any()
+    assert torch.equal(out, MA.attention_fwd(q, k, v, mask, heads, dk))
+    assert all(torch.equal(a, b) for a, b in zip(grads, MA.attention_bwd(q, k, v, mask, do,
+                                                                          heads, dk)))
+
+
+def test_attention_pair_bf16_through_autograd(cuda):
+    """`msa_attention` on bf16 leaves: bf16 output and gradients, as the
+    plain version's autograd gives them."""
+    g = torch.Generator().manual_seed(3)
+    leaves = [torch.randn(11, 20, 24, generator=g).to(BF16).to(cuda).requires_grad_(True)
+              for _ in range(3)]
+    w = torch.randn(11, 20, 24, generator=g).to(BF16).to(cuda)
+    mask = (torch.rand(11, 20, generator=g) < 0.8).to(cuda)
+    (MA.msa_attention(*leaves, 4, mask) * w).float().sum().backward()
+    ref = [t.detach().clone().requires_grad_(True) for t in leaves]
+    (MA._attention_plain(*ref, 4, mask) * w).float().sum().backward()
+    for a, b in zip(leaves, ref):
+        assert a.grad.dtype == BF16
+        _close_bf16(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("rows,cols,rate", [(1000, 300, 0.2), (333, 7, 0.1), (64, 400, 0.5)])
+def test_dropout_bf16_kernel_bit_for_bit(cuda, rows, cols, rate):
+    """The bf16 instance of A'' (x / bf16(keep), rounded once): the plain
+    version's bits forward and on the gradient, counted on `launches_bf16`."""
+    x = (torch.randn(rows, cols, generator=torch.Generator().manual_seed(rows)) * 4).to(BF16)
+    x = x.to(cuda).requires_grad_(True)
+    before = (DR.dropout.launches, DR.dropout.launches_bf16)
+    out = DR.dropout(x, rate, 123, 9)
+    gout = torch.randn(rows, cols, generator=torch.Generator().manual_seed(1)).to(BF16).to(cuda)
+    out.backward(gout)
+    assert (DR.dropout.launches, DR.dropout.launches_bf16) == (before[0], before[1] + 2)
+    ref = x.detach().clone().requires_grad_(True)
+    want = DR.dropout_plain(ref, rate, 123, 9)
+    want.backward(gout)
+    assert out.dtype == BF16 and torch.equal(out, want) and torch.equal(x.grad, ref.grad)
+
+
+@pytest.mark.parametrize("B,G,D", [(9, 26, 400), (70, 68, 400), (7, 26, 398), (3, 5, 7),
+                                   (1024, 68, 400)])
+def test_gat_layer_bf16_activations_kernel(cuda, B, G, D):
+    """B with bf16 x, query and weights (its own counter): a bf16 result
+    within one ulp of the plain layer's, which computes in fp32 and rounds
+    once; the same bits twice."""
+    args = [t.to(BF16) if t.is_floating_point() else t for t in _gat_args(cuda, B, G, D,
+                                                                          seed=G + 2)]
+    fused = GL.interactive_gat_layer_fused
+    before = (fused.launches, fused.launches_bf16, fused.launches_bf16_act)
+    out = fused(*args)
+    assert (fused.launches, fused.launches_bf16, fused.launches_bf16_act) == \
+        (*before[:2], before[2] + 1)
+    _close_bf16(out, GL.interactive_gat_layer_plain(*args))
+    assert torch.equal(out, fused(*args))
+
+
+@pytest.mark.parametrize("B,G,D", [(320, 68, 400), (320, 26, 400), (5, 7, 30)])
+def test_gat_scores_fwd_bf16_kernel(cuda, B, G, D):
+    """C's forward on bf16 k1, k2 (column blocks of a bf16 y), k3 and a:
+    bf16 scores within one ulp of the plain version's."""
+    g = torch.Generator().manual_seed(G)
+    y = (torch.randn(B, G, 3 * D, generator=g) * 0.3).to(BF16).to(cuda)
+    k3 = (torch.randn(B, D, generator=g) * 0.3).to(BF16).to(cuda)
+    a = (torch.randn(D, generator=g) * D ** -0.5).to(BF16).to(cuda)
+    k1, k2 = y[..., D:2 * D], y[..., 2 * D:]
+    before = (GS.gat_scores_fwd.launches, GS.gat_scores_fwd.launches_bf16)
+    out = GS.gat_scores_fwd(k1, k2, k3, a)
+    assert (GS.gat_scores_fwd.launches, GS.gat_scores_fwd.launches_bf16) == \
+        (before[0], before[1] + 1)
+    _close_bf16(out, GS.gat_scores_fwd_plain(k1, k2, k3, a))
+
+
+def test_gat_scores_bwd_takes_the_float64_side_at_the_kink(cuda):
+    """k1 = -1, k2 = 1, k3 = 2^-25 at one (i, j, d): the fp32 sum is 0, the
+    exact one positive. The card's backward counts g there as the plain
+    version does (both decide by the float64 sum), so the two agree to fp32
+    rounding where an fp32 mask would leave out a whole a g term."""
+    B, G, D = 2, 40, 64
+    g = torch.Generator().manual_seed(7)
+    k1, k2 = torch.randn(B, G, D, generator=g), torch.randn(B, G, D, generator=g)
+    k3, a = torch.randn(B, D, generator=g), torch.randn(D, generator=g)
+    go = torch.randn(B, G, G, generator=g)
+    k1[1, 37, 5], k2[1, 2, 5], k3[1, 5] = -1.0, 1.0, 2.0 ** -25
+    got = GS.gat_scores_bwd(*(t.to(cuda) for t in (k1, k2, k3, a, go)))
+    want = GS.interactive_gat_scores_bwd_plain(k1, k2, k3, a, go)
+    for x, w in zip(got, want):
+        _close(x.cpu(), w)
+    term = abs(float(a[5] * go[1, 2, 37]))
+    assert abs(float(got[0][1, 37, 5].cpu() - want[0][1, 37, 5])) < 1e-3 * term
+
+
+@pytest.mark.parametrize("G", [26, 40, 68])
+def test_gat_scores_bwd_takes_the_plain_side_at_many_kinks(cuda, G):
+    """Every row of k1 the negated k2 + k3 of a row of k2, moved by 0 to 2
+    fp32 ulps, so thousands of sums are 0 or within an ulp of it (one tile
+    at G 26, several at 40 and 68): the kernel's per-row rule takes the
+    plain version's side at every term, so gk1 and gk2 agree to fp32
+    rounding where a single other side would move an element by a whole
+    a g term."""
+    B, D = 3, 96
+    gen = torch.Generator().manual_seed(G)
+    k2, k3 = torch.randn(B, G, D, generator=gen), torch.randn(B, D, generator=gen)
+    k3[1] *= 2.0 ** -24
+    k1 = -(k2 + k3[:, None, :])[:, torch.randperm(G, generator=gen)]
+    for _ in range(2):
+        n = torch.randint(-1, 2, k1.shape, generator=gen)
+        k1 = torch.where(n != 0, torch.nextafter(k1, n.float() * torch.inf), k1)
+    a, go = torch.randn(D, generator=gen), torch.randn(B, G, G, generator=gen)
+    t = k1[:, None] + (k2[:, :, None] + k3[:, None, None])
+    assert int((t == 0).sum()) > 100
+    got = GS.gat_scores_bwd(*(x.to(cuda) for x in (k1, k2, k3, a, go)))
+    want = GS.interactive_gat_scores_bwd_plain(k1, k2, k3, a, go)
+    for x, w in zip(got, want):
+        _close(x.cpu(), w)
+    # where the float64 side differs from the fp32 t's, gk1 moves by the
+    # sum of the flipped a g terms: the card must sit on the float64 side
+    fp32_side = torch.where(t > 0, go[..., None], torch.zeros(())).sum(dim=1) * a
+    moved = (want[0] - fp32_side).abs()
+    at = moved > 1e-3
+    assert int(at.sum()) > 10
+    assert bool(((got[0].cpu() - want[0]).abs()[at] < 0.1 * moved[at]).all())
+
+
+def test_cnn_bf16_scorer_card_matches_cpu(cuda):
+    """CNN-DIGAT at bf16: stage 2 launches B's bf16-activation instance only,
+    and the scores match the CPU's within 1e-4 of their scale."""
+    cfg = _small_cfg(news_encoder="CNN", cnn_kernel_num=32)
+    rng = np.random.default_rng(2)
+    tables = _tables(cfg, 70, rng)
+    hist, cat = rng.integers(1, 70, (12, 7)), rng.integers(0, 5, (12, 7))
+    imp, cand = np.repeat(np.arange(12), 4), rng.integers(1, 70, 48)
+    scores = {}
+    fused = GL.interactive_gat_layer_fused
+    for dev in (cuda, "cpu"):
+        model = Model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        b = (fused.launches, fused.launches_bf16, fused.launches_bf16_act)
+        scores[str(dev)] = CachedScorer(model, 16).score_items(tables, hist, cat, imp, cand)
+        if dev != "cpu":
+            assert (fused.launches, fused.launches_bf16, fused.launches_bf16_act) == \
+                (b[0], b[1], b[2] + 3 * 2 * 2)
+    s_gpu, s_cpu = scores[str(cuda)], scores["cpu"]
+    assert np.isfinite(s_gpu).all()
+    assert np.abs(s_gpu - s_cpu).max() <= 1e-4 * max(1.0, float(np.abs(s_cpu).max()))
+
+
+def test_nrms_sa_bf16_train_step_card_matches_cpu(cuda):
+    """One NRMS-SA bf16 step (dropout 0.2): the title tower's pair and word
+    dropouts on their bf16 instances, the user tower's pair on the fp32
+    one; the loss within 1e-3 and every gradient within max(1e-3 * max
+    |cpu|, one bf16 ulp of the tensor's largest |cpu| element)."""
+    from types import SimpleNamespace
+
+    cfg = Config(dataset="synthetic", model_family="nrms", vocabulary_size=300,
+                 word_embedding_dim=24, nrms_head_num=4, nrms_head_dim=6,
+                 nrms_attention_dim=16, max_title_length=12, max_history_num=10,
+                 augmented_news_num=3, dropout_rate=0.2, compute_dtype="bfloat16")
+    rng = np.random.default_rng(3)
+    n = 50
+    arrays = SimpleNamespace(news_title_text=rng.integers(1, 300, (n, 12)),
+                             news_title_mask=np.arange(12)[None, :] < rng.integers(1, 13, (n, 1)),
+                             augmented_news=rng.integers(1, n, (n, 3)))
+    batch = batching.TrainBatch(history_idx=rng.integers(1, n, (8, 10)),
+                                cat_idx=np.zeros((8, 10), np.int64),
+                                sample_idx=rng.integers(1, n, (8, 5)),
+                                weight=np.ones(8, np.float32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = NRMSModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        opt = Adam(model.named_parameters(), 0.0, 1.0)
+        c = (MA.attention_fwd.launches, MA.attention_fwd.launches_bf16,
+             DR.dropout.launches_bf16)
+        loss = train_step(model, opt, NRMSTables.from_arrays(arrays, dev),
+                          batching.to_device(batch, dev), 5, 0.0)
+        if dev.type == "cuda":
+            # three title-tower calls on the bf16 pair, the user tower on the
+            # fp32 one; the three word dropouts bf16, forward and backward
+            assert (MA.attention_fwd.launches - c[0], MA.attention_fwd.launches_bf16 - c[1],
+                    DR.dropout.launches_bf16 - c[2]) == (1, 3, 6)
+        out[dev.type] = (float(loss), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-3 * max(1.0, abs(l_cpu))
+    for name, g in g_cpu.items():
+        limit = max(float(_ulp(g.abs().max())), 1e-3 * float(g.abs().max()))
+        assert float((g_gpu[name] - g).abs().max()) <= limit, name

@@ -220,18 +220,20 @@ def test_every_wrapper_launches_under_its_tensors_device(monkeypatch):
         ME._forward_kernel(cast(x), mask, *map(cast, w), 2, 0.0, 0, 0)
         ME.msa_encoder_bwd(cast(x), mask, *map(cast, w), r(3, 8), 2)
     B, G, D = 2, 5, 8
-    for cast in (lambda t: t, bf):  # fp32 weights, then bf16 ones
-        GL.interactive_gat_layer_fused(r(B, G, D), torch.ones(B, G, G, dtype=torch.bool),
-                                       r(B, D), *map(cast, (r(D, D), r(D), r(D, D), r(D, D),
-                                                            r(D, D), r(D), r(D))))
-    GS.gat_scores_fwd(r(B, G, D), r(B, G, D), r(B, D), r(D))
+    # fp32 weights, then bf16 ones, then bf16 activations too
+    for xcast, cast in ((lambda t: t, lambda t: t), (lambda t: t, bf), (bf, bf)):
+        GL.interactive_gat_layer_fused(xcast(r(B, G, D)), torch.ones(B, G, G, dtype=torch.bool),
+                                       xcast(r(B, D)), *map(cast, (r(D, D), r(D), r(D, D),
+                                                                   r(D, D), r(D, D), r(D), r(D))))
+    for cast in (lambda t: t, bf):  # the fp32 instances, then the bf16 ones
+        GS.gat_scores_fwd(*map(cast, (r(B, G, D), r(B, G, D), r(B, D), r(D))))
+        DR.dropout(cast(r(4, 6)), 0.2, 1, 2)
+        q = cast(r(2, 12, 8))
+        MA.attention_fwd(q, q, q, None, 2, 4)
+        MA.attention_bwd(q, q, q, torch.ones(2, 12, dtype=torch.bool), q, 2, 4)
     GS.gat_scores_bwd(r(B, G, D), r(B, G, D), r(B, D), r(D), r(B, G, G))
     DR.keep_mask(4, 6, 0.2, 1, 2, device="cpu")
-    DR.dropout(r(4, 6), 0.2, 1, 2)
     EG.embedding_grad(torch.randint(0, 7, (3, 4)), r(3, 4, 8), 7)
-    q = r(2, 12, 8)
-    MA.attention_fwd(q, q, q, None, 2, 4)
-    MA.attention_bwd(q, q, q, torch.ones(2, 12, dtype=torch.bool), q, 2, 4)
     launches = [c for c in stub.calls if not c[0].endswith(("_init", "_scratch_floats"))]
     assert sorted({name for name, _ in launches}) == sorted(
         n for n in build.SIGNATURES if not n.endswith("_scratch_floats"))
