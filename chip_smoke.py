@@ -101,8 +101,29 @@ paths:
              with k3 left out of C's backward, which must fail that gate);
              5 untraced steps at B 64 with their
              launches per step and the shapes of A''s sites checked;
+  DP       - phase 22, data parallelism (`parallel.dist`): MSA-DIGAT (B 64,
+             depth 3, dedup per shard) and NRMS-SA stepped by two ranks on
+             the card over gloo (child processes of this script with
+             torchrun's environment; NCCL refuses two ranks on one device)
+             against one process stepping the same global batches from the
+             same weights, the ranks' row groups in turn: three steps at
+             dropout 0 (each loss within 1e-5 relative, each step-1
+             gradient within 1e-4 of its tensor's max, whether the forward
+             logits are bit-identical; against the whole batch in one pass,
+             which sees a row split that drops or repeats rows, each loss
+             within 1e-5 relative and the logits within 2e-6 of their
+             max, its gradients printed), then
+             three at 0.2 with each rank's launches of A, A', A'', C and D
+             checked and its step time (both ranks share the card: not a
+             scaling number); both sharded scorers over 1,024 news against
+             one process (within 1e-6 of the score scale, the same ranks,
+             B and the pair launched on each rank), their stage times; the
+             all-reduce of a step's gradients timed at gloo world 2 and at
+             NCCL world 1;
   CLI      - `digat_tpu_torch.cli` from MIND-layout TSV files that the
-             port's generator writes: the production cell of
+             port's generator writes (phase 14's train run with torchrun's
+             environment of one rank: `init_distributed`, NCCL at world 1,
+             the data-parallel step): the production cell of
              scripts/torch_parity_cells.py (word 300, L 32, 16 x 25 heads,
              B 32, lr 1e-3, 5 of its 6 epochs, dedup; its news graph mined on the
              card against the CPU) with a best dev AUC of at least 0.55, and
@@ -181,8 +202,14 @@ def bf16_ulp(torch, t):
     return torch.ldexp(torch.ones_like(a), e - 8)
 
 
+CHILDREN: list = []  # processes this run started (phase 22's ranks), killed by the watchdog
+
+
 def _watchdog(signum, frame):
     print(f"chip_smoke: watchdog: run exceeded {WATCHDOG_S} s", file=sys.stderr, flush=True)
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
     os._exit(3)
 
 
@@ -1367,18 +1394,22 @@ def sag_card_vs_cpu(torch, cfg, failures) -> None:
                         f"near-ties")
 
 
-def cli_cell(torch, cells, cell, workdir, gate, failures, sag_check=False, epochs=0) -> dict:
+def cli_cell(torch, cells, cell, workdir, gate, failures, sag_check=False, epochs=0,
+             launched=False) -> dict:
     """Phases 14, 15 and 19: one cell of scripts/torch_parity_cells.py through
     `digat_tpu_torch.cli.main` on the card, seed 0 (`epochs` of them, 0: the
     cell's own count): the corpus from the port's generator, its GloVe file
     and cache (the SAG mined on the card), then the train run with the
-    launch counters reset. Checks the run's
+    launch counters reset; `launched` (phase 14): the train run with
+    torchrun's environment of one rank, so through `init_distributed`, NCCL
+    at world 1 and the data-parallel step. Checks the run's
     files, every epoch's rank file against the official scorer, a
-    standalone `--mode test` run of best.ckpt against the auto-test (1e-6)
-    and the best dev AUC against `gate`."""
+    standalone `--mode test` run of best.ckpt (one process) against the
+    auto-test (1e-6) and the best dev AUC against `gate`."""
     from digat_tpu_torch import cli
     from digat_tpu_torch.config import Config
     from digat_tpu_torch.eval import metrics as M
+    from digat_tpu_torch.parallel import dist as dist_lib
 
     t0 = time.perf_counter()
     corpus_dir = cells.prepare_cell(cell, workdir, "cuda")
@@ -1389,10 +1420,21 @@ def cli_cell(torch, cells, cell, workdir, gate, failures, sag_check=False, epoch
         sag_card_vs_cpu(torch, cfg, failures)
     reset_counters()
     t0 = time.perf_counter()
-    rec = cli.main(flags)
+    joined, init = [], dist_lib.init_distributed
+    dist_lib.init_distributed = lambda *a, **k: joined.append(init(*a, **k)) or joined[-1]
+    try:
+        with _Env(launcher_env(0, 1, free_port()) if launched else {}):
+            rec = cli.main(flags)
+    finally:
+        dist_lib.init_distributed = init
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
+    ctx = joined[0]
+    say(f"  through init_distributed: backend {ctx.backend}, world {ctx.world}, device "
+        f"{ctx.device}")
+    if launched and (ctx.backend, ctx.world) != ("nccl", 1):
+        failures.append(f"{cell}: launched at world 1 but joined {ctx.backend} world {ctx.world}")
     keys = ("auc", "mrr", "ndcg5", "ndcg10")
     name = "NRMS-SA" if cfg.model_family == "nrms" else cfg.model_name
     results = os.path.join(cfg.run_root, "results", cfg.dataset, name)
@@ -2737,6 +2779,426 @@ def head_tables(torch, tables, news_num: int):
                         tables.news_graph_mask[:news_num])
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: data parallelism (digat_tpu_torch.parallel.dist). The card is one,
+# and NCCL refuses two ranks on one device, so two ranks run on cuda:0 over
+# gloo (child processes of this script, torchrun's environment set),
+# against one process stepping the same global batches from the same
+# weights; NCCL runs at world 1 (its all-reduce here, and phase 14's CLI
+# cell through `init_distributed`). Both ranks share the card: their step
+# time is not a scaling number.
+# ---------------------------------------------------------------------------
+DP_WORLD = 2
+DP_STEPS = 3  # checked steps at B 64 (dropout 0), then as many at the production rate
+DP_LOSS_RTOL = 1e-5  # each step's loss, two ranks against one process on the card
+DP_GRAD_RTOL = 1e-4  # each step-1 gradient: max |dp - one| <= this * max |one| of the tensor
+DP_SCORE_RTOL = 1e-6  # the sharded scorer: of the score scale, and the same ranks
+# the forward logits at rate 0 against the whole batch in one pass, of max(1,
+# max |one|): 16 to 32 fp32 ulps at the max; a wrong row split moves them by O(1)
+DP_LOGIT_RTOL = 2e-6
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launcher_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's environment for `rank` of `world` ranks on one node."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+            "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+
+class _Env:
+    """Environment variables set for a block, restored after."""
+
+    def __init__(self, values: dict):
+        self.values, self.saved = values, {}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def allreduce_ms(torch, ctx, tensors, reps: int = 5) -> tuple:
+    """(bytes, median ms) of `ctx.all_reduce_sum_` on `tensors` (a step's
+    gradients), each call between device synchronises."""
+    times = []
+    for _ in range(reps + 1):
+        sync(torch, ctx.device)
+        t0 = time.perf_counter()
+        ctx.all_reduce_sum_(tensors)
+        sync(torch, ctx.device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sum(t.numel() * t.element_size() for t in tensors), float(np.median(times[1:]))
+
+
+def dp_job(torch, cfg, ncfg, dev) -> dict:
+    """Phase 22's inputs, made from seeds (host copies, as the ranks load
+    them): MSA-DIGAT and NRMS-SA weights at full width, a 4,096-news corpus,
+    DP_STEPS global batches of 64 (one for NRMS-SA), dedup capacities for
+    64 rows and for one rank's 32, and a 1,024-news serving corpus."""
+    from digat_tpu_torch.data import batching, sampling
+    from digat_tpu_torch.models.model import Model
+    from digat_tpu_torch.models.nrms import NRMSModel
+
+    host = lambda t: {k: v.cpu() for k, v in (t._asdict() if hasattr(t, "_asdict")
+                                              else vars(t)).items()}
+    tables = make_tables(torch, cfg, 4096, dev, SEED + 40)
+    corpus = make_train_corpus(cfg, tables, 4 * cfg.batch_size, 1000, 8, SEED + 41)
+    neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets,
+                                    cfg.negative_sample_num, np.random.default_rng(SEED + 42))
+    split = corpus.splits["train"]
+    batches = [tuple(b) for b in batching.train_batches(
+        split.history_idx, split.cat_idx, corpus.train_behavior_row, corpus.train_pos, neg,
+        cfg.batch_size, epoch_seed=SEED + 43)][:DP_STEPS]
+    caps = {w: batching.estimate_dedup_capacity(
+        split.history_idx, corpus.train_behavior_row, corpus.train_pos, neg, corpus.news_node_id,
+        cfg.batch_size // w, seed=SEED) for w in (1, DP_WORLD)}
+    state = lambda m: {k: v.cpu() for k, v in m.state_dict().items()}
+    digat = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED + 44))
+    nrms = NRMSModel(ncfg, device="cpu", generator=torch.Generator().manual_seed(SEED + 45))
+    serve = make_tables(torch, cfg, 1024, dev, SEED + 46)
+    return {
+        "device": str(dev),
+        "digat": {"config": cfg, "state": state(digat), "tables": host(tables),
+                  "batches": batches, "news_node_id": corpus.news_node_id, "capacity": caps,
+                  "rates": (0.0, cfg.dropout_rate)},
+        "nrms": {"config": ncfg, "state": state(nrms),
+                 "tables": host(nrms_tables_for(torch, ncfg, tables, SEED + 47)),
+                 "batches": batches[:1], "news_node_id": None, "capacity": {1: 0, DP_WORLD: 0},
+                 "rates": (0.0,)},
+        "serving": {"digat": state(digat), "nrms": state(nrms), "config": cfg, "nconfig": ncfg,
+                    "tables": host(serve),
+                    "ntables": host(nrms_tables_for(torch, ncfg, serve, SEED + 48)),
+                    "items": make_impressions(cfg, 1024, 64, 8, SEED + 49)[:4], "batch_size": 256},
+    }
+
+
+def accumulated_step(model, opt, tables, parts, seed: int, lr: float) -> float:
+    """One process's step over a global batch given as row groups: each
+    group's forward and backward in turn (num_g / max(den, 1), den the
+    whole batch's weight), the gradients summed into .grad, then the one
+    clip and Adam step -> the global loss."""
+    opt.zero_grad()
+    den = max(sum(float(p.weight.sum()) for p in parts), 1.0)
+    total = 0.0
+    for p in parts:
+        num, _ = model.loss_parts(tables, p, seed)
+        loss = num / den
+        loss.backward()
+        total += float(loss.detach())
+    opt.step(lr)
+    return total
+
+
+def dp_steps(torch, ctx, part, dev, groups: int = 1) -> dict:
+    """Phase 22: one model's steps, from the job's weights, with the launch
+    counters reset: a rank's rows of each global batch (`train_step` across
+    the ranks of `ctx`), or one process's whole batch in one pass, or
+    (`groups` > 1) one process's batch as the row groups of that many ranks
+    in turn (`accumulated_step`: each group at a rank's shapes, so that the
+    same rows round the same way and no ReLU kink falls otherwise). By
+    dropout rate (only 0 for `groups` > 1): losses, the step-1 gradients
+    and forward logits at rate 0, each step's ms (between device
+    synchronises), the batch kinds and the launches."""
+    from types import SimpleNamespace
+
+    from digat_tpu_torch.data import batching
+    from digat_tpu_torch.models.model import CorpusTables, Model, TrainBatch
+    from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
+    from digat_tpu_torch.train.optimizer import Adam
+    from digat_tpu_torch.train.train_step import step_seed, train_step
+
+    nrms = part["config"].model_family == "nrms"
+    tables = (NRMSTables if nrms else CorpusTables).from_arrays(
+        SimpleNamespace(**part["tables"]), dev)
+    rank = ctx.rank if ctx.world > 1 else None
+    n, own = (ctx.local_world, [ctx.local_rank]) if groups == 1 else (groups, range(groups))
+    rows = [[batching.rank_rows(TrainBatch(*b), i, n, part["news_node_id"],
+                                part["capacity"][n]) for i in own] for b in part["batches"]]
+    batches = [[batching.to_device(r, dev) for r in rs] for rs in rows]
+    out = {}
+    for rate in part["rates"] if groups == 1 else (0.0,):
+        cfg = replace(part["config"], dropout_rate=rate)
+        model = (NRMSModel if nrms else Model)(cfg, device=dev,
+                                               generator=torch.Generator().manual_seed(SEED))
+        model.load_state_dict(part["state"])
+        opt = Adam(model.named_parameters(), cfg.weight_decay, cfg.gradient_clip_norm)
+        rec = {"kinds": [[type(r).__name__ for r in rs] for rs in rows], "losses": [],
+               "ms": []}
+        if rate == 0.0:
+            with torch.no_grad():
+                rec["logits"] = torch.cat([model.computing(
+                    model.forward_indexed, tables, g, step_seed(SEED, 1, 0, rank)).cpu()
+                    for g in batches[0]])
+        reset_counters()
+        for k, parts in enumerate(batches):
+            seed = step_seed(SEED, 1, k, rank)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            if groups == 1:
+                loss = float(train_step(model, opt, tables, parts[0], seed, cfg.lr, ctx))
+            else:
+                loss = accumulated_step(model, opt, tables, parts, seed, cfg.lr)
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(loss)
+            if k == 0 and rate == 0.0:
+                rec["grads"] = {n: p.grad.detach().to("cpu", copy=True)
+                                for n, p in model.named_parameters()}
+        rec["launches"] = read_counters()
+        if rate == 0.0 and ctx.active:
+            rec["allreduce"] = allreduce_ms(torch, ctx, [p.grad for p in opt.params])
+        out[rate] = rec
+    return out
+
+
+def dp_serving(torch, ctx, part, dev) -> dict:
+    """Phase 22: both scorers over the 1,024-news corpus, sharded over the
+    ranks of `ctx` (whole on one process), the counters reset around the
+    first pass; scores, launches and both passes' timings."""
+    from types import SimpleNamespace
+
+    from digat_tpu_torch.eval.scorer import CachedScorer, NRMSCachedScorer
+    from digat_tpu_torch.models.model import Model
+    from digat_tpu_torch.models.nrms import NRMSModel
+
+    out = {}
+    for name, build_model, scorer, cfg, state, tables in (
+            ("digat", Model, CachedScorer, part["config"], part["digat"], part["tables"]),
+            ("nrms", NRMSModel, NRMSCachedScorer, part["nconfig"], part["nrms"],
+             part["ntables"])):
+        model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+        model.load_state_dict(state)
+        s = scorer(model, part["batch_size"], ctx)
+        t = SimpleNamespace(**{k: v.to(dev) for k, v in tables.items()})
+        reset_counters()
+        scores = s.score_items(t, *part["items"])
+        launches, first = read_counters(), dict(s.timings)
+        s.score_items(t, *part["items"])
+        out[name] = {"scores": scores, "launches": launches, "first": first,
+                     "warm": dict(s.timings)}
+    return out
+
+
+def dp_rank(job_path: str, out_dir: str) -> int:
+    """Phase 22, one of DP_WORLD ranks on the parent's device (cuda:0) over
+    gloo (a child process of this script, started by `dp_phase` with
+    torchrun's environment): the steps and the sharded scorers on this
+    rank's share -> out_dir/rank<r>.pt."""
+    import torch
+
+    from digat_tpu_torch.config import Config
+    from digat_tpu_torch.ops import build
+    from digat_tpu_torch.parallel import dist as dist_lib
+    from digat_tpu_torch.runtime import exact_fp32
+
+    exact_fp32()
+    job = torch.load(job_path, weights_only=False)  # written by the parent smoke
+    dev = torch.device(job["device"])
+    ctx = dist_lib.init_distributed(Config(), device=dev, backend="gloo")
+    try:
+        if dev.type == "cuda":
+            build.load_library(dev)  # built by the parent: local rank 0 of this node
+        out = {"rank": ctx.rank, "world": ctx.world, "backend": ctx.backend,
+               "digat": dp_steps(torch, ctx, job["digat"], dev),
+               "nrms": dp_steps(torch, ctx, job["nrms"], dev),
+               "serving": dp_serving(torch, ctx, job["serving"], dev)}
+    finally:
+        dist_lib.destroy(ctx)
+    torch.save(out, os.path.join(out_dir, f"rank{ctx.rank}.pt"))
+    return 0
+
+
+def dp_differences(torch, ref, got) -> tuple:
+    """Two ranks' rate-0 record against one process's: (max loss relative
+    error, worst step-1 gradient max |dp - one| / max |one| with its tensor,
+    that max and how many of its entries differ by more than DP_GRAD_RTOL of
+    it, whether the forward logits are bit-identical, their max difference,
+    max(1, max |one logit|))."""
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for g in got
+                   for a, b in zip(g["losses"], ref["losses"]))
+    worst = (0.0, "", 0.0, 0)
+    for n, g in ref["grads"].items():
+        top = float(g.abs().max())
+        diff = (got[0]["grads"][n] - g).abs()
+        err = float(diff.max()) / max(top, 1e-30)
+        worst = max(worst, (err, n, top, int((diff > DP_GRAD_RTOL * top).sum())))
+    logits = torch.cat([g["logits"] for g in got])
+    return (loss_err, worst, torch.equal(logits, ref["logits"]),
+            float((logits - ref["logits"]).abs().max()),
+            max(1.0, float(ref["logits"].abs().max())))
+
+
+def dp_compare_steps(torch, what, one, groups, ranks, failures) -> None:
+    """Two ranks' losses, step-1 gradients and forward logits (rate 0)
+    against one process stepping the same global batches. Against the row
+    groups in turn (`groups`, the ranks' shapes and the ranks' own row
+    split) the losses and gradients are gated. Against the whole batch in
+    one pass (`one`), which splits no rows and so sees a split that drops
+    or repeats rows, the losses and the logits are gated; its gradients,
+    whose rows round otherwise (cuBLAS picks by the row count), are
+    printed."""
+    got = [r[0.0] for r in ranks]
+    same_loss = all(g["losses"] == got[0]["losses"] for g in got)
+    loss_err, (worst, name, top, _), bits, logit_err, _ = dp_differences(torch, groups[0.0],
+                                                                         got)
+    p_loss, (p_worst, p_name, p_top, p_over), p_bits, p_logit, p_scale = dp_differences(
+        torch, one[0.0], got)
+    p_size = one[0.0]["grads"][p_name].numel() if p_name else 0
+    say(f"  {what}: losses one process {[round(v, 7) for v in groups[0.0]['losses']]}, two "
+        f"ranks {[round(v, 7) for v in got[0]['losses']]} (the same on both: {same_loss}); "
+        f"against one process by the ranks' row groups: max loss rel err {loss_err:.3e} "
+        f"(limit {DP_LOSS_RTOL:g}), step-1 gradients of {len(got[0]['grads'])} tensors, worst "
+        f"max |dp - one| / max |one| {worst:.3e} ({name}, max |one| {top:.3e}; limit "
+        f"{DP_GRAD_RTOL:g}), forward logits bit-identical: {bits} (max |dp - one| "
+        f"{logit_err:.3e}); against the whole batch in one pass: losses {p_loss:.3e} (limit "
+        f"{DP_LOSS_RTOL:g}), logits bit-identical {p_bits} (max |dp - one| {p_logit:.3e}, "
+        f"limit {DP_LOGIT_RTOL * p_scale:.3e} of max |one| {p_scale:.3e}), worst gradient "
+        f"{p_worst:.3e} ({p_name}, max |one| {p_top:.3e}, {p_over} of its {p_size} entries "
+        f"beyond {DP_GRAD_RTOL:g} of that; not gated); batches {[g['kinds'] for g in got]}")
+    if not (loss_err <= DP_LOSS_RTOL and worst <= DP_GRAD_RTOL and same_loss
+            and np.isfinite(got[0]["losses"]).all()):
+        failures.append(f"data-parallel {what}: two ranks against one process's row groups")
+    if not (p_loss <= DP_LOSS_RTOL and p_logit <= DP_LOGIT_RTOL * p_scale):
+        failures.append(f"data-parallel {what}: two ranks against the whole batch in one pass")
+
+
+def dp_phase(torch, cfg, ncfg, dev, failures) -> dict:
+    """Phase 22: MSA-DIGAT (B 64, dedup per shard, DP_STEPS steps at dropout
+    0 and as many at the production rate) and NRMS-SA (one step) on two
+    gloo ranks on the card against one process, the sharded scorers against
+    one process, and the all-reduce's bytes and time (gloo world 2, NCCL
+    world 1). -> launches by path for the kernels line."""
+    from digat_tpu_torch.config import Config
+    from digat_tpu_torch.eval import metrics as M
+    from digat_tpu_torch.parallel import dist as dist_lib
+    from digat_tpu_torch.parallel.dist import DistContext
+
+    t0 = time.perf_counter()
+    job = dp_job(torch, cfg, ncfg, dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "job.pt")
+        torch.save(job, path)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        port, here = free_port(), os.path.dirname(os.path.abspath(__file__))
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", path,
+                                   tmp], cwd=here, env={**os.environ, **launcher_env(
+                                       r, DP_WORLD, port)}) for r in range(DP_WORLD)]
+        CHILDREN.extend(procs)
+        try:
+            # one process on the same inputs, while the ranks start
+            one = DistContext(device=dev)
+            ref = {"digat": dp_steps(torch, one, job["digat"], dev),
+                   "digat groups": dp_steps(torch, one, job["digat"], dev, DP_WORLD),
+                   "nrms": dp_steps(torch, one, job["nrms"], dev),
+                   "nrms groups": dp_steps(torch, one, job["nrms"], dev, DP_WORLD),
+                   "serving": dp_serving(torch, one, job["serving"], dev)}
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        if any(rcs):
+            failures.append(f"data-parallel ranks exited {rcs}")
+            return {}
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    say(f"  inputs {setup_s:.2f}s; {DP_WORLD} ranks ({[r['backend'] for r in ranks]}, world "
+        f"{ranks[0]['world']}) and one process {ranks_s:.2f}s")
+    dp_compare_steps(torch, "MSA-DIGAT B 64, depth 3, dedup per shard", ref["digat"],
+                     ref["digat groups"], [r["digat"] for r in ranks], failures)
+    dp_compare_steps(torch, "NRMS-SA B 64", ref["nrms"], ref["nrms groups"],
+                     [r["nrms"] for r in ranks], failures)
+    # the steps at the production dropout rate: their launches on each rank, their time
+    depth, rate = cfg.graph_depth, cfg.dropout_rate
+    fp32_drops, _ = site_launches(cfg)
+    by_path = {}
+    for r, out in enumerate(ranks):
+        rec = out["digat"][rate]
+        over = sum(k != ["DedupTrainBatch"] for k in rec["kinds"])
+        want = {"msa_encoder_pooled": DP_STEPS + over, "msa_encoder_bwd": DP_STEPS + over,
+                "embedding_grad": DP_STEPS + over, "gat_scores_fwd": 2 * depth * DP_STEPS,
+                "gat_scores_bwd": 2 * depth * DP_STEPS, "dropout": fp32_drops * DP_STEPS}
+        got = {k: rec["launches"][k] for k in want}
+        say(f"  rank {r}: {DP_STEPS} steps at dropout {rate} (per-rank seeds): launches {got} "
+            f"(want {want}); losses {[round(v, 6) for v in rec['losses']]}; step ms "
+            f"{[round(v, 3) for v in rec['ms']]} (one process: "
+            f"{[round(v, 3) for v in ref['digat'][rate]['ms']]}; the two ranks share the card)")
+        if got != want or not np.isfinite(rec["losses"]).all():
+            failures.append(f"data-parallel rank {r}: launches {got}, want {want}")
+        nrms = out["nrms"][0.0]["launches"]
+        by_path[f"dp rank {r}"] = {**got, "msa_attention_fwd": nrms["msa_attention_fwd"],
+                                  "msa_attention_bwd": nrms["msa_attention_bwd"]}
+        if nrms["msa_attention_fwd"] != 4 or nrms["msa_attention_bwd"] != 4:
+            failures.append(f"data-parallel rank {r}: NRMS-SA step launched the attention "
+                            f"pair {nrms['msa_attention_fwd']} / {nrms['msa_attention_bwd']} "
+                            "times, want 4 / 4")
+    # the all-reduce of a step's gradients: gloo at world 2 (both ranks on the
+    # card, staged through the host by gloo), NCCL at world 1
+    nbytes, gloo_ms = ranks[0]["digat"][0.0]["allreduce"]
+    with _Env(launcher_env(0, 1, free_port())):
+        ctx = dist_lib.init_distributed(Config(), device=dev)
+    try:
+        grads = [g.to(dev) for g in ref["digat"][0.0]["grads"].values()]
+        _, nccl_ms = allreduce_ms(torch, ctx, grads)
+        backend = ctx.backend
+    finally:
+        dist_lib.destroy(ctx)
+    say(f"  all-reduce a step: {nbytes / 1e6:.3f} MB of gradients (the word table's "
+        f"{cfg.vocabulary_size} x {cfg.word_embedding_dim} dense); gloo world {DP_WORLD} "
+        f"{gloo_ms:.3f} ms (rank 0, median of 5), {backend} world 1 {nccl_ms:.3f} ms")
+    if backend != "nccl":
+        failures.append(f"data-parallel: world 1 on the card took {backend}, not nccl")
+    # the sharded scorers against one process
+    for name, bkernel in (("digat", "interactive_gat_layer_fused"), ("nrms", "msa_attention_fwd")):
+        want = ref["serving"][name]
+        got = [r["serving"][name] for r in ranks]
+        imp = job["serving"]["items"][2]
+        err = max(float(np.abs(g["scores"] - want["scores"]).max()) for g in got)
+        scale = max(1.0, float(np.abs(want["scores"]).max()))
+        flips = sum(int((np.argsort(-a, kind="stable") != np.argsort(-b, kind="stable")).any())
+                    for a, b in zip(M.group_by_impression(imp, got[0]["scores"]),
+                                    M.group_by_impression(imp, want["scores"])))
+        launches = [g["launches"][bkernel] for g in got]
+        say(f"  {name} scorer, 1,024 news on {DP_WORLD} ranks: max |dp - one| {err:.3e} (limit "
+            f"{DP_SCORE_RTOL * scale:.3e}); impressions ranked otherwise {flips}; {bkernel} "
+            f"launches by rank {launches} (one process {want['launches'][bkernel]}); stage 1 "
+            f"{[round(g['warm']['stage1_s'], 4) for g in got]} s by rank warm (one process "
+            f"{want['warm']['stage1_s']:.4f}), stage 2 "
+            f"{[round(g['warm']['stage2_s'], 4) for g in got]} s "
+            f"({[g['warm']['items'] for g in got]} items; one process "
+            f"{want['warm']['stage2_s']:.4f} s, {want['warm']['items']} items)")
+        if not (err <= DP_SCORE_RTOL * scale and flips == 0 and all(launches)):
+            failures.append(f"data-parallel {name} scorer against one process")
+        for r, g in enumerate(got):
+            counts = by_path[f"dp rank {r}"]
+            counts[f"serving {bkernel}"] = g["launches"][bkernel]
+            if name == "digat":
+                counts["serving msa_encoder_pooled"] = g["launches"]["msa_encoder_pooled"]
+    return by_path
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _watchdog)
     signal.alarm(WATCHDOG_S)
@@ -3094,6 +3556,16 @@ def main() -> int:
         failures.append("bf16 phase 21")
     say(f"[21 bf16 models] {time.perf_counter() - t0:.2f}s")
 
+    # ---- 22. data parallelism: two gloo ranks on the card, NCCL at world 1 ----
+    t0 = time.perf_counter()
+    dp_launches = {}
+    try:
+        dp_launches = dp_phase(torch, cfg, ncfg, dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("data-parallel phase")
+    say(f"[22 data-parallel] {time.perf_counter() - t0:.2f}s")
+
     # ---- 14. the CLI at the production cell, from TSV files ----
     cells = parity_cells()
     cli_launches = {}
@@ -3104,7 +3576,7 @@ def main() -> int:
             # 300 s): the prod cell's seed 0 passes 0.55 at epoch 4,
             # the matrix cell's 0.66 at epoch 3
             cli_launches["cli prod"] = cli_cell(torch, cells, "prod", workdir, 0.55, failures,
-                                                sag_check=True, epochs=5)
+                                                sag_check=True, epochs=5, launched=True)
         except Exception:
             traceback.print_exc()
             failures.append("CLI, production cell")
@@ -3209,6 +3681,18 @@ def main() -> int:
             if counts.get("gat_scores_fwd") or counts.get("gat_scores_bwd"):
                 by_path["interactive_gat_scores"][path] = {
                     k: counts.get(k, 0) for k in ("gat_scores_fwd", "gat_scores_bwd")}
+    for path, counts in dp_launches.items():  # phase 22, by rank
+        for name in ("msa_encoder_pooled", "msa_encoder_bwd", "dropout", "embedding_grad"):
+            by_path[name][f"{path} training"] = counts[name]
+        by_path["interactive_gat_scores"][f"{path} training"] = {
+            k: counts[k] for k in ("gat_scores_fwd", "gat_scores_bwd")}
+        by_path["msa_encoder_pooled"][f"{path} serving"] = counts["serving msa_encoder_pooled"]
+        by_path["interactive_gat_layer_fused"][f"{path} serving"] = \
+            counts["serving interactive_gat_layer_fused"]
+        by_path["msa_attention"][f"{path} nrms training"] = {
+            "fwd": counts["msa_attention_fwd"], "bwd": counts["msa_attention_bwd"]}
+        by_path["msa_attention"][f"{path} nrms serving"] = {
+            "fwd": counts["serving msa_attention_fwd"], "bwd": 0}
     for path, counts in cli_launches.items():
         for name in counters():
             by_path[name][path] = counts.get(name, 0)
@@ -3278,4 +3762,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:  # phase 22's ranks, started by dp_phase
+        sys.exit(dp_rank(*sys.argv[2:4]))
     sys.exit(main())

@@ -12,12 +12,20 @@ Layout, as the JAX package writes it:
     <run_root>/{dev,test}/<dataset>/ref/truth.txt   the official scorer's truth
     <run_root>/prediction/<dataset>/<model>/#N/prediction.zip   MIND-large test
 
-One process on one device: CUDA unless `--device cpu`. `--compute_dtype
-bfloat16` trains and scores every model (MSA or CNN DIGAT and its
-ablations, NRMS, NRMS-SA) on bf16 compute copies of the fp32 weights
-(`models.model.ComputeCopy`); the checkpoints hold the fp32 masters.
+One process on one device, CUDA unless `--device cpu`; or one process a
+GPU under torchrun, data parallel (`parallel.dist`; on the CPU over gloo):
 
     python -m digat_tpu_torch.cli --dataset synthetic --device cpu --epoch 2
+    python -m torch.distributed.run --nproc_per_node N -m digat_tpu_torch.cli ...
+
+Across ranks, rank 0 prepares the data and builds the kernels while the
+others wait at a barrier; every rank trains and scores its share, rank 0
+alone writes the run's files, and every rank joins the test of the best
+checkpoint, which rank 0 loads and broadcasts. `--profile_dir` traces
+steps 10-20 of the first epoch. `--compute_dtype bfloat16` trains and
+scores every model (MSA or CNN DIGAT and its ablations, NRMS, NRMS-SA) on
+bf16 compute copies of the fp32 weights (`models.model.ComputeCopy`); the
+checkpoints hold the fp32 masters.
 """
 
 from __future__ import annotations
@@ -26,6 +34,9 @@ import os
 import sys
 import time
 import zipfile
+from typing import Optional
+
+import torch
 
 from digat_tpu_torch.config import Config
 from digat_tpu_torch.data import corpus as corpus_lib
@@ -35,28 +46,41 @@ from digat_tpu_torch.eval import metrics as metrics_lib
 from digat_tpu_torch.eval.scorer import compute_scores
 from digat_tpu_torch.models.model import Model
 from digat_tpu_torch.models.nrms import NRMSModel
+from digat_tpu_torch.parallel import dist as dist_lib
+from digat_tpu_torch.parallel.dist import DistContext
+from digat_tpu_torch.runtime import resolve_device
 from digat_tpu_torch.train import checkpoint
 from digat_tpu_torch.train.trainer import Trainer, get_run_index
 
 
-def build_model(cfg: Config, word_embedding=None):
-    """The DIGAT stack or the NRMS / NRMS-SA stack on `cfg.device`, its word
-    table from `word_embedding` where given."""
+def build_model(cfg: Config, word_embedding=None, device=None):
+    """The DIGAT stack or the NRMS / NRMS-SA stack on `device` (by default
+    `cfg.device`), its word table from `word_embedding` where given."""
     family = NRMSModel if cfg.model_family == "nrms" else Model
-    return family(cfg, device=cfg.device, word_embedding=word_embedding)
+    return family(cfg, device=cfg.device if device is None else device,
+                  word_embedding=word_embedding)
 
 
-def prepare(cfg: Config) -> corpus_lib.Corpus:
-    """Data on disk, every cached artifact, the truth files -> the corpus."""
-    root = os.path.join(cfg.data_root, cfg.dataset)
-    if cfg.dataset == "synthetic":
-        if not os.path.exists(os.path.join(root, "train", "behaviors.tsv")):
-            print(f"[prepare] generating synthetic dataset under {root}", flush=True)
-            synthetic.generate(root)
-    else:
-        prepare_lib.prepare(cfg.dataset, cfg.data_root, cfg.seed)
-    corpus_lib.preprocess(cfg, verbose=True)
-    write_truth_files(cfg)
+def _single_or(cfg: Config, dist: Optional[DistContext]) -> DistContext:
+    """`dist`, or (None) the single-device context on `cfg.device`."""
+    return DistContext(device=resolve_device(cfg.device)) if dist is None else dist
+
+
+def prepare(cfg: Config, dist: Optional[DistContext] = None) -> corpus_lib.Corpus:
+    """Data on disk, every cached artifact, the truth files -> the corpus.
+    Across ranks rank 0 prepares and the others wait, then each loads."""
+    dist = _single_or(cfg, dist)
+    if dist.is_main:
+        root = os.path.join(cfg.data_root, cfg.dataset)
+        if cfg.dataset == "synthetic":
+            if not os.path.exists(os.path.join(root, "train", "behaviors.tsv")):
+                print(f"[prepare] generating synthetic dataset under {root}", flush=True)
+                synthetic.generate(root)
+        else:
+            prepare_lib.prepare(cfg.dataset, cfg.data_root, cfg.seed)
+        corpus_lib.preprocess(cfg, verbose=True)
+        write_truth_files(cfg)
+    dist.wait_for_main()
     return corpus_lib.Corpus(cfg)
 
 
@@ -89,31 +113,47 @@ def _zip_prediction(result_file: str) -> str:
     return zip_path
 
 
-def run_train(cfg: Config) -> dict:
+def run_train(cfg: Config, dist: Optional[DistContext] = None) -> dict:
     """Train, then test the best checkpoint. Returns the run's record:
     run_index, run_dir, best_epoch, the epoch records (`Trainer.history`)
-    and the test metrics (None for an unlabeled test split)."""
-    corpus = prepare(cfg)
-    model = build_model(cfg, corpus.word_embedding)
+    and the test metrics (None for an unlabeled test split). Across ranks
+    only rank 0's record has the run's index and directory. Without `dist`,
+    one process on `cfg.device`."""
+    dist = _single_or(cfg, dist)
+    corpus = prepare(cfg, dist)
+    model = build_model(cfg, corpus.word_embedding, dist.device)
     results_dir = os.path.join(cfg.run_root, "results", cfg.dataset, model.model_name)
-    cfg.run_index = get_run_index(results_dir)
-    run_dir = os.path.join(cfg.run_root, cfg.dataset, model.model_name, f"#{cfg.run_index}")
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
-    trainer = Trainer(model, cfg, corpus, run_dir, results_dir=results_dir)
+    run_dir = ""
+    if dist.is_main:
+        cfg.run_index = get_run_index(results_dir)
+        run_dir = os.path.join(cfg.run_root, cfg.dataset, model.model_name, f"#{cfg.run_index}")
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+    trainer = Trainer(model, cfg, corpus, run_dir, results_dir=results_dir, dist=dist)
     history = trainer.train()
     record = {"run_index": cfg.run_index, "run_dir": run_dir, "best_epoch": trainer.best_epoch,
               "history": history, "test": None}
     best = os.path.join(run_dir, "best.ckpt")
-    if not os.path.exists(best):
+    # every rank joins the sharded test, or rank 0 would wait in it alone
+    if not dist.broadcast_flag(dist.is_main and os.path.exists(best)):
         return record
-    epoch = checkpoint.load(best, model)
+    epoch = torch.zeros(1, dtype=torch.int64, device=dist.device)
+    if dist.is_main:
+        epoch += checkpoint.load(best, model)
+    dist.broadcast_(list(model.state_dict().values()) + [epoch])
+    epoch = int(epoch)
     t0 = time.time()
     unlabeled = corpus.test_unlabeled
-    result_file = (_prediction_file(cfg, model.model_name, cfg.run_index) if unlabeled
-                   else os.path.join(run_dir, "test-prediction.txt"))
-    auc, mrr, ndcg5, ndcg10 = compute_scores(model, corpus, "test", result_file=result_file)
+    result_file = None
+    if dist.is_main:
+        result_file = (_prediction_file(cfg, model.model_name, cfg.run_index) if unlabeled
+                       else os.path.join(run_dir, "test-prediction.txt"))
+    auc, mrr, ndcg5, ndcg10 = compute_scores(model, corpus, "test", result_file=result_file,
+                                             dist=dist)
+    if not dist.is_main:
+        record["test"] = None if unlabeled else (auc, mrr, ndcg5, ndcg10)
+        return record
     if unlabeled:
         print(f"[test] epoch {epoch}: unlabeled split - wrote leaderboard submission "
               f"{_zip_prediction(result_file)} ({time.time() - t0:.1f}s)", flush=True)
@@ -126,21 +166,27 @@ def run_train(cfg: Config) -> dict:
     return record
 
 
-def run_eval(cfg: Config, mode: str) -> tuple:
+def run_eval(cfg: Config, mode: str, dist: Optional[DistContext] = None) -> tuple:
     """Score the checkpoint `--{mode}_model_path` on that split -> (auc, mrr,
-    ndcg5, ndcg10); MIND-large's test split writes the leaderboard zip."""
+    ndcg5, ndcg10); MIND-large's test split writes the leaderboard zip.
+    Across ranks every rank loads the checkpoint and scores its share, and
+    rank 0 writes and reports. Without `dist`, one process on `cfg.device`."""
     path = cfg.dev_model_path if mode == "dev" else cfg.test_model_path
     if not path:
         raise ValueError(f"--{mode}_model_path required")
-    corpus = prepare(cfg)
-    model = build_model(cfg, corpus.word_embedding)
+    dist = _single_or(cfg, dist)
+    corpus = prepare(cfg, dist)
+    model = build_model(cfg, corpus.word_embedding, dist.device)
     epoch = checkpoint.load(path, model)
     t0 = time.time()
     out = cfg.test_output_file or None
     large_test = cfg.dataset == "MIND-large" and mode == "test"
-    if large_test and not out:
+    if large_test and not out and dist.is_main:
         out = _prediction_file(cfg, model.model_name, cfg.run_index)
-    metrics = compute_scores(model, corpus, mode, result_file=out)
+    metrics = compute_scores(model, corpus, mode, result_file=out if dist.is_main else None,
+                             dist=dist)
+    if not dist.is_main:
+        return metrics
     if large_test:
         print(f"[test] wrote leaderboard submission {_zip_prediction(out)} "
               f"({time.time() - t0:.1f}s)", flush=True)
@@ -153,9 +199,14 @@ def run_eval(cfg: Config, mode: str) -> tuple:
 
 def main(argv=None):
     cfg = Config.from_args(argv)
-    if cfg.mode == "train":
-        return run_train(cfg)
-    return run_eval(cfg, cfg.mode)
+    dist = dist_lib.init_distributed(cfg)  # before any other device use
+    try:
+        dist_lib.build_kernels(dist)
+        if cfg.mode == "train":
+            return run_train(cfg, dist)
+        return run_eval(cfg, cfg.mode, dist)
+    finally:
+        dist_lib.destroy(dist)
 
 
 if __name__ == "__main__":

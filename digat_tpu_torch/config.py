@@ -10,11 +10,18 @@ port never imports the JAX package.
 `compute_dtype` bfloat16 runs every model with bf16 compute copies of the
 fp32 weights (`models.model.ComputeCopy`), as the JAX package does.
 
+The distribution flags (`mesh_data`, `mesh_model`, `coordinator_address`,
+`num_processes`, `process_id`) and `profile_dir` are fields as in the JAX
+package; `parallel.dist.init_distributed` reads the first five against
+torchrun's environment (a port process is one GPU, a JAX process one
+host), and `mesh_model` > 1, the JAX package's row-sharded word table,
+raises naming its ROADMAP item.
+
 `from_args` also takes the JAX package's TPU-only flags, so that a JAX
 command line parses. Each is checked and dropped: a value the port runs
-(one device, no profile directory, the sorted embedding gradient, any PRNG
-or Pallas setting, which read nothing on the card) passes, any other
-raises naming the ROADMAP item that would bring it."""
+(the sorted embedding gradient, any PRNG, compilation cache or Pallas
+setting, which read nothing on the card) passes, any other raises naming
+the ROADMAP item that would bring it."""
 
 from __future__ import annotations
 
@@ -36,18 +43,10 @@ def news_graph_size(sag_neighbors: int, sag_hops: int) -> int:
 
 # The JAX package's TPU-only flags: name -> (default, is the value one the
 # port runs, the ROADMAP item that would bring the others)
-_ROADMAP_MULTI = "ROADMAP.md section 1, item 3 (multi-GPU)"
 JAX_ONLY_FLAGS = {
     "use_pallas": (True, lambda v: True, ""),
     "rng_impl": ("rbg", lambda v: True, ""),
     "compilation_cache_dir": ("", lambda v: True, ""),
-    "mesh_data": (0, lambda v: v <= 1, _ROADMAP_MULTI),
-    "mesh_model": (1, lambda v: v <= 1, _ROADMAP_MULTI),
-    "coordinator_address": ("", lambda v: v == "", _ROADMAP_MULTI),
-    "num_processes": (0, lambda v: v <= 1, _ROADMAP_MULTI),
-    "process_id": (-1, lambda v: v <= 0, _ROADMAP_MULTI),
-    "profile_dir": ("", lambda v: v == "",
-                    "ROADMAP.md section 1, item 3 (sweep, aggregate and StepTimer)"),
     "sorted_emb_grad": (True, lambda v: v,
                         "ROADMAP.md section 2 (the port always runs kernel D, the sorted "
                         "embedding gradient)"),
@@ -123,6 +122,13 @@ class Config:
     # float32 | bfloat16: the dtype of the weights' compute copies (masters,
     # optimizer and checkpoints stay float32)
     compute_dtype: str = "float32"
+    # data parallelism (parallel.dist): 0 or the world size; > 1 not ported
+    mesh_data: int = 0
+    mesh_model: int = 1
+    coordinator_address: str = ""  # host:port rendezvous ('' = the launcher's)
+    num_processes: int = 0  # nodes (0 = the launcher's)
+    process_id: int = -1  # node rank (-1 = the launcher's)
+    profile_dir: str = ""  # torch.profiler trace of epoch 1's steps 10-20
 
     def __post_init__(self) -> None:
         # per-dataset protocol overrides, as the JAX package forces them
@@ -185,6 +191,10 @@ class Config:
                                  f"got {self.cnn_kernel_num}")
         if self.dev_criterion not in ("auc", "mrr", "ndcg5", "ndcg10", "avg"):
             raise ValueError(f"unknown dev_criterion {self.dev_criterion}")
+        if self.mesh_model > 1:
+            raise NotImplementedError(
+                f"--mesh_model {self.mesh_model} is not ported: ROADMAP.md section 1, item 4 "
+                "(mesh_model > 1, the row-sharded word table)")
         self.check_compute_dtype()
         return self
 

@@ -1,20 +1,27 @@
 """Training and eval batches: numpy index blocks, moved to the device.
 
-Counterpart of `digat_tpu.data.batching` on one device (the port's own
-copy of its logic):
+Counterpart of `digat_tpu.data.batching` (the port's own copy of its
+logic):
 
   * `train_batches` shuffles the samples per epoch with a seeded generator
     and yields TrainBatch index blocks, or DedupTrainBatch ones where
     unique-title dedup is on and the batch fits its capacity; the tail
-    batch is padded to the full size with weight-0 rows;
-  * `dedup_batch` and `estimate_dedup_capacity` as in the JAX package;
+    batch is padded to the full size with weight-0 rows. Under data
+    parallelism every node computes the same permutation and takes the
+    strided slice `shard_index::shard_count` (the JAX package's hosts, the
+    port's nodes), and every node yields as many batches (a node a sample
+    short ends with an all-weight-0 batch where it needs one, so no rank
+    waits in a step the others never take);
+  * `dedup_batch`, `dedup_shards` and `estimate_dedup_capacity` as in the
+    JAX package; `rank_rows` gives one rank its contiguous row group of a
+    node's batch, deduplicated per shard where that fits;
   * `Prefetcher` assembles batches on a background thread into pinned host
     memory and moves each to the device with non_blocking copies;
-  * `eval_batches` yields stage-2 batches, the last one padded with item 0.
+  * `eval_batches` yields stage-2 batches, the last one padded with item 0,
+    over every item or a strided shard of them.
 
 The index blocks are numpy (int32 as in the JAX package); `to_device`
-turns a batch into int64 index tensors and a float32 weight. Multi-host
-sharding belongs to the multi-GPU slice."""
+turns a batch into int64 index tensors and a float32 weight."""
 
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from digat_tpu_torch.models.model import DedupTrainBatch, EvalBatch, TrainBatch
+from digat_tpu_torch.models.model import (DedupTrainBatch, EvalBatch, ShardedDedupBatch,
+                                          TrainBatch)
 
 
 def dedup_batch(batch: TrainBatch, news_node_id, capacity: int) -> DedupTrainBatch:
@@ -48,6 +56,45 @@ def dedup_batch(batch: TrainBatch, news_node_id, capacity: int) -> DedupTrainBat
         sample_idx=np.asarray(batch.sample_idx),
         weight=np.asarray(batch.weight),
     )
+
+
+def dedup_shards(batch: TrainBatch, news_node_id, capacity: int,
+                 n_shards: int) -> Optional[ShardedDedupBatch]:
+    """Per-shard dedup: the batch rows in `n_shards` contiguous groups
+    (shard s holds rows [s B/S, (s+1) B/S)), each deduplicated on its own
+    and stacked. None when the rows do not split evenly or any shard holds
+    more unique news than `capacity` (then every shard runs the plain
+    batch)."""
+    B = np.asarray(batch.weight).shape[0]
+    if B % n_shards:
+        return None
+    rows = B // n_shards
+    parts = []
+    for s in range(n_shards):
+        sub = TrainBatch(*(np.asarray(x)[s * rows:(s + 1) * rows] for x in batch))
+        node_ids = np.asarray(news_node_id)[sub.sample_idx]
+        flat = np.concatenate([node_ids.ravel(), sub.history_idx.ravel()])
+        if len(np.unique(flat)) > capacity:
+            return None
+        parts.append(dedup_batch(sub, news_node_id, capacity))
+    return ShardedDedupBatch(*(np.stack(xs) for xs in zip(*parts)))
+
+
+def rank_rows(batch: TrainBatch, index: int, n_shards: int, news_node_id=None,
+              capacity: int = 0):
+    """Rank `index` of `n_shards`: its contiguous row group of a (numpy)
+    TrainBatch, as a DedupTrainBatch where `capacity` > 0 and every shard
+    fits it (`dedup_shards`), else as a TrainBatch. Raises if the rows do
+    not split evenly."""
+    B = np.asarray(batch.weight).shape[0]
+    if B % n_shards:
+        raise ValueError(f"a batch of {B} rows does not split over {n_shards} ranks")
+    if capacity > 0 and news_node_id is not None:
+        sharded = dedup_shards(batch, news_node_id, capacity, n_shards)
+        if sharded is not None:
+            return sharded.local(index)
+    rows = B // n_shards
+    return TrainBatch(*(np.asarray(x)[index * rows:(index + 1) * rows] for x in batch))
 
 
 def estimate_dedup_capacity(
@@ -90,19 +137,30 @@ def train_batches(
     batch_size: int,
     *,
     epoch_seed: int,
+    shard_index: int = 0,
+    shard_count: int = 1,
     drop_remainder: bool = False,
     news_node_id: Optional[np.ndarray] = None,
     dedup_titles: int = 0,
 ) -> Iterator:
     """Yields numpy TrainBatch blocks, or DedupTrainBatch ones with the
     unique titles padded to `dedup_titles` when that is > 0 (and
-    `news_node_id` is given); a batch over that capacity stays a
-    TrainBatch."""
+    `news_node_id` is given; `rank_rows` over one shard); a batch over that
+    capacity stays a TrainBatch. The samples are this shard's strided slice
+    of the epoch's permutation. Every shard yields as many batches, since
+    each batch is a step of every rank: the shards that hold a sample fewer
+    end, where that leaves them a batch short, with one all-weight-0
+    batch (with `drop_remainder`, every shard stops where the shortest
+    does). Up to that batch, the blocks are the JAX package's."""
     num = len(pos)
-    order = np.random.default_rng(epoch_seed).permutation(num)
+    order = np.random.default_rng(epoch_seed).permutation(num)[shard_index::shard_count]
     if drop_remainder:
-        order = order[: (len(order) // batch_size) * batch_size]
-    for s in range(0, len(order), batch_size):
+        n_batches = num // shard_count // batch_size
+        order = order[: n_batches * batch_size]
+    else:
+        longest = -(-num // shard_count)
+        n_batches = -(-longest // batch_size)
+    for s in range(0, n_batches * batch_size, batch_size):
         sel = order[s : s + batch_size]
         b = len(sel)
         samples = np.concatenate([pos[sel, None], negatives[sel]], axis=1)
@@ -121,12 +179,7 @@ def train_batches(
             sample_idx=samples.astype(np.int32),
             weight=weight,
         )
-        if dedup_titles > 0 and news_node_id is not None:
-            node_ids = news_node_id[batch.sample_idx]
-            flat = np.concatenate([node_ids.ravel(), batch.history_idx.ravel()])
-            if len(np.unique(flat)) <= dedup_titles:
-                batch = dedup_batch(batch, news_node_id, dedup_titles)
-        yield batch
+        yield rank_rows(batch, 0, 1, news_node_id, dedup_titles)
 
 
 def eval_batches(
@@ -136,9 +189,13 @@ def eval_batches(
     cand: np.ndarray,  # [items]
     batch_size: int,
     device,
+    *,
+    shard_index: int = 0,
+    shard_count: int = 1,
 ) -> Iterator[tuple]:
-    """Yields (EvalBatch on `device`, valid_count). Items keep file order."""
-    items = np.arange(len(cand))
+    """Yields (EvalBatch on `device`, valid_count). Items keep file order;
+    a shard takes the strided slice `shard_index::shard_count` of them."""
+    items = np.arange(len(cand))[shard_index::shard_count]
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
     for s in range(0, len(items), batch_size):
         sel = items[s : s + batch_size]

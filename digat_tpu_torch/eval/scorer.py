@@ -1,7 +1,9 @@
-"""Two-stage cached evaluation on one device.
+"""Two-stage cached evaluation, on one device or sharded across ranks.
 
 Counterpart of `digat_tpu.eval.scorer` (`CachedScorer.cache_news`,
-`score_items`, `NRMSCachedScorer`, `compute_scores`). For MSA-DIGAT:
+`score_items`, `NRMSCachedScorer`, `compute_scores`, and across devices its
+`_shard_chunk_fn`, `_shard_score_fn` and multi-process `compute_scores`).
+For MSA-DIGAT:
 
   stage 1: encode every unique news once (kernel A, one launch per chunk of
            `batch_size` titles) -> news_reps [news_num, D]; then the initial
@@ -26,6 +28,14 @@ For the NRMS family, the dual cache of the reference's Appendix-B eval:
            forward launch), scored against the fused rep of the candidate.
 
 At `compute_dtype` bfloat16 its stages run on one compute copy too.
+
+Across W > 1 ranks (`dist`, a `parallel.dist.DistContext`), both scorers
+shard as the JAX package does: the chunk is rounded up to a multiple of W
+and each rank runs its W-th of every stage-1 chunk (the rows past the last
+news repeat it and are dropped), then an all_gather puts the caches back
+together on every rank; stage 2 takes the items strided across the ranks,
+each rank's scores in its own slots and zeros elsewhere, and an all_reduce
+sums them into the whole vector on every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from digat_tpu_torch.data.user_graph import build_user_graph
 from digat_tpu_torch.eval import metrics as M
 from digat_tpu_torch.models.model import CorpusTables, EvalBatch, Model
 from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
+from digat_tpu_torch.parallel.dist import DistContext
 
 
 def _sync(device: torch.device) -> None:
@@ -48,14 +59,49 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-class CachedScorer:
-    """Two-stage scorer for one model. After `score_items`, `timings` holds
-    the wall seconds of each stage (each ends in a device synchronise) and
-    the item and batch counts."""
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
-    def __init__(self, model: Model, batch_size: int = 1024):
+
+def _chunked(dist: DistContext, n: int, bs: int, device, fn) -> torch.Tensor:
+    """fn(sel) -> [rows of sel, ...] over every chunk of `bs` of n rows,
+    concatenated in order. One rank takes the chunks themselves (`sel` a
+    slice); W ranks each take their bs / W rows of every chunk (`sel` an
+    index tensor; bs a multiple of W, rows past n repeat row n - 1) and
+    gather the others'."""
+    starts = range(0, n, bs)
+    if dist.world == 1:
+        return torch.cat([fn(slice(s, s + bs)) for s in starts])
+    per = bs // dist.world
+    own = torch.arange(per, device=device) + dist.rank * per
+    local = torch.cat([fn((own + s).clamp(max=n - 1)) for s in starts])
+    full = dist.all_gather_rows(local)  # [W * chunks * per, ...], rank-major
+    full = full.reshape((dist.world, len(starts), per) + tuple(full.shape[1:]))
+    return full.transpose(0, 1).reshape((len(starts) * bs,) + tuple(full.shape[3:]))[:n]
+
+
+def _stage2(dist: DistContext, n_items: int, device, pending) -> np.ndarray:
+    """The (scores, valid) of each stage-2 batch of this rank's items
+    (strided across ranks) -> every item's score (host float32)."""
+    scores = torch.zeros(n_items, dtype=torch.float32, device=device)
+    if pending:
+        own = torch.arange(dist.rank, n_items, dist.world, device=device)
+        scores[own] = torch.cat([s[:v] for s, v in pending]).float()
+    dist.all_reduce_sum_([scores])
+    return scores.cpu().numpy()
+
+
+class CachedScorer:
+    """Two-stage scorer for one model, sharded across the ranks of `dist`.
+    After `score_items`, `timings` holds the wall seconds of each stage
+    (each ends in a device synchronise) and this rank's item and batch
+    counts."""
+
+    def __init__(self, model: Model, batch_size: int = 1024,
+                 dist: DistContext = DistContext()):
         self.model = model
-        self.batch_size = batch_size
+        self.dist = dist
+        self.batch_size = _round_up(batch_size, dist.world)
         self.device = model.device
         self.timings: dict = {}
 
@@ -66,18 +112,13 @@ class CachedScorer:
         on the compute copy `params` (a fresh one if None). The last chunk
         may be short; no padding is needed."""
         t = CorpusTables.from_arrays(tables, self.device)
-        n, bs = t.news_title_text.shape[0], self.batch_size
+        n, bs, m = t.news_title_text.shape[0], self.batch_size, self.model
 
         def stage1():
-            reps = torch.cat([
-                self.model.encode_news(t.news_title_text[s:s + bs], t.news_title_mask[s:s + bs])
-                for s in range(0, n, bs)
-            ])
-            c_n0 = torch.cat([
-                self.model.initial_news_context(reps[t.news_node_id[s:s + bs]],
-                                                t.news_graph_mask[s:s + bs])
-                for s in range(0, n, bs)
-            ])
+            reps = _chunked(self.dist, n, bs, self.device, lambda sel: m.encode_news(
+                t.news_title_text[sel], t.news_title_mask[sel]))
+            c_n0 = _chunked(self.dist, n, bs, self.device, lambda sel: m.initial_news_context(
+                reps[t.news_node_id[sel]], t.news_graph_mask[sel]))
             return reps, c_n0
 
         return self.model.computing(stage1, params=params)
@@ -98,7 +139,7 @@ class CachedScorer:
     def score_items(self, tables, history_idx: np.ndarray, cat_idx: np.ndarray,
                     imp_index: np.ndarray, cand: np.ndarray) -> np.ndarray:
         """Stage 1, then stage 2 over every impression item -> scores
-        [items] float32 (host)."""
+        [items] float32 (host), the same on every rank."""
         t = CorpusTables.from_arrays(tables, self.device)
         t0 = time.perf_counter()
         params = self.model.compute_params()
@@ -108,25 +149,29 @@ class CachedScorer:
         pending = self.model.computing(lambda: [
             (self._score_batch(t, news_reps, c_n0, batch), valid)
             for batch, valid in eval_batches(history_idx, cat_idx, imp_index, cand,
-                                             self.batch_size, self.device)
+                                             self.batch_size, self.device,
+                                             shard_index=self.dist.rank,
+                                             shard_count=self.dist.world)
         ], params=params)
-        scores = np.zeros(len(cand), np.float32)
-        if pending:
-            scores[:] = torch.cat([s[:v] for s, v in pending]).float().cpu().numpy()
+        scores = _stage2(self.dist, len(cand), self.device, pending)
         t2 = time.perf_counter()
-        self.timings = {"stage1_s": t1 - t0, "stage2_s": t2 - t1, "items": len(cand),
+        self.timings = {"stage1_s": t1 - t0, "stage2_s": t2 - t1,
+                        "items": len(range(self.dist.rank, len(cand), self.dist.world)),
                         "stage2_batches": len(pending)}
         return scores
 
 
 class NRMSCachedScorer:
-    """Dual-cache scorer for the NRMS family: plain reps feed the user
-    tower, fused reps (NRMS-SA; the plain ones for NRMS) score candidates.
-    After `score_items`, `timings` holds what `CachedScorer`'s does."""
+    """Dual-cache scorer for the NRMS family, sharded across the ranks of
+    `dist`: plain reps feed the user tower, fused reps (NRMS-SA; the plain
+    ones for NRMS) score candidates. After `score_items`, `timings` holds
+    what `CachedScorer`'s does."""
 
-    def __init__(self, model: NRMSModel, batch_size: int = 1024):
+    def __init__(self, model: NRMSModel, batch_size: int = 1024,
+                 dist: DistContext = DistContext()):
         self.model = model
-        self.batch_size = batch_size
+        self.dist = dist
+        self.batch_size = _round_up(batch_size, dist.world)
         self.device = model.device
         self.timings: dict = {}
 
@@ -136,20 +181,15 @@ class NRMSCachedScorer:
         """Stage 1 -> (plain [N, D], fused [N, D]) on the model's device, on
         the compute copy `params` (a fresh one if None)."""
         t = NRMSTables.from_arrays(tables, self.device)
-        n, bs = t.news_title_text.shape[0], self.batch_size
+        n, bs, m = t.news_title_text.shape[0], self.batch_size, self.model
 
         def stage1():
-            plain = torch.cat([
-                self.model.encode_titles(t.news_title_text[s:s + bs],
-                                         t.news_title_mask[s:s + bs])
-                for s in range(0, n, bs)
-            ])
-            if not self.model.sa:
+            plain = _chunked(self.dist, n, bs, self.device, lambda sel: m.encode_titles(
+                t.news_title_text[sel], t.news_title_mask[sel]))
+            if not m.sa:
                 return plain, plain
-            fused = torch.cat([
-                self.model.fuse_sa(plain[s:s + bs], plain[t.augmented_news[s:s + bs]])
-                for s in range(0, n, bs)
-            ])
+            fused = _chunked(self.dist, n, bs, self.device, lambda sel: m.fuse_sa(
+                plain[sel], plain[t.augmented_news[sel]]))
             return plain, fused
 
         return self.model.computing(stage1, params=params)
@@ -158,7 +198,8 @@ class NRMSCachedScorer:
     def score_items(self, tables, history_idx: np.ndarray, cat_idx: np.ndarray,
                     imp_index: np.ndarray, cand: np.ndarray) -> np.ndarray:
         """Stage 1, then stage 2 over every impression item -> scores
-        [items] float32 (host). `cat_idx` is unused by this family."""
+        [items] float32 (host), the same on every rank. `cat_idx` is unused
+        by this family."""
         t0 = time.perf_counter()
         params = self.model.compute_params()
         plain, fused = self.cache_news(tables, params)
@@ -168,17 +209,18 @@ class NRMSCachedScorer:
         def stage2():
             pending = []
             for batch, valid in eval_batches(history_idx, cat_idx, imp_index, cand,
-                                             self.batch_size, self.device):
+                                             self.batch_size, self.device,
+                                             shard_index=self.dist.rank,
+                                             shard_count=self.dist.world):
                 user = self.model.encode_user(plain[batch.history_idx], batch.history_idx != 0)
                 pending.append(((fused[batch.cand_idx] * user).sum(dim=-1), valid))
             return pending
 
         pending = self.model.computing(stage2, params=params)
-        scores = np.zeros(len(cand), np.float32)
-        if pending:
-            scores[:] = torch.cat([s[:v] for s, v in pending]).float().cpu().numpy()
+        scores = _stage2(self.dist, len(cand), self.device, pending)
         t2 = time.perf_counter()
-        self.timings = {"stage1_s": t1 - t0, "stage2_s": t2 - t1, "items": len(cand),
+        self.timings = {"stage1_s": t1 - t0, "stage2_s": t2 - t1,
+                        "items": len(range(self.dist.rank, len(cand), self.dist.world)),
                         "stage2_batches": len(pending)}
         return scores
 
@@ -189,10 +231,12 @@ def compute_scores(
     mode: str,
     batch_size: Optional[int] = None,
     result_file: Optional[str] = None,
+    dist: DistContext = DistContext(),
 ) -> Tuple[float, float, float, float]:
     """End-to-end dev/test scoring -> (auc, mrr, ndcg5, ndcg10), by the
     model's family: `CachedScorer` for MSA-DIGAT, `NRMSCachedScorer` for
-    NRMS and NRMS-SA.
+    NRMS and NRMS-SA, sharded across the ranks of `dist` (every rank gets
+    the metrics; give `result_file` on one rank only).
 
     `corpus` provides `tables()` (the five `CorpusTables` fields, numpy or
     tensors) or, for the NRMS family, `nrms_tables()` (the three
@@ -207,9 +251,9 @@ def compute_scores(
     cand = getattr(corpus, f"{mode}_cand")
     labels = getattr(corpus, f"{mode}_labels")
     if getattr(model, "family", "digat") == "nrms":
-        scorer, tables = NRMSCachedScorer(model, bs), corpus.nrms_tables()
+        scorer, tables = NRMSCachedScorer(model, bs, dist), corpus.nrms_tables()
     else:
-        scorer, tables = CachedScorer(model, bs), corpus.tables()
+        scorer, tables = CachedScorer(model, bs, dist), corpus.tables()
     scores = scorer.score_items(tables, split.history_idx, split.cat_idx, imp_index, cand)
     if result_file:
         M.write_rank_file(result_file, M.group_by_impression(imp_index, scores))

@@ -2,7 +2,7 @@
 one of its five ablations), dot product, and the listwise training loss.
 
 Counterpart of `digat_tpu.models.model` (`CorpusTables`, `TrainBatch`,
-`DedupTrainBatch`, `EvalBatch`, `Model.forward`, `forward_encoded`,
+`DedupTrainBatch`, `ShardedDedupBatch`, `EvalBatch`, `Model.forward`, `forward_encoded`,
 `forward_indexed`, `loss_parts`, `loss`, `encode_news`,
 `initial_news_context`, `inference`). Parameters live in `nn.Module`s under
 the reference `state_dict` names, drawn from an explicit `torch.Generator`
@@ -93,6 +93,26 @@ class DedupTrainBatch(NamedTuple):
     cat_idx: torch.Tensor  # [B, H]
     sample_idx: torch.Tensor  # [B, 1+K] (graph and mask gathers)
     weight: torch.Tensor  # [B]
+
+
+class ShardedDedupBatch(NamedTuple):
+    """Per-shard unique-title dedup for data parallelism: every field of a
+    DedupTrainBatch stacked on a leading shard axis [S, ...], shard s holding
+    batch rows [s B/S, (s+1) B/S) with its own unique-title table, so each
+    rank keeps the encode-once dedup and its own sorted embedding gradient
+    with no title exchange between ranks."""
+
+    uniq_ids: torch.Tensor  # [S, cap]
+    cand_inv: torch.Tensor  # [S, B/S, 1+K, Gn]
+    hist_inv: torch.Tensor  # [S, B/S, H]
+    cat_idx: torch.Tensor  # [S, B/S, H]
+    sample_idx: torch.Tensor  # [S, B/S, 1+K]
+    weight: torch.Tensor  # [S, B/S]
+
+    def local(self, index: int = 0) -> DedupTrainBatch:
+        """Shard `index` as a DedupTrainBatch (the JAX package's `local()`
+        takes shard 0 of a shard_map slice)."""
+        return DedupTrainBatch(*(x[index] for x in self))
 
 
 class EvalBatch(NamedTuple):

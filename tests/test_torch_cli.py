@@ -12,6 +12,8 @@ and narrow widths, 2 epochs:
     raises naming its ROADMAP item, and MIND-small without its files raises
     the message naming them without opening a socket;
   * NRMS-SA trains one epoch through the same CLI;
+  * `run_train` and `run_eval` without a data-parallel context build the
+    model on the configured device (CUDA stays CUDA);
   * scripts/torch_parity_cells.py imports with jax and digat_tpu blocked."""
 
 import json
@@ -19,9 +21,11 @@ import os
 import socket
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from digat_tpu.config import Config as JaxConfig
 from digat_tpu_torch import cli
@@ -110,12 +114,17 @@ def test_jax_command_line_parses_and_tpu_only_values_raise():
     flags = [a for k, v in vars(jcfg).items() for a in (f"--{k}", str(v))]
     cfg = Config.from_args(flags)
     assert (cfg.max_title_length, cfg.epoch, cfg.dedup_titles, cfg.device) == (16, 8, 0, "cuda")
-    for flags, item in [(["--mesh_data", "4"], "multi-GPU"),
-                        (["--profile_dir", "/tmp/trace"], "StepTimer"),
-                        (["--sorted_emb_grad", "false"], "kernel D"),
-                        (["--coordinator_address", "10.0.0.1:1234"], "multi-GPU")]:
+    for flags, item in [(["--mesh_model", "2"], "row-sharded word table"),
+                        (["--sorted_emb_grad", "false"], "kernel D")]:
         with pytest.raises(NotImplementedError, match=item):
             Config.from_args(flags)
+    # the distribution flags and the profile directory are fields, which
+    # parallel.dist.init_distributed holds against the launcher
+    cfg = Config.from_args(["--mesh_data", "4", "--profile_dir", "/tmp/trace",
+                            "--coordinator_address", "10.0.0.1:1234", "--num_processes", "2",
+                            "--process_id", "1"])
+    assert (cfg.mesh_data, cfg.profile_dir, cfg.coordinator_address, cfg.num_processes,
+            cfg.process_id) == (4, "/tmp/trace", "10.0.0.1:1234", 2, 1)
     # every title length runs on the card: kernels A and A' up to 128, the
     # attention pair beyond, as the JAX package routes them
     assert Config.from_args(["--max_title_length", "40"]).max_title_length == 40
@@ -126,6 +135,30 @@ def test_jax_command_line_parses_and_tpu_only_values_raise():
     # every model runs at bfloat16, as in the JAX package
     assert Config.from_args(["--compute_dtype", "bfloat16", "--model_family",
                              "nrms"]).compute_dtype == "bfloat16"
+
+
+@pytest.mark.parametrize("mode", ["train", "dev"])
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_entry_points_without_a_context_build_on_the_configured_device(monkeypatch, mode,
+                                                                        device):
+    """`run_train` and `run_eval` called as before data parallelism (no
+    `dist`) build the model on `cfg.device`: CUDA stays CUDA. The corpus is
+    a stub and the model is not built, so no card is needed."""
+    class Built(Exception):
+        pass
+
+    seen = []
+
+    def build_model(cfg, word_embedding=None, device=None):
+        seen.append(device)
+        raise Built
+
+    monkeypatch.setattr(cli, "prepare", lambda cfg, dist: SimpleNamespace(word_embedding=None))
+    monkeypatch.setattr(cli, "build_model", build_model)
+    cfg = Config(device=device, dev_model_path="best.ckpt")
+    with pytest.raises(Built):
+        cli.run_train(cfg) if mode == "train" else cli.run_eval(cfg, mode)
+    assert seen == [torch.device(device)]
 
 
 def test_mind_small_without_data_raises_without_network(tmp_path, monkeypatch):
