@@ -61,7 +61,7 @@ paths:
              (cnn_kernel_num 400, naive, window 3) at full width (phase
              18), each: serving over 1,024 news on the card with the
              counters reset (A per chunk for MSA, B per interactive layer
-             and batch) and against the CPU and two B-8 training steps
+             and batch) and against the CPU and one B-8 training step
              card against CPU, both at graph depth 2; 5 untraced steps at
              B 64 (depth 3, dedup, dropout 0.2) with
              the counters reset, their launches per step and dropout sites
@@ -112,7 +112,12 @@ paths:
              logits are bit-identical; against the whole batch in one pass,
              which sees a row split that drops or repeats rows, each loss
              within 1e-5 relative and the logits within 2e-6 of their
-             max, its gradients printed), then
+             max); the step-1 gradients of the one pass and of the two
+             ranks each against the same step on the CPU (the CPU taking
+             the one pass's side at every kink; each within 1e-3 of its
+             tensor's max, the entries beyond 1e-4 of it counted, and the
+             kinks where the ranks' rows took the other side counted),
+             then
              three at 0.2 with each rank's launches of A, A', A'', C and D
              checked and its step time (both ranks share the card: not a
              scaling number); both sharded scorers over 1,024 news against
@@ -120,6 +125,21 @@ paths:
              B and the pair launched on each rank), their stage times; the
              all-reduce of a step's gradients timed at gloo world 2 and at
              NCCL world 1;
+  slice 13 - phase 23: the MPNet sentence encoder at all-mpnet-base-v2's
+             widths (random weights from the seed at HuggingFace's initial
+             law, a tokenizer double): 16 texts at max_length 128 card
+             against CPU (within 1e-4 of the unit-norm embeddings), then
+             4,096 texts at batch 256 (texts/s, ms a batch beside its
+             bound); the `jax_mpnet` embedder through the SAG miner on 128
+             news in 4 categories, card against CPU (lists differ only at
+             near-ties); every `layers_ext` module at B 64, N 26 and 68,
+             D 400, forward and backward, the graph modules in training
+             at dropout 0.2, card against CPU (outputs 1e-4, gradients
+             1e-3, kinks replayed), A'' launches counted; and phase 22's
+             one-pass step with `sorted_emb_grad=False` (the library's
+             scatter-add word gradient), against the CPU at phase 9's
+             gates, D launched no time, the word table's gradient within
+             1e-4 of the D step's;
   CLI      - `digat_tpu_torch.cli` from MIND-layout TSV files that the
              port's generator writes (phase 14's train run with torchrun's
              environment of one rank: `init_distributed`, NCCL at world 1,
@@ -984,7 +1004,8 @@ class KinkReplay:
     Eq. (8) sums of C's backward (t = k1 + k2 + k3, a whole a g term each),
     the leaky ReLU of the GAT scores and the model's ReLUs (the CNN bank,
     MSA titles past 128, the topic nodes' feature affine, each GAT layer's
-    output). `record` (around the card's run) keeps, call by call, the side
+    output; and the ReLUs and leaky ReLUs of `layers_ext`). `record` (around
+    the card's run) keeps, call by call, the side
     each input takes on the card by the port's own rule (`relu_mask` on the
     card's k1, k2, k3 for C; t > 0, or t >= 0 for a bf16 leaky ReLU, for
     the rest); `replay` (around the CPU's run) makes the CPU take those
@@ -1006,12 +1027,13 @@ class KinkReplay:
         return t >= 0 if t.dtype == torch.bfloat16 else t > 0
 
     def _patches(self, relu, leaky_relu, bwd_any=None):
-        from digat_tpu_torch import layers
+        from digat_tpu_torch import layers, layers_ext
         from digat_tpu_torch.models import graph_encoders, news_encoders
 
         proxy = _TorchWith(self.torch, relu=relu)
-        patches = [_Patched(m, torch=proxy) for m in (layers, news_encoders, graph_encoders)]
-        patches.append(_Patched(graph_encoders, leaky_relu=leaky_relu))
+        patches = [_Patched(m, torch=proxy) for m in (layers, news_encoders, graph_encoders,
+                                                       layers_ext)]
+        patches += [_Patched(m, leaky_relu=leaky_relu) for m in (graph_encoders, layers_ext)]
         if bwd_any is not None:
             from digat_tpu_torch.ops import gat_scores as GS
 
@@ -1101,6 +1123,14 @@ class KinkReplay:
 
     def summary(self) -> str:
         return "; ".join(f"{k} {self.flips[k]} of {self.terms[k]}" for k in self.KINDS)
+
+    def same_sides(self, other) -> bool:
+        """Whether another record took the same side at every kink, call by
+        call."""
+        torch = self.torch
+        return all(len(self.masks[k]) == len(other.masks[k])
+                   and all(torch.equal(a, b) for a, b in zip(self.masks[k], other.masks[k]))
+                   for k in self.KINDS)
 
 
 class _TorchWith:
@@ -1354,6 +1384,20 @@ def parity_cells():
     return mod
 
 
+def neighbour_lists_differ(card: dict, cpu: dict, tie: float) -> tuple:
+    """(lists that differ card against CPU, those of them at near-ties: the
+    same length, and the CPU's cosine at each place within `tie` of the
+    card's)."""
+    differ, near_tie = 0, 0
+    for news_id, c in cpu.items():
+        g = card[news_id]
+        if [n for n, _ in g] == [n for n, _ in c]:
+            continue
+        differ += 1
+        near_tie += len(g) == len(c) and all(abs(a[1] - b[1]) <= tie for a, b in zip(g, c))
+    return differ, near_tie
+
+
 def sag_card_vs_cpu(torch, cfg, failures) -> None:
     """The news graph's neighbour lists mined on the card against the same
     lists mined on the CPU: a list may differ only where the CPU's cosines
@@ -1371,14 +1415,7 @@ def sag_card_vs_cpu(torch, cfg, failures) -> None:
     sims = {d: sag.mine_similarity(rows, dicts["news"], cfg.SAG_neighbors,
                                    exclude_test_from_corpus=cfg.dataset != "MIND-large",
                                    seed=cfg.seed, device=d) for d in ("cuda", "cpu")}
-    differ, near_tie = 0, 0
-    for news_id, cpu in sims["cpu"].items():
-        card = sims["cuda"][news_id]
-        if [n for n, _ in card] == [n for n, _ in cpu]:
-            continue
-        differ += 1
-        near_tie += len(card) == len(cpu) and all(abs(a[1] - b[1]) <= 1e-6
-                                                  for a, b in zip(card, cpu))
+    differ, near_tie = neighbour_lists_differ(sims["cuda"], sims["cpu"], 1e-6)
     node_id, graph, mask = sag.expand_graph(sims["cpu"], dicts["news"], cfg.SAG_neighbors,
                                             cfg.SAG_hops, cfg.news_graph_size)
     graph |= np.eye(cfg.news_graph_size, dtype=bool)[None]
@@ -1960,6 +1997,12 @@ VARIANT_STEPS = 5  # the median untraced step at B 64 is taken over steps 3-5
 # stay at 3): the depth loop's later layers and contexts still run, and the
 # CPU sides of those checks, which set the smoke's time, shrink by a third.
 CUT_DEPTH = 2
+# Phase 18's card-against-CPU training steps: one (two until slice 13, whose
+# phases 22-23 took the time): step 1's loss and every step-1 gradient are
+# gated as before; the loss after an Adam step is left to phase 9's three
+# MSA-DIGAT steps, whose optimizer the variants share. The CPU's steps set
+# the phase's time (4.8-11.3 s a variant for two).
+VARIANT_PARITY_STEPS = 1
 
 
 def interactive_layers(cfg) -> int:
@@ -1974,7 +2017,8 @@ def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
     """Phase 18 for one variant: serving over 1,024 news and 64 impressions of
     8 on the card with the counters reset (stage 1 A once per chunk for MSA,
     none for CNN; stage 2 B once per interactive layer and batch) and
-    against the CPU plain path (phase 6's gates); two B-8 training steps
+    against the CPU plain path (phase 6's gates); VARIANT_PARITY_STEPS B-8
+    training steps
     card against CPU (phase 9's gates); both at CUT_DEPTH; then
     VARIANT_STEPS untraced steps at B 64 (production depth) with dedup and
     dropout, the counters reset: per step A and A' once
@@ -2030,10 +2074,10 @@ def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
     if not (err <= limit and flips == 0 and np.isfinite(s_gpu).all()):
         failures.append(f"{name} serving card vs cpu")
     del models
-    # three B-8 steps, card against the CPU
+    # B-8 steps, card against the CPU
     corpus = make_train_corpus(cfg, tables, (VARIANT_STEPS + 2) * cfg.batch_size, 2000, 32,
                                SEED + 14)
-    training_parity(torch, cut, corpus, dev, failures, label=name, steps=2)
+    training_parity(torch, cut, corpus, dev, failures, label=name, steps=VARIANT_PARITY_STEPS)
     # untraced steps at B 64, dedup and dropout on
     model = Model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED + 15))
     neg = sampling.sample_negatives(corpus.train_neg_flat, corpus.train_neg_offsets,
@@ -3054,7 +3098,8 @@ def dp_compare_steps(torch, what, one, groups, ranks, failures) -> None:
     one pass (`one`), which splits no rows and so sees a split that drops
     or repeats rows, the losses and the logits are gated; its gradients,
     whose rows round otherwise (cuBLAS picks by the row count), are
-    printed."""
+    printed here and gated, with the ranks', against the CPU
+    (`dp_cpu_reference`)."""
     got = [r[0.0] for r in ranks]
     same_loss = all(g["losses"] == got[0]["losses"] for g in got)
     loss_err, (worst, name, top, _), bits, logit_err, _ = dp_differences(torch, groups[0.0],
@@ -3072,7 +3117,8 @@ def dp_compare_steps(torch, what, one, groups, ranks, failures) -> None:
         f"{DP_LOSS_RTOL:g}), logits bit-identical {p_bits} (max |dp - one| {p_logit:.3e}, "
         f"limit {DP_LOGIT_RTOL * p_scale:.3e} of max |one| {p_scale:.3e}), worst gradient "
         f"{p_worst:.3e} ({p_name}, max |one| {p_top:.3e}, {p_over} of its {p_size} entries "
-        f"beyond {DP_GRAD_RTOL:g} of that; not gated); batches {[g['kinds'] for g in got]}")
+        f"beyond {DP_GRAD_RTOL:g} of that; gated against the CPU below); batches "
+        f"{[g['kinds'] for g in got]}")
     if not (loss_err <= DP_LOSS_RTOL and worst <= DP_GRAD_RTOL and same_loss
             and np.isfinite(got[0]["losses"]).all()):
         failures.append(f"data-parallel {what}: two ranks against one process's row groups")
@@ -3080,12 +3126,154 @@ def dp_compare_steps(torch, what, one, groups, ranks, failures) -> None:
         failures.append(f"data-parallel {what}: two ranks against the whole batch in one pass")
 
 
-def dp_phase(torch, cfg, ncfg, dev, failures) -> dict:
+# Phase 22's step-1 reference on the CPU: the first global batch in one pass
+# from the job's weights at dropout 0, the CPU taking the side that the
+# card's one pass took at every kink (`KinkReplay`). The card's one pass and
+# the two ranks' summed gradient are each gated against it at phase 9's
+# limit (TRAIN_RTOL of each tensor's max). The ranks' rows round at other
+# shapes, so at a few kinks they take the other side than the one pass: the
+# card's row groups (the ranks' gradients bit for bit) are recorded too and
+# those kinks counted; `scripts/dp_kink_witness.py` replays the groups'
+# sides on the CPU as well, which shows that they make the whole gap.
+# Entries beyond DP_SPREAD of their tensor's max are counted, to tell a
+# spread of rounding from a few whole terms.
+DP_SPREAD = 1e-4
+DP_WATCHED = "graph_encoder.news_graph_attention_ffn2.2.weight"  # PR 15's worst tensor
+
+
+def reference_step(torch, part, device, sorted_emb_grad: bool = True,
+                   groups: int = 1) -> tuple:
+    """Step 1 of phase 22's MSA-DIGAT job by one process on `device`, as
+    `dp_steps` takes it (the job's weights, dropout 0): the first global
+    batch in one pass, or (`groups` > 1) as that many ranks' row groups in
+    turn (`accumulated_step`) -> (loss, step-1 gradients on the host,
+    launches)."""
+    from types import SimpleNamespace
+
+    from digat_tpu_torch.data import batching
+    from digat_tpu_torch.models.model import CorpusTables, Model, TrainBatch
+    from digat_tpu_torch.train.optimizer import Adam
+    from digat_tpu_torch.train.train_step import step_seed, train_step
+
+    cfg = replace(part["config"], dropout_rate=0.0, sorted_emb_grad=sorted_emb_grad)
+    tables = CorpusTables.from_arrays(SimpleNamespace(**part["tables"]), device)
+    parts = [batching.to_device(batching.rank_rows(
+        TrainBatch(*part["batches"][0]), i, groups, part["news_node_id"],
+        part["capacity"][groups]), device) for i in range(groups)]
+    model = Model(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+    model.load_state_dict(part["state"])
+    opt = Adam(model.named_parameters(), cfg.weight_decay, cfg.gradient_clip_norm)
+    seed = step_seed(SEED, 1, 0)
+    reset_counters()
+    if groups == 1:
+        loss = float(train_step(model, opt, tables, parts[0], seed, cfg.lr))
+    else:
+        loss = accumulated_step(model, opt, tables, parts, seed, cfg.lr)
+    launches = read_counters()
+    return loss, {n: p.grad.detach().to("cpu", copy=True)
+                  for n, p in model.named_parameters()}, launches
+
+
+def grad_spread(got: dict, want: dict) -> dict:
+    """Step-1 gradients against a reference: the worst tensor by max |got -
+    want| / max |want| (a zeroed or lost gradient reads 1), its entries
+    beyond DP_SPREAD of its max and its size, those entries over all
+    tensors, and the same for DP_WATCHED."""
+    def one(n):
+        w = want[n]
+        top = float(w.abs().max())
+        d = (got[n] - w).abs()
+        return float(d.max()) / max(top, 1e-30), int((d > DP_SPREAD * top).sum()), w.numel()
+
+    per = {n: one(n) for n in want}
+    worst = max(per, key=lambda n: per[n][0])
+    return {"worst": per[worst][0], "name": worst, "over": per[worst][1],
+            "size": per[worst][2], "over_all": sum(v[1] for v in per.values()),
+            "entries": sum(v[2] for v in per.values()), "watched": per.get(DP_WATCHED)}
+
+
+def say_spread(what: str, sp: dict, loss_err=None) -> None:
+    watched = sp["watched"]
+    say(f"    {what}: "
+        + ("" if loss_err is None else
+           f"loss err {loss_err:.3e} (limit {TRAIN_RTOL:g} * max(1, |cpu|)); ")
+        + f"worst gradient {sp['worst']:.3e} of its tensor's max ({sp['name']}, {sp['over']} of "
+        f"its {sp['size']} entries beyond {DP_SPREAD:g} of it); entries beyond {DP_SPREAD:g} "
+        f"over all tensors {sp['over_all']} of {sp['entries']}"
+        + (f"; {DP_WATCHED.split('.', 1)[1]} {watched[0]:.3e}, {watched[1]} of {watched[2]} "
+           f"beyond" if watched else ""))
+
+
+def kink_sides_apart(torch, one, groups, n_groups: int) -> dict:
+    """By kind, the kinks where the card's row groups (`groups`, their calls
+    group by group) took the other side than the card's one pass (`one`):
+    call i of the one pass against call i of every group, the groups' rows
+    joined in order -> (differing, terms), or None where the calls do not
+    line up."""
+    out = {}
+    for kind in KinkReplay.KINDS:
+        a, b = one.masks[kind], groups.masks[kind]
+        n = len(a)
+        if len(b) != n_groups * n:
+            out[kind] = None
+            continue
+        joined = [torch.cat([b[g * n + i] for g in range(n_groups)]) for i in range(n)]
+        if any(x.shape != y.shape for x, y in zip(a, joined)):
+            out[kind] = None
+            continue
+        out[kind] = (sum(int((x != y).sum()) for x, y in zip(a, joined)),
+                     sum(x.numel() for x in a))
+    return out
+
+
+def dp_cpu_reference(torch, part, dev, one, ranks, failures) -> dict:
+    """Phase 22: the CPU's step-1 reference (see DP_SPREAD) and the gates of
+    the card's one pass (`one`) and the two ranks (`ranks`, rank 0's record:
+    the summed gradient) against it; the card's one pass and its row groups
+    are taken again with their kinks recorded, and must give `one`'s and the
+    ranks' gradients bit for bit. -> the reference (its kinks, losses and
+    gradients) for phase 23."""
+    t0 = time.perf_counter()
+    kinks, kinks_g = KinkReplay(torch), KinkReplay(torch)
+    with kinks.record():
+        card_loss, card, _ = reference_step(torch, part, dev)
+    with kinks_g.record():
+        _, card_g, _ = reference_step(torch, part, dev, groups=DP_WORLD)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with kinks.replay():
+        cpu_loss, cpu, _ = reference_step(torch, part, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    again = all(torch.equal(card[n], one["grads"][n]) for n in card)
+    ranks_again = all(torch.equal(card_g[n], ranks["grads"][n]) for n in card_g)
+    apart = kink_sides_apart(torch, kinks, kinks_g, DP_WORLD)
+    say(f"  step-1 reference on the CPU, one pass at B {part['config'].batch_size}, dropout 0 "
+        f"(card {card_s:.2f}s, cpu {cpu_s:.2f}s): loss {cpu_loss:.7f}; kinks where the CPU took "
+        f"the card's side against its own: {kinks.summary()}. The card's one pass again bit for "
+        f"bit: {again}; its row groups the ranks' bit for bit: {ranks_again}; kinks where the "
+        f"card's row groups took the other side than its one pass: "
+        + "; ".join(f"{k} {v[0]} of {v[1]}" if v else f"{k} not comparable"
+                    for k, v in apart.items()))
+    for what, loss, grads in (("card one pass", one["losses"][0], one["grads"]),
+                              ("two ranks", ranks["losses"][0], ranks["grads"])):
+        sp = grad_spread(grads, cpu)
+        loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
+        say_spread(f"{what} against the CPU", sp, loss_err)
+        if not (sp["worst"] <= TRAIN_RTOL and loss_err <= TRAIN_RTOL):
+            failures.append(f"data-parallel: the {what}'s step-1 gradients against the CPU")
+    if not (again and ranks_again):
+        failures.append("data-parallel: a card step taken again gave other bits")
+    return {"part": part, "kinks": kinks, "cpu": (cpu_loss, cpu), "card": (card_loss, card)}
+
+
+def dp_phase(torch, cfg, ncfg, dev, failures) -> tuple:
     """Phase 22: MSA-DIGAT (B 64, dedup per shard, DP_STEPS steps at dropout
     0 and as many at the production rate) and NRMS-SA (one step) on two
-    gloo ranks on the card against one process, the sharded scorers against
-    one process, and the all-reduce's bytes and time (gloo world 2, NCCL
-    world 1). -> launches by path for the kernels line."""
+    gloo ranks on the card against one process, the MSA-DIGAT step-1
+    gradients of both against the CPU (`dp_cpu_reference`), the sharded
+    scorers against one process, and the all-reduce's bytes and time (gloo
+    world 2, NCCL world 1). -> (launches by path for the kernels line, the
+    CPU reference)."""
     from digat_tpu_torch.config import Config
     from digat_tpu_torch.eval import metrics as M
     from digat_tpu_torch.parallel import dist as dist_lib
@@ -3121,13 +3309,15 @@ def dp_phase(torch, cfg, ncfg, dev, failures) -> dict:
         ranks_s = time.perf_counter() - t0
         if any(rcs):
             failures.append(f"data-parallel ranks exited {rcs}")
-            return {}
+            return {}, None
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                  for r in range(DP_WORLD)]
     say(f"  inputs {setup_s:.2f}s; {DP_WORLD} ranks ({[r['backend'] for r in ranks]}, world "
         f"{ranks[0]['world']}) and one process {ranks_s:.2f}s")
     dp_compare_steps(torch, "MSA-DIGAT B 64, depth 3, dedup per shard", ref["digat"],
                      ref["digat groups"], [r["digat"] for r in ranks], failures)
+    reference = dp_cpu_reference(torch, job["digat"], dev, ref["digat"][0.0],
+                                 ranks[0]["digat"][0.0], failures)
     dp_compare_steps(torch, "NRMS-SA B 64", ref["nrms"], ref["nrms groups"],
                      [r["nrms"] for r in ranks], failures)
     # the steps at the production dropout rate: their launches on each rank, their time
@@ -3196,7 +3386,379 @@ def dp_phase(torch, cfg, ncfg, dev, failures) -> dict:
             counts[f"serving {bkernel}"] = g["launches"][bkernel]
             if name == "digat":
                 counts["serving msa_encoder_pooled"] = g["launches"]["msa_encoder_pooled"]
-    return by_path
+    return by_path, reference
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the modules of slice 13 on the card, each held against the CPU:
+# the MPNet sentence encoder at all-mpnet-base-v2's widths (random weights
+# from SEED at HuggingFace's initial law, this script's tokenizer double),
+# the `jax_mpnet` embedder through the SAG miner, `layers_ext` at graph
+# widths in training, and one MSA-DIGAT step through the library's
+# scatter-add word gradient (`sorted_emb_grad=False`).
+# ---------------------------------------------------------------------------
+MPNET_TEXTS, MPNET_SWEEP, MPNET_BATCH, MPNET_LEN = 16, 4096, 256, 128
+# card against CPU, fp32 (TF32 off), max |card - cpu| of the unit-norm
+# sentence embeddings: 12 layers of sums in other orders
+MPNET_RTOL = 1e-4
+# the word table's step-1 gradient through the scatter-add against kernel
+# D's on the card: the same sums in another order, of the tensor's max
+EMB_GRAD_ROUTE_RTOL = 1e-4
+WORD_TABLE = "news_encoder.word_embedding.weight"
+# a layers_ext gradient that is 0 in exact arithmetic (the multi-SDP
+# attention's K bias adds one constant to every key's score, which the
+# softmax cancels) is rounding noise on both sides, so each gradient's
+# limit is TRAIN_RTOL of the larger of its own max and this share of the
+# module's largest gradient
+LAYERS_EXT_FLOOR = 1e-3
+
+
+class TokenizerDouble:
+    """A stand-in for all-mpnet-base-v2's tokenizer (the machine with the
+    card has no `transformers`): <s> (id 0), one id a word (its CRC-32 in
+    the vocabulary past the special ids), </s> (2), truncated to max_length
+    and padded with the pad id (1), as the HuggingFace tokenizer returns a
+    batch with padding="max_length" and truncation."""
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def __call__(self, texts, padding=None, truncation=None, max_length=None,
+                 return_tensors=None):
+        import zlib
+
+        ids = np.full((len(texts), max_length), 1, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for i, text in enumerate(texts):
+            toks = [4 + zlib.crc32(w.encode()) % (self.vocab_size - 4) for w in text.split()]
+            toks = [0] + toks[:max_length - 2] + [2]
+            ids[i, :len(toks)] = toks
+            mask[i, :len(toks)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def smoke_texts(n: int, seed: int, lo: int = 3, hi: int = 180) -> list:
+    """n seeded texts of lo..hi words (past 126 words the tokenizer
+    truncates)."""
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{k}" for k in range(5000)])
+    return [" ".join(rng.choice(words, size=int(k))) for k in rng.integers(lo, hi, n)]
+
+
+class MemoEmbedder:
+    """An embedder that embeds each distinct text once (the SAG miner asks
+    for a category's titles and contents on its full and its corpus
+    sides)."""
+
+    def __init__(self, embed, dim: int):
+        self.embed, self.dim, self.rows = embed, dim, {}
+
+    def __call__(self, texts, dim: int = 0) -> np.ndarray:
+        new = [t for t in dict.fromkeys(texts) if t not in self.rows]
+        if new:
+            self.rows.update(zip(new, self.embed(new)))
+        if not texts:
+            return np.zeros((0, self.dim), np.float32)
+        return np.stack([self.rows[t] for t in texts])
+
+
+def mpnet_work(cfg, B: int, L: int) -> tuple:
+    """(FLOP, bytes) of one MPNet forward over B texts of L tokens: the
+    products (q, k, v, o and the FFN; the scores and the weighted sum), the
+    weights read once, the ids and mask read and the embeddings written."""
+    D, Fd, T = cfg.hidden_size, cfg.intermediate_size, B * L
+    flops = cfg.num_layers * (2 * T * (4 * D * D + 2 * D * Fd) + 4 * B * L * L * D)
+    params = (cfg.vocab_size + cfg.max_position_embeddings) * D + cfg.num_layers * (
+        4 * D * D + 2 * D * Fd)
+    return flops, 4 * params + 16 * T + 4 * B * D
+
+
+def mpnet_phase(torch, dev, failures) -> dict:
+    """Phase 23 (a): MPNet at all-mpnet-base-v2's widths, 16 texts of mixed
+    length at max_length 128 card against CPU (MPNET_RTOL), then a sweep of
+    4,096 texts on the card at batch 256 (texts/s; ms a batch of `encode`
+    alone beside its fp32 bound). -> the card's and the CPU's models, for
+    (b)."""
+    from digat_tpu_torch.plm import mpnet as MP
+
+    t0 = time.perf_counter()
+    mcfg = MP.MPNetConfig()
+    sd = MP.random_state_dict(mcfg, SEED + 60)
+    card, cpu = MP.MPNet.from_state_dict(sd, dev), MP.MPNet.from_state_dict(sd, "cpu")
+    del sd
+    n_params = sum(p.numel() for p in card.parameters())
+    setup_s = time.perf_counter() - t0
+    tok = TokenizerDouble(mcfg.vocab_size)
+    toks = tok(smoke_texts(MPNET_TEXTS, SEED + 61), "max_length", True, MPNET_LEN, "np")
+    t0 = time.perf_counter()
+    e_card = MP.encode(card, toks["input_ids"], toks["attention_mask"]).cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_cpu = MP.encode(cpu, toks["input_ids"], toks["attention_mask"])
+    cpu_s = time.perf_counter() - t0
+    err = float((e_card - e_cpu).abs().max())
+    norm_err = float((e_card.norm(dim=1) - 1).abs().max())
+    lengths = toks["attention_mask"].sum(1)
+    say(f"  MPNet {mcfg.num_layers} x {mcfg.hidden_size} ({mcfg.num_heads} heads, FFN "
+        f"{mcfg.intermediate_size}, vocabulary {mcfg.vocab_size}): {n_params / 1e6:.1f}M "
+        f"parameters, {4 * n_params / 1e6:.1f} MB fp32 (random, seed {SEED + 60}; set-up "
+        f"{setup_s:.2f}s); {MPNET_TEXTS} texts of {lengths.min()}-{lengths.max()} tokens at "
+        f"max_length {MPNET_LEN}: max |card - cpu| {err:.3e} (limit {MPNET_RTOL:g}), max "
+        f"| |e| - 1 | {norm_err:.3e}; card {card_s:.2f}s, cpu {cpu_s:.2f}s")
+    if not (e_card.shape == (MPNET_TEXTS, mcfg.hidden_size) and bool(torch.isfinite(e_card).all())
+            and err <= MPNET_RTOL and norm_err <= 1e-5):
+        failures.append("MPNet card against CPU")
+    # the sweep: the embedder (the tokenizer double included) over 4,096 texts
+    embed = MP.mpnet_embedder(card, tok, MPNET_LEN, MPNET_BATCH)
+    texts = smoke_texts(MPNET_SWEEP, SEED + 62)
+    embed(texts[:MPNET_BATCH])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = embed(texts)
+    sweep_s = time.perf_counter() - t0
+    batch = tok(texts[:MPNET_BATCH], "max_length", True, MPNET_LEN, "np")
+    ids = torch.from_numpy(batch["input_ids"]).to(dev)
+    mask = torch.from_numpy(batch["attention_mask"]).to(dev)
+    batch_ms = time_ms(torch, lambda: MP.encode(card, ids, mask), warmup=1, iters=5)
+    flops, nbytes = mpnet_work(mcfg, MPNET_BATCH, MPNET_LEN)
+    bound_ms, bound_by = bound(flops, nbytes)
+    say(f"  sweep: {MPNET_SWEEP} texts at batch {MPNET_BATCH}, max_length {MPNET_LEN}: "
+        f"{sweep_s:.3f}s, {MPNET_SWEEP / sweep_s:.1f} texts/s (the tokenizer double and the "
+        f"host copies included); encode alone {batch_ms:.3f} ms a batch "
+        f"({MPNET_BATCH * 1e3 / batch_ms:.1f} texts/s, {flops / batch_ms / 1e9:.1f} TFLOP/s); "
+        f"fp32 bound {bound_ms:.3f} ms a batch ({bound_by})")
+    if not (out.shape == (MPNET_SWEEP, mcfg.hidden_size) and np.isfinite(out).all()):
+        failures.append("MPNet sweep: embeddings not finite or of the wrong shape")
+    return {"card": card, "cpu": cpu, "tok": tok}
+
+
+def sag_news(seed: int, per_category: int = 32, categories: int = 4) -> tuple:
+    """A seeded news corpus for the SAG miner: `categories` categories of
+    `per_category` news, titles and contents drawn from each category's
+    topic words and common ones; about one news in eight is test-only,
+    some titles repeat (dedup) and some contents are empty (the title
+    stands in). -> (rows by category, news id -> index)."""
+    rng = np.random.default_rng(seed)
+    common = [f"c{k}" for k in range(400)]
+    rows, news_id_dict = {}, {"<PAD>": 0}
+    for c in range(categories):
+        topic = [f"t{c}_{k}" for k in range(24)]
+        cat = rows.setdefault(f"cat{c}", [])
+
+        def draw(n):
+            return " ".join(str(rng.choice(topic if rng.random() < 0.5 else common))
+                            for _ in range(n))
+
+        for _ in range(per_category):
+            nid = f"N{len(news_id_dict)}"
+            news_id_dict[nid] = len(news_id_dict)
+            title = cat[-1][2] if cat and rng.random() < 0.1 else draw(int(rng.integers(4, 13)))
+            content = "" if rng.random() < 0.1 else draw(int(rng.integers(12, 30)))
+            cat.append(("test" if rng.random() < 0.125 else "train_dev", nid, title, content))
+    return rows, news_id_dict
+
+
+def mpnet_sag_phase(torch, mp, dev, failures) -> None:
+    """Phase 23 (b): the `jax_mpnet` embedder (the port's MPNet, full width,
+    max_length 32) through `sag.mine_similarity` on a seeded corpus of 128
+    news in 4 categories, on the card and on the CPU. The embeddings differ
+    by rounding, which moves a cosine by up to 2 max ||e_card - e_cpu||
+    (plus 1e-6 for the products): neighbour lists may differ only where
+    every place lies within that of the card's (`neighbour_lists_differ`,
+    the rule of phase 14's SAG check)."""
+    from digat_tpu_torch.data import sag
+    from digat_tpu_torch.plm import mpnet as MP
+
+    rows, news_id_dict = sag_news(SEED + 63)
+    D = mp["card"].config.hidden_size
+    embedders = {side: MemoEmbedder(MP.mpnet_embedder(mp[side], mp["tok"], 32, 256), D)
+                 for side in ("card", "cpu")}
+    t0 = time.perf_counter()
+    card = sag.mine_similarity(rows, news_id_dict, 5, embedders["card"], seed=SEED,
+                               device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = sag.mine_similarity(rows, news_id_dict, 5, embedders["cpu"], seed=SEED, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    texts = list(embedders["cpu"].rows)
+    emb_err = max(float(np.linalg.norm(embedders["card"].rows[t] - embedders["cpu"].rows[t]))
+                  for t in texts)
+    tie = 2 * emb_err + 1e-6
+    differ, near_tie = neighbour_lists_differ(card, cpu, tie)
+    full = sum(len(v) == 5 for v in cpu.values())
+    say(f"  SAG through jax_mpnet: {len(cpu)} neighbour lists ({full} of 5 neighbours), "
+        f"{len(texts)} texts embedded at max_length 32, max ||e_card - e_cpu|| {emb_err:.3e}; "
+        f"lists differing {differ}, {near_tie} of them at near-ties (cosines within "
+        f"{tie:.3e}); card {card_s:.2f}s, cpu {cpu_s:.2f}s")
+    if differ != near_tie or emb_err > MPNET_RTOL or full == 0:
+        failures.append(f"SAG through jax_mpnet: {differ - near_tie} lists differ card vs cpu "
+                        f"beyond near-ties, embeddings {emb_err:.3e} apart")
+
+
+def layers_ext_phase(torch, dev, failures) -> dict:
+    """Phase 23 (c): every `layers_ext` module at graph widths (B 64, N 26
+    and 68, D 400; the multi-head GAT with 4 heads), forward and backward
+    of a seeded cotangent, the graph modules in training at dropout 0.2
+    (A'' on the card, its plain version on the CPU: the same Philox bits),
+    card against CPU: the outputs within KERNEL_RTOL of their scale, each
+    parameter's and input's gradient within TRAIN_RTOL of its max (at least
+    LAYERS_EXT_FLOOR of the module's largest gradient), the CPU
+    taking the card's side at every ReLU kink (`KinkReplay`). A'' launches
+    twice a dropout call (forward and backward), counted by module. -> the
+    A'' launches."""
+    import copy
+
+    from digat_tpu_torch import layers_ext as X
+    from digat_tpu_torch.ops import dropout as DR
+
+    B, D, A = 64, 400, 256
+    rng = np.random.default_rng(SEED + 64)
+    gen = lambda: torch.Generator().manual_seed(SEED + 65)
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def mask(*shape):
+        m = rng.random(shape) < 0.8
+        m[(0,) * (len(shape) - 1)] = False  # a fully masked row
+        return torch.from_numpy(m)
+
+    def graph(n):
+        g = (rng.random((B, n, n)) < 0.25) | np.eye(n, dtype=bool)[None]
+        g[0, 1] = False  # a node with no edge: its softmax row is uniform
+        return torch.from_numpy(g)
+
+    train = dict(seed=SEED + 66, site=0, dropout=0.2)
+    res = dict(train, residual=True)
+    cases = [("candidate attention N 26", X.CandidateAttention(D, D, A, gen()),
+              [t(B, 26, D), t(B, D)], [mask(B, 26)], {}, 0),
+             ("multi-candidate attention N 26, 5 queries", X.MultiCandidateAttention(
+                 D, D, A, gen()), [t(B, 26, D), t(B, 5, D)], [mask(B, 26)], {}, 0),
+             ("multi SDP attention N 68, 5 queries", X.MultiSDPAttention(D, D, A, gen()),
+              [t(B, 68, D), t(B, 5, D)], [mask(B, 5, 68)], {}, 0),
+             ("dual SDP attention 26 x 68", X.DualSDPAttention(D, D, A, gen()),
+              [t(B, 26, D), t(B, 68, D)], [mask(B, 26, 68)], {}, 0),
+             ("parameter-free dual attention 26 x 68", None, [t(B, 26, D), t(B, 68, D)],
+              [mask(B, 26, 68)], {}, 0)]
+    for n in (26, 68):
+        g = [graph(n)]
+        cases += [(f"GCN N {n}, 2 layers, LayerNorm, residual", X.GCN(
+                       D, D, gen(), hidden_dim=D, num_layers=2, layer_norm=True), [t(B, n, D)],
+                   g, res, 1),
+                  (f"gated RGCN N {n}, 2 layers", X.GatedRGCN(D, gen(), num_layers=2),
+                   [t(B, n, D)], g, train, 1),
+                  (f"GAT N {n}, 2 layers, residual", X.GAT(D, gen(), num_layers=2),
+                   [t(B, n, D)], g, res, 3),
+                  (f"multi-head GAT N {n}, 4 heads, 2 layers, residual", X.MultiheadGAT(
+                      D, 4, gen(), num_layers=2), [t(B, n, D)], g, res, 3)]
+
+    def run(module, device, inputs, masks, kw):
+        xs = [x.to(device).requires_grad_() for x in inputs]
+        ms = [m.to(device) for m in masks]
+        out = X.dual_sdp_attention_free(*xs, *ms) if module is None else module(*xs, *ms, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        cots = [torch.randn(o.shape, generator=torch.Generator().manual_seed(SEED + 67 + i))
+                for i, o in enumerate(outs)]
+        torch.autograd.backward(outs, [c.to(device) for c in cots])
+        grads = {f"input {i}": x.grad.cpu() for i, x in enumerate(xs)}
+        if module is not None:
+            grads.update({n: p.grad.cpu() for n, p in module.named_parameters()})
+        return [o.detach().cpu() for o in outs], grads
+
+    flips = KinkReplay(torch)  # the flips and terms of every module's replay
+    launches, want, worst_out, worst_grad, lines = 0, 0, (0.0, ""), (0.0, ""), []
+    t0 = time.perf_counter()
+    for name, module, inputs, masks, kw, drops in cases:
+        card_module = None if module is None else copy.deepcopy(module).to(dev)
+        DR.dropout.launches = 0
+        kinks = KinkReplay(torch)
+        with kinks.record():
+            out_card, g_card = run(card_module, dev, inputs, masks, kw)
+        n_launch = DR.dropout.launches
+        launches, want = launches + n_launch, want + 2 * drops
+        with kinks.replay():
+            out_cpu, g_cpu = run(module, torch.device("cpu"), inputs, masks, kw)
+        flips.flips.update(kinks.flips)
+        flips.terms.update(kinks.terms)
+        o_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for a, b in zip(out_card, out_cpu))
+        floor = LAYERS_EXT_FLOOR * max(float(g.abs().max()) for g in g_cpu.values())
+        g_err, g_name = max((float((g_card[k] - g).abs().max())
+                             / max(float(g.abs().max()), floor), k) for k, g in g_cpu.items())
+        worst_out, worst_grad = max(worst_out, (o_err, name)), max(worst_grad, (g_err, name))
+        finite = all(bool(torch.isfinite(o).all()) for o in out_card)
+        lines.append(f"    {name}: output {o_err:.3e}, worst gradient {g_err:.3e} ({g_name}), "
+                     f"A'' launches {n_launch} (want {2 * drops})")
+        if not (o_err <= KERNEL_RTOL and g_err <= TRAIN_RTOL and finite
+                and n_launch == 2 * drops):
+            failures.append(f"layers_ext {name} card against CPU")
+    say(f"  layers_ext, {len(cases)} modules at B {B}, D {D} (card against CPU, the graph "
+        f"modules in training at dropout 0.2; {time.perf_counter() - t0:.2f}s): worst output "
+        f"{worst_out[0]:.3e} ({worst_out[1]}; limit {KERNEL_RTOL:g} of max(1, max |cpu|)), "
+        f"worst gradient {worst_grad[0]:.3e} ({worst_grad[1]}; limit {TRAIN_RTOL:g} of its "
+        f"max); A'' launches {launches} (want {want}); kinks where the CPU took the card's "
+        f"side against its own: {flips.summary()}")
+    for line in lines:
+        say(line)
+    return {"dropout": launches}
+
+
+def scatter_add_step_phase(torch, reference, dev, failures) -> dict:
+    """Phase 23 (d): phase 22's one-pass MSA-DIGAT step (B 64, dedup, depth
+    3, dropout 0) with `sorted_emb_grad=False` on the card, the word table's
+    gradient by the library's scatter-add, with the counters reset; held
+    against phase 22's CPU reference at phase 9's gates (its forward must
+    take the D step's side at every kink, which the reference replayed), D
+    launched no time, the word table's gradient within EMB_GRAD_ROUTE_RTOL
+    of its max of the D step's, every other gradient the D step's bit for
+    bit. -> the step's launches."""
+    kinks = KinkReplay(torch)
+    t0 = time.perf_counter()
+    with kinks.record():
+        loss, grads, launches = reference_step(torch, reference["part"], dev,
+                                               sorted_emb_grad=False)
+    secs = time.perf_counter() - t0
+    cpu_loss, cpu = reference["cpu"]
+    _, card = reference["card"]
+    same_sides = kinks.same_sides(reference["kinks"])
+    sp = grad_spread(grads, cpu)
+    loss_err = abs(loss - cpu_loss) / max(1.0, abs(cpu_loss))
+    top = float(card[WORD_TABLE].abs().max())
+    word_err = float((grads[WORD_TABLE] - card[WORD_TABLE]).abs().max()) / max(top, 1e-30)
+    others = all(torch.equal(grads[n], card[n]) for n in card if n != WORD_TABLE)
+    ran = {k: launches[k] for k in ("msa_encoder_pooled", "msa_encoder_bwd", "gat_scores_fwd",
+                                    "gat_scores_bwd", "embedding_grad")}
+    say(f"  sorted_emb_grad=False, one MSA-DIGAT step at B "
+        f"{reference['part']['config'].batch_size} ({secs:.2f}s): launches {ran}; the D step's "
+        f"kink sides: {same_sides}; against the CPU: loss err {loss_err:.3e}, worst gradient "
+        f"{sp['worst']:.3e} ({sp['name']}; limit {TRAIN_RTOL:g}); the word table's gradient "
+        f"against the D step's {word_err:.3e} of its max (limit {EMB_GRAD_ROUTE_RTOL:g}), every "
+        f"other gradient bit for bit: {others}")
+    if not (same_sides and loss_err <= TRAIN_RTOL and sp["worst"] <= TRAIN_RTOL
+            and word_err <= EMB_GRAD_ROUTE_RTOL and others and ran["embedding_grad"] == 0
+            and all(v > 0 for k, v in ran.items() if k != "embedding_grad")):
+        failures.append("sorted_emb_grad=False step")
+    return launches
+
+
+def slice13_phase(torch, dev, reference, failures) -> dict:
+    """Phase 23, (a) to (d), each in its own guard. -> launches by path for
+    the kernels line."""
+    out = {}
+    for what, run in (("MPNet", lambda: out.update(mpnet=mpnet_phase(torch, dev, failures))),
+                      ("SAG through jax_mpnet", lambda: mpnet_sag_phase(
+                          torch, out["mpnet"], dev, failures)),
+                      ("layers_ext", lambda: out.update(
+                          layers_ext=layers_ext_phase(torch, dev, failures))),
+                      ("sorted_emb_grad=False", lambda: out.update(
+                          scatter=scatter_add_step_phase(torch, reference, dev, failures)))):
+        t0 = time.perf_counter()
+        try:
+            run()
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"phase 23: {what}")
+        say(f"  [23 {what}] {time.perf_counter() - t0:.2f}s")
+    out.pop("mpnet", None)
+    return out
 
 
 def main() -> int:
@@ -3558,13 +4120,18 @@ def main() -> int:
 
     # ---- 22. data parallelism: two gloo ranks on the card, NCCL at world 1 ----
     t0 = time.perf_counter()
-    dp_launches = {}
+    dp_launches, reference = {}, None
     try:
-        dp_launches = dp_phase(torch, cfg, ncfg, dev, failures)
+        dp_launches, reference = dp_phase(torch, cfg, ncfg, dev, failures)
     except Exception:
         traceback.print_exc()
         failures.append("data-parallel phase")
     say(f"[22 data-parallel] {time.perf_counter() - t0:.2f}s")
+
+    # ---- 23. slice 13: MPNet, the jax_mpnet SAG, layers_ext, the scatter-add step ----
+    t0 = time.perf_counter()
+    slice13 = slice13_phase(torch, dev, reference, failures)
+    say(f"[23 slice 13] {time.perf_counter() - t0:.2f}s")
 
     # ---- 14. the CLI at the production cell, from TSV files ----
     cells = parity_cells()
@@ -3693,6 +4260,16 @@ def main() -> int:
             "fwd": counts["msa_attention_fwd"], "bwd": counts["msa_attention_bwd"]}
         by_path["msa_attention"][f"{path} nrms serving"] = {
             "fwd": counts["serving msa_attention_fwd"], "bwd": 0}
+    # phase 23: A'' in layers_ext's training legs; the scatter-add step's
+    # kernels, D among them at 0
+    if "layers_ext" in slice13:
+        by_path["dropout"]["layers_ext training"] = slice13["layers_ext"]["dropout"]
+    if "scatter" in slice13:
+        counts = slice13["scatter"]
+        for name in ("msa_encoder_pooled", "msa_encoder_bwd", "embedding_grad"):
+            by_path[name]["sorted_emb_grad false step"] = counts[name]
+        by_path["interactive_gat_scores"]["sorted_emb_grad false step"] = {
+            k: counts[k] for k in ("gat_scores_fwd", "gat_scores_bwd")}
     for path, counts in cli_launches.items():
         for name in counters():
             by_path[name][path] = counts.get(name, 0)

@@ -17,11 +17,12 @@ torchrun's environment (a port process is one GPU, a JAX process one
 host), and `mesh_model` > 1, the JAX package's row-sharded word table,
 raises naming its ROADMAP item.
 
-`from_args` also takes the JAX package's TPU-only flags, so that a JAX
-command line parses. Each is checked and dropped: a value the port runs
-(the sorted embedding gradient, any PRNG, compilation cache or Pallas
-setting, which read nothing on the card) passes, any other raises naming
-the ROADMAP item that would bring it."""
+`from_args` also takes the JAX package's TPU-only flags (the PRNG, the
+compilation cache and the Pallas switch), so that a JAX command line
+parses; they read nothing on the card and are dropped. `sorted_emb_grad`
+is a field: true (the default) takes the word table's gradient through
+kernel D, false through the library's scatter-add, as the JAX package's
+flag routes it to XLA's."""
 
 from __future__ import annotations
 
@@ -41,16 +42,9 @@ def news_graph_size(sag_neighbors: int, sag_hops: int) -> int:
     return size
 
 
-# The JAX package's TPU-only flags: name -> (default, is the value one the
-# port runs, the ROADMAP item that would bring the others)
-JAX_ONLY_FLAGS = {
-    "use_pallas": (True, lambda v: True, ""),
-    "rng_impl": ("rbg", lambda v: True, ""),
-    "compilation_cache_dir": ("", lambda v: True, ""),
-    "sorted_emb_grad": (True, lambda v: v,
-                        "ROADMAP.md section 2 (the port always runs kernel D, the sorted "
-                        "embedding gradient)"),
-}
+# The JAX package's TPU-only flags, name -> default: parsed and dropped (any
+# value: none of them reads anything on the card)
+JAX_ONLY_FLAGS = {"use_pallas": True, "rng_impl": "rbg", "compilation_cache_dir": ""}
 
 NEWS_ENCODERS = ("MSA", "CNN")
 GRAPH_ENCODERS = ("DIGAT", "wo_SA", "Seq_SA", "wo_interaction", "news_graph_wo_inter",
@@ -98,7 +92,9 @@ class Config:
     SAG_hops: int = 2
     SAG_neighbors: int = 5
     glove_path: str = ""  # GloVe .txt (word + floats a line); '' = pseudo-GloVe
-    sag_embedder: str = "hash"  # hash (sentence_transformer, jax_mpnet: not ported)
+    # hash | sentence_transformer | jax_mpnet (the port's MPNet, plm.mpnet, on
+    # `device`; sag_embedder_model is then a local checkpoint directory)
+    sag_embedder: str = "hash"
     sag_embedder_model: str = "sentence-transformers/all-mpnet-base-v2"
     # model family: 'digat' (the main experiment) or 'nrms' (the SA strategy
     # on a sequence model)
@@ -122,6 +118,9 @@ class Config:
     # float32 | bfloat16: the dtype of the weights' compute copies (masters,
     # optimizer and checkpoints stay float32)
     compute_dtype: str = "float32"
+    # the word table's gradient: kernel D's sorted segment sum (true) or the
+    # library's scatter-add of F.embedding (false)
+    sorted_emb_grad: bool = True
     # data parallelism (parallel.dist): 0 or the world size; > 1 not ported
     mesh_data: int = 0
     mesh_model: int = 1
@@ -224,13 +223,11 @@ class Config:
         names (every field, and the TPU-only flags of `JAX_ONLY_FLAGS`)."""
         parser = argparse.ArgumentParser(description="digat_tpu_torch experiments")
         defaults = {f.name: f.default for f in dataclasses.fields(cls)}
-        defaults.update({k: v[0] for k, v in JAX_ONLY_FLAGS.items()})
+        defaults.update(JAX_ONLY_FLAGS)
         for name, default in defaults.items():
             kind = _parse_bool if isinstance(default, bool) else type(default)
             parser.add_argument(f"--{name}", type=kind, default=default)
         ns = vars(parser.parse_args(argv))
-        for name, (_, runs, item) in JAX_ONLY_FLAGS.items():
-            value = ns.pop(name)
-            if not runs(value):
-                raise NotImplementedError(f"--{name} {value} is not ported: {item}")
+        for name in JAX_ONLY_FLAGS:
+            del ns[name]
         return cls(**ns).check_options()

@@ -167,7 +167,8 @@ def preprocess(cfg: Config, verbose: bool = False) -> None:
     embedder = None
     # 5. SAG news graph
     if not os.path.exists(p["graph"]):
-        embedder = sag_mod.get_embedder(cfg.sag_embedder, cfg.sag_embedder_model)
+        embedder = sag_mod.get_embedder(cfg.sag_embedder, cfg.sag_embedder_model,
+                                           device)
         node_id, graph, mask = sag_mod.construct_sag(
             _rows_by_category(roots, cat_dict), news_dict, cfg.SAG_neighbors, cfg.SAG_hops,
             cfg.news_graph_size, embedder=embedder,
@@ -180,7 +181,8 @@ def preprocess(cfg: Config, verbose: bool = False) -> None:
 
     # 5b. SA news sequence (the NRMS family)
     if cfg.model_family == "nrms" and not os.path.exists(p["augmented"]):
-        embedder = embedder or sag_mod.get_embedder(cfg.sag_embedder, cfg.sag_embedder_model)
+        embedder = embedder or sag_mod.get_embedder(cfg.sag_embedder,
+                                                    cfg.sag_embedder_model, device)
         aug = sag_mod.construct_sa_sequence(
             _rows_by_category(roots, cat_dict), news_dict, cfg.augmented_news_num,
             embedder=embedder, exclude_test_from_corpus=cfg.dataset != "MIND-large",

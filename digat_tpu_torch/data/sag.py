@@ -4,8 +4,9 @@
 Per category (the reference's offline pipeline):
   1. dedup news by title, with the empty-text fallbacks (title <-> content
      swaps) and title-prefixed duplicated contents;
-  2. embed titles and contents (the `hash` embedder: deterministic
-     bag-of-token vectors, no pretrained model);
+  2. embed titles and contents (`get_embedder`: the `hash` embedder's
+     deterministic bag-of-token vectors, or a pretrained sentence encoder,
+     the port's MPNet or the sentence-transformers package);
   3. average the four cosine channels (title-title, content-content,
      title-content, content-title) and take the top M + 1 against the
      corpus side (train + dev only on MIND-small), as batched matrix
@@ -61,17 +62,44 @@ def hash_embedder(texts: Sequence[str], dim: int = 128) -> np.ndarray:
     return out
 
 
-def get_embedder(name: str, model_name: str = ""):
-    """Embedder for the config's `sag_embedder`. Only `hash` is ported: the
-    pretrained sentence encoders wait for `plm/mpnet.py` (ROADMAP.md
-    section 1, item 3)."""
+DEFAULT_ST_MODEL = "sentence-transformers/all-mpnet-base-v2"
+
+
+def sentence_transformer_embedder(model_name: str = DEFAULT_ST_MODEL):
+    """An embedder backed by the sentence-transformers package (the
+    reference's frozen PLM); importable only where that package is."""
+    from sentence_transformers import SentenceTransformer
+
+    model = SentenceTransformer(model_name)
+
+    def embed(texts: Sequence[str], dim: int = 0) -> np.ndarray:
+        return np.asarray(model.encode(list(texts)))
+
+    return embed
+
+
+def get_embedder(name: str, model_name: str = DEFAULT_ST_MODEL, device=None):
+    """The embedder of the config's `sag_embedder`, routed as the JAX package
+    routes it: 'hash' (no pretrained model), 'sentence_transformer' (the
+    sentence-transformers package), 'jax_mpnet' (the port's own MPNet
+    forward, `plm.mpnet`, on `device`: CUDA unless the caller names one;
+    `model_name` is a local checkpoint directory, read through
+    `transformers`). The last keeps its JAX name, so that a JAX command line
+    and its graph cache carry over. A missing package raises ImportError
+    naming it; nothing falls back to 'hash'."""
     if name == "hash":
         return hash_embedder
-    if name in ("sentence_transformer", "jax_mpnet"):
-        raise NotImplementedError(
-            f"sag_embedder={name!r} ({model_name}) is not ported: the pretrained "
-            f"sentence encoder comes with plm/mpnet.py (ROADMAP.md section 1, item 3); "
-            f"use sag_embedder='hash'")
+    if name == "sentence_transformer":
+        try:
+            return sentence_transformer_embedder(model_name)
+        except ImportError as e:
+            raise ImportError(
+                f"sag_embedder='sentence_transformer' needs the sentence-transformers package "
+                f"(model {model_name}); install it or use sag_embedder='hash'") from e
+    if name == "jax_mpnet":
+        from digat_tpu_torch.plm.mpnet import pretrained_embedder
+
+        return pretrained_embedder(model_name, device=device)
     raise ValueError(f"unknown sag_embedder {name!r}")
 
 
@@ -241,6 +269,31 @@ def expand_graph(
                     graph[i, p, head] = True
             head += 1
     return node_id, graph, mask
+
+
+def visualize_graph(
+    path: str,
+    news_index: int,
+    node_id: np.ndarray,
+    graph: np.ndarray,
+    titles: Dict[int, str],
+) -> None:
+    """A readable dump of one news graph: the edge list with titles, then
+    the adjacency matrix (the reference's debugging helper; the same bytes
+    as the JAX package's)."""
+    n = node_id.shape[1]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("Node1\tNode2\tTitle1\tTitle2\n")
+        for i in range(n):
+            for j in range(n):
+                if graph[news_index, i, j]:
+                    t1 = titles.get(int(node_id[news_index, i]), "")
+                    t2 = titles.get(int(node_id[news_index, j]), "")
+                    f.write(f"{i}\t{j}\t{t1}\t{t2}\n")
+        f.write("\nnews graph\n")
+        for i in range(n):
+            f.write("\t".join(str(int(graph[news_index, i, j])) for j in range(n)))
+            f.write("\n")
 
 
 def mine_similarity(

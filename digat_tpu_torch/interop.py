@@ -15,7 +15,11 @@ JAX stores linear weights `[in, out]`; `nn.Linear` stores `[out, in]`, so
 weights transpose; a convolution's `[width, in, out]` reverses its axes into
 `nn.Conv1d`'s `[out, in, width]`. Per-depth stacks (leading depth axis) split into the
 `nn.ModuleList` entries. One table of (JAX path, port names) serves both
-directions (one table per family)."""
+directions (one table per family).
+
+`load_torch_checkpoint(path, config_or_model)` reads a checkpoint file of
+the reference PyTorch implementation (`{model_name: state_dict}`), whose
+names the port keeps: a load, not a conversion."""
 
 from __future__ import annotations
 
@@ -182,3 +186,37 @@ def _lists(node):
     if out and all(k.isdigit() for k in out):
         return [out[str(i)] for i in range(len(out))]
     return out
+
+
+# the NRMS reference's user encoder holds the news encoder itself, so its
+# state_dict repeats the news encoder's tensors under this prefix
+NRMS_ALIAS = "user_encoder.news_encoder."
+
+
+def load_torch_checkpoint(path: str, config_or_model, device=None) -> nn.Module:
+    """Load a reference checkpoint file into a port model, the counterpart
+    of `digat_tpu.interop.load_torch_checkpoint`. The file holds
+    `{model_name: state_dict}` (the reference trainer's format; the entry
+    `config.model_name` for the DIGAT family, `config.nrms_model` for NRMS)
+    or a bare state_dict. For NRMS the aliased `user_encoder.news_encoder.*`
+    copies are dropped. The port keeps the reference's names, so the rest
+    loads as it is, strictly: a missing or stray tensor raises
+    (RuntimeError). `config_or_model`: the model to fill, or a `Config`,
+    for which a model of its family is built on `device` (CUDA unless the
+    caller names one). -> the model."""
+    from digat_tpu_torch.models.model import Model
+    from digat_tpu_torch.models.nrms import NRMSModel
+
+    if isinstance(config_or_model, nn.Module):
+        model, config = config_or_model, config_or_model.config
+    else:
+        config = config_or_model
+        model = (NRMSModel if config.model_family == "nrms" else Model)(config, device=device)
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    name = config.model_name if config.model_family == "digat" else config.nrms_model
+    sd = blob[name] if name in blob else blob
+    if config.model_family == "nrms":
+        sd = {k: v for k, v in sd.items() if not k.startswith(NRMS_ALIAS)}
+    dtype = next(model.parameters()).dtype
+    model.load_state_dict({k: torch.as_tensor(v).to(dtype) for k, v in sd.items()}, strict=True)
+    return model

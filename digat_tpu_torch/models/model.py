@@ -215,6 +215,7 @@ class Model(ComputeCopy, nn.Module):
             config.MSA_head_dim, config.attention_dim, config.max_title_length,
             config.dropout_rate, g, encoder=config.news_encoder, cnn_method=config.cnn_method,
             cnn_kernel_num=config.cnn_kernel_num, cnn_window_size=config.cnn_window_size,
+            sorted_emb_grad=config.sorted_emb_grad,
         )
         self.graph_encoder = GraphEncoder(
             config.graph_encoder, config.graph_depth, config.max_history_num, config.category_num,

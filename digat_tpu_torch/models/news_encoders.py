@@ -36,6 +36,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from digat_tpu_torch.layers import AttentionPool, ConvBank, MultiHeadAttention, attn_pool, \
@@ -51,13 +52,18 @@ class NewsEncoder(nn.Module):
     """state_dict names follow the reference: `word_embedding.weight`,
     `multiheadSelfattention.W_{K,Q,V}.*` (MSA) or `conv.conv*.*` (CNN),
     `attention.affine{1,2}.*`. The news vector is heads * head_dim wide
-    (MSA) or cnn_kernel_num (CNN)."""
+    (MSA) or cnn_kernel_num (CNN). With `sorted_emb_grad` (the default) the
+    word table's gradient is kernel D's sorted segment sum; without, the
+    titles are looked up by `F.embedding`, whose gradient is the library's
+    scatter-add (the JAX package's `sorted_emb_grad=False`, XLA's)."""
 
     def __init__(self, vocab_size: int, word_dim: int, heads: int, head_dim: int,
                  attention_dim: int, max_title_length: int, dropout_rate: float,
                  generator: torch.Generator, encoder: str = "MSA", cnn_method: str = "naive",
-                 cnn_kernel_num: int = 400, cnn_window_size: int = 3):
+                 cnn_kernel_num: int = 400, cnn_window_size: int = 3,
+                 sorted_emb_grad: bool = True):
         super().__init__()
+        self.sorted_emb_grad = sorted_emb_grad
         self.encoder = encoder
         self.heads = heads
         self.dim = cnn_kernel_num if encoder == "CNN" else heads * head_dim
@@ -88,7 +94,11 @@ class NewsEncoder(nn.Module):
         without, eval."""
         lead = title_text.shape[:-1]
         L = self.max_title_length
-        w = embedding_lookup(self.word_embedding.weight, title_text.reshape(-1, L))
+        tok = title_text.reshape(-1, L)
+        if self.sorted_emb_grad:
+            w = embedding_lookup(self.word_embedding.weight, tok)
+        else:
+            w = F.embedding(tok, self.word_embedding.weight)
         mask = title_mask.reshape(-1, L).to(torch.bool).contiguous()
         rate = self.dropout_rate
         if self.fused:

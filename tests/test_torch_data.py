@@ -21,6 +21,8 @@ import json
 import os
 import pathlib
 import pickle
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -226,13 +228,43 @@ def test_topk_ties_put_the_lower_index_first():
     assert idx.dtype == np.int64 and vals.dtype == np.float32
 
 
-def test_pretrained_embedders_are_not_ported():
-    for name in ("sentence_transformer", "jax_mpnet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1"):
-            sag.get_embedder(name)
+def test_pretrained_embedders_are_not_ported(monkeypatch):
+    """(Named for the refusal it replaced.) `get_embedder` routes the three
+    names as the JAX package does: `hash` to the hash embedder (its vectors
+    the JAX package's), `sentence_transformer` to the sentence-transformers
+    package (stubbed here), `jax_mpnet` to the port's MPNet (test_torch_mpnet
+    drives it); a missing package raises ImportError naming it, never a
+    fall-back to `hash`; any other name raises ValueError."""
     assert sag.get_embedder("hash") is sag.hash_embedder
     texts = ["Sports news today", "sports NEWS", ""]
     np.testing.assert_array_equal(sag.hash_embedder(texts), jax_sag.hash_embedder(texts))
+    assert sag.DEFAULT_ST_MODEL == jax_sag.DEFAULT_ST_MODEL
+
+    calls = {}
+
+    class FakeST:
+        def __init__(self, model_name):
+            calls["model"] = model_name
+
+        def encode(self, texts):
+            calls["n"] = len(texts)
+            return sag.hash_embedder(texts, dim=32)
+
+    fake = types.ModuleType("sentence_transformers")
+    fake.SentenceTransformer = FakeST
+    monkeypatch.setitem(sys.modules, "sentence_transformers", fake)
+    embed = sag.get_embedder("sentence_transformer", "fake/model")
+    np.testing.assert_array_equal(embed(texts), sag.hash_embedder(texts, dim=32))
+    assert calls == {"model": "fake/model", "n": 3}
+
+    monkeypatch.setitem(sys.modules, "sentence_transformers", None)
+    with pytest.raises(ImportError, match="sentence-transformers"):
+        sag.get_embedder("sentence_transformer")
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(ImportError, match="transformers"):
+        sag.get_embedder("jax_mpnet", "/nonexistent/checkpoint", device="cpu")
+    with pytest.raises(ValueError, match="unknown sag_embedder"):
+        sag.get_embedder("glove")
 
 
 def test_truth_rank_files_and_scorer_match_jax(tmp_path):

@@ -1,7 +1,9 @@
 """Guards for the port's hazards that a CPU run can check.
 
-1. The machine with the card has no JAX: every module of digat_tpu_torch
-   and chip_smoke.py must import with jax and digat_tpu blocked.
+1. The machine with the card has no JAX and no transformers: every module
+   of digat_tpu_torch (plm.mpnet and layers_ext among them) and
+   chip_smoke.py must import with jax, digat_tpu, transformers and
+   sentence_transformers blocked.
 2. Entry points never fall back to the CPU quietly: with no device and no
    CUDA they raise.
 3. Weights cross between the packages strictly: `load_jax_params` raises
@@ -37,7 +39,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORTS = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = {"jax", "jaxlib", "flax", "optax", "digat_tpu"}
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "digat_tpu", "transformers",
+           "sentence_transformers"}
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -62,7 +65,9 @@ def test_port_and_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 31  # 29 modules (serving and training) + 2
+    # the serving, training, data, CLI and tool modules, plm and its MPNet,
+    # layers_ext, the package and chip_smoke
+    assert int(proc.stdout.split()[-1]) >= 49
 
 
 def test_entry_point_without_device_or_cuda_raises(monkeypatch):
