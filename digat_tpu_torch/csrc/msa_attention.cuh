@@ -4,15 +4,17 @@
 // (msa_attention_wide.cu) share: constants, the shared-memory layout, and
 // the row loads, stores and products. Each file that includes this header
 // gets its own copy (an unnamed namespace); the kernel files are compiled
-// apart, in parallel, and the wide kernels reach the entry points through
+// apart, in parallel, and the entry points reach the wide instance through
 // `digat::attention_fwd_wide<T>` and `digat::attention_bwd_wide<T>`.
 //
-// Element types. q, k, v, do and the outputs are T, fp32 or bf16. Rows are
-// held in fp32 whatever T is (in shared memory and in registers: a bf16
-// value is exact in fp32), so the shared-memory layout and its byte counts
-// are the same for both; every sum runs in fp32 and an output is rounded
-// once to T (to nearest even for bf16), as the TPU kernels load bf16 q, k
-// and v into fp32, compute in fp32 and round their outputs.
+// Element types. q, k, v, do and the outputs are T, fp32 or bf16. The
+// register-row kernels hold rows in fp32 whatever T is (in shared memory
+// and in registers: a bf16 value is exact in fp32), so their shared-memory
+// layout and its byte counts are the same for both (the wide instance keeps
+// bf16 rows as bf16 for its tensor-core products); every sum runs in fp32
+// and an output is rounded once to T (to nearest even for bf16), as the
+// TPU kernels load bf16 q, k and v into fp32, compute in fp32 and round
+// their outputs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,8 +38,6 @@ constexpr int kWidths[] = {8, 16, 20, 24, 32, 48, 64};  // the register-row inst
 constexpr int kNumWidths = sizeof(kWidths) / sizeof(kWidths[0]);
 // the wide instance, dk 65 to 128 (ops/msa_attention.py's WIDTHS end with it)
 constexpr int kWide = 128;
-constexpr int kWideHalf = kWide / 2;  // output columns a forward pass forms
-constexpr int kWideQuarter = 32;      // output columns a backward pass forms
 constexpr int kBlockReserve = 1024;  // shared memory the card keeps per block
 
 __host__ __device__ constexpr int kv_stride(int W) { return W % 8 ? W : W + 4; }
@@ -53,17 +53,6 @@ __host__ __device__ inline size_t bwd_warp_floats(int L, int W) {
 }
 __host__ __device__ inline size_t bwd_long_floats(int L, int W) {
   return 4 * size_t(L) * kv_stride(W) + 3 * size_t(L) + keep_floats(L);
-}
-
-// the wide instance: k and v (the backward's second part: q and do) rows,
-// then the warp's 32 staged rows of one array (forward) or two (backward),
-// then the backward's three statistics a row
-__host__ __device__ inline size_t wide_fwd_floats(int L) {
-  return 2 * size_t(L) * kv_stride(kWide) + 32 * kv_stride(kWide) + keep_floats(L);
-}
-__host__ __device__ inline size_t wide_bwd_floats(int L) {
-  return 2 * size_t(L) * kv_stride(kWide) + 64 * kv_stride(kWide) + 3 * size_t(L) +
-         keep_floats(L);
 }
 
 __device__ __forceinline__ int sw(int j, int i) { return j * 32 + (i ^ (j & 31)); }
@@ -262,10 +251,20 @@ using BwdKernel = void (*)(const T*, const T*, const T*, const unsigned char*, c
 
 namespace digat {
 
-// the wide instance (msa_attention_wide.cu), float4 loads or scalar ones
+// the wide instance (msa_attention_wide.cu): its kernels' shared-memory
+// limit (once per device), and its launches with float4 loads (vec) or
+// scalar ones; cudaErrorInvalidValue where a block's shared memory passes
+// max_smem
 template <typename T>
-FwdKernel<T> attention_fwd_wide(bool vec);
+cudaError_t attention_wide_init(int max_smem);
 template <typename T>
-BwdKernel<T> attention_bwd_wide(bool vec);
+cudaError_t attention_fwd_wide(const T* q, const T* k, const T* v, const unsigned char* mask,
+                               T* out, int N, int H, int L, int dk, int rs, int hs, float scale,
+                               bool vec, int max_smem, cudaStream_t stream);
+template <typename T>
+cudaError_t attention_bwd_wide(const T* q, const T* k, const T* v, const unsigned char* mask,
+                               const T* dout, T* dq, T* dk_out, T* dv_out, int N, int H, int L,
+                               int dk, int rs, int hs, float scale, bool vec, int max_smem,
+                               cudaStream_t stream);
 
 }  // namespace digat

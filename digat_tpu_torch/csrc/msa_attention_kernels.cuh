@@ -543,15 +543,7 @@ cudaError_t init_impl() {
       }
     }
   }
-  const void* wide[] = {reinterpret_cast<const void*>(digat::attention_fwd_wide<T>(false)),
-                        reinterpret_cast<const void*>(digat::attention_fwd_wide<T>(true)),
-                        reinterpret_cast<const void*>(digat::attention_bwd_wide<T>(false)),
-                        reinterpret_cast<const void*>(digat::attention_bwd_wide<T>(true))};
-  for (const void* kern : wide) {
-    if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
-    }
-  }
+  if (e == cudaSuccess) e = digat::attention_wide_init<T>(g_max_smem);
   return e;
 }
 
@@ -570,11 +562,8 @@ cudaError_t fwd_impl(const void* q, const void* k, const void* v, const void* ma
   const unsigned char* pm = static_cast<const unsigned char*>(mask);
   T* po = static_cast<T*>(out);
   if (W == kWide) {
-    const size_t smem = sizeof(float) * wide_fwd_floats(L);
-    if (smem > size_t(g_max_smem)) return cudaErrorInvalidValue;
-    const FwdKernel<T> wide = digat::attention_fwd_wide<T>(vec);
-    wide<<<N * H, 32, smem, stream>>>(pq, pk, pv, pm, po, N * H, H, L, dk, rs, hs, scale);
-    return cudaGetLastError();
+    return digat::attention_fwd_wide<T>(pq, pk, pv, pm, po, N, H, L, dk, rs, hs, scale, vec,
+                                         g_max_smem, stream);
   }
   const size_t unit_bytes = sizeof(float) * fwd_warp_floats(L, W);
   const int units = N * H;
@@ -604,11 +593,13 @@ cudaError_t bwd_impl(const void* q, const void* k, const void* v, const void* ma
   size_t smem = 0;
   BwdKernel<T> kern = nullptr;
   if (W == kWide) {
-    smem = sizeof(float) * wide_bwd_floats(L);
-    if (smem > size_t(g_max_smem)) return cudaErrorInvalidValue;
-    kern = digat::attention_bwd_wide<T>(vec);
-    threads = 32;
-  } else if (L <= kShortL) {
+    return digat::attention_bwd_wide<T>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const unsigned char*>(mask), static_cast<const T*>(dout), static_cast<T*>(dq),
+        static_cast<T*>(dk_out), static_cast<T*>(dv_out), N, H, L, dk, rs, hs, scale, vec,
+        g_max_smem, stream);
+  }
+  if (L <= kShortL) {
     const size_t warp_bytes = sizeof(float) * bwd_warp_floats(L, W);
     const int warps = warps_per_block(warp_bytes, g_regs[1][vec][width_index(dk)]);
     if (warps == 0) return cudaErrorInvalidValue;

@@ -24,10 +24,14 @@ kernels take them; the outputs are then bf16 too. The kernels' bf16
 instances (`csrc/msa_attention_bf16.cu`, launch counters `launches_bf16`)
 and the plain version both compute in fp32 from the bf16 values and round
 each output once, as the TPU kernels do (the JAX package's XLA path,
-`_attention_xla`, rounds the scores and the probabilities to bf16 instead). The kernels keep one head of one
-sequence in the shared memory of a warp (L <= SHORT_L) or of a block, so a
-sequence longer than `max_length(dk)` raises, as does a head wider than the
-widest of `WIDTHS`; there is no fallback.
+`_attention_xla`, rounds the scores and the probabilities to bf16 instead).
+The register-row kernels (dk <= 64) keep one head of one sequence in the
+shared memory of a warp (L <= SHORT_L) or of a block, so a sequence longer
+than `max_length(dk)` raises, as does a head wider than the widest of
+`WIDTHS`; there is no fallback. The wide instance (dk 65-128,
+`csrc/msa_attention_wide.cu`, launch counters `launches_wide` and
+`launches_wide_bf16`) streams its keys through shared memory in tiles and
+takes any L (`max_length` None).
 """
 
 from __future__ import annotations
@@ -45,7 +49,11 @@ MAX_SMEM_BYTES = 232_448
 # the kernels' compiled head widths: dk is padded up to the first that holds
 # it (as csrc/msa_attention.cu's kWidths, then its wide instance kWide)
 WIDTHS = (8, 16, 20, 24, 32, 48, 64, 128)
-WIDE = 128  # the wide instance: rows read from shared memory, a warp a block
+WIDE = 128  # the wide instance: tensor-core tiles, keys streamed, 4 warps a block
+WIDE_WARPS = 4  # warps of a wide block, 16 rows each
+# rows of a tile the wide kernels stream through shared memory, by the
+# operands' itemsize: fp32 16, bf16 32
+WIDE_TILES = {4: 16, 2: 32}
 
 
 def head_width(dk: int) -> int:
@@ -76,22 +84,51 @@ def _row_stride(W: int) -> int:
     return W if W % 8 else W + 4
 
 
-def _smem_bytes(L: int, dk: int, backward: bool) -> int:
+def _wide_geometry(L: int) -> tuple:
+    """(warps a unit, units a block, own rows a unit and block) of the wide
+    kernels at L, as csrc/msa_attention_wide.cu's `wide_geom`: beyond L 32 a
+    block's 4 warps own 64 rows of one (sequence, head), 16 each; at L 17-32
+    two units of 2 warps, at L <= 16 four of one."""
+    wpu = 1 if L <= 16 else 2 if L <= 32 else 4
+    return wpu, WIDE_WARPS // wpu, 16 * wpu
+
+
+def _wide_block_bytes(L: int, kind: str, itemsize: int = 4) -> int:
+    """Shared memory of one block of a wide kernel (`kind` "fwd", the
+    backward's "rows" passes or its "cols" pass), as `wide_unit_bytes`
+    counts it, rows of the operands' type (`itemsize` 4: fp32 rows
+    `_row_stride(128)` floats apart; 2: bf16 rows 136 apart): per unit its
+    own rows (q; q and do; k and v); the column pass's statistics of two
+    stages of streamed rows (3 floats a row) and its own keys' mask bytes,
+    or the row passes' two stages of streamed keys' mask bytes; then one
+    stage (L <= KT) or two of two streamed arrays of KT = WIDE_TILES[itemsize]
+    rows. It does not grow with L."""
+    wpu, upb, ot = _wide_geometry(L)
+    row = itemsize * (_row_stride(WIDE) if itemsize == 4 else WIDE + 8)
+    KT = WIDE_TILES[itemsize]
+    own = (1 if kind == "fwd" else 2) * ot * row
+    small = 4 * 2 * 3 * KT + ot if kind == "cols" else 2 * KT
+    stages = 2 if L > KT else 1
+    return upb * (own + small + stages * 2 * KT * row)
+
+
+def _smem_bytes(L: int, dk: int, backward: bool, itemsize: int = 4) -> int:
     """Shared memory that one launch needs at the least (as
-    csrc/msa_attention.cuh counts it; rows are fp32 there for bf16 operands
-    too, so the count does not depend on the dtype), with rows `_row_stride(W)` floats
-    apart in the backward and W apart in the forward, then L mask bytes
-    rounded up to 16, for one (sequence, head): the forward's k and v rows;
+    csrc/msa_attention.cuh counts it; the register-row kernels' rows are fp32
+    for bf16 operands too, so their count does not depend on the dtype),
+    with rows `_row_stride(W)` floats apart in the backward and W apart in
+    the forward, then L mask bytes rounded up to 16, for one (sequence,
+    head): the forward's k and v rows;
     the backward's q, do, k and v rows and, at L <= SHORT_L, the [L][32]
     score tiles P and S, beyond that three floats of statistics per row. The
-    wide instance (dk 65-128) holds two arrays of L rows `_row_stride(128)`
-    apart, the warp's 32 staged rows of one array (forward) or two
-    (backward), and the backward's statistics."""
+    wide instance (dk 65-128): one block (`_wide_block_bytes`, whose rows
+    are of the operands' `itemsize`; the backward's larger kernel, its
+    column pass)."""
     W = head_width(dk)
     KS = _row_stride(W)
     if W == WIDE:
-        floats = 2 * L * KS + (64 * KS + 3 * L if backward else 32 * KS)
-    elif not backward:
+        return _wide_block_bytes(L, "cols" if backward else "fwd", itemsize)
+    if not backward:
         floats = 2 * L * W
     elif L <= SHORT_L:
         floats = 4 * L * KS + 64 * L
@@ -121,22 +158,27 @@ def warps_per_block(warp_bytes: int, sm_bytes: int, regs: int = 0,
     return best
 
 
-def block_shape(L: int, dk: int, backward: bool, sm_bytes: int, regs: int = 0) -> tuple:
+def block_shape(L: int, dk: int, backward: bool, sm_bytes: int, regs: int = 0,
+                itemsize: int = 4) -> tuple:
     """(warps, shared bytes) of the blocks the C entry points launch: the
-    wide instance one warp a (sequence, head); beyond SHORT_L min(8, ceil(L /
-    32)) warps on one; otherwise `warps_per_block` independent warps, one
-    each."""
-    need = _smem_bytes(L, dk, backward)
+    wide instance WIDE_WARPS (`_wide_geometry`); beyond SHORT_L min(8,
+    ceil(L / 32)) warps on one (sequence, head); otherwise `warps_per_block`
+    independent warps, one each; `itemsize` of the operands (the wide
+    instance's rows are of their type)."""
+    need = _smem_bytes(L, dk, backward, itemsize)
     if head_width(dk) == WIDE:
-        return 1, need
+        return WIDE_WARPS, need
     if L > SHORT_L:
         return min(8, -(-L // 32)), need
     warps = warps_per_block(need, sm_bytes, regs)
     return warps, warps * need
 
 
-def max_length(dk: int, backward: bool = True) -> int:
-    """The longest sequence the kernel takes at head width dk."""
+def max_length(dk: int, backward: bool = True):
+    """The longest sequence the kernel takes at head width dk; None for the
+    wide instance (dk 65-128), whose shared memory does not grow with L."""
+    if head_width(dk) == WIDE:
+        return None
     L = 1
     while _smem_bytes(L + 1, dk, backward) <= MAX_SMEM_BYTES:
         L += 1
@@ -218,6 +260,14 @@ def _bf16(t) -> bool:
     return t.dtype == torch.bfloat16
 
 
+def _count(wrapper, q, dk: int) -> None:
+    """One launch on the counter of the instance that ran: `launches` (fp32)
+    or `launches_bf16`, with `_wide` for the wide instance."""
+    name = "launches" + ("_wide" if head_width(dk) == WIDE else "") + \
+        ("_bf16" if _bf16(q) else "")
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
 def attention_fwd(q, k, v, mask, heads: int, dk: int):
     """The forward kernel on either layout (heads width / heads lanes apart,
     the first dk read) -> out in the layout and dtype of q (the fp32 or the
@@ -233,10 +283,7 @@ def attention_fwd(q, k, v, mask, heads: int, dk: int):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), out.data_ptr(), N, heads,
                  L, dk, rs, hs, 1.0 / math.sqrt(float(dk)), stream)
     build.check(lib, err, "msa_attention")
-    if _bf16(q):
-        attention_fwd.launches_bf16 += 1
-    else:
-        attention_fwd.launches += 1
+    _count(attention_fwd, q, dk)
     return out
 
 
@@ -257,10 +304,7 @@ def attention_bwd(q, k, v, mask, do, heads: int, dk: int):
                  dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(), N, heads, L, dk, rs, hs,
                  1.0 / math.sqrt(float(dk)), stream)
     build.check(lib, err, "msa_attention backward")
-    if _bf16(q):
-        attention_bwd.launches_bf16 += 1
-    else:
-        attention_bwd.launches += 1
+    _count(attention_bwd, q, dk)
     return dq, dkk, dv
 
 
@@ -290,7 +334,11 @@ def msa_attention(q, k, v, heads: int, mask=None):
     return MSAAttentionFunction.apply(q, k, v, mask, heads, q.shape[-1] // heads)
 
 
-attention_fwd.launches = 0
+attention_fwd.launches = 0  # the register-row instances (dk <= 64)
 attention_bwd.launches = 0
-attention_fwd.launches_bf16 = 0  # the bf16 instances
+attention_fwd.launches_bf16 = 0
 attention_bwd.launches_bf16 = 0
+attention_fwd.launches_wide = 0  # the wide instance (dk 65-128)
+attention_bwd.launches_wide = 0
+attention_fwd.launches_wide_bf16 = 0
+attention_bwd.launches_wide_bf16 = 0

@@ -17,7 +17,8 @@ max |replay - plain| <= 1e-12 * max(1, max |plain|) in float64, where only
 summation order differs. Also the row stride of shared memory (one bank per
 lane), and the choices the wrapper shares with the C side: the width
 instantiation and load path (`launch_plan`), the warps of a block and the
-caps."""
+caps. The wide instance (`csrc/msa_attention_wide.cu`, dk 65-128) has its
+own replay and geometry at the end of the file."""
 
 import math
 
@@ -290,15 +291,201 @@ def test_heads_wider_than_the_widest_width_raise(monkeypatch):
     (32, 20, False, 128, 4), (32, 20, False, 0, 3), (32, 20, True, 103, 4),
     (32, 8, True, 66, 3), (50, 64, False, 255, 2), (150, 20, False, 110, 5),
     (50, 20, True, 103, 2), (150, 20, True, 103, 5), (300, 20, True, 103, 8),
-    (32, 128, False, 0, 1), (160, 80, True, 0, 1)])
+    (32, 128, False, 0, 4), (160, 80, True, 0, 4)])
 def test_block_sizes_and_caps(L, dk, backward, regs, warps):
     """A block of independent warps takes as many as keep the most resident
     on an H100 SM (233,472 bytes, 65,536 registers); beyond L 32 a block
     takes min(8, ceil(L / 32)) warps on one head. At the cap a block
-    fits the 227 KB a block may have; one past it, one warp's share does not."""
+    fits the 227 KB a block may have; one past it, one warp's share does not.
+    The wide instance (dk 65-128) runs blocks of 4 warps and has no cap: its
+    block's shared memory is the same at every L past 32."""
     sm = 233_472
     assert MA.block_shape(L, dk, backward, sm, regs)[0] == warps
     cap = MA.max_length(dk, backward)
+    if cap is None:
+        assert MA.head_width(dk) == MA.WIDE
+        need = MA._smem_bytes(max(L, 33), dk, backward)
+        assert need <= MA.MAX_SMEM_BYTES
+        assert MA._smem_bytes(100_000, dk, backward) == need
+        return
     shape = MA.block_shape(cap, dk, backward, sm, regs)
     assert shape[0] >= 1 and shape[1] <= MA.MAX_SMEM_BYTES
     assert MA._smem_bytes(cap + 1, dk, backward) > MA.MAX_SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
+# The wide instance (csrc/msa_attention_wide.cu, dk 65-128): its order of work
+# replayed in float64. Own rows in 16-row warp tiles, the other side streamed
+# in tiles of T rows (16 at fp32, 32 at bf16); the forward's online softmax per tile, rows
+# past L and keys past L as the kernel takes them; the backward's three
+# passes: the row statistics (m, 1 / sum, t online over key tiles), the
+# column pass (dk, dv by key tile over query tiles, from the statistics) and
+# the dq pass. A product's 8-key tile is taken in the order 2t, 2t + 1 ->
+# t, t + 4 on both sides (`_PI`), as the kernel feeds the tensor cores.
+# ---------------------------------------------------------------------------
+_PI = np.array([0, 2, 4, 6, 1, 3, 5, 7])  # A column c holds key _PI[c] of an 8-key tile
+WIDE_DK = 80
+
+
+def _wide_case(L, seed, dk=WIDE_DK):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.normal(size=(N, L, HEADS * dk)) for _ in range(4))
+    mask = rng.random((N, L)) < 0.7
+    mask[:, 0] = True
+    mask[0] = False
+    return q, k, v, do, mask
+
+
+def _wide_units(t, dk=WIDE_DK):
+    L = t.shape[1]
+    return t.reshape(N, L, HEADS, dk).transpose(0, 2, 1, 3).reshape(N * HEADS, L, dk)
+
+
+def _wide_packed(u, dk=WIDE_DK):
+    L = u.shape[1]
+    return u.reshape(N, HEADS, L, dk).transpose(0, 2, 1, 3).reshape(N, L, HEADS * dk)
+
+
+def _tile_product(a, b):
+    """a [16, T] @ b [T, W] over the T streamed rows in 8-row tiles, each in
+    the order `_PI` (the product's value does not depend on it)."""
+    out = np.zeros((a.shape[0], b.shape[1]))
+    for c0 in range(0, a.shape[1], 8):
+        idx = c0 + _PI
+        out += a[:, idx] @ b[idx]
+    return out
+
+
+def _padded(rows, L, T):
+    """rows [L, d] zero-padded to a whole number of T-row tiles."""
+    return np.concatenate([rows, np.zeros((-L % T, rows.shape[1]))])
+
+
+def replay_wide_forward(q, k, v, keep, scale, T):
+    L = q.shape[0]
+    Q, K, V = (_padded(x, L, 16 if x is q else T) for x in (q, k, v))
+    out = np.zeros_like(q)
+    for r0 in range(0, L, 16):
+        o, m, l = np.zeros((16, q.shape[1])), np.full(16, -np.inf), np.zeros(16)
+        for j0 in range(0, L, T):
+            j = np.arange(j0, j0 + T)
+            s = Q[r0:r0 + 16] @ K[j0:j0 + T].T * scale
+            s = np.where(j >= L, -np.inf, np.where(np.concatenate([keep, np.zeros(T, bool)])[j],
+                                                   s, MA.MASK_FILL))
+            m_new = np.maximum(m, s.max(axis=1))
+            corr = np.exp(m - m_new)
+            p = np.exp(s - m_new[:, None])
+            l = l * corr + p.sum(axis=1)
+            o = o * corr[:, None] + _tile_product(p, V[j0:j0 + T])
+            m = m_new
+        rows = min(16, L - r0)
+        out[r0:r0 + rows] = (o / l[:, None])[:rows]
+    return out
+
+
+def replay_wide_backward(q, k, v, do, keep, scale, T):
+    L = q.shape[0]
+    kp = np.concatenate([keep, np.zeros(T, bool)])
+    Q, K, V, D = (_padded(x, L, T) for x in (q, k, v, do))
+    # pass 1: the row statistics, online over key tiles
+    stats = np.zeros((L + T, 3))  # m, 1 / sum, t; rows past L zero (p = 0)
+    for r0 in range(0, L, 16):
+        m, l, tu = np.full(16, -np.inf), np.zeros(16), np.zeros(16)
+        qr, dr = _padded(q[r0:r0 + 16], min(16, L - r0), 16), _padded(do[r0:r0 + 16],
+                                                                      min(16, L - r0), 16)
+        for j0 in range(0, L, T):
+            j = np.arange(j0, j0 + T)
+            s = np.where(j >= L, -np.inf, np.where(kp[j], qr @ K[j0:j0 + T].T * scale,
+                                                   MA.MASK_FILL))
+            dp = dr @ V[j0:j0 + T].T
+            m_new = np.maximum(m, s.max(axis=1))
+            corr = np.exp(m - m_new)
+            e = np.exp(s - m_new[:, None])
+            l, tu, m = l * corr + e.sum(axis=1), tu * corr + (e * dp).sum(axis=1), m_new
+        rows = min(16, L - r0)
+        stats[r0:r0 + rows] = np.stack([m, 1 / l, tu / l], axis=1)[:rows]
+    # pass 2: dk and dv by key tile, over the query tiles
+    dk, dv = np.zeros_like(k), np.zeros_like(v)
+    for j0 in range(0, L, 16):
+        kr, vr = _padded(k[j0:j0 + 16], min(16, L - j0), 16), _padded(v[j0:j0 + 16],
+                                                                      min(16, L - j0), 16)
+        kept = kp[j0:j0 + 16]  # keys past L: not kept, not written
+        gk, gv = np.zeros((16, k.shape[1])), np.zeros((16, k.shape[1]))
+        for i0 in range(0, L, T):
+            st = stats[i0:i0 + T]
+            s = np.where(kept[:, None], kr @ Q[i0:i0 + T].T * scale, MA.MASK_FILL)
+            p = np.exp(s - st[None, :, 0]) * st[None, :, 1]
+            ds = np.where(kept[:, None], p * (vr @ D[i0:i0 + T].T - st[None, :, 2]) * scale, 0)
+            gv += _tile_product(p, D[i0:i0 + T])
+            gk += _tile_product(ds, Q[i0:i0 + T])
+        rows = min(16, L - j0)
+        dk[j0:j0 + rows], dv[j0:j0 + rows] = gk[:rows], gv[:rows]
+    # pass 3: dq from the statistics
+    dq = np.zeros_like(q)
+    for r0 in range(0, L, 16):
+        rows = min(16, L - r0)
+        qr, dr = _padded(q[r0:r0 + 16], rows, 16), _padded(do[r0:r0 + 16], rows, 16)
+        st = _padded(stats[r0:r0 + rows], rows, 16)
+        g = np.zeros((16, q.shape[1]))
+        for j0 in range(0, L, T):
+            j = np.arange(j0, j0 + T)
+            s = np.where(j >= L, -np.inf, np.where(kp[j], qr @ K[j0:j0 + T].T * scale,
+                                                   MA.MASK_FILL))
+            p = np.exp(s - st[:, 0:1]) * st[:, 1:2]
+            ds = np.where((j < L) & kp[j], p * (dr @ V[j0:j0 + T].T - st[:, 2:3]) * scale, 0)
+            g += _tile_product(ds, K[j0:j0 + T])
+        dq[r0:r0 + rows] = g[:rows]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("T", sorted(MA.WIDE_TILES.values()))
+@pytest.mark.parametrize("L", [1, 12, 16, 17, 32, 33, 64, 160])
+def test_wide_forward_order_of_work(L, T):
+    q, k, v, _, mask = _wide_case(L, seed=L + 7)
+    scale = 1 / math.sqrt(WIDE_DK)
+    units = [_wide_units(t) for t in (q, k, v)]
+    keep = np.repeat(mask, HEADS, axis=0)
+    got = _wide_packed(np.stack([replay_wide_forward(*(u[i] for u in units), keep[i], scale, T)
+                                 for i in range(N * HEADS)]))
+    want = MA._attention_plain(*(torch.from_numpy(t) for t in (q, k, v)), HEADS,
+                               torch.from_numpy(mask))
+    assert float((torch.from_numpy(got) - want).abs().max()) <= _limit(want)
+
+
+@pytest.mark.parametrize("T", sorted(MA.WIDE_TILES.values()))
+@pytest.mark.parametrize("L", [1, 12, 16, 17, 32, 33, 64, 160])
+def test_wide_backward_order_of_work(L, T):
+    q, k, v, do, mask = _wide_case(L, seed=L + 11)
+    scale = 1 / math.sqrt(WIDE_DK)
+    units = [_wide_units(t) for t in (q, k, v, do)]
+    keep = np.repeat(mask, HEADS, axis=0)
+    per = [replay_wide_backward(*(u[i] for u in units), keep[i], scale, T)
+           for i in range(N * HEADS)]
+    got = [_wide_packed(np.stack([p[a] for p in per])) for a in range(3)]
+    want = MA.attention_bwd_plain(*(torch.from_numpy(t) for t in (q, k, v)),
+                                  torch.from_numpy(mask), torch.from_numpy(do), HEADS, WIDE_DK)
+    for g, w in zip(got, want):
+        assert float((torch.from_numpy(g) - w).abs().max()) <= _limit(w)
+    assert not got[0][0].any() and not got[1][0].any()  # the all-masked sequence
+
+
+@pytest.mark.parametrize("L,wpu,upb,rows", [(1, 1, 4, 16), (16, 1, 4, 16), (17, 2, 2, 32),
+                                            (32, 2, 2, 32), (33, 4, 1, 64), (160, 4, 1, 64)])
+def test_wide_geometry(L, wpu, upb, rows):
+    """4 warps a block at every L: one unit beyond L 32, two at 17-32, four
+    at <= 16; shared memory as csrc/msa_attention_wide.cu counts it (fp32
+    rows 132 floats apart, bf16 rows 136 bf16 apart, tiles of 16 streamed
+    fp32 rows or 32 bf16, every part a multiple of 16 bytes)."""
+    assert MA._wide_geometry(L) == (wpu, upb, rows)
+    assert MA.block_shape(L, WIDE_DK, True, 233_472)[0] == MA.WIDE_WARPS == wpu * upb
+    for itemsize, row, T in ((4, 4 * 132, 16), (2, 2 * 136, 32)):
+        assert row % 16 == 0 and MA.WIDE_TILES[itemsize] == T
+        stream = (2 if L > T else 1) * 2 * T * row
+        assert MA._wide_block_bytes(L, "fwd", itemsize) == upb * (rows * row + 2 * T + stream)
+        assert MA._wide_block_bytes(L, "rows", itemsize) == \
+            upb * (2 * rows * row + 2 * T + stream)
+        assert MA._smem_bytes(L, 100, True, itemsize) == \
+            MA._wide_block_bytes(L, "cols", itemsize) == \
+            upb * (2 * rows * row + 24 * T + rows + stream)
+        assert MA.block_shape(L, 100, False, 233_472, itemsize=itemsize)[1] == \
+            MA._wide_block_bytes(L, "fwd", itemsize) <= MA.MAX_SMEM_BYTES

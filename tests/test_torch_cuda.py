@@ -400,7 +400,9 @@ def _attention_args(dev, N, L, heads, dk, hs, seed, mask_kind="masked", offset=0
 # head-padded (hs > dk, E's) at every edge of the 32-row and 32-key tiles;
 # float4 loads where hs is a multiple of 4 and the views are aligned, scalar
 # ones at dk 6 and 7 and on a view 1 float into its storage; the widest head
-# (64) and one past it, which raises
+# (64) and one past it, which runs the wide instance (dk 65-128: L <= 16,
+# 17-32 and past 32, units past the last in a block, L past the 185 that
+# the simple wide kernel took)
 _PAIR_CASES = [
     (37, 32, 20, 20, 20, "masked", 0), (9, 50, 20, 20, 20, "masked", 0),
     (7, 150, 20, 20, 20, "none", 0), (7, 150, 20, 20, 20, "masked", 0),
@@ -413,6 +415,8 @@ _PAIR_CASES = [
     (2, 150, 1, 128, 128, "none", 0), (5, 33, 3, 80, 128, "masked", 0),
     (3, 185, 1, 128, 128, "masked", 0), (2, 50, 2, 100, 100, "masked", 1),
     (5, 50, 20, 20, 20, "masked", 1), (5, 65, 4, 20, 32, "masked", 1),
+    (2, 186, 1, 128, 128, "masked", 0), (2, 300, 2, 128, 128, "masked", 0),
+    (5, 12, 2, 100, 100, "masked", 0), (3, 20, 3, 72, 72, "masked", 0),
 ]
 
 
@@ -434,11 +438,14 @@ def test_msa_attention_kernel_pair(cuda, N, L, heads, dk, hs, mask_kind, offset)
     vector = offset == 0 and hs % 4 == 0
     assert MA.launch_plan([t.data_ptr() for t in (q, k, v, do)], rs, hs, dk) == (
         MA.head_width(dk), vector)
-    before = (MA.attention_fwd.launches, MA.attention_bwd.launches)
+    wide = MA.head_width(dk) == MA.WIDE
+    counts = lambda: (MA.attention_fwd.launches, MA.attention_bwd.launches,
+                      MA.attention_fwd.launches_wide, MA.attention_bwd.launches_wide)
+    before = counts()
     out = MA.attention_fwd(q, k, v, mask, heads, dk)
     grads = MA.attention_bwd(q, k, v, mask, do, heads, dk)
-    assert (MA.attention_fwd.launches, MA.attention_bwd.launches) == (before[0] + 1,
-                                                                      before[1] + 1)
+    step = (0, 0, 1, 1) if wide else (1, 1, 0, 0)
+    assert counts() == tuple(b + d for b, d in zip(before, step))
     _close(out, MA.attention_plain_strided(q, k, v, heads, dk, mask))
     for got, want in zip(grads, MA.attention_bwd_plain(q, k, v, mask, do, heads, dk)):
         _close(got, want)

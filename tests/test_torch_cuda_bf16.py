@@ -213,8 +213,11 @@ def _close_bf16(out, ref):
 
 # (N, L, heads, hs, dk): the NRMS title and user shapes, L 160, an odd L and
 # odd head widths (scalar loads), the E layout (hs > dk), the wide instance
+# (dk 65-128; at L <= 16, in the E layout, past the simple wide kernel's L 185)
 _PAIR = [(37, 32, 20, 20, 20), (9, 50, 20, 20, 20), (5, 160, 16, 25, 25), (7, 13, 3, 7, 7),
-         (6, 12, 4, 8, 6), (4, 33, 2, 80, 80), (3, 64, 2, 128, 128), (2, 150, 4, 25, 25)]
+         (6, 12, 4, 8, 6), (4, 33, 2, 80, 80), (3, 64, 2, 128, 128), (2, 150, 4, 25, 25),
+         (2, 186, 1, 128, 128), (2, 300, 2, 128, 128), (5, 12, 2, 100, 100),
+         (3, 40, 2, 128, 100)]
 
 
 @pytest.mark.parametrize("N,L,heads,hs,dk", _PAIR)
@@ -231,12 +234,15 @@ def test_attention_pair_bf16_kernel(cuda, N, L, heads, hs, dk):
     mask[:, 0] = True
     mask[0] = False
     mask = mask.to(cuda)
+    wide = "_wide" if MA.head_width(dk) == MA.WIDE else ""
     counts = lambda: (MA.attention_fwd.launches, MA.attention_bwd.launches,
-                      MA.attention_fwd.launches_bf16, MA.attention_bwd.launches_bf16)
+                      MA.attention_fwd.launches_wide, MA.attention_bwd.launches_wide,
+                      getattr(MA.attention_fwd, f"launches{wide}_bf16"),
+                      getattr(MA.attention_bwd, f"launches{wide}_bf16"))
     before = counts()
     out = MA.attention_fwd(q, k, v, mask, heads, dk)
     grads = MA.attention_bwd(q, k, v, mask, do, heads, dk)
-    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    assert counts() == (*before[:4], before[4] + 1, before[5] + 1)
     _close_bf16(out, MA.attention_plain_strided(q, k, v, heads, dk, mask))
     for got, want in zip(grads, MA.attention_bwd_plain(q, k, v, mask, do, heads, dk)):
         _close_bf16(got, want)

@@ -8,7 +8,9 @@ they replace, on the CPU, forward and `jax.grad` of a scalar loss:
     `msa_attention_grouped` (E) through its XLA path and with
     `interpret=True`, on the head-padded layout, at L 12 and 20; each
     unmasked, key-masked, and with a sequence whose keys are all masked;
-    4 heads of width 6, 5 sequences; max |port - JAX| <= 1e-5 * max(1, max
+    4 heads of width 6, 5 sequences; and F at the wide instance's heads (2
+    heads of dk 80, 100 and 128, L 32 and 160: on the card
+    `csrc/msa_attention_wide.cu`); max |port - JAX| <= 1e-5 * max(1, max
     |JAX|) per output;
   * C' (Eq. 8 scores read from the fused projection y): the port's
     `interactive_gat_scores_fused_y` against
@@ -46,9 +48,9 @@ def _limit(ref):
     return 1e-5 * max(1.0, float(np.abs(ref).max()))
 
 
-def _case(L, mask_kind, seed):
+def _case(L, mask_kind, seed, heads=HEADS, dk=DK):
     rng = np.random.default_rng(seed)
-    q, k, v, w = (rng.normal(size=(N, L, HEADS * DK)).astype(np.float32) for _ in range(4))
+    q, k, v, w = (rng.normal(size=(N, L, heads * dk)).astype(np.float32) for _ in range(4))
     mask = None
     if mask_kind != "unmasked":
         mask = rng.random((N, L)) < 0.7
@@ -106,6 +108,23 @@ def test_msa_attention_matches_jax_f(impl, L, mask_kind):
                 impl == "pallas_interpret")
     tm = None if mask is None else torch.from_numpy(mask)
     got = _port(lambda a, b, c: MA.msa_attention(a, b, c, HEADS, tm), q, k, v, w)
+    _compare(got, want, mask, impl == "pallas_interpret")
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("L", [32, 160])
+@pytest.mark.parametrize("dk", [80, 100, 128])
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+def test_msa_attention_wide_heads_match_jax_f(impl, dk, L, mask_kind):
+    """F at heads of dk 65-128, which the port's wide instance takes on the
+    card; 2 heads."""
+    q, k, v, w, mask = _case(L, mask_kind, seed=dk + L, heads=2, dk=dk)
+    assert MA.head_width(dk) == MA.WIDE
+    jm = None if mask is None else jnp.asarray(mask)
+    want = _jax(lambda a, b, c: JF.msa_attention(a, b, c, 2, mask=jm), q, k, v, w,
+                impl == "pallas_interpret")
+    tm = None if mask is None else torch.from_numpy(mask)
+    got = _port(lambda a, b, c: MA.msa_attention(a, b, c, 2, tm), q, k, v, w)
     _compare(got, want, mask, impl == "pallas_interpret")
 
 
