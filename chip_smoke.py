@@ -79,8 +79,10 @@ paths:
              dropout 0.2; its dx bf16, within one bf16 ulp of the plain
              element plus the bound) and B (bf16 weights, B 1,024 at G 68
              and 26) against their plain versions, each with its bound (the
-             bf16 x bf16 product at the dense bf16 rate) and the SASS check
-             that A's and A''s bf16 product issues HMMA.16816.F32.BF16; the
+             bf16 x bf16 product at the dense bf16 rate; A''s products at
+             their wgmma bf16 passes) and the SASS check that A's bf16
+             product issues HMMA.16816.F32.BF16 and A''s seven wgmma
+             products HGMMA; A''s stage split with each product's rate; the
              cached scorer over the corpus with the counters reset (stage 1
              A's bf16 instance, stage 2 B's, no fp32 launch of either) and a
              2,048-news corpus card against CPU; three B-8 steps card against
@@ -102,10 +104,12 @@ paths:
              each: the cached scorer over 1,024 news with the counters reset
              (only the bf16 instances where the JAX package runs bf16, the
              fp32 pair for the NRMS user tower) and card against CPU
-             (within one bf16 ulp of the score scale); three B-8 steps card
-             against CPU (phase 20's gates, every tensor at one bf16 ulp of
-             its largest element; for the DIGAT models also a control run
-             with k3 left out of C's backward, which must fail that gate);
+             (within one bf16 ulp of the score scale); B-8 steps card
+             against CPU, three for the NRMS models and two for the DIGAT
+             ones, whose CPU side takes 8-20 s a step (phase 20's gates,
+             every tensor at one bf16 ulp of its largest element; for the
+             DIGAT models also a control run with k3 left out of C's
+             backward, which must fail that gate);
              5 untraced steps at B 64 with their
              launches per step and the shapes of A''s sites checked;
   DP       - phase 22, data parallelism (`parallel.dist`): MSA-DIGAT (B 64,
@@ -170,6 +174,7 @@ temporary directory it removes.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -230,6 +235,13 @@ def bf16_ulp(torch, t):
 
 
 CHILDREN: list = []  # processes this run started (phase 22's ranks), killed by the watchdog
+# seconds and calls of the run's measuring tools, printed beside [total]
+TOOL_S = {"stage_split": [0.0, 0], "cuobjdump": [0.0, 0]}
+
+
+def tool_time(what: str, t0: float) -> None:
+    TOOL_S[what][0] += time.perf_counter() - t0
+    TOOL_S[what][1] += 1
 
 
 def _watchdog(signum, frame):
@@ -428,6 +440,7 @@ def stage_split(torch, fn, reps: int = 5) -> list:
     up to three times."""
     import re
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -459,6 +472,7 @@ def stage_split(torch, fn, reps: int = 5) -> list:
             stages[-1] = (stages[-1][0], stages[-1][1] + 1, stages[-1][2] + ms)
         else:
             stages.append((name[:70], 1, ms))
+    tool_time("stage_split", t0)
     return stages
 
 
@@ -1581,29 +1595,41 @@ def ptxas_report(build, needle: str) -> dict:
     return report
 
 
-def sass_tensor_core_check(build) -> dict:
-    """Tensor-core instructions in each instantiation of the product kernels
-    of tc_gemm.cuh in the built library, read with `cuobjdump -sass`:
-    label -> (instruction the product must issue, count). Products with an
-    fp32 A and an fp32 or bf16 B (gemm_kernel: 3xTF32, 2xTF32) must issue
-    TF32 HMMA; bf16 x bf16 ones (gemm_bf16_kernel) HMMA.16816.F32.BF16.
-    Each source's code is its own ELF section of the library; a product is
-    labelled by its kernel (A, A' or B: the section that holds that
-    kernel's own pool, ReLU-fix or attend kernel) and its template
-    arguments."""
-    import re
+@functools.lru_cache(maxsize=2)
+def library_sass(path: str) -> str:
+    """The built library's SASS (`cuobjdump -sass`), read once a run."""
     import shutil
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump") or tool
-    sass = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
-                          text=True, timeout=300).stdout
+    t0 = time.perf_counter()
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          timeout=300).stdout
+    tool_time("cuobjdump", t0)
+    return sass
+
+
+def sass_tensor_core_check(build) -> dict:
+    """Tensor-core instructions in each instantiation of the product kernels
+    of tc_gemm.cuh and tc_wgmma.cuh in the built library, read with
+    `cuobjdump -sass`: label -> (instruction the product must issue,
+    count). Products with an fp32 A and an fp32 or bf16 B (gemm_kernel:
+    3xTF32, 2xTF32) must issue TF32 HMMA; bf16 x bf16 ones
+    (gemm_bf16_kernel) HMMA.16816.F32.BF16; A''s bf16 products
+    (wg_gemm_kernel) the warpgroup HGMMA on bf16.
+    Each source's code is its own ELF section of the library; a product is
+    labelled by its kernel (A, A' or B: the section that holds that
+    kernel's own pool, ReLU-fix or attend kernel) and its template
+    arguments."""
+    import re
+
+    sass = library_sass(str(build.library_path()))
     owners = {"msa_pool_fwd_kernel": "A", "msa_attn_relu_fix_kernel": "A'",
               "gat_layer_attend_kernel": "B"}
     epilogues = ["store", "bias", "pool", "dh", "dropout", "logits"]
     types = {"f": "fp32", "13__nv_bfloat16": "bf16", "S2_": "bf16"}
-    tf32, bf16 = r"HMMA\.\S*TF32", r"HMMA\.16816\.F32\.BF16"
+    tf32, bf16, hgmma = r"HMMA\.\S*TF32", r"HMMA\.16816\.F32\.BF16", r"HGMMA\.\S*BF16"
     counts = {}
     for section in re.split(r"^Fatbin elf code", sass, flags=re.M):
         owner = next((o for marker, o in owners.items() if marker in section), "?")
@@ -1616,6 +1642,8 @@ def sass_tensor_core_check(build) -> dict:
                               r"(f|13__nv_bfloat16)(f|S2_)E", m.group(1))
                 b = re.search(r"2tc16gemm_bf16_kernelILi(\d+)ELi(\d)ELb([01])E(f|13__nv_bfloat16)E",
                               m.group(1))
+                w = re.search(r"2wg14wg_gemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELi(\d)ELi(\d)"
+                              r"ELi(\d)E(f|13__nv_bfloat16)Lb([01])E", m.group(1))
                 if k:
                     name = (f"{owner}: A fp32 {'K' if k.group(1) == '1' else 'M'}-major, B "
                             f"{types[k.group(6)]} {'K' if k.group(2) == '1' else 'N'}-major "
@@ -1629,18 +1657,27 @@ def sass_tensor_core_check(build) -> dict:
                             f"BN {b.group(1)}, {epilogues[int(b.group(2))]} epilogue"
                             + (", k-tile sums rounded to nearest" if b.group(3) == "1" else ""))
                     counts[name] = [bf16, 0]
+                elif w:
+                    major = lambda bit, other: "K" if bit == "1" else other
+                    name = (f"{owner}: wgmma, A {w.group(5)} bf16 term(s) "
+                            f"{major(w.group(3), 'M')}-major, B {w.group(6)} "
+                            f"{major(w.group(4), 'N')}-major, C {types[w.group(8)]}, BN "
+                            f"{w.group(1)}{' x 2 side by side' if w.group(9) == '1' else ''}, "
+                            f"k-tile {w.group(2)}, {epilogues[int(w.group(7))]} epilogue")
+                    counts[name] = [hgmma, 0]
                 continue
             if name and re.search(counts[name][0], line):
                 counts[name][1] += 1
-    return {label: (("TF32" if pat == tf32 else "16816.F32.BF16"), n)
-            for label, (pat, n) in counts.items()}
+    kinds = {tf32: "HMMA TF32", bf16: "HMMA 16816.F32.BF16", hgmma: "HGMMA BF16"}
+    return {label: (kinds[pat], n) for label, (pat, n) in counts.items()}
 
 
-# the product instantiations of kernels A, A' and B (tc_gemm.cuh), as
-# sass_tensor_core_check labels them: fp32 A' six, A two, B one; bf16 A'
-# six (one of them the bf16 x bf16 q|k|v product), A two (one bf16 x bf16),
-# B one
-PRODUCT_KERNELS = 18
+# the product instantiations of kernels A, A' and B, as
+# sass_tensor_core_check labels them: on mma.sync (tc_gemm.cuh) fp32 A' six,
+# A two, B one, bf16 A two (one bf16 x bf16), B one; on wgmma (tc_wgmma.cuh)
+# bf16 A' seven (q|k|v, u, dW1, dO, dx with and without the dropout mask,
+# dWqkv)
+PRODUCT_KERNELS = 19
 
 
 def redesign_report(build) -> bool:
@@ -1649,22 +1686,51 @@ def redesign_report(build) -> bool:
     tensor-core instructions (TF32, or bf16 for the bf16 x bf16 products);
     False if a product kernel issues none of its kind."""
     ok = True
-    for needle in ("tc11gemm_kernel", "tc16gemm_bf16_kernel", "msa_attn_", "msa_pool",
-                   "gat_scores_", "gat_layer_", "dropout_", "emb_grad_"):
+    for needle in ("tc11gemm_kernel", "tc16gemm_bf16_kernel", "wg14wg_gemm_kernel", "msa_attn_",
+                   "msa_pool", "split3", "relayout", "gat_scores_", "gat_layer_", "dropout_",
+                   "emb_grad_"):
         for mangled, (n_regs, st, ld) in sorted(ptxas_report(build, needle).items()):
             say(f"  ptxas {mangled[:90]}: {n_regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
     counts = sass_tensor_core_check(build)
     for label, (kind, n) in counts.items():
-        say(f"  SASS {label}: {n} HMMA {kind} instructions")
-    bf16 = [label for label, (kind, _) in counts.items() if kind != "TF32"]
+        say(f"  SASS {label}: {n} {kind} instructions")
+    bf16 = [label for label, (kind, _) in counts.items() if "BF16" in kind]
+    wgmma = [label for label, (kind, _) in counts.items() if kind.startswith("HGMMA")]
     if len(counts) < PRODUCT_KERNELS or not all(n for _, n in counts.values()) or \
             not any(label.startswith("A:") for label in bf16) or \
-            not any(label.startswith("A':") for label in bf16):
+            sum(label.startswith("A':") for label in wgmma) < 7:
         say("  SASS check FAILED: a product kernel of A, A' or B issues no tensor-core "
-            "instruction of its kind, or A's or A''s bf16 product is missing")
+            "instruction of its kind, or A's bf16 product or one of A''s seven wgmma "
+            "products is missing")
         ok = False
     return ok
+
+
+# The INT32 issue rate of an H100 SXM: 64 integer lanes an SM a clock (half
+# the fp32 lanes), 132 SMs at the 1.98 GHz boost clock: integer
+# instructions (per thread) a second. A card below 700 W runs slower.
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+
+
+def dropout_bf16_int_ops(build) -> float:
+    """Integer instructions an element of A''s bf16 instance, from the SASS
+    of its 16-byte kernel (`dropout_bf16_kernel<2>`, two Philox blocks, eight
+    elements a thread): its integer-pipe instructions (IMAD, IADD3, LOP3,
+    SHF, ISETP, SEL, LEA, VIADD, PRMT and their variants) over the two
+    blocks' eight elements; the one-group tail's few are counted too, so
+    the count errs high."""
+    import re
+
+    sass = library_sass(str(build.library_path()))
+    body = re.search(r"Function : \S*dropout_bf16_kernelILi2E\S*(.*?)(?:Function : |\Z)", sass,
+                     flags=re.S)
+    if body is None:
+        raise RuntimeError("no dropout_bf16_kernel<2> in the library's SASS")
+    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body.group(1))
+    ints = sum(op in ("IMAD", "IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "VIADD", "PRMT",
+                      "IABS", "IMNMX") for op in ops)
+    return ints / 8
 
 
 # The pair's wide instance (dk 65-128) at the shapes phases 10 and 21 time it:
@@ -2346,7 +2412,8 @@ def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
 # Phase 20: compute_dtype bfloat16 (MSA-DIGAT; the bf16 instances of A, A'
 # and B). The work counts: the bf16 x bf16 q|k|v product at the dense bf16
 # rate, the rest as the fp32 kernels' (fp32 CUDA-core rate), the bytes as
-# each array's dtype gives them.
+# each array's dtype gives them; A''s products all at their wgmma bf16
+# passes (`bound_bf16_passes`).
 # ---------------------------------------------------------------------------
 def bf16_bound(flops, bf16_flops, nbytes) -> tuple:
     """(least ms, what bounds it): bf16_flops (bf16 x bf16 products) at the
@@ -2365,6 +2432,55 @@ def bound_tensor_cores(flops, nbytes, bf16_products, tf32x2_products, tf32x3_pro
     return (bf16_products / PEAK_BF16_FLOPS
             + (2 * tf32x2_products + 3 * tf32x3_products) / PEAK_TF32_FLOPS
             + (flops - products) / PEAK_FP32_FLOPS + nbytes / PEAK_BYTES) * 1e3
+
+
+def bound_bf16_passes(flops, nbytes, products, pass_flops) -> tuple:
+    """A' bf16's bound, (least ms, what bounds it): its products (`products`
+    of its `flops`) as `pass_flops` of bf16 tensor-core passes at the dense
+    bf16 rate plus the rest at the fp32 rate, against its bytes at the
+    memory rate."""
+    t_ops = pass_flops / PEAK_BF16_FLOPS + (flops - products) / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# Kernel A''s six products in launch order (csrc/msa_encoder_bwd.cu steps 2,
+# 4, 6, 7, 9 and 10) and the tensor-core passes each takes in its bf16
+# instance: on wgmma (tc_wgmma.cuh) q|k|v one bf16 pass, dW1 six, the rest
+# three; on mma.sync (tc_gemm.cuh, until its redesign) q|k|v one bf16 pass,
+# dW1 three TF32 passes, the rest two.
+MSA_BWD_PRODUCTS = ("q|k|v", "u", "dW1", "dO", "dx", "dWqkv")
+
+
+def msa_bwd_product_rates(stages, N, L, Din, D, A) -> list:
+    """The product launches of A''s bf16 instance among `stage_split`'s
+    stages (those whose kernel name holds "gemm", in launch order) ->
+    [(what, ms, TFLOP/s, passes, pass type, share of that type's dense peak
+    counting passes)]."""
+    M = N * L
+    flop = [2 * M * Din * 3 * D, 2 * M * D * A, 2 * M * A * D, 2 * M * A * D,
+            2 * M * 3 * D * Din, 2 * M * 3 * D * Din]
+    rates = []
+    for i, (name, _, ms) in enumerate([st for st in stages if "gemm" in st[0]][:6]):
+        if "wg_" in name:
+            passes, kind = (1 if i == 0 else 6 if i == 2 else 3), "bf16"
+        else:
+            passes, kind = (1, "bf16") if i == 0 else ((3 if i == 2 else 2), "tf32")
+        peak = PEAK_BF16_FLOPS if kind == "bf16" else PEAK_TF32_FLOPS
+        tflops = flop[i] / (ms * 1e-3) / 1e12
+        rates.append((MSA_BWD_PRODUCTS[i], ms, tflops, passes, kind,
+                      passes * tflops * 1e12 / peak))
+    return rates
+
+
+def say_product_rates(rates) -> None:
+    for what, ms, tflops, passes, kind, share in rates:
+        say(f"      {what:6s} {ms:8.4f} ms {tflops:7.1f} TFLOP/s; {passes} {kind} passes: "
+            f"{passes * tflops:7.1f} TFLOP/s, {100 * share:5.1f} % of the dense {kind} peak")
+    total = sum(r[1] for r in rates)
+    pass_tflop = sum(r[2] * r[3] * r[1] for r in rates) * 1e-3  # TFLOP of passes
+    say(f"      the products {total:.4f} ms; over them "
+        f"{pass_tflop / (total * 1e-3):.1f} TFLOP/s counting passes")
 
 
 def msa_work_bf16(N, L, Din, D, A):
@@ -2465,19 +2581,24 @@ def bf16_phase(torch, cfg, tables, hist, cat, imp_index, cand, cap, dev, failure
                          device=dev)
         args = (x, mask, *w, dp, heads, p, 987, 0)
         flops, nbytes = msa_bwd_work_bf16(cap, L, Din, D, A)
-        qkv = 2 * cap * L * Din * 3 * D
+        qkv, pool_p = 2 * cap * L * Din * 3 * D, 2 * cap * L * D * A
+        # the products on the tensor cores at the bf16 passes they take
+        # (q|k|v one, u, dO, dx and dWqkv three, dW1 six)
+        passes = qkv + 3 * pool_p + 6 * pool_p + 3 * pool_p + 3 * qkv + 3 * qkv
         e = check_kernel(torch, f"msa_encoder_bwd bf16 [{cap},{L},{Din}] dropout {p:g} (dx bf16 "
                          f"+ 8 fp32 weight grads)", ME.msa_encoder_bwd, ME.msa_encoder_bwd_plain,
-                         args, flops, nbytes, bound_ms=bf16_bound(flops, qkv, nbytes))
-        pool_p = 2 * cap * L * D * A
-        say(f"    bound with the products on the tensor cores (q|k|v bf16; pool, dh, dx and "
-            f"dWqkv 2xTF32; dW1 3xTF32): "
-            f"{bound_tensor_cores(flops, nbytes, qkv, 2 * pool_p + 2 * qkv, pool_p):.4f} ms")
+                         args, flops, nbytes,
+                         bound_ms=bound_bf16_passes(flops, nbytes, 3 * qkv + 3 * pool_p, passes))
+        say(f"    bound_ms: the products at their wgmma bf16 passes (q|k|v one, u, dO, dx and "
+            f"dWqkv three, dW1 six), the rest at the fp32 rate; with all but q|k|v at the fp32 "
+            f"rate it would be {bf16_bound(flops, qkv, nbytes)[0]:.4f} ms")
         again = all(torch.equal(a, b) for a, b in zip(ME.msa_encoder_bwd(*args),
                                                       ME.msa_encoder_bwd(*args)))
         say(f"    same bits twice, every output: {again}")
         stages = stage_split(torch, lambda: ME.msa_encoder_bwd(*args))
         say_stages("msa_encoder_bwd bf16", stages)
+        say("    its products:")
+        say_product_rates(msa_bwd_product_rates(stages, cap, L, Din, D, A))
         e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
         e["ok"] = e["ok"] and again
         return e
@@ -2730,9 +2851,12 @@ def bf16_dropout_kernels(torch, ncfg, cap: int, dev):
     its plain version (x / bf16(keep), rounded once) at the NRMS title
     tower's word site (a training step's 6,720 titles of L 32 x 300) and the
     CNN's two sites over `cap` unique titles (words 300 wide, the bank's
-    output 400); `F.dropout` on the same bf16 tensor as `library_ms`."""
+    output 400); `F.dropout` on the same bf16 tensor as `library_ms`; the
+    bound the larger of its bytes' time and its integer issue (the SASS
+    count of `dropout_bf16_int_ops` at PEAK_INT32_OPS)."""
     import torch.nn.functional as F
 
+    from digat_tpu_torch.ops import build
     from digat_tpu_torch.ops import dropout as DR
 
     B, L, p = ncfg.batch_size, ncfg.max_title_length, ncfg.dropout_rate
@@ -2740,6 +2864,9 @@ def bf16_dropout_kernels(torch, ncfg, cap: int, dev):
         + B * ncfg.max_history_num
     sites = [("NRMS words", n_titles * L, ncfg.word_embedding_dim),
              ("CNN words", cap * L, ncfg.word_embedding_dim), ("CNN bank", cap * L, 400)]
+    int_ops = dropout_bf16_int_ops(build)
+    say(f"  dropout bf16: {int_ops:.3f} integer instructions an element (the SASS of its "
+        f"16-byte kernel), at {PEAK_INT32_OPS / 1e12:.2f} T a second")
     by_shape = {}
     for what, rows, cols in sites:
         try:
@@ -2747,10 +2874,18 @@ def bf16_dropout_kernels(torch, ncfg, cap: int, dev):
             x = torch.randn((rows, cols), generator=g, device=dev).to(torch.bfloat16)
             gout = torch.randn((rows, cols), generator=g, device=dev).to(torch.bfloat16)
             flops, nbytes = dropout_work(rows, cols)
+            # bytes (each element read and written once, 2 bytes) against the
+            # integer issue of its Philox draws
+            t_bytes, t_int = 4 * rows * cols / PEAK_BYTES, int_ops * rows * cols / PEAK_INT32_OPS
             e = check_kernel(torch, f"dropout bf16 {what} [{rows},{cols}] rate {p:g}",
                              lambda t: DR.dropout(t, p, 77, 5),
                              lambda t: DR.dropout_plain(t, p, 77, 5), (x,), flops, nbytes // 2,
-                             exact=True, library=lambda t: F.dropout(t, p))
+                             exact=True, library=lambda t: F.dropout(t, p),
+                             bound_ms=(max(t_bytes, t_int) * 1e3,
+                                       "bytes" if t_bytes >= t_int else "operations"))
+            say(f"    {e['ms'] / e['library_ms']:.3f} of F.dropout's time, "
+                f"{e['ms'] / e['bound_ms']:.3f} times the bound (bytes {t_bytes * 1e3:.4f} ms, "
+                f"integer issue {t_int * 1e3:.4f} ms)")
             leaf, ref = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
             DR.dropout(leaf, p, 77, 5).backward(gout)
             DR.dropout_plain(ref, p, 77, 5).backward(gout)
@@ -2874,8 +3009,8 @@ def bf16_model_phase(torch, name, cfg, tables, dev, failures) -> dict:
     with a GloVe-scale table): the cached scorer over 1,024 news (64
     impressions of 8) on the card with the counters reset
     (`bf16_serving_want`) and against the CPU plain path (BF16_SLICE_RTOL);
-    three B-8 steps card against CPU (phase 20's gates, each tensor at one
-    bf16 ulp of its largest element);
+    B-8 steps card against CPU, three for NRMS and two for DIGAT
+    (phase 20's gates, each tensor at one bf16 ulp of its largest element);
     BF16_STEPS untraced steps at B 64 (dropout 0.2; dedup for DIGAT) with
     the counters reset, their launches per step (`bf16_step_want`) and A''s
     shapes checked; -> launches by path and timings."""
@@ -2926,14 +3061,14 @@ def bf16_model_phase(torch, name, cfg, tables, dev, failures) -> dict:
         f"{limit:.3e}), rank flips beyond ties {flips}; launches {result.get('serving')}")
     if not (err <= limit and flips == 0 and np.isfinite(s_gpu).all()):
         failures.append(f"{name} bf16 serving card vs cpu")
-    # three B-8 steps, card against the CPU
+    # B-8 steps, card against the CPU
     corpus = make_train_corpus(cfg, tables, (BF16_STEPS + 2) * cfg.batch_size, 2000, 32,
                                SEED + 83)
     if nrms:
         ntables = nrms_tables_for(torch, cfg, tables, SEED + 84)
         corpus.nrms_tables = lambda: ntables
     training_parity(torch, cfg, corpus, dev, failures, nrms=nrms, label=f"{name} bf16",
-                    word_embedding=table, act_bf16=True)
+                    word_embedding=table, act_bf16=True, steps=3 if nrms else 2)
     # untraced steps at B 64, dropout on
     gen = torch.Generator().manual_seed(SEED + 85)
     model = NRMSModel(cfg, device=dev, generator=gen) if nrms else \
@@ -4585,6 +4720,7 @@ def main() -> int:
             "ok": bool(e.get("ok")), **({"by_shape": e["by_shape"]} if "by_shape" in e else {}),
         })
     say(json.dumps({"kernels": kernels}))
+    say("[tools] " + ", ".join(f"{k} {n} calls {s:.2f}s" for k, (s, n) in TOOL_S.items()))
     say(f"[total] {time.perf_counter() - t_start:.2f}s")
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)

@@ -1,7 +1,9 @@
 // The masked attention pair's fp32 instances and their C entry points. The
 // kernels, what they replace, what bounds them and how they are laid out:
-// msa_attention_kernels.cuh. The bf16 instances are msa_attention_bf16.cu,
-// the wide instance (dk 65-128) msa_attention_wide.cu.
+// msa_attention_kernels.cuh. The backward past 32 positions is
+// msa_attention_long.cu, the bf16 instances msa_attention_bf16.cu and
+// msa_attention_bf16_long.cu, the wide instance (dk 65-128)
+// msa_attention_wide.cu.
 
 #include "msa_attention_kernels.cuh"
 

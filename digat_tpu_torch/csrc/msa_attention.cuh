@@ -5,7 +5,8 @@
 // the row loads, stores and products. Each file that includes this header
 // gets its own copy (an unnamed namespace); the kernel files are compiled
 // apart, in parallel, and the entry points reach the wide instance through
-// `digat::attention_fwd_wide<T>` and `digat::attention_bwd_wide<T>`.
+// `digat::attention_fwd_wide<T>` and `digat::attention_bwd_wide<T>`, and
+// the backward past 32 positions through `digat::attention_bwd_long<T>`.
 //
 // Element types. q, k, v, do and the outputs are T, fp32 or bf16. The
 // register-row kernels hold rows in fp32 whatever T is (in shared memory
@@ -263,6 +264,18 @@ cudaError_t attention_fwd_wide(const T* q, const T* k, const T* v, const unsigne
                                bool vec, int max_smem, cudaStream_t stream);
 template <typename T>
 cudaError_t attention_bwd_wide(const T* q, const T* k, const T* v, const unsigned char* mask,
+                               const T* dout, T* dq, T* dk_out, T* dv_out, int N, int H, int L,
+                               int dk, int rs, int hs, float scale, bool vec, int max_smem,
+                               cudaStream_t stream);
+
+// the register-row backward past kShortL positions (msa_attention_kernels.cuh,
+// instantiated by msa_attention_long.cu for fp32 and msa_attention_bf16_long.cu
+// for bf16): its kernels' shared-memory limit (once per device), and its
+// launch; cudaErrorInvalidValue where a unit's shared memory passes max_smem
+template <typename T>
+cudaError_t attention_long_init(int max_smem);
+template <typename T>
+cudaError_t attention_bwd_long(const T* q, const T* k, const T* v, const unsigned char* mask,
                                const T* dout, T* dq, T* dk_out, T* dv_out, int N, int H, int L,
                                int dk, int rs, int hs, float scale, bool vec, int max_smem,
                                cudaStream_t stream);

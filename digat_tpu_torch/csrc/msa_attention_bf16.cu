@@ -2,7 +2,8 @@
 // their C entry points: q, k, v, do and every output bf16, the arithmetic
 // fp32, each output rounded once to nearest even (msa_attention_kernels.cuh
 // says what the kernels compute and how). A file of its own, so that nvcc
-// compiles these 42 instantiations beside the fp32 ones, in parallel.
+// compiles these 28 instantiations beside the fp32 ones, in parallel (the
+// backward past 32 positions in msa_attention_bf16_long.cu).
 
 #include "msa_attention_kernels.cuh"
 

@@ -1,8 +1,10 @@
 // Masked multi-head self-attention, forward and backward, for sm_90a: the
 // kernels, templated on the element type T of q, k, v, do and the outputs
-// (fp32, instantiated by msa_attention.cu; bf16, by msa_attention_bf16.cu,
-// so that nvcc compiles the two in parallel), and the entry points' logic,
-// which each of those files wraps in its own C functions.
+// (fp32, instantiated by msa_attention.cu; bf16, by msa_attention_bf16.cu;
+// the backward past 32 positions by msa_attention_long.cu and
+// msa_attention_bf16_long.cu, which define DIGAT_ATTENTION_LONG: four files
+// that nvcc compiles in parallel), and the entry points' logic, which each
+// of those files wraps in its own C functions.
 //
 // Replaces two TPU kernels that compute the same function:
 //   digat_tpu/ops/pallas/msa_attention_grouped.py (msa_attention_grouped:
@@ -450,21 +452,29 @@ FwdKernel<T> fwd_kernel(int W) {
   }
 }
 
+// one backward kernel; a file instantiates only the kind (LONG or not) it
+// launches
+template <int W, bool VEC, bool LONG, typename T>
+BwdKernel<T> bwd_kernel_of() {
+  if constexpr (LONG) {
+    return msa_attention_bwd_long_kernel<W, VEC, T>;
+  } else {
+    return msa_attention_bwd_kernel<W, VEC, T>;
+  }
+}
+
 template <bool VEC, bool LONG, typename T>
 BwdKernel<T> bwd_kernel(int W) {
-#define DIGAT_BWD(w) \
-  LONG ? msa_attention_bwd_long_kernel<w, VEC, T> : msa_attention_bwd_kernel<w, VEC, T>
   switch (W) {
-    case 8: return DIGAT_BWD(8);
-    case 16: return DIGAT_BWD(16);
-    case 20: return DIGAT_BWD(20);
-    case 24: return DIGAT_BWD(24);
-    case 32: return DIGAT_BWD(32);
-    case 48: return DIGAT_BWD(48);
-    case 64: return DIGAT_BWD(64);
+    case 8: return bwd_kernel_of<8, VEC, LONG, T>();
+    case 16: return bwd_kernel_of<16, VEC, LONG, T>();
+    case 20: return bwd_kernel_of<20, VEC, LONG, T>();
+    case 24: return bwd_kernel_of<24, VEC, LONG, T>();
+    case 32: return bwd_kernel_of<32, VEC, LONG, T>();
+    case 48: return bwd_kernel_of<48, VEC, LONG, T>();
+    case 64: return bwd_kernel_of<64, VEC, LONG, T>();
     default: return nullptr;
   }
-#undef DIGAT_BWD
 }
 
 // rows of four-element groups: the strides multiples of 4 and every
@@ -523,26 +533,25 @@ cudaError_t init_impl() {
   }
   for (int i = 0; i < kNumWidths; ++i) {
     const int w = kWidths[i];
-    const void* kernels[3][2] = {
+    const void* kernels[2][2] = {
         {reinterpret_cast<const void*>(fwd_kernel<false, T>(w)),
          reinterpret_cast<const void*>(fwd_kernel<true, T>(w))},
         {reinterpret_cast<const void*>(bwd_kernel<false, false, T>(w)),
          reinterpret_cast<const void*>(bwd_kernel<true, false, T>(w))},
-        {reinterpret_cast<const void*>(bwd_kernel<false, true, T>(w)),
-         reinterpret_cast<const void*>(bwd_kernel<true, true, T>(w))},
     };
-    for (int kind = 0; kind < 3; ++kind) {
+    for (int kind = 0; kind < 2; ++kind) {
       for (int vec = 0; vec < 2; ++vec) {
         cudaFuncAttributes attr;
         if (e == cudaSuccess) {
           e = cudaFuncSetAttribute(kernels[kind][vec],
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
         }
-        if (e == cudaSuccess && kind < 2) e = cudaFuncGetAttributes(&attr, kernels[kind][vec]);
-        if (e == cudaSuccess && kind < 2) g_regs[kind][vec][i] = attr.numRegs;
+        if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernels[kind][vec]);
+        if (e == cudaSuccess) g_regs[kind][vec][i] = attr.numRegs;
       }
     }
   }
+  if (e == cudaSuccess) e = digat::attention_long_init<T>(g_max_smem);
   if (e == cudaSuccess) e = digat::attention_wide_init<T>(g_max_smem);
   return e;
 }
@@ -608,10 +617,11 @@ cudaError_t bwd_impl(const void* q, const void* k, const void* v, const void* ma
     threads = 32 * warps;
     smem = warps * warp_bytes;
   } else {
-    smem = sizeof(float) * bwd_long_floats(L, W);
-    if (smem > size_t(g_max_smem)) return cudaErrorInvalidValue;
-    kern = vec ? bwd_kernel<true, true, T>(W) : bwd_kernel<false, true, T>(W);
-    threads = 32 * lesser(kMaxGroup, (L + 31) / 32);
+    return digat::attention_bwd_long<T>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const unsigned char*>(mask), static_cast<const T*>(dout), static_cast<T*>(dq),
+        static_cast<T*>(dk_out), static_cast<T*>(dv_out), N, H, L, dk, rs, hs, scale, vec,
+        g_max_smem, stream);
   }
   kern<<<blocks, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -621,3 +631,37 @@ cudaError_t bwd_impl(const void* q, const void* k, const void* v, const void* ma
 }
 
 }  // namespace
+
+#ifdef DIGAT_ATTENTION_LONG
+namespace digat {
+
+template <typename T>
+cudaError_t attention_long_init(int max_smem) {
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < kNumWidths && e == cudaSuccess; ++i) {
+    const void* kernels[2] = {reinterpret_cast<const void*>(bwd_kernel<false, true, T>(kWidths[i])),
+                              reinterpret_cast<const void*>(bwd_kernel<true, true, T>(kWidths[i]))};
+    for (int vec = 0; vec < 2 && e == cudaSuccess; ++vec)
+      e = cudaFuncSetAttribute(kernels[vec], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               max_smem);
+  }
+  return e;
+}
+
+// a block of up to kMaxGroup warps a unit
+template <typename T>
+cudaError_t attention_bwd_long(const T* q, const T* k, const T* v, const unsigned char* mask,
+                               const T* dout, T* dq, T* dk_out, T* dv_out, int N, int H, int L,
+                               int dk, int rs, int hs, float scale, bool vec, int max_smem,
+                               cudaStream_t stream) {
+  const int W = width_for(dk), units = N * H;
+  const size_t smem = sizeof(float) * bwd_long_floats(L, W);
+  if (smem > size_t(max_smem)) return cudaErrorInvalidValue;
+  const BwdKernel<T> kern = vec ? bwd_kernel<true, true, T>(W) : bwd_kernel<false, true, T>(W);
+  kern<<<units, 32 * lesser(kMaxGroup, (L + 31) / 32), smem, stream>>>(
+      q, k, v, mask, dout, dq, dk_out, dv_out, units, H, L, dk, rs, hs, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace digat
+#endif  // DIGAT_ATTENTION_LONG

@@ -71,13 +71,23 @@
 //
 // bf16 (msa_encoder_bwd_bf16: x and the weight matrices bf16, as at
 // compute_dtype bfloat16): step 1 rounds each kept x / (1 - rate) to bf16
-// once, as kernel A's bf16 instance does; step 2 is A's bf16 product (the
-// bf16 tensor cores, exact products, kRN); steps 4, 7, 9 and 10, whose
-// other operand is fp32, run at 2xTF32 with the bf16 side exact; step 6
-// (dpre^T h, both fp32) stays at 3xTF32. Step 9 stores dx in bf16, rounded
-// once to nearest even after the dropout mask. The weight gradients come
-// out fp32. The ReLU fix reads the bf16 x and W and recomputes in float64
-// as before.
+// once, as kernel A's bf16 instance does. The six products run on wgmma
+// fed by the TMA (tc_wgmma.cuh), every operand bf16. Step 2 is one pass of
+// exact bf16 products summed in fp32 (kRN over 64-deep tiles: not kernel
+// A's q|k|v bits, which sums 32-deep tiles on mma.sync; both lie within
+// about 1e-7 of the float64 value relative to the sum's terms, far inside
+// kReluTol; scripts/msa_bwd_precision.py --bf16 measures the gap). Each
+// fp32 operand (h, dpre, dq|dk|dv) is split into three bf16 planes
+// (hi, mid, lo): h by split3_kernel after step 3b, dpre and dq|dk|dv by
+// steps 5 and 8 themselves (their kPlanes instances write the planes in
+// place of fp32), so steps 4, 7, 9 and 10 take three bf16 passes against
+// the exact bf16 weight or x, and step 6 (dpre^T h, both fp32) six; the
+// weight gradients (steps 6, 10) read both operands MN-major, and steps 7
+// and 9 read W1 and Wqkv as K-major copies (relayout_kernel, a few hundred
+// KB; x too, where its rows are not 16 bytes apart). Step 9 stores dx in
+// bf16, rounded once to nearest even after the dropout mask. The weight
+// gradients come out fp32. The ReLU fix reads the bf16 x and W and
+// recomputes in float64 as before.
 //
 // The attention kernels: a block of 4 warps per (title, head), a unit. The
 // forward (msa_attn_fwd_kernel<true>), the word dropout and the pool's
@@ -115,6 +125,7 @@
 #include "common.cuh"
 #include "msa_title.cuh"
 #include "tc_gemm.cuh"
+#include "tc_wgmma.cuh"
 
 namespace {
 
@@ -124,11 +135,19 @@ constexpr int kFixWarps = kFixThreads / 32;
 constexpr int kFixRows = kMaxDk / kFixWarps;  // W rows of q, k or v per warp in the fix
 constexpr int kRowsPerSplit = 4096;    // rows of one slice of a weight gradient
 constexpr int kColRows = 256;          // rows of one slice of a column sum over titles
-// tile width of the six products: kRN's second set of accumulators fits in
-// the registers at 96 columns a block (tc_gemm.cuh)
+// tile width of the fp32 instance's six products: kRN's second set of
+// accumulators fits in the registers at 96 columns a block (tc_gemm.cuh)
 constexpr int kBNq = 96, kBNp = 96, kBN = 96;
+// the bf16 instance's wgmma products (tc_wgmma.cuh): a consumer's tile
+// width (u and the weight gradients 128; q|k|v, dO and dx 152: eight and
+// three tiles of 152 over 3D 1,200 and D 400, and dx with the consumers side
+// by side, one tile of 304 over Din 300) and the blocks a weight
+// gradient's slices aim at (four an SM)
+constexpr int kWgN = 128, kWgNx = 152;
+constexpr int kWgBlocks = 4 * 132;
 
 namespace tc = digat::tc;
+namespace wg = digat::wg;
 
 __host__ __device__ inline int attn_bwd_floats(int dk) {
   return 4 * kL * kv_stride(dk) + 2 * kL * kPS + kAttnWarps * kL;
@@ -155,6 +174,70 @@ __global__ void colsum_kernel(const float* __restrict__ A, int M, int N, int row
   for (int r = r0; r < r1; ++r) s += A[(size_t)r * N + c];
   part[(size_t)blockIdx.y * N + c] = s;
 }
+
+// bf16 elements of a row of a plane (16-byte rows for the TMA)
+__host__ __device__ inline int ld8(int cols) { return (cols + 7) & ~7; }
+
+// x as three bf16 terms: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
+// - mid), each difference exact in fp32 (tc_wgmma.cuh's three-term operand)
+__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
+  const float rest = x - __bfloat162float(__float2bfloat16_rn(x));
+  hi = x - rest;
+  mid = __bfloat162float(__float2bfloat16_rn(rest));
+  lo = rest - mid;
+}
+
+// element i of the three planes `plane` apart (lo rounded to bf16 here)
+__device__ __forceinline__ void store3(__nv_bfloat16* p, size_t plane, float x) {
+  float hi, mid, lo;
+  split3(x, hi, mid, lo);
+  p[0] = __float2bfloat16_rn(hi);
+  p[plane] = __float2bfloat16_rn(mid);
+  p[2 * plane] = __float2bfloat16_rn(lo);
+}
+
+// The three bf16 planes of an fp32 x [rows][cols] (row stride ldx; cols a
+// multiple of 4), rows ld8(cols) apart, planes rows * ld8(cols) apart. A
+// thread a group of four (rows * cols / 4 < 2^31).
+__global__ void __launch_bounds__(kThreads)
+split3_kernel(const float* __restrict__ x, int ldx, __nv_bfloat16* __restrict__ out, int rows,
+              int cols) {
+  const uint32_t c4 = cols / 4, i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= uint32_t(rows) * c4) return;
+  const uint32_t r = i / c4, c = (i - r * c4) * 4;
+  const size_t ld = ld8(cols), plane = size_t(rows) * ld;
+  const float4 v = digat::load4(x + size_t(r) * ldx + c);
+  const float e[4] = {v.x, v.y, v.z, v.w};
+  float hi[4], mid[4], lo[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) split3(e[k], hi[k], mid[k], lo[k]);
+  __nv_bfloat16* o = out + r * ld + c;
+  digat::store4(o, make_float4(hi[0], hi[1], hi[2], hi[3]));
+  digat::store4(o + plane, make_float4(mid[0], mid[1], mid[2], mid[3]));
+  digat::store4(o + 2 * plane, make_float4(lo[0], lo[1], lo[2], lo[3]));
+}
+
+// dst [rows][ld8(cols)] = src [rows][cols] (row stride lds; kTranspose:
+// src [cols][rows]), bf16: the K-major weight copies and x's 16-byte rows.
+// A thread an element (kTranspose) or a group of four (rows * cols < 2^31).
+template <bool kTranspose>
+__global__ void __launch_bounds__(kThreads)
+relayout_kernel(const __nv_bfloat16* __restrict__ src, int lds, int rows, int cols,
+                __nv_bfloat16* __restrict__ dst) {
+  const uint32_t per = kTranspose ? cols : cols / 4, i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= uint32_t(rows) * per) return;
+  const uint32_t r = i / per, c = i - r * per;
+  const size_t ld = ld8(cols);
+  if (kTranspose) {
+    dst[r * ld + c] = src[size_t(c) * lds + r];
+  } else {  // cols and lds multiples of 4: 8-byte groups
+    *reinterpret_cast<uint2*>(dst + r * ld + 4 * c) =
+        __ldg(reinterpret_cast<const uint2*>(src + size_t(r) * lds + 4 * c));
+  }
+}
+
+// blocks of kThreads for `work` threads
+inline unsigned blocks_for(long long work) { return unsigned((work + kThreads - 1) / kThreads); }
 
 // ---------------------------------------------------------------------------
 // The ReLU of a unit that msa_attn_fwd_kernel marked: its h again in
@@ -282,6 +365,20 @@ msa_attn_relu_fix_kernel(const T* __restrict__ xin,        // [N*L, Din]
 // ---------------------------------------------------------------------------
 // The pool's softmax over a title's positions, its backward, and dpre
 // ---------------------------------------------------------------------------
+// dpre as the three bf16 planes of the wgmma products (kPlanes, the bf16
+// instance: [3][N*L][ld8(A)], in place of its fp32 values)
+__device__ __forceinline__ void store3x4(__nv_bfloat16* p, size_t plane, float4 z) {
+  float h[4], m[4], l[4];
+  split3(z.x, h[0], m[0], l[0]);
+  split3(z.y, h[1], m[1], l[1]);
+  split3(z.z, h[2], m[2], l[2]);
+  split3(z.w, h[3], m[3], l[3]);
+  digat::store4(p, make_float4(h[0], h[1], h[2], h[3]));
+  digat::store4(p + plane, make_float4(m[0], m[1], m[2], m[3]));
+  digat::store4(p + 2 * plane, make_float4(l[0], l[1], l[2], l[3]));
+}
+
+template <bool kPlanes = false>
 __global__ void __launch_bounds__(kThreads)
 msa_pool_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
                 int parts,
@@ -289,6 +386,7 @@ msa_pool_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
                 const float* __restrict__ dap,           // [N, heads, L]
                 const float* __restrict__ v,             // [A]
                 float* __restrict__ u,                   // [N*L, A]: u in, dpre out
+                __nv_bfloat16* __restrict__ planes,      // kPlanes: dpre out
                 float* __restrict__ alpha_out,           // [N*L]
                 float* __restrict__ dv_part,             // [N, A]
                 float* __restrict__ db1_part,            // [N, A]
@@ -333,7 +431,10 @@ msa_pool_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
         dba[r].y += z.y;
         dba[r].z += z.z;
         dba[r].w += z.w;
-        u4[l * A4 + a] = z;
+        if (kPlanes)
+          store3x4(planes + ((size_t)n * L + l) * ld8(A) + 4 * a, (size_t)N * L * ld8(A), z);
+        else
+          u4[l * A4 + a] = z;
       }
     }
   }
@@ -350,12 +451,16 @@ msa_pool_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
 // ---------------------------------------------------------------------------
 // Attention backward of a unit: dq|dk|dv over q|k|v, and their column sums
 // ---------------------------------------------------------------------------
-template <int kFixedL>
+// kPlanes (the bf16 instance): dq|dk|dv go out as the three bf16 planes of
+// the wgmma products (`planes`, rows ld8(3D) apart, M rows a plane) in
+// place of their fp32 values.
+template <int kFixedL, bool kPlanes = false>
 __global__ void __launch_bounds__(kAttnThreads, 8)
 msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq|dk|dv out
                     const float* __restrict__ dO,     // [N*L, D]
                     const float* __restrict__ lse,    // [N, heads, L]
                     float* __restrict__ dbias_part,   // [N, 3D] out
+                    __nv_bfloat16* __restrict__ planes,  // kPlanes: [3][N*L][ld8(3D)] out
                     int title_len, int heads, int dk, float scale) {
   constexpr bool kFull = kFixedL == kL;  // no slot past L
   const int L = kFixedL > 0 ? kFixedL : title_len;
@@ -461,9 +566,20 @@ msa_attn_bwd_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq
     }
   }
   __syncthreads();
-  store_unit(rows, ks, 3 * D, dk, RS, L);      // dq
-  store_unit(rows + D, qs, 3 * D, dk, RS, L);  // dk
-  store_unit(rows + 2 * D, vs, 3 * D, dk, RS, L);  // dv
+  if (kPlanes) {  // dq, dk, dv as three bf16 terms each: a warp a row, a lane a column
+    const size_t ld = ld8(3 * D), plane = size_t(gridDim.x / heads) * L * ld;
+    __nv_bfloat16* out = planes + (size_t)n * L * ld + hd * dk;
+    for (int which = 0; which < 3; ++which) {
+      const float* tile = which == 0 ? ks : (which == 1 ? qs : vs);
+      for (int ii = w; ii < L; ii += kAttnWarps)
+        for (int c = i; c < dk; c += 32)
+          store3(out + ii * ld + which * D + c, plane, tile[ii * RS + c]);
+    }
+  } else {
+    store_unit(rows, ks, 3 * D, dk, RS, L);      // dq
+    store_unit(rows + D, qs, 3 * D, dk, RS, L);  // dk
+    store_unit(rows + 2 * D, vs, 3 * D, dk, RS, L);  // dv
+  }
   // the unit's column sums of dq, dk, dv over its L rows, in row order
   for (int e = threadIdx.x; e < 3 * dk; e += kAttnThreads) {
     const int which = e / dk, c = e - which * dk;
@@ -557,6 +673,7 @@ msa_attn_relu_fix_long_kernel(const T* __restrict__ xin,        // [N*L, Din]
 
 // The pool's softmax, its backward and dpre for a title of 33 to 128
 // positions: msa_pool_kernel with lane l taking positions l, l + 32, ...
+template <bool kPlanes = false>
 __global__ void __launch_bounds__(kThreads)
 msa_pool_long_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
                      int parts,
@@ -564,6 +681,7 @@ msa_pool_long_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
                      const float* __restrict__ dap,           // [N, heads, L]
                      const float* __restrict__ v,             // [A]
                      float* __restrict__ u,                   // [N*L, A]: u in, dpre out
+                     __nv_bfloat16* __restrict__ planes,      // kPlanes: dpre out
                      float* __restrict__ alpha_out,           // [N*L]
                      float* __restrict__ dv_part,             // [N, A]
                      float* __restrict__ db1_part,            // [N, A]
@@ -617,7 +735,10 @@ msa_pool_long_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
         dba[r].y += z.y;
         dba[r].z += z.z;
         dba[r].w += z.w;
-        u4[l * A4 + a] = z;
+        if (kPlanes)
+          store3x4(planes + ((size_t)n * L + l) * ld8(A) + 4 * a, (size_t)N * L * ld8(A), z);
+        else
+          u4[l * A4 + a] = z;
       }
     }
   }
@@ -643,11 +764,13 @@ __host__ __device__ inline int attn_bwd_long_floats(int L) {
 // then, chunk by chunk, thread i forms row i of dq (over the keys in order)
 // and key i's rows of dk and dv (over the rows in order), which go over the
 // chunk's columns of q, k and v once every thread has read them.
+template <bool kPlanes = false>
 __global__ void __launch_bounds__(kLongL)
 msa_attn_bwd_long_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v in, dq|dk|dv out
                          const float* __restrict__ dO,     // [N*L, D]
                          const float* __restrict__ lse,    // [N, heads, L]
                          float* __restrict__ dbias_part,   // [N, 3D] out
+                         __nv_bfloat16* __restrict__ planes,  // kPlanes: as msa_attn_bwd_kernel
                          int L, int heads, int dk, float scale) {
   extern __shared__ float4 smem4[];
   const int LS = long_ls(L), D = heads * dk;
@@ -721,7 +844,14 @@ msa_attn_bwd_long_kernel(float* __restrict__ qkv,          // [N*L, 3D]: q|k|v i
       const int which = e / (L * kChunk), r = e - which * L * kChunk;
       const int ii = r / kChunk, c = r - ii * kChunk;
       const float* tile = which == 0 ? cq : (which == 1 ? ck : cv);
-      if (c < w) rows[(size_t)ii * 3 * D + which * D + c0 + c] = tile[ii * kChunkS + c];
+      if (c >= w) continue;
+      if (kPlanes) {
+        const size_t ld = ld8(3 * D), plane = size_t(gridDim.x / heads) * L * ld;
+        store3(planes + ((size_t)n * L + ii) * ld + which * D + hd * dk + c0 + c, plane,
+               tile[ii * kChunkS + c]);
+      } else {
+        rows[(size_t)ii * 3 * D + which * D + c0 + c] = tile[ii * kChunkS + c];
+      }
     }
     // the unit's column sums of dq, dk, dv over its L rows, in row order
     for (int e = threadIdx.x; e < 3 * w; e += blockDim.x) {
@@ -745,22 +875,30 @@ bool long_fix(int L, int Din, int dk) {
 
 inline int splits_of(long long rows, int per) { return int((rows + per - 1) / per); }
 
-// floats of each scratch array, in the order they sit in the scratch buffer
+// floats of each scratch array, in the order they sit in the scratch buffer;
+// the bf16 instance's wgmma operands last (bf16, two a float; 0 for fp32):
+// the planes of h, dpre and dq|dk|dv, x with 16-byte rows (where Din % 8),
+// and the weights W1, W1^T, Wqkv and Wqkv^T with 16-byte rows
 struct Scratch {
   size_t xd, qkv, h, dO, u, lgpart, lse, dap, alpha, unsure, dbp, dvp, db1p, part, cpart, fix;
+  size_t h3 = 0, dpre3 = 0, dqkv3 = 0, xpad = 0, w1p = 0, w1t = 0, wqkvp = 0, wqkvt = 0;
   size_t total() const {
     return xd + qkv + h + dO + u + lgpart + lse + dap + alpha + unsure + dbp + dvp + db1p +
-           part + cpart + fix;
+           part + cpart + fix + h3 + dpre3 + dqkv3 + xpad + w1p + w1t + wqkvp + wqkvt;
   }
-  // every array starts 16-byte aligned (float4 and tensor-core loads)
+  // every array starts 16-byte aligned (float4, tensor-core loads, the TMA)
   void align() {
     for (size_t* f : {&xd, &qkv, &h, &dO, &u, &lgpart, &lse, &dap, &alpha, &unsure, &dbp, &dvp,
-                      &db1p, &part, &cpart, &fix})
+                      &db1p, &part, &cpart, &fix, &h3, &dpre3, &dqkv3, &xpad, &w1p, &w1t,
+                      &wqkvp, &wqkvt})
       *f = (*f + 3) & ~size_t(3);
   }
 };
 
-Scratch scratch_of(int N, int L, int Din, int heads, int D, int A) {
+// floats holding n bf16 elements
+inline size_t bf16_floats(long long n) { return size_t((n + 1) / 2); }
+
+Scratch scratch_of(int N, int L, int Din, int heads, int D, int A, bool bf16) {
   const int dk = D / heads;
   const long long M = (long long)N * L;
   const long long S = splits_of(M, kRowsPerSplit), Sn = splits_of(N, kColRows);
@@ -782,8 +920,27 @@ Scratch scratch_of(int N, int L, int Din, int heads, int D, int A) {
   s.part = size_t(p1 > p2 ? p1 : p2);
   s.cpart = size_t(Sn * (3LL * D > A ? 3LL * D : A));
   s.fix = long_fix(L, Din, dk) ? kFixLongBlocks * relu_fix_long_unit_floats(L, dk) : 0;
+  if (bf16) {
+    s.h3 = bf16_floats(3 * M * ld8(D));
+    s.dpre3 = bf16_floats(3 * M * ld8(A));
+    s.dqkv3 = bf16_floats(3 * M * ld8(3 * D));
+    s.xpad = Din % 8 ? bf16_floats(M * ld8(Din)) : 0;
+    s.w1p = bf16_floats((long long)A * ld8(D));
+    s.w1t = bf16_floats((long long)D * ld8(A));
+    s.wqkvp = bf16_floats(3LL * D * ld8(Din));
+    s.wqkvt = bf16_floats((long long)Din * ld8(3 * D));
+  }
   s.align();
   return s;
+}
+
+// K rows of one slice of a wgmma weight gradient over `tiles` output tiles:
+// about kWgBlocks blocks in all, a multiple of the k-tile, and at least
+// kRowsPerSplit (so no more slices than the fp32 products' `part` holds).
+inline int wg_rows_per_split(long long K, long long tiles, int KT) {
+  const long long slices = (kWgBlocks + tiles - 1) / tiles;
+  const long long per = ((K + slices - 1) / slices + KT - 1) / KT * KT;
+  return int(per > kRowsPerSplit ? per : kRowsPerSplit);
 }
 
 // out[0:C] = column sums of a [R, C] array of per-title parts (fixed slices
@@ -832,7 +989,10 @@ extern "C" int msa_encoder_bwd_init() {
     e = cudaFuncSetAttribute(msa_attn_fwd_long_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(msa_attn_bwd_long_kernel,
+    e = cudaFuncSetAttribute(msa_attn_bwd_long_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(msa_attn_bwd_long_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
   if (e == cudaSuccess) e = tc::init<true, true, kBNq, tc::kBias, true>();
   if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kPool, true>();
@@ -840,26 +1000,27 @@ extern "C" int msa_encoder_bwd_init() {
   if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDh, true>();
   if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDrop, true>();
   if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kStore, true>();
-  // the bf16 instance's products: q|k|v on the bf16 tensor cores, the rest
-  // at 2xTF32 with the bf16 operand exact, dx stored bf16
+  // the bf16 instance's products on wgmma: q|k|v one bf16 pass, the rest
+  // three or six, dx stored bf16
   using bf16 = __nv_bfloat16;
-  if (e == cudaSuccess) e = tc::init_bf16<kBNq, tc::kBias, true>();
-  if (e == cudaSuccess) e = tc::init<true, true, kBNp, tc::kPool, true, bf16>();
-  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDh, true, bf16>();
-  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kDrop, true, bf16, bf16>();
-  if (e == cudaSuccess) e = tc::init<true, false, kBN, tc::kStore, true, bf16, bf16>();
-  if (e == cudaSuccess) e = tc::init<false, false, kBN, tc::kStore, true, bf16>();
+  if (e == cudaSuccess) e = wg::init<kWgNx, 64, true, true, 1, 1, tc::kBias>();
+  if (e == cudaSuccess) e = wg::init<kWgN, 64, true, true, 3, 1, tc::kPool>();
+  if (e == cudaSuccess) e = wg::init<kWgN, 32, false, false, 3, 3, tc::kStore>();
+  if (e == cudaSuccess) e = wg::init<kWgNx, 64, true, true, 3, 1, tc::kDh>();
+  if (e == cudaSuccess) e = wg::init<kWgNx, 64, true, true, 3, 1, tc::kDrop, bf16, true>();
+  if (e == cudaSuccess) e = wg::init<kWgNx, 64, true, true, 3, 1, tc::kStore, bf16, true>();
+  if (e == cudaSuccess) e = wg::init<kWgN, 64, false, false, 3, 1, tc::kStore>();
   return static_cast<int>(e);
 }
 
-// Floats of scratch that msa_encoder_bwd_f32 needs (0 if the shapes are not
-// taken).
+// Floats of scratch that msa_encoder_bwd_f32 (bf16 0) or msa_encoder_bwd_bf16
+// (bf16 1) needs (0 if the shapes are not taken).
 extern "C" long long msa_encoder_bwd_scratch_floats(int N, int L, int Din, int heads, int dk,
-                                                    int A) {
+                                                    int A, int bf16) {
   if (N <= 0 || L <= 0 || L > kLongL || Din <= 0 || heads <= 0 || dk <= 0 || dk > kLongMaxDk ||
       A <= 0)
     return 0;
-  return (long long)scratch_of(N, L, Din, heads, heads * dk, A).total();
+  return (long long)scratch_of(N, L, Din, heads, heads * dk, A, bf16 != 0).total();
 }
 
 namespace {
@@ -880,7 +1041,7 @@ cudaError_t backward(const T* fx, const void* mask, const T* fw, const float* bq
       sizeof(float) * attn_bwd_long_floats(kLongL) > size_t(g_max_smem)) {
     return cudaErrorInvalidValue;
   }
-  const Scratch sz = scratch_of(N, L, Din, heads, D, A);
+  const Scratch sz = scratch_of(N, L, Din, heads, D, A, kBf16);
   T* xd = reinterpret_cast<T*>(scratch);
   float* qkv = scratch + sz.xd;
   float* h = qkv + sz.qkv;
@@ -897,6 +1058,16 @@ cudaError_t backward(const T* fx, const void* mask, const T* fw, const float* bq
   float* part = db1p + sz.db1p;
   float* cpart = part + sz.part;
   float* fixbuf = cpart + sz.cpart;
+  // the bf16 instance's planes and copies (tc_wgmma.cuh operands)
+  using bf16 = __nv_bfloat16;
+  bf16* h3 = reinterpret_cast<bf16*>(fixbuf + sz.fix);
+  bf16* dpre3 = reinterpret_cast<bf16*>(fixbuf + sz.fix + sz.h3);
+  bf16* dqkv3 = reinterpret_cast<bf16*>(fixbuf + sz.fix + sz.h3 + sz.dpre3);
+  bf16* xpad = reinterpret_cast<bf16*>(fixbuf + sz.fix + sz.h3 + sz.dpre3 + sz.dqkv3);
+  bf16* w1p = xpad + 2 * sz.xpad;
+  bf16* w1t = w1p + 2 * sz.w1p;
+  bf16* wqkvp = w1t + 2 * sz.w1t;
+  bf16* wqkvt = wqkvp + 2 * sz.wqkvp;
   const int M = N * L;
   const int S = splits_of(M, kRowsPerSplit);
   cudaError_t e;
@@ -924,11 +1095,37 @@ cudaError_t backward(const T* fx, const void* mask, const T* fw, const float* bq
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     xin = xd;
   }
-  // 2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv]
+  // the wgmma products' operands: x (or xd) with 16-byte rows where Din %
+  // 8, W1 and Wqkv as they are and transposed, each with 16-byte rows
+  wg::Operand xb{};
+  if constexpr (kBf16) {
+    xb = wg::Operand{xin, M, Din, Din, (long long)M * Din};
+    if (Din % 8) {
+      relayout_kernel<false><<<blocks_for((long long)M * Din / 4), kThreads, 0, st>>>(
+          xin, Din, M, Din, xpad);
+      xb = wg::Operand{xpad, M, Din, ld8(Din), (long long)M * ld8(Din)};
+    }
+    relayout_kernel<false><<<blocks_for((long long)A * D / 4), kThreads, 0, st>>>(fw1, D, A, D,
+                                                                                  w1p);
+    relayout_kernel<true><<<blocks_for((long long)A * D), kThreads, 0, st>>>(fw1, D, D, A, w1t);
+    relayout_kernel<false><<<blocks_for(3LL * D * Din / 4), kThreads, 0, st>>>(fw, Din, 3 * D,
+                                                                              Din, wqkvp);
+    relayout_kernel<true><<<blocks_for(3LL * D * Din), kThreads, 0, st>>>(fw, Din, Din, 3 * D,
+                                                                          wqkvt);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  auto plane_op = [&](const bf16* planes, int cols) {
+    return wg::Operand{planes, M, cols, ld8(cols), (long long)M * ld8(cols)};
+  };
+  // 2. qkv = xd [Wq|Wk|Wv]^T + [bq|0|bv] (bf16: one pass on wgmma)
   tc::Args a = args(xin, fw, qkv, M, 3 * D, Din, Din, Din, 3 * D, Din);
   a.bias = bqkv;
-  if (kBf16) e = tc::gemm_bf16<kBNq, tc::kBias, true>(st, a);
-  else e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a);
+  if constexpr (kBf16) {
+    e = wg::gemm<kWgNx, 64, true, true, 1, 1, tc::kBias>(
+        st, xb, wg::Operand{wqkvp, 3 * D, Din, ld8(Din), 3LL * D * ld8(Din)}, a);
+  } else {
+    e = tc::gemm<true, true, kBNq, tc::kBias, true>(st, a);
+  }
   if (e != cudaSuccess) return e;
   // 3. attention forward per unit, with the list of units to fix; 3b. the
   // marked units' ReLU again in float64
@@ -958,40 +1155,70 @@ cudaError_t backward(const T* fx, const void* mask, const T* fw, const float* bq
         xin, fw, bqkv, unsure, h, fixbuf, L, Din, heads, dk);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-  // 4. u = tanh(h W1^T + b1), lgpart = its v-product per warp column
+  // 4. u = tanh(h W1^T + b1), lgpart = its v-product per warp column (per
+  // block column on wgmma)
   a = args(h, fw1, u, M, A, D, D, D, A, D);
   a.bias = b1;
   a.v = v;
   a.lgpart = lgpart;
-  if ((e = tc::gemm<true, true, kBNp, tc::kPool, true, T>(st, a)) != cudaSuccess) return e;
-  // 5. the pool's softmax and its backward; dpre over u
-  (L > kL ? msa_pool_long_kernel : msa_pool_kernel)
+  int parts = tc::pool_parts<kBNp>(A);
+  if constexpr (kBf16) {
+    split3_kernel<<<blocks_for((long long)M * D / 4), kThreads, 0, st>>>(h, D, h3, M, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    e = wg::gemm<kWgN, 64, true, true, 3, 1, tc::kPool>(
+        st, plane_op(h3, D), wg::Operand{w1p, A, D, ld8(D), (long long)A * ld8(D)}, a);
+    parts = (A + kWgN - 1) / kWgN;
+  } else {
+    e = tc::gemm<true, true, kBNp, tc::kPool, true>(st, a);
+  }
+  if (e != cudaSuccess) return e;
+  // 5. the pool's softmax and its backward; dpre over u (bf16: as the
+  // three planes of steps 6 and 7's operand, dpre3)
+  (L > kL ? msa_pool_long_kernel<kBf16> : msa_pool_kernel<kBf16>)
       <<<(N + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
-          lgpart, tc::pool_parts<kBNp>(A), static_cast<const unsigned char*>(mask), dap, v, u,
-          alpha, dvp, db1p, N, L, heads, A);
+          lgpart, parts, static_cast<const unsigned char*>(mask), dap, v, u, dpre3, alpha, dvp,
+          db1p, N, L, heads, A);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   float* dpre = u;
   // 6. dW1 = dpre^T h, split over rows
-  a = args(dpre, h, part, A, D, M, A, D, D, kRowsPerSplit);
-  if ((e = tc::gemm<false, false, kBN, tc::kStore, true>(st, a)) != cudaSuccess) return e;
-  if ((e = sum_splits(st, part, dw1, (long long)A * D, S)) != cudaSuccess) return e;
+  int slices = S;
+  if constexpr (kBf16) {
+    const int per = wg_rows_per_split(M, (long long)((D + kWgN - 1) / kWgN) *
+                                             ((A + wg::kBM - 1) / wg::kBM), 32);
+    a = args(nullptr, nullptr, part, A, D, M, 0, 0, D, per);
+    e = wg::gemm<kWgN, 32, false, false, 3, 3, tc::kStore>(st, plane_op(dpre3, A),
+                                                             plane_op(h3, D), a);
+    slices = splits_of(M, per);
+  } else {
+    a = args(dpre, h, part, A, D, M, A, D, D, kRowsPerSplit);
+    e = tc::gemm<false, false, kBN, tc::kStore, true>(st, a);
+  }
+  if (e != cudaSuccess) return e;
+  if ((e = sum_splits(st, part, dw1, (long long)A * D, slices)) != cudaSuccess) return e;
   // 7. dO = (alpha dp + dpre W1) * (h > 0)
   a = args(dpre, fw1, dO, M, D, A, A, D, D, A);
   a.alpha = alpha;
   a.dp = fdp;
   a.h = h;
   a.title = L;
-  if ((e = tc::gemm<true, false, kBN, tc::kDh, true, T>(st, a)) != cudaSuccess) return e;
-  // 8. attention backward per unit; dq|dk|dv over q|k|v
+  if constexpr (kBf16) {
+    e = wg::gemm<kWgNx, 64, true, true, 3, 1, tc::kDh>(
+        st, plane_op(dpre3, A), wg::Operand{w1t, D, A, ld8(A), (long long)D * ld8(A)}, a);
+  } else {
+    e = tc::gemm<true, false, kBN, tc::kDh, true>(st, a);
+  }
+  if (e != cudaSuccess) return e;
+  // 8. attention backward per unit; dq|dk|dv over q|k|v (bf16: as the
+  // three planes of steps 9 and 10's operand, dqkv3)
   if (!short_path) {
-    msa_attn_bwd_long_kernel<<<N * heads, long_threads(L),
-                               sizeof(float) * attn_bwd_long_floats(L), st>>>(
-        qkv, dO, lse, dbp, L, heads, dk, scale);
+    msa_attn_bwd_long_kernel<kBf16><<<N * heads, long_threads(L),
+                                      sizeof(float) * attn_bwd_long_floats(L), st>>>(
+        qkv, dO, lse, dbp, dqkv3, L, heads, dk, scale);
     e = cudaGetLastError();
   } else e = with_title_length(L, [&](auto fixed) {
-    msa_attn_bwd_kernel<decltype(fixed)::value>
+    msa_attn_bwd_kernel<decltype(fixed)::value, kBf16>
         <<<N * heads, kAttnThreads, sizeof(float) * attn_bwd_floats(dk), st>>>(
-            qkv, dO, lse, dbp, L, heads, dk, scale);
+            qkv, dO, lse, dbp, dqkv3, L, heads, dk, scale);
     return cudaGetLastError();
   });
   if (e != cudaSuccess) return e;
@@ -1004,15 +1231,31 @@ cudaError_t backward(const T* fx, const void* mask, const T* fw, const float* bq
     a.seed = seed;
     a.site = site;
     a.title = L;
-    e = tc::gemm<true, false, kBN, tc::kDrop, true, T, T>(st, a);
+  }
+  if constexpr (kBf16) {
+    const wg::Operand wt{wqkvt, Din, 3 * D, ld8(3 * D), (long long)Din * ld8(3 * D)};
+    const wg::Operand dq = plane_op(dqkv3, 3 * D);
+    e = thresh ? wg::gemm<kWgNx, 64, true, true, 3, 1, tc::kDrop, bf16, true>(st, dq, wt, a)
+               : wg::gemm<kWgNx, 64, true, true, 3, 1, tc::kStore, bf16, true>(st, dq, wt, a);
   } else {
-    e = tc::gemm<true, false, kBN, tc::kStore, true, T, T>(st, a);
+    e = thresh ? tc::gemm<true, false, kBN, tc::kDrop, true, T, T>(st, a)
+               : tc::gemm<true, false, kBN, tc::kStore, true, T, T>(st, a);
   }
   if (e != cudaSuccess) return e;
   // 10. dWqkv = dqkv^T xd, split over rows
-  a = args(qkv, xin, part, 3 * D, Din, M, 3 * D, Din, Din, kRowsPerSplit);
-  if ((e = tc::gemm<false, false, kBN, tc::kStore, true, T>(st, a)) != cudaSuccess) return e;
-  if ((e = sum_splits(st, part, dwqkv, 3LL * D * Din, S)) != cudaSuccess) return e;
+  if constexpr (kBf16) {
+    const int per = wg_rows_per_split(M, (long long)((Din + kWgN - 1) / kWgN) *
+                                             ((3 * D + wg::kBM - 1) / wg::kBM), 64);
+    a = args(nullptr, nullptr, part, 3 * D, Din, M, 0, 0, Din, per);
+    e = wg::gemm<kWgN, 64, false, false, 3, 1, tc::kStore>(st, plane_op(dqkv3, 3 * D), xb, a);
+    slices = splits_of(M, per);
+  } else {
+    a = args(qkv, xin, part, 3 * D, Din, M, 3 * D, Din, Din, kRowsPerSplit);
+    e = tc::gemm<false, false, kBN, tc::kStore, true>(st, a);
+    slices = S;
+  }
+  if (e != cudaSuccess) return e;
+  if ((e = sum_splits(st, part, dwqkv, 3LL * D * Din, slices)) != cudaSuccess) return e;
   // 11. the bias and v gradients from the per-title parts
   if ((e = colsum(st, dbp, N, 3 * D, cpart, dbqkv)) != cudaSuccess) return e;
   if ((e = colsum(st, db1p, N, A, cpart, db1)) != cudaSuccess) return e;

@@ -38,6 +38,43 @@ __host__ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t 
   return Philox4{c0, c1, c2, c3};
 }
 
+// The ten round keys of a (seed, site) stream, (seed + r W0, site + r W1) in
+// round r: computed once on the host and passed by value, a kernel's rounds
+// read them as constants instead of adding them up in every thread.
+struct PhiloxKeys {
+  uint32_t k0[10], k1[10];
+};
+
+__host__ __device__ inline PhiloxKeys philox_keys(uint32_t seed, uint32_t site) {
+  PhiloxKeys k;
+  for (int r = 0; r < 10; ++r) {
+    k.k0[r] = seed;
+    k.k1[r] = site;
+    seed += 0x9E3779B9u;
+    site += 0xBB67AE85u;
+  }
+  return k;
+}
+
+// philox4x32_10 at counter (c0, c1, 0, 0) under round keys `k`: the same
+// words as philox4x32_10(c0, c1, 0, 0, seed, site) for k = philox_keys(seed,
+// site).
+__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1, const PhiloxKeys& k) {
+  uint32_t c2 = 0u, c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint64_t p0 = uint64_t(0xD2511F53u) * c0;
+    const uint64_t p1 = uint64_t(0xCD9E8D57u) * c2;
+    const uint32_t hi0 = uint32_t(p0 >> 32), lo0 = uint32_t(p0);
+    const uint32_t hi1 = uint32_t(p1 >> 32), lo1 = uint32_t(p1);
+    c0 = hi1 ^ c1 ^ k.k0[r];
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k.k1[r];
+    c3 = lo0;
+  }
+  return Philox4{c0, c1, c2, c3};
+}
+
 // The four draws of elements 4*group .. 4*group+3 of `row`.
 __host__ __device__ __forceinline__ Philox4 dropout_draws(uint32_t row, uint32_t group,
                                                           uint32_t seed, uint32_t site) {
@@ -56,21 +93,6 @@ __device__ __forceinline__ float4 dropout_value4(float4 v, const Philox4& d, uin
                                                  float scale) {
   return make_float4(dropout_value(v.x, d.x, thresh, scale), dropout_value(v.y, d.y, thresh, scale),
                      dropout_value(v.z, d.z, thresh, scale), dropout_value(v.w, d.w, thresh, scale));
-}
-
-// The same on a bf16 tensor, as XLA computes jnp.where(mask, x / keep,
-// 0).astype(bf16) for a bf16 x: `keep` is the fp32 value of 1 - rate rounded
-// to bf16 (a weak-typed Python scalar takes x's dtype), the quotient is an
-// fp32 division rounded to nearest, and the caller rounds it to bf16.
-__device__ __forceinline__ float dropout_divide(float v, uint32_t draw, uint32_t thresh,
-                                                float keep) {
-  return draw >= thresh ? __fdiv_rn(v, keep) : 0.f;
-}
-
-__device__ __forceinline__ float4 dropout_divide4(float4 v, const Philox4& d, uint32_t thresh,
-                                                  float keep) {
-  return make_float4(dropout_divide(v.x, d.x, thresh, keep), dropout_divide(v.y, d.y, thresh, keep),
-                     dropout_divide(v.z, d.z, thresh, keep), dropout_divide(v.w, d.w, thresh, keep));
 }
 
 }  // namespace digat

@@ -50,8 +50,8 @@ SIGNATURES = {
     "msa_encoder_pooled_f32": ([_P] * 9 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
     # the same, x, wqkv and w1 bf16
     "msa_encoder_pooled_bf16": ([_P] * 9 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
-    # N, L, Din, heads, dk, A -> floats of scratch
-    "msa_encoder_bwd_scratch_floats": ([_I] * 6, _LL),
+    # N, L, Din, heads, dk, A, bf16 instance -> floats of scratch
+    "msa_encoder_bwd_scratch_floats": ([_I] * 7, _LL),
     # x, mask, wqkv, bqkv, w1, b1, v, dp, dx, dwqkv, dbqkv, dw1, db1, dv, scratch,
     # N, L, Din, heads, dk, A, scale, thresh, drop_scale, seed, site, stream
     "msa_encoder_bwd_f32": ([_P] * 15 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),
@@ -61,8 +61,9 @@ SIGNATURES = {
     "dropout_keep_mask_u8": ([_P, _LL, _I, _LL, _U, _U, _U, _P], _I),
     # x, out, rows, cols, row_offset, seed, site, thresh, scale, stream
     "dropout_apply_f32": ([_P, _P, _LL, _I, _LL, _U, _U, _U, _F, _P], _I),
-    # the same on bf16 x and out, keep_value in the place of scale
-    "dropout_apply_bf16": ([_P, _P, _LL, _I, _LL, _U, _U, _U, _F, _P], _I),
+    # the same on bf16 x and out, inv_keep in the place of scale, then the
+    # row division's magic and shift
+    "dropout_apply_bf16": ([_P, _P, _LL, _I, _LL, _U, _U, _U, _F, _U, _I, _P], _I),
     # x, q, wy, by, w3, b3, y, k3, M, B, Dp, stream
     "gat_layer_project_f32": ([_P] * 8 + [_I] * 3 + [_P], _I),
     # the same, wy and w3 bf16

@@ -32,13 +32,22 @@ On a bf16 tensor (`compute_dtype` bfloat16) the JAX package runs XLA's
 takes x's dtype: it divides by `bf16_keep(rate)` (0.80078125 at rate 0.2)
 in fp32 and rounds the quotient to bf16 (measured on JAX's CPU backend:
 the fp32 division rounded once gives its bits). `dropout_plain` does the
-same, and the card's bf16 instance (`dropout_apply_bf16`, counted on
-`dropout.launches_bf16`) gives the same bits, forward and on the gradient
-(the VJP of x / keep is g / keep, rounded to bf16). Kernel A's in-kernel
+same. The card's bf16 instance (`dropout_apply_bf16`, counted on
+`dropout.launches_bf16`) multiplies by `bf16_inv_keep(rate)`, the fp32
+value of 1 / keep, instead of dividing: over every bf16 x and every bf16
+keep above 2^-128 the product rounded to bf16 equals the quotient rounded
+to bf16 (`tests/test_torch_bf16_split.py`, exhaustively), and every rate in
+[0, 1) gives a keep of 2^-53 or more, so it gives the plain version's
+bits, forward and on the gradient (the VJP of x / keep is g / keep, rounded
+to bf16). Its index math is 32-bit: a group of four's row is a
+multiply-shift division (`divider`), and a tensor of 2^31 groups of four
+or more is refused. Kernel A's in-kernel
 word dropout keeps its own rule (`ops.msa_encoder.drop_titles_plain`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -109,9 +118,34 @@ def keep_mask(rows: int, cols: int, rate: float, seed: int, site: int,
     return out
 
 
+@functools.lru_cache(maxsize=64)
 def bf16_keep(rate: float) -> float:
     """1 - rate rounded to bf16, as a weak-typed scalar meets a bf16 x."""
     return float(torch.tensor(1.0 - rate, dtype=torch.bfloat16))
+
+
+@functools.lru_cache(maxsize=64)
+def bf16_inv_keep(rate: float) -> float:
+    """The fp32 value of 1 / bf16_keep(rate) (an fp32 division, rounded to
+    nearest): the bf16 kernel's factor."""
+    one = torch.ones((), dtype=torch.float32)
+    return float(one / torch.tensor(bf16_keep(rate), dtype=torch.float32))
+
+
+# the bf16 kernel's index limit: groups of four (and a thread's index) in 31 bits
+MAX_GROUPS = 2**31 - 1
+
+
+@functools.lru_cache(maxsize=256)
+def divider(d: int) -> tuple:
+    """(magic, shift) with n // d == (n * magic) >> shift for every n in
+    [0, 2^31) (magic < 2^32): shift = 31 + ceil(log2 d), magic =
+    ceil(2^shift / d). The bf16 kernel's division of a group index by the
+    row's groups."""
+    if not 1 <= d < 2**31:
+        raise ValueError(f"divider: d must be in [1, 2^31), got {d}")
+    shift = 31 + (d - 1).bit_length()
+    return -(-(1 << shift) // d), shift
 
 
 def dropout_plain(x: torch.Tensor, rate: float, seed: int, site: int) -> torch.Tensor:
@@ -128,7 +162,8 @@ def dropout_plain(x: torch.Tensor, rate: float, seed: int, site: int) -> torch.T
 
 
 def _apply(x: torch.Tensor, args) -> torch.Tensor:
-    """One launch of `dropout_apply_f32` (or `_bf16`) on the contiguous x."""
+    """One launch of `dropout_apply_f32` (or `_bf16`) on the contiguous x;
+    `args` ends with the bf16 kernel's (magic, shift) where x is bf16."""
     out = torch.empty_like(x)
     cols = x.shape[-1]
     bf16 = x.dtype == torch.bfloat16
@@ -168,8 +203,15 @@ def dropout(x: torch.Tensor, rate: float, seed: int, site: int) -> torch.Tensor:
         raise TypeError(f"dropout: the kernel takes float32 or bfloat16, got {x.dtype}")
     if x.numel() == 0:
         return x.clone()
-    factor = bf16_keep(rate) if x.dtype == torch.bfloat16 else 1.0 / (1.0 - rate)
-    args = (seed & _MASK32, site & _MASK32, threshold(rate), factor)
+    args = (seed & _MASK32, site & _MASK32, threshold(rate))
+    if x.dtype == torch.bfloat16:
+        per_row = -(-x.shape[-1] // 4)
+        if x.numel() // x.shape[-1] * per_row > MAX_GROUPS:
+            raise ValueError(f"dropout: the bf16 kernel takes fewer than 2^31 groups of four, got "
+                             f"{tuple(x.shape)}")
+        args += (bf16_inv_keep(rate), *divider(per_row))
+    else:
+        args += (1.0 / (1.0 - rate),)
     if torch.is_grad_enabled() and x.requires_grad:
         return DropoutFunction.apply(x, args)
     return _apply(x.contiguous(), args)

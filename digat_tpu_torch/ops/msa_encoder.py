@@ -34,11 +34,13 @@ fallback: a CUDA tensor launches the kernels or raises.
 bf16 (`compute_dtype` bfloat16): x and the weights bf16, the result fp32,
 as the JAX kernel takes them. The bf16 instances (`*_bf16` entry points,
 their own launch counters `launches_bf16`) run the q|k|v product on the
-bf16 tensor cores with exact products and fp32 sums, and the products of
-an fp32 operand with a bf16 weight at 2xTF32; attention and the pool's
-softmax stay fp32. The word dropout rounds each kept x / (1 - rate) to
-bf16 once (round to nearest even), as the TPU kernel's product rounds its
-fp32 operand. A' stores dx in bf16, rounded once after the mask, and
+bf16 tensor cores with exact products and fp32 sums. A's bf16 instance
+runs its pool product (fp32 h, bf16 W1) at 2xTF32; A''s runs its other
+five products on wgmma fed by the TMA (`csrc/tc_wgmma.cuh`), every fp32
+operand split into three bf16 terms (three bf16 passes against a bf16
+operand, six for dpre^T h). Attention and the pool's softmax stay fp32.
+The word dropout rounds each kept x / (1 - rate) to bf16 once (round to
+nearest even), as the TPU kernel's product rounds its fp32 operand. A' stores dx in bf16, rounded once after the mask, and
 returns fp32 weight gradients; autograd rounds those to the bf16 copies'
 dtype, as the transpose of JAX's cast does. A bias or pool vector in bf16
 is upcast by the wrapper (exact).
@@ -299,8 +301,9 @@ def msa_encoder_bwd(x, mask, wq, bq, wk, wv, bv, w1, b1, v, dp, heads: int,
                       for t in (wq, bq, wk, wv, bv, w1, b1, v)))
     dp, b1, v = (_upcast(t).contiguous() for t in (dp, b1, v))
     with build.launch_on(dev) as (lib, stream):
-        scratch = torch.empty(lib.msa_encoder_bwd_scratch_floats(N, L, Din, heads, dk, A),
-                              dtype=torch.float32, device=dev)
+        floats = lib.msa_encoder_bwd_scratch_floats(N, L, Din, heads, dk, A,
+                                                    int(x.dtype == torch.bfloat16))
+        scratch = torch.empty(floats, dtype=torch.float32, device=dev)
         err = getattr(lib, f"msa_encoder_bwd_{_suffix(x)}")(
             x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), w1_r.data_ptr(),
             b1.data_ptr(), v.data_ptr(), dp.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(),

@@ -2,7 +2,7 @@
 """Kernels A, A', C and the attention pair timed in turns: one tree of the
 package against another on the same card.
 
-    python3 scripts/kernel_turns.py --other OTHER_TREE [--rounds 2]
+    python3 scripts/kernel_turns.py --other OTHER_TREE [--rounds 2] [--step] [--stages]
 
 OTHER_TREE is another checkout's root (for example the parent commit
 unpacked with `git archive` into a directory that `.gitignore` lists). Each
@@ -14,23 +14,40 @@ shapes:
   A  L 32, N 8,960, word dropout 0.2 (the training step's unique titles)
   A  L 32, N 1,024 (the serving chunk)
   A  L 16, N 4,096 at the parity matrix's widths (Din 100, 10 x 20, A 64)
-  A' L 32, N 8,960, word dropout 0.2
+  A' L 32, N 8,960, word dropout 0.2, fp32 and bf16 (x and the weight
+     matrices bf16, as compute_dtype bfloat16 passes them)
+  A'' bf16 forward at the NRMS word site [215,040, 300] and the CNN's word
+     and bank sites [286,720, 300] and [286,720, 400], beside F.dropout on
+     the same bf16 tensor
   the attention pair forward and backward at the NRMS-SA training titles
      [6,720, 32, 20 x 20] and user histories [64, 50, 20 x 20]
   C  forward and backward at B 320, G 68 and 26, D 400 (k1 and k2 column
      blocks of a fused projection, as the training GAT layer passes them)
 
-on inputs drawn from one seed in every process. The turns run this tree,
+on inputs drawn from one seed in every process. With --step each turn also
+runs one Trainer epoch of MSA-DIGAT at compute_dtype bfloat16, B 64 (the
+setting of chip_smoke.py's phase 20, built with that tree's chip_smoke.py
+helpers) and reports its median step after two warm-up steps. The turns run this tree,
 the other, the other, this tree (`--rounds` times), and the script prints
 each turn's times and, per setting, the range of each tree. Both trees are
-built first, in parallel. Needs a CUDA device; imports nothing of JAX.
+built first, in parallel.
 
-    python3 scripts/kernel_turns.py --worker TREE   (one turn, one JSON line)
+With --stages, before the turns, one process a tree profiles A' bf16 (the
+setting above) launch by launch with torch.profiler (this checkout's
+chip_smoke.py `stage_split`, 5 calls) and prints each launch's device ms
+and each of the six products' TFLOP/s and share of its pass type's dense
+peak (`msa_bwd_product_rates`: on wgmma q|k|v one bf16 pass, dW1 six, the
+rest three; on mma.sync q|k|v one bf16 pass, dW1 three TF32 passes, the
+rest two), and A'' bf16's device ms at its three sites. Needs a CUDA
+device; imports nothing of JAX.
+
+    python3 scripts/kernel_turns.py --worker TREE [--step | --stages]   (one JSON line)
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -39,11 +56,48 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def worker(tree: str) -> dict:
+def smoke_here():
+    """This checkout's chip_smoke.py, loaded apart from the tree's own."""
+    spec = importlib.util.spec_from_file_location("smoke_here", os.path.join(HERE,
+                                                                             "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def bf16_step_ms(torch, dev) -> float:
+    """Median step (after two warm-up steps) of one Trainer epoch of
+    MSA-DIGAT at compute_dtype bfloat16, B 64, as chip_smoke.py's phase 20
+    runs it (the tree's own chip_smoke.py helpers)."""
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+
+    import chip_smoke as S
+    from digat_tpu_torch.config import Config
+    from digat_tpu_torch.models.model import Model
+    from digat_tpu_torch.train.trainer import Trainer
+
+    cfg = replace(Config(dataset="synthetic", vocabulary_size=40_000, category_num=18),
+                  compute_dtype="bfloat16")
+    tables = S.make_tables(torch, cfg, 20_000, dev, S.SEED)
+    model = Model(cfg, device=dev, generator=torch.Generator().manual_seed(S.SEED + 20))
+    corpus = S.make_train_corpus(cfg, tables, (S.TRAIN_STEPS + 2) * cfg.batch_size, 2000, 32,
+                                 S.SEED + 25)
+    with tempfile.TemporaryDirectory() as run_dir:
+        (rec,) = Trainer(model, replace(cfg, epoch_override=1, dedup_titles=-1), corpus,
+                         run_dir, verbose=False).train()
+    return float(np.median(rec["step_ms"][2:]))
+
+
+def worker(tree: str, step: bool, stages: bool = False) -> dict:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
+    from digat_tpu_torch.ops import dropout as DR
     from digat_tpu_torch.ops import gat_scores as GS
     from digat_tpu_torch.ops import msa_attention as MA
     from digat_tpu_torch.ops import msa_encoder as ME
@@ -82,14 +136,30 @@ def worker(tree: str) -> dict:
 
     out = {}
     a32 = msa_args(8960, 32, 300, 16, 25, 256, 1)
+    dp = torch.randn((8960, 400), generator=torch.Generator(device=dev).manual_seed(4),
+                     device=dev)
+    b32 = tuple(t.to(torch.bfloat16) if i in (0, 2, 4, 5, 7) else t for i, t in enumerate(a32))
+    sites = [(f"{what} [{rows},{cols}]", torch.randn(
+        (rows, cols), generator=torch.Generator(device=dev).manual_seed(rows + cols),
+        device=dev).to(torch.bfloat16)) for what, rows, cols in (
+            ("NRMS words", 215040, 300), ("CNN words", 286720, 300), ("CNN bank", 286720, 400))]
+    if stages:  # launches with their device ms, from this checkout's chip_smoke.py
+        split = smoke_here().stage_split
+        out["A' bf16"] = split(torch, lambda: ME.msa_encoder_bwd(*b32, dp, 16, 0.2, 7, 1))
+        for what, t in sites:
+            out[f"A'' bf16 {what}"] = split(torch, lambda: DR.dropout(t, 0.2, 77, 5))
+        return out
     out["A L32 N8960 dropout"] = time_ms(lambda: ME.msa_encoder_pooled(*a32, 16, 0.2, 7, 1))
     s32 = msa_args(1024, 32, 300, 16, 25, 256, 2)
     out["A L32 N1024"] = time_ms(lambda: ME.msa_encoder_pooled(*s32, 16))
     a16 = msa_args(4096, 16, 100, 10, 20, 64, 3)
     out["A L16 N4096"] = time_ms(lambda: ME.msa_encoder_pooled(*a16, 10))
-    dp = torch.randn((8960, 400), generator=torch.Generator(device=dev).manual_seed(4),
-                     device=dev)
     out["A' L32 N8960 dropout"] = time_ms(lambda: ME.msa_encoder_bwd(*a32, dp, 16, 0.2, 7, 1))
+    out["A' bf16 L32 N8960 dropout"] = time_ms(lambda: ME.msa_encoder_bwd(*b32, dp, 16, 0.2, 7,
+                                                                          1))
+    for what, t in sites:
+        out[f"A'' bf16 {what}"] = time_ms(lambda: DR.dropout(t, 0.2, 77, 5))
+        out[f"F.dropout bf16 {what}"] = time_ms(lambda: F.dropout(t, 0.2))
     for what, N, L in (("titles", 6720, 32), ("user", 64, 50)):
         g = torch.Generator(device=dev).manual_seed(N + L)
         q, k, v, do = (torch.randn((N, L, 400), generator=g, device=dev) for _ in range(4))
@@ -108,6 +178,8 @@ def worker(tree: str) -> dict:
         k1, k2 = y[..., 400:800], y[..., 800:]
         out[f"C fwd B320 G{G}"] = time_ms(lambda: GS.gat_scores_fwd(k1, k2, k3, a))
         out[f"C bwd B320 G{G}"] = time_ms(lambda: GS.gat_scores_bwd(k1, k2, k3, a, gs))
+    if step:
+        out["bf16 MSA-DIGAT step B64"] = [bf16_step_ms(torch, dev)]
     return out
 
 
@@ -115,10 +187,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="the other tree's root")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--step", action="store_true",
+                    help="also time a bf16 MSA-DIGAT training step at B 64 in each turn")
+    ap.add_argument("--stages", action="store_true",
+                    help="first profile A' bf16 and A'' bf16 launch by launch on each tree")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, args.step, args.stages)), flush=True)
         return 0
     import torch
 
@@ -135,11 +211,26 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                            "-i", "0"], capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
+    if args.stages:
+        S = smoke_here()
+        for name, tree in trees.items():
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree,
+                                  "--stages"], capture_output=True, text=True, cwd=tree)
+            if res.returncode:
+                print(res.stderr, file=sys.stderr)
+                return 1
+            split = json.loads(res.stdout.strip().splitlines()[-1])
+            print(f"stages, {name} tree ({tree}):", flush=True)
+            for what, stages in split.items():
+                S.say_stages(what, stages)
+                if what == "A' bf16":
+                    S.say_product_rates(S.msa_bwd_product_rates(stages, 8960, 32, 300, 400, 256))
     runs = {"this": [], "other": []}
     for _ in range(args.rounds):
         for name in ("this", "other", "other", "this"):
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                                  trees[name]], capture_output=True, text=True, cwd=trees[name])
+                                  trees[name], *(["--step"] if args.step else [])],
+                                 capture_output=True, text=True, cwd=trees[name])
             if res.returncode:
                 print(res.stderr, file=sys.stderr)
                 return 1

@@ -3,13 +3,14 @@
 output, and why: the ReLU after the attention.
 
     python3 scripts/msa_bwd_precision.py [N ...] [--seeds S ...] [--geometry prod|matrix]
-        [--title-length L]
+        [--title-length L] [--bf16]
 
 Builds the setting of `chip_smoke.py`'s phase 7 (full-width MSA-DIGAT,
 random weights from a seed, the seeded 20,000-news corpus, word dropout
 0.2) and, for each title count N (default 8,960, the dedup capacity at
 B 64), prints for each of A''s nine outputs the limit of the kernel gate
-(1e-4 * max(1, max |plain|)) beside max |kernel - plain|, max |kernel -
+(1e-4 * max(1, max |plain|)) beside max |kernel - plain| (a bf16 dx past
+one bf16 ulp of the plain element, as the gate takes it), max |kernel -
 fp64| and max |plain - fp64|, where fp64 is the plain version in float64.
 
 Then, at the largest N, the pre-activations o = P v of the attention (the
@@ -31,8 +32,14 @@ as a share of its limit. `--geometry matrix` runs the parity matrix's
 widths instead of the production ones: titles of L 16, 100-d words, 10 x 20
 heads, attention 64 (scripts/torch_parity_cells.py GEOMETRY).
 `--title-length L` sets the titles' length (the corpus's titles are made at
-that length; L 33-128 runs the kernels' long unit). Needs a CUDA device;
-imports nothing of JAX.
+that length; L 33-128 runs the kernels' long unit). `--bf16` runs A''s
+bf16 instance: x and the weight matrices rounded to bf16 (as
+compute_dtype bfloat16 passes them), the plain versions on the same bf16
+values; the pre-activations then come from its Q|K|V product as the wgmma
+route sums it (exact bf16 products, each 64-deep k-tile's sum rounded to
+fp32, the tiles added in fp32 in order; emulated, the tile sums in
+float64) and, beside it, as kernel A's bf16 instance sums it (32-deep
+tiles). Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -72,6 +79,17 @@ def tf32x3(a, w):
     return al.double() @ wh.double() + ah.double() @ wl.double() + ah.double() @ wh.double()
 
 
+def bf16_tiles(a, w, kt=64):
+    """a @ w for bf16 a [..., K] and w [K, N] as the bf16 tensor-core route
+    sums it: each kt-deep tile's exact products summed (in float64 here) and
+    rounded to fp32, the tiles added in fp32 in order."""
+    acc = None
+    for k0 in range(0, a.shape[-1], kt):
+        part = (a[..., k0:k0 + kt].double() @ w[k0:k0 + kt].double()).float()
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def attention(q, k, v, heads):
     """Pre-activations o = P v and sum_j p_ij |v_jc|, flat."""
     N, L, D = q.shape
@@ -83,7 +101,7 @@ def attention(q, k, v, heads):
     return o.reshape(-1), s.reshape(-1)
 
 
-def one_seed(cfg, dev, sizes, offset):
+def one_seed(cfg, dev, sizes, offset, bf16=False):
     heads = cfg.MSA_head_num
     seed, drop_seed = smoke.SEED + offset, DROP_SEED + offset
     model = Model(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
@@ -93,11 +111,15 @@ def one_seed(cfg, dev, sizes, offset):
     w = [t.detach() for t in (mha.W_Q.weight.t(), mha.W_Q.bias, mha.W_K.weight.t(),
                               mha.W_V.weight.t(), mha.W_V.bias, pool.affine1.weight.t(),
                               pool.affine1.bias, pool.affine2.weight[0])]
+    if bf16:  # the compute copy's bf16 matrices
+        w = [t.to(torch.bfloat16) if t.dim() == 2 else t for t in w]
     worst = (0.0, "")
     for n in sizes:
         text, tmask = tables.news_title_text[:n], tables.news_title_mask[:n].contiguous()
         with torch.no_grad():
             x = ne.word_embedding.weight[text].contiguous()
+            if bf16:
+                x = x.to(torch.bfloat16)
         dp = torch.randn((n, cfg.news_embedding_dim),
                          generator=torch.Generator(device=dev).manual_seed(seed + 5),
                          device=dev)
@@ -106,9 +128,12 @@ def one_seed(cfg, dev, sizes, offset):
         ref64 = ME.msa_encoder_bwd_plain(x.double(), tmask, *(t.double() for t in w),
                                          dp.double(), heads, RATE, drop_seed, SITE)
         for name, a, b, c in zip(NAMES, got, ref, ref64):
+            # a bf16 output (dx) may also lie one bf16 ulp of the plain
+            # element apart, as the kernel gate allows
+            ulp = smoke.bf16_ulp(torch, b).double() if a.dtype == torch.bfloat16 else 0.0
             a, b = a.double(), b.double()
             limit = 1e-4 * max(1.0, float(b.abs().max()))
-            gap = float((a - b).abs().max())
+            gap = float(((a - b).abs() - ulp).clamp(min=0).max())
             worst = max(worst, (gap / limit, f"{name} at N {n}"))
             print(f"seed +{offset} N {n} {name}: limit {limit:.3e} |kernel - plain| "
                   f"{gap:.3e} |kernel - fp64| "
@@ -119,6 +144,24 @@ def one_seed(cfg, dev, sizes, offset):
     wq, bq, wk, wv, bv = w[:5]
     with torch.no_grad():
         xd = ME.drop_titles_plain(x, RATE, drop_seed, SITE)
+        if bf16:
+            bq, bv = bq.float(), bv.float()
+            x64 = xd.double()
+            o64, s64 = attention(x64 @ wq.double() + bq.double(), x64 @ wk.double(),
+                                 x64 @ wv.double() + bv.double(), heads)
+            for what, kt in (("wgmma, 64-deep tiles", 64), ("kernel A's mma.sync, 32-deep", 32)):
+                o, _ = attention(bf16_tiles(xd, wq, kt) + bq, bf16_tiles(xd, wk, kt),
+                                 bf16_tiles(xd, wv, kt) + bv, heads)
+                flips = (o > 0) != (o64 > 0)
+                missed = flips & (o.double().abs() > RELU_TOL * s64)
+                print(f"seed +{offset} N {n} bf16 Q|K|V as {what}: largest gap of the "
+                      f"pre-activations from fp64 relative to sum_j p|v| "
+                      f"{float(((o.double() - o64).abs() / s64).max()):.3e} (kReluTol "
+                      f"{RELU_TOL:g}); sides of 0 that differ {int(flips.sum())}, of these "
+                      f"outside kReluTol {int(missed.sum())}", flush=True)
+            print(f"seed +{offset}: worst |kernel - plain| {worst[0]:.3f} of its limit "
+                  f"({worst[1]})", flush=True)
+            return
         o32, _ = attention(xd @ wq + bq, xd @ wk, xd @ wv + bv, heads)
         x64 = xd.double()
         o64, s64 = attention(x64 @ wq.double() + bq.double(), x64 @ wk.double(),
@@ -151,6 +194,7 @@ def main() -> int:
     ap.add_argument("--seeds", nargs="+", type=int, default=[0])
     ap.add_argument("--geometry", choices=("prod", "matrix"), default="prod")
     ap.add_argument("--title-length", type=int, default=0)
+    ap.add_argument("--bf16", action="store_true", help="A''s bf16 instance")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("msa_bwd_precision: no CUDA device", file=sys.stderr)
@@ -165,7 +209,7 @@ def main() -> int:
           f"{cfg.max_title_length}, Din {cfg.word_embedding_dim}, {cfg.MSA_head_num} x "
           f"{cfg.MSA_head_dim} heads, A {cfg.attention_dim}", flush=True)
     for offset in args.seeds:
-        one_seed(cfg, dev, args.sizes, offset)
+        one_seed(cfg, dev, args.sizes, offset, args.bf16)
         torch.cuda.empty_cache()
     return 0
 

@@ -70,8 +70,16 @@ def test_msa_encoder_bf16_kernel(cuda, N, Din, heads, dk, A, L, rate):
     assert torch.equal(out, ME.msa_encoder_pooled(*args, dropout_rate=rate, seed=7, site=2))
 
 
+# A''s bf16 instance also at the edges of its wgmma products' tiles (128
+# rows, 128 or 152 columns, 64-deep k-tiles): M = N L not a multiple of 128
+# (N 37 at L 32 above; N 29 at L 33), K 300 and 1,200 (D 300 and Din
+# 1,200: u's and dx's K against the k-tile, dO's N 300), one title, dk 128
+_BWD_CASES = _CASES + [(29, 300, 16, 25, 256, 33), (9, 1200, 12, 25, 256, 32),
+                       (1, 300, 16, 25, 256, 32), (3, 300, 4, 128, 256, 32)]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("N,Din,heads,dk,A,L", _CASES)
+@pytest.mark.parametrize("N,Din,heads,dk,A,L", _BWD_CASES)
 def test_msa_encoder_bwd_bf16_kernel(cuda, N, Din, heads, dk, A, L, rate):
     """A''s bf16 instance: dx bf16 within one ulp of the plain dx plus the
     fp32 bound, the eight weight and bias gradients fp32 within it; the same
@@ -269,11 +277,24 @@ def test_attention_pair_bf16_through_autograd(cuda):
         _close_bf16(a.grad, b.grad)
 
 
-@pytest.mark.parametrize("rows,cols,rate", [(1000, 300, 0.2), (333, 7, 0.1), (64, 400, 0.5)])
-def test_dropout_bf16_kernel_bit_for_bit(cuda, rows, cols, rate):
-    """The bf16 instance of A'' (x / bf16(keep), rounded once): the plain
-    version's bits forward and on the gradient, counted on `launches_bf16`."""
+# rows spanning many blocks at cols % 8 == 0 (16-byte accesses), cols 300
+# (a multiple of 4, not of 8: group pairs straddle rows), odd cols (the row
+# kernel), and views 2 and 8 bytes past an aligned start (the row kernel,
+# 8-byte accesses); `offset` in elements
+@pytest.mark.parametrize("rows,cols,rate,offset", [
+    (1000, 300, 0.2, 0), (333, 7, 0.1, 0), (64, 400, 0.5, 0), (5001, 400, 0.2, 0),
+    (2049, 300, 0.2, 0), (77, 333, 0.2, 0), (300, 300, 0.2, 1), (300, 300, 0.2, 4),
+    (129, 8, 0.3, 4)])
+def test_dropout_bf16_kernel_bit_for_bit(cuda, rows, cols, rate, offset):
+    """The bf16 instance of A'' (x * fp32(1 / bf16(keep)), rounded once):
+    the plain version's bits (x / bf16(keep)) forward and on the gradient,
+    counted on `launches_bf16`."""
     x = (torch.randn(rows, cols, generator=torch.Generator().manual_seed(rows)) * 4).to(BF16)
+    if offset:  # a contiguous view `offset` elements past an aligned start
+        buf = torch.empty(rows * cols + offset, dtype=BF16, device=cuda)
+        buf[offset:] = x.flatten().to(cuda)
+        x = buf[offset:].view(rows, cols)
+        assert x.data_ptr() % 16 == 2 * offset % 16
     x = x.to(cuda).requires_grad_(True)
     before = (DR.dropout.launches, DR.dropout.launches_bf16)
     out = DR.dropout(x, rate, 123, 9)
