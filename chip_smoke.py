@@ -80,9 +80,9 @@ paths:
              element plus the bound) and B (bf16 weights, B 1,024 at G 68
              and 26) against their plain versions, each with its bound (the
              bf16 x bf16 product at the dense bf16 rate; A''s products at
-             their wgmma bf16 passes) and the SASS check that A's bf16
-             product issues HMMA.16816.F32.BF16 and A''s seven wgmma
-             products HGMMA; A''s stage split with each product's rate; the
+             their wgmma bf16 passes) and the SASS check that A's two and
+             A''s seven wgmma products issue HGMMA; A's (at both N) and A''s
+             stage split with each product's rate; the
              cached scorer over the corpus with the counters reset (stage 1
              A's bf16 instance, stage 2 B's, no fp32 launch of either) and a
              2,048-news corpus card against CPU; three B-8 steps card against
@@ -1595,19 +1595,40 @@ def ptxas_report(build, needle: str) -> dict:
     return report
 
 
+# The kernels whose SASS the smoke reads: each names one source's ELF file in
+# the library (A, A' and B: their products; A'' at bf16: its integer
+# instructions).
+SASS_OWNERS = ("msa_pool_fwd_kernel", "msa_attn_relu_fix_kernel", "gat_layer_attend_kernel",
+               "dropout_bf16_kernel")
+
+
 @functools.lru_cache(maxsize=2)
 def library_sass(path: str) -> str:
-    """The built library's SASS (`cuobjdump -sass`), read once a run."""
+    """The SASS (`cuobjdump -sass`) of the library's ELF files that hold a
+    kernel of SASS_OWNERS, each after a "Fatbin elf code" line as a dump of
+    the whole library prints them; read once a run. The ELF files are
+    extracted (`-xelf all`) and only those disassembled: the attention
+    pair's many instantiations are not."""
     import shutil
+    import tempfile
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump") or tool
     t0 = time.perf_counter()
-    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
-                          timeout=300).stdout
+    parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([tool, "-xelf", "all", os.path.abspath(path)], cwd=tmp,
+                       capture_output=True, text=True, timeout=300)
+        for name in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, name), "rb") as f:
+                raw = f.read()
+            if any(owner.encode() in raw for owner in SASS_OWNERS):
+                sass = subprocess.run([tool, "-sass", os.path.join(tmp, name)],
+                                      capture_output=True, text=True, timeout=300).stdout
+                parts.append(f"Fatbin elf code: {name}\n{sass}")
     tool_time("cuobjdump", t0)
-    return sass
+    return "\n".join(parts)
 
 
 def sass_tensor_core_check(build) -> dict:
@@ -1674,9 +1695,9 @@ def sass_tensor_core_check(build) -> dict:
 
 # the product instantiations of kernels A, A' and B, as
 # sass_tensor_core_check labels them: on mma.sync (tc_gemm.cuh) fp32 A' six,
-# A two, B one, bf16 A two (one bf16 x bf16), B one; on wgmma (tc_wgmma.cuh)
-# bf16 A' seven (q|k|v, u, dW1, dO, dx with and without the dropout mask,
-# dWqkv)
+# A two, B one, bf16 B one; on wgmma (tc_wgmma.cuh) bf16 A two (q|k|v and the
+# pool logits), A' seven (q|k|v, u, dW1, dO, dx with and without the dropout
+# mask, dWqkv)
 PRODUCT_KERNELS = 19
 
 
@@ -1695,14 +1716,13 @@ def redesign_report(build) -> bool:
     counts = sass_tensor_core_check(build)
     for label, (kind, n) in counts.items():
         say(f"  SASS {label}: {n} {kind} instructions")
-    bf16 = [label for label, (kind, _) in counts.items() if "BF16" in kind]
     wgmma = [label for label, (kind, _) in counts.items() if kind.startswith("HGMMA")]
     if len(counts) < PRODUCT_KERNELS or not all(n for _, n in counts.values()) or \
-            not any(label.startswith("A:") for label in bf16) or \
+            sum(label.startswith("A:") for label in wgmma) < 2 or \
             sum(label.startswith("A':") for label in wgmma) < 7:
         say("  SASS check FAILED: a product kernel of A, A' or B issues no tensor-core "
-            "instruction of its kind, or A's bf16 product or one of A''s seven wgmma "
-            "products is missing")
+            "instruction of its kind, or one of A's two or A''s seven wgmma products is "
+            "missing")
         ok = False
     return ok
 
@@ -2410,9 +2430,9 @@ def variant_phase(torch, name, cfg, tables, dev, failures) -> dict:
 
 # ---------------------------------------------------------------------------
 # Phase 20: compute_dtype bfloat16 (MSA-DIGAT; the bf16 instances of A, A'
-# and B). The work counts: the bf16 x bf16 q|k|v product at the dense bf16
-# rate, the rest as the fp32 kernels' (fp32 CUDA-core rate), the bytes as
-# each array's dtype gives them; A''s products all at their wgmma bf16
+# and B). The work counts: the bf16 x bf16 products at the dense bf16 rate,
+# the rest as the fp32 kernels' (fp32 CUDA-core rate), the bytes as each
+# array's dtype gives them; A's and A''s products all at their wgmma bf16
 # passes (`bound_bf16_passes`).
 # ---------------------------------------------------------------------------
 def bf16_bound(flops, bf16_flops, nbytes) -> tuple:
@@ -2435,7 +2455,7 @@ def bound_tensor_cores(flops, nbytes, bf16_products, tf32x2_products, tf32x3_pro
 
 
 def bound_bf16_passes(flops, nbytes, products, pass_flops) -> tuple:
-    """A' bf16's bound, (least ms, what bounds it): its products (`products`
+    """A bf16's and A' bf16's bound, (least ms, what bounds it): its products (`products`
     of its `flops`) as `pass_flops` of bf16 tensor-core passes at the dense
     bf16 rate plus the rest at the fp32 rate, against its bytes at the
     memory rate."""
@@ -2452,25 +2472,40 @@ def bound_bf16_passes(flops, nbytes, products, pass_flops) -> tuple:
 MSA_BWD_PRODUCTS = ("q|k|v", "u", "dW1", "dO", "dx", "dWqkv")
 
 
-def msa_bwd_product_rates(stages, N, L, Din, D, A) -> list:
-    """The product launches of A''s bf16 instance among `stage_split`'s
-    stages (those whose kernel name holds "gemm", in launch order) ->
+def product_rates(stages, products) -> list:
+    """The product launches among `stage_split`'s stages (those whose kernel
+    name holds "gemm", in launch order), matched in order with `products`
+    [(what, FLOP, (passes, type) on wgmma, (passes, type) on mma.sync)] ->
     [(what, ms, TFLOP/s, passes, pass type, share of that type's dense peak
     counting passes)]."""
+    rates = []
+    for (name, _, ms), (what, flop, on_wg, on_mma) in zip(
+            [st for st in stages if "gemm" in st[0]], products):
+        passes, kind = on_wg if "wg_" in name else on_mma
+        peak = PEAK_BF16_FLOPS if kind == "bf16" else PEAK_TF32_FLOPS
+        tflops = flop / (ms * 1e-3) / 1e12
+        rates.append((what, ms, tflops, passes, kind, passes * tflops * 1e12 / peak))
+    return rates
+
+
+def msa_bwd_product_rates(stages, N, L, Din, D, A) -> list:
+    """product_rates of A''s bf16 instance (MSA_BWD_PRODUCTS)."""
     M = N * L
     flop = [2 * M * Din * 3 * D, 2 * M * D * A, 2 * M * A * D, 2 * M * A * D,
             2 * M * 3 * D * Din, 2 * M * 3 * D * Din]
-    rates = []
-    for i, (name, _, ms) in enumerate([st for st in stages if "gemm" in st[0]][:6]):
-        if "wg_" in name:
-            passes, kind = (1 if i == 0 else 6 if i == 2 else 3), "bf16"
-        else:
-            passes, kind = (1, "bf16") if i == 0 else ((3 if i == 2 else 2), "tf32")
-        peak = PEAK_BF16_FLOPS if kind == "bf16" else PEAK_TF32_FLOPS
-        tflops = flop[i] / (ms * 1e-3) / 1e12
-        rates.append((MSA_BWD_PRODUCTS[i], ms, tflops, passes, kind,
-                      passes * tflops * 1e12 / peak))
-    return rates
+    return product_rates(stages, [
+        (what, f, (1 if i == 0 else 6 if i == 2 else 3, "bf16"),
+         (1, "bf16") if i == 0 else (3 if i == 2 else 2, "tf32"))
+        for i, (what, f) in enumerate(zip(MSA_BWD_PRODUCTS, flop))])
+
+
+def msa_fwd_product_rates(stages, N, L, Din, D, A) -> list:
+    """product_rates of A's bf16 instance: q|k|v one bf16 pass (on wgmma or
+    mma.sync), the pool logits tanh(h W1^T + b1) v three bf16 passes on
+    wgmma (h as three bf16 planes) or two TF32 passes on mma.sync."""
+    M = N * L
+    return product_rates(stages, [("q|k|v", 2 * M * Din * 3 * D, (1, "bf16"), (1, "bf16")),
+                                  ("logits", 2 * M * D * A, (3, "bf16"), (2, "tf32"))])
 
 
 def say_product_rates(rates) -> None:
@@ -2556,19 +2591,25 @@ def bf16_phase(torch, cfg, tables, hist, cat, imp_index, cand, cap, dev, failure
         mask = tables.news_title_mask[:N].contiguous()
         fwd = lambda: ME.msa_encoder_pooled(x, mask, *w, heads, rate, 987, 0)
         flops, nbytes = msa_work_bf16(N, L, Din, D, A)
-        qkv = 2 * N * L * Din * 3 * D
+        qkv, pool_p = 2 * N * L * Din * 3 * D, 2 * N * L * D * A
+        # the products on wgmma at the bf16 passes they take (q|k|v one, the
+        # pool logits three: h as three bf16 planes)
         e = check_kernel(torch, f"msa_encoder_pooled bf16 [{N},{L},{Din}] dropout {rate:g}", fwd,
                          lambda: ME.msa_encoder_pooled_plain(x, mask, *w, heads, rate, 987, 0),
-                         (), flops, nbytes, bound_ms=bf16_bound(flops, qkv, nbytes))
-        say(f"    bound with the products on the tensor cores (q|k|v bf16, pool 2xTF32): "
-            f"{bound_tensor_cores(flops, nbytes, qkv, 2 * N * L * D * A, 0):.4f} ms")
+                         (), flops, nbytes,
+                         bound_ms=bound_bf16_passes(flops, nbytes, qkv + pool_p,
+                                                    qkv + 3 * pool_p))
+        say(f"    bound_ms: the products at their wgmma bf16 passes (q|k|v one, the pool logits "
+            f"three), the rest at the fp32 rate; with the pool product at the fp32 rate it would "
+            f"be {bf16_bound(flops, qkv, nbytes)[0]:.4f} ms")
         again = torch.equal(fwd(), fwd())
         say(f"    same bits twice: {again}")
         e["ok"] = e["ok"] and again
-        if rate > 0:
-            stages = stage_split(torch, fwd)
-            say_stages("msa_encoder_pooled bf16", stages)
-            e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
+        stages = stage_split(torch, fwd)
+        say_stages(f"msa_encoder_pooled bf16 N {N}", stages)
+        say("    its products:")
+        say_product_rates(msa_fwd_product_rates(stages, N, L, Din, D, A))
+        e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
         return e
 
     guarded("msa_encoder_pooled_bf16", f"serving N{bs}", lambda: encoder(bs, 0.0))

@@ -139,11 +139,11 @@ constexpr int kColRows = 256;          // rows of one slice of a column sum over
 // accumulators fits in the registers at 96 columns a block (tc_gemm.cuh)
 constexpr int kBNq = 96, kBNp = 96, kBN = 96;
 // the bf16 instance's wgmma products (tc_wgmma.cuh): a consumer's tile
-// width (u and the weight gradients 128; q|k|v, dO and dx 152: eight and
-// three tiles of 152 over 3D 1,200 and D 400, and dx with the consumers side
-// by side, one tile of 304 over Din 300) and the blocks a weight
+// width (u and the weight gradients wg::kN 128; q|k|v, dO and dx wg::kNx
+// 152, dx with the consumers side by side, one tile of 304 over Din 300;
+// q|k|v is kernel A's bf16 instance's product too) and the blocks a weight
 // gradient's slices aim at (four an SM)
-constexpr int kWgN = 128, kWgNx = 152;
+constexpr int kWgN = digat::wg::kN, kWgNx = digat::wg::kNx;
 constexpr int kWgBlocks = 4 * 132;
 
 namespace tc = digat::tc;
@@ -175,66 +175,11 @@ __global__ void colsum_kernel(const float* __restrict__ A, int M, int N, int row
   part[(size_t)blockIdx.y * N + c] = s;
 }
 
-// bf16 elements of a row of a plane (16-byte rows for the TMA)
-__host__ __device__ inline int ld8(int cols) { return (cols + 7) & ~7; }
-
-// x as three bf16 terms: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
-// - mid), each difference exact in fp32 (tc_wgmma.cuh's three-term operand)
-__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
-  const float rest = x - __bfloat162float(__float2bfloat16_rn(x));
-  hi = x - rest;
-  mid = __bfloat162float(__float2bfloat16_rn(rest));
-  lo = rest - mid;
-}
-
-// element i of the three planes `plane` apart (lo rounded to bf16 here)
-__device__ __forceinline__ void store3(__nv_bfloat16* p, size_t plane, float x) {
-  float hi, mid, lo;
-  split3(x, hi, mid, lo);
-  p[0] = __float2bfloat16_rn(hi);
-  p[plane] = __float2bfloat16_rn(mid);
-  p[2 * plane] = __float2bfloat16_rn(lo);
-}
-
-// The three bf16 planes of an fp32 x [rows][cols] (row stride ldx; cols a
-// multiple of 4), rows ld8(cols) apart, planes rows * ld8(cols) apart. A
-// thread a group of four (rows * cols / 4 < 2^31).
-__global__ void __launch_bounds__(kThreads)
-split3_kernel(const float* __restrict__ x, int ldx, __nv_bfloat16* __restrict__ out, int rows,
-              int cols) {
-  const uint32_t c4 = cols / 4, i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= uint32_t(rows) * c4) return;
-  const uint32_t r = i / c4, c = (i - r * c4) * 4;
-  const size_t ld = ld8(cols), plane = size_t(rows) * ld;
-  const float4 v = digat::load4(x + size_t(r) * ldx + c);
-  const float e[4] = {v.x, v.y, v.z, v.w};
-  float hi[4], mid[4], lo[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) split3(e[k], hi[k], mid[k], lo[k]);
-  __nv_bfloat16* o = out + r * ld + c;
-  digat::store4(o, make_float4(hi[0], hi[1], hi[2], hi[3]));
-  digat::store4(o + plane, make_float4(mid[0], mid[1], mid[2], mid[3]));
-  digat::store4(o + 2 * plane, make_float4(lo[0], lo[1], lo[2], lo[3]));
-}
-
-// dst [rows][ld8(cols)] = src [rows][cols] (row stride lds; kTranspose:
-// src [cols][rows]), bf16: the K-major weight copies and x's 16-byte rows.
-// A thread an element (kTranspose) or a group of four (rows * cols < 2^31).
-template <bool kTranspose>
-__global__ void __launch_bounds__(kThreads)
-relayout_kernel(const __nv_bfloat16* __restrict__ src, int lds, int rows, int cols,
-                __nv_bfloat16* __restrict__ dst) {
-  const uint32_t per = kTranspose ? cols : cols / 4, i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= uint32_t(rows) * per) return;
-  const uint32_t r = i / per, c = i - r * per;
-  const size_t ld = ld8(cols);
-  if (kTranspose) {
-    dst[r * ld + c] = src[size_t(c) * lds + r];
-  } else {  // cols and lds multiples of 4: 8-byte groups
-    *reinterpret_cast<uint2*>(dst + r * ld + 4 * c) =
-        __ldg(reinterpret_cast<const uint2*>(src + size_t(r) * lds + 4 * c));
-  }
-}
+using wg::ld8;
+using wg::relayout_kernel;
+using wg::split3_kernel;
+using wg::store3;
+using wg::store3x4;
 
 // blocks of kThreads for `work` threads
 inline unsigned blocks_for(long long work) { return unsigned((work + kThreads - 1) / kThreads); }
@@ -365,19 +310,6 @@ msa_attn_relu_fix_kernel(const T* __restrict__ xin,        // [N*L, Din]
 // ---------------------------------------------------------------------------
 // The pool's softmax over a title's positions, its backward, and dpre
 // ---------------------------------------------------------------------------
-// dpre as the three bf16 planes of the wgmma products (kPlanes, the bf16
-// instance: [3][N*L][ld8(A)], in place of its fp32 values)
-__device__ __forceinline__ void store3x4(__nv_bfloat16* p, size_t plane, float4 z) {
-  float h[4], m[4], l[4];
-  split3(z.x, h[0], m[0], l[0]);
-  split3(z.y, h[1], m[1], l[1]);
-  split3(z.z, h[2], m[2], l[2]);
-  split3(z.w, h[3], m[3], l[3]);
-  digat::store4(p, make_float4(h[0], h[1], h[2], h[3]));
-  digat::store4(p + plane, make_float4(m[0], m[1], m[2], m[3]));
-  digat::store4(p + 2 * plane, make_float4(l[0], l[1], l[2], l[3]));
-}
-
 template <bool kPlanes = false>
 __global__ void __launch_bounds__(kThreads)
 msa_pool_kernel(const float* __restrict__ lgpart,       // [parts, N*L]
@@ -1091,7 +1023,7 @@ cudaError_t backward(const T* fx, const void* mask, const T* fw, const float* bq
   const T* xin = fx;
   if (thresh) {
     dropout_apply_kernel<T><<<grid_1d((long long)M * Din / 4), kThreads, 0, st>>>(
-        fx, xd, N, L * Din, thresh, drop_scale, seed, site);
+        fx, xd, N, L * Din, Din, Din, thresh, drop_scale, seed, site);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     xin = xd;
   }

@@ -135,21 +135,32 @@ inline int grid_1d(long long work) {
 // flat f) takes word f % 4 of the Philox block at counter (f / 4, r) under
 // (seed, site) (philox.cuh); kept ones are scaled by drop_scale. T is float
 // or bf16: a bf16 element is scaled in fp32 and rounded back once, to
-// nearest even (the q|k|v product then reads it whole).
+// nearest even (the q|k|v product then reads it whole). kPad (kernel A's
+// bf16 instance): `out` holds rows of din elements (per_title / din a
+// title) `ldo` apart, 16 bytes for the TMA, zeros past din.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kPad = false>
 __global__ void __launch_bounds__(kThreads)
-dropout_apply_kernel(const T* in, T* out, long long n, int per_title, uint32_t thresh,
-                     float drop_scale, uint32_t seed, uint32_t site) {
+dropout_apply_kernel(const T* in, T* out, long long n, int per_title, int din, int ldo,
+                     uint32_t thresh, float drop_scale, uint32_t seed, uint32_t site) {
   const int groups = per_title / 4;
   const long long total = n * groups;
+  const int rows = per_title / din;  // a title's rows
   for (long long t = blockIdx.x * (long long)kThreads + threadIdx.x; t < total;
        t += (long long)gridDim.x * kThreads) {
     const long long r = t / groups;
-    const digat::Philox4 d =
-        digat::dropout_draws(uint32_t(r), uint32_t(t - r * groups), seed, site);
-    digat::store4(out + 4 * t, digat::dropout_value4(digat::load4(in + 4 * t), d, thresh,
-                                                     drop_scale));
+    const int f = 4 * int(t - r * groups);
+    const digat::Philox4 d = digat::dropout_draws(uint32_t(r), uint32_t(f / 4), seed, site);
+    size_t o = 4 * size_t(t);
+    if (kPad) {
+      const int pos = f / din, col = f - pos * din;
+      o = (size_t(r) * rows + pos) * ldo + col;
+      if (col + 4 == din)  // the row's last group zeroes the pad: no sector part-written
+        for (int c = din; c < ldo; c += 4)
+          digat::store4(out + o - col + c, make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+    digat::store4(out + o, digat::dropout_value4(digat::load4(in + 4 * t), d, thresh,
+                                                 drop_scale));
   }
 }
 

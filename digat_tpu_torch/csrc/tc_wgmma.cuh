@@ -1,17 +1,18 @@
 // Matrix products on Hopper's warpgroup tensor-core instruction (wgmma),
 // fed by the Tensor Memory Accelerator (TMA), for sm_90a: the products of
-// kernel A''s bf16 instance (msa_encoder_bwd.cu, msa_encoder_bwd_bf16).
-// They replace no TPU kernel of their own: they are A''s products, which
-// the TPU kernel (digat_tpu/ops/pallas/msa_encoder.py, _bwd_kernel) runs on
-// its matrix unit.
+// the bf16 instances of kernels A and A' (msa_encoder.cu,
+// msa_encoder_pooled_bf16; msa_encoder_bwd.cu, msa_encoder_bwd_bf16). They
+// replace no TPU kernel of their own: they are A's and A''s products, which
+// the TPU kernels (digat_tpu/ops/pallas/msa_encoder.py, _fwd_kernel and
+// _bwd_kernel) run on their matrix unit.
 //
 // C[z] = op(A)[M, K_z] op(B)[K_z, N] over the z-th slice of K, then one of
-// tc_gemm.cuh's epilogues (kStore, kBias, kPool, kDh, kDrop: the same
-// arithmetic, four outputs at a time), with the same Args. Every operand is
+// tc_gemm.cuh's epilogues (kStore, kBias, kPool, kDh, kDrop, kLogits: the
+// same arithmetic, four outputs at a time), with the same Args. Every operand is
 // bf16 in device memory, as `terms` planes: a bf16 matrix is one plane,
 // exact; an fp32 matrix x is three, hi = bf16(x), mid = bf16(x - hi), lo =
 // bf16(x - hi - mid), which sum back to x within 2^-24 |x| (written by the
-// kernel that produces x, or by msa_encoder_bwd.cu's split3_kernel;
+// kernel that produces x, or by split3_kernel below;
 // tests/test_torch_bf16_split.py replays the split and the products on the
 // CPU). A product of a three-term operand with an exact one takes three
 // passes, lo, mid, hi (each partial product exact in fp32); of two
@@ -80,6 +81,11 @@ constexpr int kThreads = 128 * (kConsumers + 1);  // and the producer's
 constexpr int kBM = 64 * kConsumers;              // rows of a tile split by rows
 constexpr int kSmemLimit = 227 * 1024;            // opt-in shared memory of a block
 constexpr int kMaxStages = 4;
+// A consumer's tile widths of kernels A's and A''s products: 128 (A's pool
+// logits, A''s u and weight gradients) and 152 (q|k|v, dO and dx: eight and
+// three tiles of 152 over 3D 1,200 and D 400). A's q|k|v and A''s
+// recompute of it are one instance, so the two are the same bits.
+constexpr int kN = 128, kNx = 152;
 
 // One operand in device memory: `terms` bf16 planes of [rows][ld] (ld >= cols,
 // ld % 8 == 0), `plane` elements apart (the same as rows * ld for one term).
@@ -255,14 +261,14 @@ __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t a, uint64_t b, 
 // The epilogue's arithmetic on four consecutive outputs (row, col .. col +
 // 3), col a multiple of 4, from their sums `v` (tc_gemm.cuh's epilogue, four
 // at a time: 16-byte loads, kDrop the four draws of one Philox block);
-// kPool adds their v-product to `lg`; kDh takes h from the caller.
+// kPool and kLogits add their v-product to `lg`; kDh takes h from the caller.
 template <int EPI>
 __device__ __forceinline__ float4 quad_value(const tc::Args& p, int row, int col, int tt, int pos,
                                              float4 v, float4 h, float& lg) {
   if (EPI == tc::kBias) {
     const float4 b = __ldg(reinterpret_cast<const float4*>(p.bias + col));
     v = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
-  } else if (EPI == tc::kPool) {
+  } else if (EPI == tc::kPool || EPI == tc::kLogits) {
     const float4 b = __ldg(reinterpret_cast<const float4*>(p.bias + col));
     const float4 u = __ldg(reinterpret_cast<const float4*>(p.v + col));
     v = make_float4(tanhf(v.x + b.x), tanhf(v.y + b.y), tanhf(v.z + b.z), tanhf(v.w + b.w));
@@ -290,7 +296,7 @@ __device__ __forceinline__ float2 pair_value(const tc::Args& p, int row, int col
   if (EPI == tc::kBias) {
     v.x += __ldg(p.bias + col);
     v.y += __ldg(p.bias + col + 1);
-  } else if (EPI == tc::kPool) {
+  } else if (EPI == tc::kPool || EPI == tc::kLogits) {
     v.x = tanhf(v.x + __ldg(p.bias + col));
     v.y = tanhf(v.y + __ldg(p.bias + col + 1));
     lg = fmaf(v.x, __ldg(p.v + col), lg);
@@ -321,7 +327,9 @@ __device__ __forceinline__ void bar_sync() {
 // Lanes t and t ^ 1 swap halves of two neighbouring 8-column groups, so
 // each lane holds four consecutive columns (quad_value); an odd last group
 // goes by pairs. The tile's slice z of K writes C's z-th partial; kPool's
-// v-product takes one part per column block (lgpart[part][row]). An fp32 C
+// and kLogits' v-product takes one part per column block (lgpart[part][row]),
+// each part summed over the consumer's columns in the same order; kLogits
+// writes no C. An fp32 C
 // goes through shared memory (`stage`, 64 x BN) and one TMA store of the
 // consumer's rows (`mo`), which clips rows and columns past C; a bf16 C is
 // stored from registers. kDh first copies the consumer's rows of h into the
@@ -332,7 +340,9 @@ __device__ __forceinline__ void epilogue(const tc::Args& p, const float (&acc)[B
                                          int n0, int z, int part, const CUtensorMap* mo,
                                          const CUtensorMap* mh, uint32_t hbar, float* stage) {
   constexpr int kGroups = BN / 8;
-  constexpr bool kStaged = std::is_same<TC, float>::value;
+  constexpr bool kLg = EPI == tc::kPool || EPI == tc::kLogits;
+  constexpr bool kStaged = std::is_same<TC, float>::value && EPI != tc::kLogits;
+  constexpr bool kStored = EPI != tc::kLogits;
   static_assert(EPI != tc::kDh || kStaged, "kDh stages h");
   const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const bool odd = t & 1;
@@ -364,7 +374,7 @@ __device__ __forceinline__ void epilogue(const tc::Args& p, const float (&acc)[B
                                       : make_float4(0.f, 0.f, 0.f, 0.f);
       if (in) v = quad_value<EPI>(p, row, col, tt, pos, v, h, lg);
       if (kStaged) *reinterpret_cast<float4*>(stage + r * BN + c) = v;
-      else if (in) digat::store4(C + (size_t)row * p.ldc + col, v);
+      else if (kStored && in) digat::store4(C + (size_t)row * p.ldc + col, v);
     }
     if (kGroups % 2) {
       const int j = kGroups - 1, c = 8 * j + 2 * t, col = n0 + c;
@@ -374,9 +384,9 @@ __device__ __forceinline__ void epilogue(const tc::Args& p, const float (&acc)[B
                                       : make_float2(0.f, 0.f);
       if (in) v = pair_value<EPI>(p, row, col, tt, pos, v, h, lg);
       if (kStaged) *reinterpret_cast<float2*>(stage + r * BN + c) = v;
-      else if (in) digat::store2(C + (size_t)row * p.ldc + col, v);
+      else if (kStored && in) digat::store2(C + (size_t)row * p.ldc + col, v);
     }
-    if (EPI == tc::kPool) {
+    if (kLg) {
       lg += __shfl_xor_sync(0xffffffffu, lg, 1);
       lg += __shfl_xor_sync(0xffffffffu, lg, 2);
       if (t == 0 && row_in) p.lgpart[(size_t)part * p.M + row] = lg;
@@ -521,6 +531,86 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ C
 }
 
 // ---------------------------------------------------------------------------
+// The operands' bf16 copies and planes: rows ld8(cols) elements apart (16
+// bytes at least, as the TMA takes them)
+// ---------------------------------------------------------------------------
+constexpr int kCopyThreads = 256;  // a block of the copy kernels below
+
+// bf16 elements of a row of a plane
+__host__ __device__ inline int ld8(int cols) { return (cols + 7) & ~7; }
+
+// blocks of kCopyThreads for `work` threads
+inline unsigned copy_blocks(long long work) {
+  return unsigned((work + kCopyThreads - 1) / kCopyThreads);
+}
+
+// x as three bf16 terms: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
+// - mid), each difference exact in fp32 (the three-term operand above)
+__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
+  const float rest = x - __bfloat162float(__float2bfloat16_rn(x));
+  hi = x - rest;
+  mid = __bfloat162float(__float2bfloat16_rn(rest));
+  lo = rest - mid;
+}
+
+// element i of the three planes `plane` apart (lo rounded to bf16 here)
+__device__ __forceinline__ void store3(__nv_bfloat16* p, size_t plane, float x) {
+  float hi, mid, lo;
+  split3(x, hi, mid, lo);
+  p[0] = __float2bfloat16_rn(hi);
+  p[plane] = __float2bfloat16_rn(mid);
+  p[2 * plane] = __float2bfloat16_rn(lo);
+}
+
+// four consecutive elements (8-byte aligned) of the three planes
+__device__ __forceinline__ void store3x4(__nv_bfloat16* p, size_t plane, float4 z) {
+  float h[4], m[4], l[4];
+  split3(z.x, h[0], m[0], l[0]);
+  split3(z.y, h[1], m[1], l[1]);
+  split3(z.z, h[2], m[2], l[2]);
+  split3(z.w, h[3], m[3], l[3]);
+  digat::store4(p, make_float4(h[0], h[1], h[2], h[3]));
+  digat::store4(p + plane, make_float4(m[0], m[1], m[2], m[3]));
+  digat::store4(p + 2 * plane, make_float4(l[0], l[1], l[2], l[3]));
+}
+
+namespace {  // each source that includes this header gets its own kernels
+
+// The three bf16 planes of an fp32 x [rows][cols] (row stride ldx; cols a
+// multiple of 4), rows ld8(cols) apart, planes rows * ld8(cols) apart. A
+// thread a group of four (rows * cols / 4 < 2^31).
+__global__ void __launch_bounds__(kCopyThreads)
+split3_kernel(const float* __restrict__ x, int ldx, __nv_bfloat16* __restrict__ out, int rows,
+              int cols) {
+  const uint32_t c4 = cols / 4, i = blockIdx.x * kCopyThreads + threadIdx.x;
+  if (i >= uint32_t(rows) * c4) return;
+  const uint32_t r = i / c4, c = (i - r * c4) * 4;
+  const size_t ld = ld8(cols), plane = size_t(rows) * ld;
+  store3x4(out + r * ld + c, plane, digat::load4(x + size_t(r) * ldx + c));
+}
+
+// dst [rows][ld8(cols)] = src [rows][cols] (row stride lds; kTranspose:
+// src [cols][rows]), bf16: the K-major weight copies and x's 16-byte rows.
+// A thread an element (kTranspose) or a group of four (rows * cols < 2^31).
+template <bool kTranspose>
+__global__ void __launch_bounds__(kCopyThreads)
+relayout_kernel(const __nv_bfloat16* __restrict__ src, int lds, int rows, int cols,
+                __nv_bfloat16* __restrict__ dst) {
+  const uint32_t per = kTranspose ? cols : cols / 4, i = blockIdx.x * kCopyThreads + threadIdx.x;
+  if (i >= uint32_t(rows) * per) return;
+  const uint32_t r = i / per, c = i - r * per;
+  const size_t ld = ld8(cols);
+  if (kTranspose) {
+    dst[r * ld + c] = src[size_t(c) * lds + r];
+  } else {  // cols and lds multiples of 4: 8-byte groups
+    *reinterpret_cast<uint2*>(dst + r * ld + 4 * c) =
+        __ldg(reinterpret_cast<const uint2*>(src + size_t(r) * lds + 4 * c));
+  }
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
 // Host side: tensor maps through libcuda's cuTensorMapEncodeTiled, reached
 // with cudaGetDriverEntryPoint (no link against libcuda), and the launch.
 // ---------------------------------------------------------------------------
@@ -599,8 +689,8 @@ inline cudaError_t init() {
 // Launches wg_gemm_kernel on `st`, a block a tile, for p's M, N, K, ldc,
 // k_per_split (a multiple of KT unless one slice takes all of K) and
 // epilogue fields, A and B as given (A: [M][K] K-major, else [K][M]; B:
-// [N][K] K-major, else [K][N]); p.A and p.B are not read. kPool's parts:
-// ceil(N / BN) (kSN: two a column block of 2 BN).
+// [N][K] K-major, else [K][N]); p.A and p.B are not read. kPool's and
+// kLogits' parts: ceil(N / BN) (kSN: two a column block of 2 BN).
 template <int BN, int KT, bool AK, bool BK, int TA, int TB, int EPI, typename TC = float,
           bool kSN = false>
 inline cudaError_t gemm(cudaStream_t st, const Operand& a, const Operand& b, const tc::Args& p) {
@@ -616,7 +706,7 @@ inline cudaError_t gemm(cudaStream_t st, const Operand& a, const Operand& b, con
   if (count >= (1LL << 31)) return cudaErrorInvalidValue;
   CUtensorMap ma, mb, mo = {}, mh = {};
   if (!make_map(&ma, a, TA, AK ? G::kRows : KT) || !make_map(&mb, b, TB, BK ? BN : KT) ||
-      (std::is_same<TC, float>::value &&
+      (std::is_same<TC, float>::value && EPI != tc::kLogits &&
        (p.ldc != p.N || !make_out_map(&mo, p.C, p.N, p.M, tiles.z, p.ldc, BN))) ||
       (EPI == tc::kDh && !make_out_map(&mh, p.h, p.N, p.M, 1, p.ldc, BN)))
     return cudaErrorInvalidValue;

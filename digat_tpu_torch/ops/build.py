@@ -43,8 +43,8 @@ _U, _LL = ctypes.c_uint, ctypes.c_longlong
 
 # C signatures: name -> (argtypes, restype); an int restype is a cudaError_t
 SIGNATURES = {
-    # N, L, Din, heads, dk, A, dropout on -> floats of scratch
-    "msa_encoder_fwd_scratch_floats": ([_I] * 7, _LL),
+    # N, L, Din, heads, dk, A, dropout on, bf16 instance -> floats of scratch
+    "msa_encoder_fwd_scratch_floats": ([_I] * 8, _LL),
     # x, mask, wqkv, bqkv, w1, b1, v, out, scratch, N, L, Din, heads, dk, A, scale,
     # thresh, drop_scale, seed, site, stream
     "msa_encoder_pooled_f32": ([_P] * 9 + [_I] * 6 + [_F, _U, _F, _U, _U, _P], _I),

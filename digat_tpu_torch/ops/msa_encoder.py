@@ -33,12 +33,13 @@ fallback: a CUDA tensor launches the kernels or raises.
 
 bf16 (`compute_dtype` bfloat16): x and the weights bf16, the result fp32,
 as the JAX kernel takes them. The bf16 instances (`*_bf16` entry points,
-their own launch counters `launches_bf16`) run the q|k|v product on the
-bf16 tensor cores with exact products and fp32 sums. A's bf16 instance
-runs its pool product (fp32 h, bf16 W1) at 2xTF32; A''s runs its other
-five products on wgmma fed by the TMA (`csrc/tc_wgmma.cuh`), every fp32
-operand split into three bf16 terms (three bf16 passes against a bf16
-operand, six for dpre^T h). Attention and the pool's softmax stay fp32.
+their own launch counters `launches_bf16`) run their products on wgmma fed
+by the TMA (`csrc/tc_wgmma.cuh`): q|k|v one pass of exact bf16 products
+with fp32 sums (one instance for A and A', so the same bits), every other
+product with each fp32 operand split into three bf16 terms (three bf16
+passes against a bf16 operand, six for dpre^T h): A's pool logits and A''s
+u, dO, dx and the weight gradients. A's bf16 attention stage writes h's
+three terms as it writes h. Attention and the pool's softmax stay fp32.
 The word dropout rounds each kept x / (1 - rate) to bf16 once (round to
 nearest even), as the TPU kernel's product rounds its fp32 operand. A' stores dx in bf16, rounded once after the mask, and
 returns fp32 weight gradients; autograd rounds those to the bf16 copies'
@@ -259,9 +260,9 @@ def _forward_kernel(x, mask, wq, bq, wk, wv, bv, w1, b1, v, heads, rate, seed, s
     (w1_r,) = _linear_layout(w1)
     b1, v = _upcast(b1).contiguous(), _upcast(v).contiguous()
     with build.launch_on(x.device) as (lib, stream):
-        scratch = torch.empty(lib.msa_encoder_fwd_scratch_floats(N, L, Din, heads, dk, A,
-                                                                 int(rate > 0)),
-                              dtype=torch.float32, device=x.device)
+        scratch = torch.empty(lib.msa_encoder_fwd_scratch_floats(
+            N, L, Din, heads, dk, A, int(rate > 0), int(x.dtype == torch.bfloat16)),
+            dtype=torch.float32, device=x.device)
         err = getattr(lib, f"msa_encoder_pooled_{_suffix(x)}")(
             x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), w1_r.data_ptr(),
             b1.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, L, Din, heads,

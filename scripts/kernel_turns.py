@@ -14,6 +14,8 @@ shapes:
   A  L 32, N 8,960, word dropout 0.2 (the training step's unique titles)
   A  L 32, N 1,024 (the serving chunk)
   A  L 16, N 4,096 at the parity matrix's widths (Din 100, 10 x 20, A 64)
+  A  bf16 (x and the weight matrices bf16, as compute_dtype bfloat16 passes
+     them) at L 32, N 8,960 with word dropout 0.2 and at N 1,024
   A' L 32, N 8,960, word dropout 0.2, fp32 and bf16 (x and the weight
      matrices bf16, as compute_dtype bfloat16 passes them)
   A'' bf16 forward at the NRMS word site [215,040, 300] and the CNN's word
@@ -32,14 +34,16 @@ the other, the other, this tree (`--rounds` times), and the script prints
 each turn's times and, per setting, the range of each tree. Both trees are
 built first, in parallel.
 
-With --stages, before the turns, one process a tree profiles A' bf16 (the
-setting above) launch by launch with torch.profiler (this checkout's
-chip_smoke.py `stage_split`, 5 calls) and prints each launch's device ms
-and each of the six products' TFLOP/s and share of its pass type's dense
-peak (`msa_bwd_product_rates`: on wgmma q|k|v one bf16 pass, dW1 six, the
-rest three; on mma.sync q|k|v one bf16 pass, dW1 three TF32 passes, the
-rest two), and A'' bf16's device ms at its three sites. Needs a CUDA
-device; imports nothing of JAX.
+With --stages, before the turns, one process a tree profiles A bf16 (both
+settings above) and A' bf16 launch by launch with torch.profiler (this
+checkout's chip_smoke.py `stage_split`, 5 calls) and prints each launch's
+device ms and each product's TFLOP/s and share of its pass type's dense
+peak (`msa_fwd_product_rates`: A's q|k|v one bf16 pass, its pool logits
+three bf16 passes on wgmma or two TF32 passes on mma.sync;
+`msa_bwd_product_rates`: on wgmma q|k|v one bf16 pass, dW1 six, the rest
+three; on mma.sync q|k|v one bf16 pass, dW1 three TF32 passes, the rest
+two), and A'' bf16's device ms at its three sites. `--rounds 0` stops
+after the stages. Needs a CUDA device; imports nothing of JAX.
 
     python3 scripts/kernel_turns.py --worker TREE [--step | --stages]   (one JSON line)
 """
@@ -143,15 +147,21 @@ def worker(tree: str, step: bool, stages: bool = False) -> dict:
         (rows, cols), generator=torch.Generator(device=dev).manual_seed(rows + cols),
         device=dev).to(torch.bfloat16)) for what, rows, cols in (
             ("NRMS words", 215040, 300), ("CNN words", 286720, 300), ("CNN bank", 286720, 400))]
+    s32 = msa_args(1024, 32, 300, 16, 25, 256, 2)
+    sb32 = tuple(t.to(torch.bfloat16) if i in (0, 2, 4, 5, 7) else t for i, t in enumerate(s32))
     if stages:  # launches with their device ms, from this checkout's chip_smoke.py
         split = smoke_here().stage_split
+        out["A bf16 N8960 dropout"] = split(
+            torch, lambda: ME.msa_encoder_pooled(*b32, 16, 0.2, 7, 1))
+        out["A bf16 N1024"] = split(torch, lambda: ME.msa_encoder_pooled(*sb32, 16))
         out["A' bf16"] = split(torch, lambda: ME.msa_encoder_bwd(*b32, dp, 16, 0.2, 7, 1))
         for what, t in sites:
             out[f"A'' bf16 {what}"] = split(torch, lambda: DR.dropout(t, 0.2, 77, 5))
         return out
     out["A L32 N8960 dropout"] = time_ms(lambda: ME.msa_encoder_pooled(*a32, 16, 0.2, 7, 1))
-    s32 = msa_args(1024, 32, 300, 16, 25, 256, 2)
     out["A L32 N1024"] = time_ms(lambda: ME.msa_encoder_pooled(*s32, 16))
+    out["A bf16 L32 N8960 dropout"] = time_ms(lambda: ME.msa_encoder_pooled(*b32, 16, 0.2, 7, 1))
+    out["A bf16 L32 N1024"] = time_ms(lambda: ME.msa_encoder_pooled(*sb32, 16))
     a16 = msa_args(4096, 16, 100, 10, 20, 64, 3)
     out["A L16 N4096"] = time_ms(lambda: ME.msa_encoder_pooled(*a16, 10))
     out["A' L32 N8960 dropout"] = time_ms(lambda: ME.msa_encoder_bwd(*a32, dp, 16, 0.2, 7, 1))
@@ -186,11 +196,12 @@ def worker(tree: str, step: bool, stages: bool = False) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="the other tree's root")
-    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--rounds", type=int, default=2, help="rounds of turns (0: stages only)")
     ap.add_argument("--step", action="store_true",
                     help="also time a bf16 MSA-DIGAT training step at B 64 in each turn")
     ap.add_argument("--stages", action="store_true",
-                    help="first profile A' bf16 and A'' bf16 launch by launch on each tree")
+                    help="first profile A bf16, A' bf16 and A'' bf16 launch by launch on each "
+                         "tree")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -223,6 +234,9 @@ def main(argv=None) -> int:
             print(f"stages, {name} tree ({tree}):", flush=True)
             for what, stages in split.items():
                 S.say_stages(what, stages)
+                if what.startswith("A bf16"):
+                    N = 8960 if "N8960" in what else 1024
+                    S.say_product_rates(S.msa_fwd_product_rates(stages, N, 32, 300, 400, 256))
                 if what == "A' bf16":
                     S.say_product_rates(S.msa_bwd_product_rates(stages, 8960, 32, 300, 400, 256))
     runs = {"this": [], "other": []}
@@ -238,7 +252,7 @@ def main(argv=None) -> int:
             runs[name].append(times)
             print(f"turn {name}: " + json.dumps({k: [round(t, 4) for t in v]
                                                  for k, v in times.items()}), flush=True)
-    for key in runs["this"][0]:
+    for key in runs["this"][0] if args.rounds else ():
         span = {n: (min(min(r[key]) for r in rs), max(max(r[key]) for r in rs))
                 for n, rs in runs.items()}
         print(f"{key}: this {span['this'][0]:.4f}-{span['this'][1]:.4f} ms, other "

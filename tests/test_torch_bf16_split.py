@@ -199,9 +199,28 @@ def wg_product(a, b, kt=64, split_b=False, slice_rows=None):
     return total
 
 
+def wg_logit_parts(u, b1, v, tile=128):
+    """The v-product of tanh(u + b1) per `tile`-wide column block of the
+    wgmma kPool / kLogits epilogue (tc_wgmma.cuh), in its order: within a
+    block each of a row's four lanes sums its four of every sixteen columns
+    in column order, then (l0 + l1) + (l2 + l3) -> [parts, M], u's dtype."""
+    t = torch.tanh(u + b1.to(u.dtype)) * v.to(u.dtype)
+    parts = []
+    for c0 in range(0, t.shape[1], tile):
+        lanes = [torch.zeros(t.shape[0], dtype=t.dtype) for _ in range(4)]
+        for c in range(c0, min(t.shape[1], c0 + tile)):
+            lane = (0, 2, 1, 3)[((c - c0) % 16) // 4]
+            lanes[lane] = lanes[lane] + t[:, c]
+        parts.append((lanes[0] + lanes[1]) + (lanes[2] + lanes[3]))
+    return torch.stack(parts)
+
+
 # A''s products cut to a few hundred rows: (what, M, K, N, B split, k-tile,
-# rows of a slice of K); q|k|v has two exact bf16 operands (one pass)
+# rows of a slice of K); q|k|v has two exact bf16 operands (one pass); the
+# pool logits are kernel A's bf16 product (u's product, then its v-product
+# per 128-wide column, the parts added in order; no u stored)
 PRODUCTS = [("u = h W1^T", 256, 400, 256, False, 64, None),
+            ("logits = tanh(h W1^T + b1) v", 256, 400, 256, False, 64, None),
             ("dO = dpre W1", 256, 256, 400, False, 64, None),
             ("dx = dqkv Wqkv", 192, 1200, 300, False, 64, None),
             ("dWqkv = dqkv^T xd", 96, 9000, 100, False, 64, 4096),
@@ -216,14 +235,24 @@ def test_wgmma_split_products_within_the_gate(what, M, K, N, split_b, kt, rows):
     the terms' magnitudes (fp32-class, as 3xTF32 is)."""
     g = np.random.default_rng(M + K)
     a = torch.from_numpy(g.standard_normal((M, K)).astype(np.float32))
-    if what.startswith("u"):
+    if what.startswith(("u", "logits")):
         a = a.clamp(min=0)  # h is a ReLU's output
     b = torch.from_numpy((g.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32))
     if not split_b:
         b = b.to(BF16).float()  # the exact bf16 weight or x
     got = wg_product(a, b, kt, split_b, rows).double()
     ref = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    if what.startswith("logits"):
+        b1 = torch.from_numpy((0.1 * g.standard_normal(N)).astype(np.float32))
+        v = torch.from_numpy((g.standard_normal(N) / np.sqrt(N)).astype(np.float32))
+        parts = wg_logit_parts(got.float(), b1, v)
+        got = torch.zeros(M)
+        for part in parts:
+            got = got + part
+        got = got.double()
+        terms = torch.tanh(ref + b1.double()) * v.double()
+        ref, scale = terms.sum(dim=1), terms.abs().sum(dim=1)
     err = float((got - ref).abs().max())
     assert err <= GATE * max(1.0, float(ref.abs().max())), err
-    scale = a.double().abs() @ b.double().abs()
     assert float(((got - ref).abs() / scale).max()) <= 2.0**-20

@@ -54,8 +54,21 @@ _CASES = [(37, 300, 16, 25, 256, 32), (1024, 300, 16, 25, 256, 32), (5, 24, 4, 8
           (3, 300, 16, 25, 256, 128), (6, 64, 2, 80, 32, 32)]
 
 
+# A's bf16 instance also at one, two and 129 titles, L 7 to 128, Din a
+# multiple of 8 (x read in place by the TMA) and not (x copied to 16-byte
+# rows where there is no dropout), heads of dk 30 and 32 in groups of four
+# with a partial last group, dk 64 (the attention stage's wide instance),
+# 63 (a head row past 16 float4s at its shift: the long unit) and 128 (the
+# long unit, h's planes by a split pass)
+_FWD_CASES = _CASES + [(1, 300, 16, 25, 256, 32), (2, 300, 16, 25, 256, 20),
+                       (129, 300, 16, 25, 256, 16), (9, 304, 16, 25, 256, 32),
+                       (7, 300, 16, 25, 256, 48), (5, 300, 6, 30, 64, 20),
+                       (3, 64, 2, 32, 32, 32), (11, 256, 4, 64, 128, 32),
+                       (3, 64, 4, 63, 64, 20), (4, 256, 2, 128, 128, 32)]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("N,Din,heads,dk,A,L", _CASES)
+@pytest.mark.parametrize("N,Din,heads,dk,A,L", _FWD_CASES)
 def test_msa_encoder_bf16_kernel(cuda, N, Din, heads, dk, A, L, rate):
     """A's bf16 instance (its own counter; the fp32 one not launched)
     against the plain version on the same bf16 inputs; fp32 out; the same
