@@ -1599,7 +1599,7 @@ def ptxas_report(build, needle: str) -> dict:
 # the library (A, A' and B: their products; A'' at bf16: its integer
 # instructions).
 SASS_OWNERS = ("msa_pool_fwd_kernel", "msa_attn_relu_fix_kernel", "gat_layer_attend_kernel",
-               "dropout_bf16_kernel")
+               "dropout_bf16_kernel", "msa_attention_bf16_")
 
 
 @functools.lru_cache(maxsize=2)
@@ -1607,26 +1607,30 @@ def library_sass(path: str) -> str:
     """The SASS (`cuobjdump -sass`) of the library's ELF files that hold a
     kernel of SASS_OWNERS, each after a "Fatbin elf code" line as a dump of
     the whole library prints them; read once a run. The ELF files are
-    extracted (`-xelf all`) and only those disassembled: the attention
-    pair's many instantiations are not."""
+    extracted (`-xelf all`) and only those disassembled, all at once: the
+    fp32 and wide attention pair's many instantiations are not."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump") or tool
     t0 = time.perf_counter()
-    parts = []
     with tempfile.TemporaryDirectory() as tmp:
         subprocess.run([tool, "-xelf", "all", os.path.abspath(path)], cwd=tmp,
                        capture_output=True, text=True, timeout=300)
+        names = []
         for name in sorted(os.listdir(tmp)):
             with open(os.path.join(tmp, name), "rb") as f:
                 raw = f.read()
             if any(owner.encode() in raw for owner in SASS_OWNERS):
-                sass = subprocess.run([tool, "-sass", os.path.join(tmp, name)],
-                                      capture_output=True, text=True, timeout=300).stdout
-                parts.append(f"Fatbin elf code: {name}\n{sass}")
+                names.append(name)
+        dump = lambda name: subprocess.run([tool, "-sass", os.path.join(tmp, name)],
+                                           capture_output=True, text=True, timeout=300).stdout
+        with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+            parts = [f"Fatbin elf code: {name}\n{sass}"
+                     for name, sass in zip(names, pool.map(dump, names))]
     tool_time("cuobjdump", t0)
     return "\n".join(parts)
 
@@ -1690,7 +1694,38 @@ def sass_tensor_core_check(build) -> dict:
             if name and re.search(counts[name][0], line):
                 counts[name][1] += 1
     kinds = {tf32: "HMMA TF32", bf16: "HMMA 16816.F32.BF16", hgmma: "HGMMA BF16"}
-    return {label: (kinds[pat], n) for label, (pat, n) in counts.items()}
+    out = {label: (kinds[pat], n) for label, (pat, n) in counts.items()}
+    out.update(pair_bf16_sass(sass))
+    return out
+
+
+# the bf16 register-row pair's kernels (csrc/msa_attention_bf16.cu and
+# msa_attention_bf16_long.cu): 5 kinds x 4 widths x even or odd head offsets
+PAIR_BF16_KERNELS = 40
+
+
+def pair_bf16_sass(sass: str) -> dict:
+    """bf16 tensor-core instructions in each instantiation of the pair's bf16
+    register-row kernels: label -> ("HMMA 16816.F32.BF16", count)."""
+    import re
+
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*msa_attention_bf16_(fwd|bwd|fwd_long|bwd_long)_kernel"
+                      r"ILi(\d)E((?:Lb[01]E)+)", line)
+        if m:
+            bools = re.findall(r"Lb([01])E", m.group(3))
+            kind = m.group(1) + ({"1": " short", "0": " mid"}[bools[1]] if m.group(1) == "bwd"
+                                 else "")
+            name = (f"pair bf16: {kind}, dk padded to {8 * int(m.group(2))}, "
+                    f"{'even' if bools[0] == '1' else 'odd'} head offsets")
+            counts[name] = ("HMMA 16816.F32.BF16", 0)
+            continue
+        if re.search(r"Function : ", line):
+            name = None
+        elif name and re.search(r"HMMA\.16816\.F32\.BF16", line):
+            counts[name] = (counts[name][0], counts[name][1] + 1)
+    return counts
 
 
 # the product instantiations of kernels A, A' and B, as
@@ -1717,11 +1752,14 @@ def redesign_report(build) -> bool:
     for label, (kind, n) in counts.items():
         say(f"  SASS {label}: {n} {kind} instructions")
     wgmma = [label for label, (kind, _) in counts.items() if kind.startswith("HGMMA")]
-    if len(counts) < PRODUCT_KERNELS or not all(n for _, n in counts.values()) or \
+    pair = [label for label in counts if label.startswith("pair bf16:")]
+    if len(counts) - len(pair) < PRODUCT_KERNELS or not all(n for _, n in counts.values()) or \
             sum(label.startswith("A:") for label in wgmma) < 2 or \
-            sum(label.startswith("A':") for label in wgmma) < 7:
-        say("  SASS check FAILED: a product kernel of A, A' or B issues no tensor-core "
-            "instruction of its kind, or one of A's two or A''s seven wgmma products is "
+            sum(label.startswith("A':") for label in wgmma) < 7 or \
+            len(pair) != PAIR_BF16_KERNELS:
+        say("  SASS check FAILED: a product kernel of A, A' or B, or a kernel of the pair's "
+            "bf16 register-row instance, issues no tensor-core instruction of its kind, or one "
+            "of A's two or A''s seven wgmma products or of the pair's forty bf16 kernels is "
             "missing")
         ok = False
     return ok
@@ -1784,13 +1822,25 @@ def pair_registers(build) -> dict:
     """ptxas's registers and spills of every instantiation of the pair, from
     the build's log: (kernel, W, float4 loads, dtype) -> (registers, spill
     stores, spill loads). The wide instance's kernels are `fwd_wide`,
-    `bwd_wide_stats`, `bwd_wide_cols` and `bwd_wide_dq` (W 128)."""
+    `bwd_wide_stats`, `bwd_wide_cols` and `bwd_wide_dq` (W 128). The bf16
+    register-row instance's are `bf16_fwd`, `bf16_bwd_short`, `bf16_bwd_mid`
+    (resident), `bf16_fwd_long` and `bf16_bwd_long` (streamed), W the padded
+    width and the third item "even head offsets" (its copy width is chosen at
+    run time)."""
     import re
 
     from digat_tpu_torch.ops import msa_attention as MA
 
     regs = {}
     for mangled, report in sorted(ptxas_report(build, "msa_attention_").items()):
+        m = re.search(r"msa_attention_bf16_(fwd|bwd|fwd_long|bwd_long)_kernel"
+                      r"ILi(\d)E((?:Lb[01]E)+)", mangled)
+        if m:
+            bools = re.findall(r"Lb([01])E", m.group(3))
+            kind = "bf16_" + m.group(1) + ({"1": "_short", "0": "_mid"}[bools[1]]
+                                           if m.group(1) == "bwd" else "")
+            regs[kind, 8 * int(m.group(2)), bools[0] == "1", "bf16"] = report
+            continue
         m = re.search(r"msa_attention_(fwd|bwd|bwd_long|fwd_wide|bwd_wide_rows|bwd_wide_cols)"
                       r"_kernelI(?:Li(\d+)E)?((?:Lb[01]E)+)(f|13__nv_bfloat16)E", mangled)
         if not m:
@@ -1806,8 +1856,10 @@ def pair_registers(build) -> dict:
 
 def say_pair_registers(regs) -> None:
     for (kind, W, vec, dtype), (n_regs, st, ld) in sorted(regs.items()):
-        say(f"  ptxas {kind} W {W} {dtype} {'float4' if vec else 'scalar'} loads: {n_regs} "
-            f"registers, spill stores {st} B, spill loads {ld} B")
+        how = (f"{'even' if vec else 'odd'} head offsets" if kind.startswith("bf16_")
+               else f"{'float4' if vec else 'scalar'} loads")
+        say(f"  ptxas {kind} W {W} {dtype} {how}: {n_regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
 
 
 def pair_entry(by_shape: dict, main: str) -> dict:
@@ -2797,10 +2849,13 @@ def bf16_pair_kernels(torch, ncfg, dev):
     user tower's serving batch, titles of L 160 at 16 x 25 heads, and its
     wide instance at WIDE_SHAPES and the titles of an NRMS-SA 4 x 100
     training step, each masked with an all-masked sequence; SDPA on the
-    same bf16 inputs as `library_ms`; the same bits twice; the wide
-    instance's bound with its products at the dense bf16 rate; the wide
-    backward's stages at WIDE_SPLIT; the wide kernels' bf16 registers and
-    spills (ptxas). -> (register-row entry, wide entry)."""
+    same bf16 inputs as `library_ms`; the same bits twice, forward and
+    backward; both instances' bound with their products at the dense bf16
+    rate; the register-row instance's blocks (kernel, head group, rows,
+    warps, units in flight, shared bytes) and the wide instance's; the wide
+    backward's stages at WIDE_SPLIT (the register-row one is a launch each
+    way); their kernels' bf16 registers and spills (ptxas). -> (register-row
+    entry, wide entry)."""
     import torch.nn.functional as F
 
     from digat_tpu_torch.ops import build
@@ -2840,8 +2895,8 @@ def bf16_pair_kernels(torch, ncfg, dev):
             for backward in (False, True):
                 flops, nbytes = attention_work(N, L, H, d, rs, backward)
                 nbytes = (nbytes - N * L) // 2 + N * L  # the rows bf16, the mask bytes
-                # the wide instance's products are bf16 x bf16 on the tensor cores
-                least = bf16_bound(flops, flops, nbytes) if wide else None
+                # both instances' products are bf16 x bf16 on the tensor cores
+                least = bf16_bound(flops, flops, nbytes)
                 if backward:
                     e = check_kernel(
                         torch, f"msa_attention bf16 bwd {name}",
@@ -2860,6 +2915,19 @@ def bf16_pair_kernels(torch, ncfg, dev):
                 entry["bwd" if backward else "fwd"] = e
             again = torch.equal(MA.attention_fwd(q, k, v, mask, H, d),
                                 MA.attention_fwd(q, k, v, mask, H, d))
+            if not wide:  # the bf16 register-row instance's blocks and their kernels
+                vec = MA.launch_plan([t.data_ptr() for t in (q, k, v, do)], rs, d, d, 2)[1]
+                for key in ("fwd", "bwd"):
+                    kind = MA.bf16_kind(L, key == "bwd")
+                    geom = MA.bf16_geometry(kind, L, H, d, vec)
+                    stages = MA.bf16_stages(kind, L, H, d, vec)
+                    kernel = "bf16_" + ("bwd_" + kind if key == "bwd" else kind)
+                    entry[key]["block"] = dict(
+                        kernel=kernel, copies16=vec, heads_a_group=geom[0], own_rows=geom[4],
+                        warps=geom[5], units_in_flight=stages,
+                        shared_bytes=MA._bf16_smem_bytes(kind, L, H, d, vec, stages),
+                        registers=regs.get((kernel, MA.bf16_width(d), d % 2 == 0, "bf16")))
+                    say(f"    {key} block {entry[key]['block']}")
             if wide:
                 vec = MA.launch_plan([t.data_ptr() for t in (q, k, v, do)], rs, d, d, 2)[1]
                 for key, kinds in (("fwd", ("fwd_wide",)),
@@ -2869,14 +2937,14 @@ def bf16_pair_kernels(torch, ncfg, dev):
                         shared_bytes=MA._smem_bytes(L, d, key == "bwd", 2),
                         registers=[regs.get((kind, MA.WIDE, vec, "bf16")) for kind in kinds])
                     say(f"    {key} block {entry[key]['block']}")
-                again = again and all(torch.equal(a, b) for a, b in zip(
-                    MA.attention_bwd(q, k, v, mask, do, H, d),
-                    MA.attention_bwd(q, k, v, mask, do, H, d)))
                 if (N, L) == WIDE_SPLIT:
                     entry["bwd"]["stages"] = stage_split(
                         torch, lambda: MA.attention_bwd(q, k, v, mask, do, H, d))
                     say_stages(f"the wide bf16 backward {name}", entry["bwd"]["stages"])
-            say(f"    same {'forward and backward' if wide else 'forward'} bits twice: {again}")
+            again = again and all(torch.equal(a, b) for a, b in zip(
+                MA.attention_bwd(q, k, v, mask, do, H, d),
+                MA.attention_bwd(q, k, v, mask, do, H, d)))
+            say(f"    same forward and backward bits twice: {again}")
             (wide_shapes if wide else by_shape)[name] = dict(
                 entry, ok=entry["fwd"]["ok"] and entry["bwd"]["ok"] and again)
         except Exception:

@@ -1,21 +1,20 @@
-// Pieces of the masked attention pair that its kernels
-// (msa_attention_kernels.cuh, instantiated for fp32 by msa_attention.cu and
-// for bf16 by msa_attention_bf16.cu) and its wide instance
-// (msa_attention_wide.cu) share: constants, the shared-memory layout, and
-// the row loads, stores and products. Each file that includes this header
+// Pieces of the masked attention pair that its fp32 register-row kernels
+// (msa_attention_kernels.cuh, instantiated by msa_attention.cu), its bf16
+// register-row kernels (msa_attention_bf16.cuh: the constants) and its wide
+// instance (msa_attention_wide.cu) share: constants, the shared-memory
+// layout, and the row loads, stores and products. Each file that includes this header
 // gets its own copy (an unnamed namespace); the kernel files are compiled
 // apart, in parallel, and the entry points reach the wide instance through
 // `digat::attention_fwd_wide<T>` and `digat::attention_bwd_wide<T>`, and
 // the backward past 32 positions through `digat::attention_bwd_long<T>`.
 //
-// Element types. q, k, v, do and the outputs are T, fp32 or bf16. The
-// register-row kernels hold rows in fp32 whatever T is (in shared memory
-// and in registers: a bf16 value is exact in fp32), so their shared-memory
-// layout and its byte counts are the same for both (the wide instance keeps
-// bf16 rows as bf16 for its tensor-core products); every sum runs in fp32
-// and an output is rounded once to T (to nearest even for bf16), as the
-// TPU kernels load bf16 q, k and v into fp32, compute in fp32 and round
-// their outputs.
+// Element types. q, k, v, do and the outputs are T, fp32 or bf16. The fp32
+// register-row kernels hold rows in fp32 (in shared memory and in
+// registers); the wide instance and the bf16 register-row kernels keep bf16
+// rows as bf16 for their tensor-core products; every sum runs in fp32 and
+// an output is rounded once to T (to nearest even for bf16), as the TPU
+// kernels load bf16 q, k and v into fp32, compute in fp32 and round their
+// outputs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -268,10 +267,10 @@ cudaError_t attention_bwd_wide(const T* q, const T* k, const T* v, const unsigne
                                int dk, int rs, int hs, float scale, bool vec, int max_smem,
                                cudaStream_t stream);
 
-// the register-row backward past kShortL positions (msa_attention_kernels.cuh,
-// instantiated by msa_attention_long.cu for fp32 and msa_attention_bf16_long.cu
-// for bf16): its kernels' shared-memory limit (once per device), and its
-// launch; cudaErrorInvalidValue where a unit's shared memory passes max_smem
+// the fp32 register-row backward past kShortL positions
+// (msa_attention_kernels.cuh, instantiated by msa_attention_long.cu): its
+// kernels' shared-memory limit (once per device), and its launch;
+// cudaErrorInvalidValue where a unit's shared memory passes max_smem
 template <typename T>
 cudaError_t attention_long_init(int max_smem);
 template <typename T>

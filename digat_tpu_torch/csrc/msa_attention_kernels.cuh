@@ -1,10 +1,11 @@
 // Masked multi-head self-attention, forward and backward, for sm_90a: the
-// kernels, templated on the element type T of q, k, v, do and the outputs
-// (fp32, instantiated by msa_attention.cu; bf16, by msa_attention_bf16.cu;
-// the backward past 32 positions by msa_attention_long.cu and
-// msa_attention_bf16_long.cu, which define DIGAT_ATTENTION_LONG: four files
-// that nvcc compiles in parallel), and the entry points' logic, which each
-// of those files wraps in its own C functions.
+// fp32 register-row kernels, templated on the element type T of q, k, v, do
+// and the outputs, and instantiated for fp32 only (by msa_attention.cu; the
+// backward past 32 positions by msa_attention_long.cu, which defines
+// DIGAT_ATTENTION_LONG: two files that nvcc compiles in parallel), and the
+// entry points' logic, which those files wrap in their C functions. The bf16
+// instance (compute_dtype bfloat16) has kernels of its own, on the tensor
+// cores: msa_attention_bf16.cuh.
 //
 // Replaces two TPU kernels that compute the same function:
 //   digat_tpu/ops/pallas/msa_attention_grouped.py (msa_attention_grouped:
@@ -111,14 +112,14 @@
 //    of the same kernel loads and stores elements (dk 6 or 7, a view with
 //    an odd storage offset). ops/msa_attention.py's `launch_plan` states the
 //    same rule.
-//  * bf16 (T = __nv_bfloat16, compute_dtype bfloat16): the TPU kernels load
-//    bf16 q, k and v into fp32, compute the scores, the softmax, P v and the
-//    whole backward in fp32, and round out, dq, dk and dv to bf16
-//    (msa_attention.py:69-72,84-104). So do these: rows enter shared memory
-//    and registers as fp32 (the layout and its bytes are the fp32 ones),
-//    and each output element is rounded once, to nearest even. The bf16
-//    instances read and write half the bytes and are otherwise the fp32
-//    kernels; they were not tuned apart.
+//  * bf16 (compute_dtype bfloat16): the TPU kernels load bf16 q, k and v
+//    into fp32, compute the scores, the softmax, P v and the whole backward
+//    in fp32, and round out, dq, dk and dv to bf16 (msa_attention.py:69-72,
+//    84-104). The bf16 instance computes the same function with kernels of
+//    its own (msa_attention_bf16.cuh: bf16 rows, products on the tensor
+//    cores); these templates would take T = __nv_bfloat16 (rows converted
+//    to fp32 on their way in, each output rounded once to nearest even),
+//    but nothing instantiates them so.
 //
 // Shared memory, with KS = kv_stride(W) and L mask bytes rounded up to 16
 // after the floats: forward 2 L W a unit; backward at L <= 32 4 L KS + 64 L

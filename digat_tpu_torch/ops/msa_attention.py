@@ -25,10 +25,15 @@ instances (`csrc/msa_attention_bf16.cu`, launch counters `launches_bf16`)
 and the plain version both compute in fp32 from the bf16 values and round
 each output once, as the TPU kernels do (the JAX package's XLA path,
 `_attention_xla`, rounds the scores and the probabilities to bf16 instead).
-The register-row kernels (dk <= 64) keep one head of one sequence in the
-shared memory of a warp (L <= SHORT_L) or of a block, so a sequence longer
-than `max_length(dk)` raises, as does a head wider than the widest of
-`WIDTHS`; there is no fallback. The wide instance (dk 65-128,
+The fp32 register-row kernels (dk <= 64) keep one head of one sequence in
+the shared memory of a warp (L <= SHORT_L) or of a block, so a sequence
+longer than `max_length(dk)` raises, as does a head wider than the widest
+of `WIDTHS`; there is no fallback. The bf16 register-row instance (dk <=
+64, `csrc/msa_attention_bf16.cuh`) runs its products on the tensor cores
+on groups of heads copied as bf16 (`bf16_geometry`); its forward streams
+the keys and takes any L, its backward past SHORT_L keeps three floats of
+row statistics a head and row in shared memory, which caps L
+(`max_length(dk, itemsize=2)`). The wide instance (dk 65-128,
 `csrc/msa_attention_wide.cu`, launch counters `launches_wide` and
 `launches_wide_bf16`) streams its keys through shared memory in tiles and
 takes any L (`max_length` None).
@@ -65,13 +70,24 @@ def head_width(dk: int) -> int:
                      f"take ({WIDTHS[-1]})")
 
 
+def bf16_width(dk: int) -> int:
+    """The bf16 register-row instance's padded head width: dk rounded up to
+    16, the depth of an m16n8k16 product (20 and 25 -> 32)."""
+    return 16 * -(-dk // 16)
+
+
 def launch_plan(pointers, rs: int, hs: int, dk: int, itemsize: int = 4) -> tuple:
     """(W, vector) of the kernel instantiation that the C entry points pick
     for these operands, by the same rule: the width `head_width(dk)`, and
     loads and stores of four elements where the row stride rs and the head
     stride hs (in elements) are multiples of 4 and every pointer
     (`data_ptr()`) is aligned to four elements of `itemsize` bytes, scalar
-    ones otherwise."""
+    ones otherwise. The bf16 register-row instance (itemsize 2, dk <= 64):
+    the width `bf16_width(dk)`, and 16-byte copies of groups of heads where
+    rs is a multiple of 8 elements and every pointer is 16-byte aligned,
+    element copies of single heads otherwise."""
+    if itemsize == 2 and head_width(dk) != WIDE:
+        return bf16_width(dk), rs % 8 == 0 and all(p % 16 == 0 for p in pointers)
     vector = rs % 4 == 0 and hs % 4 == 0 and all(p % (4 * itemsize) == 0 for p in pointers)
     return head_width(dk), vector
 
@@ -114,11 +130,11 @@ def _wide_block_bytes(L: int, kind: str, itemsize: int = 4) -> int:
 
 def _smem_bytes(L: int, dk: int, backward: bool, itemsize: int = 4) -> int:
     """Shared memory that one launch needs at the least (as
-    csrc/msa_attention.cuh counts it; the register-row kernels' rows are fp32
-    for bf16 operands too, so their count does not depend on the dtype),
-    with rows `_row_stride(W)` floats apart in the backward and W apart in
-    the forward, then L mask bytes rounded up to 16, for one (sequence,
-    head): the forward's k and v rows;
+    csrc/msa_attention.cuh counts it for the fp32 register-row instance; the
+    bf16 one counts its own, `_bf16_smem_bytes`), with rows `_row_stride(W)`
+    floats apart in the backward and W apart in the forward, then L mask
+    bytes rounded up to 16, for one (sequence, head): the forward's k and v
+    rows;
     the backward's q, do, k and v rows and, at L <= SHORT_L, the [L][32]
     score tiles P and S, beyond that three floats of statistics per row. The
     wide instance (dk 65-128): one block (`_wide_block_bytes`, whose rows
@@ -135,6 +151,91 @@ def _smem_bytes(L: int, dk: int, backward: bool, itemsize: int = 4) -> int:
     else:
         floats = 4 * L * KS + 3 * L
     return 4 * (floats + 4 * -(-L // 16))
+
+
+BF16_TILE = 32  # keys of a tile of scores in the bf16 register-row kernels (kKT)
+BF16_RESIDENT_WARPS = 4  # warps of a resident bf16 block at most (kRWarps)
+BF16_RESIDENT = 64  # the longest L whose rows a bf16 block holds whole (kResL)
+BF16_STAGES = 3  # units a resident bf16 block has in flight at most (kStages)
+
+
+def bf16_kind(L: int, backward: bool) -> str:
+    """The bf16 register-row kernel that the C entry points run: the resident
+    forward "fwd" (L <= BF16_RESIDENT) or the streamed "fwd_long"; the
+    resident backward "short" (L <= SHORT_L: p and ds kept) or "mid", or
+    the streamed "long"."""
+    if not backward:
+        return "fwd" if L <= BF16_RESIDENT else "fwd_long"
+    return "short" if L <= SHORT_L else "mid" if L <= BF16_RESIDENT else "long"
+
+
+def bf16_geometry(kind: str, L: int, heads: int, hs: int, vector: bool) -> tuple:
+    """(g, groups, se, sr, qr, warps) of a bf16 register-row launch, as
+    csrc/msa_attention_bf16.cuh's `bgeom`: g heads a group (8 / gcd(hs, 8)
+    with 16-byte copies, so that a group's columns start and end on 16
+    bytes; 1 with element copies; at most `heads`), groups a sequence, a
+    span row's elements se (g hs rounded up to 8) and the shared row stride
+    sr (se, or se + 8 where se / 8 is even: rows 16 bytes off a multiple of
+    32), a block's own rows qr and its warps. A task is a head and 32 rows
+    in the forwards, 16 in the backwards. Resident kernels ("fwd", "short",
+    "mid") hold L rounded up to 16 rows and run min(BF16_RESIDENT_WARPS,
+    tasks) warps, which take the tasks in turn; streamed ones own a chunk of
+    rows (a task's rows times max(1, 4 // g), at most L rounded up to 16)
+    and run a warp a task."""
+    g = min(8 // math.gcd(hs, 8) if vector else 1, heads)
+    lp = -(-L // 16) * 16
+    se = -(-g * hs // 8) * 8
+    sr = se if (se // 8) % 2 else se + 8
+    if kind in ("fwd", "short", "mid"):
+        tasks = g * (-(-lp // 32) if kind == "fwd" else lp // 16)
+        return g, -(-heads // g), se, sr, lp, min(BF16_RESIDENT_WARPS, tasks)
+    rows = 32 if kind == "fwd_long" else 16  # a streamed task's rows
+    qr = min(lp, rows * max(1, 4 // g))
+    return g, -(-heads // g), se, sr, qr, g * -(-qr // rows)
+
+
+def _bf16_smem_bytes(kind: str, L: int, heads: int, hs: int, vector: bool,
+                     stages: int = 1) -> int:
+    """Shared memory of one bf16 register-row block, as `bf16_smem` counts
+    it (rows of sr bf16), with `stages` units in flight in a resident one: a
+    stage per unit of q, k and v [lp] (forward) or q, do, k and v (backward)
+    and its lp mask bytes; the backward's staged dq [lp] and per head either
+    p and ds as bf16 hi and lo [lp][lp + 8] ("short") or three floats of
+    statistics a row ("mid"). Streamed: the forward's q rows [qr] and two
+    stages of k and v tiles with their mask bytes; the backward's own rows
+    (two arrays of qr), two stages of two streamed tiles, three floats of
+    statistics a head and row (rows rounded up to BF16_TILE) and the mask
+    bytes."""
+    g, _, _, sr, qr, _ = bf16_geometry(kind, L, heads, hs, vector)
+    row, T, lp = 2 * sr, BF16_TILE, -(-L // 16) * 16
+    if kind == "fwd":
+        return stages * (3 * lp * row + lp)
+    if kind in ("short", "mid"):
+        own = g * 4 * lp * (lp + 8) * 2 if kind == "short" else 3 * g * lp * 4
+        return stages * (4 * lp * row + lp) + lp * row + own
+    if kind == "fwd_long":
+        return qr * row + 2 * (2 * T * row + T)
+    lr = -(-L // T) * T
+    return 2 * qr * row + 4 * T * row + 12 * g * lr + lr
+
+
+def bf16_stages(kind: str, L: int, heads: int, hs: int, vector: bool) -> int:
+    """Units a resident bf16 block has in flight, as `bf16_stages`: the most
+    up to BF16_STAGES whose shared memory fits a block (0: not one); 1 for a
+    streamed kernel that fits."""
+    top = BF16_STAGES if kind in ("fwd", "short", "mid") else 1
+    for stages in range(top, 0, -1):
+        if _bf16_smem_bytes(kind, L, heads, hs, vector, stages) <= MAX_SMEM_BYTES:
+            return stages
+    return 0
+
+
+def _bf16_need(L: int, heads: int, hs: int, backward: bool) -> int:
+    """The least shared memory of a bf16 register-row block (one unit in
+    flight), the larger of 16-byte and element copies (the pointers choose
+    between them)."""
+    kind = bf16_kind(L, backward)
+    return max(_bf16_smem_bytes(kind, L, heads, hs, v) for v in (True, False))
 
 
 def warps_per_block(warp_bytes: int, sm_bytes: int, regs: int = 0,
@@ -174,11 +275,23 @@ def block_shape(L: int, dk: int, backward: bool, sm_bytes: int, regs: int = 0,
     return warps, warps * need
 
 
-def max_length(dk: int, backward: bool = True):
+def max_length(dk: int, backward: bool = True, itemsize: int = 4, heads: int = 8,
+               hs: int | None = None):
     """The longest sequence the kernel takes at head width dk; None for the
-    wide instance (dk 65-128), whose shared memory does not grow with L."""
-    if head_width(dk) == WIDE:
+    wide instance (dk 65-128), whose shared memory does not grow with L, and
+    for the bf16 register-row forward (itemsize 2), which streams its keys.
+    The bf16 register-row backward's cap depends on its head group (heads
+    of stride hs, default dk)."""
+    if head_width(dk) == WIDE or (itemsize == 2 and not backward):
         return None
+    if itemsize == 2:
+        hs = dk if hs is None else hs
+        lo, hi = BF16_RESIDENT, 1 << 20  # _bf16_need(lo) fits, _bf16_need(hi) does not
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            fits = _bf16_need(mid, heads, hs, True) <= MAX_SMEM_BYTES
+            lo, hi = (mid, hi) if fits else (lo, mid)
+        return lo
     L = 1
     while _smem_bytes(L + 1, dk, backward) <= MAX_SMEM_BYTES:
         L += 1
@@ -243,13 +356,22 @@ def _check(q, k, v, mask, heads, dk, backward, what):
                              or mask.device != q.device):
         raise ValueError(f"{what}: mask must be bool [{N}, {L}] on {q.device}, got "
                          f"{mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    hs = rs // heads
+    if q.dtype == torch.bfloat16 and head_width(dk) != WIDE:
+        need = _bf16_need(L, heads, hs, backward)
+        if need > MAX_SMEM_BYTES:
+            raise ValueError(f"{what}: a sequence of {L} at head width {dk} needs {need} bytes "
+                             f"of shared memory (a group of heads of one sequence per block), "
+                             f"more than the {MAX_SMEM_BYTES} a block has; the longest it takes "
+                             f"is {max_length(dk, backward, 2, heads, hs)}")
+        return N, L, rs, hs
     need = _smem_bytes(L, dk, backward)
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{what}: a sequence of {L} at head width {dk} needs {need} bytes of "
                          f"shared memory (one head of one sequence per warp), more than the "
                          f"{MAX_SMEM_BYTES} a block has; the longest it takes is "
                          f"{max_length(dk, backward)}")
-    return N, L, rs, rs // heads
+    return N, L, rs, hs
 
 
 def _ptr(mask):

@@ -2,7 +2,7 @@
 """Kernels A, A', C and the attention pair timed in turns: one tree of the
 package against another on the same card.
 
-    python3 scripts/kernel_turns.py --other OTHER_TREE [--rounds 2] [--step] [--stages]
+    python3 scripts/kernel_turns.py --other OTHER_TREE [--rounds 2] [--step] [--stages] [--pair]
 
 OTHER_TREE is another checkout's root (for example the parent commit
 unpacked with `git archive` into a directory that `.gitignore` lists). Each
@@ -21,15 +21,19 @@ shapes:
   A'' bf16 forward at the NRMS word site [215,040, 300] and the CNN's word
      and bank sites [286,720, 300] and [286,720, 400], beside F.dropout on
      the same bf16 tensor
-  the attention pair forward and backward at the NRMS-SA training titles
-     [6,720, 32, 20 x 20] and user histories [64, 50, 20 x 20]
+  the attention pair forward and backward, fp32 and bf16 (the same values
+     rounded to bf16), at the NRMS-SA training titles [6,720, 32, 20 x 20],
+     a serving chunk of titles [1,024, 32, 20 x 20], the user tower's
+     serving batch [1,024, 50, 20 x 20] and MSA titles of L 160 [256, 160,
+     16 x 25]
   C  forward and backward at B 320, G 68 and 26, D 400 (k1 and k2 column
      blocks of a fused projection, as the training GAT layer passes them)
 
 on inputs drawn from one seed in every process. With --step each turn also
 runs one Trainer epoch of MSA-DIGAT at compute_dtype bfloat16, B 64 (the
 setting of chip_smoke.py's phase 20, built with that tree's chip_smoke.py
-helpers) and reports its median step after two warm-up steps. The turns run this tree,
+helpers) and reports its median step after two warm-up steps. With --pair
+each turn times the attention pair alone. The turns run this tree,
 the other, the other, this tree (`--rounds` times), and the script prints
 each turn's times and, per setting, the range of each tree. Both trees are
 built first, in parallel.
@@ -95,7 +99,31 @@ def bf16_step_ms(torch, dev) -> float:
     return float(np.median(rec["step_ms"][2:]))
 
 
-def worker(tree: str, step: bool, stages: bool = False) -> dict:
+# the attention pair's shapes: (what, N, L, heads, dk)
+PAIR_SHAPES = [("titles", 6720, 32, 20, 20), ("serving chunk", 1024, 32, 20, 20),
+               ("user", 1024, 50, 20, 20), ("L 160", 256, 160, 16, 25)]
+
+
+def pair_times(torch, MA, time_ms, dev) -> dict:
+    """The pair forward and backward at PAIR_SHAPES, fp32 and bf16 (masked,
+    key 0 kept), by CUDA events."""
+    out = {}
+    for what, N, L, H, dk in PAIR_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(N + L)
+        q, k, v, do = (torch.randn((N, L, H * dk), generator=g, device=dev) for _ in range(4))
+        mask = torch.rand((N, L), generator=g, device=dev) < 0.8
+        mask[:, 0] = True
+        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+            a, b, c, d = (t.to(dtype) for t in (q, k, v, do))
+            name = f"[{N},{L},{H}x{dk}]"
+            out[f"pair{tag} fwd {what} {name}"] = time_ms(
+                lambda: MA.attention_fwd(a, b, c, mask, H, dk))
+            out[f"pair{tag} bwd {what} {name}"] = time_ms(
+                lambda: MA.attention_bwd(a, b, c, mask, d, H, dk))
+    return out
+
+
+def worker(tree: str, step: bool, stages: bool = False, pair: bool = False) -> dict:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -138,6 +166,8 @@ def worker(tree: str, step: bool, stages: bool = False) -> dict:
                 r(Din, D, sc=Din ** -0.5), r(D, sc=0.1), r(D, A, sc=D ** -0.5), r(A, sc=0.1),
                 r(A, sc=A ** -0.5))
 
+    if pair:
+        return pair_times(torch, MA, time_ms, dev)
     out = {}
     a32 = msa_args(8960, 32, 300, 16, 25, 256, 1)
     dp = torch.randn((8960, 400), generator=torch.Generator(device=dev).manual_seed(4),
@@ -170,15 +200,7 @@ def worker(tree: str, step: bool, stages: bool = False) -> dict:
     for what, t in sites:
         out[f"A'' bf16 {what}"] = time_ms(lambda: DR.dropout(t, 0.2, 77, 5))
         out[f"F.dropout bf16 {what}"] = time_ms(lambda: F.dropout(t, 0.2))
-    for what, N, L in (("titles", 6720, 32), ("user", 64, 50)):
-        g = torch.Generator(device=dev).manual_seed(N + L)
-        q, k, v, do = (torch.randn((N, L, 400), generator=g, device=dev) for _ in range(4))
-        mask = torch.rand((N, L), generator=g, device=dev) < 0.8
-        mask[:, 0] = True
-        out[f"pair fwd {what} [{N},{L}]"] = time_ms(lambda: MA.attention_fwd(q, k, v, mask,
-                                                                             20, 20))
-        out[f"pair bwd {what} [{N},{L}]"] = time_ms(lambda: MA.attention_bwd(q, k, v, mask, do,
-                                                                             20, 20))
+    out.update(pair_times(torch, MA, time_ms, dev))
     for G in (68, 26):
         g = torch.Generator(device=dev).manual_seed(G)
         y = torch.randn((320, G, 1200), generator=g, device=dev) * 0.3
@@ -202,10 +224,11 @@ def main(argv=None) -> int:
     ap.add_argument("--stages", action="store_true",
                     help="first profile A bf16, A' bf16 and A'' bf16 launch by launch on each "
                          "tree")
+    ap.add_argument("--pair", action="store_true", help="time the attention pair alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker, args.step, args.stages)), flush=True)
+        print(json.dumps(worker(args.worker, args.step, args.stages, args.pair)), flush=True)
         return 0
     import torch
 
@@ -243,7 +266,8 @@ def main(argv=None) -> int:
     for _ in range(args.rounds):
         for name in ("this", "other", "other", "this"):
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                                  trees[name], *(["--step"] if args.step else [])],
+                                  trees[name], *(["--step"] if args.step else []),
+                                  *(["--pair"] if args.pair else [])],
                                  capture_output=True, text=True, cwd=trees[name])
             if res.returncode:
                 print(res.stderr, file=sys.stderr)

@@ -17,8 +17,9 @@ max |replay - plain| <= 1e-12 * max(1, max |plain|) in float64, where only
 summation order differs. Also the row stride of shared memory (one bank per
 lane), and the choices the wrapper shares with the C side: the width
 instantiation and load path (`launch_plan`), the warps of a block and the
-caps. The wide instance (`csrc/msa_attention_wide.cu`, dk 65-128) has its
-own replay and geometry at the end of the file."""
+caps. The wide instance (`csrc/msa_attention_wide.cu`, dk 65-128) and the
+bf16 register-row instance (`csrc/msa_attention_bf16.cuh`, dk <= 64 at
+bf16) have their own replays and geometry after them."""
 
 import math
 
@@ -489,3 +490,313 @@ def test_wide_geometry(L, wpu, upb, rows):
             upb * (2 * rows * row + 24 * T + rows + stream)
         assert MA.block_shape(L, 100, False, 233_472, itemsize=itemsize)[1] == \
             MA._wide_block_bytes(L, "fwd", itemsize) <= MA.MAX_SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
+# The bf16 register-row instance (csrc/msa_attention_bf16.cuh, heads of dk <=
+# 64 at compute_dtype bfloat16): its order of work replayed in float64 on
+# bf16 values. Rows in 16-row tiles, dk zero-padded to 16, keys (or the
+# column pass's rows) in tiles of 32; the probabilities and ds enter their
+# products as a bf16 hi and lo (`_split`: hi = bf16(x), lo = bf16(x - hi),
+# each rounded to nearest even from fp32); the forward's online softmax per
+# 32-key tile; the backward at L <= 32 forms each score once, beyond it
+# recomputes them (the row statistics online over key tiles, dq, then the
+# column pass from the statistics).
+#
+# Tolerance. The only rounding the replay keeps is the split: |x - hi| <=
+# 2^-8 |x| and |x - hi - lo| <= 2^-8 |x - hi|, so hi + lo is x to 2^-16 |x|,
+# and a product sum_j x_j y_j is off by at most 2^-16 sum_j |x_j| |y_j|. For
+# the forward sum_j p_j = 1, so out is off by at most 2^-16 max |v| (1.5e-5
+# of it); dq, dk and dv by 2^-16 times sums of |ds| |row| or |p| |row|. On
+# these normal inputs every output is within 1e-4 * max(1, max |plain|) (the
+# limit asserted, `_bf16_limit`).
+# ---------------------------------------------------------------------------
+BF16_LENGTHS = [1, 12, 16, 17, 31, 32, 33, 50, 160]
+BF16_DKS = [7, 20, 25, 64]
+BF16_TILE_KEYS = MA.BF16_TILE  # keys of a tile of scores
+
+
+def _to_bf16(x):
+    """x rounded to bf16 (nearest even) from fp32, as float64."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).double().numpy()
+
+
+def _split(x):
+    """hi + lo of the kernels' two-pass products: hi = bf16(x), lo = bf16(x - hi)."""
+    x32 = np.asarray(x, np.float32)
+    hi = _to_bf16(x32)
+    return hi + _to_bf16(x32 - hi.astype(np.float32))
+
+
+def _bf16_case(L, dk, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_to_bf16(rng.normal(size=(N, L, HEADS * dk))) for _ in range(4))
+    mask = rng.random((N, L)) < 0.7
+    mask[:, 0] = True
+    mask[0] = False  # all keys masked
+    return q, k, v, do, mask
+
+
+def _bf16_limit(ref):
+    return 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def _pad(x, rows, cols):
+    """x [r, c] zero-padded to [rows, cols]."""
+    out = np.zeros((rows, cols))
+    out[:x.shape[0], :x.shape[1]] = x
+    return out
+
+
+def _up(x, m):
+    return -(-x // m) * m
+
+
+def replay_bf16_forward(q, k, v, keep, scale):
+    """The forward on one head [L, dk]: per 16-row tile, over 32-key tiles,
+    the scores, -inf past L and -1e9 masked, the online max, sum and
+    accumulator, p v with p as hi + lo."""
+    L, dk = q.shape
+    dkp, T = _up(dk, 16), BF16_TILE_KEYS
+    Q, K, V = _pad(q, _up(L, 16), dkp), _pad(k, _up(L, T), dkp), _pad(v, _up(L, T), dkp)
+    kp = np.concatenate([keep, np.zeros(T, bool)])
+    out = np.zeros((_up(L, 16), dkp))
+    for r0 in range(0, L, 16):
+        o, m, l = np.zeros((16, dkp)), np.full(16, -np.inf), np.zeros(16)
+        for j0 in range(0, L, T):
+            j = np.arange(j0, j0 + T)
+            s = Q[r0:r0 + 16] @ K[j0:j0 + T].T
+            s = np.where(j >= L, -np.inf, np.where(kp[j], s * scale, MA.MASK_FILL))
+            m_new = np.maximum(m, s.max(axis=1))
+            assert np.isfinite(m_new).all()  # tile 0 holds key 0
+            corr = np.exp(m - m_new)
+            e = np.exp(s - m_new[:, None])
+            l = l * corr + e.sum(axis=1)
+            o = o * corr[:, None] + _split(e) @ V[j0:j0 + T]
+            m = m_new
+        out[r0:r0 + 16] = o / l[:, None]
+    return out[:L, :dk]
+
+
+def replay_bf16_backward_short(q, k, v, do, keep, scale):
+    """The backward at L <= 32 on one head: s and dp formed once over all
+    keys, the row max, 1 / sum and t, then p and ds (kept as hi + lo for the
+    transposed products), dq = ds k, dk = ds^T q, dv = p^T do."""
+    L, dk = q.shape
+    Lp, dkp = _up(L, 16), _up(dk, 16)
+    Q, K, V, D = (_pad(x, Lp, dkp) for x in (q, k, v, do))
+    j = np.arange(Lp)
+    live, kept = j < L, (j < L) & np.concatenate([keep, np.zeros(Lp - L, bool)])
+    s = np.where(live, np.where(kept, Q @ K.T * scale, MA.MASK_FILL), -np.inf)
+    dp = np.where(live, D @ V.T, 0.0)
+    e = np.exp(s - s.max(axis=1, keepdims=True))
+    inv = 1 / e.sum(axis=1, keepdims=True)
+    t = (e * dp).sum(axis=1, keepdims=True) * inv
+    p = e * inv
+    ds = np.where(kept, p * (dp - t) * scale, 0.0)
+    P, S = _split(p), _split(ds)
+    return (S @ K)[:L, :dk], (S.T @ Q)[:L, :dk], (P.T @ D)[:L, :dk]
+
+
+def replay_bf16_backward_recompute(q, k, v, do, keep, scale):
+    """The backward past L 32 on one head (the resident kernel up to L 64
+    and the streamed one beyond compute the same sums): per 16-row tile the
+    row max, sum and t online over 32-key tiles; dq over the key tiles again,
+    ds from p = exp(s - m) / sum; then per 16-key tile over 32-row tiles, p
+    and ds from each row's statistics, dv += p^T do, dk += ds^T q."""
+    L, dk = q.shape
+    dkp, T = _up(dk, 16), BF16_TILE_KEYS
+    R = _up(L, T)
+    Q, K, V, D = (_pad(x, R, dkp) for x in (q, k, v, do))
+    rows = np.arange(R)
+    live = rows < L
+    kept = live & np.concatenate([keep, np.zeros(R - L, bool)])
+    stats = np.zeros((R, 3))  # m, 1 / sum, t; rows past L 0 (their p is 0)
+    dq = np.zeros((R, dkp))
+    for r0 in range(0, L, 16):
+        m, l, tu = np.full(16, -np.inf), np.zeros(16), np.zeros(16)
+        for j0 in range(0, L, T):
+            j = slice(j0, j0 + T)
+            s = np.where(live[j], np.where(kept[j], Q[r0:r0 + 16] @ K[j].T * scale,
+                                           MA.MASK_FILL), -np.inf)
+            dp = np.where(live[j], D[r0:r0 + 16] @ V[j].T, 0.0)
+            m_new = np.maximum(m, s.max(axis=1))
+            corr = np.exp(m - m_new)
+            e = np.exp(s - m_new[:, None])
+            l, tu, m = l * corr + e.sum(axis=1), tu * corr + (e * dp).sum(axis=1), m_new
+        st = np.stack([m, 1 / l, tu / l], axis=1)
+        st[r0 + np.arange(16) >= L] = 0
+        stats[r0:r0 + 16] = st
+        g = np.zeros((16, dkp))
+        for j0 in range(0, L, T):
+            j = slice(j0, j0 + T)
+            with np.errstate(over="ignore"):  # a masked key's, selected away as on the card
+                p = np.exp(Q[r0:r0 + 16] @ K[j].T * scale - st[:, :1]) * st[:, 1:2]
+            ds = np.where(kept[j], p * (D[r0:r0 + 16] @ V[j].T - st[:, 2:3]) * scale, 0.0)
+            g += _split(ds) @ K[j]
+        dq[r0:r0 + 16] = g
+    dk_, dv_ = np.zeros((R, dkp)), np.zeros((R, dkp))
+    for j0 in range(0, L, 16):
+        own = slice(j0, j0 + 16)
+        gk, gv = np.zeros((16, dkp)), np.zeros((16, dkp))
+        for i0 in range(0, L, T):
+            i = slice(i0, i0 + T)
+            x = np.where(kept[own, None], K[own] @ Q[i].T * scale, MA.MASK_FILL)
+            p = np.where(live[i], np.exp(x - stats[i, 0]) * stats[i, 1], 0.0)
+            ds = np.where(kept[own, None] & live[i],
+                          p * (V[own] @ D[i].T - stats[i, 2]) * scale, 0.0)
+            gv += _split(p) @ D[i]
+            gk += _split(ds) @ Q[i]
+        dk_[own], dv_[own] = gk, gv
+    return dq[:L, :dk], dk_[:L, :dk], dv_[:L, :dk]
+
+
+def _bf16_heads(x, dk):
+    """[N, L, H dk] -> [N, H, L, dk]."""
+    return x.reshape(N, x.shape[1], HEADS, dk).transpose(0, 2, 1, 3)
+
+
+def _bf16_packed(u, dk):
+    return u.transpose(0, 2, 1, 3).reshape(N, u.shape[2], HEADS * dk)
+
+
+@pytest.mark.parametrize("dk", BF16_DKS)
+@pytest.mark.parametrize("L", BF16_LENGTHS)
+def test_bf16_forward_order_of_work(L, dk):
+    """The bf16 forward's tiles, online softmax and hi + lo split against
+    `_attention_plain` on bf16 values (upcast, fp32 there, float64 here)."""
+    q, k, v, _, mask = _bf16_case(L, dk, seed=L * 7 + dk)
+    scale = 1 / math.sqrt(dk)
+    heads = [_bf16_heads(x, dk) for x in (q, k, v)]
+    got = np.zeros((N, HEADS, L, dk))
+    for n in range(N):
+        for h in range(HEADS):
+            got[n, h] = replay_bf16_forward(*(x[n, h] for x in heads), mask[n], scale)
+    want = MA._attention_plain(*(torch.from_numpy(x) for x in (q, k, v)), HEADS,
+                               torch.from_numpy(mask))
+    err = float((torch.from_numpy(_bf16_packed(got, dk)) - want).abs().max())
+    assert err <= _bf16_limit(want), err
+
+
+@pytest.mark.parametrize("dk", BF16_DKS)
+@pytest.mark.parametrize("L", BF16_LENGTHS)
+def test_bf16_backward_order_of_work(L, dk):
+    """The bf16 backward (L <= 32: each score once; beyond: recomputed from
+    the row statistics) against `attention_bwd_plain`; the all-masked
+    sequence passes no gradient to q or k."""
+    q, k, v, do, mask = _bf16_case(L, dk, seed=L * 11 + dk)
+    scale = 1 / math.sqrt(dk)
+    heads = [_bf16_heads(x, dk) for x in (q, k, v, do)]
+    replay = replay_bf16_backward_short if L <= MA.SHORT_L else replay_bf16_backward_recompute
+    got = [np.zeros((N, HEADS, L, dk)) for _ in range(3)]
+    for n in range(N):
+        for h in range(HEADS):
+            for a, g in zip(got, replay(*(x[n, h] for x in heads), mask[n], scale)):
+                a[n, h] = g
+    want = MA.attention_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                  torch.from_numpy(mask), torch.from_numpy(do), HEADS, dk)
+    for g, w in zip(got, want):
+        err = float((torch.from_numpy(_bf16_packed(g, dk)) - w).abs().max())
+        assert err <= _bf16_limit(w), err
+    assert not got[0][0].any() and not got[1][0].any()
+
+
+@pytest.mark.parametrize("hs,heads,vector,g", [
+    (20, 20, True, 2), (25, 16, True, 8), (25, 3, True, 3), (8, 4, True, 1), (16, 8, True, 1),
+    (24, 4, True, 1), (32, 20, True, 1), (48, 2, True, 1), (64, 20, True, 1), (7, 8, True, 8),
+    (20, 20, False, 1), (25, 16, False, 1), (20, 1, True, 1), (100, 4, True, 2)])
+def test_bf16_head_group(hs, heads, vector, g):
+    """A group's columns start and end on 16 bytes: g = 8 / gcd(hs, 8) heads
+    (at most `heads`) with 16-byte copies, one head with element copies; a
+    span row of g hs rounded up to 8 elements, shared rows 16 bytes off a
+    multiple of 32, so that the fragment loads below hit distinct banks
+    (the same group in every kernel)."""
+    got = MA.bf16_geometry("short", 32, heads, hs, vector)
+    assert got[0] == g and got[1] == -(-heads // g)
+    assert all(MA.bf16_geometry(kind, L, heads, hs, vector)[:4] == got[:4]
+               for kind, L in (("fwd", 32), ("mid", 50), ("fwd_long", 160), ("long", 160)))
+    if vector:
+        assert (g * hs * 2) % 16 == 0 or g == heads
+    se, sr = got[2], got[3]
+    assert se == -(-g * hs // 8) * 8 and sr in (se, se + 8) and (2 * sr) % 32 == 16
+
+    def conflict_free(elements):
+        """32 lanes' 16-bit elements: each bank serves one 32-bit word."""
+        words = {}
+        for e in elements:
+            words.setdefault(e // 2 % 32, set()).add(e // 2)
+        return all(len(w) == 1 for w in words.values())
+
+    for h in range(g):  # every head's shift in the span
+        c0 = h * hs
+        for e in range(2):  # A pairs: row g, column 2t (+ 1); B: rows 2t (+ 1), column g
+            assert conflict_free([gg * sr + c0 + 2 * t + e for gg in range(8) for t in range(4)])
+            assert conflict_free([(2 * t + e) * sr + c0 + gg for gg in range(8) for t in range(4)])
+
+
+@pytest.mark.parametrize("pointers,rs,hs,dk,plan", [
+    ([4096, 8192, 12288, 16384], 400, 20, 20, (32, True)),  # the titles: groups of 2 heads
+    ([4096, 8192, 12288, 16384], 400, 25, 25, (32, True)),  # 16 x 25: groups of 8
+    ([4096, 8192, 12288, 16392], 400, 20, 20, (32, False)),  # an output 8 bytes in
+    ([4098, 8192, 12288, 16384], 400, 20, 20, (32, False)),  # q one element in
+    ([4096, 8192, 12288, 16384], 100, 20, 20, (32, False)),  # 5 heads: 200-byte rows
+    ([4096, 8192, 12288, 16384], 75, 25, 25, (32, False)),  # 3 heads of 25
+    ([4096, 8192, 12288, 16384], 640, 32, 20, (32, True)),  # E's layout, dkp 32
+    ([4096, 8192, 12288, 16384], 24, 8, 6, (16, True)),  # dk 6 in heads of 8
+    ([4096, 8192, 12288, 16384], 21, 7, 7, (16, False)),
+    ([4096, 8192, 12288, 16384], 128, 64, 64, (64, True)),
+    ([4096, 8192, 12288, 16384], 96, 48, 33, (48, True)),
+    ([4096, 8192, 12288, 16384], 160, 80, 80, (128, True)),  # the wide instance's rule
+    ([4096, 8192, 12288, 16388], 160, 80, 80, (128, False)),
+])
+def test_bf16_launch_plan(pointers, rs, hs, dk, plan):
+    """bf16 (itemsize 2) at dk <= 64: the width dk rounded up to 16 and
+    16-byte copies where rs is a multiple of 8 elements and every pointer is
+    16-byte aligned; the wide instance keeps its four-element rule."""
+    assert MA.launch_plan(pointers, rs, hs, dk, 2) == plan
+
+
+@pytest.mark.parametrize("L,heads,hs,backward,kind,g,qr,warps,stages", [
+    (32, 20, 20, False, "fwd", 2, 32, 2, 3), (32, 20, 20, True, "short", 2, 32, 4, 3),
+    (50, 20, 20, False, "fwd", 2, 64, 4, 3), (50, 20, 20, True, "mid", 2, 64, 4, 3),
+    (160, 16, 25, False, "fwd_long", 8, 32, 8, 1), (160, 16, 25, True, "long", 8, 16, 8, 1),
+    (32, 16, 25, True, "short", 8, 32, 4, 2), (33, 16, 25, True, "mid", 8, 48, 4, 2),
+    (64, 16, 25, True, "mid", 8, 64, 4, 1), (64, 16, 25, False, "fwd", 8, 64, 4, 3),
+    (12, 4, 8, True, "short", 1, 16, 1, 3), (100, 2, 64, False, "fwd_long", 1, 112, 4, 1),
+    (300, 20, 20, True, "long", 2, 32, 4, 1)])
+def test_bf16_block_shapes(L, heads, hs, backward, kind, g, qr, warps, stages):
+    """The kernel, group, own rows, warps and units in flight of a bf16
+    register-row launch with 16-byte copies, and its shared memory as
+    csrc/msa_attention_bf16.cuh counts it (a part per operand row of 2 sr
+    bytes, every part a multiple of 16 bytes)."""
+    assert MA.bf16_kind(L, backward) == kind
+    geom = MA.bf16_geometry(kind, L, heads, hs, True)
+    assert (geom[0], geom[4], geom[5]) == (g, qr, warps)
+    assert MA.bf16_stages(kind, L, heads, hs, True) == stages
+    row, lp, T = 2 * geom[3], -(-L // 16) * 16, MA.BF16_TILE
+    want = {"fwd": stages * (3 * lp * row + lp),
+            "short": stages * (4 * lp * row + lp) + lp * row + g * 4 * lp * (lp + 8) * 2,
+            "mid": stages * (4 * lp * row + lp) + lp * row + 3 * g * lp * 4,
+            "fwd_long": qr * row + 2 * (2 * T * row + T),
+            "long": 2 * qr * row + 4 * T * row + 12 * g * -(-L // T) * T + -(-L // T) * T}
+    got = MA._bf16_smem_bytes(kind, L, heads, hs, True, stages)
+    assert got == want[kind] <= MA.MAX_SMEM_BYTES and got % 16 == 0
+    if stages < MA.BF16_STAGES and kind in ("fwd", "short", "mid"):
+        assert MA._bf16_smem_bytes(kind, L, heads, hs, True, stages + 1) > MA.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("dk,heads,hs", [(20, 20, 20), (25, 16, 25), (64, 1, 64), (7, 8, 7)])
+def test_bf16_caps(dk, heads, hs, monkeypatch):
+    """The bf16 forward takes any L (its keys stream past L 64); the
+    backward's shared memory grows with L by its row statistics, which caps
+    L: one past the cap does not fit a block and raises with the cap."""
+    assert MA.max_length(dk, backward=False, itemsize=2, heads=heads, hs=hs) is None
+    cap = MA.max_length(dk, True, 2, heads, hs)
+    assert MA.BF16_RESIDENT < cap
+    assert MA._bf16_need(cap, heads, hs, True) <= MA.MAX_SMEM_BYTES
+    assert MA._bf16_need(cap + 1, heads, hs, True) > MA.MAX_SMEM_BYTES
+    assert MA._bf16_need(100_000, heads, hs, False) <= MA.MAX_SMEM_BYTES
+    monkeypatch.setattr(build, "use_kernel", lambda where: True)
+    x = torch.zeros(1, cap + 1, heads * hs, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"longest it takes is {cap}"):
+        MA.attention_bwd(x, x, x, None, x, heads, dk)

@@ -233,12 +233,18 @@ def _close_bf16(out, ref):
 
 
 # (N, L, heads, hs, dk): the NRMS title and user shapes, L 160, an odd L and
-# odd head widths (scalar loads), the E layout (hs > dk), the wide instance
-# (dk 65-128; at L <= 16, in the E layout, past the simple wide kernel's L 185)
+# odd head widths (element copies), the E layout (hs > dk), the wide instance
+# (dk 65-128; at L <= 16, in the E layout, past the simple wide kernel's L 185);
+# dk 25 at L 33 (groups of 8 heads, 400 bytes, in the long backward), three
+# heads of 25 (no group of 8 divides them) and odd head counts at dk 20
+# (element copies), the E layout at dkp 32 and 64 (16-byte copies of one
+# head), dk 64 and dk 48 (the widest tiles)
 _PAIR = [(37, 32, 20, 20, 20), (9, 50, 20, 20, 20), (5, 160, 16, 25, 25), (7, 13, 3, 7, 7),
          (6, 12, 4, 8, 6), (4, 33, 2, 80, 80), (3, 64, 2, 128, 128), (2, 150, 4, 25, 25),
          (2, 186, 1, 128, 128), (2, 300, 2, 128, 128), (5, 12, 2, 100, 100),
-         (3, 40, 2, 128, 100)]
+         (3, 40, 2, 128, 100), (4, 33, 16, 25, 25), (5, 40, 3, 25, 25), (3, 32, 3, 25, 25),
+         (6, 32, 5, 20, 20), (4, 50, 7, 20, 20), (6, 32, 20, 32, 20), (4, 50, 20, 64, 20),
+         (5, 17, 2, 64, 64), (3, 70, 3, 48, 40)]
 
 
 @pytest.mark.parametrize("N,L,heads,hs,dk", _PAIR)
@@ -272,6 +278,37 @@ def test_attention_pair_bf16_kernel(cuda, N, L, heads, hs, dk):
     assert torch.equal(out, MA.attention_fwd(q, k, v, mask, heads, dk))
     assert all(torch.equal(a, b) for a, b in zip(grads, MA.attention_bwd(q, k, v, mask, do,
                                                                           heads, dk)))
+
+
+@pytest.mark.parametrize("L", [32, 50])
+def test_attention_pair_bf16_misaligned_rows(cuda, L):
+    """q, k, v and do one element past a 16-byte boundary (contiguous views
+    of a larger buffer): the bf16 register-row instance takes element copies
+    (`launch_plan`) and gives the aligned inputs' bits."""
+    N, heads, dk = 9, 20, 20
+    g = torch.Generator().manual_seed(L)
+    views, plain = [], []
+    for _ in range(4):
+        x = torch.randn(N, L, heads * dk, generator=g).to(BF16).to(cuda)
+        buf = torch.empty(x.numel() + 1, dtype=BF16, device=cuda)
+        buf[1:] = x.reshape(-1)
+        views.append(buf[1:].view(N, L, heads * dk))
+        plain.append(x)
+    mask = torch.rand(N, L, generator=g) < 0.7
+    mask[:, 0] = True
+    mask[0] = False
+    mask = mask.to(cuda)
+    q, k, v, do = views
+    assert MA.launch_plan([t.data_ptr() for t in views], heads * dk, dk, dk, 2) == (32, False)
+    assert MA.launch_plan([t.data_ptr() for t in plain], heads * dk, dk, dk, 2) == (32, True)
+    out = MA.attention_fwd(q, k, v, mask, heads, dk)
+    grads = MA.attention_bwd(q, k, v, mask, do, heads, dk)
+    _close_bf16(out, MA.attention_plain_strided(q, k, v, heads, dk, mask))
+    for got, want in zip(grads, MA.attention_bwd_plain(q, k, v, mask, do, heads, dk)):
+        _close_bf16(got, want)
+    assert torch.equal(out, MA.attention_fwd(*plain[:3], mask, heads, dk))
+    assert all(torch.equal(a, b) for a, b in zip(grads, MA.attention_bwd(*plain[:3], mask,
+                                                                          plain[3], heads, dk)))
 
 
 def test_attention_pair_bf16_through_autograd(cuda):
