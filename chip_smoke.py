@@ -98,7 +98,9 @@ paths:
              and CNN word sites and the CNN bank's, forward and backward,
              F.dropout beside it), B with bf16 activations (B 1,024 at G 68
              and 26) and C's forward (B 320 at G 68 and 26) against their
-             plain versions; then NRMS-SA, NRMS, CNN-DIGAT and MSA-DIGAT at
+             plain versions, the same bits twice, each one's launches at G
+             68 with their device ms, and its bound by issue beside the
+             FLOP-rate one; then NRMS-SA, NRMS, CNN-DIGAT and MSA-DIGAT at
              titles of L 160 (the DIGAT models at graph depth 2, CNN-DIGAT
              with a GloVe-scale word table, L 160 on a SAG of 10 nodes),
              each: the cached scorer over 1,024 news with the counters reset
@@ -1597,9 +1599,9 @@ def ptxas_report(build, needle: str) -> dict:
 
 # The kernels whose SASS the smoke reads: each names one source's ELF file in
 # the library (A, A' and B: their products; A'' at bf16: its integer
-# instructions).
+# instructions; C's bf16 forward: its score loop).
 SASS_OWNERS = ("msa_pool_fwd_kernel", "msa_attn_relu_fix_kernel", "gat_layer_attend_kernel",
-               "dropout_bf16_kernel", "msa_attention_bf16_")
+               "dropout_bf16_kernel", "msa_attention_bf16_", "gat_scores_fwd_bf16_kernel")
 
 
 @functools.lru_cache(maxsize=2)
@@ -1640,9 +1642,9 @@ def sass_tensor_core_check(build) -> dict:
     of tc_gemm.cuh and tc_wgmma.cuh in the built library, read with
     `cuobjdump -sass`: label -> (instruction the product must issue,
     count). Products with an fp32 A and an fp32 or bf16 B (gemm_kernel:
-    3xTF32, 2xTF32) must issue TF32 HMMA; bf16 x bf16 ones
-    (gemm_bf16_kernel) HMMA.16816.F32.BF16; A''s bf16 products
-    (wg_gemm_kernel) the warpgroup HGMMA on bf16.
+    3xTF32, 2xTF32) must issue TF32 HMMA; the bf16 products of A, A' and
+    B's bf16-activation instance (wg_gemm_kernel) the warpgroup HGMMA on
+    bf16.
     Each source's code is its own ELF section of the library; a product is
     labelled by its kernel (A, A' or B: the section that holds that
     kernel's own pool, ReLU-fix or attend kernel) and its template
@@ -1654,7 +1656,7 @@ def sass_tensor_core_check(build) -> dict:
               "gat_layer_attend_kernel": "B"}
     epilogues = ["store", "bias", "pool", "dh", "dropout", "logits"]
     types = {"f": "fp32", "13__nv_bfloat16": "bf16", "S2_": "bf16"}
-    tf32, bf16, hgmma = r"HMMA\.\S*TF32", r"HMMA\.16816\.F32\.BF16", r"HGMMA\.\S*BF16"
+    tf32, hgmma = r"HMMA\.\S*TF32", r"HGMMA\.\S*BF16"
     counts = {}
     for section in re.split(r"^Fatbin elf code", sass, flags=re.M):
         owner = next((o for marker, o in owners.items() if marker in section), "?")
@@ -1665,8 +1667,6 @@ def sass_tensor_core_check(build) -> dict:
                 name = None
                 k = re.search(r"2tc11gemm_kernelILb([01])ELb([01])ELi(\d+)ELi(\d)ELb([01])E"
                               r"(f|13__nv_bfloat16)(f|S2_)E", m.group(1))
-                b = re.search(r"2tc16gemm_bf16_kernelILi(\d+)ELi(\d)ELb([01])E(f|13__nv_bfloat16)E",
-                              m.group(1))
                 w = re.search(r"2wg14wg_gemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELi(\d)ELi(\d)"
                               r"ELi(\d)E(f|13__nv_bfloat16)Lb([01])E", m.group(1))
                 if k:
@@ -1677,11 +1677,6 @@ def sass_tensor_core_check(build) -> dict:
                             f"{epilogues[int(k.group(4))]} epilogue"
                             + (", k-tile sums rounded to nearest" if k.group(5) == "1" else ""))
                     counts[name] = [tf32, 0]
-                elif b:
-                    name = (f"{owner}: A bf16 K-major, B bf16 K-major, C {types[b.group(4)]}, "
-                            f"BN {b.group(1)}, {epilogues[int(b.group(2))]} epilogue"
-                            + (", k-tile sums rounded to nearest" if b.group(3) == "1" else ""))
-                    counts[name] = [bf16, 0]
                 elif w:
                     major = lambda bit, other: "K" if bit == "1" else other
                     name = (f"{owner}: wgmma, A {w.group(5)} bf16 term(s) "
@@ -1693,7 +1688,7 @@ def sass_tensor_core_check(build) -> dict:
                 continue
             if name and re.search(counts[name][0], line):
                 counts[name][1] += 1
-    kinds = {tf32: "HMMA TF32", bf16: "HMMA 16816.F32.BF16", hgmma: "HGMMA BF16"}
+    kinds = {tf32: "HMMA TF32", hgmma: "HGMMA BF16"}
     out = {label: (kinds[pat], n) for label, (pat, n) in counts.items()}
     out.update(pair_bf16_sass(sass))
     return out
@@ -1730,19 +1725,21 @@ def pair_bf16_sass(sass: str) -> dict:
 
 # the product instantiations of kernels A, A' and B, as
 # sass_tensor_core_check labels them: on mma.sync (tc_gemm.cuh) fp32 A' six,
-# A two, B one, bf16 B one; on wgmma (tc_wgmma.cuh) bf16 A two (q|k|v and the
-# pool logits), A' seven (q|k|v, u, dW1, dO, dx with and without the dropout
-# mask, dWqkv)
+# A two, B one, B with bf16 weights one; on wgmma (tc_wgmma.cuh) bf16 A two
+# (q|k|v and the pool logits), A' seven (q|k|v, u, dW1, dO, dx with and
+# without the dropout mask, dWqkv), B's bf16-activation projections one
 PRODUCT_KERNELS = 19
 
 
 def redesign_report(build) -> bool:
     """Prints ptxas's registers and spills of the kernels of A, A', A'', B,
     C and D and the SASS check that the products of A, A' and B issue
-    tensor-core instructions (TF32, or bf16 for the bf16 x bf16 products);
-    False if a product kernel issues none of its kind."""
+    tensor-core instructions (TF32, or the warpgroup's bf16 for the bf16 x
+    bf16 products), and the instructions of the bf16 Eq. (8) score loop;
+    False if a product kernel issues none of its kind or B's bf16-activation
+    projections are not on wgmma."""
     ok = True
-    for needle in ("tc11gemm_kernel", "tc16gemm_bf16_kernel", "wg14wg_gemm_kernel", "msa_attn_",
+    for needle in ("tc11gemm_kernel", "wg14wg_gemm_kernel", "msa_attn_",
                    "msa_pool", "split3", "relayout", "gat_scores_", "gat_layer_", "dropout_",
                    "emb_grad_"):
         for mangled, (n_regs, st, ld) in sorted(ptxas_report(build, needle).items()):
@@ -1756,13 +1753,43 @@ def redesign_report(build) -> bool:
     if len(counts) - len(pair) < PRODUCT_KERNELS or not all(n for _, n in counts.values()) or \
             sum(label.startswith("A:") for label in wgmma) < 2 or \
             sum(label.startswith("A':") for label in wgmma) < 7 or \
+            sum(label.startswith("B:") for label in wgmma) < 1 or \
             len(pair) != PAIR_BF16_KERNELS:
         say("  SASS check FAILED: a product kernel of A, A' or B, or a kernel of the pair's "
             "bf16 register-row instance, issues no tensor-core instruction of its kind, or one "
-            "of A's two or A''s seven wgmma products or of the pair's forty bf16 kernels is "
-            "missing")
+            "of A's two, A''s seven or B's one wgmma products or of the pair's forty bf16 "
+            "kernels is missing")
         ok = False
+    for kernel, n in score_loop_sass(build).items():
+        say(f"  SASS {kernel}: " + ", ".join(f"{k} {v}" for k, v in n.items()))
     return ok
+
+
+def score_loop_sass(build) -> dict:
+    """The instructions of the Eq. (8) score loop (gat_score_tile.cuh `sweep`,
+    shared by C's bf16 forward and B's fused bf16-activation kernel) in C's
+    bf16 forward at R 4 with 16-byte copies: the static counts of FADD,
+    FMNMX, FFMA and LDS.128 in the loop body (from the first to the last
+    FFMA that reads an absolute value, |R..|, which only the loop issues),
+    and their sum per score element (one such FFMA an element)."""
+    import re
+
+    sass = library_sass(str(build.library_path()))
+    out = {}
+    body = re.search(r"Function : \S*gat_scores_fwd_bf16_kernelILi4ELb1E\S*(.*?)"
+                     r"(?:Function : |\Z)", sass, flags=re.S)
+    if body is None:
+        return {"gat_scores_fwd_bf16_kernel<4, true>": {"found": 0}}
+    lines = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)([^;]*);",
+                       body.group(1))
+    marks = [i for i, (op, args) in enumerate(lines) if op.startswith("FFMA") and "|" in args]
+    loop = [op for op, _ in lines[marks[0]:marks[-1] + 1]] if marks else []
+    n = {k: sum(op.startswith(k) for op in loop) for k in ("FADD", "FMNMX", "FFMA")}
+    n["LDS.128"] = sum(op.startswith("LDS.128") for op in loop)
+    n["others"] = len(loop) - sum(n.values())
+    n["issued an element"] = round(len(loop) / max(1, len(marks)), 3)
+    out["score loop of gat_scores_fwd_bf16_kernel<4, true>"] = n
+    return out
 
 
 # The INT32 issue rate of an H100 SXM: 64 integer lanes an SM a clock (half
@@ -2496,6 +2523,25 @@ def bf16_bound(flops, bf16_flops, nbytes) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# The fp32 issue rate of an H100 SXM: 128 fp32 lanes an SM a clock, 132 SMs
+# at the 1.98 GHz boost clock (the 67 TFLOP/s counts each multiply-add as
+# two): fp32 instructions (per thread) a second. A card below 700 W runs
+# slower.
+PEAK_FP32_ISSUE = 132 * 128 * 1.98e9
+
+
+def bound_issue(fp32_instructions, bf16_flops, nbytes) -> tuple:
+    """(least ms, what bounds it) of a kernel whose CUDA-core work is
+    `fp32_instructions` issued fp32 instructions (each Eq. (8) element an
+    FADD and an FFMA, each alpha h term an FFMA, as the SASS of
+    `gat_score_tile.cuh`'s loop and the aggregation issue them:
+    `score_loop_sass`) at the issue rate, plus `bf16_flops` of bf16 products
+    at the dense bf16 rate, against its bytes at the memory rate."""
+    t_ops = fp32_instructions / PEAK_FP32_ISSUE + bf16_flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def bound_tensor_cores(flops, nbytes, bf16_products, tf32x2_products, tf32x3_products) -> float:
     """A bf16 instance's second bound (printed): its products on the tensor
     cores, bf16 x bf16 at the bf16 rate, 2xTF32 and 3xTF32 as two and three
@@ -3012,7 +3058,9 @@ def bf16_graph_kernels(torch, cfg, dev):
     """B with bf16 activations (x, query, weights and out bf16) at B 1,024, G
     68 and 26, and C's bf16 forward at B 320, G 68 and 26 (k1 and k2 column
     blocks of a bf16 y), against their plain versions (fp32 arithmetic from
-    the bf16 values, one rounding); -> (B's entry, C's entry)."""
+    the bf16 values, one rounding); at G 68 each launch's device ms
+    (`stage_split`). Bounds by issue (`bound_issue`), the FLOP-rate ones
+    printed beside them; -> (B's entry, C's entry)."""
     from digat_tpu_torch.ops import gat_layer as GL
     from digat_tpu_torch.ops import gat_scores as GS
 
@@ -3029,18 +3077,27 @@ def bf16_graph_kernels(torch, cfg, dev):
             sc = D ** -0.5
             args = (r(bs, G, D, sc=0.5), adj, r(bs, D, sc=0.5), r(D, D, sc=sc), r(D, sc=0.05),
                     r(D, D, sc=sc), r(D, D, sc=sc), r(D, D, sc=sc), r(D, sc=0.05), r(D, sc=sc))
-            flops, nbytes = gat_work(bs, G, D)
+            flops, _ = gat_work(bs, G, D)
             # x, query, out and the four weights bf16; the vectors read as bf16
             nbytes = 2 * bs * G * D + bs * G * G + 2 * bs * D + 2 * (4 * D * D + 3 * D) \
                 + 2 * bs * G * D
             e = check_kernel(torch, f"interactive_gat_layer_fused bf16 activations B={bs} G={G} "
                              f"D={D}", GL.interactive_gat_layer_fused,
                              GL.interactive_gat_layer_plain, args, flops, nbytes,
-                             bound_ms=bf16_bound(flops, gat_products(bs, G, D), nbytes))
+                             bound_ms=bound_issue(3 * bs * G * G * D, gat_products(bs, G, D),
+                                                  nbytes))
+            say(f"    bound at the FLOP rate (4 FLOP a score element, 2 an alpha h term, at "
+                f"67 TFLOP/s): {bf16_bound(flops, gat_products(bs, G, D), nbytes)[0]:.4f} ms; "
+                f"plan {GL.fused_plan(G, D)}")
             again = torch.equal(GL.interactive_gat_layer_fused(*args),
                                 GL.interactive_gat_layer_fused(*args))
             say(f"    same bits twice: {again}")
-            gat[f"G{G} D{D}"] = dict(e, ok=e["ok"] and again)
+            e = dict(e, ok=e["ok"] and again)
+            if G == cfg.user_graph_size:
+                stages = stage_split(torch, lambda: GL.interactive_gat_layer_fused(*args))
+                say_stages(f"B bf16 activations G {G}", stages)
+                e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
+            gat[f"G{G} D{D}"] = e
         except Exception:
             traceback.print_exc()
             gat[f"G{G} D{D}"] = dict(ok=False)
@@ -3052,8 +3109,19 @@ def bf16_graph_kernels(torch, cfg, dev):
             a = (torch.randn(D, generator=g, device=dev) * D ** -0.5).to(torch.bfloat16)
             k1, k2 = y[..., D:2 * D], y[..., 2 * D:]
             flops, nbytes = scores_work(B, G, D, False)
-            e = check_kernel(torch, f"gat_scores_fwd bf16 B={B} G={G} D={D}", GS.gat_scores_fwd,
-                             GS.gat_scores_fwd_plain, (k1, k2, k3, a), flops, nbytes // 2)
+            e = check_kernel(torch, f"gat_scores_fwd bf16 B={B} G={G} D={D} "
+                             f"{GS.tile_plan(G, 2, min_row_blocks=2)}", GS.gat_scores_fwd,
+                             GS.gat_scores_fwd_plain, (k1, k2, k3, a), flops, nbytes // 2,
+                             bound_ms=bound_issue(2 * B * G * G * D, 0, nbytes // 2))
+            say(f"    bound at the FLOP rate (4 FLOP a score element at 67 TFLOP/s): "
+                f"{bound(flops, nbytes // 2)[0]:.4f} ms")
+            again = torch.equal(GS.gat_scores_fwd(k1, k2, k3, a), GS.gat_scores_fwd(k1, k2, k3, a))
+            say(f"    same bits twice: {again}")
+            e = dict(e, ok=e["ok"] and again)
+            if G == cfg.user_graph_size:
+                stages = stage_split(torch, lambda: GS.gat_scores_fwd(k1, k2, k3, a))
+                say_stages(f"C bf16 forward B {B} G {G}", stages)
+                e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
             scores[f"B{B} G{G}"] = e
         except Exception:
             traceback.print_exc()

@@ -14,10 +14,11 @@
 //     ga       = sum_b sum_ij g[i, j] relu(k1[j] + (k2[i] + k3))
 //
 // What bounds it on an H100: arithmetic on the CUDA cores. Each (b, i, j, d)
-// costs 3 issued operations forward (add, max, multiply-add) and 6 backward
-// (add, compare, select, three sums), against 4 * B * G * D bytes of k1 and
-// k2: at B 320, G 68, D 400 that is 592 M elements, about 0.06 / 0.12 ms at
-// the card's fp32 issue rate (Hopper has no packed fp32 multiply-add).
+// costs 3 issued operations forward (add, max, multiply-add; 2 in the bf16
+// forward, below) and 6 backward (add, compare, select, three sums), against
+// 4 * B * G * D bytes of k1 and k2: at B 320, G 68, D 400 that is 592 M
+// elements, about 0.05 / 0.11 ms at the card's fp32 issue rate (Hopper has
+// no packed fp32 multiply-add).
 // Neither pass ever forms [G, G, D]: the relu mask is recomputed in the
 // backward, not stored.
 //
@@ -72,7 +73,16 @@
 // bf16 (compute_dtype bfloat16, gat_scores_fwd_bf16): k1, k2, k3 and a are
 // read as bf16 into fp32, the sums run in fp32 and each score is rounded
 // once to bf16, as the TPU kernel upcasts at its reads and writes its output
-// in the inputs' dtype (gat_scores.py:42-57,87). The JAX package's backward
+// in the inputs' dtype (gat_scores.py:42-57,87). Its kernel is the score
+// tile of gat_score_tile.cuh (shared with kernel B's bf16-activation
+// instance: each score as (P[j] + Q[i] + sum over d of a |k1 + c|) / 2, an
+// add and a multiply-add an element): rows copied by 16-byte vectors of
+// eight bf16 where D, both row strides and both pointers allow (element by
+// element otherwise), converted to fp32 and c = k2 + k3 formed once at
+// staging, the next slice's copies in flight while the current one is
+// summed, on a grid of row and column tiles (ops/gat_scores.py tile_plan:
+// two row tiles a graph at G 26 and 68, 640 blocks at B 320). The JAX
+// package's backward
 // upcasts its inputs to fp32 outside its kernel and casts the gradients back
 // (gat_scores.py:219-229); ops/gat_scores.py does the same around the fp32
 // backward here.
@@ -80,10 +90,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include <type_traits>
+#include "gat_score_tile.cuh"
 
 namespace {
+
+namespace gs = digat::gs;
 
 constexpr int kThreads = 256;
 constexpr int kDS = 32;                // features of one forward slice
@@ -106,18 +119,6 @@ __host__ __device__ inline size_t bwd_smem_floats(int G, int JT, int DT, int nti
   return size_t(G) * JT + (ntiles > 1 ? size_t(G) * DT : 0);
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x) {
-  if constexpr (std::is_same<T, float>::value) {
-    return x;
-  } else {
-    return __float2bfloat16_rn(x);
-  }
-}
-
 template <int R>
 __device__ __forceinline__ void load_r(const float* p, float (&v)[R]) {
   if constexpr (R == 4) {
@@ -133,13 +134,12 @@ __device__ __forceinline__ void load_r(const float* p, float (&v)[R]) {
   }
 }
 
-// grid (row tiles, column tiles, B); block round32(TIb * TJb) threads; T
-// the inputs' and the scores' type (the staging converts to fp32)
-template <int R, typename T>
+// grid (row tiles, column tiles, B); block round32(TIb * TJb) threads
+template <int R>
 __global__ void __launch_bounds__(kMaxFwdThreads)
-gat_scores_fwd_kernel(const T* __restrict__ k1, int ld1, const T* __restrict__ k2, int ld2,
-                      const T* __restrict__ k3, const T* __restrict__ a, T* __restrict__ out,
-                      int G, int D, int TIb, int TJb) {
+gat_scores_fwd_kernel(const float* __restrict__ k1, int ld1, const float* __restrict__ k2,
+                      int ld2, const float* __restrict__ k3, const float* __restrict__ a,
+                      float* __restrict__ out, int G, int D, int TIb, int TJb) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int BI = TIb * R, BJ = TJb * R;
@@ -151,9 +151,9 @@ gat_scores_fwd_kernel(const T* __restrict__ k1, int ld1, const T* __restrict__ k
   const int i0 = blockIdx.x * BI, j0 = blockIdx.y * BJ;
   const int t = threadIdx.x, ti = t / TJb, tj = t - ti * TJb;
   const bool active = ti < TIb;
-  const T* k1b = k1 + b * G * ld1;
-  const T* k2b = k2 + b * G * ld2;
-  const T* k3b = k3 + b * D;
+  const float* k1b = k1 + b * G * ld1;
+  const float* k2b = k2 + b * G * ld2;
+  const float* k3b = k3 + b * D;
 
   float acc[R][R];
 #pragma unroll
@@ -169,13 +169,13 @@ gat_scores_fwd_kernel(const T* __restrict__ k1, int ld1, const T* __restrict__ k
       if (r < BI) {
         const int i = i0 + r;
         K2T[dd * SI + r] =
-            i < G && dd < nd ? to_float(k2b[(size_t)i * ld2 + d]) + to_float(k3b[d]) : 0.f;
+            i < G && dd < nd ? k2b[(size_t)i * ld2 + d] + k3b[d] : 0.f;
       } else {
         const int j = j0 + r - BI;
-        K1T[dd * SJ + r - BI] = j < G && dd < nd ? to_float(k1b[(size_t)j * ld1 + d]) : 0.f;
+        K1T[dd * SJ + r - BI] = j < G && dd < nd ? k1b[(size_t)j * ld1 + d] : 0.f;
       }
     }
-    if (t < kDS) As[t] = t < nd ? to_float(a[d0 + t]) : 0.f;
+    if (t < kDS) As[t] = t < nd ? a[d0 + t] : 0.f;
     __syncthreads();
     if (active) {
 #pragma unroll 4
@@ -193,14 +193,58 @@ gat_scores_fwd_kernel(const T* __restrict__ k1, int ld1, const T* __restrict__ k
     __syncthreads();
   }
   if (!active) return;
-  T* ob = out + b * G * G;
+  float* ob = out + b * G * G;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = i0 + ti * R + r;
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const int j = j0 + tj * R + q;
-      if (i < G && j < G) ob[(size_t)i * G + j] = from_float<T>(acc[r][q]);
+      if (i < G && j < G) ob[(size_t)i * G + j] = acc[r][q];
+    }
+  }
+}
+
+// C's bf16 forward: grid (row tiles, column tiles, B), block
+// gs::tile_threads(R, TIb, TJb, 4) threads; a and k3 staged once as fp32,
+// then the tile of gat_score_tile.cuh, each score rounded once to bf16.
+// kVec: 16-byte copies of eight bf16 (D, ld1 and ld2 multiples of 8, k1 and
+// k2 16-byte aligned). No floor on blocks an SM: at R 4 the tile takes 120
+// registers a thread (capped at 96 it ran 14 % slower at B 320, G 68).
+template <int R, bool kVec>
+__global__ void __launch_bounds__(gs::kMaxThreads, 1)
+gat_scores_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ k1, int ld1,
+                           const __nv_bfloat16* __restrict__ k2, int ld2,
+                           const __nv_bfloat16* __restrict__ k3,
+                           const __nv_bfloat16* __restrict__ a, __nv_bfloat16* __restrict__ out,
+                           int G, int D, int TIb, int TJb) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int span = gs::slice_span(D);
+  float* as = smem;            // [span]: a, zero past D
+  float* k3s = as + span;      // [span]: the graph's k3, zero past D
+  float* stage = k3s + span;   // two staged slices
+  const size_t b = blockIdx.z;
+  const int i0 = blockIdx.x * R * TIb, j0 = blockIdx.y * R * TJb;
+  const int tid = threadIdx.x, ti = tid / TJb, tj = tid - ti * TJb;
+  for (int d = tid; d < span; d += blockDim.x) {
+    as[d] = d < D ? __bfloat162float(a[d]) : 0.f;
+    k3s[d] = d < D ? __bfloat162float(k3[b * D + d]) : 0.f;
+  }
+  __syncthreads();
+  const gs::Rows<__nv_bfloat16> g{k1 + b * G * ld1, k2 + b * G * ld2, ld1, ld2, G, D};
+  float acc[R][R];
+  gs::score_tile<R, __nv_bfloat16, kVec>(acc, g, i0, j0, TIb, TJb, as, k3s, stage, ti < TIb, ti,
+                                         tj);
+  if (ti >= TIb) return;
+  __nv_bfloat16* ob = out + b * G * G;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = i0 + ti + q * TIb;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = j0 + tj + r * TJb;
+      if (i < G && j < G) ob[(size_t)i * G + j] = __float2bfloat16_rn(acc[q][r]);
     }
   }
 }
@@ -325,6 +369,13 @@ cudaError_t set_bwd_smem() {
 
 inline int round32(int n) { return (n + 31) / 32 * 32; }
 
+// The bf16 forward's instantiations: R 2 or 4, 16-byte or element copies.
+const void* const kFwdBf16[] = {
+    reinterpret_cast<const void*>(gat_scores_fwd_bf16_kernel<2, false>),
+    reinterpret_cast<const void*>(gat_scores_fwd_bf16_kernel<2, true>),
+    reinterpret_cast<const void*>(gat_scores_fwd_bf16_kernel<4, false>),
+    reinterpret_cast<const void*>(gat_scores_fwd_bf16_kernel<4, true>)};
+
 }  // namespace
 
 extern "C" int gat_scores_init() {
@@ -341,15 +392,19 @@ extern "C" int gat_scores_init() {
   for (const cudaError_t f : set) {
     if (f != cudaSuccess) return static_cast<int>(f);
   }
+  for (const void* kern : kFwdBf16) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   return 0;
 }
 
-namespace {
-
-// The forward for element type T: the checks, the grid and the launch.
-template <typename T>
-int fwd(const void* k1, int ld1, const void* k2, int ld2, const void* k3, const void* a,
-        void* out, int B, int G, int D, int R, int TIb, int TJb, void* stream) {
+// s [B, G, G] from k1, k2 (rows of ld1 / ld2 floats, graph b's rows at
+// b * G), k3 [B, D], a [D]. The plan (gat_scores.py::fwd_plan): R x R
+// scores a thread, TIb x TJb threads' tiles a block.
+extern "C" int gat_scores_fwd_f32(const void* k1, int ld1, const void* k2, int ld2,
+                                  const void* k3, const void* a, void* out, int B, int G, int D,
+                                  int R, int TIb, int TJb, void* stream) {
   if (B <= 0 || G <= 0 || D <= 0 || ld1 < D || ld2 < D || (R != 2 && R != 4) || TIb <= 0 ||
       TJb <= 0 || round32(TIb * TJb) > kMaxFwdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -360,35 +415,56 @@ int fwd(const void* k1, int ld1, const void* k2, int ld2, const void* k3, const 
   const size_t smem = sizeof(float) * fwd_smem_floats(TIb * R, TJb * R);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T *p1 = static_cast<const T*>(k1), *p2 = static_cast<const T*>(k2),
-          *p3 = static_cast<const T*>(k3), *pa = static_cast<const T*>(a);
-  T* po = static_cast<T*>(out);
+  const float *p1 = static_cast<const float*>(k1), *p2 = static_cast<const float*>(k2),
+              *p3 = static_cast<const float*>(k3), *pa = static_cast<const float*>(a);
+  float* po = static_cast<float*>(out);
   if (R == 4) {
-    gat_scores_fwd_kernel<4, T><<<grid, round32(TIb * TJb), smem, st>>>(p1, ld1, p2, ld2, p3, pa,
-                                                                         po, G, D, TIb, TJb);
+    gat_scores_fwd_kernel<4><<<grid, round32(TIb * TJb), smem, st>>>(p1, ld1, p2, ld2, p3, pa, po,
+                                                                      G, D, TIb, TJb);
   } else {
-    gat_scores_fwd_kernel<2, T><<<grid, round32(TIb * TJb), smem, st>>>(p1, ld1, p2, ld2, p3, pa,
-                                                                         po, G, D, TIb, TJb);
+    gat_scores_fwd_kernel<2><<<grid, round32(TIb * TJb), smem, st>>>(p1, ld1, p2, ld2, p3, pa, po,
+                                                                      G, D, TIb, TJb);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// s [B, G, G] from k1, k2 (rows of ld1 / ld2 floats, graph b's rows at
-// b * G), k3 [B, D], a [D]. The plan (gat_scores.py::fwd_plan): R x R
-// scores a thread, TIb x TJb threads' tiles a block.
-extern "C" int gat_scores_fwd_f32(const void* k1, int ld1, const void* k2, int ld2,
-                                  const void* k3, const void* a, void* out, int B, int G, int D,
-                                  int R, int TIb, int TJb, void* stream) {
-  return fwd<float>(k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream);
-}
-
-// The same with k1, k2, k3, a and s bf16 (rows of ld1 / ld2 elements).
+// The same with k1, k2, k3, a and s bf16 (rows of ld1 / ld2 elements). The
+// plan (gat_scores.py::tile_plan): rows ti + q TIb and columns tj + r TJb
+// of a block's tile a thread (q, r < R), blocks of row and column tiles.
 extern "C" int gat_scores_fwd_bf16(const void* k1, int ld1, const void* k2, int ld2,
                                    const void* k3, const void* a, void* out, int B, int G, int D,
                                    int R, int TIb, int TJb, void* stream) {
-  return fwd<__nv_bfloat16>(k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream);
+  if (B <= 0 || G <= 0 || D <= 0 || ld1 < D || ld2 < D || (R != 2 && R != 4) || TIb <= 0 ||
+      TJb <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = gs::tile_threads(R, TIb, TJb, 4), TI = (G + R - 1) / R;
+  const dim3 grid((TI + TIb - 1) / TIb, (TI + TJb - 1) / TJb, B);
+  const size_t smem =
+      sizeof(float) * (2 * gs::slice_span(D) + gs::stage_floats(R * TIb, R * TJb));
+  if (threads > gs::kMaxThreads || grid.z > 65535 || smem > size_t(g_max_smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = D % 8 == 0 && ld1 % 8 == 0 && ld2 % 8 == 0 &&
+                   (reinterpret_cast<uintptr_t>(k1) | reinterpret_cast<uintptr_t>(k2)) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16 *p1 = static_cast<const __nv_bfloat16*>(k1),
+                      *p2 = static_cast<const __nv_bfloat16*>(k2),
+                      *p3 = static_cast<const __nv_bfloat16*>(k3),
+                      *pa = static_cast<const __nv_bfloat16*>(a);
+  __nv_bfloat16* po = static_cast<__nv_bfloat16*>(out);
+#define DIGAT_FWD_BF16(RR, V)                                                                  \
+  gat_scores_fwd_bf16_kernel<RR, V><<<grid, threads, smem, st>>>(p1, ld1, p2, ld2, p3, pa, po, \
+                                                                 G, D, TIb, TJb)
+  if (R == 4) {
+    if (vec) DIGAT_FWD_BF16(4, true);
+    else DIGAT_FWD_BF16(4, false);
+  } else {
+    if (vec) DIGAT_FWD_BF16(2, true);
+    else DIGAT_FWD_BF16(2, false);
+  }
+#undef DIGAT_FWD_BF16
+  return static_cast<int>(cudaGetLastError());
 }
 
 // gk1, gk2 [B, G, D], gk3 [B, D], ga [D] from the score gradient g [B, G, G];

@@ -1,5 +1,5 @@
 // Matrix products on the tensor cores for sm_90a, fp32 at 3xTF32 and with
-// bf16 operands (below): the products of the MSA encoder's forward
+// bf16 weights (below): the products of the MSA encoder's forward
 // (msa_encoder.cu, kernel A) and backward (msa_encoder_bwd.cu, kernel A')
 // and the eval GAT layer's projections (gat_layer.cu, kernel B).
 //
@@ -45,11 +45,8 @@
 // enters shared memory whole as its TF32 hi with no lo, and the product
 // drops the pass that reads B's lo: 2xTF32, lo*hi + hi*hi, each product of
 // the fp32 A with the exact bf16 B as accurate as at 3xTF32. The output C
-// may be bf16 (TC), rounded once to nearest even in the epilogue. Where
-// both operands are bf16 and K-major, gemm_bf16_kernel runs one pass of
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: the operands enter
-// shared memory as bf16 with no split, every product is exact in fp32 and
-// the sums are fp32. Both take kRN.
+// may be bf16 (TC), rounded once to nearest even in the epilogue. (Products
+// of two bf16 operands run on wgmma: tc_wgmma.cuh.)
 //
 // Rounding of the sums (kRN). The tensor cores add each product into the
 // fp32 accumulator rounding toward zero, not to nearest (the TF32 and the
@@ -90,8 +87,7 @@ enum Epilogue : int {
   kLogits = 5,  // lgpart as kPool, and C not written (C may be null)
 };
 
-// A, B and C point at fp32, or at bf16 where the instance takes it (TB, TC;
-// both operands for gemm_bf16_kernel)
+// A, B and C point at fp32, or at bf16 where the instance takes it (TB, TC)
 struct Args {
   const void* A;
   const void* B;
@@ -383,145 +379,6 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
   epilogue<EPI, NT, TC>(p, acc, m0, n0, wm, wn, g, t);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 x bf16, both K-major (A[m][k], B[n][k]): one pass of m16n8k16 bf16
-// products, exact in fp32, summed in fp32 (kRN as above). Shared rows hold
-// kBK bf16 and 8 of padding (20 words: a warp's fragment loads, 8 rows x 4
-// words, hit 32 banks); each thread's groups of 4 bf16 go through registers
-// as uint2, as the fp32 kernel's float4s do.
-// ---------------------------------------------------------------------------
-constexpr int kBRow = kBK + 8;  // bf16 a shared row
-
-template <int BN>
-__host__ __device__ constexpr int smem_bytes_bf16() {
-  return 2 * 2 * (kBM + BN) * kBRow;  // 2 stages of A and B, 2 bytes an element
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int W>
-__device__ __forceinline__ void load_tile_bf16(uint2 (&r)[W * kBK / 4 / kThreads],
-                                               const __nv_bfloat16* p, int ld, int rows, int r0,
-                                               int k0, int kend) {
-#pragma unroll
-  for (int i = 0; i < W * kBK / 4 / kThreads; ++i) {
-    int rr, kk;
-    tile_slot<true, W>(i, rr, kk);
-    const int gr = r0 + rr, gk = k0 + kk;
-    r[i] = gr < rows && gk < kend
-               ? __ldg(reinterpret_cast<const uint2*>(p + (size_t)gr * ld + gk))
-               : make_uint2(0u, 0u);
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void store_tile_bf16(const uint2 (&r)[W * kBK / 4 / kThreads],
-                                                __nv_bfloat16* s) {
-#pragma unroll
-  for (int i = 0; i < W * kBK / 4 / kThreads; ++i) {
-    int rr, kk;
-    tile_slot<true, W>(i, rr, kk);
-    *reinterpret_cast<uint2*>(s + rr * kBRow + kk) = r[i];
-  }
-}
-
-template <int BN, int EPI, bool kRN = false, typename TC = float>
-__global__ void __launch_bounds__(kThreads, 1) gemm_bf16_kernel(Args p) {
-  constexpr int WN = BN / 4, NT = WN / 8;
-  constexpr int AT = kBM * kBRow, BT = BN * kBRow;  // bf16 elements
-  constexpr int STAGE = AT + BT;
-  static_assert(BN * kBK % (4 * kThreads) == 0 && WN % 8 == 0, "tile shape");
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem4);
-  const __nv_bfloat16* Ap = static_cast<const __nv_bfloat16*>(p.A);
-  const __nv_bfloat16* Bp = static_cast<const __nv_bfloat16*>(p.B);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * p.k_per_split;
-  const int kend = min(p.K, kbeg + p.k_per_split);
-  const int ntiles = (kend - kbeg + kBK - 1) / kBK;
-
-  float acc[kMT][NT][4], part[kMT][NT][4];
-  float (&sums)[kMT][NT][4] = kRN ? part : acc;
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-  uint2 ra[kBM * kBK / 4 / kThreads], rb[BN * kBK / 4 / kThreads];
-  load_tile_bf16<kBM>(ra, Ap, p.lda, p.M, m0, kbeg, kend);
-  load_tile_bf16<BN>(rb, Bp, p.ldb, p.N, n0, kbeg, kend);
-  store_tile_bf16<kBM>(ra, sm);
-  store_tile_bf16<BN>(rb, sm + AT);
-  __syncthreads();
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const bool more = kt + 1 < ntiles;
-    if (more) {
-      load_tile_bf16<kBM>(ra, Ap, p.lda, p.M, m0, kbeg + (kt + 1) * kBK, kend);
-      load_tile_bf16<BN>(rb, Bp, p.ldb, p.N, n0, kbeg + (kt + 1) * kBK, kend);
-    }
-    if (kRN) {
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) sums[i][j][c] = 0.f;
-    }
-    // 32-bit words of the stage: element pair (k, k + 1) of a row, k even
-    const uint32_t* a32 = reinterpret_cast<const uint32_t*>(sm + (kt & 1) * STAGE);
-    const uint32_t* b32 = a32 + AT / 2;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[kMT][4], bf[NT][2];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const int r = wm * kWM + i * 16 + g;
-        const int w0 = (r * kBRow + kk) / 2 + t, w8 = ((r + 8) * kBRow + kk) / 2 + t;
-        af[i][0] = a32[w0];
-        af[i][1] = a32[w8];
-        af[i][2] = a32[w0 + 4];
-        af[i][3] = a32[w8 + 4];
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int w = ((wn * WN + j * 8 + g) * kBRow + kk) / 2 + t;
-        bf[j][0] = b32[w];
-        bf[j][1] = b32[w + 4];
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(sums[i][j], af[i], bf[j]);
-    }
-    if (kRN) {
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][j][c] += sums[i][j][c];
-    }
-    if (more) {
-      __nv_bfloat16* d = sm + ((kt + 1) & 1) * STAGE;
-      store_tile_bf16<kBM>(ra, d);
-      store_tile_bf16<BN>(rb, d + AT);
-    }
-    __syncthreads();
-  }
-  epilogue<EPI, NT, TC>(p, acc, m0, n0, wm, wn, g, t);
-}
-
 // Grants the kernel its shared memory on the current device.
 template <bool AK, bool BK, int BN, int EPI, bool kRN = false, typename TB = float,
           typename TC = float>
@@ -529,12 +386,6 @@ inline cudaError_t init() {
   return cudaFuncSetAttribute(gemm_kernel<AK, BK, BN, EPI, kRN, TB, TC>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem_bytes<AK, BK, BN>());
-}
-
-template <int BN, int EPI, bool kRN = false, typename TC = float>
-inline cudaError_t init_bf16() {
-  return cudaFuncSetAttribute(gemm_bf16_kernel<BN, EPI, kRN, TC>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes_bf16<BN>());
 }
 
 // Parts of kPool's lgpart for N columns at tile width BN.
@@ -570,15 +421,6 @@ inline cudaError_t gemm(cudaStream_t st, const Args& p) {
   dim3 grid;
   if (!plan<AK, BK, BN>(p, grid)) return cudaErrorInvalidValue;
   gemm_kernel<AK, BK, BN, EPI, kRN, TB, TC><<<grid, kThreads, smem_bytes<AK, BK, BN>(), st>>>(p);
-  return cudaGetLastError();
-}
-
-// Launches gemm_bf16_kernel (A and B bf16, K-major) on `st`.
-template <int BN, int EPI, bool kRN = false, typename TC = float>
-inline cudaError_t gemm_bf16(cudaStream_t st, const Args& p) {
-  dim3 grid;
-  if (!plan<true, true, BN>(p, grid)) return cudaErrorInvalidValue;
-  gemm_bf16_kernel<BN, EPI, kRN, TC><<<grid, kThreads, smem_bytes_bf16<BN>(), st>>>(p);
   return cudaGetLastError();
 }
 

@@ -1,10 +1,13 @@
 // Matrix products on Hopper's warpgroup tensor-core instruction (wgmma),
 // fed by the Tensor Memory Accelerator (TMA), for sm_90a: the products of
 // the bf16 instances of kernels A and A' (msa_encoder.cu,
-// msa_encoder_pooled_bf16; msa_encoder_bwd.cu, msa_encoder_bwd_bf16). They
-// replace no TPU kernel of their own: they are A's and A''s products, which
-// the TPU kernels (digat_tpu/ops/pallas/msa_encoder.py, _fwd_kernel and
-// _bwd_kernel) run on their matrix unit.
+// msa_encoder_pooled_bf16; msa_encoder_bwd.cu, msa_encoder_bwd_bf16) and of
+// kernel B's bf16-activation instance (gat_layer.cu,
+// gat_layer_project_bf16_act: A's q|k|v instance). They replace no TPU
+// kernel of their own: they are A's, A''s and B's products, which the TPU
+// kernels (digat_tpu/ops/pallas/msa_encoder.py, _fwd_kernel and
+// _bwd_kernel; digat_tpu/ops/pallas/gat_layer.py, _layer_kernel) run on
+// their matrix unit.
 //
 // C[z] = op(A)[M, K_z] op(B)[K_z, N] over the z-th slice of K, then one of
 // tc_gemm.cuh's epilogues (kStore, kBias, kPool, kDh, kDrop, kLogits: the

@@ -72,11 +72,11 @@ SIGNATURES = {
     "gat_layer_project_bf16_act": ([_P] * 8 + [_I] * 3 + [_P], _I),
     # x, adj, s, h, ldh, out, B, G, D, TI, CG, slope, stream
     "gat_layer_attend_f32": ([_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _P], _I),
-    # the same, x and out bf16
-    "gat_layer_attend_bf16": ([_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _P], _I),
+    # x, adj, y, k3, a, out, B, G, D, Dp, R, TIb, TJb, CG, slope, stream
+    "gat_layer_fused_bf16": ([_P] * 6 + [_I] * 8 + [_F, _P], _I),
     # k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream
     "gat_scores_fwd_f32": ([_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P], _I),
-    # the same, k1, k2, k3, a and s bf16
+    # the same, k1, k2, k3, a and s bf16 (R, TIb, TJb of tile_plan)
     "gat_scores_fwd_bf16": ([_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P], _I),
     # k1, ld1, k2, ld2, k3, a, g, gk1, gk2, gk3, ga, ga_part, B, G, D, ntiles, JT, DT,
     # stream

@@ -30,10 +30,13 @@ tiles and the attend step are the fp32 ones.
 bf16 activations (CNN-DIGAT at bfloat16, whose news vectors are bf16): x,
 query and the weights bf16, the result bf16, as the JAX kernel reads x in
 its dtype, computes in fp32 and writes out in x's dtype
-(`gat_layer.py:51,95`). `gat_layer_project_bf16_act` forms the projections
-in one bf16 x bf16 pass (every product exact in fp32), C's fp32 forward
-runs on the fp32 y, and `gat_layer_attend_bf16` reads x as bf16 and rounds
-each output once; counted on `launches_bf16_act`. The plain version forms
+(`gat_layer.py:51,95`). Two launches: `gat_layer_project_bf16_act` forms
+the fp32 y and k3 on `wgmma` in one bf16 pass (every product exact in
+fp32; D padded to Dp, a multiple of 8, `padded_width(D, 8)`), and
+`gat_layer_fused_bf16` forms the scores, the mask, the softmax and
+relu(alpha h) + x of a tile of rows of a graph in one block (`fused_plan`),
+reading x as bf16 and rounding each output once; the scores never leave
+the chip. Counted on `launches_bf16_act`. The plain version forms
 everything in fp32 from the bf16 values and rounds the result once.
 """
 
@@ -49,7 +52,14 @@ import torch.nn.functional as F
 from digat_tpu_torch.layers import MASK_FILL
 from digat_tpu_torch.ops import build
 from digat_tpu_torch.ops.gat import interactive_gat_scores
-from digat_tpu_torch.ops.gat_scores import fwd_plan
+from digat_tpu_torch.ops.gat_scores import (
+    TilePlan,
+    fwd_plan,
+    slice_span,
+    tile_plan,
+    tile_stage_bytes,
+    tile_threads,
+)
 from digat_tpu_torch.ops.msa_attention import MAX_SMEM_BYTES
 
 MAX_ROWS = 32  # rows i of an attend block (kMaxRows in csrc/gat_layer.cu)
@@ -63,10 +73,57 @@ class AttendPlan(NamedTuple):
     slices: int
 
 
-def padded_width(D: int) -> int:
-    """D rounded up to a multiple of 4: the width of the projections' blocks
-    (their float4 loads)."""
-    return -(-D // 4) * 4
+class FusedPlan(NamedTuple):
+    tile: TilePlan  # the score tiles (ops.gat_scores.tile_plan at fp32 rows)
+    CG: int  # float4 columns of h a slice of the aggregation
+    threads: int
+    slices: int
+
+
+def padded_width(D: int, multiple: int = 4) -> int:
+    """D rounded up to a multiple of 4 (the fp32 and bf16-weight projections'
+    float4 loads) or of 8 (the bf16-activation projection's rows, 16 bytes
+    apart for the TMA)."""
+    return -(-D // multiple) * multiple
+
+
+def alpha_stride(rows: int) -> int:
+    """alpha^T's row stride in the fused kernel (`alpha_stride`): a tile's
+    rows rounded up to 4, an odd number of float4s."""
+    w = -(-rows // 4) * 4
+    return w if (w // 4) % 2 else w + 4
+
+
+def fused_smem_bytes(G: int, Dp: int, tile: TilePlan, CG: int) -> int:
+    """Shared memory of a fused block (`fused_smem_floats`): a and k3, alpha^T
+    [G][alpha_stride], and the staged slices of the scores or, after them,
+    two slices of h [G][4 CG]."""
+    return 4 * (2 * slice_span(Dp) + G * alpha_stride(tile.R * tile.TIb)) + max(
+        tile_stage_bytes(tile), 4 * 2 * G * 4 * CG)
+
+
+def fused_plan(G: int, D: int) -> FusedPlan:
+    """The bf16-activation instance's fused step: the score tiles of
+    `tile_plan` at fp32 rows (every column tile in one block, in turn), and
+    the aggregation of the block's rows in groups of 4 a thread over D in
+    the fewest slices of float4 columns that the block's threads cover, more
+    while its shared memory would not fit. Raises ValueError for a graph too
+    large for a block."""
+    tile = tile_plan(G, 4)
+    threads = tile_threads(tile.R, tile.TIb, tile.TJb, 4)
+    groups = -(-tile.R * tile.TIb // 4)
+    D4 = -(-D // 4)
+    slices = -(-D4 // (threads // groups))
+    while True:
+        CG = -(-D4 // slices)
+        if fused_smem_bytes(G, padded_width(D, 8), tile, CG) <= MAX_SMEM_BYTES:
+            return FusedPlan(tile, CG, threads, -(-D4 // CG))
+        if CG == 1:
+            raise ValueError(f"interactive_gat_layer_fused: a graph of G={G} nodes needs "
+                             f"{fused_smem_bytes(G, padded_width(D, 8), tile, 1)} B of shared "
+                             f"memory in the bf16-activation instance, more than the "
+                             f"{MAX_SMEM_BYTES} B a block has")
+        slices += 1
 
 
 def attend_smem_bytes(G: int, TI: int, CG: int) -> int:
@@ -118,15 +175,15 @@ def interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     return (torch.relu(torch.einsum("bij,bjd->bid", alpha, h)) + x).to(out_dtype)
 
 
-def stacked_weights(W, bW, W1, W2, W3, b3, a_vec):
+def stacked_weights(W, bW, W1, W2, W3, b3, a_vec, multiple: int = 4):
     """The weights as the kernels read them, each D padded with zeros to Dp
-    (`padded_width`): wy [3Dp, Dp] (W, W1, W2 stacked in nn.Linear layout,
-    in their dtype), by [3Dp] ([bW | 0 | 0]), w3 [Dp, Dp], b3 [Dp] and a
-    [Dp], the vectors in fp32 at least (bf16 ones upcast). W..W3 are given
-    [in, out]."""
+    (`padded_width(D, multiple)`): wy [3Dp, Dp] (W, W1, W2 stacked in
+    nn.Linear layout, in their dtype), by [3Dp] ([bW | 0 | 0]), w3 [Dp, Dp],
+    b3 [Dp] and a [Dp], the vectors in fp32 at least (bf16 ones upcast).
+    W..W3 are given [in, out]."""
     D = W.shape[0]
     bW, b3, a_vec = (v.to(torch.promote_types(v.dtype, torch.float32)) for v in (bW, b3, a_vec))
-    p = padded_width(D) - D
+    p = padded_width(D, multiple) - D
     lin = (lambda w: w.t()) if p == 0 else (lambda w: F.pad(w.t(), (0, p, 0, p)))
     vec = (lambda v: v) if p == 0 else (lambda v: F.pad(v, (0, p)))
     wy = torch.cat([lin(W), lin(W1), lin(W2)]).contiguous()
@@ -139,10 +196,11 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     """Kernel B. Same arguments and result as `interactive_gat_layer_plain`.
     The kernels read W, W1 and W2 stacked [3D, D] in nn.Linear layout: the
     wrapper stacks them each call (1.92 MB at D 400, one copy on the
-    device). Where D is not a multiple of 4, x, query and the weights are
-    padded with zeros to the next one (zero terms change no sum). Three
-    instances: all fp32; fp32 x and query with bf16 weights; bf16 x, query
-    and weights (bf16 activations, a bf16 result)."""
+    device). Where D is not a multiple of 4 (of 8 with bf16 activations),
+    x, query and the weights are padded with zeros to the next one (zero
+    terms change no sum). Three instances: all fp32; fp32 x and query with
+    bf16 weights; bf16 x, query and weights (bf16 activations, a bf16
+    result)."""
     if not build.use_kernel(x):
         return interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
                                            negative_slope)
@@ -174,35 +232,47 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
         raise ValueError("interactive_gat_layer_fused: x, adj and query must be contiguous")
     if B == 0:
         return torch.empty_like(x)
-    plan, splan = attend_plan(G, D), fwd_plan(G)
-    Dp = padded_width(D)
     act = xdt == torch.bfloat16  # the bf16-activation instance
+    Dp = padded_width(D, 8 if act else 4)
     xk, qk = x.reshape(B * G, D), query
     if Dp != D or xk.data_ptr() % 16 or qk.data_ptr() % 16:
         xk, qk = F.pad(xk, (0, Dp - D)), F.pad(qk, (0, Dp - D))
-    wy, by, w3, b3p, ap = stacked_weights(W, bW, W1, W2, W3, b3, a_vec)
+    wy, by, w3, b3p, ap = stacked_weights(W, bW, W1, W2, W3, b3, a_vec, 8 if act else 4)
     dev = x.device
     y = torch.empty((B * G, 3 * Dp), dtype=torch.float32, device=dev)
     k3 = torch.empty((B, Dp), dtype=torch.float32, device=dev)
-    s = torch.empty((B, G, G), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     what = "interactive_gat_layer_fused"
+    if act:
+        plan = fused_plan(G, D)
+        # the kernels read b3 and a by 16-byte loads
+        b3p, ap = (v if v.data_ptr() % 16 == 0 else v.clone() for v in (b3p, ap))
+        with build.launch_on(dev) as (lib, stream):
+            build.check(lib, lib.gat_layer_project_bf16_act(
+                xk.data_ptr(), qk.data_ptr(), wy.data_ptr(), by.data_ptr(), w3.data_ptr(),
+                b3p.data_ptr(), y.data_ptr(), k3.data_ptr(), B * G, B, Dp, stream), what)
+            t = plan.tile
+            build.check(lib, lib.gat_layer_fused_bf16(
+                x.data_ptr(), adj.data_ptr(), y.data_ptr(), k3.data_ptr(), ap.data_ptr(),
+                out.data_ptr(), B, G, D, Dp, t.R, t.TIb, t.TJb, plan.CG, float(negative_slope),
+                stream), what)
+        interactive_gat_layer_fused.launches_bf16_act += 1
+        return out
+    plan, splan = attend_plan(G, D), fwd_plan(G)
+    s = torch.empty((B, G, G), dtype=torch.float32, device=dev)
     with build.launch_on(dev) as (lib, stream):
-        project = lib.gat_layer_project_bf16_act if act else \
-            lib.gat_layer_project_bf16 if wdt == torch.bfloat16 else lib.gat_layer_project_f32
+        project = lib.gat_layer_project_bf16 if wdt == torch.bfloat16 else \
+            lib.gat_layer_project_f32
         build.check(lib, project(
             xk.data_ptr(), qk.data_ptr(), wy.data_ptr(), by.data_ptr(), w3.data_ptr(),
             b3p.data_ptr(), y.data_ptr(), k3.data_ptr(), B * G, B, Dp, stream), what)
         build.check(lib, lib.gat_scores_fwd_f32(
             y.data_ptr() + 4 * Dp, 3 * Dp, y.data_ptr() + 8 * Dp, 3 * Dp, k3.data_ptr(),
             ap.data_ptr(), s.data_ptr(), B, G, Dp, splan.R, splan.TIb, splan.TJb, stream), what)
-        attend = lib.gat_layer_attend_bf16 if act else lib.gat_layer_attend_f32
-        build.check(lib, attend(
+        build.check(lib, lib.gat_layer_attend_f32(
             x.data_ptr(), adj.data_ptr(), s.data_ptr(), y.data_ptr(), 3 * Dp, out.data_ptr(), B,
             G, D, plan.TI, plan.CG, float(negative_slope), stream), what)
-    if act:
-        interactive_gat_layer_fused.launches_bf16_act += 1
-    elif wdt == torch.bfloat16:
+    if wdt == torch.bfloat16:
         interactive_gat_layer_fused.launches_bf16 += 1
     else:
         interactive_gat_layer_fused.launches += 1

@@ -37,15 +37,24 @@ bf16 (`compute_dtype` bfloat16, bf16 activations: CNN-DIGAT). The forward
 takes bf16 k1, k2, k3 and a and returns bf16 scores, its math in fp32 (the
 kernel's bf16 instance `gat_scores_fwd_bf16`, counted on
 `gat_scores_fwd.launches_bf16`; the plain version upcasts and rounds once),
-as the TPU kernel does. The backward upcasts its inputs to fp32, runs the
-fp32 backward and casts the gradients back to the inputs' dtypes, as the
-JAX package's custom VJP does around its kernel.
+as the TPU kernel does. Its kernel is the register tile of
+`csrc/gat_score_tile.cuh`, which kernel B's bf16-activation instance shares
+(each score as (P[j] + Q[i] + sum_d a |k1 + k2 + k3|) / 2, P and Q the
+a-weighted sums of k1's and of k2 + k3's rows: two instructions an element):
+`tile_plan` cuts a graph into blocks of rows (at least two here) and
+columns, and the rows are copied by 16-byte vectors of eight bf16 where
+`bf16_vector_copies` allows it (element by element otherwise). The
+backward upcasts its inputs to fp32, runs the fp32 backward and casts the
+gradients back to the inputs' dtypes, as the JAX package's custom VJP does
+around its kernel.
 
 The kernels' launch plans are made here and passed to the C side, which
 checks them: `fwd_plan` (register tiles of R x R scores a thread, the
-threads' tiles of a block) and `bwd_plan` (tiles of JT columns held in
+threads' tiles of a block), `tile_plan` (the bf16 forward's and kernel B's
+bf16-activation tiles) and `bwd_plan` (tiles of JT columns held in
 registers, blocks of DT features). `tests/test_torch_gat_scores_tiles.py`
-replays the kernels' order of work from these plans on the CPU.
+and `tests/test_torch_gat_bf16_tiles.py` replay the kernels' order of work
+from these plans on the CPU.
 """
 
 from __future__ import annotations
@@ -63,6 +72,13 @@ SLICE = 32  # features of one forward slice (kDS in csrc/gat_scores.cu)
 MAX_FWD_THREADS = 512  # a forward block
 MAX_BWD_THREADS = 256  # a backward block: one slice of D
 MAX_JT = 40  # backward columns j a thread holds in registers
+# the register tiles of csrc/gat_score_tile.cuh (the bf16 forward, kernel B's
+# bf16-activation instance)
+TILE_THREADS = 320  # a block (kMaxThreads)
+TILE_SLICE = 32  # features of one staged slice (kSlice)
+TILE_ROW = 36  # floats of a staged row (kRow)
+TILE_PRE = 4  # 16-byte chunks a thread holds in flight (kMaxPre)
+TILE_COLS = 24  # threads' tiles along j in a block at most
 # the relative band around the ReLU's kink where the plain backward's mask
 # is the float64 sum's: 8 times the largest fp32 error of a sum of three,
 # 2^-23 (|k1| + |k2| + |k3|), in any order
@@ -71,6 +87,14 @@ KINK_TOL = 1e-6
 
 class FwdPlan(NamedTuple):
     R: int  # a thread's tile: R x R scores
+    TIb: int  # threads' tiles along i in a block
+    TJb: int  # threads' tiles along j in a block
+    row_blocks: int
+    col_blocks: int
+
+
+class TilePlan(NamedTuple):
+    R: int  # a thread's tile: R x R scores, rows ti + q TIb, columns tj + r TJb
     TIb: int  # threads' tiles along i in a block
     TJb: int  # threads' tiles along j in a block
     row_blocks: int
@@ -100,6 +124,58 @@ def fwd_plan(G: int) -> FwdPlan:
         nbi += 1
     TIb = math.ceil(TI / nbi)
     return FwdPlan(R, TIb, TJb, math.ceil(TI / TIb), math.ceil(TI / TJb))
+
+
+def tile_threads(R: int, TIb: int, TJb: int, itemsize: int) -> int:
+    """Threads of a block of `csrc/gat_score_tile.cuh` (`tile_threads`): one
+    a thread's tile, and enough to hold a slice's 16-byte chunks of its R TIb
+    rows and R TJb columns (elements of `itemsize` bytes) TILE_PRE at a time;
+    a multiple of 32."""
+    chunks = R * (TIb + TJb) * (TILE_SLICE * itemsize // 16)
+    return _round32(max(TIb * TJb, math.ceil(chunks / TILE_PRE)))
+
+
+def tile_plan(G: int, itemsize: int, min_row_blocks: int = 1) -> TilePlan:
+    """The register tiles of a graph of G nodes, rows of `itemsize` bytes a
+    feature: R 4 where the graph has at least 128 tiles of 4 x 4, else R 2;
+    the columns in the fewest blocks of at most TILE_COLS threads' tiles,
+    the rows in at least `min_row_blocks` blocks (if the graph has that many
+    rows of tiles), more while the block would pass TILE_THREADS."""
+    R = 4 if math.ceil(G / 4) ** 2 >= 128 else 2
+    TI = math.ceil(G / R)
+    col_blocks = math.ceil(TI / TILE_COLS)
+    TJb = math.ceil(TI / col_blocks)
+    n = min(min_row_blocks, TI)
+    while tile_threads(R, math.ceil(TI / n), TJb, itemsize) > TILE_THREADS:
+        n += 1
+    TIb = math.ceil(TI / n)
+    return TilePlan(R, TIb, TJb, math.ceil(TI / TIb), col_blocks)
+
+
+def slice_span(D: int) -> int:
+    """D rounded up to whole slices: the staged a and k3 (`slice_span`)."""
+    return math.ceil(D / TILE_SLICE) * TILE_SLICE
+
+
+def tile_stage_bytes(plan: TilePlan) -> int:
+    """Shared memory of the two staged slices of a block's tile
+    (`stage_floats`): c's R TIb rows and k1's R TJb, TILE_ROW floats each,
+    and each row's a-weighted sum (Q, P), rounded up to float4s."""
+    rows = plan.R * (plan.TIb + plan.TJb)
+    return 4 * (2 * rows * TILE_ROW + -(-rows // 4) * 4)
+
+
+def fwd_bf16_smem_bytes(plan: TilePlan, D: int) -> int:
+    """Shared memory of a block of the bf16 forward: a and k3 as fp32, and
+    the staged slices."""
+    return 4 * 2 * slice_span(D) + tile_stage_bytes(plan)
+
+
+def bf16_vector_copies(pointers, ld1: int, ld2: int, D: int) -> bool:
+    """The copy rule of the bf16 forward (the C side decides the same): 16-byte
+    vectors of eight bf16 where D and both row strides are multiples of 8 and
+    k1 and k2 (`data_ptr()`) are 16-byte aligned, element copies otherwise."""
+    return D % 8 == 0 and ld1 % 8 == 0 and ld2 % 8 == 0 and all(p % 16 == 0 for p in pointers)
 
 
 def _slice_stride(w: int) -> int:
@@ -218,8 +294,8 @@ def gat_scores_fwd(k1, k2, k3, a_vec):
         return out
     (k1, ld1), (k2, ld2) = _rows(k1, G), _rows(k2, G)
     k3, a_vec = k3.contiguous(), a_vec.contiguous()
-    plan = fwd_plan(G)
     bf16 = k1.dtype == torch.bfloat16
+    plan = tile_plan(G, 2, min_row_blocks=2) if bf16 else fwd_plan(G)
     with build.launch_on(k1.device) as (lib, stream):
         fn = lib.gat_scores_fwd_bf16 if bf16 else lib.gat_scores_fwd_f32
         err = fn(k1.data_ptr(), ld1, k2.data_ptr(), ld2, k3.data_ptr(), a_vec.data_ptr(),

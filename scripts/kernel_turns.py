@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Kernels A, A', C and the attention pair timed in turns: one tree of the
-package against another on the same card.
+"""Kernels A, A', B, C and the attention pair timed in turns: one tree of
+the package against another on the same card.
 
-    python3 scripts/kernel_turns.py --other OTHER_TREE [--rounds 2] [--step] [--stages] [--pair]
+    python3 scripts/kernel_turns.py --other OTHER_TREE [--rounds 2] [--step] [--stages]
+                                    [--pair | --graph]
 
 OTHER_TREE is another checkout's root (for example the parent commit
 unpacked with `git archive` into a directory that `.gitignore` lists). Each
@@ -33,7 +34,22 @@ on inputs drawn from one seed in every process. With --step each turn also
 runs one Trainer epoch of MSA-DIGAT at compute_dtype bfloat16, B 64 (the
 setting of chip_smoke.py's phase 20, built with that tree's chip_smoke.py
 helpers) and reports its median step after two warm-up steps. With --pair
-each turn times the attention pair alone. The turns run this tree,
+each turn times the attention pair alone. With --graph each turn times
+kernels B and C alone:
+
+  B  at B 1,024, G 68 and 26, D 400 (the serving batch), each instance: fp32;
+     fp32 x and query with bf16 weights; bf16 x, query and weights (bf16
+     activations, CNN-DIGAT at bfloat16)
+  C  forward at B 320, G 68 and 26, D 400 (k1 and k2 column blocks of a
+     fused projection y, as the training GAT layer passes them), fp32 and
+     bf16
+
+and hashes each output, so that the script can say whether B's fp32 and
+bf16-weight instances and C's fp32 forward give the other tree's bits
+(`torch.equal` of the same inputs, by SHA-256 of the bytes); with --stages
+it first splits B's bf16-activation instance and C's bf16 forward at both
+graphs (and B's fp32 instance at G 68) by launch on each tree. The turns
+run this tree,
 the other, the other, this tree (`--rounds` times), and the script prints
 each turn's times and, per setting, the range of each tree. Both trees are
 built first, in parallel.
@@ -123,7 +139,70 @@ def pair_times(torch, MA, time_ms, dev) -> dict:
     return out
 
 
-def worker(tree: str, step: bool, stages: bool = False, pair: bool = False) -> dict:
+def graph_args(torch, dev):
+    """B's and C's inputs at the main path's shapes, from one seed: (what,
+    kernel, args) of every case `--graph` times."""
+    cases = []
+    D = 400
+    for G in (68, 26):
+        g = torch.Generator(device=dev).manual_seed(60 + G)
+        r = lambda *s, sc=1.0: torch.randn(s, generator=g, device=dev) * sc
+        adj = (torch.rand((1024, G, G), generator=g, device=dev) < 0.25) \
+            | torch.eye(G, dtype=torch.bool, device=dev)
+        adj[0, 1] = False  # a row with no neighbour
+        sc = D ** -0.5
+        x, q = r(1024, G, D, sc=0.5), r(1024, D, sc=0.5)
+        w = (r(D, D, sc=sc), r(D, sc=0.05), r(D, D, sc=sc), r(D, D, sc=sc), r(D, D, sc=sc),
+             r(D, sc=0.05), r(D, sc=sc))
+        bf = lambda t: t.to(torch.bfloat16)
+        cases.append((f"B fp32 G{G}", "B", (x, adj, q, *w)))
+        cases.append((f"B bf16 weights G{G}", "B", (x, adj, q, *(bf(t) if t.dim() == 2 else t
+                                                                 for t in w))))
+        cases.append((f"B bf16 act G{G}", "B", (bf(x), adj, bf(q), *map(bf, w))))
+    for G in (68, 26):
+        g = torch.Generator(device=dev).manual_seed(70 + G)
+        y = torch.randn((320, G, 3 * D), generator=g, device=dev) * 0.3
+        k3 = torch.randn((320, D), generator=g, device=dev) * 0.3
+        a = torch.randn(D, generator=g, device=dev) * D ** -0.5
+        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            yt, k3t, at = y.to(dtype), k3.to(dtype), a.to(dtype)
+            cases.append((f"C fwd {tag} B320 G{G}", "C",
+                          (yt[..., D:2 * D], yt[..., 2 * D:], k3t, at)))
+    return cases
+
+
+# the cases whose bits --graph holds against the other tree's
+GRAPH_SAME_BITS = ("B fp32", "B bf16 weights", "C fwd fp32")
+
+
+def graph_times(torch, time_ms, dev, split=None) -> dict:
+    """Kernels B and C at `graph_args`' cases: each case's times and, under
+    "bits:<case>", the SHA-256 of its output's bytes; with `split` (a
+    stage_split) the launches of B's bf16-activation instance, C's bf16
+    forward and B's fp32 instance at G 68 instead."""
+    import hashlib
+
+    from digat_tpu_torch.ops import gat_layer as GL
+    from digat_tpu_torch.ops import gat_scores as GS
+
+    kernels = {"B": GL.interactive_gat_layer_fused, "C": GS.gat_scores_fwd}
+    out = {}
+    for what, k, args in graph_args(torch, dev):
+        fn = lambda: kernels[k](*args)
+        if split is not None:
+            if "bf16 act" in what or "fwd bf16" in what or what == "B fp32 G68":
+                out[what] = split(torch, fn)
+            continue
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"bits:{what}"] = hashlib.sha256(res.view(torch.uint8).cpu().numpy()
+                                             .tobytes()).hexdigest()
+        out[what] = time_ms(fn)
+    return out
+
+
+def worker(tree: str, step: bool, stages: bool = False, pair: bool = False,
+           graph: bool = False) -> dict:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -168,6 +247,8 @@ def worker(tree: str, step: bool, stages: bool = False, pair: bool = False) -> d
 
     if pair:
         return pair_times(torch, MA, time_ms, dev)
+    if graph:
+        return graph_times(torch, time_ms, dev, smoke_here().stage_split if stages else None)
     out = {}
     a32 = msa_args(8960, 32, 300, 16, 25, 256, 1)
     dp = torch.randn((8960, 400), generator=torch.Generator(device=dev).manual_seed(4),
@@ -225,10 +306,12 @@ def main(argv=None) -> int:
                     help="first profile A bf16, A' bf16 and A'' bf16 launch by launch on each "
                          "tree")
     ap.add_argument("--pair", action="store_true", help="time the attention pair alone")
+    ap.add_argument("--graph", action="store_true", help="time kernels B and C alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker, args.step, args.stages, args.pair)), flush=True)
+        print(json.dumps(worker(args.worker, args.step, args.stages, args.pair, args.graph)),
+              flush=True)
         return 0
     import torch
 
@@ -249,7 +332,8 @@ def main(argv=None) -> int:
         S = smoke_here()
         for name, tree in trees.items():
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree,
-                                  "--stages"], capture_output=True, text=True, cwd=tree)
+                                  "--stages", *(["--graph"] if args.graph else [])],
+                                 capture_output=True, text=True, cwd=tree)
             if res.returncode:
                 print(res.stderr, file=sys.stderr)
                 return 1
@@ -267,7 +351,8 @@ def main(argv=None) -> int:
         for name in ("this", "other", "other", "this"):
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
                                   trees[name], *(["--step"] if args.step else []),
-                                  *(["--pair"] if args.pair else [])],
+                                  *(["--pair"] if args.pair else []),
+                                  *(["--graph"] if args.graph else [])],
                                  capture_output=True, text=True, cwd=trees[name])
             if res.returncode:
                 print(res.stderr, file=sys.stderr)
@@ -275,12 +360,24 @@ def main(argv=None) -> int:
             times = json.loads(res.stdout.strip().splitlines()[-1])
             runs[name].append(times)
             print(f"turn {name}: " + json.dumps({k: [round(t, 4) for t in v]
-                                                 for k, v in times.items()}), flush=True)
-    for key in runs["this"][0] if args.rounds else ():
+                                                 for k, v in times.items()
+                                                 if not k.startswith("bits:")}), flush=True)
+    same = True
+    for key in (k for k in runs["this"][0] if k.startswith("bits:")) if args.rounds else ():
+        bits = {n: {r[key] for r in rs} for n, rs in runs.items()}
+        equal = len(bits["this"] | bits["other"]) == 1
+        print(f"{key[5:]}: the same bits in every turn of both trees: {equal}", flush=True)
+        if key[5:].startswith(GRAPH_SAME_BITS):
+            same = same and equal
+    for key in (k for k in runs["this"][0] if not k.startswith("bits:")) if args.rounds else ():
         span = {n: (min(min(r[key]) for r in rs), max(max(r[key]) for r in rs))
                 for n, rs in runs.items()}
         print(f"{key}: this {span['this'][0]:.4f}-{span['this'][1]:.4f} ms, other "
               f"{span['other'][0]:.4f}-{span['other'][1]:.4f} ms", flush=True)
+    if not same:
+        print("kernel_turns: B fp32, B bf16 weights or C's fp32 forward differ from the other "
+              "tree's bits", file=sys.stderr)
+        return 1
     return 0
 
 

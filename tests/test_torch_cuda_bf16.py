@@ -357,14 +357,26 @@ def test_dropout_bf16_kernel_bit_for_bit(cuda, rows, cols, rate, offset):
     assert out.dtype == BF16 and torch.equal(out, want) and torch.equal(x.grad, ref.grad)
 
 
-@pytest.mark.parametrize("B,G,D", [(9, 26, 400), (70, 68, 400), (7, 26, 398), (3, 5, 7),
-                                   (1024, 68, 400)])
-def test_gat_layer_bf16_activations_kernel(cuda, B, G, D):
+# B's bf16-activation instance: the serving graphs, D 398 and 30 (padded to
+# 400 and 32), graphs of 5 and 7 nodes (R 2, one thread tile row), G 96 (one
+# tile of 24 columns) and 100 (two column tiles in one block), B not a
+# multiple of any tile; x at an offset of one element (the projection's copy
+# to 16-byte rows, the fused kernel's element path)
+@pytest.mark.parametrize("B,G,D,offset", [
+    (9, 26, 400, 0), (70, 68, 400, 0), (7, 26, 398, 0), (3, 5, 7, 0), (1024, 68, 400, 0),
+    (13, 68, 30, 0), (5, 7, 398, 0), (11, 96, 400, 0), (3, 100, 64, 0), (9, 26, 400, 1),
+    (7, 5, 30, 1)])
+def test_gat_layer_bf16_activations_kernel(cuda, B, G, D, offset):
     """B with bf16 x, query and weights (its own counter): a bf16 result
     within one ulp of the plain layer's, which computes in fp32 and rounds
-    once; the same bits twice."""
+    once (a row with no neighbour: uniform); the same bits twice."""
     args = [t.to(BF16) if t.is_floating_point() else t for t in _gat_args(cuda, B, G, D,
                                                                           seed=G + 2)]
+    if offset:  # x a contiguous view `offset` elements past an aligned start
+        buf = torch.empty(B * G * D + offset, dtype=BF16, device=cuda)
+        buf[offset:] = args[0].flatten()
+        args[0] = buf[offset:].view(B, G, D)
+        assert args[0].data_ptr() % 16
     fused = GL.interactive_gat_layer_fused
     before = (fused.launches, fused.launches_bf16, fused.launches_bf16_act)
     out = fused(*args)
@@ -374,20 +386,29 @@ def test_gat_layer_bf16_activations_kernel(cuda, B, G, D):
     assert torch.equal(out, fused(*args))
 
 
-@pytest.mark.parametrize("B,G,D", [(320, 68, 400), (320, 26, 400), (5, 7, 30)])
-def test_gat_scores_fwd_bf16_kernel(cuda, B, G, D):
+# C's bf16 forward: the training graphs, D 398 and 30, graphs of 5 and 7
+# nodes, G 100 (two column blocks), B not a multiple of any tile; k1 and k2
+# column blocks of a y whose row stride (3 D + 8) or offset (one element
+# further) break 16 bytes or not: the 16-byte copies and the element copies
+@pytest.mark.parametrize("B,G,D,shift", [
+    (320, 68, 400, 0), (320, 26, 400, 0), (5, 7, 30, 0), (7, 5, 398, 0), (13, 68, 30, 0),
+    (3, 100, 64, 0), (9, 26, 400, 1), (11, 68, 398, 1), (320, 68, 400, 1)])
+def test_gat_scores_fwd_bf16_kernel(cuda, B, G, D, shift):
     """C's forward on bf16 k1, k2 (column blocks of a bf16 y), k3 and a:
-    bf16 scores within one ulp of the plain version's."""
-    g = torch.Generator().manual_seed(G)
-    y = (torch.randn(B, G, 3 * D, generator=g) * 0.3).to(BF16).to(cuda)
+    bf16 scores within one ulp of the plain version's; the same bits twice."""
+    g = torch.Generator().manual_seed(G + D)
+    y = (torch.randn(B, G, 3 * D + 8, generator=g) * 0.3).to(BF16).to(cuda)
     k3 = (torch.randn(B, D, generator=g) * 0.3).to(BF16).to(cuda)
     a = (torch.randn(D, generator=g) * D ** -0.5).to(BF16).to(cuda)
-    k1, k2 = y[..., D:2 * D], y[..., 2 * D:]
+    k1, k2 = y[..., D + shift:2 * D + shift], y[..., 2 * D + shift:3 * D + shift]
+    vector = GS.bf16_vector_copies((k1.data_ptr(), k2.data_ptr()), k1.stride(1), k2.stride(1), D)
+    assert vector == (D % 8 == 0 and shift == 0)
     before = (GS.gat_scores_fwd.launches, GS.gat_scores_fwd.launches_bf16)
     out = GS.gat_scores_fwd(k1, k2, k3, a)
     assert (GS.gat_scores_fwd.launches, GS.gat_scores_fwd.launches_bf16) == \
         (before[0], before[1] + 1)
     _close_bf16(out, GS.gat_scores_fwd_plain(k1, k2, k3, a))
+    assert torch.equal(out, GS.gat_scores_fwd(k1, k2, k3, a))
 
 
 def test_gat_scores_bwd_takes_the_float64_side_at_the_kink(cuda):
