@@ -137,7 +137,28 @@ paths:
              one process (within 1e-6 of the score scale, the same ranks,
              B and the pair launched on each rank), their stage times; the
              all-reduce of a step's gradients timed at gloo world 2 and at
-             NCCL world 1;
+             NCCL world 1. Then the same two ranks as a 1 x 2 grid over the
+             same gloo world (`parallel.dist.make_grid`, `--mesh_model` 2:
+             each rank the whole batch and rows 0-19,999 or 20,000-39,999
+             of the V 40,000 word table, `parallel.sharded_table`): the
+             MSA-DIGAT steps against the one process's, three at dropout 0
+             (each loss within 1e-5 relative, each step-1 gradient within
+             1e-4 of its tensor's max with the table's put together from
+             the shards, whether the forward logits are bit-identical;
+             step 1 against the CPU reference above at 1e-3, its entries
+             beyond 1e-4 counted, and the kinks where the grid took
+             another side than the card's one pass counted by digests of
+             each call's mask) and three at 0.2 (the one process's seeds:
+             the ranks of a model group draw one mask; losses within
+             1e-5), each rank's launches checked (D once a step on its
+             own rows; A, A', A'' and C as in the data-parallel leg); one
+             NRMS-SA step against one process; both scorers over 1,024
+             news after the table's gather against one process (1e-6 of
+             the score scale, the same ranks); the lookups' all-reduce
+             bytes and ms at gloo world 2 and each rank's table and
+             moment MB. Phase 7 holds D on rows 20,000-39,999 of V
+             40,000 (the uniform and the pad stream) against its plain
+             version;
   slice 13 - phase 23: the MPNet sentence encoder at all-mpnet-base-v2's
              widths (random weights from the seed at HuggingFace's initial
              law, a tokenizer double): 16 texts at max_length 128 card
@@ -895,6 +916,20 @@ def training_kernels(torch, cfg, model, tables, cap: int, dev):
             e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
             e["ok"] = e["ok"] and again
             by_shape[what] = e
+            # one rank's rows of a table row-sharded over two (phase 22's
+            # tensor-parallel leg): rows V/2 .. V-1, the stream cut to them
+            lo = V // 2
+            ntok = int(((tok >= lo) & (tok < V)).sum())
+            e = check_kernel(
+                torch, f"embedding_grad {what} stream, rows {lo}-{V - 1} of V {V} ({ntok} of "
+                f"{tok.numel()} tokens in range)",
+                lambda t, gg, v: EG.embedding_grad(t, gg, v, row_start=lo),
+                lambda t, gg, v: EG.embedding_grad_plain(t, gg, v, row_start=lo),
+                (tok, gr, V - lo), ntok * Din,
+                4 * ntok * Din + 8 * tok.numel() + 4 * (V - lo) * Din)
+            e["ok"] = e["ok"] and torch.equal(EG.embedding_grad(tok, gr, V - lo, row_start=lo),
+                                              EG.embedding_grad(tok, gr, V - lo, row_start=lo))
+            by_shape[f"{what} rows {lo}-{V - 1}"] = e
         return dict(by_shape["uniform"], by_shape=by_shape,
                     ok=all(v["ok"] for v in by_shape.values()))
 
@@ -1097,11 +1132,11 @@ class KinkReplay:
         bwd = GS.gat_scores_bwd_any
 
         def relu(t):
-            masks["relu"].append((t > 0).cpu())
+            masks["relu"].append(self._keep(t > 0))
             return torch.relu(t)
 
         def leaky_relu(t, negative_slope=0.2):
-            masks["leaky_relu"].append(self._leaky_side(torch, t).cpu())
+            masks["leaky_relu"].append(self._keep(self._leaky_side(torch, t)))
             return layers.leaky_relu(t, negative_slope)
 
         def bwd_any(k1, k2, k3, a_vec, g):
@@ -1111,11 +1146,19 @@ class KinkReplay:
             for s in range(0, B, step):
                 c1, c2, c3 = (k[s:s + step].float() for k in (k1, k2, k3))
                 t = c1[:, None, :, :] + (c2[:, :, None, :] + c3[:, None, None, :])
-                parts.append(GS.relu_mask(c1, c2, c3, t).cpu())
-            masks["C"].append(torch.cat(parts))
+                parts.append(self._keep(GS.relu_mask(c1, c2, c3, t)))
+            masks["C"].append(self._join(parts))
             return bwd(k1, k2, k3, a_vec, g)
 
         return self._patches(relu, leaky_relu, bwd_any)
+
+    def _keep(self, mask):
+        """What a record keeps of one mask: the mask, on the host."""
+        return mask.cpu()
+
+    def _join(self, parts):
+        """One call's record from the records of its parts in order."""
+        return self.torch.cat(parts)
 
     def _next(self, kind, own):
         """The card's side for the CPU's next call of this kind, its flips
@@ -1178,6 +1221,72 @@ class KinkReplay:
         return all(len(self.masks[k]) == len(other.masks[k])
                    and all(torch.equal(a, b) for a, b in zip(self.masks[k], other.masks[k]))
                    for k in self.KINDS)
+
+
+DIGEST_PIECE = 1 << 27  # mask elements digested at once (2 GB of int64 indices at most)
+
+
+def mask_digest(torch, mask) -> tuple:
+    """(size, how many True, the sum of their flat indices) of a mask, taken
+    where it lies (on the card for the records below)."""
+    flat, pieces = mask.reshape(-1), []
+    for lo in range(0, flat.numel(), DIGEST_PIECE):
+        part = flat[lo:lo + DIGEST_PIECE]
+        idx = torch.arange(part.numel(), device=part.device, dtype=torch.int64)
+        pieces.append((part.numel(), int(part.sum()), int((idx * part).sum())))
+    return join_digests(pieces)
+
+
+def join_digests(parts) -> tuple:
+    """One mask's digest from its consecutive parts' digests."""
+    n = count = index_sum = 0
+    for size, c, s in parts:
+        n, count, index_sum = n + size, count + c, index_sum + s + n * c
+    return (n, count, index_sum)
+
+
+class KinkDigest(KinkReplay):
+    """A `KinkReplay` record that keeps, of each call's mask, only its
+    `mask_digest`: the tensor-parallel ranks of phase 22 send it back
+    instead of 2 GB of masks."""
+
+    def _keep(self, mask):
+        return mask_digest(self.torch, mask)
+
+    def _join(self, parts):
+        return join_digests(parts)
+
+
+class KinkRecord(KinkReplay):
+    """A `KinkReplay` record whose calls also keep their `mask_digest`,
+    taken while each mask is still on the card: `digests` after `split`."""
+
+    def _keep(self, mask):
+        return mask.cpu(), mask_digest(self.torch, mask)
+
+    def _join(self, parts):
+        return self.torch.cat([m for m, _ in parts]), join_digests([d for _, d in parts])
+
+    def split(self) -> None:
+        """Masks (for `replay`) and digests apart, once a record is done."""
+        self.digests = {k: [d for _, d in v] for k, v in self.masks.items()}
+        self.masks = {k: [m for m, _ in v] for k, v in self.masks.items()}
+
+
+def kink_digests_apart(got: dict, want: dict) -> dict:
+    """By kind, (calls whose digests differ, the sum over calls of |True
+    counts apart|, calls), or None where the call counts or sizes differ:
+    0 calls apart means the same side at every kink up to a swap that keeps
+    both the count and the index sum."""
+    out = {}
+    for kind in KinkReplay.KINDS:
+        a, b = got[kind], want[kind]
+        if len(a) != len(b) or any(x[0] != y[0] for x, y in zip(a, b)):
+            out[kind] = None
+            continue
+        out[kind] = (sum(x != y for x, y in zip(a, b)),
+                     sum(abs(x[1] - y[1]) for x, y in zip(a, b)), len(a))
+    return out
 
 
 class _TorchWith:
@@ -3417,14 +3526,15 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def allreduce_ms(torch, ctx, tensors, reps: int = 5) -> tuple:
+def allreduce_ms(torch, ctx, tensors, reps: int = 5, group=None) -> tuple:
     """(bytes, median ms) of `ctx.all_reduce_sum_` on `tensors` (a step's
-    gradients), each call between device synchronises."""
+    gradients, or the rows of a lookup over `group`), each call between
+    device synchronises."""
     times = []
     for _ in range(reps + 1):
         sync(torch, ctx.device)
         t0 = time.perf_counter()
-        ctx.all_reduce_sum_(tensors)
+        ctx.all_reduce_sum_(tensors, group=group)
         sync(torch, ctx.device)
         times.append((time.perf_counter() - t0) * 1e3)
     return sum(t.numel() * t.element_size() for t in tensors), float(np.median(times[1:]))
@@ -3489,39 +3599,48 @@ def accumulated_step(model, opt, tables, parts, seed: int, lr: float) -> float:
     return total
 
 
-def dp_steps(torch, ctx, part, dev, groups: int = 1) -> dict:
+def dp_steps(torch, ctx, part, dev, groups: int = 1, kinks=None) -> dict:
     """Phase 22: one model's steps, from the job's weights, with the launch
     counters reset: a rank's rows of each global batch (`train_step` across
-    the ranks of `ctx`), or one process's whole batch in one pass, or
-    (`groups` > 1) one process's batch as the row groups of that many ranks
-    in turn (`accumulated_step`: each group at a rank's shapes, so that the
-    same rows round the same way and no ReLU kink falls otherwise). By
-    dropout rate (only 0 for `groups` > 1): losses, the step-1 gradients
-    and forward logits at rate 0, each step's ms (between device
-    synchronises), the batch kinds and the launches."""
+    the ranks of `ctx`; on a grid with a model axis, the rows of its data
+    index and its rows of the word table), or one process's whole batch in
+    one pass, or (`groups` > 1) one process's batch as the row groups of
+    that many ranks in turn (`accumulated_step`: each group at a rank's
+    shapes, so that the same rows round the same way and no ReLU kink falls
+    otherwise). By dropout rate (only 0 for `groups` > 1): losses, the
+    step-1 gradients (a table shard's as it is) and forward logits at rate
+    0, each step's ms (between device synchronises), the batch kinds and
+    the launches; on a model axis also the shard's rows, its and its
+    moments' bytes and the lookup's all-reduce. `kinks` (a `KinkDigest`)
+    records step 1 at rate 0."""
     from types import SimpleNamespace
 
     from digat_tpu_torch.data import batching
     from digat_tpu_torch.models.model import CorpusTables, Model, TrainBatch
     from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
+    from digat_tpu_torch.parallel import sharded_table
+    from digat_tpu_torch.parallel.sharded_table import ShardedLookup
     from digat_tpu_torch.train.optimizer import Adam
-    from digat_tpu_torch.train.train_step import step_seed, train_step
+    from digat_tpu_torch.train.train_step import seed_index, step_seed, train_step
 
     nrms = part["config"].model_family == "nrms"
     tables = (NRMSTables if nrms else CorpusTables).from_arrays(
         SimpleNamespace(**part["tables"]), dev)
-    rank = ctx.rank if ctx.world > 1 else None
-    n, own = (ctx.local_world, [ctx.local_rank]) if groups == 1 else (groups, range(groups))
+    rank = seed_index(ctx)
+    n, own = ((ctx.local_data_world, [ctx.local_data_rank]) if groups == 1
+              else (groups, range(groups)))
     rows = [[batching.rank_rows(TrainBatch(*b), i, n, part["news_node_id"],
                                 part["capacity"][n]) for i in own] for b in part["batches"]]
     batches = [[batching.to_device(r, dev) for r in rs] for rs in rows]
     out = {}
     for rate in part["rates"] if groups == 1 else (0.0,):
         cfg = replace(part["config"], dropout_rate=rate)
-        model = (NRMSModel if nrms else Model)(cfg, device=dev,
+        model = (NRMSModel if nrms else Model)(cfg, device=dev, dist=ctx,
                                                generator=torch.Generator().manual_seed(SEED))
         model.load_state_dict(part["state"])
-        opt = Adam(model.named_parameters(), cfg.weight_decay, cfg.gradient_clip_norm)
+        shards = sharded_table.tables(model)
+        opt = Adam(model.named_parameters(), cfg.weight_decay, cfg.gradient_clip_norm,
+                   shards=shards)
         rec = {"kinds": [[type(r).__name__ for r in rs] for rs in rows], "losses": [],
                "ms": []}
         if rate == 0.0:
@@ -3530,21 +3649,35 @@ def dp_steps(torch, ctx, part, dev, groups: int = 1) -> dict:
                     model.forward_indexed, tables, g, step_seed(SEED, 1, 0, rank)).cpu()
                     for g in batches[0]])
         reset_counters()
+        ShardedLookup.bytes = 0
         for k, parts in enumerate(batches):
             seed = step_seed(SEED, 1, k, rank)
             sync(torch, dev)
             t0 = time.perf_counter()
             if groups == 1:
-                loss = float(train_step(model, opt, tables, parts[0], seed, cfg.lr, ctx))
+                with kinks.record() if kinks and k == 0 and rate == 0.0 else _Stack([]):
+                    loss = float(train_step(model, opt, tables, parts[0], seed, cfg.lr, ctx))
             else:
                 loss = accumulated_step(model, opt, tables, parts, seed, cfg.lr)
             rec["ms"].append((time.perf_counter() - t0) * 1e3)
             rec["losses"].append(loss)
+            if k == 0:
+                rec["lookup_bytes"] = ShardedLookup.bytes
             if k == 0 and rate == 0.0:
                 rec["grads"] = {n: p.grad.detach().to("cpu", copy=True)
                                 for n, p in model.named_parameters()}
         rec["launches"] = read_counters()
-        if rate == 0.0 and ctx.active:
+        if shards:
+            (name, table), = shards.items()
+            i = opt.names.index(name)
+            rec["table_rows"] = (table.lo, table.hi)
+            rec["state_bytes"] = {"table": table.weight.numel() * 4,
+                                  "moments": (opt.mu[i].numel() + opt.nu[i].numel()) * 4}
+        if rate == 0.0 and shards:
+            # the lookups' all-reduce over the model group at step 1's sizes
+            buf = torch.zeros(rec["lookup_bytes"] // 4, device=dev)
+            rec["lookup"] = allreduce_ms(torch, ctx, [buf], group=ctx.model_group)
+        elif rate == 0.0 and ctx.active:
             rec["allreduce"] = allreduce_ms(torch, ctx, [p.grad for p in opt.params])
         out[rate] = rec
     return out
@@ -3552,8 +3685,9 @@ def dp_steps(torch, ctx, part, dev, groups: int = 1) -> dict:
 
 def dp_serving(torch, ctx, part, dev) -> dict:
     """Phase 22: both scorers over the 1,024-news corpus, sharded over the
-    ranks of `ctx` (whole on one process), the counters reset around the
-    first pass; scores, launches and both passes' timings."""
+    ranks of `ctx` (whole on one process; on a model axis the models hold
+    their rows of the word table, gathered for stage 1), the counters reset
+    around the first pass; scores, launches and both passes' timings."""
     from types import SimpleNamespace
 
     from digat_tpu_torch.eval.scorer import CachedScorer, NRMSCachedScorer
@@ -3565,7 +3699,8 @@ def dp_serving(torch, ctx, part, dev) -> dict:
             ("digat", Model, CachedScorer, part["config"], part["digat"], part["tables"]),
             ("nrms", NRMSModel, NRMSCachedScorer, part["nconfig"], part["nrms"],
              part["ntables"])):
-        model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+        model = build_model(cfg, device=dev, dist=ctx,
+                            generator=torch.Generator().manual_seed(SEED))
         model.load_state_dict(state)
         s = scorer(model, part["batch_size"], ctx)
         t = SimpleNamespace(**{k: v.to(dev) for k, v in tables.items()})
@@ -3582,7 +3717,10 @@ def dp_rank(job_path: str, out_dir: str) -> int:
     """Phase 22, one of DP_WORLD ranks on the parent's device (cuda:0) over
     gloo (a child process of this script, started by `dp_phase` with
     torchrun's environment): the steps and the sharded scorers on this
-    rank's share -> out_dir/rank<r>.pt."""
+    rank's share, then the same on a 1 x DP_WORLD grid over the same world
+    (`parallel.dist.make_grid`: the word table row-sharded, each rank the
+    whole batch; the MSA-DIGAT step 1 at rate 0 with its kinks digested)
+    -> out_dir/rank<r>.pt."""
     import torch
 
     from digat_tpu_torch.config import Config
@@ -3601,6 +3739,16 @@ def dp_rank(job_path: str, out_dir: str) -> int:
                "digat": dp_steps(torch, ctx, job["digat"], dev),
                "nrms": dp_steps(torch, ctx, job["nrms"], dev),
                "serving": dp_serving(torch, ctx, job["serving"], dev)}
+        t0 = time.perf_counter()
+        grid = dist_lib.make_grid(ctx, DP_WORLD)
+        kinks = KinkDigest(torch)
+        out["tp"] = {"grid": (grid.data_world, grid.model_world, grid.model_rank),
+                     "digat": dp_steps(torch, grid, job["digat"], dev, kinks=kinks),
+                     "nrms": dp_steps(torch, grid, job["nrms"], dev),
+                     "serving": dp_serving(torch, grid, job["serving"], dev),
+                     "kinks": kinks.masks}
+        sync(torch, dev)
+        out["tp"]["s"] = time.perf_counter() - t0
     finally:
         dist_lib.destroy(ctx)
     torch.save(out, os.path.join(out_dir, f"rank{ctx.rank}.pt"))
@@ -3763,24 +3911,35 @@ def kink_sides_apart(torch, one, groups, n_groups: int) -> dict:
     return out
 
 
-def dp_cpu_reference(torch, part, dev, one, ranks, failures) -> dict:
-    """Phase 22: the CPU's step-1 reference (see DP_SPREAD) and the gates of
-    the card's one pass (`one`) and the two ranks (`ranks`, rank 0's record:
-    the summed gradient) against it; the card's one pass and its row groups
-    are taken again with their kinks recorded, and must give `one`'s and the
-    ranks' gradients bit for bit. -> the reference (its kinks, losses and
-    gradients) for phase 23."""
+def dp_reference_steps(torch, part, dev) -> dict:
+    """Phase 22's step-1 steps for `dp_cpu_reference`: the card's one pass
+    and its row groups with their kinks recorded, then the CPU's step with
+    the one pass's sides replayed (taken while the ranks run)."""
     t0 = time.perf_counter()
-    kinks, kinks_g = KinkReplay(torch), KinkReplay(torch)
+    kinks, kinks_g = KinkRecord(torch), KinkReplay(torch)
     with kinks.record():
         card_loss, card, _ = reference_step(torch, part, dev)
+    kinks.split()
     with kinks_g.record():
         _, card_g, _ = reference_step(torch, part, dev, groups=DP_WORLD)
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     with kinks.replay():
         cpu_loss, cpu, _ = reference_step(torch, part, torch.device("cpu"))
-    cpu_s = time.perf_counter() - t0
+    return {"kinks": kinks, "kinks_g": kinks_g, "card": (card_loss, card), "card_g": card_g,
+            "cpu": (cpu_loss, cpu), "card_s": card_s, "cpu_s": time.perf_counter() - t0}
+
+
+def dp_cpu_reference(torch, part, steps, one, ranks, failures) -> dict:
+    """Phase 22: the CPU's step-1 reference (see DP_SPREAD; `steps` from
+    `dp_reference_steps`) and the gates of the card's one pass (`one`) and
+    the two ranks (`ranks`, rank 0's record: the summed gradient) against
+    it; the card's one pass and its row groups, taken again with their
+    kinks recorded, must give `one`'s and the ranks' gradients bit for bit.
+    -> the reference (its kinks, losses and gradients) for phase 23."""
+    kinks, kinks_g, card_g = steps["kinks"], steps["kinks_g"], steps["card_g"]
+    (card_loss, card), (cpu_loss, cpu) = steps["card"], steps["cpu"]
+    card_s, cpu_s = steps["card_s"], steps["cpu_s"]
     again = all(torch.equal(card[n], one["grads"][n]) for n in card)
     ranks_again = all(torch.equal(card_g[n], ranks["grads"][n]) for n in card_g)
     apart = kink_sides_apart(torch, kinks, kinks_g, DP_WORLD)
@@ -3837,6 +3996,8 @@ def dp_phase(torch, cfg, ncfg, dev, failures) -> tuple:
                    "nrms": dp_steps(torch, one, job["nrms"], dev),
                    "nrms groups": dp_steps(torch, one, job["nrms"], dev, DP_WORLD),
                    "serving": dp_serving(torch, one, job["serving"], dev)}
+            one_s = time.perf_counter() - t0
+            steps = dp_reference_steps(torch, job["digat"], dev)
             rcs = [p.wait(timeout=300) for p in procs]
         finally:
             for p in procs:
@@ -3850,10 +4011,11 @@ def dp_phase(torch, cfg, ncfg, dev, failures) -> tuple:
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                  for r in range(DP_WORLD)]
     say(f"  inputs {setup_s:.2f}s; {DP_WORLD} ranks ({[r['backend'] for r in ranks]}, world "
-        f"{ranks[0]['world']}) and one process {ranks_s:.2f}s")
+        f"{ranks[0]['world']}), one process ({one_s:.2f}s) and the step-1 reference "
+        f"{ranks_s:.2f}s")
     dp_compare_steps(torch, "MSA-DIGAT B 64, depth 3, dedup per shard", ref["digat"],
                      ref["digat groups"], [r["digat"] for r in ranks], failures)
-    reference = dp_cpu_reference(torch, job["digat"], dev, ref["digat"][0.0],
+    reference = dp_cpu_reference(torch, job["digat"], steps, ref["digat"][0.0],
                                  ranks[0]["digat"][0.0], failures)
     dp_compare_steps(torch, "NRMS-SA B 64", ref["nrms"], ref["nrms groups"],
                      [r["nrms"] for r in ranks], failures)
@@ -3923,7 +4085,136 @@ def dp_phase(torch, cfg, ncfg, dev, failures) -> tuple:
             counts[f"serving {bkernel}"] = g["launches"][bkernel]
             if name == "digat":
                 counts["serving msa_encoder_pooled"] = g["launches"]["msa_encoder_pooled"]
+    t0 = time.perf_counter()
+    tp_compare(torch, cfg, job, ref, reference, [r["tp"] for r in ranks], dev, failures,
+               by_path)
+    say(f"  tensor-parallel comparisons {time.perf_counter() - t0:.2f}s")
     return by_path, reference
+
+
+def grads_apart(torch, got: dict, want: dict) -> tuple:
+    """(worst max |got - want| / max |want| over the tensors, its tensor)."""
+    worst = (0.0, "")
+    for n, w in want.items():
+        worst = max(worst, (float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30),
+                            n))
+    return worst
+
+
+def tp_compare(torch, cfg, job, ref, reference, tp, dev, failures, by_path) -> None:
+    """Phase 22's tensor-parallel leg: the two ranks as a 1 x DP_WORLD grid
+    (each the whole batch, the word table row-sharded) against one process
+    on the same global batches (`ref`) and the CPU's step-1 reference. Adds
+    each rank's launches to `by_path`."""
+    from digat_tpu_torch.eval import metrics as M
+    from digat_tpu_torch.parallel.sharded_table import shard_rows
+
+    V, Dw = cfg.vocabulary_size, cfg.word_embedding_dim
+    depth, rate = cfg.graph_depth, cfg.dropout_rate
+    fp32_drops, _ = site_launches(cfg)
+
+    def assembled(family, k):
+        """Rank k's step-1 gradients, the table put together from the shards."""
+        grads = dict(tp[k][family][0.0]["grads"])
+        grads[WORD_TABLE] = torch.cat([t[family][0.0]["grads"][WORD_TABLE] for t in tp])
+        return grads
+
+    rows = [t["digat"][0.0]["table_rows"] for t in tp]
+    shapes = [tuple(t["digat"][0.0]["grads"][WORD_TABLE].shape) for t in tp]
+    want_rows = [shard_rows(V, DP_WORLD, m) for m in range(DP_WORLD)]
+    sb = tp[0]["digat"][0.0]["state_bytes"]
+    nbytes, ms = tp[0]["digat"][0.0]["lookup"]
+    say(f"  tensor parallel, a 1 x {DP_WORLD} grid over the same gloo world (grids "
+        f"{[t['grid'] for t in tp]}; leg {[round(t['s'], 2) for t in tp]} s by rank): rows "
+        f"{rows} (want {want_rows}), table gradients {shapes}; a rank holds "
+        f"{sb['table'] / 1e6:.3f} MB of table and {sb['moments'] / 1e6:.3f} MB of moments "
+        f"(one process {V * Dw * 4 / 1e6:.3f} + {2 * V * Dw * 4 / 1e6:.3f}); the lookups' "
+        f"all-reduce at step 1 {nbytes / 1e6:.3f} MB, gloo world {DP_WORLD} {ms:.3f} ms "
+        f"(rank 0, median of 5; the data-parallel step's gradient all-reduce above)")
+    if rows != want_rows or shapes != [(hi - lo, Dw) for lo, hi in want_rows]:
+        failures.append(f"tensor parallel: rows {rows}, table gradients {shapes}")
+    # MSA-DIGAT at dropout 0 against the one pass, then at the production rate
+    one = ref["digat"][0.0]
+    for k, t in enumerate(tp):
+        rec = t["digat"][0.0]
+        loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(rec["losses"],
+                                                                        one["losses"]))
+        worst, name = grads_apart(torch, assembled("digat", k), one["grads"])
+        bits = torch.equal(rec["logits"], one["logits"])
+        logit_err = float((rec["logits"] - one["logits"]).abs().max())
+        scale = max(1.0, float(one["logits"].abs().max()))
+        hot = t["digat"][rate]
+        hot_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+            hot["losses"], ref["digat"][rate]["losses"]))
+        say(f"  rank {k}, MSA-DIGAT B 64 at dropout 0: losses "
+            f"{[round(v, 7) for v in rec['losses']]} (one process {[round(v, 7) for v in one['losses']]}), max rel err {loss_err:.3e} "
+            f"(limit {DP_LOSS_RTOL:g}); step-1 gradients, the table's from both shards, worst "
+            f"{worst:.3e} ({name}; limit {DP_GRAD_RTOL:g} of its max); forward logits "
+            f"bit-identical: {bits} (max |tp - one| {logit_err:.3e}); at dropout {rate} (the "
+            f"one-process seeds: one mask a model group) losses rel err {hot_err:.3e}; step ms "
+            f"{[round(v, 3) for v in hot['ms']]}")
+        if not (loss_err <= DP_LOSS_RTOL and worst <= DP_GRAD_RTOL and hot_err <= DP_LOSS_RTOL
+                and logit_err <= DP_LOGIT_RTOL * scale and np.isfinite(hot["losses"]).all()):
+            failures.append(f"tensor parallel rank {k}: MSA-DIGAT against one process")
+        # each rank's launches at the production rate, as the data-parallel leg's
+        over = sum(kind != ["DedupTrainBatch"] for kind in hot["kinds"])
+        want = {"msa_encoder_pooled": DP_STEPS + over, "msa_encoder_bwd": DP_STEPS + over,
+                "embedding_grad": DP_STEPS + over, "gat_scores_fwd": 2 * depth * DP_STEPS,
+                "gat_scores_bwd": 2 * depth * DP_STEPS, "dropout": fp32_drops * DP_STEPS}
+        got = {n: hot["launches"][n] for n in want}
+        nrms = t["nrms"][0.0]
+        n_loss = abs(nrms["losses"][0] - ref["nrms"][0.0]["losses"][0]) / abs(
+            ref["nrms"][0.0]["losses"][0])
+        n_worst, n_name = grads_apart(torch, assembled("nrms", k), ref["nrms"][0.0]["grads"])
+        say(f"    launches at dropout {rate}: {got} (want {want}: D on rows "
+            f"{rows[k][0]}-{rows[k][1] - 1} alone); NRMS-SA step: loss rel err {n_loss:.3e}, "
+            f"gradients worst {n_worst:.3e} ({n_name}), attention pair "
+            f"{nrms['launches']['msa_attention_fwd']} / {nrms['launches']['msa_attention_bwd']}")
+        if got != want:
+            failures.append(f"tensor parallel rank {k}: launches {got}, want {want}")
+        if not (n_loss <= DP_LOSS_RTOL and n_worst <= DP_GRAD_RTOL
+                and nrms["launches"]["msa_attention_fwd"] == 4
+                and nrms["launches"]["msa_attention_bwd"] == 4):
+            failures.append(f"tensor parallel rank {k}: NRMS-SA against one process")
+        by_path[f"tp rank {k}"] = {**got, **{n: nrms["launches"][n] for n in (
+            "msa_attention_fwd", "msa_attention_bwd")}}
+    # step 1 against the CPU's reference (no new CPU step), and the kinks
+    # where the grid took another side than the card's one pass
+    if reference is not None:
+        cpu_loss, cpu = reference["cpu"]
+        sp = grad_spread(assembled("digat", 0), cpu)
+        loss_err = abs(tp[0]["digat"][0.0]["losses"][0] - cpu_loss) / max(1.0, abs(cpu_loss))
+        say_spread("tensor parallel against the CPU", sp, loss_err)
+        apart = kink_digests_apart(tp[0]["kinks"], reference["kinks"].digests)
+        same = all(t["kinks"] == tp[0]["kinks"] for t in tp)
+        say("    kinks where the grid took another side than the card's one pass (digests of "
+            "each call: calls apart, True counts apart, calls): "
+            + "; ".join(f"{k} {v}" if v else f"{k} not comparable" for k, v in apart.items())
+            + f"; the ranks' digests the same: {same}")
+        if not (sp["worst"] <= TRAIN_RTOL and loss_err <= TRAIN_RTOL):
+            failures.append("tensor parallel: step-1 gradients against the CPU")
+    # the scorers after the gather
+    for name, bkernel in (("digat", "interactive_gat_layer_fused"), ("nrms", "msa_attention_fwd")):
+        want = ref["serving"][name]
+        got = [t["serving"][name] for t in tp]
+        imp = job["serving"]["items"][2]
+        err = max(float(np.abs(g["scores"] - want["scores"]).max()) for g in got)
+        scale = max(1.0, float(np.abs(want["scores"]).max()))
+        flips = sum(int((np.argsort(-a, kind="stable") != np.argsort(-b, kind="stable")).any())
+                    for a, b in zip(M.group_by_impression(imp, got[0]["scores"]),
+                                    M.group_by_impression(imp, want["scores"])))
+        launches = [g["launches"][bkernel] for g in got]
+        say(f"  tensor parallel {name} scorer, 1,024 news after the gather: max |tp - one| "
+            f"{err:.3e} (limit {DP_SCORE_RTOL * scale:.3e}); impressions ranked otherwise "
+            f"{flips}; {bkernel} launches by rank {launches}; stage 1 "
+            f"{[round(g['warm']['stage1_s'], 4) for g in got]} s warm")
+        if not (err <= DP_SCORE_RTOL * scale and flips == 0 and all(launches)):
+            failures.append(f"tensor parallel {name} scorer against one process")
+        for k, g in enumerate(got):
+            counts = by_path[f"tp rank {k}"]
+            counts[f"serving {bkernel}"] = g["launches"][bkernel]
+            if name == "digat":
+                counts["serving msa_encoder_pooled"] = g["launches"]["msa_encoder_pooled"]
 
 
 # ---------------------------------------------------------------------------

@@ -13,15 +13,21 @@ Layout, as the JAX package writes it:
     <run_root>/prediction/<dataset>/<model>/#N/prediction.zip   MIND-large test
 
 One process on one device, CUDA unless `--device cpu`; or one process a
-GPU under torchrun, data parallel (`parallel.dist`; on the CPU over gloo):
+GPU under torchrun, data parallel (`parallel.dist`; on the CPU over gloo),
+with the word table row-sharded over `--mesh_model` M of them
+(`parallel.sharded_table`; `--mesh_data` x `--mesh_model` ranks):
 
     python -m digat_tpu_torch.cli --dataset synthetic --device cpu --epoch 2
     python -m torch.distributed.run --nproc_per_node N -m digat_tpu_torch.cli ...
+    python -m torch.distributed.run --nproc_per_node 4 -m digat_tpu_torch.cli \
+        --mesh_data 2 --mesh_model 2 ...
 
 Across ranks, rank 0 prepares the data and builds the kernels while the
 others wait at a barrier; every rank trains and scores its share, rank 0
 alone writes the run's files, and every rank joins the test of the best
-checkpoint, which rank 0 loads and broadcasts. `--profile_dir` traces
+checkpoint, which rank 0 loads and broadcasts (on a model axis, each rank
+of rank 0's model group loads its rows and broadcasts them to its data
+group). `--profile_dir` traces
 steps 10-20 of the first epoch. `--compute_dtype bfloat16` trains and
 scores every model (MSA or CNN DIGAT and its ablations, NRMS, NRMS-SA) on
 bf16 compute copies of the fp32 weights (`models.model.ComputeCopy`); the
@@ -47,18 +53,20 @@ from digat_tpu_torch.eval.scorer import compute_scores
 from digat_tpu_torch.models.model import Model
 from digat_tpu_torch.models.nrms import NRMSModel
 from digat_tpu_torch.parallel import dist as dist_lib
+from digat_tpu_torch.parallel import sharded_table
 from digat_tpu_torch.parallel.dist import DistContext
 from digat_tpu_torch.runtime import resolve_device
 from digat_tpu_torch.train import checkpoint
 from digat_tpu_torch.train.trainer import Trainer, get_run_index
 
 
-def build_model(cfg: Config, word_embedding=None, device=None):
+def build_model(cfg: Config, word_embedding=None, device=None, dist=None):
     """The DIGAT stack or the NRMS / NRMS-SA stack on `device` (by default
-    `cfg.device`), its word table from `word_embedding` where given."""
+    `cfg.device`), its word table from `word_embedding` where given and
+    row-sharded where `dist` has a model axis."""
     family = NRMSModel if cfg.model_family == "nrms" else Model
     return family(cfg, device=cfg.device if device is None else device,
-                  word_embedding=word_embedding)
+                  word_embedding=word_embedding, dist=dist)
 
 
 def _single_or(cfg: Config, dist: Optional[DistContext]) -> DistContext:
@@ -121,7 +129,7 @@ def run_train(cfg: Config, dist: Optional[DistContext] = None) -> dict:
     one process on `cfg.device`."""
     dist = _single_or(cfg, dist)
     corpus = prepare(cfg, dist)
-    model = build_model(cfg, corpus.word_embedding, dist.device)
+    model = build_model(cfg, corpus.word_embedding, dist.device, dist)
     results_dir = os.path.join(cfg.run_root, "results", cfg.dataset, model.model_name)
     run_dir = ""
     if dist.is_main:
@@ -139,9 +147,14 @@ def run_train(cfg: Config, dist: Optional[DistContext] = None) -> dict:
     if not dist.broadcast_flag(dist.is_main and os.path.exists(best)):
         return record
     epoch = torch.zeros(1, dtype=torch.int64, device=dist.device)
-    if dist.is_main:
+    if dist.model_world > 1:  # the path on every rank of rank 0's model group
+        index = torch.full((1,), cfg.run_index, dtype=torch.int64, device=dist.device)
+        dist.broadcast_([index])
+        best = os.path.join(cfg.run_root, cfg.dataset, model.model_name, f"#{int(index)}",
+                            "best.ckpt")
+    if dist.data_rank == 0:  # rank 0 and its model group, on its node
         epoch += checkpoint.load(best, model)
-    dist.broadcast_(list(model.state_dict().values()) + [epoch])
+    sharded_table.broadcast_state_(model, dist, [epoch])
     epoch = int(epoch)
     t0 = time.time()
     unlabeled = corpus.test_unlabeled
@@ -176,7 +189,7 @@ def run_eval(cfg: Config, mode: str, dist: Optional[DistContext] = None) -> tupl
         raise ValueError(f"--{mode}_model_path required")
     dist = _single_or(cfg, dist)
     corpus = prepare(cfg, dist)
-    model = build_model(cfg, corpus.word_embedding, dist.device)
+    model = build_model(cfg, corpus.word_embedding, dist.device, dist)
     epoch = checkpoint.load(path, model)
     t0 = time.time()
     out = cfg.test_output_file or None

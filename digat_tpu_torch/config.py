@@ -14,8 +14,10 @@ The distribution flags (`mesh_data`, `mesh_model`, `coordinator_address`,
 `num_processes`, `process_id`) and `profile_dir` are fields as in the JAX
 package; `parallel.dist.init_distributed` reads the first five against
 torchrun's environment (a port process is one GPU, a JAX process one
-host), and `mesh_model` > 1, the JAX package's row-sharded word table,
-raises naming its ROADMAP item.
+host). `mesh_model` M > 1 row-shards the word table over M ranks
+(`parallel.sharded_table`), as the JAX package's `param_shardings` places
+it along the `model` axis: the vocabulary must split into M equal blocks,
+as JAX's placement requires, and M must divide each node's ranks.
 
 `from_args` also takes the JAX package's TPU-only flags (the PRNG, the
 compilation cache and the Pallas switch), so that a JAX command line
@@ -121,7 +123,8 @@ class Config:
     # the word table's gradient: kernel D's sorted segment sum (true) or the
     # library's scatter-add of F.embedding (false)
     sorted_emb_grad: bool = True
-    # data parallelism (parallel.dist): 0 or the world size; > 1 not ported
+    # the rank grid (parallel.dist): mesh_data x mesh_model is the world size
+    # (mesh_data 0: world / mesh_model); mesh_model > 1 row-shards the word table
     mesh_data: int = 0
     mesh_model: int = 1
     coordinator_address: str = ""  # host:port rendezvous ('' = the launcher's)
@@ -190,10 +193,6 @@ class Config:
                                  f"got {self.cnn_kernel_num}")
         if self.dev_criterion not in ("auc", "mrr", "ndcg5", "ndcg10", "avg"):
             raise ValueError(f"unknown dev_criterion {self.dev_criterion}")
-        if self.mesh_model > 1:
-            raise NotImplementedError(
-                f"--mesh_model {self.mesh_model} is not ported: ROADMAP.md section 1, item 4 "
-                "(mesh_model > 1, the row-sharded word table)")
         self.check_compute_dtype()
         return self
 
@@ -212,6 +211,9 @@ class Config:
             raise ValueError("category_num must be set from the corpus")
         if self.vocabulary_size <= 0:
             raise ValueError("vocabulary_size must be set from the corpus")
+        if self.mesh_model > 1 and self.vocabulary_size % self.mesh_model:
+            raise ValueError(f"--mesh_model {self.mesh_model} does not split the vocabulary of "
+                             f"{self.vocabulary_size} words into equal row blocks")
         return self
 
     def to_json(self) -> str:

@@ -36,6 +36,12 @@ news repeat it and are dropped), then an all_gather puts the caches back
 together on every rank; stage 2 takes the items strided across the ranks,
 each rank's scores in its own slots and zeros elsewhere, and an all_reduce
 sums them into the whole vector on every rank.
+
+A model whose word table is row-sharded over a model group (`--mesh_model`
+M > 1) takes the whole table for stage 1, gathered once a pass over the
+model group (`parallel.sharded_table.whole_table`), as the JAX scorer
+replicates the parameters; the ranks of every group then score their
+shares as above.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from digat_tpu_torch.eval import metrics as M
 from digat_tpu_torch.models.model import CorpusTables, EvalBatch, Model
 from digat_tpu_torch.models.nrms import NRMSModel, NRMSTables
 from digat_tpu_torch.parallel.dist import DistContext
+from digat_tpu_torch.parallel.sharded_table import whole_table
 
 
 def _sync(device: torch.device) -> None:
@@ -121,7 +128,8 @@ class CachedScorer:
                 reps[t.news_node_id[sel]], t.news_graph_mask[sel]))
             return reps, c_n0
 
-        return self.model.computing(stage1, params=params)
+        with whole_table(self.model):
+            return self.model.computing(stage1, params=params)
 
     @torch.inference_mode()
     def _score_batch(self, tables: CorpusTables, news_reps, c_n0, batch: EvalBatch):
@@ -192,7 +200,8 @@ class NRMSCachedScorer:
                 plain[sel], plain[t.augmented_news[sel]]))
             return plain, fused
 
-        return self.model.computing(stage1, params=params)
+        with whole_table(self.model):
+            return self.model.computing(stage1, params=params)
 
     @torch.inference_mode()
     def score_items(self, tables, history_idx: np.ndarray, cat_idx: np.ndarray,

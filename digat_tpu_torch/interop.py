@@ -9,7 +9,10 @@ port model's parameters. It is strict both ways, like `digat_tpu/interop.py`: ev
 array of the tree is used exactly once and every parameter of the model is
 filled, or it raises. `params_from_model(model)` goes the other way: the
 JAX tree, as numpy arrays in the model's dtype, so a port model's trained
-weights can be handed back to the JAX package.
+weights can be handed back to the JAX package. A model whose word table is
+row-sharded (`--mesh_model` M > 1) takes its rows of the whole JAX table,
+and gives the whole table back, gathered over its model group (every rank
+of the group calls `params_from_model` together).
 
 JAX stores linear weights `[in, out]`; `nn.Linear` stores `[out, in]`, so
 weights transpose; a convolution's `[width, in, out]` reverses its axes into
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from digat_tpu_torch.models.graph_encoders import VARIANT_GATS
+from digat_tpu_torch.parallel.sharded_table import full_state_dict
 
 
 def _linear(src: str, dst: str, bias: bool = True):
@@ -164,7 +168,7 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
 
 def params_from_model(model: nn.Module) -> dict:
     """The JAX parameter tree of `model` (nested dicts of numpy arrays)."""
-    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    sd = {k: v.detach().cpu().numpy() for k, v in full_state_dict(model).items()}
     tree: dict = {}
     for path, names, transposed in _table_of(model):
         arrs = [sd.pop(n).T if transposed else sd.pop(n) for n in names]

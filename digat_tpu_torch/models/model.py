@@ -36,6 +36,7 @@ from digat_tpu_torch.data.user_graph import build_user_graph
 from digat_tpu_torch.layers import DropoutSites
 from digat_tpu_torch.models.graph_encoders import GraphEncoder
 from digat_tpu_torch.models.news_encoders import NewsEncoder
+from digat_tpu_torch.parallel.sharded_table import shard_word_table
 from digat_tpu_torch.runtime import exact_fp32, resolve_device
 
 WORD_TABLE = "news_encoder.word_embedding.weight"  # stays fp32 in the compute copy
@@ -199,10 +200,13 @@ class Model(ComputeCopy, nn.Module):
     news_graph_wo_inter, user_graph_wo_inter). Runs on CUDA unless `device`
     names another device; with no device and no CUDA it raises. `word_embedding` (numpy [V, word_dim]), if
     given, replaces the drawn word table; the other weights are drawn the
-    same either way."""
+    same either way. With `dist` on a grid of `mesh_model` M > 1 ranks
+    (`parallel.dist.DistContext`), the model keeps its model index's rows
+    of that whole table (`parallel.sharded_table`), so that every rank
+    draws the same weights."""
 
     def __init__(self, config: Config, device=None, generator: Optional[torch.Generator] = None,
-                 word_embedding=None):
+                 word_embedding=None, dist=None):
         super().__init__()
         config.validate()
         device = resolve_device(device)
@@ -222,6 +226,7 @@ class Model(ComputeCopy, nn.Module):
             config.news_embedding_dim, config.dropout_rate, g,
         )
         set_word_embedding(self.news_encoder, word_embedding)
+        shard_word_table(self.news_encoder, dist)
         self.to(device)
         self.device = device
         self.compute_dtype = getattr(torch, config.compute_dtype)

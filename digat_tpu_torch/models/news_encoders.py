@@ -3,7 +3,10 @@
 Counterpart of `digat_tpu.models.news_encoders.encode`. Both embed the
 title tokens from the [V, 300] table (`ops.emb_grad`, whose gradient is
 kernel D) and end in the masked tanh-MLP attention pool; the embedding
-gather stays outside any kernel, as in the JAX package.
+gather stays outside any kernel, as in the JAX package. With `--mesh_model`
+M > 1 the table is row-sharded over the model group and looked up through
+`parallel.sharded_table` (kernel D on the rank's rows), as the JAX
+package's `param_shardings` shards it.
 
 MSA. Where the JAX package runs its fused kernel (`group_size(heads, L,
 dk) > 0`: titles up to 128 positions, heads up to 128 wide), the whole
@@ -36,14 +39,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from digat_tpu_torch.layers import AttentionPool, ConvBank, MultiHeadAttention, attn_pool, \
     dropout, mha
-from digat_tpu_torch.ops.emb_grad import embedding_lookup
 from digat_tpu_torch.ops.msa_attention_grouped import group_size
 from digat_tpu_torch.ops.msa_encoder import msa_encoder_pooled
+from digat_tpu_torch.parallel.sharded_table import lookup
 
 CONV_SITE = 1 << 16  # the CNN's dropout after the convolutions: site + CONV_SITE
 
@@ -55,7 +57,9 @@ class NewsEncoder(nn.Module):
     (MSA) or cnn_kernel_num (CNN). With `sorted_emb_grad` (the default) the
     word table's gradient is kernel D's sorted segment sum; without, the
     titles are looked up by `F.embedding`, whose gradient is the library's
-    scatter-add (the JAX package's `sorted_emb_grad=False`, XLA's)."""
+    scatter-add (the JAX package's `sorted_emb_grad=False`, XLA's). On a
+    rank of a model axis the table is the rank's rows, a `ShardedTable`
+    (`parallel.sharded_table`), under the same name."""
 
     def __init__(self, vocab_size: int, word_dim: int, heads: int, head_dim: int,
                  attention_dim: int, max_title_length: int, dropout_rate: float,
@@ -95,10 +99,7 @@ class NewsEncoder(nn.Module):
         lead = title_text.shape[:-1]
         L = self.max_title_length
         tok = title_text.reshape(-1, L)
-        if self.sorted_emb_grad:
-            w = embedding_lookup(self.word_embedding.weight, tok)
-        else:
-            w = F.embedding(tok, self.word_embedding.weight)
+        w = lookup(self.word_embedding, tok, self.sorted_emb_grad)
         mask = title_mask.reshape(-1, L).to(torch.bool).contiguous()
         rate = self.dropout_rate
         if self.fused:

@@ -41,7 +41,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from digat_tpu_torch.config import Config
@@ -57,6 +56,7 @@ from digat_tpu_torch.layers import (
     sdp_attn,
 )
 from digat_tpu_torch.models.model import ComputeCopy, as_device_tensor, set_word_embedding
+from digat_tpu_torch.parallel.sharded_table import lookup, shard_word_table
 from digat_tpu_torch.runtime import exact_fp32, resolve_device
 
 
@@ -112,12 +112,15 @@ class NRMSModel(ComputeCopy, nn.Module):
     """NRMS or NRMS-SA (`config.nrms_model`). Runs on CUDA unless `device`
     names another device; with no device and no CUDA it raises.
     `word_embedding` (numpy [V, word_dim]), if given, replaces the drawn
-    word table."""
+    word table. With `dist` on a grid of `mesh_model` M > 1 ranks, the
+    model holds its model index's rows of the table, as `Model` does; their
+    gradient is the library's scatter-add, as `F.embedding`'s is for the
+    whole table."""
 
     family = "nrms"
 
     def __init__(self, config: Config, device=None, generator: Optional[torch.Generator] = None,
-                 word_embedding=None):
+                 word_embedding=None, dist=None):
         super().__init__()
         config.validate()
         device = resolve_device(device)
@@ -135,6 +138,7 @@ class NRMSModel(ComputeCopy, nn.Module):
         self.user_encoder = NRMSUserEncoder(config.nrms_head_num, config.nrms_head_dim,
                                             config.nrms_attention_dim, g)
         set_word_embedding(self.news_encoder, word_embedding)
+        shard_word_table(self.news_encoder, dist)
         self.to(device)
         self.device = device
         self.compute_dtype = getattr(torch, config.compute_dtype)
@@ -146,7 +150,7 @@ class NRMSModel(ComputeCopy, nn.Module):
         """The shared title tower: [..., L] -> [..., D]."""
         ne, p = self.news_encoder, self.dropout_rate
         lead, L = title_text.shape[:-1], title_text.shape[-1]
-        w = F.embedding(title_text.reshape(-1, L), ne.word_embedding.weight)
+        w = lookup(ne.word_embedding, title_text.reshape(-1, L), sorted_grad=False)
         w = drop(w.to(ne.multiheadAttention.W_Q.weight.dtype), p)
         mask = title_mask.reshape(-1, L).to(torch.bool)
         c = drop(ne.multiheadAttention(w, mask), p)

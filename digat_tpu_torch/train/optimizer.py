@@ -18,7 +18,14 @@ same arithmetic in the same order:
 
 The moments live beside the parameters, in their dtype and on their
 device. The update runs under no_grad and changes the parameters in
-place."""
+place.
+
+`shards` names the parameters that are one rank's rows of a row-sharded
+table (`parallel.sharded_table.tables(model)`): their moments are the
+rows' alone, their squared sums enter the clip norm through one sum over
+the model group (the replicated parameters' squares are taken once), and
+`state_dict` / `load_state_dict` gather and slice their moments, so a
+state holds the whole table's, whatever the grid."""
 
 from __future__ import annotations
 
@@ -40,8 +47,12 @@ def lr_at_epoch(base_lr: float, epoch: int, lr_decay_epoch: int) -> float:
 class Adam:
     def __init__(self, named_parameters, weight_decay: float = 0.0,
                  gradient_clip_norm: float = 1.0, torch_compat_clip: bool = False,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, shards=None):
         self.names, self.params = zip(*[(n, p) for n, p in named_parameters if p.requires_grad])
+        self.shards = dict(shards or {})
+        if set(self.shards) - set(self.names):
+            raise ValueError(f"shards {sorted(set(self.shards) - set(self.names))} are not "
+                             "parameters")
         self.weight_decay = weight_decay
         self.gradient_clip_norm = gradient_clip_norm
         self.torch_compat_clip = torch_compat_clip
@@ -60,7 +71,7 @@ class Adam:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         max_norm = self.gradient_clip_norm
         if max_norm > 0:
-            norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            norm = torch.sqrt(self._squared_sum(grads))
             if self.torch_compat_clip:
                 coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
                 grads = [g * coef for g in grads]
@@ -79,12 +90,35 @@ class Adam:
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             p.add_(-lr * update)
 
+    def _squared_sum(self, grads):
+        """The squared global norm: every gradient's squares, the shards'
+        summed over their model group."""
+        if not self.shards:
+            return sum((g * g).sum() for g in grads)
+        whole = [(g * g).sum() for n, g in zip(self.names, grads) if n not in self.shards]
+        rows = torch.stack([(g * g).sum() for n, g in zip(self.names, grads)
+                            if n in self.shards]).sum().reshape(1)
+        table = next(iter(self.shards.values()))
+        table.dist.all_reduce_sum_([rows], group=table.dist.model_group)
+        return sum(whole) + rows[0]
+
     def state_dict(self) -> dict:
-        return {"count": self.count, "mu": dict(zip(self.names, self.mu)),
-                "nu": dict(zip(self.names, self.nu))}
+        """count and the moments by name; a shard's moments gathered whole
+        (a collective over its model group)."""
+        def whole(name, t):
+            return self.shards[name].gather(t) if name in self.shards else t
+
+        return {"count": self.count,
+                "mu": {n: whole(n, t) for n, t in zip(self.names, self.mu)},
+                "nu": {n: whole(n, t) for n, t in zip(self.names, self.nu)}}
 
     def load_state_dict(self, state: dict) -> None:
+        """A state of any grid: a shard takes its rows of the whole
+        moments."""
+        def own(name, t):
+            return self.shards[name].own_rows(t) if name in self.shards else t
+
         self.count = int(state["count"])
         for name, mu, nu in zip(self.names, self.mu, self.nu):
-            mu.copy_(state["mu"][name])
-            nu.copy_(state["nu"][name])
+            mu.copy_(own(name, state["mu"][name]))
+            nu.copy_(own(name, state["nu"][name]))

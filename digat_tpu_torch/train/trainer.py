@@ -23,6 +23,14 @@ through the sharded scorer; rank 0 alone writes the checkpoint, the
 `#N-dev` file, the rank files and `dev_log.txt`, and its early-stop
 decision is broadcast. `resume` loads on every rank.
 
+On a grid with a model axis (`--mesh_model` M > 1; the model built with
+the same `dist`, its word table row-sharded) the row groups go by data
+index: the M ranks of a model group take the same rows (their node's
+local data index of local_world / M), the step's seed folds in the data
+index, the optimizer keeps the moments of the rank's table rows alone, and
+every rank of rank 0's model group joins the gather of each checkpoint,
+which holds the whole table. Samples/s counts each global batch once.
+
 The model is a `Model` (MSA-DIGAT) or an `NRMSModel`. The NRMS family takes
 `nrms_tables()` and plain batches (no dedup), as the JAX trainer does; the
 rest of the epoch loop is the same for both.
@@ -57,10 +65,11 @@ from digat_tpu_torch.eval import metrics as M
 from digat_tpu_torch.eval.scorer import compute_scores
 from digat_tpu_torch.models.model import CorpusTables, DedupTrainBatch
 from digat_tpu_torch.models.nrms import NRMSTables
+from digat_tpu_torch.parallel import sharded_table
 from digat_tpu_torch.parallel.dist import DistContext
 from digat_tpu_torch.train import checkpoint
 from digat_tpu_torch.train.optimizer import Adam, lr_at_epoch
-from digat_tpu_torch.train.train_step import step_seed, train_step
+from digat_tpu_torch.train.train_step import seed_index, step_seed, train_step
 from digat_tpu_torch.utils import profiling
 
 PROFILE_STEPS = (10, 20)  # the steps of epoch 1 that `profile_dir` traces
@@ -99,11 +108,11 @@ class Trainer:
         self.results_dir = results_dir
         self.dist = dist
         self.verbose = verbose
-        if config.batch_size % dist.local_world:
+        if config.batch_size % dist.local_data_world:
             raise ValueError(f"batch_size {config.batch_size} does not split over the "
-                             f"{dist.local_world} ranks of a node")
+                             f"{dist.local_data_world} data indices of a node")
         self.optimizer = Adam(model.named_parameters(), config.weight_decay,
-                              config.gradient_clip_norm)
+                              config.gradient_clip_norm, shards=sharded_table.tables(model))
         self.history: list = []
         self.best_epoch = 0
         if dist.is_main:
@@ -133,7 +142,8 @@ class Trainer:
                                           np.random.default_rng(cfg.seed))
         return batching.estimate_dedup_capacity(
             corpus.splits["train"].history_idx, corpus.train_behavior_row, corpus.train_pos,
-            probe, corpus.news_node_id, cfg.batch_size // self.dist.local_world, seed=cfg.seed)
+            probe, corpus.news_node_id, cfg.batch_size // self.dist.local_data_world,
+            seed=cfg.seed)
 
     @property
     def nrms(self) -> bool:
@@ -151,9 +161,9 @@ class Trainer:
             split.history_idx, split.cat_idx, corpus.train_behavior_row, corpus.train_pos,
             negatives, cfg.batch_size, epoch_seed=cfg.seed * 7_000_003 + epoch,
             shard_index=dist.node, shard_count=dist.nodes)
-        rows = (batching.rank_rows(b, dist.local_rank, dist.local_world, corpus.news_node_id,
-                                   dedup) for b in it)
-        rank = dist.rank if dist.world > 1 else None
+        rows = (batching.rank_rows(b, dist.local_data_rank, dist.local_data_world,
+                                   corpus.news_node_id, dedup) for b in it)
+        rank = seed_index(dist)
         cuda = model.device.type == "cuda"
         losses, marks, overflow = [], [], 0
         profile = contextlib.ExitStack() if cfg.profile_dir and epoch == 1 else None
@@ -201,7 +211,7 @@ class Trainer:
         if cfg.resume:
             start_epoch = checkpoint.load(cfg.resume, model, self.optimizer) + 1
             self._log(f"[resume] {cfg.resume} -> continuing at epoch {start_epoch}")
-        dist.broadcast_(list(model.state_dict().values()))  # rank 0's weights everywhere
+        sharded_table.broadcast_state_(model, dist)  # rank 0's weights everywhere
         if self.nrms:
             tables = NRMSTables.from_arrays(self.corpus.nrms_tables(), model.device)
         else:
@@ -226,9 +236,8 @@ class Trainer:
                 if self.results_dir and dist.is_main:
                     with open(os.path.join(self.results_dir, f"#{cfg.run_index}-dev"), "w") as f:
                         f.write(f"#{cfg.run_index}\t" + "\t".join(map(str, metrics)) + "\n")
-                if dist.is_main:
-                    checkpoint.save(os.path.join(self.run_dir, "best.ckpt"), model,
-                                    self.optimizer, epoch)
+                checkpoint.save(os.path.join(self.run_dir, "best.ckpt"), model,
+                                self.optimizer, epoch, write=dist.is_main)
             else:
                 stale += 1
             # rank 0's decision on every rank: none breaks out of the loop alone

@@ -31,6 +31,7 @@ from digat_tpu.config import Config as JaxConfig
 from digat_tpu_torch import cli
 from digat_tpu_torch.config import Config
 from digat_tpu_torch.eval import metrics as PM
+from digat_tpu_torch.parallel import dist as dist_lib
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = ("auc", "mrr", "ndcg5", "ndcg10")
@@ -114,8 +115,15 @@ def test_jax_command_line_parses_and_tpu_only_values_raise():
     flags = [a for k, v in vars(jcfg).items() for a in (f"--{k}", str(v))]
     cfg = Config.from_args(flags)
     assert (cfg.max_title_length, cfg.epoch, cfg.dedup_titles, cfg.device) == (16, 8, 0, "cuda")
-    with pytest.raises(NotImplementedError, match="row-sharded word table"):
-        Config.from_args(["--mesh_model", "2"])
+    # --mesh_model parses; one process cannot hold a model axis of 2 (it
+    # does not divide the process's one rank), and neither does a
+    # vocabulary that 2 does not split into equal row blocks
+    assert Config.from_args(["--mesh_model", "2"]).mesh_model == 2
+    with pytest.raises(ValueError, match="mesh_model 2 needs as many ranks"):
+        dist_lib.init_distributed(Config.from_args(["--mesh_model", "2", "--device", "cpu"]))
+    with pytest.raises(ValueError, match="mesh_model 2 does not split"):
+        Config.from_args(["--mesh_model", "2", "--dataset", "synthetic", "--vocabulary_size",
+                          "7", "--category_num", "4"]).validate()
     # the scatter-add word gradient is a route of the port: the flag is a field
     assert Config.from_args(["--sorted_emb_grad", "false"]).sorted_emb_grad is False
     assert cfg.sorted_emb_grad is True
@@ -150,7 +158,7 @@ def test_entry_points_without_a_context_build_on_the_configured_device(monkeypat
 
     seen = []
 
-    def build_model(cfg, word_embedding=None, device=None):
+    def build_model(cfg, word_embedding=None, device=None, dist=None):
         seen.append(device)
         raise Built
 

@@ -373,6 +373,33 @@ def test_emb_grad_kernel(cuda, V, ntok, D, skew):
     assert torch.equal(got, EG.embedding_grad(tok, gr, V))
 
 
+@pytest.mark.parametrize("V,lo,hi,ntok,skew", [(40_000, 20_000, 40_000, 286_720, "uniform"),
+                                               (40_000, 20_000, 40_000, 286_720, "pad"),
+                                               (40_000, 0, 20_000, 286_720, "pad"),
+                                               (1_003, 500, 501, 9_000, "long pad"),
+                                               (600, 300, 600, 0, "uniform"),
+                                               (600, 100, 200, 5, "uniform")])
+def test_emb_grad_kernel_row_range(cuda, V, lo, hi, ntok, skew):
+    """Kernel D on one rank's rows of a row-sharded table: the second half
+    of V 40,000 at the training shape, uniform and with 60 % of the slots on
+    token 0 (none of them in the range); the first half, which holds the pad
+    run; one row under a long pad run; no token; tokens that may all miss
+    the range. The result is the slice of the whole table's gradient."""
+    rng = np.random.default_rng(V + lo)
+    tok = {"uniform": lambda: rng.integers(0, V, ntok),
+           "pad": lambda: np.where(rng.random(ntok) < 0.6, 0, rng.integers(0, V, ntok)),
+           "long pad": lambda: np.where(rng.random(ntok) < 0.97, 0,
+                                        rng.integers(0, V, ntok))}[skew]()
+    tok = torch.from_numpy(tok).to(cuda)
+    gr = torch.from_numpy(rng.standard_normal((ntok, 300)).astype(np.float32)).to(cuda)
+    before = EG.embedding_grad.launches
+    got = EG.embedding_grad(tok, gr, hi - lo, row_start=lo)
+    assert EG.embedding_grad.launches == before + 1 and got.shape == (hi - lo, 300)
+    _close(got, EG.embedding_grad_plain(tok, gr, hi - lo, row_start=lo))
+    _close(got, EG.embedding_grad(tok, gr, V)[lo:hi])
+    assert torch.equal(got, EG.embedding_grad(tok, gr, hi - lo, row_start=lo))
+
+
 # ---------------------------------------------------------------------------
 # The NRMS slice: the masked attention pair (E and F) and an NRMS-SA step
 # ---------------------------------------------------------------------------

@@ -42,8 +42,10 @@ of ranks runs every multi-rank part (a module fixture):
       consistent distribution flags and a profile directory: both ranks
       exit 0, only rank 0 writes `#1-dev`, `#1-test` and the rank files,
       the ranks' dev metrics agree, each rank writes its trace;
-  (g) `mesh_model 2`, a `mesh_data` that is not the world size, flags that
-      contradict the launcher and a bad rendezvous raise."""
+  (g) a `mesh_model` that does not divide a node's ranks, a `mesh_data`
+      x `mesh_model` that is not the world size, flags that contradict the
+      launcher and a bad rendezvous raise (the model axis itself:
+      tests/test_torch_mesh_model.py)."""
 
 import dataclasses
 import glob
@@ -555,9 +557,10 @@ def test_cli_under_torchrun_on_two_cpu_ranks(tmp_path):
 
 
 def test_mesh_and_rendezvous_flags_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="row-sharded word table"):
-        Config(mesh_model=2).check_options()
     cpu = dict(device="cpu")
+    # one process holds no model axis of 2: 2 does not divide its 1 rank
+    with pytest.raises(ValueError, match="mesh_model 2 needs as many ranks"):
+        dist_lib.init_distributed(Config(mesh_model=2, **cpu))
     with pytest.raises(ValueError, match="mesh_data 2"):  # one process, no launcher
         dist_lib.init_distributed(Config(mesh_data=2, **cpu))
     with pytest.raises(ValueError, match="host:port"):
@@ -587,7 +590,9 @@ def test_mesh_and_rendezvous_flags_raise(monkeypatch):
         monkeypatch.setenv(k, v)
     for over, match in (({"mesh_data": 3}, "world size 2"), ({"num_processes": 2}, "1 nodes"),
                         ({"process_id": 1}, "node rank 0"),
-                        ({"coordinator_address": "otherhost:1"}, "contradicts")):
+                        ({"coordinator_address": "otherhost:1"}, "contradicts"),
+                        ({"mesh_model": 4}, "mesh_model 4 does not divide the 2 ranks"),
+                        ({"mesh_model": 2, "mesh_data": 2}, "world size 2")):
         with pytest.raises(ValueError, match=match):
             dist_lib.init_distributed(Config(**over, **cpu))
     monkeypatch.delenv("LOCAL_WORLD_SIZE")
