@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `digat_tpu_torch/csrc` (one nvcc call)
-and drives the production MSA-DIGAT model (full width: 300-d words, L 32,
+and, beside them in a thread, its host loader (`digat_tpu_torch/native`,
+g++), and drives the production MSA-DIGAT model (full width: 300-d words, L 32,
 16 x 25 heads, depth 3, Gn 26, Gu 68; random weights from a seed) and the
 production NRMS-SA model (300-d words, L 32, 20 x 20 heads, history 50,
 M 10 augmented neighbours) on a seeded 20,000-news corpus along the port's
@@ -175,15 +176,21 @@ paths:
              gates, D launched no time, the word table's gradient within
              1e-4 of the D step's;
   CLI      - `digat_tpu_torch.cli` from MIND-layout TSV files that the
-             port's generator writes (phase 14's train run with torchrun's
+             port's generator writes, prepared through the native host
+             loader (the GloVe file, behaviors.tsv and the SAG's BFS in
+             `native/loader.cpp`; phase 14's train run with torchrun's
              environment of one rank: `init_distributed`, NCCL at world 1,
              the data-parallel step): the production cell of
              scripts/torch_parity_cells.py (word 300, L 32, 16 x 25 heads,
              B 32, lr 1e-3, 5 of its 6 epochs, dedup; its news graph mined on the
-             card against the CPU) with a best dev AUC of at least 0.55, and
-             the matrix cell at L 16 (B 32, lr 1e-3, 4 of its 8 epochs) with at
-             least 0.66, and the matrix cell of wo_interaction (phase 19, 5
-             of its 8 epochs) with at least 0.6675 (the JAX mean 0.6951 less 3 sigma); each
+             card against the CPU; the loader's three results on the cell's
+             own files, its GloVe file, each split's behaviors.tsv and the
+             BFS over the lists mined on the CPU, equal to its plain Python
+             versions', each with its native and plain host seconds) with a
+             best dev AUC of at least 0.55, and the matrix cell at L 16 (B
+             32, lr 1e-3, 4 of its 8 epochs) with at least 0.66, and the
+             matrix cell of wo_interaction (phase 19, 5 of its 8 epochs)
+             with at least 0.6675 (the JAX mean 0.6951 less 3 sigma); each
              epoch's rank file through the official scorer, and best.ckpt
              scored again by `--mode test`.
 
@@ -191,7 +198,7 @@ Prints progress lines, the card's name and power limit, a `kernels` JSON
 line, and as its last line `{"ok": true, "device": {...}}`. Exits nonzero,
 without that line, if CUDA is missing, the package is missing, any phase
 fails, or the run passes the watchdog. Imports nothing of JAX or of the
-JAX package; writes nothing but the kernel build directory and a
+JAX package; writes nothing but the build directory (kernels and loader) and a
 temporary directory it removes.
 """
 
@@ -205,6 +212,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from collections import Counter
@@ -1560,12 +1568,56 @@ def neighbour_lists_differ(card: dict, cpu: dict, tie: float) -> tuple:
     return differ, near_tie
 
 
+def loader_native_vs_plain(cfg, roots, news_dict, sims, failures) -> tuple:
+    """The native host loader (`digat_tpu_torch/native`) against its plain
+    Python versions on the cell's own files: the GloVe file, each split's
+    behaviors.tsv, and the BFS of the news graph over the lists mined on
+    the CPU. Each pair must be equal (`np.array_equal`, dict equality);
+    prints each one's native and plain host seconds. Returns the native
+    graph."""
+    from digat_tpu_torch.data import corpus as C
+    from digat_tpu_torch.data import sag
+    from digat_tpu_torch.data import tokenize as tok
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        return out, time.perf_counter() - t0
+
+    report = []
+    (stoi, vecs), t_nat = timed(tok.load_glove_txt, cfg.glove_path, cfg.word_embedding_dim)
+    (pstoi, pvecs), t_py = timed(tok._load_glove_txt_py, cfg.glove_path, cfg.word_embedding_dim)
+    same = stoi == pstoi and np.array_equal(vecs, pvecs)
+    report.append(("glove", f"{len(stoi)} x {vecs.shape[1]}", t_nat, t_py, same))
+    for split in C.SPLITS:
+        path = os.path.join(roots[split], "behaviors.tsv")
+        got, t_nat = timed(C._parse_behaviors, path, news_dict)
+        want, t_py = timed(C._parse_behaviors_py, path, news_dict)
+        same = sorted(got) == sorted(want) and all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want)
+        report.append((f"behaviors {split}", f"{len(got['cand_offsets']) - 1} rows", t_nat,
+                       t_py, same))
+    args = (sims, news_dict, cfg.SAG_neighbors, cfg.SAG_hops, cfg.news_graph_size)
+    graph, t_nat = timed(sag.expand_graph, *args)
+    plain, t_py = timed(sag.expand_graph, *args, use_native=False)
+    same = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(graph, plain))
+    report.append(("SAG BFS", f"{len(news_dict)} news, G {cfg.news_graph_size}", t_nat, t_py,
+                   same))
+    for what, size, t_nat, t_py, same in report:
+        say(f"  loader {what} ({size}): native {t_nat:.4f}s plain {t_py:.4f}s, "
+            f"native == plain {same}")
+        if not same:
+            failures.append(f"loader: native {what} differs from its plain version")
+    return graph
+
+
 def sag_card_vs_cpu(torch, cfg, failures) -> None:
     """The news graph's neighbour lists mined on the card against the same
     lists mined on the CPU: a list may differ only where the CPU's cosines
     at each of its places lie within 1e-6 of the card's (a near-tie of the
     fp32 sums); and the graph the CLI cached (built on the card) against
-    the graph expanded from the CPU's lists."""
+    the graph expanded from the CPU's lists. The native loader is held
+    against its plain versions on the way (`loader_native_vs_plain`)."""
     from digat_tpu_torch.data import corpus as C
     from digat_tpu_torch.data import sag
 
@@ -1578,9 +1630,9 @@ def sag_card_vs_cpu(torch, cfg, failures) -> None:
                                    exclude_test_from_corpus=cfg.dataset != "MIND-large",
                                    seed=cfg.seed, device=d) for d in ("cuda", "cpu")}
     differ, near_tie = neighbour_lists_differ(sims["cuda"], sims["cpu"], 1e-6)
-    node_id, graph, mask = sag.expand_graph(sims["cpu"], dicts["news"], cfg.SAG_neighbors,
-                                            cfg.SAG_hops, cfg.news_graph_size)
-    graph |= np.eye(cfg.news_graph_size, dtype=bool)[None]
+    node_id, graph, mask = loader_native_vs_plain(cfg, roots, dicts["news"], sims["cpu"],
+                                                  failures)
+    graph = graph | np.eye(cfg.news_graph_size, dtype=bool)[None]
     cached = np.load(p["graph"])
     graph_rows = int(((cached["news_node_id"] != node_id).any(1)
                       | (cached["news_graph"] != graph).any((1, 2))
@@ -4605,6 +4657,7 @@ def main() -> int:
         from digat_tpu_torch.eval.scorer import CachedScorer
         from digat_tpu_torch.models.model import Model
         from digat_tpu_torch.models.nrms import NRMSModel
+        from digat_tpu_torch.native import bindings as loader
         from digat_tpu_torch.ops import build
         from digat_tpu_torch.ops.gat_layer import interactive_gat_layer_fused
         from digat_tpu_torch.ops.msa_encoder import msa_encoder_pooled, msa_encoder_pooled_plain
@@ -4637,12 +4690,32 @@ def main() -> int:
         f"{torch.get_num_threads()} (of {threads}) on {cores} cores")
     say(card)
 
-    # ---- 2. build ----
+    # ---- 2. build: the kernels (nvcc) and, beside them, the host loader (g++) ----
     t0 = time.perf_counter()
-    path, nvcc_s = build.build_library()
-    build.load_library()
+    loader_build = {}
+
+    def build_loader():
+        try:
+            loader_build["path"], loader_build["s"] = loader.build_library()
+            loader.library()
+        except Exception as e:  # reported after the kernels' build
+            loader_build["error"] = e
+
+    loader_thread = threading.Thread(target=build_loader)
+    loader_thread.start()
+    try:
+        path, nvcc_s = build.build_library()
+        build.load_library()
+    finally:
+        loader_thread.join()
+    if "error" in loader_build:
+        print(f"chip_smoke: the host loader did not build: {loader_build['error']}",
+              file=sys.stderr)
+        failures.append("host loader build")
     say(f"[2 build] {time.perf_counter() - t0:.2f}s nvcc {nvcc_s:.2f}s "
-        f"({'compiled' if nvcc_s else 'reused'} {path.name})")
+        f"({'compiled' if nvcc_s else 'reused'} {path.name}); loader g++ "
+        f"{loader_build.get('s', math.nan):.2f}s "
+        f"({getattr(loader_build.get('path'), 'name', 'not built')})")
 
     # ---- model and corpus at full width ----
     t0 = time.perf_counter()

@@ -8,8 +8,8 @@ loads them and gives the numpy tables that `CorpusTables.from_arrays` and
 `NRMSTables.from_arrays` move to the model's device. Behaviors are stored
 as index arrays (histories and per-slot categories; the user graph is
 rebuilt on the device), train negatives as a ragged (flat, offsets)
-pair. Behaviors are parsed by a Python loop (the JAX package also has a C++
-parser; this copy does not). The SAG's similarity products run on
+pair. Behaviors are parsed by the port's C++ parser (`digat_tpu_torch/native`,
+as the JAX package's default path does). The SAG's similarity products run on
 `cfg.device` (CUDA unless the configuration names the CPU)."""
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 from digat_tpu_torch.config import Config
 from digat_tpu_torch.data import sag as sag_mod
 from digat_tpu_torch.data import tokenize as tok
+from digat_tpu_torch.native import bindings as native
 
 SPLITS = ("train", "dev", "test")
 
@@ -202,7 +203,13 @@ def preprocess(cfg: Config, verbose: bool = False) -> None:
 
 
 def _parse_behaviors(path: str, news_dict: Dict[str, int]) -> Dict[str, np.ndarray]:
-    """behaviors.tsv -> ragged (flat, offsets) arrays."""
+    """behaviors.tsv -> ragged (flat, offsets) arrays, by the native parser."""
+    return native.parse_behaviors_native(path, news_dict)
+
+
+def _parse_behaviors_py(path: str, news_dict: Dict[str, int]) -> Dict[str, np.ndarray]:
+    """The plain version of `_parse_behaviors` (the same arrays on
+    well-formed files)."""
     out = {
         "history_flat": [], "history_offsets": [0],
         "clicks_flat": [], "clicks_offsets": [0],

@@ -18,7 +18,9 @@ Per category (the reference's offline pipeline):
 `expand_graph` then grows each news's graph breadth first to `hops` with
 the reference's rules: hop 0 takes all M neighbours, deeper hops stop at
 cosine < 0.5 or after M - 1 neighbours, and revisited nodes gain edges
-without being enqueued again.
+without being enqueued again. It runs in the port's C++ loader
+(`digat_tpu_torch/native`), as the JAX package's default path does;
+`use_native=False` runs its plain Python body.
 
 Top-k order. `jax.lax.top_k` puts the lower index first among equal
 values, and `torch.topk` promises no order among ties, so the top list here
@@ -36,6 +38,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from digat_tpu_torch.native import bindings as native
 from digat_tpu_torch.runtime import exact_fp32, resolve_device
 
 SIMILARITY_THRESHOLD = 0.5
@@ -230,11 +233,26 @@ def expand_graph(
     top_m: int,
     hops: int,
     node_num: int,
+    use_native: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-news breadth-first expansion to `hops` with the 0.5-threshold
     pruning. Returns (news_node_ID [N, G] int32, news_graph [N, G, G] bool,
     news_graph_mask [N, G] bool). Row 0 (the <PAD> news) stays empty.
-    Self-loops are not added here (`corpus.preprocess` adds them)."""
+    Self-loops are not added here (`corpus.preprocess` adds them).
+
+    By default the lists go to the native BFS in index form (news index
+    order, cosines as float32: exact, since they come from fp32 sums);
+    `use_native=False` runs this Python body, its plain version."""
+    if use_native:
+        idx, cos, off = [], [], [0]
+        for news_id, _ in sorted(news_id_dict.items(), key=lambda kv: kv[1]):
+            for nbr, c in similarity[news_id]:
+                idx.append(news_id_dict[nbr])
+                cos.append(c)
+            off.append(len(idx))
+        return native.expand_graph_native(
+            np.asarray(idx, np.int32), np.asarray(cos, np.float32), np.asarray(off, np.int64),
+            top_m, hops, node_num, SIMILARITY_THRESHOLD)
     news_num = len(news_id_dict)
     inv = {v: k for k, v in news_id_dict.items()}
     node_id = np.zeros((news_num, node_num), np.int32)

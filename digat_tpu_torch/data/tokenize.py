@@ -9,8 +9,9 @@ matrix whose OOV rows are drawn from N(glove_mean, glove_std) and whose pad
 row is the GloVe mean. Without a GloVe file the rows are deterministic
 pseudo-GloVe vectors from word hashes, so the pipeline runs on its own.
 
-The GloVe text file is parsed by a Python line loop (the JAX package also
-has a multithreaded C++ parser; this copy does not)."""
+The GloVe text file is parsed by the port's multithreaded C++ parser
+(`digat_tpu_torch/native`, as the JAX package's default path does);
+`_load_glove_txt_py` is its plain version."""
 
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import re
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
+
+from digat_tpu_torch.native import bindings as native
 
 _PAT = re.compile(r"[\w]+|[.,!?;|]")
 
@@ -79,9 +82,10 @@ def encode_title(title: str, vocab: Dict[str, int], max_len: int) -> Tuple[np.nd
 
 
 def load_glove_txt(path: str, dim: int) -> Tuple[Dict[str, int], np.ndarray]:
-    """Parse a GloVe text file into (stoi, vectors). A line is taken only
-    with exactly dim + 1 fields, as the reference's loader does."""
-    stoi, vecs = _load_glove_txt_py(path, dim)
+    """Parse a GloVe text file into (stoi, vectors) with the native parser.
+    A line is taken only with exactly dim + 1 fields, as the reference's
+    loader does."""
+    stoi, vecs = native.parse_glove_native(path, dim)
     if vecs.shape[0] == 0:
         # would otherwise spread a NaN mean and std through the OOV draws
         raise ValueError(f"no valid GloVe rows parsed from {path}")
@@ -89,6 +93,7 @@ def load_glove_txt(path: str, dim: int) -> Tuple[Dict[str, int], np.ndarray]:
 
 
 def _load_glove_txt_py(path: str, dim: int) -> Tuple[Dict[str, int], np.ndarray]:
+    """The plain version of `native.parse_glove_native`."""
     stoi: Dict[str, int] = {}
     vecs: List[np.ndarray] = []
     with open(path, "r", encoding="utf-8") as f:

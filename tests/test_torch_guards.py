@@ -55,6 +55,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert "digat_tpu_torch.parallel.sharded_table" in names, names
+assert "digat_tpu_torch.native.bindings" in names, names
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(names) + 2)
@@ -67,8 +68,9 @@ def test_port_and_smoke_import_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     # the serving, training, data, CLI and tool modules, plm and its MPNet,
-    # layers_ext, the row-sharded word table, the package and chip_smoke
-    assert int(proc.stdout.split()[-1]) >= 50
+    # layers_ext, the row-sharded word table, the native loader, the package
+    # and chip_smoke
+    assert int(proc.stdout.split()[-1]) >= 52
 
 
 def test_entry_point_without_device_or_cuda_raises(monkeypatch):
