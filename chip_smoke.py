@@ -79,11 +79,16 @@ paths:
              serving; N of the dedup capacity with dropout 0.2), A' (that N,
              dropout 0.2; its dx bf16, within one bf16 ulp of the plain
              element plus the bound) and B (bf16 weights, B 1,024 at G 68
-             and 26) against their plain versions, each with its bound (the
-             bf16 x bf16 product at the dense bf16 rate; A''s products at
-             their wgmma bf16 passes) and the SASS check that A's two and
-             A''s seven wgmma products issue HGMMA; A's (at both N) and A''s
-             stage split with each product's rate; the
+             and 26: x's three bf16 planes, the wgmma projections, the
+             fused step on fp32 x) against their plain versions, the same
+             bits twice, each with its bound (the bf16 x bf16 product at
+             the dense bf16 rate; A''s products at their wgmma bf16 passes;
+             B's by issue, its projections at three bf16 passes, the
+             fp32-rate figure beside it) and the SASS check that A's two,
+             A''s seven and B's two wgmma products issue HGMMA; A's (at
+             both N), A''s and B's stage split (A's and A''s with each
+             product's rate; B's with no launch of C's forward or the
+             attend step); the
              cached scorer over the corpus with the counters reset (stage 1
              A's bf16 instance, stage 2 B's, no fp32 launch of either) and a
              2,048-news corpus card against CPU; three B-8 steps card against
@@ -1802,10 +1807,9 @@ def sass_tensor_core_check(build) -> dict:
     """Tensor-core instructions in each instantiation of the product kernels
     of tc_gemm.cuh and tc_wgmma.cuh in the built library, read with
     `cuobjdump -sass`: label -> (instruction the product must issue,
-    count). Products with an fp32 A and an fp32 or bf16 B (gemm_kernel:
-    3xTF32, 2xTF32) must issue TF32 HMMA; the bf16 products of A, A' and
-    B's bf16-activation instance (wg_gemm_kernel) the warpgroup HGMMA on
-    bf16.
+    count). The fp32 products (gemm_kernel: 3xTF32) must issue TF32 HMMA;
+    the bf16 products of A, A' and B's two bf16 instances (wg_gemm_kernel)
+    the warpgroup HGMMA on bf16.
     Each source's code is its own ELF section of the library; a product is
     labelled by its kernel (A, A' or B: the section that holds that
     kernel's own pool, ReLU-fix or attend kernel) and its template
@@ -1827,14 +1831,13 @@ def sass_tensor_core_check(build) -> dict:
             if m:
                 name = None
                 k = re.search(r"2tc11gemm_kernelILb([01])ELb([01])ELi(\d+)ELi(\d)ELb([01])E"
-                              r"(f|13__nv_bfloat16)(f|S2_)E", m.group(1))
+                              r"(f|13__nv_bfloat16)E", m.group(1))
                 w = re.search(r"2wg14wg_gemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELi(\d)ELi(\d)"
                               r"ELi(\d)E(f|13__nv_bfloat16)Lb([01])E", m.group(1))
                 if k:
                     name = (f"{owner}: A fp32 {'K' if k.group(1) == '1' else 'M'}-major, B "
-                            f"{types[k.group(6)]} {'K' if k.group(2) == '1' else 'N'}-major "
-                            f"({'2' if k.group(6) != 'f' else '3'}xTF32), C "
-                            f"{types[k.group(7)]}, BN {k.group(3)}, "
+                            f"fp32 {'K' if k.group(2) == '1' else 'N'}-major (3xTF32), C "
+                            f"{types[k.group(6)]}, BN {k.group(3)}, "
                             f"{epilogues[int(k.group(4))]} epilogue"
                             + (", k-tile sums rounded to nearest" if k.group(5) == "1" else ""))
                     counts[name] = [tf32, 0]
@@ -1886,9 +1889,10 @@ def pair_bf16_sass(sass: str) -> dict:
 
 # the product instantiations of kernels A, A' and B, as
 # sass_tensor_core_check labels them: on mma.sync (tc_gemm.cuh) fp32 A' six,
-# A two, B one, B with bf16 weights one; on wgmma (tc_wgmma.cuh) bf16 A two
-# (q|k|v and the pool logits), A' seven (q|k|v, u, dW1, dO, dx with and
-# without the dropout mask, dWqkv), B's bf16-activation projections one
+# A two, B one; on wgmma (tc_wgmma.cuh) bf16 A two (q|k|v and the pool
+# logits), A' seven (q|k|v, u, dW1, dO, dx with and without the dropout
+# mask, dWqkv), B two (the bf16-activation projections, one bf16 term; the
+# bf16-weight ones, x's three terms)
 PRODUCT_KERNELS = 19
 
 
@@ -1897,8 +1901,8 @@ def redesign_report(build) -> bool:
     C and D and the SASS check that the products of A, A' and B issue
     tensor-core instructions (TF32, or the warpgroup's bf16 for the bf16 x
     bf16 products), and the instructions of the bf16 Eq. (8) score loop;
-    False if a product kernel issues none of its kind or B's bf16-activation
-    projections are not on wgmma."""
+    False if a product kernel issues none of its kind or B's two bf16
+    instances' projections are not on wgmma."""
     ok = True
     for needle in ("tc11gemm_kernel", "wg14wg_gemm_kernel", "msa_attn_",
                    "msa_pool", "split3", "relayout", "gat_scores_", "gat_layer_", "dropout_",
@@ -1914,11 +1918,11 @@ def redesign_report(build) -> bool:
     if len(counts) - len(pair) < PRODUCT_KERNELS or not all(n for _, n in counts.values()) or \
             sum(label.startswith("A:") for label in wgmma) < 2 or \
             sum(label.startswith("A':") for label in wgmma) < 7 or \
-            sum(label.startswith("B:") for label in wgmma) < 1 or \
+            sum(label.startswith("B:") for label in wgmma) < 2 or \
             len(pair) != PAIR_BF16_KERNELS:
         say("  SASS check FAILED: a product kernel of A, A' or B, or a kernel of the pair's "
             "bf16 register-row instance, issues no tensor-core instruction of its kind, or one "
-            "of A's two, A''s seven or B's one wgmma products or of the pair's forty bf16 "
+            "of A's two, A''s seven or B's two wgmma products or of the pair's forty bf16 "
             "kernels is missing")
         ok = False
     for kernel, n in score_loop_sass(build).items():
@@ -2703,16 +2707,6 @@ def bound_issue(fp32_instructions, bf16_flops, nbytes) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound_tensor_cores(flops, nbytes, bf16_products, tf32x2_products, tf32x3_products) -> float:
-    """A bf16 instance's second bound (printed): its products on the tensor
-    cores, bf16 x bf16 at the bf16 rate, 2xTF32 and 3xTF32 as two and three
-    TF32 passes, the rest at the fp32 rate, plus its bytes (ms)."""
-    products = bf16_products + tf32x2_products + tf32x3_products
-    return (bf16_products / PEAK_BF16_FLOPS
-            + (2 * tf32x2_products + 3 * tf32x3_products) / PEAK_TF32_FLOPS
-            + (flops - products) / PEAK_FP32_FLOPS + nbytes / PEAK_BYTES) * 1e3
-
-
 def bound_bf16_passes(flops, nbytes, products, pass_flops) -> tuple:
     """A bf16's and A' bf16's bound, (least ms, what bounds it): its products (`products`
     of its `flops`) as `pass_flops` of bf16 tensor-core passes at the dense
@@ -2920,18 +2914,36 @@ def bf16_phase(torch, cfg, tables, hist, cat, imp_index, cand, cap, dev, failure
         adj[0, 1] = False
         args = (xb, adj, q, *gargs)
         flops, nbytes = gat_work_bf16(bs, G, D)
+        # by issue (2 fp32 instructions a score element, 1 an alpha h term)
+        # with the projections at three bf16 passes (x's planes)
         e = check_kernel(torch, f"interactive_gat_layer_fused bf16 weights B={bs} G={G} D={D}",
                          GL.interactive_gat_layer_fused, GL.interactive_gat_layer_plain, args,
-                         flops, nbytes)
-        say(f"    bound with the projections at 2xTF32: "
-            f"{bound_tensor_cores(flops, nbytes, 0, gat_products(bs, G, D), 0):.4f} ms")
+                         flops, nbytes,
+                         bound_ms=bound_issue(3 * bs * G * G * D, 3 * gat_products(bs, G, D),
+                                              nbytes))
+        say(f"    bound at the fp32 rate (every FLOP on the CUDA cores): "
+            f"{bound(flops, nbytes)[0]:.4f} ms; plan {GL.fused_plan(G, D)}")
         again = torch.equal(GL.interactive_gat_layer_fused(*args),
                             GL.interactive_gat_layer_fused(*args))
         say(f"    same bits twice: {again}")
         stages = stage_split(torch, lambda: GL.interactive_gat_layer_fused(*args))
         say_stages(f"interactive_gat_layer_fused bf16 G {G}", stages)
         e["stages"] = [dict(kernel=k, launches=n, device_ms=ms) for k, n, ms in stages]
-        e["ok"] = e["ok"] and again
+        # x's planes, the two wgmma products and the fused step, and no
+        # launch of C's forward, the attend step or an mma.sync product (a
+        # trace that lost every launch shows nothing either way)
+        names = [k for k, _, _ in stages]
+        split_ok = not stages or (
+            any("split3" in k for k in names) and
+            sum(n for k, n, _ in stages if "wg_gemm" in k) == 2 and
+            any("gat_layer_fused_kernel" in k for k in names) and
+            not any("gat_scores" in k or "attend" in k or "tc::gemm" in k for k in names))
+        if not split_ok:
+            say("    stage split FAILED: want split3, two wgmma products and the fused kernel, "
+                "and no C forward, attend or mma.sync product launch")
+        elif not stages:
+            say("    stage split empty: the trace lost the launches")
+        e["ok"] = e["ok"] and again and split_ok
         return e
 
     for G in (cfg.user_graph_size, cfg.news_graph_size):

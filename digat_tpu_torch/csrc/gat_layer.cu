@@ -48,12 +48,22 @@
 //      three row tiles of 24, three slices of 136 features), so several
 //      blocks run per SM; the one-block-per-graph kernel this replaces held
 //      142 KB and read two shared words per multiply-add.
-// bf16 weights (gat_layer_project_bf16, compute_dtype bfloat16): x, q, y,
-// k3 and the vectors stay fp32; W|W1|W2 and W3 are read as bf16 (half the
-// bytes: 0.96 MB of stacked weights at D 400) and step 1 runs at 2xTF32, x
-// split into two TF32 parts and each bf16 weight exact in one: each
-// product as accurate as the fp32 instance's, two passes in place of three.
-// Steps 2 and 3 are the fp32 ones.
+// bf16 weights (compute_dtype bfloat16 where the news vectors stay fp32:
+// MSA-DIGAT): x, q, y, k3, the vectors and out fp32, W|W1|W2 and W3 bf16,
+// as the TPU kernel upcasts each weight and computes in fp32. Two steps,
+// the bf16-activation instance's design with fp32 x and out:
+//   1. gat_layer_project_bf16: x and q split into three bf16 planes each
+//      (tc_wgmma.cuh split3_kernel: hi, mid, lo, which sum back to x within
+//      2^-24 |x|), then y and k3 on wgmma fed by the TMA, three bf16 passes
+//      (lo, mid, hi) against the exact bf16 weights: every partial product
+//      exact in fp32, each 64-deep k-tile's sums added rounding to nearest.
+//      Dp is D rounded up to a multiple of 8.
+//   2. gat_layer_fused_f32: gat_layer_fused_kernel (below) with x read as
+//      fp32 and out written fp32, not rounded. The scores never leave the
+//      chip; kernel C's forward and the attend step are not launched.
+// What bounds it: issue, as the bf16-activation instance (below), with the
+// projections' three passes at 989 TFLOP/s (0.20 ms at B 1,024, G 68, D
+// 400) and x read and out written at 4 bytes an element.
 //
 // bf16 activations (compute_dtype bfloat16 where the news vectors are bf16:
 // CNN-DIGAT): x, q and the weights bf16, out bf16, as the TPU kernel reads x
@@ -64,7 +74,7 @@
 //      every product exact in fp32, each 64-deep k-tile's sums added
 //      rounding to nearest), y and k3 fp32. Dp is D rounded up to a multiple
 //      of 8 here (the TMA's 16-byte rows).
-//   2. gat_layer_fused_bf16_kernel: the scores, the mask, the softmax and the
+//   2. gat_layer_fused_kernel: the scores, the mask, the softmax and the
 //      aggregation of a tile of rows of one graph in one block; the scores
 //      never leave the chip. Its rows' scores against every column are formed
 //      in registers by gat_score_tile.cuh (c = k2 + k3 and k1 read from y as
@@ -292,20 +302,21 @@ __device__ __forceinline__ void copy_h(float4* hs, const float* yb, size_t ldy, 
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// B's bf16-activation instance after the projections: grid (row tiles, B),
-// block gs::tile_threads(R, TIb, TJb, 8) threads. y [B G][3 Dp]: h, k1 and
-// k2 in its column blocks, zero from D to Dp; k3 [B][Dp], a [Dp] (zero past
-// D). A block takes rows i0 .. i0 + R TIb - 1 of graph b: their scores
-// against each tile of R TJb columns (gat_score_tile.cuh) into alpha^T,
-// the softmax, then relu(alpha h) + x over slices of 4 CG features, a 4 x 4
-// tile a thread (row group rg, float4 column c).
-template <int R, bool V4>
+// The fused step after the wgmma projections (the bf16-activation and the
+// bf16-weight instance): grid (row tiles, B), block gs::tile_threads(R,
+// TIb, TJb, 8) threads. x and out of type T (bf16 or fp32). y [B G][3 Dp]:
+// h, k1 and k2 in its column blocks, zero from D to Dp; k3 [B][Dp], a [Dp]
+// (zero past D). A block takes rows i0 .. i0 + R TIb - 1 of graph b: their
+// scores against each tile of R TJb columns (gat_score_tile.cuh) into
+// alpha^T, the softmax, then relu(alpha h) + x over slices of 4 CG
+// features, a 4 x 4 tile a thread (row group rg, float4 column c).
+template <typename T, int R, bool V4>
 __global__ void __launch_bounds__(gs::kMaxThreads, 2)
-gat_layer_fused_bf16_kernel(const __nv_bfloat16* __restrict__ x,  // [B, G, D]
-                            const unsigned char* __restrict__ adj,  // [B, G, G]
-                            const float* __restrict__ y, int Dp, const float* __restrict__ k3,
-                            const float* __restrict__ a, __nv_bfloat16* __restrict__ out,
-                            int G, int D, int TIb, int TJb, int CG, float slope) {
+gat_layer_fused_kernel(const T* __restrict__ x,                // [B, G, D]
+                       const unsigned char* __restrict__ adj,  // [B, G, G]
+                       const float* __restrict__ y, int Dp, const float* __restrict__ k3,
+                       const float* __restrict__ a, T* __restrict__ out, int G, int D, int TIb,
+                       int TJb, int CG, float slope) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int span = gs::slice_span(Dp), BI = R * TIb, BJ = R * TJb, SA = alpha_stride(BI);
@@ -366,10 +377,20 @@ gat_layer_fused_bf16_kernel(const __nv_bfloat16* __restrict__ x,  // [B, G, D]
   }
 }
 
-template <int R, bool V4>
+// the four instantiations of the fused kernel for x and out of type T
+template <typename T>
 cudaError_t set_fused_smem() {
-  return cudaFuncSetAttribute(gat_layer_fused_bf16_kernel<R, V4>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+  const void* kernels[] = {reinterpret_cast<const void*>(gat_layer_fused_kernel<T, 2, false>),
+                           reinterpret_cast<const void*>(gat_layer_fused_kernel<T, 2, true>),
+                           reinterpret_cast<const void*>(gat_layer_fused_kernel<T, 4, false>),
+                           reinterpret_cast<const void*>(gat_layer_fused_kernel<T, 4, true>)};
+  cudaError_t e = cudaSuccess;
+  for (const void* kern : kernels) {
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
+    }
+  }
+  return e;
 }
 
 }  // namespace
@@ -384,8 +405,8 @@ extern "C" int gat_layer_init() {
     e = cudaDeviceGetAttribute(&g_max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (e == cudaSuccess) e = tc::init<true, true, kBN, tc::kBias, true>();
-  if (e == cudaSuccess) e = tc::init<true, true, kBN, tc::kBias, true, __nv_bfloat16>();
   if (e == cudaSuccess) e = wg::init<wg::kNx, 64, true, true, 1, 1, tc::kBias>();
+  if (e == cudaSuccess) e = wg::init<wg::kNx, 64, true, true, 3, 1, tc::kBias>();
   const void* attend[] = {reinterpret_cast<const void*>(gat_layer_attend_kernel<true>),
                           reinterpret_cast<const void*>(gat_layer_attend_kernel<false>)};
   for (const void* kern : attend) {
@@ -393,21 +414,17 @@ extern "C" int gat_layer_init() {
       e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g_max_smem);
     }
   }
-  if (e == cudaSuccess) e = set_fused_smem<2, false>();
-  if (e == cudaSuccess) e = set_fused_smem<2, true>();
-  if (e == cudaSuccess) e = set_fused_smem<4, false>();
-  if (e == cudaSuccess) e = set_fused_smem<4, true>();
+  if (e == cudaSuccess) e = set_fused_smem<__nv_bfloat16>();
+  if (e == cudaSuccess) e = set_fused_smem<float>();
   return static_cast<int>(e);
 }
 
 namespace {
 
-// Step 1 with the weights of type TW (float: 3xTF32; bf16: 2xTF32), x and
-// q fp32.
-template <typename TW>
-cudaError_t project(const void* x, const void* q, const void* wy, const void* by,
-                    const void* w3, const void* b3, void* y, void* k3, int M, int B, int Dp,
-                    cudaStream_t st) {
+// Step 1 of the fp32 instance, at 3xTF32.
+cudaError_t project_f32(const void* x, const void* q, const void* wy, const void* by,
+                        const void* w3, const void* b3, void* y, void* k3, int M, int B, int Dp,
+                        cudaStream_t st) {
   if (M <= 0 || B <= 0 || Dp <= 0 || Dp % 4) return cudaErrorInvalidValue;
   tc::Args a{};
   a.A = x;
@@ -421,7 +438,7 @@ cudaError_t project(const void* x, const void* q, const void* wy, const void* by
   a.ldc = 3 * Dp;
   a.k_per_split = Dp;
   a.bias = static_cast<const float*>(by);
-  cudaError_t e = tc::gemm<true, true, kBN, tc::kBias, true, TW>(st, a);
+  cudaError_t e = tc::gemm<true, true, kBN, tc::kBias, true>(st, a);
   if (e != cudaSuccess) return e;
   a.A = q;
   a.B = w3;
@@ -430,7 +447,7 @@ cudaError_t project(const void* x, const void* q, const void* wy, const void* by
   a.N = Dp;
   a.ldc = Dp;
   a.bias = static_cast<const float*>(b3);
-  return tc::gemm<true, true, kBN, tc::kBias, true, TW>(st, a);
+  return tc::gemm<true, true, kBN, tc::kBias, true>(st, a);
 }
 
 // Step 3 with x and out fp32.
@@ -472,16 +489,53 @@ int attend(const void* x, const void* adj, const void* s, const void* h, int ldh
 extern "C" int gat_layer_project_f32(const void* x, const void* q, const void* wy,
                                      const void* by, const void* w3, const void* b3, void* y,
                                      void* k3, int M, int B, int Dp, void* stream) {
-  return static_cast<int>(project<float>(x, q, wy, by, w3, b3, y, k3, M, B, Dp,
-                                         static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(project_f32(x, q, wy, by, w3, b3, y, k3, M, B, Dp,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
-// The same with wy and w3 bf16 (x, q, the biases, y and k3 fp32).
+// The same with wy and w3 bf16 (x, q, the biases, y and k3 fp32) on wgmma:
+// x and q split into three bf16 planes each (split3_kernel) in `planes`
+// (3 (M + B) Dp bf16: x's, then q's), then three bf16 passes of each
+// against the exact bf16 weights. Dp a multiple of 8 (rows 16 bytes apart,
+// as the TMA copies them); x and q 16-byte aligned.
 extern "C" int gat_layer_project_bf16(const void* x, const void* q, const void* wy,
                                       const void* by, const void* w3, const void* b3, void* y,
-                                      void* k3, int M, int B, int Dp, void* stream) {
-  return static_cast<int>(project<__nv_bfloat16>(x, q, wy, by, w3, b3, y, k3, M, B, Dp,
-                                                 static_cast<cudaStream_t>(stream)));
+                                      void* k3, void* planes, int M, int B, int Dp,
+                                      void* stream) {
+  if (M <= 0 || B <= 0 || Dp <= 0 || Dp % 8 || (long long)M * Dp / 4 >= (1LL << 31) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(q)) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using bf16 = __nv_bfloat16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* xs = static_cast<bf16*>(planes);
+  bf16* qs = xs + 3LL * M * Dp;
+  wg::split3_kernel<<<wg::copy_blocks((long long)M * Dp / 4), wg::kCopyThreads, 0, st>>>(
+      static_cast<const float*>(x), Dp, xs, M, Dp);
+  wg::split3_kernel<<<wg::copy_blocks((long long)B * Dp / 4), wg::kCopyThreads, 0, st>>>(
+      static_cast<const float*>(q), Dp, qs, B, Dp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  tc::Args a{};
+  a.C = y;
+  a.M = M;
+  a.N = 3 * Dp;
+  a.K = Dp;
+  a.ldc = 3 * Dp;
+  a.k_per_split = Dp;
+  a.bias = static_cast<const float*>(by);
+  e = wg::gemm<wg::kNx, 64, true, true, 3, 1, tc::kBias>(
+      st, wg::Operand{xs, M, Dp, Dp, (long long)M * Dp},
+      wg::Operand{static_cast<const bf16*>(wy), 3 * Dp, Dp, Dp, 3LL * Dp * Dp}, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  a.C = k3;
+  a.M = B;
+  a.N = Dp;
+  a.ldc = Dp;
+  a.bias = static_cast<const float*>(b3);
+  return static_cast<int>(wg::gemm<wg::kNx, 64, true, true, 3, 1, tc::kBias>(
+      st, wg::Operand{qs, B, Dp, Dp, (long long)B * Dp},
+      wg::Operand{static_cast<const bf16*>(w3), Dp, Dp, Dp, (long long)Dp * Dp}, a));
 }
 
 // The same with x, q, wy and w3 bf16 (the biases, y and k3 fp32) on wgmma:
@@ -526,16 +580,14 @@ extern "C" int gat_layer_attend_f32(const void* x, const void* adj, const void* 
   return attend(x, adj, s, h, ldh, out, B, G, D, TI, CG, slope, stream);
 }
 
-// The bf16-activation instance's step 2: out [B, G, D] (bf16) from x [B, G,
-// D] (bf16), adj [B, G, G] (bytes), y [B G, 3Dp], k3 [B, Dp] and a [Dp]
-// (fp32, 16-byte aligned, zero from D to Dp; Dp a multiple of 8). The plan
-// (gat_layer.py::fused_plan): rows ti + q TIb and columns tj + r TJb of a
-// tile a thread (q, r < R), R TIb rows a block, and 4 CG features a slice
-// of the aggregation, (R TIb / 4 rounded up) x CG threads at most.
-extern "C" int gat_layer_fused_bf16(const void* x, const void* adj, const void* y,
-                                    const void* k3, const void* a, void* out, int B, int G, int D,
-                                    int Dp, int R, int TIb, int TJb, int CG, float slope,
-                                    void* stream) {
+namespace {
+
+// The fused step with x and out of type T (the plan and checks of
+// gat_layer_fused_bf16 below).
+template <typename T>
+int fused(const void* x, const void* adj, const void* y, const void* k3, const void* a,
+          void* out, int B, int G, int D, int Dp, int R, int TIb, int TJb, int CG, float slope,
+          void* stream) {
   if (B <= 0 || G <= 0 || D <= 0 || Dp < D || Dp % 8 || (R != 2 && R != 4) || TIb <= 0 ||
       TJb <= 0 || CG <= 0 ||
       (reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(k3) |
@@ -549,17 +601,18 @@ extern "C" int gat_layer_fused_bf16(const void* x, const void* adj, const void* 
       smem > size_t(g_max_smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // four elements of x and out at a time where they are aligned to four
   const bool v4 = D % 4 == 0 && (reinterpret_cast<uintptr_t>(x) |
-                                 reinterpret_cast<uintptr_t>(out)) % 8 == 0;
+                                 reinterpret_cast<uintptr_t>(out)) % (4 * sizeof(T)) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* px = static_cast<const __nv_bfloat16*>(x);
+  const T* px = static_cast<const T*>(x);
   const unsigned char* pa = static_cast<const unsigned char*>(adj);
   const float *py = static_cast<const float*>(y), *pk = static_cast<const float*>(k3),
               *pv = static_cast<const float*>(a);
-  __nv_bfloat16* po = static_cast<__nv_bfloat16*>(out);
+  T* po = static_cast<T*>(out);
 #define DIGAT_FUSED(RR, V)                                                                   \
-  gat_layer_fused_bf16_kernel<RR, V><<<grid, threads, smem, st>>>(px, pa, py, Dp, pk, pv, po, \
-                                                                  G, D, TIb, TJb, CG, slope)
+  gat_layer_fused_kernel<T, RR, V><<<grid, threads, smem, st>>>(px, pa, py, Dp, pk, pv, po, G, \
+                                                                D, TIb, TJb, CG, slope)
   if (R == 4) {
     if (v4) DIGAT_FUSED(4, true);
     else DIGAT_FUSED(4, false);
@@ -569,4 +622,29 @@ extern "C" int gat_layer_fused_bf16(const void* x, const void* adj, const void* 
   }
 #undef DIGAT_FUSED
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The bf16-activation instance's step 2: out [B, G, D] (bf16) from x [B, G,
+// D] (bf16), adj [B, G, G] (bytes), y [B G, 3Dp], k3 [B, Dp] and a [Dp]
+// (fp32, 16-byte aligned, zero from D to Dp; Dp a multiple of 8). The plan
+// (gat_layer.py::fused_plan): rows ti + q TIb and columns tj + r TJb of a
+// tile a thread (q, r < R), R TIb rows a block, and 4 CG features a slice
+// of the aggregation, (R TIb / 4 rounded up) x CG threads at most.
+extern "C" int gat_layer_fused_bf16(const void* x, const void* adj, const void* y,
+                                    const void* k3, const void* a, void* out, int B, int G, int D,
+                                    int Dp, int R, int TIb, int TJb, int CG, float slope,
+                                    void* stream) {
+  return fused<__nv_bfloat16>(x, adj, y, k3, a, out, B, G, D, Dp, R, TIb, TJb, CG, slope,
+                              stream);
+}
+
+// The bf16-weight instance's step 2: the same with x and out fp32 (out not
+// rounded).
+extern "C" int gat_layer_fused_f32(const void* x, const void* adj, const void* y,
+                                   const void* k3, const void* a, void* out, int B, int G, int D,
+                                   int Dp, int R, int TIb, int TJb, int CG, float slope,
+                                   void* stream) {
+  return fused<float>(x, adj, y, k3, a, out, B, G, D, Dp, R, TIb, TJb, CG, slope, stream);
 }

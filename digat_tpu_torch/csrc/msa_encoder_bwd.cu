@@ -1170,8 +1170,8 @@ cudaError_t backward(const T* fx, const void* mask, const T* fw, const float* bq
     e = thresh ? wg::gemm<kWgNx, 64, true, true, 3, 1, tc::kDrop, bf16, true>(st, dq, wt, a)
                : wg::gemm<kWgNx, 64, true, true, 3, 1, tc::kStore, bf16, true>(st, dq, wt, a);
   } else {
-    e = thresh ? tc::gemm<true, false, kBN, tc::kDrop, true, T, T>(st, a)
-               : tc::gemm<true, false, kBN, tc::kStore, true, T, T>(st, a);
+    e = thresh ? tc::gemm<true, false, kBN, tc::kDrop, true, T>(st, a)
+               : tc::gemm<true, false, kBN, tc::kStore, true, T>(st, a);
   }
   if (e != cudaSuccess) return e;
   // 10. dWqkv = dqkv^T xd, split over rows

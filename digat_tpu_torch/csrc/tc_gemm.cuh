@@ -1,7 +1,7 @@
-// Matrix products on the tensor cores for sm_90a, fp32 at 3xTF32 and with
-// bf16 weights (below): the products of the MSA encoder's forward
-// (msa_encoder.cu, kernel A) and backward (msa_encoder_bwd.cu, kernel A')
-// and the eval GAT layer's projections (gat_layer.cu, kernel B).
+// Matrix products on the tensor cores for sm_90a, fp32 at 3xTF32: the
+// products of the MSA encoder's forward (msa_encoder.cu, kernel A) and
+// backward (msa_encoder_bwd.cu, kernel A') and the eval GAT layer's
+// projections (gat_layer.cu, kernel B), each in its fp32 instance.
 //
 // C[z] = op(A)[M, K_z] op(B)[K_z, N] over the z-th slice of K
 // (k_per_split rows each), then an epilogue (bias, tanh pool with its
@@ -40,13 +40,8 @@
 // written apart and summed by the caller in slice order: the same bits on
 // every run, no atomics.
 //
-// Operand types (bf16, `compute_dtype` bfloat16). B, the weight side, may
-// be bf16 (TB): a bf16 value's 8 significant bits fit TF32's 11, so it
-// enters shared memory whole as its TF32 hi with no lo, and the product
-// drops the pass that reads B's lo: 2xTF32, lo*hi + hi*hi, each product of
-// the fp32 A with the exact bf16 B as accurate as at 3xTF32. The output C
-// may be bf16 (TC), rounded once to nearest even in the epilogue. (Products
-// of two bf16 operands run on wgmma: tc_wgmma.cuh.)
+// The output C may be bf16 (TC), rounded once to nearest even in the
+// epilogue. (The bf16 instances' products run on wgmma: tc_wgmma.cuh.)
 //
 // Rounding of the sums (kRN). The tensor cores add each product into the
 // fp32 accumulator rounding toward zero, not to nearest (the TF32 and the
@@ -87,7 +82,7 @@ enum Epilogue : int {
   kLogits = 5,  // lgpart as kPool, and C not written (C may be null)
 };
 
-// A, B and C point at fp32, or at bf16 where the instance takes it (TB, TC)
+// A and B point at fp32, C at fp32 or at bf16 where the instance takes it (TC)
 struct Args {
   const void* A;
   const void* B;
@@ -164,9 +159,9 @@ __device__ __forceinline__ int tile_slot(int i, int& rr, int& kk) {
 }
 
 // The thread's groups of 4 elements of a k-tile into registers as float4s
-// (zero past the matrix's rows or the slice's k); T float or bf16.
-template <bool KM, int W, typename T>
-__device__ __forceinline__ void load_tile(float4 (&r)[W * kBK / 4 / kThreads], const T* p,
+// (zero past the matrix's rows or the slice's k).
+template <bool KM, int W>
+__device__ __forceinline__ void load_tile(float4 (&r)[W * kBK / 4 / kThreads], const float* p,
                                           int ld, int rows, int r0, int k0, int kend) {
 #pragma unroll
   for (int i = 0; i < W * kBK / 4 / kThreads; ++i) {
@@ -179,19 +174,14 @@ __device__ __forceinline__ void load_tile(float4 (&r)[W * kBK / 4 / kThreads], c
   }
 }
 
-// The same float4s split into hi and lo, each element once, into a stage;
-// kExact (bf16 values, already TF32): hi is the value and lo is not stored.
-template <bool KM, int W, bool kExact = false>
+// The same float4s split into hi and lo, each element once, into a stage.
+template <bool KM, int W>
 __device__ __forceinline__ void store_tile(const float4 (&r)[W * kBK / 4 / kThreads],
                                            uint32_t* hi, uint32_t* lo) {
 #pragma unroll
   for (int i = 0; i < W * kBK / 4 / kThreads; ++i) {
     int rr, kk;
     const int off = tile_slot<KM, W>(i, rr, kk);
-    if (kExact) {
-      *reinterpret_cast<float4*>(hi + off) = r[i];
-      continue;
-    }
     uint4 h, l;
     split4(r[i], h, l);
     *reinterpret_cast<uint4*>(hi + off) = h;
@@ -261,11 +251,9 @@ __device__ __forceinline__ void epilogue(const Args& p, const float (&acc)[kMT][
   }
 }
 
-// A fp32; B fp32 (3xTF32) or bf16 (TB, 2xTF32); C fp32 or bf16 (TC).
-template <bool AK, bool BK, int BN, int EPI, bool kRN = false, typename TB = float,
-          typename TC = float>
+// A and B fp32 (3xTF32); C fp32 or bf16 (TC).
+template <bool AK, bool BK, int BN, int EPI, bool kRN = false, typename TC = float>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
-  constexpr bool kBExact = std::is_same<TB, __nv_bfloat16>::value;  // B's lo is 0
   constexpr int WN = BN / 4, NT = WN / 8;
   constexpr int AT = tile_floats(AK, kBM), BT = tile_floats(BK, BN);
   constexpr int STAGE = 2 * AT + 2 * BT;  // A hi, A lo, B hi, B lo
@@ -273,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
   extern __shared__ float4 smem4[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem4);
   const float* Ap = static_cast<const float*>(p.A);
-  const TB* Bp = static_cast<const TB*>(p.B);
+  const float* Bp = static_cast<const float*>(p.B);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, t = lane & 3;
@@ -300,7 +288,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
   load_tile<AK, kBM>(ra, Ap, p.lda, p.M, m0, kbeg, kend);
   load_tile<BK, BN>(rb, Bp, p.ldb, p.N, n0, kbeg, kend);
   store_tile<AK, kBM>(ra, sm, sm + AT);
-  store_tile<BK, BN, kBExact>(rb, sm + 2 * AT, sm + 2 * AT + BT);
+  store_tile<BK, BN>(rb, sm + 2 * AT, sm + 2 * AT + BT);
   __syncthreads();
   for (int kt = 0; kt < ntiles; ++kt) {
     const bool more = kt + 1 < ntiles;
@@ -338,24 +326,20 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
         const int o0 = at<BK, BN>(n, kk + t), o1 = at<BK, BN>(n, kk + t + 4);
         bh[j][0] = bhi[o0];
         bh[j][1] = bhi[o1];
-        if (!kBExact) {
-          bl[j][0] = blo[o0];
-          bl[j][1] = blo[o1];
-        }
+        bl[j][0] = blo[o0];
+        bl[j][1] = blo[o1];
       }
-      // three passes over the warp's tiles (two where B is exact), so that
+      // three passes over the warp's tiles, so that
       // the kMT * NT products of a pass are independent and the next pass
       // finds its accumulator ready
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j) mma_tf32(sums[i][j], al[i], bh[j]);
-      if (!kBExact) {
 #pragma unroll
-        for (int i = 0; i < kMT; ++i)
+      for (int i = 0; i < kMT; ++i)
 #pragma unroll
-          for (int j = 0; j < NT; ++j) mma_tf32(sums[i][j], ah[i], bl[j]);
-      }
+        for (int j = 0; j < NT; ++j) mma_tf32(sums[i][j], ah[i], bl[j]);
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
@@ -372,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
     if (more) {
       uint32_t* d = sm + ((kt + 1) & 1) * STAGE;
       store_tile<AK, kBM>(ra, d, d + AT);
-      store_tile<BK, BN, kBExact>(rb, d + 2 * AT, d + 2 * AT + BT);
+      store_tile<BK, BN>(rb, d + 2 * AT, d + 2 * AT + BT);
     }
     __syncthreads();
   }
@@ -380,10 +364,9 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Args p) {
 }
 
 // Grants the kernel its shared memory on the current device.
-template <bool AK, bool BK, int BN, int EPI, bool kRN = false, typename TB = float,
-          typename TC = float>
+template <bool AK, bool BK, int BN, int EPI, bool kRN = false, typename TC = float>
 inline cudaError_t init() {
-  return cudaFuncSetAttribute(gemm_kernel<AK, BK, BN, EPI, kRN, TB, TC>,
+  return cudaFuncSetAttribute(gemm_kernel<AK, BK, BN, EPI, kRN, TC>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem_bytes<AK, BK, BN>());
 }
@@ -415,12 +398,11 @@ inline bool plan(const Args& p, dim3& grid) {
 
 // Launches gemm_kernel on `st`: ceil(K / k_per_split) slices of K; returns
 // the launch's error.
-template <bool AK, bool BK, int BN, int EPI, bool kRN = false, typename TB = float,
-          typename TC = float>
+template <bool AK, bool BK, int BN, int EPI, bool kRN = false, typename TC = float>
 inline cudaError_t gemm(cudaStream_t st, const Args& p) {
   dim3 grid;
   if (!plan<AK, BK, BN>(p, grid)) return cudaErrorInvalidValue;
-  gemm_kernel<AK, BK, BN, EPI, kRN, TB, TC><<<grid, kThreads, smem_bytes<AK, BK, BN>(), st>>>(p);
+  gemm_kernel<AK, BK, BN, EPI, kRN, TC><<<grid, kThreads, smem_bytes<AK, BK, BN>(), st>>>(p);
   return cudaGetLastError();
 }
 

@@ -2,12 +2,13 @@
 // fed by the Tensor Memory Accelerator (TMA), for sm_90a: the products of
 // the bf16 instances of kernels A and A' (msa_encoder.cu,
 // msa_encoder_pooled_bf16; msa_encoder_bwd.cu, msa_encoder_bwd_bf16) and of
-// kernel B's bf16-activation instance (gat_layer.cu,
-// gat_layer_project_bf16_act: A's q|k|v instance). They replace no TPU
-// kernel of their own: they are A's, A''s and B's products, which the TPU
-// kernels (digat_tpu/ops/pallas/msa_encoder.py, _fwd_kernel and
-// _bwd_kernel; digat_tpu/ops/pallas/gat_layer.py, _layer_kernel) run on
-// their matrix unit.
+// kernel B's two bf16 instances (gat_layer.cu: gat_layer_project_bf16_act,
+// A's q|k|v instance; gat_layer_project_bf16, x's three planes against the
+// bf16 weights). They replace no TPU kernel of their own: they are A's,
+// A''s and B's products, which the TPU kernels
+// (digat_tpu/ops/pallas/msa_encoder.py, _fwd_kernel and _bwd_kernel;
+// digat_tpu/ops/pallas/gat_layer.py, _layer_kernel) run on their matrix
+// unit.
 //
 // C[z] = op(A)[M, K_z] op(B)[K_z, N] over the z-th slice of K, then one of
 // tc_gemm.cuh's epilogues (kStore, kBias, kPool, kDh, kDrop, kLogits: the

@@ -66,14 +66,16 @@ SIGNATURES = {
     "dropout_apply_bf16": ([_P, _P, _LL, _I, _LL, _U, _U, _U, _F, _U, _I, _P], _I),
     # x, q, wy, by, w3, b3, y, k3, M, B, Dp, stream
     "gat_layer_project_f32": ([_P] * 8 + [_I] * 3 + [_P], _I),
-    # the same, wy and w3 bf16
-    "gat_layer_project_bf16": ([_P] * 8 + [_I] * 3 + [_P], _I),
-    # the same, x, q, wy and w3 bf16
+    # x, q, wy, by, w3, b3, y, k3, planes, M, B, Dp, stream (wy and w3 bf16)
+    "gat_layer_project_bf16": ([_P] * 9 + [_I] * 3 + [_P], _I),
+    # x, q, wy, by, w3, b3, y, k3, M, B, Dp, stream (x, q, wy and w3 bf16)
     "gat_layer_project_bf16_act": ([_P] * 8 + [_I] * 3 + [_P], _I),
     # x, adj, s, h, ldh, out, B, G, D, TI, CG, slope, stream
     "gat_layer_attend_f32": ([_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _P], _I),
-    # x, adj, y, k3, a, out, B, G, D, Dp, R, TIb, TJb, CG, slope, stream
+    # x, adj, y, k3, a, out, B, G, D, Dp, R, TIb, TJb, CG, slope, stream (x and out bf16)
     "gat_layer_fused_bf16": ([_P] * 6 + [_I] * 8 + [_F, _P], _I),
+    # the same, x and out fp32
+    "gat_layer_fused_f32": ([_P] * 6 + [_I] * 8 + [_F, _P], _I),
     # k1, ld1, k2, ld2, k3, a, out, B, G, D, R, TIb, TJb, stream
     "gat_scores_fwd_f32": ([_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P], _I),
     # the same, k1, k2, k3, a and s bf16 (R, TIb, TJb of tile_plan)

@@ -20,24 +20,29 @@ carries no gradient, so under grad mode with an input that requires grad
 the wrapper raises: training runs its own layer (`models.graph_encoders`,
 kernel C).
 
-bf16 weights (`compute_dtype` bfloat16): x, query and the result stay fp32,
-as the JAX kernel takes them. The wrapper stacks W|W1|W2 as bf16 (half the
-bytes) and upcasts bW, b3 and a (exact); `gat_layer_project_bf16` forms
-the projections at 2xTF32 (x split into two TF32 parts, the bf16 weights
-exact in one), with its own launch counter `launches_bf16`. C's score
-tiles and the attend step are the fp32 ones.
+bf16 weights (`compute_dtype` bfloat16 where the news vectors stay fp32:
+MSA-DIGAT): x, query and the result stay fp32, as the JAX kernel takes
+them; the wrapper stacks W|W1|W2 as bf16 (half the bytes) and upcasts bW,
+b3 and a (exact). Two steps, counted on `launches_bf16`:
+`gat_layer_project_bf16` splits x and query into three bf16 planes each
+(hi, mid, lo; they sum back to x within 2^-24 |x|) in scratch the wrapper
+allocates, then forms the fp32 y and k3 on `wgmma` in three bf16 passes
+against the exact bf16 weights (every partial product exact in fp32; D
+padded to a multiple of 8, `padded_width(D, 8)`), and `gat_layer_fused_f32`
+is the bf16-activation instance's fused step (below) with x read and the
+result written as fp32. The scores never leave the chip.
 
 bf16 activations (CNN-DIGAT at bfloat16, whose news vectors are bf16): x,
 query and the weights bf16, the result bf16, as the JAX kernel reads x in
 its dtype, computes in fp32 and writes out in x's dtype
 (`gat_layer.py:51,95`). Two launches: `gat_layer_project_bf16_act` forms
 the fp32 y and k3 on `wgmma` in one bf16 pass (every product exact in
-fp32; D padded to Dp, a multiple of 8, `padded_width(D, 8)`), and
-`gat_layer_fused_bf16` forms the scores, the mask, the softmax and
-relu(alpha h) + x of a tile of rows of a graph in one block (`fused_plan`),
-reading x as bf16 and rounding each output once; the scores never leave
-the chip. Counted on `launches_bf16_act`. The plain version forms
-everything in fp32 from the bf16 values and rounds the result once.
+fp32; D padded to Dp, a multiple of 8), and `gat_layer_fused_bf16` forms
+the scores, the mask, the softmax and relu(alpha h) + x of a tile of rows
+of a graph in one block (`fused_plan`), reading x as bf16 and rounding
+each output once; the scores never leave the chip. Counted on
+`launches_bf16_act`. The plain version forms everything in fp32 from the
+bf16 values and rounds the result once.
 """
 
 from __future__ import annotations
@@ -81,9 +86,9 @@ class FusedPlan(NamedTuple):
 
 
 def padded_width(D: int, multiple: int = 4) -> int:
-    """D rounded up to a multiple of 4 (the fp32 and bf16-weight projections'
-    float4 loads) or of 8 (the bf16-activation projection's rows, 16 bytes
-    apart for the TMA)."""
+    """D rounded up to a multiple of 4 (the fp32 projections' float4 loads)
+    or of 8 (the bf16 instances' wgmma projections: rows 16 bytes apart for
+    the TMA)."""
     return -(-D // multiple) * multiple
 
 
@@ -103,7 +108,7 @@ def fused_smem_bytes(G: int, Dp: int, tile: TilePlan, CG: int) -> int:
 
 
 def fused_plan(G: int, D: int) -> FusedPlan:
-    """The bf16-activation instance's fused step: the score tiles of
+    """The bf16 instances' fused step: the score tiles of
     `tile_plan` at fp32 rows (every column tile in one block, in turn), and
     the aggregation of the block's rows in groups of 4 a thread over D in
     the fewest slices of float4 columns that the block's threads cover, more
@@ -121,7 +126,7 @@ def fused_plan(G: int, D: int) -> FusedPlan:
         if CG == 1:
             raise ValueError(f"interactive_gat_layer_fused: a graph of G={G} nodes needs "
                              f"{fused_smem_bytes(G, padded_width(D, 8), tile, 1)} B of shared "
-                             f"memory in the bf16-activation instance, more than the "
+                             f"memory in the fused step, more than the "
                              f"{MAX_SMEM_BYTES} B a block has")
         slices += 1
 
@@ -196,11 +201,13 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     """Kernel B. Same arguments and result as `interactive_gat_layer_plain`.
     The kernels read W, W1 and W2 stacked [3D, D] in nn.Linear layout: the
     wrapper stacks them each call (1.92 MB at D 400, one copy on the
-    device). Where D is not a multiple of 4 (of 8 with bf16 activations),
-    x, query and the weights are padded with zeros to the next one (zero
-    terms change no sum). Three instances: all fp32; fp32 x and query with
-    bf16 weights; bf16 x, query and weights (bf16 activations, a bf16
-    result)."""
+    device). Where D is not a multiple of 4 (of 8 with bf16 weights), x,
+    query and the weights are padded with zeros to the next one (zero terms
+    change no sum). Three instances: all fp32 (three launches: the 3xTF32
+    projections, C's forward, the attend step); fp32 x and query with bf16
+    weights (x's planes, the wgmma projections, the fused step on fp32 x);
+    bf16 x, query and weights (the wgmma projections, the fused step on
+    bf16 x, a bf16 result)."""
     if not build.use_kernel(x):
         return interactive_gat_layer_plain(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
                                            negative_slope)
@@ -233,37 +240,48 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
     if B == 0:
         return torch.empty_like(x)
     act = xdt == torch.bfloat16  # the bf16-activation instance
-    Dp = padded_width(D, 8 if act else 4)
+    wgmma = wdt == torch.bfloat16  # either bf16 instance: wgmma projections, the fused step
+    Dp = padded_width(D, 8 if wgmma else 4)
     xk, qk = x.reshape(B * G, D), query
     if Dp != D or xk.data_ptr() % 16 or qk.data_ptr() % 16:
         xk, qk = F.pad(xk, (0, Dp - D)), F.pad(qk, (0, Dp - D))
-    wy, by, w3, b3p, ap = stacked_weights(W, bW, W1, W2, W3, b3, a_vec, 8 if act else 4)
+    wy, by, w3, b3p, ap = stacked_weights(W, bW, W1, W2, W3, b3, a_vec, 8 if wgmma else 4)
     dev = x.device
     y = torch.empty((B * G, 3 * Dp), dtype=torch.float32, device=dev)
     k3 = torch.empty((B, Dp), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     what = "interactive_gat_layer_fused"
-    if act:
+    if wgmma:
         plan = fused_plan(G, D)
         # the kernels read b3 and a by 16-byte loads
         b3p, ap = (v if v.data_ptr() % 16 == 0 else v.clone() for v in (b3p, ap))
+        # x's and query's three bf16 planes (the bf16-weight instance)
+        planes = None if act else torch.empty(3 * (B * G + B) * Dp, dtype=torch.bfloat16,
+                                              device=dev)
         with build.launch_on(dev) as (lib, stream):
-            build.check(lib, lib.gat_layer_project_bf16_act(
-                xk.data_ptr(), qk.data_ptr(), wy.data_ptr(), by.data_ptr(), w3.data_ptr(),
-                b3p.data_ptr(), y.data_ptr(), k3.data_ptr(), B * G, B, Dp, stream), what)
+            ptrs = (xk.data_ptr(), qk.data_ptr(), wy.data_ptr(), by.data_ptr(), w3.data_ptr(),
+                    b3p.data_ptr(), y.data_ptr(), k3.data_ptr())
+            if act:
+                build.check(lib, lib.gat_layer_project_bf16_act(*ptrs, B * G, B, Dp, stream),
+                            what)
+            else:
+                build.check(lib, lib.gat_layer_project_bf16(*ptrs, planes.data_ptr(), B * G, B,
+                                                            Dp, stream), what)
             t = plan.tile
-            build.check(lib, lib.gat_layer_fused_bf16(
+            step = lib.gat_layer_fused_bf16 if act else lib.gat_layer_fused_f32
+            build.check(lib, step(
                 x.data_ptr(), adj.data_ptr(), y.data_ptr(), k3.data_ptr(), ap.data_ptr(),
                 out.data_ptr(), B, G, D, Dp, t.R, t.TIb, t.TJb, plan.CG, float(negative_slope),
                 stream), what)
-        interactive_gat_layer_fused.launches_bf16_act += 1
+        if act:
+            interactive_gat_layer_fused.launches_bf16_act += 1
+        else:
+            interactive_gat_layer_fused.launches_bf16 += 1
         return out
     plan, splan = attend_plan(G, D), fwd_plan(G)
     s = torch.empty((B, G, G), dtype=torch.float32, device=dev)
     with build.launch_on(dev) as (lib, stream):
-        project = lib.gat_layer_project_bf16 if wdt == torch.bfloat16 else \
-            lib.gat_layer_project_f32
-        build.check(lib, project(
+        build.check(lib, lib.gat_layer_project_f32(
             xk.data_ptr(), qk.data_ptr(), wy.data_ptr(), by.data_ptr(), w3.data_ptr(),
             b3p.data_ptr(), y.data_ptr(), k3.data_ptr(), B * G, B, Dp, stream), what)
         build.check(lib, lib.gat_scores_fwd_f32(
@@ -272,10 +290,7 @@ def interactive_gat_layer_fused(x, adj, query, W, bW, W1, W2, W3, b3, a_vec,
         build.check(lib, lib.gat_layer_attend_f32(
             x.data_ptr(), adj.data_ptr(), s.data_ptr(), y.data_ptr(), 3 * Dp, out.data_ptr(), B,
             G, D, plan.TI, plan.CG, float(negative_slope), stream), what)
-    if wdt == torch.bfloat16:
-        interactive_gat_layer_fused.launches_bf16 += 1
-    else:
-        interactive_gat_layer_fused.launches += 1
+    interactive_gat_layer_fused.launches += 1
     return out
 
 

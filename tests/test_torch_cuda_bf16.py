@@ -115,19 +115,34 @@ def test_msa_encoder_bwd_bf16_kernel(cuda, N, Din, heads, dk, A, L, rate):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("B,G,D", [(9, 26, 400), (70, 68, 400), (7, 26, 398), (3, 5, 7),
-                                   (1024, 68, 400)])
-def test_gat_layer_bf16_weights_kernel(cuda, B, G, D):
-    """B with bf16 weights (its own counter) against the plain layer, which
-    forms every product in fp32 from the bf16 values; the same bits twice."""
+# B's bf16-weight instance (x's planes, the wgmma projections, the fused
+# step on fp32 x): the serving graphs, D 398, 30 and 7 (padded to 400, 32
+# and 8), graphs of 5 and 6 nodes (R 2), G 96 and 100 (two column tiles),
+# B not a multiple of any tile; x at an offset of one element (its planes
+# from a padded copy, the fused kernel's element path)
+@pytest.mark.parametrize("B,G,D,offset", [
+    (9, 26, 400, 0), (70, 68, 400, 0), (7, 26, 398, 0), (3, 5, 7, 0), (1024, 68, 400, 0),
+    (9, 6, 32, 0), (4, 68, 30, 0), (5, 96, 400, 0), (3, 100, 64, 0), (9, 26, 400, 1),
+    (7, 6, 30, 1)])
+def test_gat_layer_bf16_weights_kernel(cuda, B, G, D, offset):
+    """B with fp32 x and query and bf16 weights (its own counter) against
+    the plain layer, which forms every product in fp32 from the bf16 values
+    (a row with no neighbour: uniform); the same bits twice."""
     args = list(_gat_args(cuda, B, G, D, seed=G + 1))
     args[3:] = [t.to(BF16) for t in args[3:]]
-    before = (GL.interactive_gat_layer_fused.launches, GL.interactive_gat_layer_fused.launches_bf16)
-    out = GL.interactive_gat_layer_fused(*args)
-    assert (GL.interactive_gat_layer_fused.launches,
-            GL.interactive_gat_layer_fused.launches_bf16) == (before[0], before[1] + 1)
+    if offset:  # x a contiguous view `offset` elements past an aligned start
+        buf = torch.empty(B * G * D + offset, device=cuda)
+        buf[offset:] = args[0].flatten()
+        args[0] = buf[offset:].view(B, G, D)
+        assert args[0].data_ptr() % 16
+    fused = GL.interactive_gat_layer_fused
+    before = (fused.launches, fused.launches_bf16, fused.launches_bf16_act)
+    out = fused(*args)
+    assert (fused.launches, fused.launches_bf16, fused.launches_bf16_act) == \
+        (before[0], before[1] + 1, before[2])
+    assert out.dtype == torch.float32
     _close(out, GL.interactive_gat_layer_plain(*args))
-    assert torch.equal(out, GL.interactive_gat_layer_fused(*args))
+    assert torch.equal(out, fused(*args))
 
 
 def test_bf16_instances_refuse_mixed_inputs(cuda):

@@ -149,7 +149,7 @@ def tile_indices(plan, i0, j0):
 
 
 def fused(x, adj, y, k3, a, D, slope=0.2, fma=None):
-    """Step 2 as gat_layer_fused_bf16_kernel runs it -> out [B, G, D] in
+    """Step 2 as gat_layer_fused_kernel runs it -> out [B, G, D] in
     x's dtype. y [B G, 3Dp] (h | k1 | k2), k3 [B, Dp], a [Dp]."""
     B, G, _ = x.shape
     Dp = k3.shape[1]

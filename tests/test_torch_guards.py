@@ -360,6 +360,36 @@ def test_gat_layer_bf16_activations_makes_two_calls_under_its_tensors_device(mon
     assert step[6:14] == (B, G, D, Dp, plan.tile.R, plan.tile.TIb, plan.tile.TJb, plan.CG)
 
 
+def test_gat_layer_bf16_weights_makes_two_calls_under_its_tensors_device(monkeypatch):
+    """Kernel B's bf16-weight instance (fp32 x and query): the split and the
+    wgmma projections (D 6 padded to 8) into scratch of x's and query's
+    three bf16 planes, then the fused step on fp32 x with `fused_plan`'s
+    tiles, each under the tensor's device, and one count on
+    `launches_bf16`: no C forward and no attend step."""
+    from digat_tpu_torch.ops import build
+    from digat_tpu_torch.ops import gat_layer as GL
+
+    stub = _StubCuda(monkeypatch)
+    monkeypatch.setattr(build, "use_kernel", lambda where: True)
+    B, G, D, Dp = 3, 7, 6, 8
+    r, bf = (lambda *s: torch.randn(*s)), (lambda *s: torch.randn(*s).to(torch.bfloat16))
+    fused = GL.interactive_gat_layer_fused
+    before = (fused.launches, fused.launches_bf16, fused.launches_bf16_act)
+    out = fused(r(B, G, D), torch.ones(B, G, G, dtype=torch.bool), r(B, D), bf(D, D), bf(D),
+                bf(D, D), bf(D, D), bf(D, D), bf(D), r(D))
+    assert out.dtype == torch.float32 and out.shape == (B, G, D)
+    assert (fused.launches, fused.launches_bf16, fused.launches_bf16_act) == \
+        (before[0], before[1] + 1, before[2])
+    calls = [(n, a) for (n, d), a in zip(stub.calls, stub.args) if not n.endswith("_init")]
+    assert [n for n, _ in calls] == ["gat_layer_project_bf16", "gat_layer_fused_f32"]
+    assert all(d == torch.device("cpu") for n, d in stub.calls if not n.endswith("_init"))
+    project, step = (a for _, a in calls)
+    assert project[9:12] == (B * G, B, Dp)
+    plan = GL.fused_plan(G, D)
+    assert step[2:4] == project[6:8]  # y and k3
+    assert step[6:14] == (B, G, D, Dp, plan.tile.R, plan.tile.TIb, plan.tile.TJb, plan.CG)
+
+
 def test_dropout_launches_forward_then_backward_with_the_same_bits(monkeypatch):
     """The fused dropout on a tensor that needs its gradient: one launch of
     `dropout_apply_f32` forward on x and one backward on the gradient, with
